@@ -1,0 +1,210 @@
+// Graph-diagonal aggregation kernels for Hopper (sm_90a), bound with ctypes
+// from deeprank2_tpu_torch/ops/diag_spmm.py.
+//
+// They replace the two TPU kernels of deeprank2_tpu/ops/diag_spmm.py:
+//   diag_kernel      <- _diag_kernel      (launched by _diag_spmm_tpu)
+//   pool_bwd_kernel  <- _pool_bwd_kernel  (launched by _diag_pool_bwd_tpu)
+//
+// Both compute, for each graph g of a batch of G graphs padded to N nodes,
+//   out[f, g*N + i] = sum_j adj[g, i, j] * u[f, g*N + j]
+// on flat transposed f32 activations [F, G*N] and an int8 0/1 adjacency
+// [G, N, N]. They differ in u and in the epilogue:
+//   diag_kernel mode 0 (plain)           u = x   out = acc
+//   diag_kernel mode 1 (relu_mask)       u = x   out = relu(acc) * mask
+//   diag_kernel mode 2 (relu_mask_pool)  u = x   h = relu(acc) * mask;
+//                                                sign = (h > 0) as uint8,
+//                                                pooled[f, g] = sum_i h
+//   pool_bwd_kernel                      u = sign ? g_pool[f, g] : 0,  out = acc
+// The pooled layer's h is read back only for its sign (the backward), so
+// mode 2 stores one byte per value instead of four.
+//
+// What bounds it on an H100 SXM, per call at the bench shape (G=512, N=160,
+// F=32 or 64): the adjacency is read once (13.1 MB int8), one [F, G*N] f32
+// slab is read and one written (10.5 or 21 MB each), 34-55 MB in all, about
+// 10-16 us at 3.35 TB/s. The dense per-graph product is 2*F*N^2*G = 0.84 or
+// 1.68 GFLOP, 12.5 or 25 us at the 67 TFLOP/s f32 CUDA-core peak. So the
+// kernel is bound by operations, not bytes: it does the dense product in
+// f32 on CUDA cores, exact up to summation order.
+//
+// Design: one block per (graph, chunk of 32 features), 128 threads. The block
+// stages its graph's [N, 32] slab of u in shared memory once, node-major, so
+// that a thread's 8 features are two float4 loads and every warp reads one
+// address (a broadcast). It then walks the graph's output nodes in tiles of
+// 32; for each tile it streams the adjacency through shared memory in 32x32
+// int8 tiles, transposed so that a warp reads 32 consecutive bytes. Lane =
+// output node, warp = 8 output features: each adjacency value, widened in a
+// register, feeds 8 FMAs. Sums run in a fixed order in f32, and the per-graph
+// pool stays inside the block (warp shuffles), so there are no atomics and
+// every result is deterministic. Tensor cores (wgmma on a bf16 hi/lo split)
+// and TMA pipelines are later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int FC = 32;          // features per block
+constexpr int TI = 32;          // output nodes per row tile (one per lane)
+constexpr int TJ = 32;          // adjacency columns per staged tile
+constexpr int FPW = 8;          // features per warp
+constexpr int THREADS = (FC / FPW) * 32;
+constexpr int XS = FC + 4;      // slab row stride in floats: float4-aligned, spreads the staging stores over banks
+
+enum Mode { PLAIN = 0, RELU_MASK = 1, RELU_MASK_POOL = 2, POOL_BWD = 3 };
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS) diag_aggregate(
+    const int8_t* __restrict__ adj, const float* __restrict__ x, const uint8_t* __restrict__ sign_in,
+    const float* __restrict__ g_pool, const uint8_t* __restrict__ mask, float* __restrict__ out,
+    uint8_t* __restrict__ sign_out, float* __restrict__ pooled, int G, int N, int F) {
+    extern __shared__ float4 slab4[];
+    float* slab = reinterpret_cast<float*>(slab4);  // [N][XS], u of this graph and feature chunk
+    __shared__ int8_t at[TJ][TI];                   // adjacency tile, [j][i]
+
+    const int g = blockIdx.x;
+    const int f0 = blockIdx.y * FC;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const size_t gn = (size_t)G * N;
+    const size_t base = (size_t)g * N;
+    const int8_t* adj_g = adj + base * N;
+
+    for (int idx = tid; idx < FC * N; idx += THREADS) {
+        const int fl = idx / N;
+        const int j = idx - fl * N;
+        const int f = f0 + fl;
+        float u = 0.f;
+        if (f < F) {
+            const size_t off = (size_t)f * gn + base + j;
+            if (MODE == POOL_BWD) {
+                u = sign_in[off] ? g_pool[(size_t)f * G + g] : 0.f;
+            } else {
+                u = x[off];
+            }
+        }
+        slab[j * XS + fl] = u;
+    }
+
+    float psum[FPW];
+#pragma unroll
+    for (int k = 0; k < FPW; ++k) psum[k] = 0.f;
+
+    for (int i0 = 0; i0 < N; i0 += TI) {
+        float acc[FPW];
+#pragma unroll
+        for (int k = 0; k < FPW; ++k) acc[k] = 0.f;
+        for (int j0 = 0; j0 < N; j0 += TJ) {
+            __syncthreads();  // the slab is staged, and the previous tile is consumed
+            for (int idx = tid; idx < TI * TJ; idx += THREADS) {
+                const int ii = idx / TJ;
+                const int jj = idx - ii * TJ;
+                const int i = i0 + ii;
+                const int j = j0 + jj;
+                at[jj][ii] = (i < N && j < N) ? adj_g[(size_t)i * N + j] : (int8_t)0;
+            }
+            __syncthreads();
+            const int jn = min(TJ, N - j0);
+            for (int jj = 0; jj < jn; ++jj) {
+                const float a = (float)at[jj][lane];
+                const float4* up = reinterpret_cast<const float4*>(slab + (j0 + jj) * XS + warp * FPW);
+                const float4 u0 = up[0];
+                const float4 u1 = up[1];
+                acc[0] = fmaf(a, u0.x, acc[0]);
+                acc[1] = fmaf(a, u0.y, acc[1]);
+                acc[2] = fmaf(a, u0.z, acc[2]);
+                acc[3] = fmaf(a, u0.w, acc[3]);
+                acc[4] = fmaf(a, u1.x, acc[4]);
+                acc[5] = fmaf(a, u1.y, acc[5]);
+                acc[6] = fmaf(a, u1.z, acc[6]);
+                acc[7] = fmaf(a, u1.w, acc[7]);
+            }
+        }
+        const int i = i0 + lane;
+        if (i < N) {
+            const bool masked = MODE == RELU_MASK || MODE == RELU_MASK_POOL;
+            const float m = masked ? (mask[base + i] ? 1.f : 0.f) : 1.f;
+#pragma unroll
+            for (int k = 0; k < FPW; ++k) {
+                const int f = f0 + warp * FPW + k;
+                if (f < F) {
+                    const size_t off = (size_t)f * gn + base + i;
+                    if (MODE == PLAIN || MODE == POOL_BWD) {
+                        out[off] = acc[k];
+                    } else {
+                        const float h = fmaxf(acc[k], 0.f) * m;
+                        if (MODE == RELU_MASK) {
+                            out[off] = h;
+                        } else {
+                            sign_out[off] = h > 0.f ? 1 : 0;
+                            psum[k] += h;
+                        }
+                    }
+                }
+            }
+        }
+    }
+
+    if (MODE == RELU_MASK_POOL) {
+#pragma unroll
+        for (int k = 0; k < FPW; ++k) {
+            float s = psum[k];
+            for (int d = 16; d > 0; d >>= 1) s += __shfl_down_sync(0xffffffffu, s, d);
+            const int f = f0 + warp * FPW + k;
+            if (lane == 0 && f < F) pooled[(size_t)f * G + g] = s;
+        }
+    }
+}
+
+template <int MODE>
+int launch(const void* adj, const void* x, const void* sign_in, const void* g_pool, const void* mask, void* out,
+           void* sign_out, void* pooled, int G, int N, int F, void* stream) {
+    if (G <= 0 || N <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+    // the error returned after the launch must be this launch's: drop any
+    // earlier non-sticky error still recorded for this thread
+    (void)cudaGetLastError();
+    const size_t smem = (size_t)N * XS * sizeof(float);
+    if (smem > 48 * 1024) {
+        // above 48 KB dynamic shared memory must be opted into; N beyond the
+        // card's per-block limit fails here and the wrapper raises
+        const cudaError_t e =
+            cudaFuncSetAttribute(diag_aggregate<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) {
+            (void)cudaGetLastError();  // not sticky: clear it so later launches are not blamed
+            return (int)e;
+        }
+    }
+    const dim3 grid((unsigned)G, (unsigned)((F + FC - 1) / FC));
+    diag_aggregate<MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        (const int8_t*)adj, (const float*)x, (const uint8_t*)sign_in, (const float*)g_pool, (const uint8_t*)mask,
+        (float*)out, (uint8_t*)sign_out, (float*)pooled, G, N, F);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// mode 0 plain (out), 1 relu_mask (mask, out), 2 relu_mask_pool (mask, sign, pooled)
+int diag_kernel(const void* adj, const void* x, const void* mask, void* out, void* sign, void* pooled, int G, int N,
+                int F, int mode, void* stream) {
+    switch (mode) {
+        case PLAIN:
+            return launch<PLAIN>(adj, x, nullptr, nullptr, nullptr, out, nullptr, nullptr, G, N, F, stream);
+        case RELU_MASK:
+            return launch<RELU_MASK>(adj, x, nullptr, nullptr, mask, out, nullptr, nullptr, G, N, F, stream);
+        case RELU_MASK_POOL:
+            return launch<RELU_MASK_POOL>(adj, x, nullptr, nullptr, mask, nullptr, sign, pooled, G, N, F, stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
+int pool_bwd_kernel(const void* adj, const void* sign, const void* g_pool, void* out, int G, int N, int F,
+                    void* stream) {
+    return launch<POOL_BWD>(adj, nullptr, sign, g_pool, nullptr, out, nullptr, nullptr, G, N, F, stream);
+}
+
+const char* cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+}  // extern "C"

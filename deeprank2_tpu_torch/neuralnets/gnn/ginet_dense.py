@@ -1,0 +1,77 @@
+"""No-cluster GINet on block-dense batches (port of
+``deeprank2_tpu/neuralnets/gnn/ginet_dense.py:GINetDense``, its flat path
+``_apply_flat``).
+
+With the reference's attention identically 1.0 (see the JAX ``ginet.py``),
+one conv layer is ``relu(A (x W))``. The two towers ("external" and
+"internal") are fused on the weight side: ``w1 = [w1a ‖ w1b]`` and
+``w2 = blockdiag(w2a, w2b)``, which is the same math as two half-width towers
+concatenated at the end. The whole tower runs in the flat transposed
+``[C, G*N]`` layout with the per-graph aggregation in the CUDA kernels of
+ops/diag_spmm.py; the weight applications are plain matrix products, which
+the JAX package also leaves outside its Pallas kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from deeprank2_tpu_torch.device import resolve_device
+from deeprank2_tpu_torch.neuralnets import nn as dnn
+from deeprank2_tpu_torch.neuralnets.gnn.ginet import init_ginet_conv
+from deeprank2_tpu_torch.ops.batch import DenseGraphBatch
+from deeprank2_tpu_torch.ops.diag_spmm import diag_layer_pool_t, diag_layer_t
+
+
+class GINetDense(nn.Module):
+    """No-cluster GINet over :class:`DenseGraphBatch` (dual tower, mean pool).
+
+    Parameter names are the reference's torch ``state_dict`` keys
+    (``conv1.fc.weight [out, in]`` ... ``fc2.bias``), so one initialization
+    loads into this model and, through ``neuralnets/param_interop.py``, into
+    the JAX one. ``generator`` draws the initial weights (a fixed seed when
+    None)."""
+
+    dropout = 0.4
+
+    def __init__(
+        self,
+        input_shape: int,
+        output_shape: int = 1,
+        input_shape_edge: int = 1,
+        device: str | torch.device | None = None,
+        generator: torch.Generator | None = None,
+        compute_dtype: torch.dtype | None = None,
+    ):
+        super().__init__()
+        if compute_dtype is not None:
+            msg = "GINetDense(compute_dtype=...) is not ported yet; the port computes in float32"
+            raise NotImplementedError(msg)
+        dev = resolve_device(device)
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        fe = input_shape_edge
+        self.input_shape = input_shape
+        self.output_shape = output_shape
+        self.input_shape_edge = input_shape_edge
+        self.conv1 = init_ginet_conv(input_shape, 16, fe, gen, dev)
+        self.conv2 = init_ginet_conv(16, 32, fe, gen, dev)
+        self.conv1_ext = init_ginet_conv(input_shape, 16, fe, gen, dev)
+        self.conv2_ext = init_ginet_conv(16, 32, fe, gen, dev)
+        self.fc1 = dnn.init_linear(2 * 32, 128, generator=gen, device=dev)
+        self.fc2 = dnn.init_linear(128, output_shape, generator=gen, device=dev)
+
+    def forward(self, batch: DenseGraphBatch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits ``[G, output_shape]``. Dropout (rate 0.4) runs only when
+        ``training`` and a ``generator`` on the batch's device are given."""
+        # weight-side tower fusion in torch's [out, in] layout:
+        # w1ᵀ = [w1aᵀ ; w1bᵀ] (32 x F), w2ᵀ = blockdiag(w2aᵀ, w2bᵀ) (64 x 32)
+        w1_t = torch.cat([self.conv1["fc"].weight, self.conv1_ext["fc"].weight], dim=0)
+        w2_t = torch.block_diag(self.conv2["fc"].weight, self.conv2_ext["fc"].weight)
+        h = diag_layer_t(batch.adj_i8, batch.node_mask, w1_t @ batch.x_t)  # [32, G*N]
+        pooled = diag_layer_pool_t(batch.adj_i8, batch.node_mask, w2_t @ h)  # [64, G]
+        counts = batch.node_mask.sum(dim=1).to(pooled.dtype).clamp_min(1.0)
+        out = pooled.T / counts[:, None]
+        out = dnn.relu(dnn.linear(self.fc1, out))
+        out = dnn.dropout(out, self.dropout, training, generator)
+        return dnn.linear(self.fc2, out)

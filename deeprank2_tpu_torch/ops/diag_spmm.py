@@ -1,0 +1,257 @@
+"""Graph-diagonal aggregation (port of ``deeprank2_tpu/ops/diag_spmm.py``).
+
+A collated :class:`~deeprank2_tpu_torch.ops.batch.DenseGraphBatch` has a
+block-diagonal adjacency: graph ``g`` owns columns ``[g*N, (g+1)*N)`` of the
+flat transposed activations ``[F, G*N]``, and the aggregation is, per graph,
+
+    out[f, g*N + i] = sum_j adj[g, i, j] * x[f, g*N + j]
+
+(the oracle ``diag_spmm_t_xla``). It runs in the CUDA kernels of
+``csrc/diag_spmm.cu``: ``diag_kernel`` (plain, relu/mask epilogue, or
+relu/mask plus per-graph sum pool) and ``pool_bwd_kernel`` (the pooled
+layer's backward). Edges are mirrored, so ``A^T = A`` per graph and each VJP
+is the same aggregation applied to the cotangent.
+
+Each kernel wrapper takes its plain PyTorch version (``*_ref``) for tensors
+on the CPU, launches its kernel for tensors on a CUDA device, and raises for
+anything else; each counts its kernel launches in :data:`launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from deeprank2_tpu_torch.ops import _build
+
+SOURCE = "diag_spmm"
+MODES = {"plain": 0, "relu_mask": 1, "relu_mask_pool": 2}
+
+# kernel launches since the last reset_launches(), by kernel
+launches = {"diag_kernel": 0, "pool_bwd_kernel": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library(SOURCE)
+    if lib.diag_kernel.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.diag_kernel.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.diag_kernel.restype = i
+        lib.pool_bwd_kernel.argtypes = [p, p, p, p, i, i, i, p]
+        lib.pool_bwd_kernel.restype = i
+    return lib
+
+
+def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:
+    if t.dtype != dtype:
+        msg = f"{name} must be {dtype}, got {t.dtype}"
+        raise TypeError(msg)
+    if tuple(t.shape) != shape:
+        msg = f"{name} must have shape {shape}, got {tuple(t.shape)}"
+        raise ValueError(msg)
+    if t.device != device:
+        msg = f"{name} is on {t.device}, expected {device}"
+        raise ValueError(msg)
+    if not t.is_contiguous():
+        msg = f"{name} must be contiguous"
+        raise ValueError(msg)
+
+
+def _dims(adj_i8: torch.Tensor, x_t: torch.Tensor) -> tuple[int, int, int]:
+    if adj_i8.dim() != 3 or x_t.dim() != 2:
+        msg = f"expected adj [G, N, N] and x_t [F, G*N], got {tuple(adj_i8.shape)} and {tuple(x_t.shape)}"
+        raise ValueError(msg)
+    g, n, _ = adj_i8.shape
+    _require(adj_i8, "adj_i8", torch.int8, (g, n, n), x_t.device)
+    return g, n, x_t.shape[0]
+
+
+def _route(device: torch.device) -> bool:
+    """True for the kernel (CUDA), False for the plain version (CPU)."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    msg = f"no kernel or plain version for device {device}"
+    raise ValueError(msg)
+
+
+# ---------------------------------------------------------------------------
+# K1: diag_kernel (replaces deeprank2_tpu/ops/diag_spmm.py:_diag_kernel)
+
+
+def diag_kernel_ref(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None = None, mode: str = "plain"):
+    """Plain PyTorch version of :func:`diag_kernel` (same arguments and results)."""
+    g, n, _ = adj_i8.shape
+    f = x_t.shape[0]
+    out = torch.einsum("fgj,gij->fgi", x_t.reshape(f, g, n), adj_i8.to(x_t.dtype)).reshape(f, g * n)
+    if mode == "plain":
+        return out
+    h = torch.relu(out) * mask.reshape(1, g * n).to(out.dtype)
+    if mode == "relu_mask":
+        return h
+    return (h > 0).to(torch.uint8), h.reshape(f, g, n).sum(dim=2)
+
+
+def diag_kernel(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None = None, mode: str = "plain"):
+    """Per-graph aggregation of ``x_t [F, G*N]`` (f32) by ``adj_i8 [G, N, N]`` (int8).
+
+    ``mode="plain"`` returns the aggregate ``[F, G*N]``; ``"relu_mask"``
+    returns ``relu(aggregate) * mask`` (``mask [G, N]`` bool);
+    ``"relu_mask_pool"`` returns ``(sign, pooled)``: ``sign [F, G*N]`` uint8
+    is ``h > 0`` for ``h = relu(aggregate) * mask``, and ``pooled [F, G]``
+    is ``h`` summed over each graph's nodes."""
+    if mode not in MODES:
+        msg = f"unknown mode {mode!r}; expected one of {sorted(MODES)}"
+        raise ValueError(msg)
+    g, n, f = _dims(adj_i8, x_t)
+    dev = x_t.device
+    _require(x_t, "x_t", torch.float32, (f, g * n), dev)
+    if mode != "plain":
+        _require(mask, "mask", torch.bool, (g, n), dev)
+    if not _route(dev):
+        return diag_kernel_ref(adj_i8, x_t, mask, mode)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        if mode == "relu_mask_pool":
+            out = None
+            sign = torch.empty((f, g * n), dtype=torch.uint8, device=dev)
+            pooled = torch.empty((f, g), dtype=torch.float32, device=dev)
+        else:
+            out = torch.empty_like(x_t)
+            sign = pooled = None
+        code = lib.diag_kernel(
+            adj_i8.data_ptr(),
+            x_t.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            None if out is None else out.data_ptr(),
+            None if sign is None else sign.data_ptr(),
+            None if pooled is None else pooled.data_ptr(),
+            g,
+            n,
+            f,
+            MODES[mode],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(lib, code, "diag_kernel")
+    launches["diag_kernel"] += 1
+    return (sign, pooled) if mode == "relu_mask_pool" else out
+
+
+# ---------------------------------------------------------------------------
+# K2: pool_bwd_kernel (replaces deeprank2_tpu/ops/diag_spmm.py:_pool_bwd_kernel)
+
+
+def pool_bwd_kernel_ref(adj_i8: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pool_bwd_kernel`."""
+    n = adj_i8.shape[1]
+    u = g_pool.repeat_interleave(n, dim=1) * sign.to(g_pool.dtype)
+    return diag_kernel_ref(adj_i8, u)
+
+
+def pool_bwd_kernel(adj_i8: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tensor) -> torch.Tensor:
+    """``d fcx = A @ (sign ⊙ broadcast(g_pool))``: the backward of the pooled
+    layer, with ``sign [F, G*N]`` uint8 from :func:`diag_kernel`'s pool mode
+    and the cotangent ``g_pool [F, G]`` (f32) broadcast over each graph's
+    nodes inside the kernel."""
+    g, n, f = _dims(adj_i8, sign)
+    dev = sign.device
+    _require(sign, "sign", torch.uint8, (f, g * n), dev)
+    _require(g_pool, "g_pool", torch.float32, (f, g), dev)
+    if not _route(dev):
+        return pool_bwd_kernel_ref(adj_i8, sign, g_pool)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        out = torch.empty((f, g * n), dtype=torch.float32, device=dev)
+        code = lib.pool_bwd_kernel(
+            adj_i8.data_ptr(), sign.data_ptr(), g_pool.data_ptr(), out.data_ptr(), g, n, f, torch.cuda.current_stream(dev).cuda_stream
+        )
+        _build.check(lib, code, "pool_bwd_kernel")
+    launches["pool_bwd_kernel"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Differentiable layers (the JAX package's custom_vjp functions)
+
+
+class _DiagSpmmT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_t, adj_i8):
+        ctx.save_for_backward(adj_i8)
+        return diag_kernel(adj_i8, x_t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (adj_i8,) = ctx.saved_tensors
+        return diag_kernel(adj_i8, grad.contiguous()), None
+
+
+class _DiagLayerT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fcx_t, adj_i8, node_mask):
+        h = diag_kernel(adj_i8, fcx_t, node_mask, "relu_mask")
+        ctx.save_for_backward(adj_i8, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, grad):
+        adj_i8, h = ctx.saved_tensors
+        # the output is its own relu mask; masked columns are 0 and drop too
+        u = grad * (h > 0).to(grad.dtype)
+        return diag_kernel(adj_i8, u.contiguous()), None, None
+
+
+class _DiagLayerPoolT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fcx_t, adj_i8, node_mask):
+        sign, pooled = diag_kernel(adj_i8, fcx_t, node_mask, "relu_mask_pool")
+        ctx.save_for_backward(adj_i8, sign)
+        return pooled
+
+    @staticmethod
+    def backward(ctx, grad):
+        adj_i8, sign = ctx.saved_tensors
+        return pool_bwd_kernel(adj_i8, sign, grad.contiguous()), None, None
+
+
+def diag_spmm_t(adj_i8: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
+    """``[F, G*N] -> [F, G*N]`` symmetric per-graph aggregation,
+    differentiable w.r.t. ``x_t`` (VJP = the same aggregation of the cotangent)."""
+    return _DiagSpmmT.apply(x_t, adj_i8)
+
+
+def diag_spmm_t_ref(adj_i8: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`diag_spmm_t` (autograd through einsum)."""
+    return diag_kernel_ref(adj_i8, x_t)
+
+
+def diag_layer_t(adj_i8: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
+    """``relu(mask ⊙ (fcx_t @ A))`` with the relu and mask fused into the
+    kernel. VJP: ``d fcx = A @ (g ⊙ [h > 0])``."""
+    return _DiagLayerT.apply(fcx_t, adj_i8, node_mask)
+
+
+def diag_layer_t_ref(adj_i8: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`diag_layer_t`."""
+    return diag_kernel_ref(adj_i8, fcx_t, node_mask, "relu_mask")
+
+
+def diag_layer_pool_t(adj_i8: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
+    """Final conv layer plus per-graph SUM pool in one kernel:
+    ``pooled[c, g] = Σ_v relu(mask ⊙ (fcx_t @ A))[c, v in graph g]`` (``[F, G]``;
+    divide by node counts outside for the mean). The backward broadcasts the
+    ``[F, G]`` cotangent inside :func:`pool_bwd_kernel`."""
+    return _DiagLayerPoolT.apply(fcx_t, adj_i8, node_mask)
+
+
+def diag_layer_pool_t_ref(adj_i8: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`diag_layer_pool_t`."""
+    g, n, _ = adj_i8.shape
+    return diag_layer_t_ref(adj_i8, node_mask, fcx_t).reshape(fcx_t.shape[0], g, n).sum(dim=2)

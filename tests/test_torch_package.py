@@ -1,0 +1,115 @@
+"""The port package (deeprank2_tpu_torch) stands alone and never runs on the
+CPU unless asked to."""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_MODULES = [
+    "deeprank2_tpu_torch",
+    "deeprank2_tpu_torch.device",
+    "deeprank2_tpu_torch.ops",
+    "deeprank2_tpu_torch.ops._build",
+    "deeprank2_tpu_torch.ops.batch",
+    "deeprank2_tpu_torch.ops.diag_spmm",
+    "deeprank2_tpu_torch.ops.losses",
+    "deeprank2_tpu_torch.ops.optim",
+    "deeprank2_tpu_torch.ops.synthetic",
+    "deeprank2_tpu_torch.neuralnets",
+    "deeprank2_tpu_torch.neuralnets.nn",
+    "deeprank2_tpu_torch.neuralnets.param_interop",
+    "deeprank2_tpu_torch.neuralnets.gnn",
+    "deeprank2_tpu_torch.neuralnets.gnn.ginet",
+    "deeprank2_tpu_torch.neuralnets.gnn.ginet_dense",
+]
+
+# Runs in a fresh interpreter (this test process has imported JAX already).
+# Imports of jax and of the JAX package fail; building or loading a library
+# (nvcc through subprocess, ctypes.CDLL) fails too.
+_IMPORT_PROBE = """
+import ctypes, importlib, importlib.abc, runpy, subprocess, sys
+import torch  # loads its own libraries before the refusals below
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "deeprank2_tpu"):
+            raise ImportError(f"refused import of {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+
+def refuse(*args, **kwargs):
+    raise AssertionError("importing the port must build and load nothing")
+
+subprocess.Popen = refuse
+ctypes.CDLL = refuse
+for module in sys.argv[1:]:
+    importlib.import_module(module)
+runpy.run_path("chip_smoke.py", run_name="chip_smoke")  # imported, not run
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "deeprank2_tpu", "triton") for m in sys.modules)
+from deeprank2_tpu_torch.ops import _build
+assert not _build._loaded and not _build.build_logs
+print("imported", len(sys.argv) - 1)
+"""
+
+
+def test_port_imports_without_jax_and_builds_nothing() -> None:
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_PROBE, *PORT_MODULES], cwd=ROOT, capture_output=True, text=True, timeout=300, check=False
+    )
+    assert out.returncode == 0, out.stderr
+    assert f"imported {len(PORT_MODULES)}" in out.stdout
+
+
+def test_every_port_module_is_listed() -> None:
+    found = {
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in (ROOT / "deeprank2_tpu_torch").rglob("*.py")
+    }
+    assert found == set(PORT_MODULES)
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+def test_entry_points_without_a_device_raise_without_cuda(no_cuda) -> None:
+    from deeprank2_tpu_torch.device import resolve_device
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
+    from deeprank2_tpu_torch.ops.batch import collate_graphs_dense
+    from deeprank2_tpu_torch.ops.synthetic import synthetic_entries
+
+    entries = synthetic_entries(2, 8, 4, 2, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        collate_graphs_dense(entries)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GINetDense(4, 2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    batch, _ = collate_graphs_dense(entries, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch.to("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_cuda_or_without_the_repo(no_cuda, tmp_path, alone) -> None:
+    cwd = ROOT
+    if alone:
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True, text=True, timeout=300, check=False, env=env)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
