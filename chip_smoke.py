@@ -5,21 +5,48 @@
 Phases, each printing one JSON line:
 
 1. device and build: the card, torch and CUDA versions, and the nvcc build of
-   every kernel source of the main path (with ptxas's register report);
-2. kernels against their plain PyTorch versions on the card, at the main
-   path's shapes (G=512 graphs of N=160 nodes, F=32 and 64) and at a ragged
-   shape (G=7, N=96, F=38, padded nodes masked), rtol=atol=1e-5 (both f32,
-   only the summation order differs); then each kernel's time at the main
-   path's calls beside its plain version, one library call of the same
-   contraction, and its bound;
-3. the main path: GINetDense(38, 2, 6) on the bench batch
+   every kernel source of the main paths, all sources at once (with ptxas's
+   register report);
+2. kernels against their plain PyTorch versions on the card:
+   - diag_kernel and pool_bwd_kernel at the dense path's shapes (G=512
+     graphs of N=160 nodes, F=32 and 64), at the full (F=32) and pooled
+     (F=64) adjacencies of both clustered layouts ([512, 296, 296] and
+     [512, 32, 32]; mixed [512, 336, 336] and [512, 104, 104]) and at a
+     ragged shape (G=7, N=96, F=38, padded nodes masked), rtol=atol=1e-5 (both
+     f32, only the summation order differs);
+   - slot_fwd_kernel and slot_bwd_kernel at slots 8, 4 and 2, at the
+     clustered path's activation width (F=32, V=151,552) and at a ragged one
+     (F=38, V=8,024), and at the mixed layout's three size-class regions
+     (slot 8, 4 and 2 on V = G * region width, each with the region's own
+     slice of the node mask, as diag_depth0_pool gives them), on non-negative
+     masked h with planted ties and an all-zero group, directly and through
+     slot_group_max's autograd: exact (rtol=atol=0; a max and a comparison,
+     no sums);
+   then each kernel's time at the main paths' calls beside its plain
+   version, one library call of the same function where there is one, and
+   its bound;
+3. the dense path: GINetDense(38, 2, 6) on the bench batch
    (synthetic_entries(512, 160, 38, 6, seed=7)). First one dropout-free step
    is held against the same step on the CPU (logits, loss and every gradient
    at rtol=1e-4, atol=1e-6). Then, with the launch counters set to 0, STEPS
    train steps (CrossEntropy, backward, Adam lr 1e-3 wd 1e-5, dropout from a
    seeded generator) and one eval forward; the counters must read
-   3*STEPS + 2 (diag_kernel) and STEPS (pool_bwd_kernel);
-4. a profile of a few train steps: device time by kernel, idle share.
+   diag_kernel 3*STEPS + 2, pool_bwd_kernel STEPS and no slot kernel;
+4. a profile of a few dense train steps: device time by kernel, idle share;
+5. the clustered path: GINetClusteredDiag(38, 2, 1) on
+   ppi_clustered_entries(512, 160, 38, seed=0), collated with the layout the
+   data selects (pure slot8: [512, 296, 296]). One dropout-free step against
+   the CPU (logits and loss at rtol=1e-4, atol=1e-5; gradients at
+   rtol=1e-4, atol=1e-6, as the dense step: both sides are f32), the number of
+   slot groups whose max-pool winner differs between card and CPU, then
+   CLUSTERED_STEPS train steps and one eval forward with the counters at 0:
+   diag_kernel 4*S + 2, slot_fwd_kernel S + 1, slot_bwd_kernel S;
+6. a profile of a few clustered train steps;
+7. the clustered path in the mixed size-class layout
+   (ppi_clustered_entries(..., cell=6.0)): the same checks over MIXED_STEPS
+   steps; every forward runs the slot kernels at strides 8, 4 and 2, so the
+   counters read diag_kernel 4*S + 2, slot_fwd_kernel 3*(S + 1),
+   slot_bwd_kernel 3*S.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -39,14 +66,42 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 STEPS = 20
 WARM_STEPS = 4
+CLUSTERED_STEPS = 20
+MIXED_STEPS = 6
 BENCH = {"num_graphs": 512, "nodes": 160, "feat": 38, "edge_dim": 6, "seed": 7}
+CLUSTERED = {"num_graphs": 512, "nodes": 160, "feat": 38, "seed": 0}
+MIXED_CELL = 6.0
 TOL = {"rtol": 1e-5, "atol": 1e-5}
+EXACT = {"rtol": 0.0, "atol": 0.0}
 STEP_TOL = {"rtol": 1e-4, "atol": 1e-6}
-# the main path's calls of each kernel in one train step: (kernel, mode, F)
-STEP_CALLS = [("diag_kernel", "relu_mask", 32), ("diag_kernel", "relu_mask_pool", 64), ("diag_kernel", "plain", 32), ("pool_bwd_kernel", None, 64)]
+CLUSTERED_TOL = {"rtol": 1e-4, "atol": 1e-5}
+# f32 on both sides: the largest gradient error seen on the card is ~3e-7
+CLUSTERED_GRAD_TOL = {"rtol": 1e-4, "atol": 1e-6}
+KERNELS = ("diag_kernel", "pool_bwd_kernel", "slot_fwd_kernel", "slot_bwd_kernel")
+# each path's calls of each kernel in one train step: (kernel, mode or slot, F)
+STEP_CALLS = {
+    "dense": [("diag_kernel", "relu_mask", 32), ("diag_kernel", "relu_mask_pool", 64), ("diag_kernel", "plain", 32), ("pool_bwd_kernel", None, 64)],
+    "clustered": [("diag_kernel", "relu_mask", 32), ("diag_kernel", "plain", 32)],
+    "clustered_pooled": [("diag_kernel", "relu_mask", 64), ("diag_kernel", "plain", 64)],
+    "clustered_slot": [("slot_fwd_kernel", 8, 32), ("slot_bwd_kernel", 8, 32)],
+}
 REPLACES = {
     "diag_kernel": "deeprank2_tpu/ops/diag_spmm.py:113 (_diag_kernel, pallas_call at :188)",
     "pool_bwd_kernel": "deeprank2_tpu/ops/diag_spmm.py:263 (_pool_bwd_kernel, pallas_call at :308)",
+    "slot_fwd_kernel": "deeprank2_tpu/ops/pallas_slotpool.py:119 (_fwd_kernel, pallas_call at :176)",
+    "slot_bwd_kernel": "deeprank2_tpu/ops/pallas_slotpool.py:129 (_bwd_kernel, pallas_call at :200)",
+}
+SOURCES = {
+    "diag_kernel": "deeprank2_tpu_torch/csrc/diag_spmm.cu",
+    "pool_bwd_kernel": "deeprank2_tpu_torch/csrc/diag_spmm.cu",
+    "slot_fwd_kernel": "deeprank2_tpu_torch/csrc/slotpool.cu",
+    "slot_bwd_kernel": "deeprank2_tpu_torch/csrc/slotpool.cu",
+}
+LIBRARY = {
+    "diag_kernel": "torch.bmm of the f32 adjacency [G,N,N] with the [G,N,F] slab (contraction only)",
+    "pool_bwd_kernel": "torch.bmm of the f32 adjacency [G,N,N] with the [G,N,F] slab (contraction only)",
+    "slot_fwd_kernel": "h.view(F, V//slot, slot).amax(2) (also the plain version)",
+    "slot_bwd_kernel": None,
 }
 # published peaks (NVIDIA data sheets; dense, f32 outside the tensor cores):
 # (memory bytes/s, f32 FLOP/s). The SXM part is the default.
@@ -76,6 +131,20 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize()
 
 
+class Counters:
+    """The launch counters of every kernel module."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+
+    def reset(self) -> None:
+        for m in self.modules:
+            m.reset_launches()
+
+    def read(self) -> dict:
+        return {k: v for m in self.modules for k, v in m.launches.items()}
+
+
 def ragged_entries(synthetic_entries, num_graphs=7, nodes=96, feat=38):
     """Graphs of decreasing size: padded nodes inside real graphs."""
     entries = synthetic_entries(num_graphs, nodes, feat, 6, seed=3)
@@ -86,20 +155,31 @@ def ragged_entries(synthetic_entries, num_graphs=7, nodes=96, feat=38):
     return entries
 
 
-def check_kernels(torch, ds, shapes, dev) -> tuple[list, dict]:
-    """Every kernel wrapper against its plain version, directly and through
-    the autograd Functions; raises on the first disagreement."""
-    errs = {"diag_kernel": 0.0, "pool_bwd_kernel": 0.0}
-    checks = []
+class Checks:
+    """Each comparison of a kernel with its plain version; raises on the first
+    disagreement and keeps the largest error of each kernel."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.errs = dict.fromkeys(KERNELS, 0.0)
+        self.rows = []
+
+    def close(self, kernel, what, got, want, tol) -> None:
+        err = (got.float() - want.float()).abs().max().item()
+        self.errs[kernel] = max(self.errs[kernel], err)
+        self.rows.append({"kernel": kernel, "check": what, "max_abs_err": err})
+        self.torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{kernel} {what}: {m}")
+
+
+def check_diag_kernels(torch, ds, checks, shapes, dev) -> None:
+    """diag_kernel and pool_bwd_kernel against their plain versions, directly
+    and through the autograd Functions."""
 
     def close(kernel, what, got, want):
-        err = (got.float() - want.float()).abs().max().item()
-        errs[kernel] = max(errs[kernel], err)
-        checks.append({"kernel": kernel, "check": what, "max_abs_err": err})
-        torch.testing.assert_close(got, want, **TOL, msg=lambda m: f"{kernel} {what}: {m}")
+        checks.close(kernel, what, got, want, TOL)
 
     for tag, adj, mask, feats in shapes:
-        gen = torch.Generator(device=dev).manual_seed(len(checks))
+        gen = torch.Generator(device=dev).manual_seed(len(checks.rows))
         g, n, _ = adj.shape
         for f in feats:
             x = torch.randn(f, g * n, generator=gen, device=dev)
@@ -111,7 +191,7 @@ def check_kernels(torch, ds, shapes, dev) -> tuple[list, dict]:
             close("diag_kernel", f"{tag} relu_mask_pool pooled F={f}", pooled, pooled_ref)
             # the stored sign may differ only where h is zero to summation order
             flips = ((sign != sign_ref) & (h_ref.abs() > TOL["atol"])).sum().item()
-            checks.append({"kernel": "diag_kernel", "check": f"{tag} relu_mask_pool sign F={f}", "sign_flips_clear_of_zero": flips})
+            checks.rows.append({"kernel": "diag_kernel", "check": f"{tag} relu_mask_pool sign F={f}", "sign_flips_clear_of_zero": flips})
             if flips:
                 msg = f"diag_kernel pool-mode sign differs from the plain version at {flips} values clear of zero"
                 raise AssertionError(msg)
@@ -130,16 +210,68 @@ def check_kernels(torch, ds, shapes, dev) -> tuple[list, dict]:
                 close("diag_kernel", f"{tag} {layer} fwd F={f}", out_k.detach(), out_r.detach())
                 close(kernel, f"{tag} {layer} vjp F={f}", gk, gr)
     sync(torch, dev)
-    return checks, errs
 
 
-def card_vs_cpu_step(torch, model, batch, loss_fn, cpu_model_factory) -> dict:
+def slot_operands(torch, f, v, dev, seed, mask=None):
+    """Non-negative h with masked lanes zeroed, planted exact ties (three lanes
+    of one group at its max) and an all-zero group; the f32 mask row (random
+    unless given); a cotangent of the widest pooled shape."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if mask is None:
+        mask = (torch.rand(1, v, generator=gen, device=dev) > 0.1).float()
+    h = torch.randn(f, v, generator=gen, device=dev).abs()
+    h[:, 96:104] = 0.0
+    h[:, 200:203] = 5.0
+    return h * mask, mask, torch.randn(f, v // 2, generator=gen, device=dev)
+
+
+def mixed_region_shapes(batch, f) -> list:
+    """The slot kernels' operand shapes in a mixed batch's forward: one per
+    non-empty size-class region, V = G * region width at that region's stride,
+    with the region's own node-mask slice (as diag_depth0_pool cuts it)."""
+    g = batch.node_mask.shape[0]
+    m3 = batch.node_mask.float()
+    shapes, off = [], 0
+    for slot, ns in zip((8, 4, 2), batch.region_caps[:3]):
+        if ns:
+            mask = m3[:, off : off + ns].contiguous().reshape(1, g * ns)
+            shapes.append((f"mixed region F={f} V={g * ns}", f, g * ns, mask, (slot,)))
+        off += ns
+    return shapes
+
+
+def check_slot_kernels(torch, sp, checks, shapes, dev) -> None:
+    """slot_fwd_kernel and slot_bwd_kernel against their plain versions, exact,
+    directly and through slot_group_max's autograd. Each shape is (tag, F, V,
+    mask row or None for a random one, slots)."""
+    for tag, f, v, mask_row, slots in shapes:
+        for slot in slots:
+            h, mask, cot = slot_operands(torch, f, v, dev, seed=v + slot, mask=mask_row)
+            g = cot[:, : v // slot].contiguous()
+            pooled = sp.slot_fwd_kernel(h, slot)
+            checks.close("slot_fwd_kernel", f"{tag} direct slot={slot}", pooled, sp.slot_fwd_kernel_ref(h, slot), EXACT)
+            dh = sp.slot_bwd_kernel(h, mask, pooled, g, slot)
+            checks.close("slot_bwd_kernel", f"{tag} direct slot={slot}", dh, sp.slot_bwd_kernel_ref(h, mask, pooled, g, slot), EXACT)
+            outs = []
+            for fn in (sp.slot_group_max, sp.slot_group_max_ref):
+                x = h.clone().requires_grad_(True)
+                out = fn(x, mask, slot=slot)
+                (grad,) = torch.autograd.grad(out, x, g)
+                outs.append((out.detach(), grad))
+            checks.close("slot_fwd_kernel", f"{tag} slot_group_max fwd slot={slot}", outs[0][0], outs[1][0], EXACT)
+            checks.close("slot_bwd_kernel", f"{tag} slot_group_max vjp slot={slot}", outs[0][1], outs[1][1], EXACT)
+    sync(torch, dev)
+
+
+def card_vs_cpu_step(torch, model, batch, loss_fn, cpu_model_factory, tol, grad_tol) -> tuple[dict, object, object]:
     """One dropout-free step (logits, loss, every gradient) on the model's
-    device and on the CPU from the same parameters and batch."""
+    device and on the CPU from the same parameters and batch. Returns the
+    errors, the CPU model and the CPU batch."""
     cpu_model = cpu_model_factory()
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_batch = batch.to("cpu")
     results = []
-    for m, b in ((model, batch), (cpu_model, batch.to("cpu"))):
+    for m, b in ((model, batch), (cpu_model, cpu_batch)):
         m.zero_grad(set_to_none=True)
         logits = m(b, training=False)
         loss = loss_fn(logits, b.y, b.y_mask)
@@ -151,15 +283,38 @@ def card_vs_cpu_step(torch, model, batch, loss_fn, cpu_model_factory) -> dict:
         msg = f"gradients differ in which parameters have one: {sorted(gr)} vs {sorted(grc)}"
         raise AssertionError(msg)
     errs = {}
-    for name, got, want in [("logits", lg, lc), ("loss", ls, lsc), *[(f"grad {k}", gr[k], grc[k]) for k in gr]]:
-        torch.testing.assert_close(got, want, **STEP_TOL, msg=lambda m, name=name: f"card vs CPU {name}: {m}")
+    for name, got, want, t in [("logits", lg, lc, tol), ("loss", ls, lsc, tol), *[(f"grad {k}", gr[k], grc[k], grad_tol) for k in gr]]:
+        torch.testing.assert_close(got, want, **t, msg=lambda m, name=name: f"card vs CPU {name}: {m}")
         errs[name] = (got - want).abs().max().item()
-    return {"loss": ls.item(), "max_abs_err": errs}
+    return {"loss": ls.item(), "max_abs_err": errs}, cpu_model, cpu_batch
 
 
-def run_main_path(torch, ds, model, batch, loss_fn, opt, dev, steps=STEPS, warm=WARM_STEPS) -> dict:
+def slot_winner_flips(torch, ds, model, batch, cpu_model, cpu_batch) -> dict:
+    """Slot groups of the layer-1 activation whose max-pool winner (first
+    max lane) differs between card and CPU: ties to summation-order error."""
+    hs = []
+    with torch.no_grad():
+        for m, b in ((model, batch), (cpu_model, cpu_batch)):
+            w1_t = torch.cat([m.conv1["fc"].weight, m.conv1_ext["fc"].weight], dim=0)
+            hs.append(ds.diag_layer_t(b.adj_i8, b.node_mask, w1_t @ b.x_t).cpu())
+    f = hs[0].shape[0]
+    g, n = batch.node_mask.shape
+    nb, n4, n2 = batch.region_caps[:3] if batch.region_caps else (n, 0, 0)
+    flips, groups, off = {}, 0, 0
+    for slot, ns in ((8, nb), (4, n4), (2, n2)):
+        if ns:
+            win = [h.reshape(f, g, n)[:, :, off : off + ns].reshape(f, g, ns // slot, slot).argmax(dim=3) for h in hs]
+            live = hs[1].reshape(f, g, n)[:, :, off : off + ns].reshape(f, g, ns // slot, slot).amax(dim=3) > 0
+            flips[f"slot{slot}"] = int(((win[0] != win[1]) & live).sum())
+            groups += int(live.sum())
+        off += ns
+    return {"groups_with_a_positive_max": groups, "winner_flips": flips}
+
+
+def run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps, warm=WARM_STEPS) -> dict:
     """``steps`` train steps and one eval forward, with the launch counters
-    set to 0 just before and read just after."""
+    set to 0 just before and read just after; ``want`` is the expected count
+    of every kernel."""
     drop_gen = torch.Generator(device=dev).manual_seed(1)
 
     def train_step():
@@ -171,7 +326,7 @@ def run_main_path(torch, ds, model, batch, loss_fn, opt, dev, steps=STEPS, warm=
         return loss.detach()
 
     sync(torch, dev)
-    ds.reset_launches()
+    counters.reset()
     losses = [train_step() for _ in range(warm)]
     sync(torch, dev)
     t0 = time.perf_counter()
@@ -181,9 +336,8 @@ def run_main_path(torch, ds, model, batch, loss_fn, opt, dev, steps=STEPS, warm=
     with torch.no_grad():
         eval_logits = model(batch, training=False)
     sync(torch, dev)
-    launches = dict(ds.launches)
+    launches = counters.read()
     losses = torch.stack(losses).cpu()
-    want = {"diag_kernel": 3 * steps + 2, "pool_bwd_kernel": steps}
     if dev.type == "cuda" and launches != want:
         msg = f"main path launches {launches}, expected {want}"
         raise AssertionError(msg)
@@ -204,19 +358,23 @@ def run_main_path(torch, ds, model, batch, loss_fn, opt, dev, steps=STEPS, warm=
 
 class Timer:
     """Median CUDA-event time of one call, with the L2 cache flushed before
-    each call (the 50 MB L2 would otherwise hold much of a call's inputs)."""
+    each call (the 50 MB L2 would otherwise hold much of a call's inputs).
+    The flush reads a 128 MB buffer, so that the L2 holds clean lines: a
+    flush by writing would leave ~50 MB of dirty lines for the timed call to
+    write back."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+        self.flush = torch.ones(32 * 2**20, dtype=torch.float32, device="cuda")
+        self.sink = torch.empty((), dtype=torch.float32, device="cuda")
 
-    def ms(self, fn, reps: int = 15) -> float:
+    def ms(self, fn, reps: int = 25) -> float:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         events = []
         for _ in range(reps):
-            self.flush.zero_()
+            torch.sum(self.flush, dim=0, out=self.sink)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
@@ -226,17 +384,22 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def time_step_calls(torch, ds, adj, mask, peak_bw, peak_f32) -> tuple[list, int]:
-    """Kernel, plain-version and library times at each call of STEP_CALLS,
-    with each call's bound (bytes: inputs read once, outputs written once;
-    operations: the products this adjacency's nonzeros need)."""
-    timer = Timer(torch)
+def bound(in_bytes, out_bytes, flop, peak_bw, peak_f32) -> dict:
+    t_bytes, t_ops = (in_bytes + out_bytes) / peak_bw, flop / peak_f32
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": in_bytes + out_bytes}
+
+
+def time_diag_calls(torch, ds, timer, path, adj, mask, specs, peak_bw, peak_f32) -> list:
+    """Kernel, plain-version and library times of diag_kernel and
+    pool_bwd_kernel at one adjacency, with each call's bound (bytes: inputs
+    read once, outputs written once; operations: the products this
+    adjacency's nonzeros need)."""
     g, n, _ = adj.shape
     adj_f32 = adj.float()
     nnz = int(adj.count_nonzero().item())
     gen = torch.Generator(device="cuda").manual_seed(11)
     calls = []
-    for kernel, mode, f in STEP_CALLS:
+    for kernel, mode, f in specs:
         x = torch.randn(f, g * n, generator=gen, device="cuda")
         x_gnf = x.reshape(f, g, n).permute(1, 2, 0).contiguous()
         if kernel == "diag_kernel":
@@ -254,23 +417,59 @@ def time_step_calls(torch, ds, adj, mask, peak_bw, peak_f32) -> tuple[list, int]
             out_bytes = 4 * f * g * n
         library = lambda x_gnf=x_gnf: torch.bmm(adj_f32, x_gnf)  # noqa: E731
         flop = 2 * f * nnz
-        t_bytes, t_ops = (in_bytes + out_bytes) / peak_bw, flop / peak_f32
         calls.append(
             {
+                "path": path,
                 "kernel": kernel,
                 "mode": mode or "pool_bwd",
+                "shape": [g, n, n],
                 "F": f,
                 "ms": timer.ms(run),
                 "plain_ms": timer.ms(plain),
                 "library_ms": timer.ms(library),
-                "bound_ms": max(t_bytes, t_ops) * 1e3,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": in_bytes + out_bytes,
+                **bound(in_bytes, out_bytes, flop, peak_bw, peak_f32),
+                "adjacency_nnz": nnz,
                 "flop_needed": flop,
                 "flop_dense": 2 * f * n * n * g,
             }
         )
-    return calls, nnz
+    return calls
+
+
+def time_slot_calls(torch, sp, timer, path, mask_row, specs, peak_bw, peak_f32) -> list:
+    """Kernel, plain-version and library times of the slot kernels at the
+    clustered path's activation width, with each call's byte bound."""
+    v = mask_row.shape[1]
+    calls = []
+    for kernel, slot, f in specs:
+        h, _, cot = slot_operands(torch, f, v, mask_row.device, seed=slot)
+        h = h * mask_row
+        pooled = sp.slot_fwd_kernel_ref(h, slot)
+        g = cot[:, : v // slot].contiguous()
+        library_ms = None
+        if kernel == "slot_fwd_kernel":
+            run = lambda h=h, slot=slot: sp.slot_fwd_kernel(h, slot)  # noqa: E731
+            plain = lambda h=h, slot=slot: sp.slot_fwd_kernel_ref(h, slot)  # noqa: E731
+            library_ms = timer.ms(lambda h=h, slot=slot: h.view(f, v // slot, slot).amax(2))
+            in_bytes, out_bytes, ops = 4 * f * v, 4 * f * v // slot, f * v
+        else:
+            run = lambda h=h, pooled=pooled, g=g, slot=slot: sp.slot_bwd_kernel(h, mask_row, pooled, g, slot)  # noqa: E731
+            plain = lambda h=h, pooled=pooled, g=g, slot=slot: sp.slot_bwd_kernel_ref(h, mask_row, pooled, g, slot)  # noqa: E731
+            in_bytes, out_bytes, ops = 4 * f * v + 4 * v + 2 * 4 * f * v // slot, 4 * f * v, 3 * f * v
+        calls.append(
+            {
+                "path": path,
+                "kernel": kernel,
+                "mode": f"slot={slot}",
+                "shape": [f, v],
+                "F": f,
+                "ms": timer.ms(run),
+                "plain_ms": timer.ms(plain),
+                "library_ms": library_ms,
+                **bound(in_bytes, out_bytes, ops, peak_bw, peak_f32),
+            }
+        )
+    return calls
 
 
 def profile_steps(torch, train_step, step_s, steps=3) -> dict:
@@ -300,29 +499,85 @@ def profile_steps(torch, train_step, step_s, steps=3) -> dict:
     }
 
 
-def kernels_line(calls, launches, errs) -> list:
+def kernels_line(calls, path_launches, errs) -> list:
+    """One entry per kernel: times and bounds summed over the kernel's calls in
+    one train step of each path it runs on (also given by path); launches
+    summed over the counted runs of every path (also given by path)."""
+
+    def total(rows, key):
+        values = [c[key] for c in rows]
+        return None if any(x is None for x in values) else sum(values)
+
     kernels = []
-    for name in ("diag_kernel", "pool_bwd_kernel"):
+    for name in KERNELS:
         mine = [c for c in calls if c["kernel"] == name]
+        by_path = {}
+        for c in mine:
+            p = by_path.setdefault(c["path"].removesuffix("_pooled").removesuffix("_slot"), [])
+            p.append(c)
         kernels.append(
             {
                 "name": name,
                 "route": "cuda",
-                "source": "deeprank2_tpu_torch/csrc/diag_spmm.cu",
+                "source": SOURCES[name],
                 "replaces": REPLACES[name],
-                "launches": launches[name],
+                "launches": sum(launches[name] for launches in path_launches.values()),
+                "launches_by_path": {path: launches[name] for path, launches in path_launches.items()},
                 "max_abs_err": errs[name],
-                "per": "one train step: " + ", ".join(f"{c['mode']} F={c['F']}" for c in mine),
-                "ms": sum(c["ms"] for c in mine),
-                "kernel_ms": sum(c["ms"] for c in mine),
-                "plain_ms": sum(c["plain_ms"] for c in mine),
-                "bound_ms": sum(c["bound_ms"] for c in mine),
+                "per": "one train step of each path: " + ", ".join(f"{c['path']} {c['mode']} F={c['F']}" for c in mine),
+                "ms": total(mine, "ms"),
+                "plain_ms": total(mine, "plain_ms"),
+                "bound_ms": total(mine, "bound_ms"),
                 "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in mine) else "operations",
-                "library_ms": sum(c["library_ms"] for c in mine),
-                "library": "torch.bmm of the f32 adjacency [G,N,N] with the [G,N,F] slab (contraction only)",
+                "library_ms": total(mine, "library_ms"),
+                "library": LIBRARY[name],
+                "by_path": {
+                    path: {k: total(rows, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")} for path, rows in by_path.items()
+                },
             }
         )
     return kernels
+
+
+def clustered_path(torch, ds, counters, card, entries, layout_check, steps, dev, phase) -> dict:
+    """Collate, check against the CPU, and drive one clustered layout."""
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag
+    from deeprank2_tpu_torch.ops.batch import collate_graphs_diag_clustered
+    from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
+    from deeprank2_tpu_torch.ops.optim import Adam
+
+    t0 = time.perf_counter()
+    batch, _ = collate_graphs_diag_clustered(entries, device=dev)
+    collate_s = time.perf_counter() - t0
+    layout_check(batch)
+    feat = CLUSTERED["feat"]
+    model = GINetClusteredDiag(feat, 2, 1, device=dev, generator=torch.Generator().manual_seed(0))
+    loss_fn = CrossEntropyLoss()
+    step, cpu_model, cpu_batch = card_vs_cpu_step(
+        torch, model, batch, loss_fn, lambda: GINetClusteredDiag(feat, 2, 1, device="cpu"), CLUSTERED_TOL, CLUSTERED_GRAD_TOL
+    )
+    flips = slot_winner_flips(torch, ds, model, batch, cpu_model, cpu_batch)
+    emit({"phase": f"{phase}_card_vs_cpu_step", "tolerance": CLUSTERED_TOL, "grad_tolerance": CLUSTERED_GRAD_TOL, **step, "max_pool": flips})
+    opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
+    regions = sum(1 for ns in (batch.region_caps or (1,))[:3] if ns)
+    want = {"diag_kernel": 4 * steps + 2, "pool_bwd_kernel": 0, "slot_fwd_kernel": regions * (steps + 1), "slot_bwd_kernel": regions * steps}
+    run = run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps, warm=min(WARM_STEPS, steps // 3))
+    real_edges = int(sum(2 * e["edge_index"].shape[0] for e in entries))
+    train_step = run.pop("train_step")
+    emit(
+        {
+            "phase": phase,
+            "card": card,
+            "model": "GINetClusteredDiag(38, 2, 1)",
+            "batch": {**CLUSTERED, "region_caps": list(batch.region_caps), "adj": list(batch.adj_i8.shape), "adj_p": list(batch.adj_p_i8.shape)},
+            "collate_s": collate_s,
+            **run,
+            "step_ms": run["step_s"] * 1e3,
+            "edges_per_s": real_edges / run["step_s"],
+            "real_edges": real_edges,
+        }
+    )
+    return {"batch": batch, "launches": run["launches"], "train_step": train_step, "step_s": run["step_s"]}
 
 
 def main() -> int:
@@ -338,19 +593,20 @@ def main() -> int:
     from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
     from deeprank2_tpu_torch.ops import _build
     from deeprank2_tpu_torch.ops import diag_spmm as ds
-    from deeprank2_tpu_torch.ops.batch import collate_graphs_dense
+    from deeprank2_tpu_torch.ops import slotpool as sp
+    from deeprank2_tpu_torch.ops.batch import collate_graphs_dense, collate_graphs_diag_clustered
     from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
     from deeprank2_tpu_torch.ops.optim import Adam
-    from deeprank2_tpu_torch.ops.synthetic import synthetic_entries
+    from deeprank2_tpu_torch.ops.synthetic import ppi_clustered_entries, synthetic_entries
 
-    # 1. device and build
+    # 1. device and build (one nvcc per source, all at once)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     part, peak_bw, peak_f32 = peaks(kind)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.build([ds.SOURCE])
+    _build.build([ds.SOURCE, sp.SOURCE])
     build_s = time.perf_counter() - t0
     emit(
         {
@@ -365,25 +621,62 @@ def main() -> int:
             "peaks": {"part": part, "bytes_per_s": peak_bw, "f32_flop_per_s": peak_f32},
         }
     )
+    counters = Counters(ds, sp)
 
     # 2. kernels against their plain versions, and their times
     dev = torch.device("cuda")
     entries = synthetic_entries(BENCH["num_graphs"], BENCH["nodes"], BENCH["feat"], BENCH["edge_dim"], seed=BENCH["seed"])
     batch, _ = collate_graphs_dense(entries, pad_graphs=BENCH["num_graphs"], pad_nodes=BENCH["nodes"], device=dev)
     ragged, _ = collate_graphs_dense(ragged_entries(synthetic_entries), pad_nodes=96, device=dev)
-    shapes = [("bench G=512 N=160", batch.adj_i8, batch.node_mask, (32, 64)), ("ragged G=7 N=96", ragged.adj_i8, ragged.node_mask, (38,))]
-    checks, errs = check_kernels(torch, ds, shapes, dev)
-    emit({"phase": "kernels_vs_plain", "tolerance": TOL, "checks": checks})
-    calls, nnz = time_step_calls(torch, ds, batch.adj_i8, batch.node_mask, peak_bw, peak_f32)
-    emit({"phase": "kernel_times", "card": card, "l2_flushed": True, "adjacency_nnz": nnz, "calls": calls})
+    c_entries = ppi_clustered_entries(CLUSTERED["num_graphs"], CLUSTERED["nodes"], CLUSTERED["feat"], seed=CLUSTERED["seed"])
+    c_batch, _ = collate_graphs_diag_clustered(c_entries, device=dev)
+    c_mask_row = c_batch.node_mask.float().reshape(1, -1)
+    m_entries = ppi_clustered_entries(CLUSTERED["num_graphs"], CLUSTERED["nodes"], CLUSTERED["feat"], cell=MIXED_CELL, seed=CLUSTERED["seed"])
+    m_batch, _ = collate_graphs_diag_clustered(m_entries, device=dev)
+    checks = Checks(torch)
+    check_diag_kernels(
+        torch,
+        ds,
+        checks,
+        [
+            ("bench G=512 N=160", batch.adj_i8, batch.node_mask, (32, 64)),
+            ("clustered G=512 N=296", c_batch.adj_i8, c_batch.node_mask, (32,)),
+            ("pooled G=512 K=32", c_batch.adj_p_i8, c_batch.pooled_mask, (64,)),
+            (f"mixed G=512 N={m_batch.nodes_per_graph}", m_batch.adj_i8, m_batch.node_mask, (32,)),
+            (f"mixed pooled G=512 K={m_batch.pooled_mask.shape[1]}", m_batch.adj_p_i8, m_batch.pooled_mask, (64,)),
+            ("ragged G=7 N=96", ragged.adj_i8, ragged.node_mask, (38,)),
+        ],
+        dev,
+    )
+    check_slot_kernels(
+        torch,
+        sp,
+        checks,
+        [
+            ("clustered F=32 V=151552", 32, c_mask_row.shape[1], None, (8, 4, 2)),
+            ("ragged F=38 V=8024", 38, 8 * 1000 + 8 * 3, None, (8, 4, 2)),
+            *mixed_region_shapes(m_batch, 32),
+        ],
+        dev,
+    )
+    emit({"phase": "kernels_vs_plain", "tolerance": {"diag_kernel": TOL, "pool_bwd_kernel": TOL, "slot_fwd_kernel": EXACT, "slot_bwd_kernel": EXACT}, "checks": checks.rows})
+    timer = Timer(torch)
+    calls = time_diag_calls(torch, ds, timer, "dense", batch.adj_i8, batch.node_mask, STEP_CALLS["dense"], peak_bw, peak_f32)
+    calls += time_diag_calls(torch, ds, timer, "clustered", c_batch.adj_i8, c_batch.node_mask, STEP_CALLS["clustered"], peak_bw, peak_f32)
+    calls += time_diag_calls(torch, ds, timer, "clustered_pooled", c_batch.adj_p_i8, c_batch.pooled_mask, STEP_CALLS["clustered_pooled"], peak_bw, peak_f32)
+    calls += time_slot_calls(torch, sp, timer, "clustered_slot", c_mask_row, STEP_CALLS["clustered_slot"], peak_bw, peak_f32)
+    del timer
+    emit({"phase": "kernel_times", "card": card, "l2_flushed": True, "calls": calls})
+    del c_batch, m_batch
 
-    # 3. the main path
+    # 3. the dense path
     model = GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev, generator=torch.Generator().manual_seed(0))
     loss_fn = CrossEntropyLoss()
-    step = card_vs_cpu_step(torch, model, batch, loss_fn, lambda: GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device="cpu"))
+    step, _, _ = card_vs_cpu_step(torch, model, batch, loss_fn, lambda: GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device="cpu"), STEP_TOL, STEP_TOL)
     emit({"phase": "card_vs_cpu_step", "tolerance": STEP_TOL, **step})
     opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
-    run = run_main_path(torch, ds, model, batch, loss_fn, opt, dev)
+    want = {"diag_kernel": 3 * STEPS + 2, "pool_bwd_kernel": STEPS, "slot_fwd_kernel": 0, "slot_bwd_kernel": 0}
+    run = run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, STEPS)
     real_edges = int(sum(2 * e["edge_index"].shape[0] for e in entries))
     train_step = run.pop("train_step")
     emit(
@@ -398,11 +691,33 @@ def main() -> int:
             "real_edges": real_edges,
         }
     )
+    path_launches = {"dense": run["launches"]}
 
-    # 4. profile of a few steps (after the counted run)
+    # 4. profile of a few dense steps (after the counted run)
     emit({"phase": "profile", "card": card, **profile_steps(torch, train_step, run["step_s"])})
+    del model, opt, batch, train_step
 
-    emit({"kernels": kernels_line(calls, run["launches"], errs)})
+    # 5-6. the clustered path, pure slot8 layout, and its profile
+    def pure_layout(b):
+        if b.region_caps != () or tuple(b.adj_i8.shape) != (512, 296, 296):
+            msg = f"expected the pure slot8 layout at [512, 296, 296], got {b.region_caps} {tuple(b.adj_i8.shape)}"
+            raise AssertionError(msg)
+
+    pure = clustered_path(torch, ds, counters, card, c_entries, pure_layout, CLUSTERED_STEPS, dev, "main_path_clustered")
+    path_launches["clustered"] = pure["launches"]
+    emit({"phase": "profile_clustered", "card": card, **profile_steps(torch, pure["train_step"], pure["step_s"])})
+    del pure
+
+    # 7. the clustered path, mixed size-class layout
+    def mixed_layout(b):
+        if not b.region_caps or not all(b.region_caps[:3]):
+            msg = f"expected the mixed layout with slot8, stride-4 and stride-2 regions, got {b.region_caps}"
+            raise AssertionError(msg)
+
+    mixed = clustered_path(torch, ds, counters, card, m_entries, mixed_layout, MIXED_STEPS, dev, "main_path_clustered_mixed")
+    path_launches["clustered_mixed"] = mixed["launches"]
+
+    emit({"kernels": kernels_line(calls, path_launches, checks.errs)})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

@@ -164,9 +164,11 @@ int launch(const void* adj, const void* x, const void* sign_in, const void* g_po
     // earlier non-sticky error still recorded for this thread
     (void)cudaGetLastError();
     const size_t smem = (size_t)N * XS * sizeof(float);
-    if (smem > 48 * 1024) {
-        // above 48 KB dynamic shared memory must be opted into; N beyond the
-        // card's per-block limit fails here and the wrapper raises
+    const size_t static_smem = sizeof(int8_t) * TJ * TI;  // the adjacency tile `at`
+    if (smem + static_smem > 48 * 1024) {
+        // a block's static and dynamic shared memory together above 48 KB
+        // must be opted into (N > 334); N beyond the card's per-block limit
+        // fails here and the wrapper raises
         const cudaError_t e =
             cudaFuncSetAttribute(diag_aggregate<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) {

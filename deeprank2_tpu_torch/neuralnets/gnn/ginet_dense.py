@@ -1,6 +1,7 @@
-"""No-cluster GINet on block-dense batches (port of
-``deeprank2_tpu/neuralnets/gnn/ginet_dense.py:GINetDense``, its flat path
-``_apply_flat``).
+"""GINet on graph-diagonal batches (port of
+``deeprank2_tpu/neuralnets/gnn/ginet_dense.py``): the no-cluster
+``GINetDense`` (its flat path ``_apply_flat``) and the clustered
+``GINetClusteredDiag``.
 
 With the reference's attention identically 1.0 (see the JAX ``ginet.py``),
 one conv layer is ``relu(A (x W))``. The two towers ("external" and
@@ -20,8 +21,10 @@ from torch import nn
 from deeprank2_tpu_torch.device import resolve_device
 from deeprank2_tpu_torch.neuralnets import nn as dnn
 from deeprank2_tpu_torch.neuralnets.gnn.ginet import init_ginet_conv
-from deeprank2_tpu_torch.ops.batch import DenseGraphBatch
+from deeprank2_tpu_torch.ops.batch import DenseGraphBatch, DiagClusteredBatch
 from deeprank2_tpu_torch.ops.diag_spmm import diag_layer_pool_t, diag_layer_t
+from deeprank2_tpu_torch.ops.pooling import diag_depth0_pool, member_max_pool
+from deeprank2_tpu_torch.ops.segment import segment_max, segment_mean
 
 
 class GINetDense(nn.Module):
@@ -46,7 +49,7 @@ class GINetDense(nn.Module):
     ):
         super().__init__()
         if compute_dtype is not None:
-            msg = "GINetDense(compute_dtype=...) is not ported yet; the port computes in float32"
+            msg = f"{type(self).__name__}(compute_dtype=...) is not ported yet; the port computes in float32"
             raise NotImplementedError(msg)
         dev = resolve_device(device)
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
@@ -73,5 +76,42 @@ class GINetDense(nn.Module):
         counts = batch.node_mask.sum(dim=1).to(pooled.dtype).clamp_min(1.0)
         out = pooled.T / counts[:, None]
         out = dnn.relu(dnn.linear(self.fc1, out))
+        out = dnn.dropout(out, self.dropout, training, generator)
+        return dnn.linear(self.fc2, out)
+
+
+class GINetClusteredDiag(GINetDense):
+    """Clustered GINet at PPI scale over :class:`DiagClusteredBatch` (port of
+    the JAX ``GINetClusteredDiag``): the reference's flagship training
+    configuration on the graph-diagonal machinery.
+
+    Both conv layers are graph-diagonal aggregations with the relu and mask
+    fused (ops/diag_spmm.py; the pooled graph is a second, smaller
+    ``[G, K, K]`` adjacency built at collate). Depth-0 community pooling is
+    the slot max-pool kernel plus a member combine (ops/pooling.py), depth-1
+    pooling a member max over the pooled slots, then a per-graph mean and the
+    fc1/fc2 head. The parameter set and ``state_dict`` keys are
+    :class:`GINetDense`'s (the JAX model's ``init`` delegates to the COO
+    GINet's, which has the same set)."""
+
+    def forward(self, batch: DiagClusteredBatch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits ``[G, output_shape]``. Dropout (rate 0.4) runs only when
+        ``training`` and a ``generator`` on the batch's device are given."""
+        # the conv fc maps carry no bias; the towers fuse on the weight side
+        # (w2 block-diagonal: tower a reads pooled channels 0-15, tower b 16-31)
+        w1_t = torch.cat([self.conv1["fc"].weight, self.conv1_ext["fc"].weight], dim=0)
+        w2_t = torch.block_diag(self.conv2["fc"].weight, self.conv2_ext["fc"].weight)
+        h_t = diag_layer_t(batch.adj_i8, batch.node_mask, w1_t @ batch.x_t)  # [32, G*N]
+        hp_t = diag_depth0_pool(h_t, batch)  # [32, G*K]
+        h2_t = diag_layer_t(batch.adj_p_i8, batch.pooled_mask, w2_t @ hp_t)  # [64, G*K]
+
+        # depth-1 max pool and per-graph mean (reference max_pool_x + scatter_mean)
+        if batch.members1.numel():
+            hc = member_max_pool(h2_t.T, batch.members1, batch.cluster1)  # [C1, 64]
+        else:
+            hc = segment_max(h2_t.T, batch.cluster1, batch.c1_graph.shape[0])
+        pooled = segment_mean(hc, batch.c1_graph, batch.num_graphs)
+
+        out = dnn.relu(dnn.linear(self.fc1, pooled))
         out = dnn.dropout(out, self.dropout, training, generator)
         return dnn.linear(self.fc2, out)

@@ -1,5 +1,6 @@
 """Block-dense graph batches (port of ``deeprank2_tpu/ops/batch.py``:
-``bucket_size``, ``DenseGraphBatch``, ``collate_graphs_dense``).
+``bucket_size``, ``DenseGraphBatch``, ``collate_graphs_dense``, and the
+clustered ``DiagClusteredBatch`` with ``collate_graphs_diag_clustered``).
 
 The batch adjacency of collated graphs is block-diagonal: with graphs padded
 to ``N`` nodes, graph ``g`` owns rows and columns ``[g*N, (g+1)*N)`` and no
@@ -117,3 +118,532 @@ def collate_graphs_dense(
         y_mask=torch.from_numpy(y_mask).to(dev),
     )
     return batch, names
+
+
+# ---------------------------------------------------------------------------
+# Graph-diagonal clustered batches (port of ``DiagClusteredBatch``,
+# ``collate_graphs_diag_clustered`` and their helpers)
+
+
+@dataclass
+class DiagClusteredBatch:
+    """Graph-diagonal clustered batch: the clustered GINet at PPI scale.
+
+    Nodes collate cluster-major into 8-lane slots per graph, activations live
+    flat and transposed (``[F, G*N]``), depth-0 pooling is the slot max of
+    ops/slotpool.py plus a small member combine, and the pooled graph is a
+    second graph-diagonal adjacency ``[G, K, K]`` built at collate.
+
+    Ids are batch-global: pooled slot = ``g*K + local``, depth-1 slot from a
+    running offset; padding = the target capacity (the segment ops drop it).
+    The edge-weighted fields of the JAX batch (``adj_w``, ``adj_wp``,
+    ``wsum``, ``wsum_p``) belong to the sGAT slice and are not collated."""
+
+    x_t: torch.Tensor  # f32 [F, G*N] flat transposed features, slot order
+    adj_i8: torch.Tensor  # int8 [G, N, N] symmetric 0/1
+    node_mask: torch.Tensor  # bool [G, N]
+    deg: torch.Tensor  # f32 [G*N] neighbour counts (FoutNet's mean denominator)
+    deg_p: torch.Tensor  # f32 [G*K] pooled neighbour counts (distinct pairs)
+    slot_cluster: torch.Tensor  # i32 [G*N/8] slot -> global pooled slot; pad = G*K
+    members0s: torch.Tensor  # i32 [G*K, S0s] slot indices per pooled slot; pad = G*N/8
+    adj_p_i8: torch.Tensor  # int8 [G, K, K] pooled adjacency (distinct pairs)
+    pooled_mask: torch.Tensor  # bool [G, K]
+    cluster1: torch.Tensor  # i32 [G*K] pooled slot -> global depth-1 slot; pad = C1
+    members1: torch.Tensor  # i32 [C1, S1] pooled slots per depth-1 slot; pad = G*K
+    c1_graph: torch.Tensor  # i32 [C1] graph id per depth-1 slot; pad = G
+    y: torch.Tensor  # f32 [G]
+    y_mask: torch.Tensor  # bool [G]
+    num_graphs: int
+    # MIXED size-class region layout (empty tuple = pure slot8): per-graph
+    # row caps (nb, n4, n2, n1, kbig) of the slot8 region, the 4-, 2- and
+    # 1-lane regions, and the pooled capacity of the slotted segment. Each
+    # region pools with its own stride (ops/slotpool.py, slot 8/4/2; the
+    # 1-lane region is its own pooled value). In this layout
+    # ``slot_cluster``/``members0s`` index the compact big region (slots =
+    # G*nb/8, pooled = G*kbig).
+    region_caps: tuple = ()
+
+    _STATIC = ("num_graphs", "region_caps")
+
+    @property
+    def nodes_per_graph(self) -> int:
+        return self.adj_i8.shape[1]
+
+    def to(self, device: str | torch.device) -> DiagClusteredBatch:
+        """A copy of the batch on ``device``."""
+        dev = resolve_device(device)
+        fields = {k: getattr(self, k) for k in self.__dataclass_fields__}
+        return DiagClusteredBatch(**{k: v if k in self._STATIC else v.to(dev) for k, v in fields.items()})
+
+
+def _resolve_cap(pad, req: int, quantum: int) -> int:
+    """Requirement -> capacity: apply an int/callable pad, round to quantum."""
+    if callable(pad):
+        pad = pad(req)
+    cap = max(req, pad or 0)
+    return -(-cap // quantum) * quantum if quantum > 1 else cap
+
+
+def _mixed_class(sizes: np.ndarray, min_slot_nodes: int) -> np.ndarray:
+    """Size class per cluster: 8 = slotted, else the 4/2/1-lane stride that
+    holds the cluster (zero-size gapped ids ride class 1: one masked lane).
+    A cluster larger than 4 nodes slots whatever ``min_slot_nodes`` says."""
+    return np.where(
+        (sizes >= min_slot_nodes) | (sizes > 4), 8, np.where(sizes > 2, 4, np.where(sizes == 2, 2, 1))  # noqa: PLR2004
+    )
+
+
+def _member_matrix(ids: np.ndarray, num_clusters: int, pad_value: int, pad_s=None) -> np.ndarray:
+    """Invert a cluster assignment into a [num_clusters, S] member matrix
+    (padded with ``pad_value``); S is the largest cluster size, optionally
+    bucketed by ``pad_s`` (int or callable). Returns shape (0, 0) when the
+    matrix would exceed 8x the element count (one huge cluster — the
+    segment-max path is cheaper then)."""
+    ids = np.asarray(ids, dtype=np.int64)
+    valid = ids < num_clusters
+    counts = np.bincount(ids[valid], minlength=num_clusters)
+    s = int(counts.max()) if counts.size else 0
+    s = max(s, 1)
+    if callable(pad_s):
+        s = pad_s(s)
+    elif pad_s is not None:
+        s = max(s, pad_s)
+    if num_clusters * s > 8 * max(len(ids), 1):
+        return np.zeros((0, 0), dtype=np.int32)
+    members = np.full((num_clusters, s), pad_value, dtype=np.int32)
+    order = np.argsort(ids[valid], kind="stable")
+    slots = np.nonzero(valid)[0][order]
+    sorted_ids = ids[valid][order]
+    rank = np.arange(len(slots)) - np.concatenate([[0], np.cumsum(counts)])[:-1][sorted_ids]
+    members[sorted_ids, rank] = slots
+    return members
+
+
+def _cluster_geometry(entry: dict, block: int) -> dict:
+    """Shared first half of the slot8 and mixed plans: cluster sizes, the
+    cluster locality order (by centroid) and each node's rank inside its
+    cluster (by the node locality order)."""
+    from deeprank2_tpu_torch.ops.block_sparse import locality_order
+
+    v = entry["x"].shape[0]
+    pos = np.asarray(entry["pos"], dtype=np.float64)
+    c0 = np.asarray(entry["cluster0"], dtype=np.int64)
+    if c0.shape[0] != v:
+        msg = f"cluster0 has {c0.shape[0]} entries for {v} nodes"
+        raise ValueError(msg)
+    n_c0 = int(c0.max()) + 1 if c0.size else 0
+    psum = np.zeros((max(n_c0, 1), 3))
+    np.add.at(psum, c0, pos)
+    counts = np.bincount(c0, minlength=max(n_c0, 1)).astype(np.float64)
+    pmean = psum / np.maximum(counts, 1.0)[:, None]
+    p_order = locality_order(pmean[:n_c0]) if n_c0 > block else np.arange(n_c0)
+    sizes = counts[:n_c0].astype(np.int64)
+
+    order = locality_order(pos) if v > block else np.arange(v)
+    loc_rank = np.empty(v, dtype=np.int64)
+    loc_rank[order] = np.arange(v)
+    ord_in = np.lexsort((loc_rank, c0))
+    starts = np.concatenate([[0], np.cumsum(sizes)])[:-1]
+    mrank = np.empty(v, dtype=np.int64)
+    mrank[ord_in] = np.arange(v) - starts[c0[ord_in]]
+    return {"c0": c0, "n_c0": n_c0, "sizes": sizes, "p_order": p_order, "mrank": mrank}
+
+
+def _slot8_plan(entry: dict, block: int) -> dict:
+    """Per-entry cluster-slot row plan (the ``slot8`` layout): nodes go
+    cluster-major — clusters in their locality order, members in theirs —
+    with every cluster padded to a multiple of 8 rows ("slots").
+
+    Returns ``posmap`` (original node -> row), ``cap`` (row capacity),
+    ``p_order``/``p_inv`` (the cluster locality permutation), ``slot_col``
+    (slot -> local pooled slot id, -1 for trailing padding slots) and
+    ``max_slots``."""
+    geo = _cluster_geometry(entry, block)
+    c0, n_c0, sizes, p_order = geo["c0"], geo["n_c0"], geo["sizes"], geo["p_order"]
+    p_inv = np.empty(n_c0, dtype=np.int64)
+    p_inv[p_order] = np.arange(n_c0)
+    nslots = -(-sizes // 8)
+    slot_base = np.zeros(n_c0, dtype=np.int64)
+    slot_base[p_order] = np.concatenate([[0], np.cumsum(nslots[p_order])])[:-1]
+    total_slots = int(nslots.sum())
+
+    posmap = 8 * slot_base[c0] + geo["mrank"]  # cluster runs are contiguous
+    cap = max(-(-(8 * total_slots) // block) * block, block)
+    slot_col = np.full(cap // 8, -1, dtype=np.int64)
+    slot_col[:total_slots] = np.repeat(np.arange(n_c0), nslots[p_order])
+    return {
+        "posmap": posmap,
+        "cap": cap,
+        "p_order": p_order,
+        "p_inv": p_inv,
+        "slot_col": slot_col,
+        "max_slots": int(nslots.max()) if n_c0 else 1,
+    }
+
+
+def _auto_min_slot_nodes(entries: list[dict], threshold: float = 2.5) -> int:
+    """Pick the layout from the batch's cluster-size distribution: pure slot8
+    (1) unless padding every cluster to 8 rows would inflate the node rows
+    more than ``threshold`` times, then the mixed layout (5)."""
+    total = slotted = 0
+    for e in entries:
+        c0 = np.asarray(e["cluster0"], dtype=np.int64)
+        if not c0.size:
+            continue
+        sizes = np.bincount(c0)
+        sizes = sizes[sizes > 0]
+        total += int(sizes.sum())
+        slotted += int((-(-sizes // 8) * 8).sum())
+    return 5 if slotted > threshold * max(total, 1) else 1
+
+
+class _DepthOne:
+    """Depth-1 bookkeeping shared by both layouts: the global depth-1 slot of
+    each pooled slot and the graph of each depth-1 slot."""
+
+    def __init__(self, num_graphs: int, k_cap: int):
+        self.num_graphs = num_graphs
+        self.k_cap = k_cap
+        self.cluster1_g = np.full(num_graphs * k_cap, -1, dtype=np.int64)
+        self.c1_graphs: list[np.ndarray] = []
+        self.c1_off = 0
+
+    def add(self, g: int, cluster1, pslot: np.ndarray, valid0: np.ndarray) -> None:
+        """Record graph ``g``, whose depth-0 cluster ``c`` sits at local pooled
+        slot ``pslot[c]`` and is real where ``valid0[c]``."""
+        c1 = np.asarray(cluster1, dtype=np.int64)
+        n_c0 = len(pslot)
+        if c1.shape[0] != n_c0:
+            msg = f"cluster1 has {c1.shape[0]} entries for {n_c0} depth-0 clusters"
+            raise ValueError(msg)
+        n_c1 = int(c1.max()) + 1 if c1.size else 0
+        self.cluster1_g[g * self.k_cap + pslot] = np.where(valid0, c1 + self.c1_off, -1)
+        cg = np.full(n_c1, -1, dtype=np.int64)
+        if c1.size:
+            cg[np.unique(c1)] = g
+        self.c1_graphs.append(cg)
+        self.c1_off += n_c1
+
+    def arrays(self, pad_c1, pad_members1) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``(cluster1, members1, c1_graph)`` with their capacities resolved."""
+        c1_cap = _resolve_cap(pad_c1, max(self.c1_off, 1), 1)
+        cluster1 = np.where(self.cluster1_g < 0, c1_cap, self.cluster1_g).astype(np.int32)
+        c1_graph = np.full(c1_cap, self.num_graphs, dtype=np.int32)
+        if self.c1_graphs:
+            cg = np.concatenate(self.c1_graphs)
+            c1_graph[: len(cg)] = np.where(cg < 0, self.num_graphs, cg)
+        members1 = _member_matrix(cluster1, c1_cap, self.num_graphs * self.k_cap, pad_s=pad_members1)
+        return cluster1, members1, c1_graph
+
+
+def _fill_graph(entry: dict, g: int, posmap, pslot_of_c0, x, adj, adj_p, node_mask, n_cap: int) -> None:
+    """Node features, mask, and the full and pooled adjacencies of graph ``g``
+    (pooled: distinct cluster pairs, self-loop pairs dropped)."""
+    x[g * n_cap + posmap] = entry["x"]
+    node_mask[g][posmap] = True
+    und = np.asarray(entry["edge_index"], dtype=np.int64).reshape(-1, 2)
+    if und.size:
+        pi, pj = posmap[und[:, 0]], posmap[und[:, 1]]
+        adj[g, pi, pj] = 1
+        adj[g, pj, pi] = 1
+        ci, cj = pslot_of_c0[und[:, 0]], pslot_of_c0[und[:, 1]]
+        keep = ci != cj
+        adj_p[g, ci[keep], cj[keep]] = 1
+        adj_p[g, cj[keep], ci[keep]] = 1
+
+
+def _targets(entries: list[dict], num_graphs: int) -> tuple[np.ndarray, np.ndarray]:
+    y = np.zeros(num_graphs, dtype=np.float32)
+    y_mask = np.zeros(num_graphs, dtype=bool)
+    for g, entry in enumerate(entries):
+        if entry.get("y") is not None:
+            y[g] = entry["y"]
+            y_mask[g] = True
+    return y, y_mask
+
+
+def _diag_batch(dev, x, adj, node_mask, adj_p, region_caps: tuple = (), **arrays) -> DiagClusteredBatch:
+    """The batch on ``dev`` from the collated numpy arrays (``x`` row-major
+    ``[G*N, F]``); ``deg``/``deg_p`` are the adjacencies' row sums."""
+    tensors = {
+        "x_t": np.ascontiguousarray(x.T),
+        "adj_i8": adj,
+        "node_mask": node_mask,
+        "deg": adj.astype(np.float32).sum(axis=2).reshape(-1),
+        "deg_p": adj_p.astype(np.float32).sum(axis=2).reshape(-1),
+        "adj_p_i8": adj_p,
+        **arrays,
+    }
+    return DiagClusteredBatch(
+        **{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in tensors.items()},
+        num_graphs=adj.shape[0],
+        region_caps=region_caps,
+    )
+
+
+def collate_graphs_diag_clustered(
+    entries: list[dict],
+    pad_graphs: int | None = None,
+    pad_nodes=None,
+    pad_clusters=None,
+    pad_c1=None,
+    pad_members0s=None,
+    pad_members1=None,
+    with_edge_weights: bool = False,
+    min_slot_nodes: int | None = None,
+    pad_region_caps: dict | None = None,
+    device: str | torch.device | None = None,
+) -> tuple[DiagClusteredBatch, list[str]]:
+    """Collate entries (``x``, ``pos``, ``edge_index``, ``cluster0``,
+    ``cluster1``, ``y``, ``entry_name``) into a :class:`DiagClusteredBatch` on
+    ``device`` (CUDA unless ``"cpu"`` is asked for). ``pad_*`` may be ints or
+    callables.
+
+    ``min_slot_nodes`` selects the layout: ``1`` = pure slot8, ``>1`` = the
+    MIXED size-class region layout (clusters below the threshold pack at
+    stride 4/2/1 instead of paying 8-row slot padding), ``None`` = decide
+    from the data (:func:`_auto_min_slot_nodes`). ``pad_region_caps``
+    buckets the mixed layout's per-region row caps (keys big/s4/s2/s1/kbig).
+    Edge-weighted batches (sGAT) belong to a later slice and raise
+    ``NotImplementedError``."""
+    if with_edge_weights:
+        msg = "edge-weighted clustered batches (sGAT) are not ported yet"
+        raise NotImplementedError(msg)
+    dev = resolve_device(device)
+    num_real = len(entries)
+    num_graphs = pad_graphs or num_real
+    if num_real > num_graphs:
+        msg = f"{num_real} entries exceed pad_graphs={num_graphs}"
+        raise ValueError(msg)
+    names = [e["entry_name"] for e in entries] + [""] * (num_graphs - num_real)
+    feat_dim = entries[0]["x"].shape[1]
+
+    if min_slot_nodes is None:
+        min_slot_nodes = _auto_min_slot_nodes(entries)
+    if min_slot_nodes > 1:
+        batch = _collate_diag_mixed(
+            entries,
+            num_graphs,
+            feat_dim,
+            min_slot_nodes,
+            dev,
+            pad_c1=pad_c1,
+            pad_members0s=pad_members0s,
+            pad_members1=pad_members1,
+            pad_region_caps=pad_region_caps,
+            pad_clusters=pad_clusters,
+        )
+        return batch, names
+    plans = [_slot8_plan(e, 8) for e in entries]
+    n_cap = _resolve_cap(pad_nodes, max(max(p["cap"] for p in plans), 8), 8)
+    k_cap = _resolve_cap(pad_clusters, max(max(max(len(p["p_inv"]), 1) for p in plans), 8), 8)
+
+    x = np.zeros((num_graphs * n_cap, feat_dim), dtype=np.float32)
+    adj = np.zeros((num_graphs, n_cap, n_cap), dtype=np.int8)
+    node_mask = np.zeros((num_graphs, n_cap), dtype=bool)
+    slot_cluster = np.full(num_graphs * n_cap // 8, num_graphs * k_cap, dtype=np.int32)
+    adj_p = np.zeros((num_graphs, k_cap, k_cap), dtype=np.int8)
+    pooled_mask = np.zeros((num_graphs, k_cap), dtype=bool)
+    depth1 = _DepthOne(num_graphs, k_cap)
+    for g, entry in enumerate(entries):
+        plan = plans[g]
+        p_inv = plan["p_inv"]
+        c0 = np.asarray(entry["cluster0"], dtype=np.int64)
+        n_c0 = len(p_inv)
+        _fill_graph(entry, g, plan["posmap"], p_inv[c0], x, adj, adj_p, node_mask, n_cap)
+        sc = plan["slot_col"]  # local pooled id per slot, -1 = padding
+        base = g * n_cap // 8
+        slot_cluster[base : base + len(sc)] = np.where(sc >= 0, sc + g * k_cap, num_graphs * k_cap)
+        # a gapped cluster0 id would make a zero-member pooled slot; mask it
+        # (and keep it out of the depth-1 mean)
+        valid0 = np.bincount(c0, minlength=max(n_c0, 1))[:n_c0] > 0 if c0.size else np.ones(n_c0, bool)
+        pooled_mask[g][p_inv] = valid0
+        depth1.add(g, entry["cluster1"], p_inv, valid0)
+
+    y, y_mask = _targets(entries, num_graphs)
+    cluster1, members1, c1_graph = depth1.arrays(pad_c1, pad_members1)
+    members0s = _member_matrix(slot_cluster, num_graphs * k_cap, num_graphs * n_cap // 8, pad_s=pad_members0s)
+    batch = _diag_batch(
+        dev,
+        x,
+        adj,
+        node_mask,
+        adj_p,
+        slot_cluster=slot_cluster,
+        members0s=members0s,
+        pooled_mask=pooled_mask,
+        cluster1=cluster1,
+        members1=members1,
+        c1_graph=c1_graph,
+        y=y,
+        y_mask=y_mask,
+    )
+    return batch, names
+
+
+def _collate_diag_mixed(
+    entries: list[dict],
+    num_graphs: int,
+    feat_dim: int,
+    min_slot_nodes: int,
+    dev: torch.device,
+    *,
+    pad_c1=None,
+    pad_members0s=None,
+    pad_members1=None,
+    pad_region_caps: dict | None = None,
+    pad_clusters=None,
+) -> DiagClusteredBatch:
+    """The MIXED size-class region layout (see DiagClusteredBatch.region_caps).
+
+    Per graph, rows lay out as four fixed-cap regions
+    ``[slot8 big | stride-4 | stride-2 | stride-1]`` (each cap 8-aligned and
+    shared across graphs), clusters ordered by locality within each class.
+    Pooled slots mirror the same segmentation (``[kbig | n4/4 | n2/2 | n1]``,
+    padded groups = masked pooled slots), so depth-0 pooling is one stride-s
+    slot max per region whose outputs concatenate straight into pooled order."""
+    pads = dict(pad_region_caps or {})
+
+    # ---- pass 1: per-entry class assignment + region requirements ----
+    infos = []
+    reqs = {"big": 8, "s4": 0, "s2": 0, "s1": 0, "kbig": 1}
+    for e in entries:
+        geo = _cluster_geometry(e, 8)
+        n_c0, sizes, p_order = geo["n_c0"], geo["sizes"], geo["p_order"]
+        cls = _mixed_class(sizes, min_slot_nodes)
+
+        # per-class rank in locality order
+        rank = np.zeros(n_c0, dtype=np.int64)
+        nslots = np.zeros(n_c0, dtype=np.int64)
+        slot_base = np.zeros(n_c0, dtype=np.int64)
+        for sc in (8, 4, 2, 1):
+            sel = p_order[cls[p_order] == sc]
+            rank[sel] = np.arange(len(sel))
+            if sc == 8:  # noqa: PLR2004
+                ns = -(-sizes[sel] // 8)
+                nslots[sel] = ns
+                slot_base[sel] = np.concatenate([[0], np.cumsum(ns)])[:-1]
+        reqs["big"] = max(reqs["big"], int(nslots.sum()) * 8)
+        reqs["s4"] = max(reqs["s4"], 4 * int((cls == 4).sum()))  # noqa: PLR2004
+        reqs["s2"] = max(reqs["s2"], 2 * int((cls == 2).sum()))  # noqa: PLR2004
+        reqs["s1"] = max(reqs["s1"], int((cls == 1).sum()))
+        reqs["kbig"] = max(reqs["kbig"], int((cls == 8).sum()))  # noqa: PLR2004
+        infos.append({"c0": geo["c0"], "cls": cls, "rank": rank, "slot_base": slot_base, "nslots": nslots, "mrank": geo["mrank"]})
+
+    # ---- shared caps (8-aligned so regions stay stride-aligned) ----
+    nb = _resolve_cap(pads.get("big"), reqs["big"], 8)
+    n4 = _resolve_cap(pads.get("s4"), reqs["s4"], 8)
+    n2 = _resolve_cap(pads.get("s2"), reqs["s2"], 8)
+    n1 = _resolve_cap(pads.get("s1"), reqs["s1"], 8)
+    kbig = _resolve_cap(pads.get("kbig"), reqs["kbig"], 8)
+    n_cap = nb + n4 + n2 + n1
+    k_cap = _resolve_cap(pad_clusters, kbig + n4 // 4 + n2 // 2 + n1, 8)
+    # pooled-slot and row base per class
+    kbase = {8: 0, 4: kbig, 2: kbig + n4 // 4, 1: kbig + n4 // 4 + n2 // 2}
+    rbase = {8: 0, 4: nb, 2: nb + n4, 1: nb + n4 + n2}
+
+    x = np.zeros((num_graphs * n_cap, feat_dim), dtype=np.float32)
+    adj = np.zeros((num_graphs, n_cap, n_cap), dtype=np.int8)
+    node_mask = np.zeros((num_graphs, n_cap), dtype=bool)
+    # COMPACT big-region slot map: [G*nb/8] -> [G*kbig]
+    slot_cluster = np.full(num_graphs * nb // 8, num_graphs * kbig, dtype=np.int32)
+    adj_p = np.zeros((num_graphs, k_cap, k_cap), dtype=np.int8)
+    pooled_mask = np.zeros((num_graphs, k_cap), dtype=bool)
+    depth1 = _DepthOne(num_graphs, k_cap)
+    for g, entry in enumerate(entries):
+        info = infos[g]
+        c0, cls, rank = info["c0"], info["cls"], info["rank"]
+        n_c0 = len(cls)
+
+        # cluster -> local pooled slot; cluster -> first row
+        pslot = np.empty(n_c0, dtype=np.int64)
+        row0 = np.empty(n_c0, dtype=np.int64)
+        for sc in (8, 4, 2, 1):
+            sel = cls == sc
+            pslot[sel] = kbase[sc] + rank[sel]
+            row0[sel] = 8 * info["slot_base"][sel] if sc == 8 else rbase[sc] + sc * rank[sel]  # noqa: PLR2004
+        _fill_graph(entry, g, row0[c0] + info["mrank"], pslot[c0], x, adj, adj_p, node_mask, n_cap)
+
+        # big-region slots -> compact pooled ids, in increasing slot_base
+        # order (= the big clusters' locality order)
+        big = np.flatnonzero(cls == 8)  # noqa: PLR2004
+        if big.size:
+            base = g * nb // 8
+            order8 = np.argsort(info["slot_base"][big], kind="stable")
+            sc8 = np.repeat(pslot[big][order8], info["nslots"][big][order8])
+            slot_cluster[base : base + len(sc8)] = sc8 + g * kbig
+
+        valid0 = np.bincount(c0, minlength=max(n_c0, 1))[:n_c0] > 0 if c0.size else np.ones(n_c0, bool)
+        pooled_mask[g][pslot] = valid0
+        depth1.add(g, entry["cluster1"], pslot, valid0)
+
+    y, y_mask = _targets(entries, num_graphs)
+    cluster1, members1, c1_graph = depth1.arrays(pad_c1, pad_members1)
+    members0s = _member_matrix(slot_cluster, num_graphs * kbig, num_graphs * nb // 8, pad_s=pad_members0s)
+    return _diag_batch(
+        dev,
+        x,
+        adj,
+        node_mask,
+        adj_p,
+        region_caps=(nb, n4, n2, n1, kbig),
+        slot_cluster=slot_cluster,
+        members0s=members0s,
+        pooled_mask=pooled_mask,
+        cluster1=cluster1,
+        members1=members1,
+        c1_graph=c1_graph,
+        y=y,
+        y_mask=y_mask,
+    )
+
+
+def diag_mixed_requirements(entries: list[dict], min_slot_nodes: int) -> dict:
+    """Region requirements of the mixed layout for these entries (a shard- or
+    batch-consistent cap source)."""
+    reqs = {"big": 8, "s4": 0, "s2": 0, "s1": 0, "kbig": 1}
+    c1_total, s1m = 0, 1
+    for e in entries:
+        c0 = np.asarray(e["cluster0"], dtype=np.int64)
+        n_c0 = int(c0.max()) + 1 if c0.size else 0
+        sizes = np.bincount(c0, minlength=max(n_c0, 1))[:n_c0]
+        cls = _mixed_class(sizes, min_slot_nodes)
+        reqs["big"] = max(reqs["big"], int((-(-sizes[cls == 8] // 8)).sum()) * 8)  # noqa: PLR2004
+        reqs["s4"] = max(reqs["s4"], 4 * int((cls == 4).sum()))  # noqa: PLR2004
+        reqs["s2"] = max(reqs["s2"], 2 * int((cls == 2).sum()))  # noqa: PLR2004
+        reqs["s1"] = max(reqs["s1"], int((cls == 1).sum()))
+        reqs["kbig"] = max(reqs["kbig"], int((cls == 8).sum()))  # noqa: PLR2004
+        reqs["members0s_s"] = max(
+            reqs.get("members0s_s", 1),
+            int((-(-sizes[cls == 8] // 8)).max()) if (cls == 8).any() else 1,  # noqa: PLR2004
+        )
+        c1 = np.asarray(e["cluster1"], dtype=np.int64)
+        if c1.size:
+            c1_total += int(c1.max()) + 1
+            s1m = max(s1m, int(np.bincount(c1).max()))
+    reqs["c1"] = max(c1_total, 1)
+    reqs["members1_s"] = s1m
+    reqs.setdefault("members0s_s", 1)
+    return reqs
+
+
+def diag_clustered_requirements(entries: list[dict], min_slot_nodes: int = 1) -> dict:
+    """Capacities the pure-slot8 :func:`collate_graphs_diag_clustered` would
+    need (a grow-only bucket source). Mixed-layout requirements live in
+    :func:`diag_mixed_requirements`."""
+    del min_slot_nodes
+    plans = [_slot8_plan(e, 8) for e in entries]
+    c1_total = 0
+    s1 = 1
+    for e in entries:
+        c1 = np.asarray(e["cluster1"], dtype=np.int64)
+        if c1.size:
+            c1_total += int(c1.max()) + 1
+            s1 = max(s1, int(np.bincount(c1).max()))
+    return {
+        "nodes": max(p["cap"] for p in plans),
+        "clusters": max(max(len(p["p_inv"]), 1) for p in plans),
+        "c1": max(c1_total, 1),
+        "members0s_s": max(p["max_slots"] for p in plans),
+        "members1_s": s1,
+    }

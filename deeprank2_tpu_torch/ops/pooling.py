@@ -1,0 +1,103 @@
+"""Community pooling for the graph-diagonal clustered batches (port of
+``deeprank2_tpu/ops/pooling.py``: ``member_max_pool`` and
+``diag_depth0_pool``).
+
+Conventions, as in the JAX package: cluster ids are batch-global and below
+the capacity; padded rows carry out-of-range ids. Pooled features are
+post-relu and masked (``h >= 0``, padded rows 0), so an empty cluster pools
+to 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deeprank2_tpu_torch.ops.segment import segment_max
+from deeprank2_tpu_torch.ops.slotpool import slot_group_max
+
+
+class _MemberMaxPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, members, cluster):
+        v = h.shape[0]
+        # S-leading gather [S, C, F], reduced over the leading axis
+        mt = members.T
+        gathered = torch.where((mt < v)[..., None], h[mt.clamp(0, v - 1)], torch.zeros((), dtype=h.dtype, device=h.device))
+        pooled = gathered.amax(dim=0)
+        ctx.save_for_backward(h, pooled, cluster)
+        return pooled
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, pooled, cluster = ctx.saved_tensors
+        num_c, f = pooled.shape
+        # one packed [V, 2F] gather of (pooled, g) by each row's cluster
+        packed = torch.cat([pooled, grad], dim=1)[cluster.clamp(0, num_c - 1)]
+        winner = (h == packed[:, :f]) & (cluster < num_c)[:, None]
+        return torch.where(winner, packed[:, f:], torch.zeros((), dtype=grad.dtype, device=grad.device)), None, None
+
+
+def member_max_pool(h: torch.Tensor, members: torch.Tensor, cluster: torch.Tensor) -> torch.Tensor:
+    """Per-cluster feature max through a member matrix: ``h [V, F]``
+    (non-negative, padded rows 0), ``members [C, S]`` (row indices of each
+    cluster, padding = V) and its inverse ``cluster [V]`` (padding >= C) give
+    ``[C, F]``.
+
+    The backward uses gathers only: every valid row that reaches its
+    cluster's max gets the FULL cotangent (no division among ties, the JAX
+    package's rule)."""
+    return _MemberMaxPool.apply(h, members, cluster)
+
+
+def diag_depth0_pool(h_t: torch.Tensor, batch) -> torch.Tensor:
+    """Depth-0 community pooling of
+    :class:`~deeprank2_tpu_torch.ops.batch.DiagClusteredBatch` activations,
+    ``[F, G*N] -> [F, G*K]``.
+
+    Pure slot8 batches: the aligned 8-lane slot max (ops/slotpool.py) and the
+    per-cluster slot combine. Mixed batches (``region_caps`` set): each
+    size-class region pools with its own stride (the 1-lane region is its own
+    pooled value) and the per-graph segments concatenate into pooled order."""
+    if not batch.region_caps:
+        mask_row = batch.node_mask.to(h_t.dtype).reshape(1, -1)
+        p8 = slot_group_max(h_t, mask_row)
+        if batch.members0s.numel():
+            hp = member_max_pool(p8.T, batch.members0s, batch.slot_cluster)  # [G*K, F]
+        else:
+            hp = segment_max(p8.T, batch.slot_cluster, batch.pooled_mask.numel())
+        return hp.T
+
+    nb, n4, n2, n1, kbig = batch.region_caps
+    f = h_t.shape[0]
+    num_graphs, k_cap = batch.pooled_mask.shape
+    n_cap = batch.node_mask.shape[1]
+    h3 = h_t.reshape(f, num_graphs, n_cap)
+    m3 = batch.node_mask.to(h_t.dtype)
+
+    def region(off: int, ns: int) -> tuple[torch.Tensor, torch.Tensor]:
+        # a strided slice of every graph's rows: copied, since the slot
+        # kernels take contiguous operands
+        hs = h3[:, :, off : off + ns].contiguous().reshape(f, num_graphs * ns)
+        ms = m3[:, off : off + ns].contiguous().reshape(1, num_graphs * ns)
+        return hs, ms
+
+    segs = []
+    if nb:
+        p8 = slot_group_max(*region(0, nb))  # [F, G*nb/8]
+        if batch.members0s.numel():
+            comb = member_max_pool(p8.T, batch.members0s, batch.slot_cluster)  # [G*kbig, F]
+        else:  # one pathological cluster tripped the member-matrix size guard
+            comb = segment_max(p8.T, batch.slot_cluster, num_graphs * kbig)
+        segs.append(comb.T.reshape(f, num_graphs, kbig))
+    off = nb
+    for stride, ns in ((4, n4), (2, n2)):
+        if ns:
+            ps = slot_group_max(*region(off, ns), slot=stride)
+            segs.append(ps.reshape(f, num_graphs, ns // stride))
+        off += ns
+    if n1:
+        segs.append(h3[:, :, off : off + n1])
+    hp3 = torch.cat(segs, dim=2) if len(segs) > 1 else segs[0]
+    if hp3.shape[2] < k_cap:
+        hp3 = torch.nn.functional.pad(hp3, (0, k_cap - hp3.shape[2]))
+    return hp3.reshape(f, num_graphs * k_cap)

@@ -1,6 +1,7 @@
 """Synthetic graph entries shaped like featurized PPI data (benchmarks, smoke
-runs). A numpy-only copy of ``deeprank2_tpu/ops/synthetic.py``: the same seed
-gives the same entries in both packages."""
+runs). Numpy-only copies of ``deeprank2_tpu/ops/synthetic.py`` and of the
+clustered PPI generator of ``tests/perf/diag_clustered_perf.py``: the same
+seed gives the same entries in both packages."""
 
 from __future__ import annotations
 
@@ -37,6 +38,41 @@ def synthetic_entries(
                 "cluster0": cluster0,
                 "cluster1": np.arange(n_c0) // 4,
                 "entry_name": f"synth-{g}",
+            }
+        )
+    return entries
+
+
+def ppi_clustered_entries(num_graphs: int = 512, nodes: int = 160, feat_dim: int = 38, cell: float = 10.0, seed: int = 0) -> list[dict]:
+    """Spatial PPI-like graphs for the clustered models: ``nodes`` points in a
+    24 Å box, edges between points closer than 5 Å, depth-0 clusters by
+    ``cell`` Å grid cell (about 6 nodes at 10 Å, under 3 at 6 Å) and depth-1
+    clusters by ``2 * cell`` Å cells of the cluster centroids."""
+    from scipy.spatial import cKDTree
+
+    rng = np.random.default_rng(seed)
+    entries = []
+    for g in range(num_graphs):
+        pos = rng.uniform(0, 24, (nodes, 3)).astype(np.float32)
+        pairs = cKDTree(pos).query_pairs(5.0, output_type="ndarray")
+        cell0 = np.floor(pos / cell).astype(np.int64)
+        _, c0 = np.unique(cell0[:, 0] * 10000 + cell0[:, 1] * 100 + cell0[:, 2], return_inverse=True)
+        n_c0 = int(c0.max()) + 1
+        psum = np.zeros((n_c0, 3))
+        np.add.at(psum, c0, pos)
+        pmean = psum / np.bincount(c0, minlength=n_c0)[:, None]
+        cell1 = np.floor(pmean / (2 * cell)).astype(np.int64)
+        _, c1 = np.unique(cell1[:, 0] * 10000 + cell1[:, 1] * 100 + cell1[:, 2], return_inverse=True)
+        entries.append(
+            {
+                "x": rng.normal(size=(nodes, feat_dim)).astype(np.float32),
+                "edge_index": pairs.astype(np.int64),
+                "edge_attr": rng.uniform(0.5, 3.0, size=(len(pairs), 1)).astype(np.float32),
+                "pos": pos,
+                "y": float(g % 2),
+                "cluster0": c0.astype(np.int32),
+                "cluster1": c1.astype(np.int32),
+                "entry_name": f"g{g}",
             }
         )
     return entries

@@ -11,11 +11,12 @@ from __future__ import annotations
 import pytest
 import torch
 
-from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
+from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag, GINetDense
 from deeprank2_tpu_torch.ops import diag_spmm as ds
-from deeprank2_tpu_torch.ops.batch import collate_graphs_dense
+from deeprank2_tpu_torch.ops import slotpool as sp
+from deeprank2_tpu_torch.ops.batch import collate_graphs_dense, collate_graphs_diag_clustered
 from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
-from deeprank2_tpu_torch.ops.synthetic import synthetic_entries
+from deeprank2_tpu_torch.ops.synthetic import ppi_clustered_entries, synthetic_entries
 
 pytestmark = pytest.mark.cuda
 TOL = {"rtol": 1e-5, "atol": 1e-5}
@@ -41,8 +42,9 @@ def _operands(g, n, f, dev, seed=0):
     return adj.to(torch.int8).to(dev), mask.to(dev), x.to(dev), g_pool.to(dev)
 
 
-# N=416 needs more than 48 KB of dynamic shared memory; F=70 leaves a ragged feature chunk
-@pytest.mark.parametrize(("g", "n", "f"), [(3, 32, 8), (5, 100, 70), (2, 416, 33)])
+# N=416 needs more than 48 KB of dynamic shared memory, N=336 more than 48 KB
+# of dynamic and static together; F=70 leaves a ragged feature chunk
+@pytest.mark.parametrize(("g", "n", "f"), [(3, 32, 8), (5, 100, 70), (2, 416, 33), (2, 336, 32)])
 def test_kernels_match_plain_versions(cuda, g, n, f) -> None:
     adj, mask, x, g_pool = _operands(g, n, f, cuda)
     torch.testing.assert_close(ds.diag_kernel(adj, x), ds.diag_kernel_ref(adj, x), **TOL)
@@ -81,3 +83,72 @@ def test_train_step_matches_cpu_and_counts_launches(cuda) -> None:
             assert q.grad is None, name
         else:
             torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)
+
+
+def _slot_operands(f, v, dev, seed=0):
+    """Non-negative h with masked lanes zeroed, an exact tie and an all-zero group."""
+    gen = torch.Generator().manual_seed(seed)
+    mask = (torch.rand(1, v, generator=gen) > 0.1).float()
+    h = torch.randn(f, v, generator=gen).abs()
+    h[:, 16:24] = 0.0
+    h[1, 40] = h[1, 41] = 3.0
+    h = h * mask
+    return h.to(dev), mask.to(dev), torch.randn(f, v, generator=gen).to(dev)
+
+
+# a multiple of 1024 lanes, and a ragged width
+@pytest.mark.parametrize("slot", [8, 4, 2])
+@pytest.mark.parametrize(("f", "v"), [(32, 4096), (38, 8 * 1000 + 8 * 3)])
+def test_slot_kernels_match_plain_versions_exactly(cuda, slot, f, v) -> None:
+    h, mask, cot = _slot_operands(f, v, cuda, seed=slot)
+    pooled = sp.slot_fwd_kernel(h, slot)
+    torch.testing.assert_close(pooled, sp.slot_fwd_kernel_ref(h, slot), rtol=0, atol=0)
+    g = cot[:, : v // slot].contiguous()
+    torch.testing.assert_close(sp.slot_bwd_kernel(h, mask, pooled, g, slot), sp.slot_bwd_kernel_ref(h, mask, pooled, g, slot), rtol=0, atol=0)
+
+
+def test_slot_kernels_match_plain_versions_at_mixed_regions(cuda) -> None:
+    """Each size-class region of a mixed batch, cut as diag_depth0_pool cuts
+    it: V = G * region width, at the region's stride, with its mask slice."""
+    entries = ppi_clustered_entries(6, 40, 38, cell=6.0, seed=2)
+    batch, _ = collate_graphs_diag_clustered(entries, pad_graphs=8, min_slot_nodes=5, device=cuda)
+    g = batch.node_mask.shape[0]
+    m3 = batch.node_mask.float()
+    off = 0
+    for slot, ns in zip((8, 4, 2), batch.region_caps[:3]):
+        assert ns, batch.region_caps
+        mask = m3[:, off : off + ns].contiguous().reshape(1, g * ns)
+        h, _, cot = _slot_operands(19, g * ns, cuda, seed=slot)
+        h = h * mask
+        g_pool = cot[:, : g * ns // slot].contiguous()
+        x, x_ref = h.clone().requires_grad_(True), h.clone().requires_grad_(True)
+        out, out_ref = sp.slot_group_max(x, mask, slot=slot), sp.slot_group_max_ref(x_ref, mask, slot=slot)
+        torch.testing.assert_close(out, out_ref, rtol=0, atol=0)
+        (dh,), (dh_ref,) = torch.autograd.grad(out, x, g_pool), torch.autograd.grad(out_ref, x_ref, g_pool)
+        torch.testing.assert_close(dh, dh_ref, rtol=0, atol=0)
+        off += ns
+
+
+def test_clustered_train_step_matches_cpu_and_counts_launches(cuda) -> None:
+    entries = ppi_clustered_entries(6, 40, 38, cell=6.0, seed=2)
+    for msn, per_forward in ((1, 1), (5, 3)):
+        batch, _ = collate_graphs_diag_clustered(entries, pad_graphs=8, min_slot_nodes=msn, device=cuda)
+        model = GINetClusteredDiag(38, 2, 1, device=cuda)
+        cpu_model = GINetClusteredDiag(38, 2, 1, device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        loss_fn = CrossEntropyLoss()
+        ds.reset_launches()
+        sp.reset_launches()
+        loss = loss_fn(model(batch), batch.y, batch.y_mask)
+        loss.backward()
+        assert ds.launches["diag_kernel"] == 4
+        assert sp.launches == {"slot_fwd_kernel": per_forward, "slot_bwd_kernel": per_forward}
+        cpu_batch = batch.to("cpu")
+        cpu_loss = loss_fn(cpu_model(cpu_batch), cpu_batch.y, cpu_batch.y_mask)
+        cpu_loss.backward()
+        torch.testing.assert_close(loss.detach().cpu(), cpu_loss.detach(), rtol=1e-4, atol=1e-5)
+        for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+            if p.grad is None:
+                assert q.grad is None, name
+            else:
+                torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)

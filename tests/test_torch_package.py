@@ -19,9 +19,13 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.ops",
     "deeprank2_tpu_torch.ops._build",
     "deeprank2_tpu_torch.ops.batch",
+    "deeprank2_tpu_torch.ops.block_sparse",
     "deeprank2_tpu_torch.ops.diag_spmm",
     "deeprank2_tpu_torch.ops.losses",
     "deeprank2_tpu_torch.ops.optim",
+    "deeprank2_tpu_torch.ops.pooling",
+    "deeprank2_tpu_torch.ops.segment",
+    "deeprank2_tpu_torch.ops.slotpool",
     "deeprank2_tpu_torch.ops.synthetic",
     "deeprank2_tpu_torch.neuralnets",
     "deeprank2_tpu_torch.neuralnets.nn",
@@ -101,6 +105,24 @@ def test_entry_points_without_a_device_raise_without_cuda(no_cuda) -> None:
     with pytest.raises(RuntimeError, match="no CUDA device"):
         batch.to("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_clustered_entry_points_raise_without_cuda(no_cuda) -> None:
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag
+    from deeprank2_tpu_torch.ops.batch import collate_graphs_diag_clustered
+    from deeprank2_tpu_torch.ops.synthetic import ppi_clustered_entries
+
+    entries = ppi_clustered_entries(2, 20, 4, seed=0)
+    for min_slot_nodes in (1, 5):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            collate_graphs_diag_clustered(entries, min_slot_nodes=min_slot_nodes)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GINetClusteredDiag(4, 2, 1)
+    batch, _ = collate_graphs_diag_clustered(entries, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch.to("cuda")
+    model = GINetClusteredDiag(4, 2, 1, device="cpu")
+    assert model(batch).shape == (2, 2)
 
 
 @pytest.mark.parametrize("alone", [False, True])
