@@ -46,7 +46,31 @@ Phases, each printing one JSON line:
    (ppi_clustered_entries(..., cell=6.0)): the same checks over MIXED_STEPS
    steps; every forward runs the slot kernels at strides 8, 4 and 2, so the
    counters read diag_kernel 4*S + 2, slot_fwd_kernel 3*(S + 1),
-   slot_bwd_kernel 3*S.
+   slot_bwd_kernel 3*S;
+8. the BCSR kernel against its plain version on the card: bcsr_spmm_kernel
+   at the 100k-node atomic graph's structure (3 column chunks, F=32 and 64),
+   at the clustered collate's full (2 chunks, F=32) and pooled (F=64)
+   structures, at a ragged batch (graphs of 700 and 1,300 nodes and an empty
+   padding graph, F=38) and at an empty-edge graph, directly and through
+   bcsr_spmm_t's autograd (the gradient is the same SpMM of the cotangent),
+   rtol=atol=1e-5 (both f32, only the summation order differs); the slot
+   kernels exactly at the clustered BCSR path's width ([32, 108,544], with
+   its node-mask row); then each kernel's time at the two BCSR paths' calls
+   beside its plain version, one cuSPARSE product of the same function
+   (``torch.sparse_csr_tensor @ x``) and its bound;
+9. the BCSR path: GINetBlockSparse(38, 2, 6) on
+   collate_graphs_blocksparse([geometric_entry(100_000, 38, 6)]). One
+   dropout-free step against the CPU (logits and loss at rtol=1e-4,
+   atol=1e-5; gradients at rtol=1e-4, atol=1e-6; the CPU runs the plain
+   version at full size), then BCSR_STEPS train steps and one eval forward
+   with the counters at 0: bcsr_spmm_kernel 4*S + 2 and no other kernel;
+   then a profile of a few of its steps;
+10. the clustered BCSR path: GINetClusteredBlockSparse(38, 2, 1) on
+   collate_graphs_blocksparse_clustered([clustered_entry(100_000, 38, 1)],
+   slot8=True): the same step against the CPU with the number of slot
+   groups whose max-pool winner differs, then BCSR_STEPS steps and one eval
+   forward: bcsr_spmm_kernel 4*S + 2, slot_fwd_kernel S + 1,
+   slot_bwd_kernel S, diag_kernel 0; then a profile.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -68,6 +92,9 @@ STEPS = 20
 WARM_STEPS = 4
 CLUSTERED_STEPS = 20
 MIXED_STEPS = 6
+BCSR_STEPS = 20
+BCSR = {"nodes": 100_000, "feat": 38, "edge_dim": 6, "seed": 0}
+CLUSTERED_BCSR = {"nodes": 100_000, "feat": 38, "edge_dim": 1, "seed": 0, "slot8": True}
 BENCH = {"num_graphs": 512, "nodes": 160, "feat": 38, "edge_dim": 6, "seed": 7}
 CLUSTERED = {"num_graphs": 512, "nodes": 160, "feat": 38, "seed": 0}
 MIXED_CELL = 6.0
@@ -77,31 +104,41 @@ STEP_TOL = {"rtol": 1e-4, "atol": 1e-6}
 CLUSTERED_TOL = {"rtol": 1e-4, "atol": 1e-5}
 # f32 on both sides: the largest gradient error seen on the card is ~3e-7
 CLUSTERED_GRAD_TOL = {"rtol": 1e-4, "atol": 1e-6}
-KERNELS = ("diag_kernel", "pool_bwd_kernel", "slot_fwd_kernel", "slot_bwd_kernel")
+KERNELS = ("diag_kernel", "pool_bwd_kernel", "slot_fwd_kernel", "slot_bwd_kernel", "bcsr_spmm_kernel")
 # each path's calls of each kernel in one train step: (kernel, mode or slot, F)
 STEP_CALLS = {
     "dense": [("diag_kernel", "relu_mask", 32), ("diag_kernel", "relu_mask_pool", 64), ("diag_kernel", "plain", 32), ("pool_bwd_kernel", None, 64)],
     "clustered": [("diag_kernel", "relu_mask", 32), ("diag_kernel", "plain", 32)],
     "clustered_pooled": [("diag_kernel", "relu_mask", 64), ("diag_kernel", "plain", 64)],
     "clustered_slot": [("slot_fwd_kernel", 8, 32), ("slot_bwd_kernel", 8, 32)],
+    "clustered_bcsr_slot": [("slot_fwd_kernel", 8, 32), ("slot_bwd_kernel", 8, 32)],
+}
+# each BCSR path's SpMMs in one train step: (structure field, F, calls)
+# (forward of each layer and its VJP, the same SpMM on the cotangent)
+BCSR_STEP_CALLS = {
+    "bcsr": [("structure", 32, 2), ("structure", 64, 2)],
+    "clustered_bcsr": [("structure", 32, 2), ("structure_p", 64, 2)],
 }
 REPLACES = {
     "diag_kernel": "deeprank2_tpu/ops/diag_spmm.py:113 (_diag_kernel, pallas_call at :188)",
     "pool_bwd_kernel": "deeprank2_tpu/ops/diag_spmm.py:263 (_pool_bwd_kernel, pallas_call at :308)",
     "slot_fwd_kernel": "deeprank2_tpu/ops/pallas_slotpool.py:119 (_fwd_kernel, pallas_call at :176)",
     "slot_bwd_kernel": "deeprank2_tpu/ops/pallas_slotpool.py:129 (_bwd_kernel, pallas_call at :200)",
+    "bcsr_spmm_kernel": "deeprank2_tpu/ops/block_sparse.py:535 (_kernel_stream, pallas_call at :760)",
 }
 SOURCES = {
     "diag_kernel": "deeprank2_tpu_torch/csrc/diag_spmm.cu",
     "pool_bwd_kernel": "deeprank2_tpu_torch/csrc/diag_spmm.cu",
     "slot_fwd_kernel": "deeprank2_tpu_torch/csrc/slotpool.cu",
     "slot_bwd_kernel": "deeprank2_tpu_torch/csrc/slotpool.cu",
+    "bcsr_spmm_kernel": "deeprank2_tpu_torch/csrc/bcsr_spmm.cu",
 }
 LIBRARY = {
     "diag_kernel": "torch.bmm of the f32 adjacency [G,N,N] with the [G,N,F] slab (contraction only)",
     "pool_bwd_kernel": "torch.bmm of the f32 adjacency [G,N,N] with the [G,N,F] slab (contraction only)",
     "slot_fwd_kernel": "h.view(F, V//slot, slot).amax(2) (also the plain version)",
     "slot_bwd_kernel": None,
+    "bcsr_spmm_kernel": "torch.sparse_csr_tensor of the mirrored pairs @ x [N, F] (cuSPARSE SpMM)",
 }
 # published peaks (NVIDIA data sheets; dense, f32 outside the tensor cores):
 # (memory bytes/s, f32 FLOP/s). The SXM part is the default.
@@ -472,6 +509,71 @@ def time_slot_calls(torch, sp, timer, path, mask_row, specs, peak_bw, peak_f32) 
     return calls
 
 
+def check_bcsr_kernel(torch, bs, checks, shapes, dev) -> None:
+    """bcsr_spmm_kernel against its plain version, directly and through
+    bcsr_spmm_t's autograd (whose VJP is the same SpMM of the cotangent)."""
+    for tag, st, feats in shapes:
+        gen = torch.Generator(device=dev).manual_seed(len(checks.rows))
+        for f in feats:
+            x = torch.randn(f, st.padded_nodes, generator=gen, device=dev)
+            checks.close("bcsr_spmm_kernel", f"{tag} direct F={f}", bs.bcsr_spmm_kernel(st, x), bs.bcsr_spmm_kernel_ref(st, x), TOL)
+            cot = torch.randn(f, st.padded_rows, generator=gen, device=dev)
+            xk = x.clone().requires_grad_(True)
+            (grad,) = torch.autograd.grad(bs.bcsr_spmm_t(st, xk), xk, cot)
+            checks.close("bcsr_spmm_kernel", f"{tag} bcsr_spmm_t vjp F={f}", grad, bs.bcsr_spmm_kernel_ref(st, cot), TOL)
+    sync(torch, dev)
+
+
+def csr_of(torch, st):
+    """The structure's adjacency as a CUDA ``torch.sparse_csr_tensor``
+    (the mirrored pairs, ``[padded_rows, padded_nodes]``)."""
+    k, c, i = st.blocks_t.nonzero(as_tuple=True)
+    rows = st.block_row[k].long() * st.block + i
+    cols = st.block_col[k].long() * st.block + c
+    values = torch.ones(rows.numel(), dtype=torch.float32, device=rows.device)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), values, (st.padded_rows, st.padded_nodes))
+    return coo.coalesce().to_sparse_csr()
+
+
+def time_bcsr_calls(torch, bs, timer, path, batch, specs, peak_bw, peak_f32) -> list:
+    """Kernel, plain-version and cuSPARSE times of bcsr_spmm_kernel at one
+    path's structures, with each call's bound: bytes, the nonzero blocks, x
+    and the row-tile index read once and the output written once;
+    operations, 2*F per directed edge (the products these edges need)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    calls = []
+    for name, f, per_step in specs:
+        st = getattr(batch, name)
+        csr = csr_of(torch, st)
+        nnz = csr._nnz()
+        real = st.tile_blocks.numel()
+        x = torch.randn(f, st.padded_nodes, generator=gen, device="cuda")
+        x_rows = x.T.contiguous()
+        in_bytes = real * st.block**2 + 4 * f * st.padded_nodes + 4 * (2 * real + st.tile_ptr.numel())
+        # source nodes (block rows) with an edge into the row tile: the share
+        # of the dense product that meets a nonzero
+        rows_share = st.blocks_t[st.tile_blocks.long()].ne(0).any(dim=2).float().mean().item() if real else 0.0
+        calls.append(
+            {
+                "path": path,
+                "kernel": "bcsr_spmm_kernel",
+                "mode": name,
+                "shape": {"blocks_stored": st.num_blocks, "blocks_nonzero": real, "chunks": st.num_chunks, "nodes": st.padded_nodes},
+                "F": f,
+                "per_step": per_step,
+                "ms": timer.ms(lambda st=st, x=x: bs.bcsr_spmm_kernel(st, x)),
+                "plain_ms": timer.ms(lambda st=st, x=x: bs.bcsr_spmm_kernel_ref(st, x)),
+                "library_ms": timer.ms(lambda csr=csr, x_rows=x_rows: csr @ x_rows),
+                **bound(in_bytes, 4 * f * st.padded_rows, 2 * f * nnz, peak_bw, peak_f32),
+                "directed_edges": nnz,
+                "flop_dense": 2 * f * real * st.block**2,
+                "nonzero_source_rows_share": rows_share,
+            }
+        )
+        del csr
+    return calls
+
+
 def profile_steps(torch, train_step, step_s, steps=3) -> dict:
     """Device time by kernel over a few traced train steps. The idle share is
     taken against the untraced step time (tracing slows the host) and, for
@@ -506,7 +608,7 @@ def kernels_line(calls, path_launches, errs) -> list:
 
     def total(rows, key):
         values = [c[key] for c in rows]
-        return None if any(x is None for x in values) else sum(values)
+        return None if any(x is None for x in values) else sum(c[key] * c.get("per_step", 1) for c in rows)
 
     kernels = []
     for name in KERNELS:
@@ -524,7 +626,7 @@ def kernels_line(calls, path_launches, errs) -> list:
                 "launches": sum(launches[name] for launches in path_launches.values()),
                 "launches_by_path": {path: launches[name] for path, launches in path_launches.items()},
                 "max_abs_err": errs[name],
-                "per": "one train step of each path: " + ", ".join(f"{c['path']} {c['mode']} F={c['F']}" for c in mine),
+                "per": "one train step of each path: " + ", ".join(f"{c['path']} {c['mode']} F={c['F']} x{c.get('per_step', 1)}" for c in mine),
                 "ms": total(mine, "ms"),
                 "plain_ms": total(mine, "plain_ms"),
                 "bound_ms": total(mine, "bound_ms"),
@@ -560,7 +662,13 @@ def clustered_path(torch, ds, counters, card, entries, layout_check, steps, dev,
     emit({"phase": f"{phase}_card_vs_cpu_step", "tolerance": CLUSTERED_TOL, "grad_tolerance": CLUSTERED_GRAD_TOL, **step, "max_pool": flips})
     opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
     regions = sum(1 for ns in (batch.region_caps or (1,))[:3] if ns)
-    want = {"diag_kernel": 4 * steps + 2, "pool_bwd_kernel": 0, "slot_fwd_kernel": regions * (steps + 1), "slot_bwd_kernel": regions * steps}
+    want = {
+        "diag_kernel": 4 * steps + 2,
+        "pool_bwd_kernel": 0,
+        "slot_fwd_kernel": regions * (steps + 1),
+        "slot_bwd_kernel": regions * steps,
+        "bcsr_spmm_kernel": 0,
+    }
     run = run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps, warm=min(WARM_STEPS, steps // 3))
     real_edges = int(sum(2 * e["edge_index"].shape[0] for e in entries))
     train_step = run.pop("train_step")
@@ -580,10 +688,53 @@ def clustered_path(torch, ds, counters, card, entries, layout_check, steps, dev,
     return {"batch": batch, "launches": run["launches"], "train_step": train_step, "step_s": run["step_s"]}
 
 
+def bcsr_winner_flips(torch, bs, model, batch, cpu_model, cpu_batch) -> dict:
+    """Slot groups of the layer-1 activation whose max-pool winner (first
+    max lane) differs between card and CPU: ties to summation-order error."""
+    hs = []
+    with torch.no_grad():
+        for m, b in ((model, batch), (cpu_model, cpu_batch)):
+            w1_t, _ = m.fused_weights()
+            hs.append(torch.relu(bs.bcsr_spmm_t(b.structure, w1_t @ b.x.T)).cpu())
+    f, v = hs[0].shape
+    win = [h.reshape(f, v // 8, 8).argmax(dim=2) for h in hs]
+    live = hs[1].reshape(f, v // 8, 8).amax(dim=2) > 0
+    return {"groups_with_a_positive_max": int(live.sum()), "winner_flips": {"slot8": int(((win[0] != win[1]) & live).sum())}}
+
+
+def blocksparse_path(torch, counters, card, batch, model_factory, want, dev, phase, describe, flips=None) -> dict:
+    """Check one BCSR path against the CPU, drive it with the counters at 0,
+    and profile a few of its steps."""
+    from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
+    from deeprank2_tpu_torch.ops.optim import Adam
+
+    model = model_factory(dev)
+    loss_fn = CrossEntropyLoss()
+    step, cpu_model, cpu_batch = card_vs_cpu_step(torch, model, batch, loss_fn, lambda: model_factory("cpu"), CLUSTERED_TOL, CLUSTERED_GRAD_TOL)
+    info = {"phase": f"{phase}_card_vs_cpu_step", "tolerance": CLUSTERED_TOL, "grad_tolerance": CLUSTERED_GRAD_TOL, **step}
+    if flips is not None:
+        info["max_pool"] = flips(model, batch, cpu_model, cpu_batch)
+    del cpu_model, cpu_batch
+    # a cross-entropy that saturates on one confident graph has vanishing
+    # gradients; the sum of the logits holds the whole backward all the same
+    probe, _, _ = card_vs_cpu_step(
+        torch, model, batch, lambda logits, y, y_mask: logits.sum(), lambda: model_factory("cpu"), CLUSTERED_TOL, CLUSTERED_GRAD_TOL
+    )
+    emit({**info, "sum_of_logits_probe": probe})
+    opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
+    run = run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, BCSR_STEPS)
+    train_step = run.pop("train_step")
+    real_edges = 2 * describe.pop("undirected_edges")
+    emit({"phase": phase, "card": card, **describe, **run, "step_ms": run["step_s"] * 1e3, "edges_per_s": real_edges / run["step_s"], "real_edges": real_edges})
+    emit({"phase": f"profile_{phase.removeprefix('main_path_')}", "card": card, **profile_steps(torch, train_step, run["step_s"])})
+    return run["launches"]
+
+
 def main() -> int:
     if not (HERE / "deeprank2_tpu_torch").is_dir():
         print("chip_smoke.py: the deeprank2_tpu_torch package is not beside this script", file=sys.stderr)
         return 2
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -591,13 +742,21 @@ def main() -> int:
         return 2
 
     from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
+    from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
     from deeprank2_tpu_torch.ops import _build
+    from deeprank2_tpu_torch.ops import block_sparse as bs
     from deeprank2_tpu_torch.ops import diag_spmm as ds
     from deeprank2_tpu_torch.ops import slotpool as sp
-    from deeprank2_tpu_torch.ops.batch import collate_graphs_dense, collate_graphs_diag_clustered
+    from deeprank2_tpu_torch.ops.batch import (
+        collate_graphs_blocksparse,
+        collate_graphs_blocksparse_clustered,
+        collate_graphs_dense,
+        collate_graphs_diag_clustered,
+    )
     from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
     from deeprank2_tpu_torch.ops.optim import Adam
-    from deeprank2_tpu_torch.ops.synthetic import ppi_clustered_entries, synthetic_entries
+    from deeprank2_tpu_torch.ops.synthetic import clustered_entry, geometric_entry, ppi_clustered_entries, synthetic_entries
 
     # 1. device and build (one nvcc per source, all at once)
     card = card_line()
@@ -606,7 +765,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.build([ds.SOURCE, sp.SOURCE])
+    _build.build([ds.SOURCE, sp.SOURCE, bs.SOURCE])
     build_s = time.perf_counter() - t0
     emit(
         {
@@ -621,7 +780,7 @@ def main() -> int:
             "peaks": {"part": part, "bytes_per_s": peak_bw, "f32_flop_per_s": peak_f32},
         }
     )
-    counters = Counters(ds, sp)
+    counters = Counters(ds, sp, bs)
 
     # 2. kernels against their plain versions, and their times
     dev = torch.device("cuda")
@@ -660,6 +819,7 @@ def main() -> int:
         dev,
     )
     emit({"phase": "kernels_vs_plain", "tolerance": {"diag_kernel": TOL, "pool_bwd_kernel": TOL, "slot_fwd_kernel": EXACT, "slot_bwd_kernel": EXACT}, "checks": checks.rows})
+    n_checks = len(checks.rows)
     timer = Timer(torch)
     calls = time_diag_calls(torch, ds, timer, "dense", batch.adj_i8, batch.node_mask, STEP_CALLS["dense"], peak_bw, peak_f32)
     calls += time_diag_calls(torch, ds, timer, "clustered", c_batch.adj_i8, c_batch.node_mask, STEP_CALLS["clustered"], peak_bw, peak_f32)
@@ -675,7 +835,7 @@ def main() -> int:
     step, _, _ = card_vs_cpu_step(torch, model, batch, loss_fn, lambda: GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device="cpu"), STEP_TOL, STEP_TOL)
     emit({"phase": "card_vs_cpu_step", "tolerance": STEP_TOL, **step})
     opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
-    want = {"diag_kernel": 3 * STEPS + 2, "pool_bwd_kernel": STEPS, "slot_fwd_kernel": 0, "slot_bwd_kernel": 0}
+    want = {"diag_kernel": 3 * STEPS + 2, "pool_bwd_kernel": STEPS, "slot_fwd_kernel": 0, "slot_bwd_kernel": 0, "bcsr_spmm_kernel": 0}
     run = run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, STEPS)
     real_edges = int(sum(2 * e["edge_index"].shape[0] for e in entries))
     train_step = run.pop("train_step")
@@ -716,6 +876,91 @@ def main() -> int:
 
     mixed = clustered_path(torch, ds, counters, card, m_entries, mixed_layout, MIXED_STEPS, dev, "main_path_clustered_mixed")
     path_launches["clustered_mixed"] = mixed["launches"]
+    del mixed
+
+    # 8. the BCSR kernel against its plain version, and its times
+    t0 = time.perf_counter()
+    entry = geometric_entry(BCSR["nodes"], BCSR["feat"], BCSR["edge_dim"], seed=BCSR["seed"])
+    b_batch, _ = collate_graphs_blocksparse([entry], device=dev)
+    bcsr_collate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c_entry = clustered_entry(CLUSTERED_BCSR["nodes"], CLUSTERED_BCSR["feat"], CLUSTERED_BCSR["edge_dim"], seed=CLUSTERED_BCSR["seed"])
+    cb_batch, _ = collate_graphs_blocksparse_clustered([c_entry], slot8=True, device=dev)
+    clustered_bcsr_collate_s = time.perf_counter() - t0
+    ragged_bcsr, _ = collate_graphs_blocksparse([geometric_entry(700, 38, 1, seed=1), geometric_entry(1300, 38, 1, seed=2)], pad_graphs=3, device=dev)
+    no_edges = {**geometric_entry(300, 38, 1, seed=3), "edge_index": np.zeros((0, 2), np.int64)}
+    empty_bcsr, _ = collate_graphs_blocksparse([no_edges], device=dev)
+    cb_mask_row = cb_batch.node_mask.float().reshape(1, -1)
+    check_bcsr_kernel(
+        torch,
+        bs,
+        checks,
+        [
+            (f"bcsr {b_batch.structure.num_chunks} chunks", b_batch.structure, (32, 64)),
+            (f"clustered_bcsr full {cb_batch.structure.num_chunks} chunks", cb_batch.structure, (32,)),
+            ("clustered_bcsr pooled", cb_batch.structure_p, (64,)),
+            ("ragged 700+1300+empty graph", ragged_bcsr.structure, (38,)),
+            ("no edges", empty_bcsr.structure, (32,)),
+        ],
+        dev,
+    )
+    check_slot_kernels(torch, sp, checks, [(f"clustered_bcsr F=32 V={cb_mask_row.shape[1]}", 32, cb_mask_row.shape[1], cb_mask_row, (8,))], dev)
+    emit({"phase": "bcsr_kernels_vs_plain", "tolerance": {"bcsr_spmm_kernel": TOL, "slot_fwd_kernel": EXACT, "slot_bwd_kernel": EXACT}, "checks": checks.rows[n_checks:]})
+    timer = Timer(torch)
+    bcsr_calls = time_bcsr_calls(torch, bs, timer, "bcsr", b_batch, BCSR_STEP_CALLS["bcsr"], peak_bw, peak_f32)
+    bcsr_calls += time_bcsr_calls(torch, bs, timer, "clustered_bcsr", cb_batch, BCSR_STEP_CALLS["clustered_bcsr"], peak_bw, peak_f32)
+    bcsr_calls += time_slot_calls(torch, sp, timer, "clustered_bcsr_slot", cb_mask_row, STEP_CALLS["clustered_bcsr_slot"], peak_bw, peak_f32)
+    del timer, ragged_bcsr, empty_bcsr
+    emit({"phase": "bcsr_kernel_times", "card": card, "l2_flushed": True, "calls": bcsr_calls})
+    calls += bcsr_calls
+
+    # 9. the BCSR path and its profile
+    def structure_info(st):
+        return {"tiles": st.num_tiles, "chunks": st.num_chunks, "blocks_stored": st.num_blocks, "blocks_nonzero": st.tile_blocks.numel()}
+
+    path_launches["bcsr"] = blocksparse_path(
+        torch,
+        counters,
+        card,
+        b_batch,
+        lambda d: GINetBlockSparse(BCSR["feat"], 2, BCSR["edge_dim"], device=d, generator=torch.Generator().manual_seed(0)),
+        {"diag_kernel": 0, "pool_bwd_kernel": 0, "slot_fwd_kernel": 0, "slot_bwd_kernel": 0, "bcsr_spmm_kernel": 4 * BCSR_STEPS + 2},
+        dev,
+        "main_path_bcsr",
+        {
+            "model": "GINetBlockSparse(38, 2, 6)",
+            "batch": {**BCSR, "structure": structure_info(b_batch.structure)},
+            "collate_s": bcsr_collate_s,
+            "undirected_edges": int(entry["edge_index"].shape[0]),
+        },
+    )
+    del b_batch
+
+    # 10. the clustered BCSR path and its profile
+    path_launches["clustered_bcsr"] = blocksparse_path(
+        torch,
+        counters,
+        card,
+        cb_batch,
+        lambda d: GINetClusteredBlockSparse(CLUSTERED_BCSR["feat"], 2, CLUSTERED_BCSR["edge_dim"], device=d, generator=torch.Generator().manual_seed(0)),
+        {"diag_kernel": 0, "pool_bwd_kernel": 0, "slot_fwd_kernel": BCSR_STEPS + 1, "slot_bwd_kernel": BCSR_STEPS, "bcsr_spmm_kernel": 4 * BCSR_STEPS + 2},
+        dev,
+        "main_path_clustered_bcsr",
+        {
+            "model": "GINetClusteredBlockSparse(38, 2, 1)",
+            "batch": {
+                **CLUSTERED_BCSR,
+                "structure": structure_info(cb_batch.structure),
+                "structure_p": structure_info(cb_batch.structure_p),
+                "members0s": list(cb_batch.members0s.shape),
+                "members1": list(cb_batch.members1.shape),
+            },
+            "collate_s": clustered_bcsr_collate_s,
+            "undirected_edges": int(c_entry["edge_index"].shape[0]),
+        },
+        flips=lambda *a: bcsr_winner_flips(torch, bs, *a),
+    )
+    del cb_batch
 
     emit({"kernels": kernels_line(calls, path_launches, checks.errs)})
     print(card_line(), flush=True)

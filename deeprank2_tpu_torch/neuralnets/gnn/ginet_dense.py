@@ -64,13 +64,19 @@ class GINetDense(nn.Module):
         self.fc1 = dnn.init_linear(2 * 32, 128, generator=gen, device=dev)
         self.fc2 = dnn.init_linear(128, output_shape, generator=gen, device=dev)
 
+    def fused_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The conv layers' weights with the towers fused, in torch's
+        ``[out, in]`` layout: ``w1ᵀ = [w1aᵀ ; w1bᵀ]`` (32 x F) and
+        ``w2ᵀ = blockdiag(w2aᵀ, w2bᵀ)`` (64 x 32: tower a reads channels 0-15,
+        tower b 16-31). The conv fc maps carry no bias."""
+        w1_t = torch.cat([self.conv1["fc"].weight, self.conv1_ext["fc"].weight], dim=0)
+        w2_t = torch.block_diag(self.conv2["fc"].weight, self.conv2_ext["fc"].weight)
+        return w1_t, w2_t
+
     def forward(self, batch: DenseGraphBatch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
         """Logits ``[G, output_shape]``. Dropout (rate 0.4) runs only when
         ``training`` and a ``generator`` on the batch's device are given."""
-        # weight-side tower fusion in torch's [out, in] layout:
-        # w1ᵀ = [w1aᵀ ; w1bᵀ] (32 x F), w2ᵀ = blockdiag(w2aᵀ, w2bᵀ) (64 x 32)
-        w1_t = torch.cat([self.conv1["fc"].weight, self.conv1_ext["fc"].weight], dim=0)
-        w2_t = torch.block_diag(self.conv2["fc"].weight, self.conv2_ext["fc"].weight)
+        w1_t, w2_t = self.fused_weights()
         h = diag_layer_t(batch.adj_i8, batch.node_mask, w1_t @ batch.x_t)  # [32, G*N]
         pooled = diag_layer_pool_t(batch.adj_i8, batch.node_mask, w2_t @ h)  # [64, G]
         counts = batch.node_mask.sum(dim=1).to(pooled.dtype).clamp_min(1.0)
@@ -97,10 +103,7 @@ class GINetClusteredDiag(GINetDense):
     def forward(self, batch: DiagClusteredBatch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
         """Logits ``[G, output_shape]``. Dropout (rate 0.4) runs only when
         ``training`` and a ``generator`` on the batch's device are given."""
-        # the conv fc maps carry no bias; the towers fuse on the weight side
-        # (w2 block-diagonal: tower a reads pooled channels 0-15, tower b 16-31)
-        w1_t = torch.cat([self.conv1["fc"].weight, self.conv1_ext["fc"].weight], dim=0)
-        w2_t = torch.block_diag(self.conv2["fc"].weight, self.conv2_ext["fc"].weight)
+        w1_t, w2_t = self.fused_weights()
         h_t = diag_layer_t(batch.adj_i8, batch.node_mask, w1_t @ batch.x_t)  # [32, G*N]
         hp_t = diag_depth0_pool(h_t, batch)  # [32, G*K]
         h2_t = diag_layer_t(batch.adj_p_i8, batch.pooled_mask, w2_t @ hp_t)  # [64, G*K]

@@ -1,13 +1,17 @@
-"""Block-dense graph batches (port of ``deeprank2_tpu/ops/batch.py``:
-``bucket_size``, ``DenseGraphBatch``, ``collate_graphs_dense``, and the
-clustered ``DiagClusteredBatch`` with ``collate_graphs_diag_clustered``).
+"""Graph batches (port of ``deeprank2_tpu/ops/batch.py``: ``bucket_size``,
+``DenseGraphBatch``, ``collate_graphs_dense``, the clustered
+``DiagClusteredBatch`` with ``collate_graphs_diag_clustered``, and the
+block-sparse ``BlockSparseBatch`` and ``ClusteredBlockSparseBatch`` with
+their collates).
 
 The batch adjacency of collated graphs is block-diagonal: with graphs padded
 to ``N`` nodes, graph ``g`` owns rows and columns ``[g*N, (g+1)*N)`` and no
 edge crosses graphs. The aggregation therefore runs per graph on an int8 0/1
 adjacency ``[G, N, N]`` against node features kept flat and transposed,
 ``x_t [F, G*N]`` (ops/diag_spmm.py). Edges are mirrored, so every adjacency
-block is symmetric.
+block is symmetric. Graphs too large for ``[G, N, N]`` (atomic resolution)
+collate block-sparse instead: locality-ordered, tile-padded and concatenated,
+with one BCSR adjacency over the whole batch (ops/block_sparse.py).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from deeprank2_tpu_torch.device import resolve_device
+from deeprank2_tpu_torch.ops.block_sparse import DEFAULT_BLOCK, BlockSparseStructure, build_blocksparse, locality_order
 
 
 def bucket_size(n: int, quantum: int = 128) -> int:
@@ -223,8 +228,6 @@ def _cluster_geometry(entry: dict, block: int) -> dict:
     """Shared first half of the slot8 and mixed plans: cluster sizes, the
     cluster locality order (by centroid) and each node's rank inside its
     cluster (by the node locality order)."""
-    from deeprank2_tpu_torch.ops.block_sparse import locality_order
-
     v = entry["x"].shape[0]
     pos = np.asarray(entry["pos"], dtype=np.float64)
     c0 = np.asarray(entry["cluster0"], dtype=np.int64)
@@ -352,6 +355,15 @@ def _fill_graph(entry: dict, g: int, posmap, pslot_of_c0, x, adj, adj_p, node_ma
         adj_p[g, cj[keep], ci[keep]] = 1
 
 
+def _num_graphs(entries: list[dict], pad_graphs: int | None) -> tuple[int, list[str]]:
+    num_real = len(entries)
+    num_graphs = pad_graphs or num_real
+    if num_real > num_graphs:
+        msg = f"{num_real} entries exceed pad_graphs={num_graphs}"
+        raise ValueError(msg)
+    return num_graphs, [e["entry_name"] for e in entries] + [""] * (num_graphs - num_real)
+
+
 def _targets(entries: list[dict], num_graphs: int) -> tuple[np.ndarray, np.ndarray]:
     y = np.zeros(num_graphs, dtype=np.float32)
     y_mask = np.zeros(num_graphs, dtype=bool)
@@ -410,12 +422,7 @@ def collate_graphs_diag_clustered(
         msg = "edge-weighted clustered batches (sGAT) are not ported yet"
         raise NotImplementedError(msg)
     dev = resolve_device(device)
-    num_real = len(entries)
-    num_graphs = pad_graphs or num_real
-    if num_real > num_graphs:
-        msg = f"{num_real} entries exceed pad_graphs={num_graphs}"
-        raise ValueError(msg)
-    names = [e["entry_name"] for e in entries] + [""] * (num_graphs - num_real)
+    num_graphs, names = _num_graphs(entries, pad_graphs)
     feat_dim = entries[0]["x"].shape[1]
 
     if min_slot_nodes is None:
@@ -647,3 +654,295 @@ def diag_clustered_requirements(entries: list[dict], min_slot_nodes: int = 1) ->
         "members0s_s": max(p["max_slots"] for p in plans),
         "members1_s": s1,
     }
+
+
+# ---------------------------------------------------------------------------
+# Block-sparse batches (port of ``BlockSparseBatch``, ``blocksparse_layout``,
+# ``collate_graphs_blocksparse``, ``ClusteredBlockSparseBatch`` and
+# ``collate_graphs_blocksparse_clustered``)
+
+
+def _tensors(dev: torch.device, **arrays) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in arrays.items()}
+
+
+@dataclass
+class BlockSparseBatch:
+    """A batch of large graphs in the block-sparse layout (ops/block_sparse.py).
+
+    Nodes of each graph are locality-ordered, padded to a whole number of
+    128-node tiles (so no adjacency block spans two graphs) and concatenated:
+    the layout of atomic-resolution graphs, too big for ``[G, N, N]``."""
+
+    x: torch.Tensor  # f32 [NT*B, F] node features in locality order (padded rows 0)
+    pos: torch.Tensor  # f32 [NT*B, 3]
+    node_graph: torch.Tensor  # i32 [NT*B] graph id per node; padded = G
+    node_mask: torch.Tensor  # bool [NT*B]
+    y: torch.Tensor  # f32 [G]
+    y_mask: torch.Tensor  # bool [G]
+    structure: BlockSparseStructure  # BCSR adjacency over all NT tiles
+    num_graphs: int
+
+    _STATIC = ("num_graphs",)
+
+    @property
+    def num_nodes(self) -> int:
+        return self.x.shape[0]
+
+    def to(self, device: str | torch.device) -> BlockSparseBatch:
+        """A copy of the batch on ``device``."""
+        dev = resolve_device(device)
+        return type(self)(**{k: getattr(self, k) if k in self._STATIC else getattr(self, k).to(dev) for k in self.__dataclass_fields__})
+
+
+def blocksparse_layout(entries: list[dict], block: int = 128, num_graphs: int | None = None, plans: list[dict] | None = None) -> dict:
+    """The locality pass of the block-sparse collates: per entry its locality
+    order, tile-padded copies of its features, positions, graph ids and mask,
+    and its undirected pairs remapped to batch rows.
+
+    ``plans`` (the slot8 layout, :func:`_slot8_plan`) override the row
+    placement: ``posmap`` maps an original node to its row (holes are
+    intra-cluster padding rows) and ``cap`` is the entry's row capacity."""
+    num_graphs = len(entries) if num_graphs is None else num_graphs
+    feat_dim = entries[0]["x"].shape[1] if entries else 0
+    xs, poss, graph_ids, masks, pairs, orders = [], [], [], [], [], []
+    offset = 0
+    for g, entry in enumerate(entries):
+        v = entry["x"].shape[0]
+        if plans is not None:
+            posmap, cap = plans[g]["posmap"], plans[g]["cap"]
+            order = None
+        else:
+            order = locality_order(entry["pos"]) if v > block else np.arange(v)
+            posmap = np.empty(v, dtype=np.int64)
+            posmap[order] = np.arange(v)
+            cap = -(-v // block) * block
+        und = np.asarray(entry["edge_index"], dtype=np.int64).reshape(-1, 2)
+        pairs.append(posmap[und] + offset)
+        orders.append(order)
+        x = np.zeros((cap, feat_dim), dtype=np.float32)
+        x[posmap] = entry["x"]
+        pos = np.zeros((cap, 3), dtype=np.float32)
+        pos[posmap] = entry["pos"]
+        gid = np.full(cap, num_graphs, dtype=np.int32)
+        gid[posmap] = g
+        m = np.zeros(cap, dtype=bool)
+        m[posmap] = True
+        xs.append(x)
+        poss.append(pos)
+        graph_ids.append(gid)
+        masks.append(m)
+        offset += cap
+    return {
+        "xs": xs,
+        "poss": poss,
+        "graph_ids": graph_ids,
+        "masks": masks,
+        "pairs": np.concatenate(pairs) if pairs else np.zeros((0, 2), np.int64),
+        "num_tiles": max(offset // block, 1),
+        "feat_dim": feat_dim,
+        "orders": orders,  # the clustered collate remaps cluster ids through these
+    }
+
+
+def collate_graphs_blocksparse(
+    entries: list[dict], pad_graphs: int | None = None, device: str | torch.device | None = None
+) -> tuple[BlockSparseBatch, list[str]]:
+    """Collate entries (``x``, ``pos``, ``edge_index``, ``y``,
+    ``entry_name``) into a :class:`BlockSparseBatch` on ``device`` (CUDA
+    unless ``"cpu"`` is asked for); ``pad_graphs`` adds empty graphs. Tile
+    and block capacity buckets (the Trainer's) are not ported yet."""
+    dev = resolve_device(device)
+    num_graphs, names = _num_graphs(entries, pad_graphs)
+    layout = blocksparse_layout(entries, DEFAULT_BLOCK, num_graphs)
+    structure = build_blocksparse(layout["pairs"], num_nodes=layout["num_tiles"] * DEFAULT_BLOCK, device=dev)
+    y, y_mask = _targets(entries, num_graphs)
+    arrays = _tensors(
+        dev,
+        x=np.concatenate(layout["xs"]),
+        pos=np.concatenate(layout["poss"]),
+        node_graph=np.concatenate(layout["graph_ids"]),
+        node_mask=np.concatenate(layout["masks"]),
+        y=y,
+        y_mask=y_mask,
+    )
+    return BlockSparseBatch(**arrays, structure=structure, num_graphs=num_graphs), names
+
+
+@dataclass
+class ClusteredBlockSparseBatch(BlockSparseBatch):
+    """Block-sparse batch for the clustered models at atomic scale: the full
+    graph and its depth-0 community-pooled graph both ride BCSR adjacencies,
+    and every cluster lookup is built at collate.
+
+    Pooled-node rows live in their own locality order; ``cluster0`` maps a
+    full-graph row to its pooled slot. The member matrices serve the
+    scatter-free max pools (ops/pooling.py:member_max_pool); shape (0, 0)
+    means "use the segment max" (one pathological cluster). The slot8 fields
+    are empty in the plain layout. The edge-weighted fields of the JAX batch
+    (``wsum``, ``wsum_p``) belong to the sGAT slice and are not collated."""
+
+    deg: torch.Tensor  # f32 [NT*B] full-graph neighbour counts
+    cluster0: torch.Tensor  # i32 [NT*B] row -> pooled slot; padded = NTp*B
+    structure_p: BlockSparseStructure  # pooled-graph adjacency (distinct cluster pairs)
+    deg_p: torch.Tensor  # f32 [NTp*B] pooled neighbour counts
+    pooled_node_graph: torch.Tensor  # i32 [NTp*B]; padded = G
+    pooled_node_mask: torch.Tensor  # bool [NTp*B]
+    cluster1: torch.Tensor  # i32 [NTp*B] pooled slot -> depth-1 slot; padded = C1
+    c1_graph: torch.Tensor  # i32 [C1] graph id per depth-1 slot; padded = G
+    members0: torch.Tensor  # i32 [NTp*B, S0] rows per pooled slot; pad = NT*B
+    members1: torch.Tensor  # i32 [C1, S1] pooled slots per depth-1 slot; pad = NTp*B
+    slot_cluster: torch.Tensor  # i32 [NT*B/8] slot8: slot -> pooled slot; padding = NTp*B
+    members0s: torch.Tensor  # i32 [NTp*B, S0s] slot8: slots per pooled slot; pad = NT*B/8
+
+
+# column tiles per chunk of the clustered collate's full-graph structure (its
+# consumers contract at F <= 32, so the JAX kernel's chunk is twice the default)
+_CLUSTERED_CHUNK_TILES = 640
+
+
+def collate_graphs_blocksparse_clustered(
+    entries: list[dict],
+    pad_graphs: int | None = None,
+    with_edge_weights: bool = False,
+    slot8: bool = False,
+    device: str | torch.device | None = None,
+) -> tuple[ClusteredBlockSparseBatch, list[str]]:
+    """Collate entries (``x``, ``pos``, ``edge_index``, ``cluster0``,
+    ``cluster1``, ``y``, ``entry_name``) into a
+    :class:`ClusteredBlockSparseBatch` on ``device`` (CUDA unless ``"cpu"``
+    is asked for).
+
+    The pooled graph keeps distinct cluster pairs and drops self-loop pairs.
+    ``slot8`` lays nodes out cluster-major in 8-lane slots
+    (:func:`_slot8_plan`), fills ``slot_cluster``/``members0s`` for the slot
+    max-pool kernels and rounds the node capacity to whole groups of 8 tiles.
+    Edge-weighted batches (sGAT) and capacity buckets are not ported yet."""
+    if with_edge_weights:
+        msg = "edge-weighted clustered block-sparse batches (sGAT) are not ported yet"
+        raise NotImplementedError(msg)
+    dev = resolve_device(device)
+    block = DEFAULT_BLOCK
+    num_graphs, names = _num_graphs(entries, pad_graphs)
+    plans = [_slot8_plan(e, block) for e in entries] if slot8 else None
+    layout = blocksparse_layout(entries, block, num_graphs, plans=plans)
+
+    cluster0_cols, pooled_graph_ids, pooled_masks, cluster1_cols, c1_graphs, pooled_pairs, slot_cols = [], [], [], [], [], [], []
+    p_offset = c1_off = 0
+    for g, entry in enumerate(entries):
+        v = entry["x"].shape[0]
+        c0 = np.asarray(entry["cluster0"], dtype=np.int64)
+        c1 = np.asarray(entry["cluster1"], dtype=np.int64)
+        if c0.shape[0] != v:
+            msg = f"cluster0 has {c0.shape[0]} entries for {v} nodes"
+            raise ValueError(msg)
+        n_c0 = int(c0.max()) + 1 if c0.size else 0
+        if c1.shape[0] != n_c0:
+            msg = f"cluster1 has {c1.shape[0]} entries for {n_c0} depth-0 clusters"
+            raise ValueError(msg)
+        n_c1 = int(c1.max()) + 1 if c1.size else 0
+
+        if slot8:
+            plan = plans[g]
+            p_order, p_inv = plan["p_order"], plan["p_inv"]
+            col = np.full(plan["cap"], -1, dtype=np.int64)
+            col[plan["posmap"]] = p_inv[c0] + p_offset
+            slot_cols.append(np.where(plan["slot_col"] >= 0, plan["slot_col"] + p_offset, -1))
+        else:
+            # pooled locality order from the cluster mean positions
+            pos = np.asarray(entry["pos"], dtype=np.float64)
+            psum = np.zeros((n_c0, 3))
+            np.add.at(psum, c0, pos)
+            pmean = psum / np.maximum(np.bincount(c0, minlength=n_c0).astype(np.float64), 1.0)[:, None]
+            p_order = locality_order(pmean) if n_c0 > block else np.arange(n_c0)
+            p_inv = np.empty(n_c0, dtype=np.int64)
+            p_inv[p_order] = np.arange(n_c0)
+            col = np.full(-(-v // block) * block, -1, dtype=np.int64)
+            col[:v] = p_inv[c0[layout["orders"][g]]] + p_offset
+        cluster0_cols.append(col)
+
+        p_cap = max(-(-n_c0 // block) * block, block)
+        pg = np.full(p_cap, num_graphs, dtype=np.int32)
+        pg[:n_c0] = g
+        pooled_graph_ids.append(pg)
+        pooled_masks.append(np.arange(p_cap) < n_c0)
+        c1_col = np.full(p_cap, -1, dtype=np.int64)
+        c1_col[:n_c0] = c1[p_order] + c1_off
+        cluster1_cols.append(c1_col)
+        # only depth-1 ids hit by a pooled node count toward the graph mean
+        cg = np.full(n_c1, -1, dtype=np.int64)
+        if c1.size:
+            cg[np.unique(c1)] = g
+        c1_graphs.append(cg)
+
+        # pooled edges: member edges mapped to clusters, self-loops dropped, coalesced
+        und = np.asarray(entry["edge_index"], dtype=np.int64).reshape(-1, 2)
+        pi, pj = p_inv[c0[und[:, 0]]], p_inv[c0[und[:, 1]]]
+        keep = pi != pj
+        lo, hi = np.minimum(pi[keep], pj[keep]), np.maximum(pi[keep], pj[keep])
+        uniq_key = np.unique(lo * p_cap + hi)
+        pooled_pairs.append(np.stack([uniq_key // p_cap, uniq_key % p_cap], axis=1) + p_offset)
+        p_offset += p_cap
+        c1_off += n_c1
+
+    pooled_cap = max(p_offset // block, 1) * block
+    if slot8:
+        # whole groups of 8 tiles (1024 lanes), as the JAX slot kernel's grid wants
+        extra = (-(-layout["num_tiles"] // 8) * 8 - layout["num_tiles"]) * block
+        layout["xs"].append(np.zeros((extra, layout["feat_dim"]), np.float32))
+        layout["poss"].append(np.zeros((extra, 3), np.float32))
+        layout["graph_ids"].append(np.full(extra, num_graphs, np.int32))
+        layout["masks"].append(np.zeros(extra, bool))
+        layout["num_tiles"] += extra // block
+        cluster0_cols.append(np.full(extra, -1, np.int64))
+        slot_cols.append(np.full(extra // 8, -1, np.int64))
+    node_cap = layout["num_tiles"] * block
+    c1_cap = max(c1_off, 1)
+
+    cluster0 = np.concatenate(cluster0_cols)
+    cluster0 = np.where(cluster0 < 0, pooled_cap, cluster0).astype(np.int32)
+    cluster1 = np.concatenate(cluster1_cols)
+    cluster1 = np.where(cluster1 < 0, c1_cap, cluster1).astype(np.int32)
+    c1_graph = np.full(c1_cap, num_graphs, dtype=np.int32)
+    if c1_graphs:
+        cg = np.concatenate(c1_graphs)
+        c1_graph[: len(cg)] = np.where(cg < 0, num_graphs, cg)
+
+    pairs = layout["pairs"]
+    structure = build_blocksparse(pairs, num_nodes=node_cap, chunk_tiles=_CLUSTERED_CHUNK_TILES, device=dev)
+    p_pairs = np.concatenate(pooled_pairs) if pooled_pairs else np.zeros((0, 2), np.int64)
+    structure_p = build_blocksparse(p_pairs, num_nodes=pooled_cap, device=dev)
+    deg = np.zeros(node_cap, dtype=np.float32)
+    np.add.at(deg, pairs.reshape(-1), 1.0)
+    deg_p = np.zeros(pooled_cap, dtype=np.float32)
+    np.add.at(deg_p, p_pairs.reshape(-1), 1.0)
+
+    if slot8:
+        slot_cluster = np.concatenate(slot_cols)
+        slot_cluster = np.where(slot_cluster < 0, pooled_cap, slot_cluster).astype(np.int32)
+        members0s = _member_matrix(slot_cluster, pooled_cap, node_cap // 8)
+    else:
+        slot_cluster = np.zeros(0, np.int32)
+        members0s = np.zeros((0, 0), np.int32)
+    y, y_mask = _targets(entries, num_graphs)
+    arrays = _tensors(
+        dev,
+        x=np.concatenate(layout["xs"]),
+        pos=np.concatenate(layout["poss"]),
+        node_graph=np.concatenate(layout["graph_ids"]),
+        node_mask=np.concatenate(layout["masks"]),
+        y=y,
+        y_mask=y_mask,
+        deg=deg,
+        cluster0=cluster0,
+        deg_p=deg_p,
+        pooled_node_graph=np.concatenate(pooled_graph_ids),
+        pooled_node_mask=np.concatenate(pooled_masks),
+        cluster1=cluster1,
+        c1_graph=c1_graph,
+        members0=_member_matrix(cluster0, pooled_cap, node_cap),
+        members1=_member_matrix(cluster1, c1_cap, pooled_cap),
+        slot_cluster=slot_cluster,
+        members0s=members0s,
+    )
+    return ClusteredBlockSparseBatch(**arrays, structure=structure, structure_p=structure_p, num_graphs=num_graphs), names

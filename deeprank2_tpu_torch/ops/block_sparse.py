@@ -1,16 +1,58 @@
-"""Spatial locality order (port of ``deeprank2_tpu/ops/block_sparse.py``:
-``locality_order`` and ``_CELL`` only).
+"""Block-sparse (BCSR) adjacency SpMM, the large-graph aggregation path (port
+of ``deeprank2_tpu/ops/block_sparse.py``: ``locality_order``,
+``BlockSparseStructure``, ``build_blocksparse`` for the unweighted symmetric
+adjacency, and ``bcsr_spmm``/``bcsr_spmm_t`` over kernel K5).
 
-The clustered collates order clusters and cluster members by this
-permutation, so it must give the JAX package's order bit for bit. The BCSR
-SpMM of that module belongs to a later slice of the port.
+Atomic-resolution graphs (10^4-10^5 nodes) are too large for the dense
+``[G, N, N]`` adjacency. Nodes are ordered by spatial locality
+(:func:`locality_order`), the adjacency is cut into 128 x 128 blocks and
+only the nonzero blocks are kept (about 1-2 % of them on locality-ordered
+atomic graphs), int8 0/1 and stored transposed:
+``blocks_t[k][c, r] = 1`` iff there is an edge from node
+``block_col[k]*128 + c`` to node ``block_row[k]*128 + r``.
+
+The SpMM runs in the transposed layout ``[F, nodes] -> [F, rows]``:
+
+    out[f, r*128 + i] = sum_k sum_c x[f, block_col[k]*128 + c] * blocks_t[k][c, i]
+
+over the blocks ``k`` whose ``block_row`` is ``r`` (the oracle
+``bcsr_spmm_xla``). On a CUDA device it runs in the kernel of
+``csrc/bcsr_spmm.cu`` (``bcsr_spmm_kernel``), which walks each destination
+row tile's nonzero blocks through the per-tile index ``tile_ptr`` /
+``tile_blocks`` built here. Edges are mirrored, so ``A^T = A`` and the VJP
+is the same SpMM applied to the cotangent.
+
+The wrapper takes the plain PyTorch version (``bcsr_spmm_kernel_ref``) for
+tensors on the CPU, launches the kernel for tensors on a CUDA device, and
+raises for anything else; it counts its launches in :data:`launches`.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import ctypes
+from dataclasses import dataclass, fields
 
+import numpy as np
+import torch
+
+from deeprank2_tpu_torch.device import resolve_device
+from deeprank2_tpu_torch.ops import _build
+from deeprank2_tpu_torch.ops.diag_spmm import _require, _route
+
+SOURCE = "bcsr_spmm"
+DEFAULT_BLOCK = 128
+KBATCH = 8  # run-padding quantum: each (chunk, row tile) run is padded to a multiple
+SUPER = 16  # KBATCH sub-batches per step of the JAX kernel's grid: the capacity quantum is KBATCH*SUPER blocks
+CHUNK_TILES = 320  # column tiles per chunk of the JAX kernel's x^T (blocks are sorted by chunk first)
 _CELL = 8.0  # Å — locality-sort cell size (≈ 2x the atomic contact cutoff)
+
+# kernel launches since the last reset_launches(), by kernel
+launches = {"bcsr_spmm_kernel": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
 
 
 def locality_order(positions: np.ndarray, cell: float = _CELL) -> np.ndarray:
@@ -19,3 +61,274 @@ def locality_order(positions: np.ndarray, cell: float = _CELL) -> np.ndarray:
     pos = np.asarray(positions, dtype=np.float64)
     q = np.floor(pos / cell).astype(np.int64)
     return np.lexsort((pos[:, 2], pos[:, 1], pos[:, 0], q[:, 2], q[:, 1], q[:, 0]))
+
+
+@dataclass(frozen=True)
+class BlockSparseStructure:
+    """BCSR adjacency of one (batched) graph, blocks sorted by (column chunk,
+    row tile), on one device.
+
+    The first six fields are the JAX structure's, array for array: each
+    (chunk, row tile) run is zero-padded to a ``kbatch`` multiple, trailing
+    capacity-pad batches route to the last real run, and ``visited`` marks
+    the (chunk, row tile) slabs the TPU kernel writes. ``tile_ptr`` and
+    ``tile_blocks`` are the CUDA kernel's index: the nonzero blocks of row
+    tile ``r`` are ``tile_blocks[tile_ptr[r]:tile_ptr[r + 1]]`` (pad blocks
+    are all zero and left out)."""
+
+    blocks_t: torch.Tensor  # int8 [NB, B, B] (entries 0/1), NB a kbatch*super_batches multiple
+    block_row: torch.Tensor  # i32 [NB] destination row tile (zero pads keep their run's row)
+    block_col: torch.Tensor  # i32 [NB] source column tile (zero pads: first tile of their chunk)
+    batch_row: torch.Tensor  # i32 [NB/kbatch] destination row tile per batch
+    batch_chunk: torch.Tensor  # i32 [NB/kbatch] source column chunk per batch
+    visited: torch.Tensor  # bool [C, R] (chunk, row tile) slabs holding a run
+    tile_ptr: torch.Tensor  # i32 [R + 1] start of each row tile's blocks in tile_blocks
+    tile_blocks: torch.Tensor  # i32 [nonzero blocks] block ids by (row tile, chunk, column tile)
+    num_tiles: int
+    num_chunks: int
+    block: int
+    num_row_tiles: int
+    symmetric: bool
+    kbatch: int
+    super_batches: int
+    chunk_tiles: int
+
+    _STATIC = ("num_tiles", "num_chunks", "block", "num_row_tiles", "symmetric", "kbatch", "super_batches", "chunk_tiles")
+
+    @property
+    def num_blocks(self) -> int:
+        return self.blocks_t.shape[0]
+
+    @property
+    def padded_nodes(self) -> int:
+        return self.num_tiles * self.block
+
+    @property
+    def padded_rows(self) -> int:
+        return self.num_row_tiles * self.block
+
+    def to(self, device: str | torch.device) -> BlockSparseStructure:
+        """A copy of the structure on ``device``."""
+        dev = resolve_device(device)
+        return BlockSparseStructure(**{f.name: getattr(self, f.name) if f.name in self._STATIC else getattr(self, f.name).to(dev) for f in fields(self)})
+
+
+def build_blocksparse(
+    und_pairs: np.ndarray,
+    num_nodes: int,
+    block: int = DEFAULT_BLOCK,
+    kbatch: int | None = None,
+    super_batches: int | None = None,
+    chunk_tiles: int | None = None,
+    device: str | torch.device | None = None,
+) -> BlockSparseStructure:
+    """BCSR structure from *undirected* node-index pairs (mirrored here, so
+    the adjacency is symmetric), on ``device`` (CUDA unless ``"cpu"`` is
+    asked for). Node indices must already be in the locality order;
+    ``num_nodes`` is rounded up to a whole number of tiles. The weighted
+    adjacency (sGAT), row and column slices (the parallel paths) and
+    capacity padding (the Trainer's buckets) are not ported yet."""
+    dev = resolve_device(device)
+    und = np.asarray(und_pairs, dtype=np.int64).reshape(-1, 2)
+    num_tiles = max(-(-num_nodes // block), 1)
+    rows = np.concatenate([und[:, 0], und[:, 1]])
+    cols = np.concatenate([und[:, 1], und[:, 0]])
+    if rows.size and (rows.max() >= num_nodes or rows.min() < 0):
+        msg = f"edge index out of range: max {rows.max()} for {num_nodes} nodes"
+        raise ValueError(msg)
+
+    bi, bj = rows // block, cols // block
+    num_row_tiles = num_tiles
+    ct = chunk_tiles or CHUNK_TILES
+    num_chunks = -(-num_tiles // ct)
+    chunk = bj // ct
+    key = (chunk * num_row_tiles + bi) * num_tiles + bj
+    order = np.argsort(key, kind="stable")
+    uniq_key, inverse_sorted = np.unique(key[order], return_inverse=True)
+    nb = len(uniq_key)
+
+    uniq_col = (uniq_key % num_tiles).astype(np.int32)
+    uniq_row = ((uniq_key // num_tiles) % num_row_tiles).astype(np.int32)
+    uniq_chunk = (uniq_key // (num_tiles * num_row_tiles)).astype(np.int32)
+
+    # one group = one (chunk, row tile) run, padded to a kbatch multiple with
+    # zero blocks so that the JAX kernel's batches never straddle runs
+    kb = kbatch or KBATCH
+    group_key = uniq_chunk.astype(np.int64) * num_row_tiles + uniq_row
+    group_ids, group_counts = np.unique(group_key, return_counts=True)
+    pad_counts = -(-group_counts // kb) * kb
+    group_start = np.concatenate([[0], np.cumsum(pad_counts)])[:-1]
+    nb_pad = max(int(pad_counts.sum()), kb)
+    sb = super_batches or SUPER
+    cap = -(-nb_pad // (kb * sb)) * (kb * sb)
+
+    blocks = np.zeros((cap, block, block), dtype=np.int8)
+    block_row = np.zeros(cap, dtype=np.int32)
+    block_col = np.zeros(cap, dtype=np.int32)
+    block_chunk = np.zeros(cap, dtype=np.int32)
+    visited = np.zeros((num_chunks, num_row_tiles), dtype=bool)
+    for gi, g in enumerate(group_ids):
+        g_chunk, g_row = int(g // num_row_tiles), int(g % num_row_tiles)
+        s, c = group_start[gi], pad_counts[gi]
+        block_row[s : s + c] = g_row
+        block_chunk[s : s + c] = g_chunk
+        block_col[s : s + c] = g_chunk * ct  # zero pads point into their chunk
+        visited[g_chunk, g_row] = True
+
+    # slot of each unique block: its group's start plus its rank inside
+    rank = np.arange(nb) - np.searchsorted(group_key, group_key, side="left")
+    slot = (group_start[np.searchsorted(group_ids, group_key)] + rank) if nb else np.zeros(0, np.int64)
+    block_col[slot] = uniq_col
+
+    k = np.empty(len(key), dtype=np.int64)
+    k[order] = slot[inverse_sorted]
+    if len(key):
+        blocks[k, cols % block, rows % block] = 1  # transposed fill: [slot, col within, row within]
+
+    batch_row = block_row[::kb].astype(np.int32)
+    batch_chunk = block_chunk[::kb].astype(np.int32)
+    # trailing capacity-pad batches route to the last real batch's run, and
+    # their block_col points into that run's chunk
+    nbatch_real = nb_pad // kb
+    batch_row[nbatch_real:] = batch_row[max(nbatch_real - 1, 0)]
+    batch_chunk[nbatch_real:] = batch_chunk[max(nbatch_real - 1, 0)]
+    block_col[nb_pad:] = batch_chunk[max(nbatch_real - 1, 0)] * ct
+    if nb == 0:
+        visited[0, 0] = True  # the JAX kernel's artificial zero batch writes slab (0, 0)
+
+    # the CUDA kernel's index: the real blocks of each row tile, by (row, chunk, column)
+    by_row = np.lexsort((slot, uniq_row)) if nb else np.zeros(0, np.int64)
+    tile_blocks = slot[by_row].astype(np.int32)
+    tile_ptr = np.zeros(num_row_tiles + 1, dtype=np.int32)
+    tile_ptr[1:] = np.cumsum(np.bincount(uniq_row, minlength=num_row_tiles))
+
+    arrays = {
+        "blocks_t": blocks,
+        "block_row": block_row,
+        "block_col": block_col,
+        "batch_row": batch_row,
+        "batch_chunk": batch_chunk,
+        "visited": visited,
+        "tile_ptr": tile_ptr,
+        "tile_blocks": tile_blocks,
+    }
+    return BlockSparseStructure(
+        **{name: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for name, a in arrays.items()},
+        num_tiles=num_tiles,
+        num_chunks=num_chunks,
+        block=block,
+        num_row_tiles=num_row_tiles,
+        symmetric=True,
+        kbatch=kb,
+        super_batches=sb,
+        chunk_tiles=ct,
+    )
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library(SOURCE)
+    if lib.bcsr_spmm_kernel.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.bcsr_spmm_kernel.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.bcsr_spmm_kernel.restype = i
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# K5: bcsr_spmm_kernel (replaces deeprank2_tpu/ops/block_sparse.py:_kernel_stream)
+
+
+def bcsr_spmm_kernel_ref(structure: BlockSparseStructure, x_t: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bcsr_spmm_kernel` (the JAX
+    ``bcsr_spmm_xla`` in the transposed layout): gather the source tiles, one
+    batched block product, then a sum over ``block_row``."""
+    nt, b = structure.num_tiles, structure.block
+    f = x_t.shape[0]
+    gathered = x_t.reshape(f, nt, b)[:, structure.block_col.long().clamp(0, nt - 1)]  # [F, NB, c]
+    prod = torch.einsum("kcr,fkc->fkr", structure.blocks_t.to(x_t.dtype), gathered)  # [F, NB, r]
+    out = x_t.new_zeros((f, structure.num_row_tiles, b)).index_add(1, structure.block_row.long(), prod)
+    return out.reshape(f, structure.padded_rows)
+
+
+def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` in the transposed layout: ``x_t [F, padded_nodes]`` (f32)
+    to ``[F, padded_rows]``, exact up to summation order."""
+    if x_t.dim() != 2:
+        msg = f"expected x_t [F, padded_nodes], got shape {tuple(x_t.shape)}"
+        raise ValueError(msg)
+    f = x_t.shape[0]
+    dev = x_t.device
+    _require(x_t, "x_t", torch.float32, (f, structure.padded_nodes), dev)
+    nb, b = structure.num_blocks, structure.block
+    _require(structure.blocks_t, "blocks_t", torch.int8, (nb, b, b), dev)
+    for name in ("block_col", "tile_ptr", "tile_blocks"):
+        t = getattr(structure, name)
+        _require(t, name, torch.int32, tuple(t.shape), dev)
+    if not _route(dev):
+        return bcsr_spmm_kernel_ref(structure, x_t)
+    if b != DEFAULT_BLOCK:
+        msg = f"the CUDA kernel takes {DEFAULT_BLOCK}-node blocks, got {b}"
+        raise ValueError(msg)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        out = torch.empty((f, structure.padded_rows), dtype=torch.float32, device=dev)
+        code = lib.bcsr_spmm_kernel(
+            structure.blocks_t.data_ptr(),
+            structure.block_col.data_ptr(),
+            structure.tile_ptr.data_ptr(),
+            structure.tile_blocks.data_ptr(),
+            x_t.data_ptr(),
+            out.data_ptr(),
+            structure.num_row_tiles,
+            f,
+            structure.padded_nodes,
+            structure.padded_rows,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(lib, code, "bcsr_spmm_kernel")
+    launches["bcsr_spmm_kernel"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Differentiable SpMM (the JAX package's custom_vjp functions)
+
+
+class _BcsrSpmmT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_t, structure):
+        ctx.structure = structure
+        return bcsr_spmm_kernel(structure, x_t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return bcsr_spmm_kernel(ctx.structure, grad.contiguous()), None
+
+
+def _check_width(structure: BlockSparseStructure, width: int, what: str) -> None:
+    if width != structure.padded_nodes:
+        msg = f"{what} has {width} nodes; the structure expects {structure.padded_nodes}"
+        raise ValueError(msg)
+
+
+def bcsr_spmm_t(structure: BlockSparseStructure, x_t: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` with transposed ``[F, padded_nodes] -> [F, padded_rows]``
+    input and output (the layout the kernel computes in), differentiable
+    w.r.t. ``x_t``: the VJP is the same SpMM of the cotangent (A is
+    symmetric)."""
+    _check_width(structure, x_t.shape[1], "x_t")
+    return _BcsrSpmmT.apply(x_t, structure)
+
+
+def bcsr_spmm_t_ref(structure: BlockSparseStructure, x_t: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bcsr_spmm_t` (autograd through the
+    gather, einsum and index_add)."""
+    _check_width(structure, x_t.shape[1], "x_t")
+    return bcsr_spmm_kernel_ref(structure, x_t)
+
+
+def bcsr_spmm(structure: BlockSparseStructure, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` for row-major ``x [padded_nodes, F]``: :func:`bcsr_spmm_t`
+    between two transposes."""
+    _check_width(structure, x.shape[0], "x")
+    return _BcsrSpmmT.apply(x.T.contiguous(), structure).T

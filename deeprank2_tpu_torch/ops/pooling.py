@@ -1,6 +1,5 @@
-"""Community pooling for the graph-diagonal clustered batches (port of
-``deeprank2_tpu/ops/pooling.py``: ``member_max_pool`` and
-``diag_depth0_pool``).
+"""Community and graph pooling (port of ``deeprank2_tpu/ops/pooling.py``:
+``member_max_pool``, ``diag_depth0_pool`` and ``tiled_graph_mean_pool``).
 
 Conventions, as in the JAX package: cluster ids are batch-global and below
 the capacity; padded rows carry out-of-range ids. Pooled features are
@@ -12,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from deeprank2_tpu_torch.ops.segment import segment_max
+from deeprank2_tpu_torch.ops.segment import segment_max, segment_sum
 from deeprank2_tpu_torch.ops.slotpool import slot_group_max
 
 
@@ -101,3 +100,21 @@ def diag_depth0_pool(h_t: torch.Tensor, batch) -> torch.Tensor:
     if hp3.shape[2] < k_cap:
         hp3 = torch.nn.functional.pad(hp3, (0, k_cap - hp3.shape[2]))
     return hp3.reshape(f, num_graphs * k_cap)
+
+
+def tiled_graph_mean_pool(h_t: torch.Tensor, node_graph: torch.Tensor, node_mask: torch.Tensor, num_graphs: int, block: int = 128) -> torch.Tensor:
+    """Per-graph masked feature mean for the block-sparse layouts, ``[G, F]``.
+
+    ``h_t [F, NT*B]`` (padded columns zero), ``node_graph [NT*B]`` (padding
+    ``>= num_graphs``) and ``node_mask [NT*B]``. The block-sparse collates
+    never let a 128-node tile span two graphs, so the sum factorizes: one sum
+    per tile, then a scatter of the ``NT`` tile partials only."""
+    f, vpad = h_t.shape
+    nt = vpad // block
+    tile_sums = h_t.reshape(f, nt, block).sum(dim=2)  # [F, NT]
+    gid = torch.where(node_mask, node_graph, torch.full_like(node_graph, num_graphs)).reshape(nt, block)
+    tile_graph = gid.amin(dim=1)  # empty tiles carry num_graphs and drop
+    tile_counts = node_mask.reshape(nt, block).sum(dim=1, dtype=torch.float32)
+    sums = segment_sum(tile_sums.T, tile_graph, num_graphs)
+    counts = segment_sum(tile_counts, tile_graph, num_graphs)
+    return sums / counts.clamp_min(1.0)[:, None]

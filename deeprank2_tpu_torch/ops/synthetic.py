@@ -1,7 +1,9 @@
 """Synthetic graph entries shaped like featurized PPI data (benchmarks, smoke
-runs). Numpy-only copies of ``deeprank2_tpu/ops/synthetic.py`` and of the
-clustered PPI generator of ``tests/perf/diag_clustered_perf.py``: the same
-seed gives the same entries in both packages."""
+runs). Numpy-only copies of ``deeprank2_tpu/ops/synthetic.py``, of the
+clustered PPI generator of ``tests/perf/diag_clustered_perf.py`` and of the
+atomic-scale generators of ``tests/perf/blocksparse_perf.py`` and
+``tests/perf/clustered_bcsr_perf.py``: the same seed gives the same entries
+in both packages."""
 
 from __future__ import annotations
 
@@ -76,3 +78,43 @@ def ppi_clustered_entries(num_graphs: int = 512, nodes: int = 160, feat_dim: int
             }
         )
     return entries
+
+
+def geometric_entry(n: int, feat_dim: int = 38, edge_dim: int = 6, seed: int = 0) -> dict:
+    """One atomic-resolution-sized graph: ``n`` points at about protein atom
+    density (0.09 per Å³) in a cube, edges between points closer than 4.5 Å
+    (about 33 directed edges per node)."""
+    from scipy.spatial import cKDTree
+
+    rng = np.random.default_rng(seed)
+    side = (n / 0.09) ** (1 / 3)
+    pos = rng.uniform(0, side, size=(n, 3))
+    pairs = cKDTree(pos).query_pairs(4.5, output_type="ndarray")
+    return {
+        "x": rng.normal(size=(n, feat_dim)).astype(np.float32),
+        "edge_index": pairs.astype(np.int64),
+        "edge_attr": rng.normal(size=(len(pairs), edge_dim)).astype(np.float32),
+        "pos": pos.astype(np.float32),
+        "y": 1.0,
+        "entry_name": "slab",
+    }
+
+
+def clustered_entry(n: int, feat_dim: int = 38, edge_dim: int = 1, seed: int = 0) -> dict:
+    """:func:`geometric_entry` with two-depth spatial clusters: depth-0 by
+    8 Å grid cell, depth-1 by 16 Å cells of the cluster centroids; edge
+    attributes made positive (a scalar edge weight for sGAT)."""
+    entry = geometric_entry(n, feat_dim, edge_dim, seed)
+    pos = entry["pos"]
+    cell0 = np.floor(pos / 8.0).astype(np.int64)
+    _, c0 = np.unique(cell0[:, 0] * 1_000_000 + cell0[:, 1] * 1000 + cell0[:, 2], return_inverse=True)
+    n_c0 = int(c0.max()) + 1
+    psum = np.zeros((n_c0, 3))
+    np.add.at(psum, c0, pos)
+    pmean = psum / np.bincount(c0, minlength=n_c0)[:, None]
+    cell1 = np.floor(pmean / 16.0).astype(np.int64)
+    _, c1 = np.unique(cell1[:, 0] * 1_000_000 + cell1[:, 1] * 1000 + cell1[:, 2], return_inverse=True)
+    entry["cluster0"] = c0.astype(np.int32)
+    entry["cluster1"] = c1.astype(np.int32)
+    entry["edge_attr"] = np.abs(entry["edge_attr"]) + 0.1
+    return entry

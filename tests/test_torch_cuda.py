@@ -11,12 +11,22 @@ from __future__ import annotations
 import pytest
 import torch
 
+import numpy as np
+
+from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
+from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag, GINetDense
+from deeprank2_tpu_torch.ops import block_sparse as bs
 from deeprank2_tpu_torch.ops import diag_spmm as ds
 from deeprank2_tpu_torch.ops import slotpool as sp
-from deeprank2_tpu_torch.ops.batch import collate_graphs_dense, collate_graphs_diag_clustered
+from deeprank2_tpu_torch.ops.batch import (
+    collate_graphs_blocksparse,
+    collate_graphs_blocksparse_clustered,
+    collate_graphs_dense,
+    collate_graphs_diag_clustered,
+)
 from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
-from deeprank2_tpu_torch.ops.synthetic import ppi_clustered_entries, synthetic_entries
+from deeprank2_tpu_torch.ops.synthetic import clustered_entry, geometric_entry, ppi_clustered_entries, synthetic_entries
 
 pytestmark = pytest.mark.cuda
 TOL = {"rtol": 1e-5, "atol": 1e-5}
@@ -152,3 +162,66 @@ def test_clustered_train_step_matches_cpu_and_counts_launches(cuda) -> None:
                 assert q.grad is None, name
             else:
                 torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)
+
+
+def _locality_pairs(n, seed):
+    entry = geometric_entry(n, 4, 1, seed=seed)
+    inv = np.empty(n, dtype=np.int64)
+    inv[bs.locality_order(entry["pos"])] = np.arange(n)
+    return inv[entry["edge_index"]]
+
+
+# several chunks with trailing capacity-pad batches (F=38: one 64-feature
+# slice, ragged; F=19: one 32-feature slice), one chunk at F=64 and F=70 (two
+# slices), and an empty graph
+@pytest.mark.parametrize(
+    ("n", "chunk_tiles", "f"), [(2200, 3, 38), (2200, 3, 19), (1500, None, 64), (1500, None, 70), (0, None, 32)]
+)
+def test_bcsr_kernel_matches_plain_version(cuda, n, chunk_tiles, f) -> None:
+    pairs = _locality_pairs(n, seed=n) if n else np.zeros((0, 2), np.int64)
+    st = bs.build_blocksparse(pairs, max(n, 10), chunk_tiles=chunk_tiles, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    x = torch.randn(f, st.padded_nodes, generator=gen, device=cuda)
+    cot = torch.randn(f, st.padded_rows, generator=gen, device=cuda)
+    bs.reset_launches()
+    out = bs.bcsr_spmm_kernel(st, x)
+    torch.testing.assert_close(out, bs.bcsr_spmm_kernel_ref(st, x), **TOL)
+    assert bs.launches == {"bcsr_spmm_kernel": 1}
+    # through the autograd Function: the gradient is the same SpMM of the cotangent
+    xk = x.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(bs.bcsr_spmm_t(st, xk), xk, cot)
+    torch.testing.assert_close(grad, bs.bcsr_spmm_kernel_ref(st, cot), **TOL)
+    assert bs.launches == {"bcsr_spmm_kernel": 3}
+    if not n:
+        assert not out.any()
+
+
+@pytest.mark.parametrize("kind", ["bcsr", "clustered_slot8"])
+def test_blocksparse_train_step_matches_cpu_and_counts_launches(cuda, kind) -> None:
+    if kind == "bcsr":
+        entries = [geometric_entry(n, 38, 1, seed=i) for i, n in enumerate((700, 1300))]
+        collate, cls, slot = collate_graphs_blocksparse, GINetBlockSparse, {"slot_fwd_kernel": 0, "slot_bwd_kernel": 0}
+    else:
+        entries = [clustered_entry(n, 38, seed=i) for i, n in enumerate((3000, 1300))]
+        collate = lambda e, **kw: collate_graphs_blocksparse_clustered(e, slot8=True, **kw)  # noqa: E731
+        cls, slot = GINetClusteredBlockSparse, {"slot_fwd_kernel": 1, "slot_bwd_kernel": 1}
+    entries[1]["y"] = 0.0
+    batch, _ = collate(entries, pad_graphs=3, device=cuda)
+    model, cpu_model = cls(38, 2, 1, device=cuda), cls(38, 2, 1, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loss_fn = CrossEntropyLoss()
+    for m in (bs, ds, sp):
+        m.reset_launches()
+    loss = loss_fn(model(batch), batch.y, batch.y_mask)
+    loss.backward()
+    assert bs.launches == {"bcsr_spmm_kernel": 4}
+    assert sp.launches == slot and ds.launches == {"diag_kernel": 0, "pool_bwd_kernel": 0}
+    cpu_batch = batch.to("cpu")
+    cpu_loss = loss_fn(cpu_model(cpu_batch), cpu_batch.y, cpu_batch.y_mask)
+    cpu_loss.backward()
+    torch.testing.assert_close(loss.detach().cpu(), cpu_loss.detach(), rtol=1e-4, atol=1e-5)
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        if p.grad is None:
+            assert q.grad is None, name
+        else:
+            torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)

@@ -1,0 +1,218 @@
+"""The port's BCSR GINet slice (deeprank2_tpu_torch: collate_graphs_blocksparse,
+collate_graphs_blocksparse_clustered, GINetBlockSparse,
+GINetClusteredBlockSparse) against the JAX package's on the CPU: the collates
+field for field, exactly; the models with one JAX initialization loaded into
+both, logits and loss at rtol=atol=1e-5 and every gradient at rtol 1e-4 /
+atol 1e-6. The column-chunk sizes of both packages are cut to 2 tiles, so
+that the structures have several chunks."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import deeprank2_tpu.ops.block_sparse as jbs
+from deeprank2_tpu.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse as JaxGINetClusteredBlockSparse
+from deeprank2_tpu.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse as JaxGINetBlockSparse
+from deeprank2_tpu.ops import batch as jbatch
+from deeprank2_tpu.ops.losses import CrossEntropyLoss as JaxCrossEntropyLoss
+from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
+from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
+from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
+from deeprank2_tpu_torch.neuralnets.param_interop import params_from_jax, params_to_jax
+from deeprank2_tpu_torch.ops import batch as tbatch
+from deeprank2_tpu_torch.ops import block_sparse as tbs
+from deeprank2_tpu_torch.ops import slotpool as sp
+from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
+from deeprank2_tpu_torch.ops.synthetic import clustered_entry, geometric_entry
+
+FEAT = 38
+TOL = {"rtol": 1e-5, "atol": 1e-5}
+GRAD_TOL = {"rtol": 1e-4, "atol": 1e-6}
+STRUCTURE_FIELDS = ("blocks_t", "block_row", "block_col", "batch_row", "batch_chunk", "visited")
+# the clustered layouts: (slot8, nodes per graph); both collate member matrices
+CLUSTERED = {"slot8": (True, (3000, 1300, 300)), "plain": (False, (3000, 1300, 300))}
+
+
+@pytest.fixture(autouse=True)
+def small_chunks(monkeypatch):
+    for module in (jbs, tbs):
+        monkeypatch.setattr(module, "CHUNK_TILES", 2)
+    for module in (jbatch, tbatch):
+        monkeypatch.setattr(module, "_CLUSTERED_CHUNK_TILES", 3)
+
+
+def _geometric(sizes=(700, 1300, 300)):
+    entries = [geometric_entry(n, FEAT, 1, seed=i) for i, n in enumerate(sizes)]
+    entries[1]["y"] = 0.0
+    entries[-1]["y"] = None  # a graph without a target
+    return entries
+
+
+def _clustered(sizes):
+    entries = [clustered_entry(n, FEAT, seed=10 + i) for i, n in enumerate(sizes)]
+    for i, e in enumerate(entries):
+        e["entry_name"] = f"c{i}"
+    entries[1]["y"] = 0.0
+    entries[-1]["y"] = None
+    return entries
+
+
+def _assert_structure_equal(got, want, what):
+    for field in STRUCTURE_FIELDS:
+        ours, theirs = getattr(got, field), np.asarray(getattr(want, field))
+        assert ours.numpy().dtype == theirs.dtype, f"{what}.{field}"
+        np.testing.assert_array_equal(ours.numpy(), theirs, err_msg=f"{what}.{field}")
+    assert (got.num_tiles, got.num_chunks, got.chunk_tiles) == (want.num_tiles, want.num_chunks, want.chunk_tiles), what
+
+
+def _assert_batch_equal(got, want):
+    for field in got.__dataclass_fields__:
+        ours, theirs = getattr(got, field), getattr(want, field)
+        if field.startswith("structure"):
+            _assert_structure_equal(ours, theirs, field)
+        elif field == "num_graphs":
+            assert ours == theirs
+        else:
+            theirs = np.asarray(theirs)
+            assert ours.device == torch.device("cpu") and ours.is_contiguous(), field
+            assert ours.numpy().dtype == theirs.dtype, field
+            np.testing.assert_array_equal(ours.numpy(), theirs, err_msg=field)
+
+
+@pytest.mark.parametrize("pad_graphs", [None, 5])
+def test_collate_blocksparse_matches_jax_field_for_field(pad_graphs) -> None:
+    entries = _geometric()
+    want, want_names = jbatch.collate_graphs_blocksparse(entries, pad_graphs=pad_graphs)
+    got, names = tbatch.collate_graphs_blocksparse(entries, pad_graphs=pad_graphs, device="cpu")
+    assert names == want_names
+    assert got.structure.num_chunks > 1
+    _assert_batch_equal(got, want)
+    moved = got.to("cpu")
+    assert moved.num_graphs == got.num_graphs and torch.equal(moved.structure.blocks_t, got.structure.blocks_t)
+
+
+@pytest.mark.parametrize("variant", sorted(CLUSTERED))
+def test_collate_clustered_matches_jax_field_for_field(variant) -> None:
+    slot8, sizes = CLUSTERED[variant]
+    entries = _clustered(sizes)
+    want, want_names = jbatch.collate_graphs_blocksparse_clustered(entries, pad_graphs=4, slot8=slot8)
+    got, names = tbatch.collate_graphs_blocksparse_clustered(entries, pad_graphs=4, slot8=slot8, device="cpu")
+    assert names == want_names
+    assert got.structure.num_chunks > 1
+    assert bool(got.slot_cluster.numel()) == slot8
+    _assert_batch_equal(got, want)
+    # the JAX batch's edge-weighted fields, which the port leaves to the sGAT slice, are empty here
+    assert np.asarray(want.wsum).size == np.asarray(want.wsum_p).size == 0
+
+
+def test_slot8_plan_matches_jax() -> None:
+    for entry in _clustered((700, 2000)):
+        ours, theirs = tbatch._slot8_plan(entry, 128), jbatch._slot8_plan(entry, 128)
+        assert ours.keys() == theirs.keys()
+        for key in ours:
+            np.testing.assert_array_equal(np.asarray(ours[key]), np.asarray(theirs[key]), err_msg=key)
+
+
+def test_collates_reject_what_is_not_ported_or_does_not_fit() -> None:
+    entries = _clustered((300, 200))
+    with pytest.raises(NotImplementedError):
+        tbatch.collate_graphs_blocksparse_clustered(entries, with_edge_weights=True, device="cpu")
+    for collate in (tbatch.collate_graphs_blocksparse, tbatch.collate_graphs_blocksparse_clustered):
+        with pytest.raises(ValueError, match="exceed pad_graphs"):
+            collate(entries, pad_graphs=1, device="cpu")
+    entries[0]["cluster1"] = entries[0]["cluster1"][:-1]
+    with pytest.raises(ValueError, match="cluster1 has"):
+        tbatch.collate_graphs_blocksparse_clustered(entries, device="cpu")
+
+
+def _setup(kind):
+    """The JAX model, its parameters and batch; the port's model with those
+    parameters loaded, and its batch."""
+    if kind == "bcsr":
+        entries = _geometric()
+        jb, _ = jbatch.collate_graphs_blocksparse(entries, pad_graphs=4)
+        tb, _ = tbatch.collate_graphs_blocksparse(entries, pad_graphs=4, device="cpu")
+        jmodel, model = JaxGINetBlockSparse(FEAT, 2, 1), GINetBlockSparse(FEAT, 2, 1, device="cpu")
+    else:
+        slot8, sizes = CLUSTERED[kind]
+        entries = _clustered(sizes)
+        jb, _ = jbatch.collate_graphs_blocksparse_clustered(entries, pad_graphs=4, slot8=slot8)
+        tb, _ = tbatch.collate_graphs_blocksparse_clustered(entries, pad_graphs=4, slot8=slot8, device="cpu")
+        jmodel, model = JaxGINetClusteredBlockSparse(FEAT, 2, 1), GINetClusteredBlockSparse(FEAT, 2, 1, device="cpu")
+    params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    model.load_state_dict(params_from_jax(params))
+    return jmodel, params, jb, model, tb
+
+
+def _assert_trees_close(got, want, **tol):
+    flat_got = jax.tree_util.tree_leaves_with_path(got)
+    flat_want = jax.tree_util.tree_leaves_with_path(want)
+    assert [p for p, _ in flat_got] == [p for p, _ in flat_want]
+    for (path, a), (_, b) in zip(flat_got, flat_want):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), err_msg=jax.tree_util.keystr(path), **tol)
+
+
+@pytest.mark.parametrize("kind", ["bcsr", "slot8", "plain"])
+def test_logits_loss_and_every_gradient_match_jax(kind) -> None:
+    jmodel, params, jb, model, tb = _setup(kind)
+
+    def jax_loss(p):
+        return JaxCrossEntropyLoss()(jmodel.apply(p, jb, training=False), jb.y.astype(jnp.int32), jb.y_mask)
+
+    want_logits = np.asarray(jmodel.apply(params, jb))
+    loss_want, grads_want = jax.value_and_grad(jax_loss)(params)
+    tbs.reset_launches()
+    sp.reset_launches()
+    logits = model(tb)
+    loss = CrossEntropyLoss()(logits, tb.y, tb.y_mask)
+    loss.backward()
+    # on the CPU every wrapper takes its plain version
+    assert set(tbs.launches.values()) == {0} and set(sp.launches.values()) == {0}
+    assert logits.shape == (4, 2)
+    np.testing.assert_allclose(logits.detach().numpy(), want_logits, **TOL)
+    np.testing.assert_allclose(float(loss.detach()), float(loss_want), **TOL)
+    grads = params_to_jax({k: torch.zeros_like(p) if p.grad is None else p.grad for k, p in model.named_parameters()})
+    _assert_trees_close(grads, jax.tree.map(np.asarray, grads_want), **GRAD_TOL)
+    for name in ("conv1", "conv1_ext", "conv2", "conv2_ext"):
+        assert np.abs(grads[name]["fc"]["w"]).max() > 0, name
+
+
+def test_pool_fallbacks_match_the_member_pools() -> None:
+    """The segment-max branches of _pool_max_t (taken when the collate
+    declines a member matrix) give the member pools' result."""
+    from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import _pool_max_t
+
+    for kind in ("slot8", "plain"):
+        *_, tb = _setup(kind)
+        members = "members0s" if kind == "slot8" else "members0"
+        assert getattr(tb, members).numel(), members
+        h_t = torch.relu(torch.from_numpy(np.random.default_rng(1).normal(size=(5, tb.num_nodes)).astype(np.float32)))
+        h_t = h_t * tb.node_mask[None, :]
+        want = _pool_max_t(h_t, tb)
+        setattr(tb, members, torch.zeros((0, 0), dtype=torch.int32))
+        torch.testing.assert_close(_pool_max_t(h_t, tb), want, rtol=0, atol=0)
+
+
+def test_models_share_the_ginet_parameter_set() -> None:
+    state = GINetDense(FEAT, 2, 1, device="cpu").state_dict()
+    for jax_cls, cls in ((JaxGINetBlockSparse, GINetBlockSparse), (JaxGINetClusteredBlockSparse, GINetClusteredBlockSparse)):
+        params = jax.tree.map(np.asarray, jax_cls(FEAT, 2, 1).init(jax.random.PRNGKey(1)))
+        model = cls(FEAT, 2, 1, device="cpu")
+        assert params_from_jax(params).keys() == model.state_dict().keys() == state.keys()
+        model.load_state_dict(params_from_jax(params))
+        _assert_trees_close(params_to_jax(model.state_dict()), params, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["bcsr", "slot8"])
+def test_dropout_and_unported_options(kind) -> None:
+    *_, model, tb = _setup(kind)
+    with torch.no_grad():
+        eval_out = model(tb)
+        assert torch.equal(model(tb, training=True), eval_out)
+        assert not torch.equal(model(tb, training=True, generator=torch.Generator().manual_seed(0)), eval_out)
+    with pytest.raises(NotImplementedError, match=type(model).__name__):
+        type(model)(FEAT, 2, 1, device="cpu", compute_dtype=torch.bfloat16)

@@ -31,7 +31,9 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.neuralnets.nn",
     "deeprank2_tpu_torch.neuralnets.param_interop",
     "deeprank2_tpu_torch.neuralnets.gnn",
+    "deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse",
     "deeprank2_tpu_torch.neuralnets.gnn.ginet",
+    "deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse",
     "deeprank2_tpu_torch.neuralnets.gnn.ginet_dense",
 ]
 
@@ -123,6 +125,32 @@ def test_clustered_entry_points_raise_without_cuda(no_cuda) -> None:
         batch.to("cuda")
     model = GINetClusteredDiag(4, 2, 1, device="cpu")
     assert model(batch).shape == (2, 2)
+
+
+def test_blocksparse_entry_points_raise_without_cuda(no_cuda) -> None:
+    from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
+    from deeprank2_tpu_torch.ops.batch import collate_graphs_blocksparse, collate_graphs_blocksparse_clustered
+    from deeprank2_tpu_torch.ops.block_sparse import build_blocksparse
+    from deeprank2_tpu_torch.ops.synthetic import clustered_entry
+
+    entries = [clustered_entry(300, 4, seed=0)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_blocksparse(entries[0]["edge_index"], 300)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        collate_graphs_blocksparse(entries)
+    for slot8 in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            collate_graphs_blocksparse_clustered(entries, slot8=slot8)
+    for cls, collate in ((GINetBlockSparse, collate_graphs_blocksparse), (GINetClusteredBlockSparse, collate_graphs_blocksparse_clustered)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(4, 2, 1)
+        batch, _ = collate(entries, device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            batch.to("cuda")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            batch.structure.to("cuda")
+        assert cls(4, 2, 1, device="cpu")(batch).shape == (1, 2)
 
 
 @pytest.mark.parametrize("alone", [False, True])
