@@ -70,7 +70,24 @@ Phases, each printing one JSON line:
    slot8=True): the same step against the CPU with the number of slot
    groups whose max-pool winner differs, then BCSR_STEPS steps and one eval
    forward: bcsr_spmm_kernel 4*S + 2, slot_fwd_kernel S + 1,
-   slot_bwd_kernel S, diag_kernel 0; then a profile.
+   slot_bwd_kernel S, diag_kernel 0; then a profile;
+11. the blocked-edge kernels against their plain versions on the card:
+   blocked_fwd_kernel (K6f) and blocked_bwd_kernel (K6b) at the 100k-node
+   atomic graph's blocked structure (M=32 and M=12), at a ragged batch
+   (graphs of 700 and 1,300 nodes, a 300-node graph without edges and an
+   empty padding graph), at a structure with three capacity-pad slabs and at
+   one without edges (exact zeros), directly and through
+   blocked_message_sum's autograd Function: out, dxr and dxc at
+   rtol=atol=1e-5 (both f32 on bit-identical pre-activations, only the
+   summation order differs); dw_e, which sums one product per edge, at rtol
+   1e-5 and an atol of DW_TOL times the sum of the products' absolute
+   values. Then each kernel's time at the blocked path's calls beside its
+   plain version and its bound (no single PyTorch call computes either);
+12. the blocked-edge path: VanillaNetworkBlocked(38, 2, 6) on
+   collate_graphs_blocked([geometric_entry(100_000, 38, 6)]): the same step
+   against the CPU and sum-of-logits probe as the BCSR paths, then
+   BCSR_STEPS train steps and one eval forward: blocked_fwd_kernel 2*S + 2,
+   blocked_bwd_kernel 2*S and no other kernel; then a profile.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -104,7 +121,11 @@ STEP_TOL = {"rtol": 1e-4, "atol": 1e-6}
 CLUSTERED_TOL = {"rtol": 1e-4, "atol": 1e-5}
 # f32 on both sides: the largest gradient error seen on the card is ~3e-7
 CLUSTERED_GRAD_TOL = {"rtol": 1e-4, "atol": 1e-6}
-KERNELS = ("diag_kernel", "pool_bwd_kernel", "slot_fwd_kernel", "slot_bwd_kernel", "bcsr_spmm_kernel")
+# dw_e sums one product per edge (3.3M at the atomic graph) in an order of its
+# own: its atol is this share of the sum of the products' absolute values,
+# the scale of any f32 summation order's rounding error
+DW_TOL = 1e-6
+KERNELS = ("diag_kernel", "pool_bwd_kernel", "slot_fwd_kernel", "slot_bwd_kernel", "bcsr_spmm_kernel", "blocked_fwd_kernel", "blocked_bwd_kernel")
 # each path's calls of each kernel in one train step: (kernel, mode or slot, F)
 STEP_CALLS = {
     "dense": [("diag_kernel", "relu_mask", 32), ("diag_kernel", "relu_mask_pool", 64), ("diag_kernel", "plain", 32), ("pool_bwd_kernel", None, 64)],
@@ -125,6 +146,8 @@ REPLACES = {
     "slot_fwd_kernel": "deeprank2_tpu/ops/pallas_slotpool.py:119 (_fwd_kernel, pallas_call at :176)",
     "slot_bwd_kernel": "deeprank2_tpu/ops/pallas_slotpool.py:129 (_bwd_kernel, pallas_call at :200)",
     "bcsr_spmm_kernel": "deeprank2_tpu/ops/block_sparse.py:535 (_kernel_stream, pallas_call at :760)",
+    "blocked_fwd_kernel": "deeprank2_tpu/ops/pallas_vanilla.py:122 (_fwd_kernel, pallas_call at :243)",
+    "blocked_bwd_kernel": "deeprank2_tpu/ops/pallas_vanilla.py:145 (_bwd_kernel, pallas_call at :274)",
 }
 SOURCES = {
     "diag_kernel": "deeprank2_tpu_torch/csrc/diag_spmm.cu",
@@ -132,6 +155,8 @@ SOURCES = {
     "slot_fwd_kernel": "deeprank2_tpu_torch/csrc/slotpool.cu",
     "slot_bwd_kernel": "deeprank2_tpu_torch/csrc/slotpool.cu",
     "bcsr_spmm_kernel": "deeprank2_tpu_torch/csrc/bcsr_spmm.cu",
+    "blocked_fwd_kernel": "deeprank2_tpu_torch/csrc/blocked_edges.cu",
+    "blocked_bwd_kernel": "deeprank2_tpu_torch/csrc/blocked_edges.cu",
 }
 LIBRARY = {
     "diag_kernel": "torch.bmm of the f32 adjacency [G,N,N] with the [G,N,F] slab (contraction only)",
@@ -139,10 +164,17 @@ LIBRARY = {
     "slot_fwd_kernel": "h.view(F, V//slot, slot).amax(2) (also the plain version)",
     "slot_bwd_kernel": None,
     "bcsr_spmm_kernel": "torch.sparse_csr_tensor of the mirrored pairs @ x [N, F] (cuSPARSE SpMM)",
+    "blocked_fwd_kernel": None,
+    "blocked_bwd_kernel": None,
 }
 # published peaks (NVIDIA data sheets; dense, f32 outside the tensor cores):
 # (memory bytes/s, f32 FLOP/s). The SXM part is the default.
 PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12), "SXM": (3.35e12, 67e12)}
+
+
+def want_launches(**counts) -> dict:
+    """The expected count of every kernel: those named, and 0 for the rest."""
+    return {k: counts.get(k, 0) for k in KERNELS}
 
 
 def emit(obj: dict) -> None:
@@ -574,6 +606,76 @@ def time_bcsr_calls(torch, bs, timer, path, batch, specs, peak_bw, peak_f32) -> 
     return calls
 
 
+def blocked_operands(torch, st, m, dev, seed):
+    """Random ``xr``, ``xc`` [padded_nodes, M], ``w_e`` [Fe, M] and a cotangent ``g``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xr, xc, g = (torch.randn(st.padded_nodes, m, generator=gen, device=dev) for _ in range(3))
+    return xr, xc, torch.randn(st.edge_dim, m, generator=gen, device=dev), g
+
+
+def check_blocked_kernels(torch, be, vn, checks, shapes, dev) -> None:
+    """blocked_fwd_kernel and blocked_bwd_kernel against their plain versions,
+    directly and through blocked_message_sum's autograd Function; a structure
+    without edges must give exact zeros."""
+    for tag, st, ms in shapes:
+        for m in ms:
+            xr, xc, w_e, g = blocked_operands(torch, st, m, dev, seed=len(checks.rows))
+            dw_tol = {"rtol": 1e-5, "atol": DW_TOL * vn.dw_error_scale(st, g).max().item() + 1e-6}
+            want_out = vn.blocked_fwd_kernel_ref(st, xr, xc, w_e)
+            want = vn.blocked_bwd_kernel_ref(st, xr, xc, w_e, g)
+            args = [t.clone().requires_grad_(True) for t in (xr, xc, w_e)]
+            out_fn = be.blocked_message_sum(st, *args)
+            grads = torch.autograd.grad(out_fn, args, g)
+            direct = (vn.blocked_fwd_kernel(st, xr, xc, w_e), vn.blocked_bwd_kernel(st, xr, xc, w_e, g))
+            for how, (out, (dxr, dxc, dw_e)) in (("direct", direct), ("blocked_message_sum", (out_fn.detach(), grads))):
+                checks.close("blocked_fwd_kernel", f"{tag} {how} out M={m}", out, want_out, TOL)
+                checks.close("blocked_bwd_kernel", f"{tag} {how} dxr M={m}", dxr, want[0], TOL)
+                checks.close("blocked_bwd_kernel", f"{tag} {how} dxc M={m}", dxc, want[1], TOL)
+                checks.close("blocked_bwd_kernel", f"{tag} {how} dw_e M={m}", dw_e, want[2], dw_tol)
+                checks.rows[-1]["atol"] = dw_tol["atol"]
+                if not st.edge_order.numel() and any(t.any() for t in (out, dxr, dxc, dw_e)):
+                    msg = f"{tag}: a structure without edges gave nonzero results"
+                    raise AssertionError(msg)
+            del want, want_out, out_fn, grads, direct
+    sync(torch, dev)
+
+
+def time_blocked_calls(torch, vn, timer, path, st, m, per_step, peak_bw, peak_f32) -> list:
+    """Kernel and plain-version times of K6f and K6b at one structure, with
+    each call's bound. Bytes: the real edges' index (edge_order and
+    col_local, 8 B) and features (4·Fe B), row_ptr, sub_col, w_e and the node
+    arrays read once, the outputs written once. Operations, per real edge
+    and feature: 2·Fe + 4 forward (the edge term, two adds, the relu, the
+    sum), 4·Fe + 8 backward (the edge term, both pre-activations, two
+    selects and sums, dw_e's multiply-adds). No single PyTorch call computes
+    either function."""
+    xr, xc, w_e, g = blocked_operands(torch, st, m, "cuda", seed=13)
+    edges, fe = st.edge_order.numel(), st.edge_dim
+    shared = edges * (8 + 4 * fe) + 4 * (st.row_ptr.numel() + st.sub_col.numel() + fe * m)
+    node = 4 * st.padded_nodes * m
+    specs = (
+        ("blocked_fwd_kernel", lambda: vn.blocked_fwd_kernel(st, xr, xc, w_e), lambda: vn.blocked_fwd_kernel_ref(st, xr, xc, w_e), shared + 2 * node, node, 2 * fe + 4),
+        ("blocked_bwd_kernel", lambda: vn.blocked_bwd_kernel(st, xr, xc, w_e, g), lambda: vn.blocked_bwd_kernel_ref(st, xr, xc, w_e, g), shared + 3 * node, 2 * node + 4 * fe * m, 4 * fe + 8),
+    )
+    shape = {"nodes": st.padded_nodes, "real_edges": edges, "edge_slots": st.row_local.numel(), "edge_dim": fe}
+    return [
+        {
+            "path": path,
+            "kernel": kernel,
+            "mode": "message sum",
+            "shape": shape,
+            "F": m,
+            "per_step": per_step,
+            "ms": timer.ms(run),
+            "plain_ms": timer.ms(plain),
+            "library_ms": None,
+            **bound(in_bytes, out_bytes, ops * m * edges, peak_bw, peak_f32),
+            "flop_needed": ops * m * edges,
+        }
+        for kernel, run, plain, in_bytes, out_bytes, ops in specs
+    ]
+
+
 def profile_steps(torch, train_step, step_s, steps=3) -> dict:
     """Device time by kernel over a few traced train steps. The idle share is
     taken against the untraced step time (tracing slows the host) and, for
@@ -662,13 +764,7 @@ def clustered_path(torch, ds, counters, card, entries, layout_check, steps, dev,
     emit({"phase": f"{phase}_card_vs_cpu_step", "tolerance": CLUSTERED_TOL, "grad_tolerance": CLUSTERED_GRAD_TOL, **step, "max_pool": flips})
     opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
     regions = sum(1 for ns in (batch.region_caps or (1,))[:3] if ns)
-    want = {
-        "diag_kernel": 4 * steps + 2,
-        "pool_bwd_kernel": 0,
-        "slot_fwd_kernel": regions * (steps + 1),
-        "slot_bwd_kernel": regions * steps,
-        "bcsr_spmm_kernel": 0,
-    }
+    want = want_launches(diag_kernel=4 * steps + 2, slot_fwd_kernel=regions * (steps + 1), slot_bwd_kernel=regions * steps)
     run = run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps, warm=min(WARM_STEPS, steps // 3))
     real_edges = int(sum(2 * e["edge_index"].shape[0] for e in entries))
     train_step = run.pop("train_step")
@@ -702,9 +798,9 @@ def bcsr_winner_flips(torch, bs, model, batch, cpu_model, cpu_batch) -> dict:
     return {"groups_with_a_positive_max": int(live.sum()), "winner_flips": {"slot8": int(((win[0] != win[1]) & live).sum())}}
 
 
-def blocksparse_path(torch, counters, card, batch, model_factory, want, dev, phase, describe, flips=None) -> dict:
-    """Check one BCSR path against the CPU, drive it with the counters at 0,
-    and profile a few of its steps."""
+def atomic_path(torch, counters, card, batch, model_factory, want, dev, phase, describe, flips=None) -> dict:
+    """Check one atomic-scale path (BCSR or blocked-edge) against the CPU,
+    drive it with the counters at 0, and profile a few of its steps."""
     from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
     from deeprank2_tpu_torch.ops.optim import Adam
 
@@ -744,11 +840,15 @@ def main() -> int:
     from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
     from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
     from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
+    from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetworkBlocked
     from deeprank2_tpu_torch.ops import _build
     from deeprank2_tpu_torch.ops import block_sparse as bs
+    from deeprank2_tpu_torch.ops import blocked_edges as be
     from deeprank2_tpu_torch.ops import diag_spmm as ds
     from deeprank2_tpu_torch.ops import slotpool as sp
+    from deeprank2_tpu_torch.ops import vanilla as vn
     from deeprank2_tpu_torch.ops.batch import (
+        collate_graphs_blocked,
         collate_graphs_blocksparse,
         collate_graphs_blocksparse_clustered,
         collate_graphs_dense,
@@ -765,7 +865,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.build([ds.SOURCE, sp.SOURCE, bs.SOURCE])
+    _build.build([ds.SOURCE, sp.SOURCE, bs.SOURCE, vn.SOURCE])
     build_s = time.perf_counter() - t0
     emit(
         {
@@ -780,7 +880,7 @@ def main() -> int:
             "peaks": {"part": part, "bytes_per_s": peak_bw, "f32_flop_per_s": peak_f32},
         }
     )
-    counters = Counters(ds, sp, bs)
+    counters = Counters(ds, sp, bs, vn)
 
     # 2. kernels against their plain versions, and their times
     dev = torch.device("cuda")
@@ -835,7 +935,7 @@ def main() -> int:
     step, _, _ = card_vs_cpu_step(torch, model, batch, loss_fn, lambda: GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device="cpu"), STEP_TOL, STEP_TOL)
     emit({"phase": "card_vs_cpu_step", "tolerance": STEP_TOL, **step})
     opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
-    want = {"diag_kernel": 3 * STEPS + 2, "pool_bwd_kernel": STEPS, "slot_fwd_kernel": 0, "slot_bwd_kernel": 0, "bcsr_spmm_kernel": 0}
+    want = want_launches(diag_kernel=3 * STEPS + 2, pool_bwd_kernel=STEPS)
     run = run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, STEPS)
     real_edges = int(sum(2 * e["edge_index"].shape[0] for e in entries))
     train_step = run.pop("train_step")
@@ -918,13 +1018,13 @@ def main() -> int:
     def structure_info(st):
         return {"tiles": st.num_tiles, "chunks": st.num_chunks, "blocks_stored": st.num_blocks, "blocks_nonzero": st.tile_blocks.numel()}
 
-    path_launches["bcsr"] = blocksparse_path(
+    path_launches["bcsr"] = atomic_path(
         torch,
         counters,
         card,
         b_batch,
         lambda d: GINetBlockSparse(BCSR["feat"], 2, BCSR["edge_dim"], device=d, generator=torch.Generator().manual_seed(0)),
-        {"diag_kernel": 0, "pool_bwd_kernel": 0, "slot_fwd_kernel": 0, "slot_bwd_kernel": 0, "bcsr_spmm_kernel": 4 * BCSR_STEPS + 2},
+        want_launches(bcsr_spmm_kernel=4 * BCSR_STEPS + 2),
         dev,
         "main_path_bcsr",
         {
@@ -937,13 +1037,13 @@ def main() -> int:
     del b_batch
 
     # 10. the clustered BCSR path and its profile
-    path_launches["clustered_bcsr"] = blocksparse_path(
+    path_launches["clustered_bcsr"] = atomic_path(
         torch,
         counters,
         card,
         cb_batch,
         lambda d: GINetClusteredBlockSparse(CLUSTERED_BCSR["feat"], 2, CLUSTERED_BCSR["edge_dim"], device=d, generator=torch.Generator().manual_seed(0)),
-        {"diag_kernel": 0, "pool_bwd_kernel": 0, "slot_fwd_kernel": BCSR_STEPS + 1, "slot_bwd_kernel": BCSR_STEPS, "bcsr_spmm_kernel": 4 * BCSR_STEPS + 2},
+        want_launches(bcsr_spmm_kernel=4 * BCSR_STEPS + 2, slot_fwd_kernel=BCSR_STEPS + 1, slot_bwd_kernel=BCSR_STEPS),
         dev,
         "main_path_clustered_bcsr",
         {
@@ -961,6 +1061,59 @@ def main() -> int:
         flips=lambda *a: bcsr_winner_flips(torch, bs, *a),
     )
     del cb_batch
+
+    # 11. the blocked-edge kernels against their plain versions, and their times
+    t0 = time.perf_counter()
+    bl_batch, _ = collate_graphs_blocked([entry], device=dev)  # the BCSR path's graph
+    blocked_collate_s = time.perf_counter() - t0
+    edgeless = {**geometric_entry(300, 38, 6, seed=3), "edge_index": np.zeros((0, 2), np.int64), "edge_attr": np.zeros((0, 6), np.float32)}
+    ragged_bl, _ = collate_graphs_blocked([geometric_entry(700, 38, 6, seed=1), geometric_entry(1300, 38, 6, seed=2), edgeless], pad_graphs=4, device=dev)
+    padded_bl, _ = collate_graphs_blocked([geometric_entry(2000, 38, 6, seed=4)], pad_slabs=lambda required: required + 3, device=dev)
+    empty_bl, _ = collate_graphs_blocked([edgeless], device=dev)
+    n_checks = len(checks.rows)
+    check_blocked_kernels(
+        torch,
+        be,
+        vn,
+        checks,
+        [
+            ("atomic 100k", bl_batch.structure, (32, 12)),
+            ("ragged 700+1300+edgeless+empty graph", ragged_bl.structure, (32,)),
+            ("three capacity-pad slabs", padded_bl.structure, (32,)),
+            ("no edges", empty_bl.structure, (32,)),
+        ],
+        dev,
+    )
+    emit({"phase": "blocked_kernels_vs_plain", "tolerance": {"out, dxr, dxc": TOL, "dw_e": {"rtol": 1e-5, "atol": f"{DW_TOL} * max sum_e |e_attr| |g[row]|"}}, "checks": checks.rows[n_checks:]})
+    del ragged_bl, padded_bl, empty_bl
+    timer = Timer(torch)
+    blocked_calls = time_blocked_calls(torch, vn, timer, "blocked", bl_batch.structure, 32, 2, peak_bw, peak_f32)
+    del timer
+    emit({"phase": "blocked_kernel_times", "card": card, "l2_flushed": True, "calls": blocked_calls})
+    calls += blocked_calls
+
+    # 12. the blocked-edge path and its profile
+    st = bl_batch.structure
+    path_launches["blocked"] = atomic_path(
+        torch,
+        counters,
+        card,
+        bl_batch,
+        lambda d: VanillaNetworkBlocked(BCSR["feat"], 2, BCSR["edge_dim"], device=d, generator=torch.Generator().manual_seed(0)),
+        want_launches(blocked_fwd_kernel=2 * BCSR_STEPS + 2, blocked_bwd_kernel=2 * BCSR_STEPS),
+        dev,
+        "main_path_blocked",
+        {
+            "model": "VanillaNetworkBlocked(38, 2, 6)",
+            "batch": {
+                **BCSR,
+                "structure": {"tiles": st.num_node_tiles, "slabs": st.num_slabs, "edge_slots": st.row_local.numel(), "real_edges": st.edge_order.numel(), "fe_pad": st.eattr_t.shape[0]},
+            },
+            "collate_s": blocked_collate_s,
+            "undirected_edges": int(entry["edge_index"].shape[0]),
+        },
+    )
+    del bl_batch, st
 
     emit({"kernels": kernels_line(calls, path_launches, checks.errs)})
     print(card_line(), flush=True)

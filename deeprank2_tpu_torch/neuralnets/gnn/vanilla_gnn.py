@@ -1,0 +1,109 @@
+"""Vanilla message-passing GNN (port of
+``deeprank2_tpu/neuralnets/gnn/vanilla_gnn.py``).
+
+Per-edge messages ``relu(MLP([x_i ‖ x_j ‖ e_ij]))`` summed onto the edge's
+first endpoint, then a node MLP over ``[x ‖ msg_sum]``; two such layers, a
+graph mean pool and an output MLP. The COO formulation (``VanillaNetwork``)
+waits for the COO collate and segment backend; ``VanillaNetworkBlocked``
+runs the same math on the blocked-edge layout, where the message sum is the
+CUDA kernel pair of ops/vanilla.py.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from deeprank2_tpu_torch.device import resolve_device
+from deeprank2_tpu_torch.neuralnets import nn as dnn
+from deeprank2_tpu_torch.ops.batch import BlockedEdgeBatch
+from deeprank2_tpu_torch.ops.blocked_edges import EDGE_TILE, BlockedEdgeStructure, blocked_message_sum
+from deeprank2_tpu_torch.ops.pooling import tiled_graph_mean_pool_rows
+
+MESSAGE_SIZE = 32
+HIDDEN_SIZE = 128
+
+
+class _ConvLayer(nn.Module):
+    """One vanilla convolution's parameters, under the reference's names:
+    single-Linear ``nn.Sequential`` edge and node MLPs."""
+
+    def __init__(self, f: int, fe: int, generator: torch.Generator, device: torch.device):
+        super().__init__()
+        self._edge_mlp = nn.Sequential(dnn.init_linear(2 * f + fe, MESSAGE_SIZE, generator=generator, device=device))
+        self._node_mlp = nn.Sequential(dnn.init_linear(f + MESSAGE_SIZE, f, generator=generator, device=device))
+
+
+class VanillaNetwork(nn.Module):
+    """Two vanilla convolutional layers and an MLP head (the parameter set of
+    the JAX ``init``). ``state_dict`` keys are the reference's
+    (``_external1._edge_mlp.0.weight`` ... ``_graph_mlp.2.bias``), which
+    ``neuralnets/param_interop.py`` maps to the JAX tree with
+    ``family="vanilla"``. ``generator`` draws the initial weights (a fixed
+    seed when None)."""
+
+    def __init__(
+        self,
+        input_shape: int,
+        output_shape: int = 1,
+        input_shape_edge: int = 0,
+        device: str | torch.device | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.input_shape = input_shape
+        self.output_shape = output_shape
+        self.input_shape_edge = input_shape_edge
+        self._external1 = _ConvLayer(input_shape, input_shape_edge, gen, dev)
+        self._external2 = _ConvLayer(input_shape, input_shape_edge, gen, dev)
+        self._graph_mlp = nn.Sequential(
+            dnn.init_linear(input_shape, HIDDEN_SIZE, generator=gen, device=dev),
+            nn.ReLU(),
+            dnn.init_linear(HIDDEN_SIZE, output_shape, generator=gen, device=dev),
+        )
+
+    def forward(self, batch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
+        msg = "the COO VanillaNetwork needs the COO collate and segment backend, not ported yet (ROADMAP.md queue 1, item 3); use VanillaNetworkBlocked"
+        raise NotImplementedError(msg)
+
+
+class VanillaNetworkBlocked(VanillaNetwork):
+    """VanillaNetwork on :class:`BlockedEdgeBatch` inputs: the same math and
+    parameter set, with each layer's message sum in kernels K6f (forward) and
+    K6b (backward). No dropout, so ``training`` and ``generator`` change
+    nothing."""
+
+    def __init__(
+        self,
+        input_shape: int,
+        output_shape: int = 1,
+        input_shape_edge: int = 0,
+        compute_dtype: torch.dtype | None = None,
+        device: str | torch.device | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        if compute_dtype is not None:
+            msg = f"{type(self).__name__}(compute_dtype=...) is not ported yet; the port computes in float32"
+            raise NotImplementedError(msg)
+        super().__init__(input_shape, output_shape, input_shape_edge, device, generator)
+
+    @staticmethod
+    def _conv_blocked(layer: _ConvLayer, x: torch.Tensor, structure: BlockedEdgeStructure) -> torch.Tensor:
+        w, b = layer._edge_mlp[0].weight, layer._edge_mlp[0].bias  # [M, 2F + Fe], [M]
+        f = x.shape[1]
+        xr = nn.functional.linear(x, w[:, :f], b)  # the bias rides the destination part
+        xc = nn.functional.linear(x, w[:, f : 2 * f])
+        msg_sums = blocked_message_sum(structure, xr, xc, w[:, 2 * f :].T)  # w_e [Fe, M]
+        return dnn.relu(dnn.linear(layer._node_mlp[0], torch.cat([x, msg_sums], dim=1)))
+
+    def forward(self, batch: BlockedEdgeBatch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits ``[G, output_shape]``."""
+        x = self._conv_blocked(self._external1, batch.x, batch.structure)
+        x = self._conv_blocked(self._external2, x, batch.structure)
+        # the blocked collate keeps graphs tile-disjoint: one sum per tile,
+        # then a scatter of the tile partials
+        mask = batch.node_mask[:, None].to(x.dtype)
+        means = tiled_graph_mean_pool_rows(x * mask, batch.node_graph, batch.node_mask, batch.num_graphs, EDGE_TILE)
+        return self._graph_mlp(means)

@@ -6,6 +6,10 @@ keep a flat torch ``state_dict`` with ``{prefix}.weight [out, in]`` and
 ``{prefix}.bias [out]`` (the key layout of
 ``deeprank2_tpu/neuralnets/torch_interop.py``). The two functions below
 convert one into the other and round-trip exactly.
+
+The JAX tree's path is the ``state_dict`` prefix as it stands for GINet; a
+model family whose reference names differ passes ``family``, which renames
+the prefixes through :data:`FAMILY_PREFIXES`.
 """
 
 from __future__ import annotations
@@ -13,9 +17,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# JAX tree path -> reference state_dict prefix, for the families whose names
+# differ (VanillaNetwork: single-Linear nn.Sequential MLPs, torch_interop.py:_vanilla)
+FAMILY_PREFIXES = {
+    "vanilla": {
+        **{f"external{i}.{mlp}": f"_external{i}._{mlp}.0" for i in (1, 2) for mlp in ("edge_mlp", "node_mlp")},
+        "graph_mlp.fc1": "_graph_mlp.0",
+        "graph_mlp.fc2": "_graph_mlp.2",
+    },
+}
 
-def params_from_jax(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
-    """Nested dict of numpy arrays (JAX layout) -> torch ``state_dict`` (CPU tensors)."""
+
+def _prefixes(family: str | None) -> dict[str, str]:
+    if family is None:
+        return {}
+    if family not in FAMILY_PREFIXES:
+        msg = f"unknown model family {family!r}; expected one of {sorted(FAMILY_PREFIXES)} or None"
+        raise ValueError(msg)
+    return FAMILY_PREFIXES[family]
+
+
+def _linear_state(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
     state = {}
     for key, value in tree.items():
         name = f"{prefix}{key}"
@@ -24,20 +46,31 @@ def params_from_jax(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
         elif key == "b":
             state[f"{prefix}bias"] = torch.from_numpy(np.array(value))
         elif isinstance(value, dict):
-            state.update(params_from_jax(value, f"{name}."))
+            state.update(_linear_state(value, f"{name}."))
         else:
             msg = f"unexpected parameter {name!r}: only linear layers ('w', 'b') are mapped"
             raise ValueError(msg)
     return state
 
 
-def params_to_jax(state: dict[str, torch.Tensor]) -> dict:
+def params_from_jax(tree: dict, family: str | None = None) -> dict[str, torch.Tensor]:
+    """Nested dict of numpy arrays (JAX layout) -> torch ``state_dict`` (CPU tensors)."""
+    renames = _prefixes(family)
+    state = {}
+    for key, value in _linear_state(tree).items():
+        prefix, leaf = key.rsplit(".", 1)
+        state[f"{renames.get(prefix, prefix)}.{leaf}"] = value
+    return state
+
+
+def params_to_jax(state: dict[str, torch.Tensor], family: str | None = None) -> dict:
     """torch ``state_dict`` -> nested dict of numpy arrays (JAX layout)."""
+    renames = {v: k for k, v in _prefixes(family).items()}
     tree: dict = {}
     for key, value in state.items():
-        *path, leaf = key.split(".")
+        prefix, leaf = key.rsplit(".", 1)
         node = tree
-        for part in path:
+        for part in renames.get(prefix, prefix).split("."):
             node = node.setdefault(part, {})
         array = value.detach().cpu().numpy()
         if leaf == "weight":

@@ -2,7 +2,8 @@
 ``DenseGraphBatch``, ``collate_graphs_dense``, the clustered
 ``DiagClusteredBatch`` with ``collate_graphs_diag_clustered``, and the
 block-sparse ``BlockSparseBatch`` and ``ClusteredBlockSparseBatch`` with
-their collates).
+their collates, and the blocked-edge ``BlockedEdgeBatch`` with
+``collate_graphs_blocked``).
 
 The batch adjacency of collated graphs is block-diagonal: with graphs padded
 to ``N`` nodes, graph ``g`` owns rows and columns ``[g*N, (g+1)*N)`` and no
@@ -11,7 +12,9 @@ adjacency ``[G, N, N]`` against node features kept flat and transposed,
 ``x_t [F, G*N]`` (ops/diag_spmm.py). Edges are mirrored, so every adjacency
 block is symmetric. Graphs too large for ``[G, N, N]`` (atomic resolution)
 collate block-sparse instead: locality-ordered, tile-padded and concatenated,
-with one BCSR adjacency over the whole batch (ops/block_sparse.py).
+with one BCSR adjacency over the whole batch (ops/block_sparse.py). Models
+whose messages read per-edge features keep the edge list itself, in
+tile-sorted slabs (ops/blocked_edges.py).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from deeprank2_tpu_torch.device import resolve_device
+from deeprank2_tpu_torch.ops.blocked_edges import EDGE_TILE, BlockedEdgeStructure, build_blocked_edges
 from deeprank2_tpu_torch.ops.block_sparse import DEFAULT_BLOCK, BlockSparseStructure, build_blocksparse, locality_order
 
 
@@ -946,3 +950,67 @@ def collate_graphs_blocksparse_clustered(
         members0s=members0s,
     )
     return ClusteredBlockSparseBatch(**arrays, structure=structure, structure_p=structure_p, num_graphs=num_graphs), names
+
+
+# ---------------------------------------------------------------------------
+# Blocked-edge batches (port of ``BlockedEdgeBatch`` and
+# ``collate_graphs_blocked``)
+
+
+@dataclass
+class BlockedEdgeBatch(BlockSparseBatch):
+    """A batch of graphs in the blocked per-edge-feature layout
+    (ops/blocked_edges.py), for the VanillaNetwork family: the node layout
+    and fields of :class:`BlockSparseBatch` with ``EDGE_TILE``-node tiles,
+    but the edges and their features stay a list, in tile-sorted slabs."""
+
+    structure: BlockedEdgeStructure  # sorted edge slabs over all NT tiles
+
+
+def collate_graphs_blocked(
+    entries: list[dict],
+    pad_tiles=None,
+    pad_slabs=None,
+    pad_graphs: int | None = None,
+    device: str | torch.device | None = None,
+) -> tuple[BlockedEdgeBatch, list[str]]:
+    """Collate entries (``x``, ``pos``, ``edge_index``, ``edge_attr``, ``y``,
+    ``entry_name``) into a :class:`BlockedEdgeBatch` on ``device`` (CUDA
+    unless ``"cpu"`` is asked for). ``pad_tiles`` and ``pad_slabs`` may be
+    ints or ``required -> capacity`` callables; ``pad_graphs`` adds empty
+    graphs."""
+    dev = resolve_device(device)
+    num_graphs, names = _num_graphs(entries, pad_graphs)
+    layout = blocksparse_layout(entries, EDGE_TILE, num_graphs)
+    num_tiles = layout["num_tiles"]
+    if callable(pad_tiles):
+        pad_tiles = pad_tiles(num_tiles)
+    if pad_tiles is not None:
+        if pad_tiles < num_tiles:
+            msg = f"pad_tiles={pad_tiles} < required {num_tiles}"
+            raise ValueError(msg)
+        extra = (pad_tiles - num_tiles) * EDGE_TILE
+        if extra:
+            layout["xs"].append(np.zeros((extra, layout["feat_dim"]), np.float32))
+            layout["poss"].append(np.zeros((extra, 3), np.float32))
+            layout["graph_ids"].append(np.full(extra, num_graphs, np.int32))
+            layout["masks"].append(np.zeros(extra, bool))
+        num_tiles = pad_tiles
+
+    # edge features in the same per-entry order as the remapped pairs
+    eattrs = [np.asarray(e["edge_attr"], dtype=np.float32) for e in entries]
+    eattrs = [ea[:, None] if ea.ndim == 1 else ea for ea in eattrs]
+    edge_dim = eattrs[0].shape[1] if eattrs else 1
+    eattr = np.concatenate(eattrs) if eattrs else np.zeros((0, edge_dim), np.float32)
+    structure = build_blocked_edges(layout["pairs"], eattr, num_nodes=num_tiles * EDGE_TILE, pad_slabs=pad_slabs, device=dev)
+    y, y_mask = _targets(entries, num_graphs)
+    arrays = _tensors(
+        dev,
+        x=np.concatenate(layout["xs"]),
+        pos=np.concatenate(layout["poss"]),
+        node_graph=np.concatenate(layout["graph_ids"]),
+        node_mask=np.concatenate(layout["masks"]),
+        y=y,
+        y_mask=y_mask,
+    )
+    return BlockedEdgeBatch(**arrays, structure=structure, num_graphs=num_graphs), names

@@ -1,5 +1,6 @@
 """Community and graph pooling (port of ``deeprank2_tpu/ops/pooling.py``:
-``member_max_pool``, ``diag_depth0_pool`` and ``tiled_graph_mean_pool``).
+``member_max_pool``, ``diag_depth0_pool``, ``tiled_graph_mean_pool`` and
+``tiled_graph_mean_pool_rows``).
 
 Conventions, as in the JAX package: cluster ids are batch-global and below
 the capacity; padded rows carry out-of-range ids. Pooled features are
@@ -102,6 +103,18 @@ def diag_depth0_pool(h_t: torch.Tensor, batch) -> torch.Tensor:
     return hp3.reshape(f, num_graphs * k_cap)
 
 
+def _tile_means(tile_sums: torch.Tensor, node_graph: torch.Tensor, node_mask: torch.Tensor, num_graphs: int, block: int) -> torch.Tensor:
+    """Per-graph means ``[G, F]`` from per-tile sums ``[NT, F]``: a scatter of
+    the ``NT`` tile partials by each tile's graph (empty tiles drop)."""
+    nt = tile_sums.shape[0]
+    gid = torch.where(node_mask, node_graph, torch.full_like(node_graph, num_graphs)).reshape(nt, block)
+    tile_graph = gid.amin(dim=1)  # empty tiles carry num_graphs and drop
+    tile_counts = node_mask.reshape(nt, block).sum(dim=1, dtype=torch.float32)
+    sums = segment_sum(tile_sums, tile_graph, num_graphs)
+    counts = segment_sum(tile_counts, tile_graph, num_graphs)
+    return sums / counts.clamp_min(1.0)[:, None]
+
+
 def tiled_graph_mean_pool(h_t: torch.Tensor, node_graph: torch.Tensor, node_mask: torch.Tensor, num_graphs: int, block: int = 128) -> torch.Tensor:
     """Per-graph masked feature mean for the block-sparse layouts, ``[G, F]``.
 
@@ -110,11 +123,12 @@ def tiled_graph_mean_pool(h_t: torch.Tensor, node_graph: torch.Tensor, node_mask
     never let a 128-node tile span two graphs, so the sum factorizes: one sum
     per tile, then a scatter of the ``NT`` tile partials only."""
     f, vpad = h_t.shape
-    nt = vpad // block
-    tile_sums = h_t.reshape(f, nt, block).sum(dim=2)  # [F, NT]
-    gid = torch.where(node_mask, node_graph, torch.full_like(node_graph, num_graphs)).reshape(nt, block)
-    tile_graph = gid.amin(dim=1)  # empty tiles carry num_graphs and drop
-    tile_counts = node_mask.reshape(nt, block).sum(dim=1, dtype=torch.float32)
-    sums = segment_sum(tile_sums.T, tile_graph, num_graphs)
-    counts = segment_sum(tile_counts, tile_graph, num_graphs)
-    return sums / counts.clamp_min(1.0)[:, None]
+    return _tile_means(h_t.reshape(f, vpad // block, block).sum(dim=2).T, node_graph, node_mask, num_graphs, block)
+
+
+def tiled_graph_mean_pool_rows(x: torch.Tensor, node_graph: torch.Tensor, node_mask: torch.Tensor, num_graphs: int, block: int) -> torch.Tensor:
+    """Row-major twin of :func:`tiled_graph_mean_pool` for ``x [NT*B, F]``
+    (padded rows zero), with the same tile-aligned contract; the blocked-edge
+    layout uses 256-node tiles."""
+    vpad, f = x.shape
+    return _tile_means(x.reshape(vpad // block, block, f).sum(dim=1), node_graph, node_mask, num_graphs, block)

@@ -16,11 +16,15 @@ import numpy as np
 from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag, GINetDense
+from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetworkBlocked
 from deeprank2_tpu_torch.ops import block_sparse as bs
+from deeprank2_tpu_torch.ops import blocked_edges as be
 from deeprank2_tpu_torch.ops import diag_spmm as ds
 from deeprank2_tpu_torch.ops import slotpool as sp
+from deeprank2_tpu_torch.ops import vanilla as vn
 from deeprank2_tpu_torch.ops.batch import (
     collate_graphs_blocksparse,
+    collate_graphs_blocked,
     collate_graphs_blocksparse_clustered,
     collate_graphs_dense,
     collate_graphs_diag_clustered,
@@ -225,3 +229,68 @@ def test_blocksparse_train_step_matches_cpu_and_counts_launches(cuda, kind) -> N
             assert q.grad is None, name
         else:
             torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)
+
+
+def _blocked_structure(case, dev):
+    """Structures from the blocked collate: ragged graphs with an edgeless
+    graph and a padding graph, the same with three capacity-pad slabs, and no
+    edges at all."""
+    entries = [geometric_entry(700, 4, 6, seed=1), geometric_entry(1300, 4, 6, seed=2), geometric_entry(200, 4, 6, seed=3)]
+    entries[2]["edge_index"] = entries[2]["edge_index"][:0]
+    entries[2]["edge_attr"] = entries[2]["edge_attr"][:0]
+    if case == "no_edges":
+        entries = entries[2:]
+    batch, _ = collate_graphs_blocked(entries, pad_graphs=4, pad_slabs=(lambda req: req + 3) if case == "pads" else None, device=dev)
+    return batch.structure
+
+
+# f32 on both sides and the same pre-activations: out, dxr and dxc differ in
+# summation order only; dw_e sums every edge's product, so its tolerance is
+# 1e-6 of the sum of their absolute values
+@pytest.mark.parametrize("m", [32, 12])
+@pytest.mark.parametrize("case", ["ragged", "pads", "no_edges"])
+def test_blocked_kernels_match_plain_versions(cuda, case, m) -> None:
+    st = _blocked_structure(case, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    xr, xc, g = (torch.randn(st.padded_nodes, m, generator=gen, device=cuda) for _ in range(3))
+    w_e = torch.randn(st.edge_dim, m, generator=gen, device=cuda)
+    vn.reset_launches()
+    out = vn.blocked_fwd_kernel(st, xr, xc, w_e)
+    torch.testing.assert_close(out, vn.blocked_fwd_kernel_ref(st, xr, xc, w_e), **TOL)
+    dxr, dxc, dw_e = vn.blocked_bwd_kernel(st, xr, xc, w_e, g)
+    want = vn.blocked_bwd_kernel_ref(st, xr, xc, w_e, g)
+    torch.testing.assert_close(dxr, want[0], **TOL)
+    torch.testing.assert_close(dxc, want[1], **TOL)
+    torch.testing.assert_close(dw_e, want[2], rtol=1e-5, atol=1e-6 * vn.dw_error_scale(st, g).max().item() + 1e-6)
+    assert vn.launches == {"blocked_fwd_kernel": 1, "blocked_bwd_kernel": 1}
+    # through the autograd Function
+    args = [t.clone().requires_grad_(True) for t in (xr, xc, w_e)]
+    out_fn = be.blocked_message_sum(st, *args)
+    grads = torch.autograd.grad(out_fn, args, g)
+    assert vn.launches == {"blocked_fwd_kernel": 2, "blocked_bwd_kernel": 2}
+    torch.testing.assert_close(out_fn.detach(), out, rtol=0, atol=0)
+    for got, ref in zip(grads, (dxr, dxc, dw_e)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)  # deterministic: no atomics
+    if case == "no_edges":
+        assert not out.any() and not dxr.any() and not dxc.any() and not dw_e.any()
+
+
+def test_blocked_train_step_matches_cpu_and_counts_launches(cuda) -> None:
+    entries = [geometric_entry(n, 38, 6, seed=i) for i, n in enumerate((700, 1300))]
+    entries[1]["y"] = 0.0
+    batch, _ = collate_graphs_blocked(entries, pad_graphs=3, device=cuda)
+    model, cpu_model = VanillaNetworkBlocked(38, 2, 6, device=cuda), VanillaNetworkBlocked(38, 2, 6, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loss_fn = CrossEntropyLoss()
+    for m in (bs, ds, sp, vn):
+        m.reset_launches()
+    loss = loss_fn(model(batch), batch.y, batch.y_mask)
+    loss.backward()
+    assert vn.launches == {"blocked_fwd_kernel": 2, "blocked_bwd_kernel": 2}
+    assert not any(v for m in (bs, ds, sp) for v in m.launches.values())
+    cpu_batch = batch.to("cpu")
+    cpu_loss = loss_fn(cpu_model(cpu_batch), cpu_batch.y, cpu_batch.y_mask)
+    cpu_loss.backward()
+    torch.testing.assert_close(loss.detach().cpu(), cpu_loss.detach(), rtol=1e-4, atol=1e-5)
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)

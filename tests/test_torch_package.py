@@ -20,6 +20,7 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.ops._build",
     "deeprank2_tpu_torch.ops.batch",
     "deeprank2_tpu_torch.ops.block_sparse",
+    "deeprank2_tpu_torch.ops.blocked_edges",
     "deeprank2_tpu_torch.ops.diag_spmm",
     "deeprank2_tpu_torch.ops.losses",
     "deeprank2_tpu_torch.ops.optim",
@@ -27,6 +28,7 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.ops.segment",
     "deeprank2_tpu_torch.ops.slotpool",
     "deeprank2_tpu_torch.ops.synthetic",
+    "deeprank2_tpu_torch.ops.vanilla",
     "deeprank2_tpu_torch.neuralnets",
     "deeprank2_tpu_torch.neuralnets.nn",
     "deeprank2_tpu_torch.neuralnets.param_interop",
@@ -35,6 +37,7 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.neuralnets.gnn.ginet",
     "deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse",
     "deeprank2_tpu_torch.neuralnets.gnn.ginet_dense",
+    "deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn",
 ]
 
 # Runs in a fresh interpreter (this test process has imported JAX already).
@@ -151,6 +154,27 @@ def test_blocksparse_entry_points_raise_without_cuda(no_cuda) -> None:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             batch.structure.to("cuda")
         assert cls(4, 2, 1, device="cpu")(batch).shape == (1, 2)
+
+
+def test_blocked_entry_points_raise_without_cuda(no_cuda) -> None:
+    from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetworkBlocked
+    from deeprank2_tpu_torch.ops.batch import collate_graphs_blocked
+    from deeprank2_tpu_torch.ops.blocked_edges import build_blocked_edges
+    from deeprank2_tpu_torch.ops.synthetic import geometric_entry
+
+    entries = [geometric_entry(300, 4, 6, seed=0)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_blocked_edges(entries[0]["edge_index"], entries[0]["edge_attr"], 300)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        collate_graphs_blocked(entries)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VanillaNetworkBlocked(4, 2, 6)
+    batch, _ = collate_graphs_blocked(entries, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch.to("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch.structure.to("cuda")
+    assert VanillaNetworkBlocked(4, 2, 6, device="cpu")(batch).shape == (1, 2)
 
 
 @pytest.mark.parametrize("alone", [False, True])
