@@ -87,7 +87,41 @@ Phases, each printing one JSON line:
    collate_graphs_blocked([geometric_entry(100_000, 38, 6)]): the same step
    against the CPU and sum-of-logits probe as the BCSR paths, then
    BCSR_STEPS train steps and one eval forward: blocked_fwd_kernel 2*S + 2,
-   blocked_bwd_kernel 2*S and no other kernel; then a profile.
+   blocked_bwd_kernel 2*S and no other kernel; then a profile;
+13. the sorted segment-sum kernel against its plain version on the card:
+   segment_sum_sorted_kernel (K7) at the COO paths' calls (the coo batch's
+   rows at F=16 and 32, the coo_clustered batch's full rows at F=16 and its
+   pooled rows at F=32, VanillaNetwork's M=32 on relu'd messages), at the
+   100k-node atomic graph's COO rows (F=32, E=4,221,824), at a ragged case
+   (F=12, padding num_segments + 7, empty segments) and at E=0, directly and
+   through segment_sum_sorted's autograd (its VJP is a gather),
+   rtol=atol=1e-5 (both f32, only the summation order differs); segments
+   without a message must be exact zeros. Then K7's time at each COO path's
+   calls beside its plain version, one library call (index_add_ into an
+   [n+1, F] buffer with the ids clamped to n) and its byte bound;
+14. the COO paths, each checked one step against the CPU (with the
+   sum-of-logits probe), driven SEGMENT_STEPS train steps and one eval
+   forward with the counters at 0, and profiled: GINet no-cluster (38, 2, 6)
+   on collate_graphs of the bench entries (coo; K7 4*S + 4), the clustered
+   GINet(38, 2, 1) on collate_graphs of the clustered entries
+   (coo_clustered; K7 4*S + 4), VanillaNetwork(38, 2, 6) on the coo batch
+   (coo_vanilla; K7 2*S + 2), every other kernel 0;
+15. the coo_clustered step with the segment ops' earlier boolean-mask form
+   patched back in, against the step as it is, in turns: the host time the
+   masks cost;
+16. the fast paths against their COO oracle on one shared state_dict, eval
+   mode, logits and the gradient of the sum of the logits, the oracle
+   computed in float64 (its f32 run's own errors reported): GINetDense on the
+   bench batch and GINetBlockSparse on the atomic BCSR batch against the
+   no-cluster GINet, VanillaNetworkBlocked on the atomic blocked batch
+   against VanillaNetwork (rtol 1e-4, atol 1e-5), and GINetClusteredDiag
+   (pure slot8) against the clustered GINet at the 1e-3 gate of
+   tests/perf/clustered_parity.py: logits and the head's gradients (1e-3 of
+   their largest magnitude, at least 1e-3); the conv weights' gradients,
+   which pass through the max pools, are reported with the COO pools under
+   their own tie rule (shared among tied rows) and under the fast path's
+   (full cotangent to each), since structural positive ties make the two
+   rules differ.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -97,6 +131,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -110,6 +145,8 @@ WARM_STEPS = 4
 CLUSTERED_STEPS = 20
 MIXED_STEPS = 6
 BCSR_STEPS = 20
+SEGMENT_STEPS = 20
+SYNC_PROBE_STEPS = 10
 BCSR = {"nodes": 100_000, "feat": 38, "edge_dim": 6, "seed": 0}
 CLUSTERED_BCSR = {"nodes": 100_000, "feat": 38, "edge_dim": 1, "seed": 0, "slot8": True}
 BENCH = {"num_graphs": 512, "nodes": 160, "feat": 38, "edge_dim": 6, "seed": 7}
@@ -118,6 +155,8 @@ MIXED_CELL = 6.0
 TOL = {"rtol": 1e-5, "atol": 1e-5}
 EXACT = {"rtol": 0.0, "atol": 0.0}
 STEP_TOL = {"rtol": 1e-4, "atol": 1e-6}
+CROSS_TOL = {"rtol": 1e-4, "atol": 1e-5}
+CLUSTERED_GATE = 1e-3  # tests/perf/clustered_parity.py:93
 CLUSTERED_TOL = {"rtol": 1e-4, "atol": 1e-5}
 # f32 on both sides: the largest gradient error seen on the card is ~3e-7
 CLUSTERED_GRAD_TOL = {"rtol": 1e-4, "atol": 1e-6}
@@ -125,7 +164,16 @@ CLUSTERED_GRAD_TOL = {"rtol": 1e-4, "atol": 1e-6}
 # own: its atol is this share of the sum of the products' absolute values,
 # the scale of any f32 summation order's rounding error
 DW_TOL = 1e-6
-KERNELS = ("diag_kernel", "pool_bwd_kernel", "slot_fwd_kernel", "slot_bwd_kernel", "bcsr_spmm_kernel", "blocked_fwd_kernel", "blocked_bwd_kernel")
+KERNELS = (
+    "diag_kernel",
+    "pool_bwd_kernel",
+    "slot_fwd_kernel",
+    "slot_bwd_kernel",
+    "bcsr_spmm_kernel",
+    "blocked_fwd_kernel",
+    "blocked_bwd_kernel",
+    "segment_sum_sorted_kernel",
+)
 # each path's calls of each kernel in one train step: (kernel, mode or slot, F)
 STEP_CALLS = {
     "dense": [("diag_kernel", "relu_mask", 32), ("diag_kernel", "relu_mask_pool", 64), ("diag_kernel", "plain", 32), ("pool_bwd_kernel", None, 64)],
@@ -140,6 +188,15 @@ BCSR_STEP_CALLS = {
     "bcsr": [("structure", 32, 2), ("structure", 64, 2)],
     "clustered_bcsr": [("structure", 32, 2), ("structure_p", 64, 2)],
 }
+# each COO path's K7 calls in one train step (forward only: the VJP is a
+# gather): (path, rows, F, calls)
+SEGMENT_STEP_CALLS = [
+    ("coo", "coo", 16, 2),
+    ("coo", "coo", 32, 2),
+    ("coo_clustered", "coo_clustered", 16, 2),
+    ("coo_clustered_pooled", "coo_clustered_pooled", 32, 2),
+    ("coo_vanilla", "coo", 32, 2),
+]
 REPLACES = {
     "diag_kernel": "deeprank2_tpu/ops/diag_spmm.py:113 (_diag_kernel, pallas_call at :188)",
     "pool_bwd_kernel": "deeprank2_tpu/ops/diag_spmm.py:263 (_pool_bwd_kernel, pallas_call at :308)",
@@ -148,6 +205,7 @@ REPLACES = {
     "bcsr_spmm_kernel": "deeprank2_tpu/ops/block_sparse.py:535 (_kernel_stream, pallas_call at :760)",
     "blocked_fwd_kernel": "deeprank2_tpu/ops/pallas_vanilla.py:122 (_fwd_kernel, pallas_call at :243)",
     "blocked_bwd_kernel": "deeprank2_tpu/ops/pallas_vanilla.py:145 (_bwd_kernel, pallas_call at :274)",
+    "segment_sum_sorted_kernel": "deeprank2_tpu/ops/pallas_segment.py:42 (_kernel, pallas_call at :157)",
 }
 SOURCES = {
     "diag_kernel": "deeprank2_tpu_torch/csrc/diag_spmm.cu",
@@ -157,6 +215,7 @@ SOURCES = {
     "bcsr_spmm_kernel": "deeprank2_tpu_torch/csrc/bcsr_spmm.cu",
     "blocked_fwd_kernel": "deeprank2_tpu_torch/csrc/blocked_edges.cu",
     "blocked_bwd_kernel": "deeprank2_tpu_torch/csrc/blocked_edges.cu",
+    "segment_sum_sorted_kernel": "deeprank2_tpu_torch/csrc/segment_sum.cu",
 }
 LIBRARY = {
     "diag_kernel": "torch.bmm of the f32 adjacency [G,N,N] with the [G,N,F] slab (contraction only)",
@@ -166,6 +225,7 @@ LIBRARY = {
     "bcsr_spmm_kernel": "torch.sparse_csr_tensor of the mirrored pairs @ x [N, F] (cuSPARSE SpMM)",
     "blocked_fwd_kernel": None,
     "blocked_bwd_kernel": None,
+    "segment_sum_sorted_kernel": "buf.index_add_(0, ids clamped to n, msgs) into an [n+1, F] buffer",
 }
 # published peaks (NVIDIA data sheets; dense, f32 outside the tensor cores):
 # (memory bytes/s, f32 FLOP/s). The SXM part is the default.
@@ -234,7 +294,7 @@ class Checks:
         self.rows = []
 
     def close(self, kernel, what, got, want, tol) -> None:
-        err = (got.float() - want.float()).abs().max().item()
+        err = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
         self.errs[kernel] = max(self.errs[kernel], err)
         self.rows.append({"kernel": kernel, "check": what, "max_abs_err": err})
         self.torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{kernel} {what}: {m}")
@@ -679,7 +739,9 @@ def time_blocked_calls(torch, vn, timer, path, st, m, per_step, peak_bw, peak_f3
 def profile_steps(torch, train_step, step_s, steps=3) -> dict:
     """Device time by kernel over a few traced train steps. The idle share is
     taken against the untraced step time (tracing slows the host) and, for
-    comparison, against the traced wall time."""
+    comparison, against the traced wall time. One more step runs under
+    torch.cuda's sync debug mode, which counts the operations that make the
+    host wait for the device."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -688,6 +750,18 @@ def profile_steps(torch, train_step, step_s, steps=3) -> dict:
             train_step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # operations that wait for the device, in one more step
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            train_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]  # the Python line of each
     # device-side events only; user annotations (e.g. Optimizer.step) span gaps between kernels
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and not e.is_user_annotation and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -699,9 +773,232 @@ def profile_steps(torch, train_step, step_s, steps=3) -> dict:
         "device_busy_us_per_step": busy_us / steps,
         "idle_share": max(0.0, 1 - busy_us / steps / (step_s * 1e6)),
         "idle_share_traced": max(0.0, 1 - busy_us / wall_us),
+        "host_syncs_per_step": len(syncs),
+        "host_sync_sites": {site: syncs.count(site) for site in sorted(set(syncs))},
         "top": [{"name": e.key[:90], "device_us_per_step": e.self_device_time_total / steps, "launches_per_step": e.count / steps} for e in top],
     }
 
+
+def check_segment_kernel(torch, ss, checks, shapes, dev) -> None:
+    """segment_sum_sorted_kernel against its plain version, directly and
+    through segment_sum_sorted's autograd (its VJP is a gather), on random
+    messages (relu'd where the caller's are); the padding entries' messages
+    are not zero, so a kernel that read them would disagree. Segments without
+    a message must give exact zeros."""
+    for tag, rows, n, f, relu in shapes:
+        gen = torch.Generator(device=dev).manual_seed(len(checks.rows))
+        msgs = torch.randn(rows.shape[0], f, generator=gen, device=dev)
+        if relu:
+            msgs = msgs.relu()
+        cot = torch.randn(n, f, generator=gen, device=dev)
+        want = ss.segment_sum_sorted_kernel_ref(msgs, rows, n)
+        out = ss.segment_sum_sorted_kernel(msgs, rows, n)
+        checks.close("segment_sum_sorted_kernel", f"{tag} direct F={f}", out, want, TOL)
+        grads = []
+        for fn in (ss.segment_sum_sorted, ss.segment_sum_sorted_kernel_ref):
+            m = msgs.clone().requires_grad_(True)
+            got = fn(m, rows, n)
+            grads.append((got.detach(), torch.autograd.grad(got, m, cot)[0]))
+        checks.close("segment_sum_sorted_kernel", f"{tag} segment_sum_sorted fwd F={f}", grads[0][0], want, TOL)
+        checks.close("segment_sum_sorted_kernel", f"{tag} segment_sum_sorted vjp F={f}", grads[0][1], grads[1][1], TOL)
+        counts = torch.zeros(n + 1, device=dev).index_add_(0, rows.clamp(max=n).long(), torch.ones(rows.shape[0], device=dev))[:n]
+        empty = counts == 0
+        checks.rows[-1].update({"segments": n, "empty_segments": int(empty.sum()), "valid_share": float((rows < n).float().mean()) if rows.numel() else 0.0})
+        if out[empty].any():
+            msg = f"segment_sum_sorted_kernel {tag}: a segment without messages is not exactly zero"
+            raise AssertionError(msg)
+        del want, out, grads
+    sync(torch, dev)
+
+
+def time_segment_calls(torch, ss, timer, rows_by_name, peak_bw, peak_f32) -> list:
+    """Kernel, plain-version and library times of K7 at each COO path's calls,
+    with each call's bound: bytes, the valid messages (4·F) and their row ids
+    (4) read once and the output written once; operations, the E_valid·F
+    additions (the padding entries are neither read nor summed)."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    calls = []
+    for path, name, f, per_step in SEGMENT_STEP_CALLS:
+        rows, n = rows_by_name[name]
+        msgs = torch.randn(rows.shape[0], f, generator=gen, device="cuda")
+        ids = rows.clamp(max=n).long()
+        buf = torch.zeros(n + 1, f, device="cuda")
+        valid = int((rows < n).sum())
+        calls.append(
+            {
+                "path": path,
+                "kernel": "segment_sum_sorted_kernel",
+                "mode": name,
+                "shape": {"rows": rows.numel(), "valid_rows": valid, "segments": n},
+                "F": f,
+                "per_step": per_step,
+                "ms": timer.ms(lambda msgs=msgs, rows=rows, n=n: ss.segment_sum_sorted_kernel(msgs, rows, n)),
+                "plain_ms": timer.ms(lambda msgs=msgs, rows=rows, n=n: ss.segment_sum_sorted_kernel_ref(msgs, rows, n)),
+                "library_ms": timer.ms(lambda buf=buf, ids=ids, msgs=msgs: buf.index_add_(0, ids, msgs)),
+                **bound((4 * f + 4) * valid, 4 * f * n, f * valid, peak_bw, peak_f32),
+                "bytes_all_rows": (4 * f + 4) * rows.numel() + 4 * f * n,
+            }
+        )
+        del msgs, ids, buf
+    return calls
+
+
+def masked_segment_ops(torch, tseg):
+    """The segment ops as they stood before the spare-row form: boolean-mask
+    indexing of the in-range ids, which waits for the device (the sorted
+    route to K7 is unchanged)."""
+    sorted_sum = tseg.segment_sum
+
+    def segment_sum(data, segment_ids, num_segments, indices_sorted=False):
+        if indices_sorted and data.dim() == 2 and data.device.type == "cuda":
+            return sorted_sum(data, segment_ids, num_segments, indices_sorted)
+        keep = segment_ids < num_segments
+        return data.new_zeros((num_segments, *data.shape[1:])).index_add(0, segment_ids[keep].long(), data[keep])
+
+    def segment_max(data, segment_ids, num_segments):
+        keep = segment_ids < num_segments
+        rows = data[keep]
+        index = segment_ids[keep].long().reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(rows)
+        init = data.new_full((num_segments, *data.shape[1:]), -torch.inf)
+        out = init.scatter_reduce(0, index, rows, reduce="amax", include_self=True)
+        return torch.where(torch.isneginf(out), torch.zeros((), dtype=out.dtype, device=out.device), out)
+
+    return {"segment_sum": segment_sum, "segment_max": segment_max}
+
+
+def host_sync_probe(torch, card, model, batch, steps, dev) -> dict:
+    """Step time of one COO path with the segment ops as they are and with
+    their earlier boolean-mask form patched in, in turns (as is, masked,
+    masked, as is), each over ``steps`` timed steps after one warm step."""
+    import unittest.mock as mock
+
+    from deeprank2_tpu_torch.ops import pooling as tpool
+    from deeprank2_tpu_torch.ops import segment as tseg
+    from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
+    from deeprank2_tpu_torch.ops.optim import Adam
+
+    loss_fn = CrossEntropyLoss()
+    opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    masked = masked_segment_ops(torch, tseg)
+
+    def timed() -> float:
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss_fn(model(batch, training=True, generator=gen), batch.y, batch.y_mask).backward()
+            opt.step()
+
+        step()
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        sync(torch, dev)
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    times = {"as_is": [], "masked": []}
+    for form in ("as_is", "masked", "masked", "as_is"):
+        if form == "masked":
+            with contextlib.ExitStack() as stack:
+                for module in (tseg, tpool):
+                    for name, fn in masked.items():
+                        stack.enter_context(mock.patch.object(module, name, fn))
+                times[form].append(timed())
+        else:
+            times[form].append(timed())
+    as_is, masked_ms = statistics.mean(times["as_is"]), statistics.mean(times["masked"])
+    return {"phase": "coo_host_sync", "card": card, "steps_per_turn": steps, "step_ms": times, "masked_minus_as_is_ms": masked_ms - as_is}
+
+
+def full_tie_pools(torch):
+    """A context in which the COO pools' segment_max gives every row that
+    reaches its segment's max the full cotangent: the tie rule of the fast
+    paths' member and slot pools (the COO rule shares it among the tied
+    rows). Positive ties are structural in the clustered GINet (two clusters
+    whose only neighbour is the same cluster get equal conv2 outputs), so the
+    two rules give other gradients on the same function."""
+    import unittest.mock as mock
+
+    from deeprank2_tpu_torch.ops import pooling as tpool
+    from deeprank2_tpu_torch.ops import segment as tseg
+
+    class FullTieMax(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, ids, n):
+            out = tseg.segment_max(x, ids, n)
+            ctx.save_for_backward(x, out, ids)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            x, out, ids = ctx.saved_tensors
+            c = ids.clamp(max=out.shape[0] - 1).long()
+            winner = (x == out[c]) & (ids < out.shape[0])[:, None]
+            return torch.where(winner, g[c], torch.zeros((), dtype=g.dtype, device=g.device)), None, None
+
+    return mock.patch.object(tpool, "segment_max", FullTieMax.apply)
+
+
+def logits_and_grads(torch, model, batch, context=contextlib.nullcontext) -> tuple:
+    """Eval-mode logits and the gradient of their sum, by parameter name."""
+    model.zero_grad(set_to_none=True)
+    with context():
+        logits = model(batch, training=False)
+        logits.sum().backward()
+    grads = {k: p.grad.detach().float() for k, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return logits.detach().float(), grads
+
+
+def f64_oracle(torch, oracle, batch, context) -> tuple:
+    """The COO oracle's logits and gradients computed in float64: a copy of
+    the model and of the batch's float fields in f64, through the plain
+    segment sum (K7 takes f32 only)."""
+    import copy
+    import dataclasses
+
+    from deeprank2_tpu_torch.ops import segment as tseg
+
+    model = copy.deepcopy(oracle).double()
+    b64 = dataclasses.replace(batch, **{k: getattr(batch, k).double() for k in ("x", "pos", "edge_attr", "y")})
+    tseg.set_segment_backend("xla")
+    try:
+        return logits_and_grads(torch, model, b64, context)
+    finally:
+        tseg.set_segment_backend("pallas")
+
+
+def cross_check(torch, name, oracle, oracle_batch, fast, fast_batch, gate=None, oracle_context=contextlib.nullcontext, gated=lambda name: True) -> dict:
+    """Logits and the gradient of the sum of the logits of a fast path, on
+    the oracle's parameters in eval mode, against its COO oracle computed in
+    float64 (the oracle run inside ``oracle_context``): within CROSS_TOL, or
+    within ``gate`` (logits absolute; gradients relative to their largest
+    magnitude, at least ``gate``); the gradients of the parameters that
+    ``gated`` rejects are reported, not gated. The f64 oracle keeps the reference's own f32
+    rounding out of the comparison (one f32 sum of 100k node rows is exact
+    to about 1e-5 relative); the f32 oracle's errors against it are reported
+    beside the fast path's."""
+    fast.load_state_dict(oracle.state_dict())
+    lg, gr = logits_and_grads(torch, fast, fast_batch)
+    lo, go = logits_and_grads(torch, oracle, oracle_batch, oracle_context)
+    lw, gw = f64_oracle(torch, oracle, oracle_batch, oracle_context)
+    if not gr.keys() == go.keys() == gw.keys():
+        msg = f"{name}: gradients differ in which parameters have one: {sorted(gr)} vs {sorted(go)}"
+        raise AssertionError(msg)
+    errs, coo_f32_errs = {}, {}
+    for what, got, want, f32, is_grad in [("logits", lg, lw, lo, False), *[(f"grad {k}", gr[k], gw[k], go[k], True) for k in gr]]:
+        errs[what] = (got - want).abs().max().item()
+        coo_f32_errs[what] = (f32 - want).abs().max().item()
+        if is_grad and not gated(what.removeprefix("grad ")):
+            continue
+        if gate is None:
+            torch.testing.assert_close(got, want, **CROSS_TOL, msg=lambda m, what=what: f"{name} {what}: {m}")
+        elif errs[what] > gate * (max(1.0, want.abs().max().item()) if is_grad else 1.0):
+            msg = f"{name} {what}: max abs error {errs[what]} beyond the {gate} gate"
+            raise AssertionError(msg)
+    tolerance = CROSS_TOL if gate is None else {"gate": gate, "gradients_gated": sorted(k for k in gr if gated(k))}
+    scale = {k: gw[k].abs().max().item() for k in gw}
+    return {"check": name, "tolerance": tolerance, "logits_shape": list(lg.shape), "max_abs_err": errs, "coo_f32_max_abs_err": coo_f32_errs, "grad_max_abs": scale}
 
 def kernels_line(calls, path_launches, errs) -> list:
     """One entry per kernel: times and bounds summed over the kernel's calls in
@@ -798,9 +1095,9 @@ def bcsr_winner_flips(torch, bs, model, batch, cpu_model, cpu_batch) -> dict:
     return {"groups_with_a_positive_max": int(live.sum()), "winner_flips": {"slot8": int(((win[0] != win[1]) & live).sum())}}
 
 
-def atomic_path(torch, counters, card, batch, model_factory, want, dev, phase, describe, flips=None) -> dict:
-    """Check one atomic-scale path (BCSR or blocked-edge) against the CPU,
-    drive it with the counters at 0, and profile a few of its steps."""
+def checked_path(torch, counters, card, batch, model_factory, want, dev, phase, describe, flips=None, steps=BCSR_STEPS) -> dict:
+    """Check one path (BCSR, blocked-edge or COO) against the CPU, drive it
+    with the counters at 0, and profile a few of its steps."""
     from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
     from deeprank2_tpu_torch.ops.optim import Adam
 
@@ -818,7 +1115,7 @@ def atomic_path(torch, counters, card, batch, model_factory, want, dev, phase, d
     )
     emit({**info, "sum_of_logits_probe": probe})
     opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
-    run = run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, BCSR_STEPS)
+    run = run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps)
     train_step = run.pop("train_step")
     real_edges = 2 * describe.pop("undirected_edges")
     emit({"phase": phase, "card": card, **describe, **run, "step_ms": run["step_s"] * 1e3, "edges_per_s": real_edges / run["step_s"], "real_edges": real_edges})
@@ -837,17 +1134,21 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device; this smoke run needs the card", file=sys.stderr)
         return 2
 
-    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
     from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet import GINet
     from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
-    from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetworkBlocked
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag, GINetDense
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_nocluster import GINet as GINetNoCluster
+    from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetwork, VanillaNetworkBlocked
     from deeprank2_tpu_torch.ops import _build
     from deeprank2_tpu_torch.ops import block_sparse as bs
     from deeprank2_tpu_torch.ops import blocked_edges as be
     from deeprank2_tpu_torch.ops import diag_spmm as ds
+    from deeprank2_tpu_torch.ops import segment_sorted as ss
     from deeprank2_tpu_torch.ops import slotpool as sp
     from deeprank2_tpu_torch.ops import vanilla as vn
     from deeprank2_tpu_torch.ops.batch import (
+        collate_graphs,
         collate_graphs_blocked,
         collate_graphs_blocksparse,
         collate_graphs_blocksparse_clustered,
@@ -856,6 +1157,7 @@ def main() -> int:
     )
     from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
     from deeprank2_tpu_torch.ops.optim import Adam
+    from deeprank2_tpu_torch.ops.pooling import community_pool
     from deeprank2_tpu_torch.ops.synthetic import clustered_entry, geometric_entry, ppi_clustered_entries, synthetic_entries
 
     # 1. device and build (one nvcc per source, all at once)
@@ -865,7 +1167,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.build([ds.SOURCE, sp.SOURCE, bs.SOURCE, vn.SOURCE])
+    _build.build([ds.SOURCE, sp.SOURCE, bs.SOURCE, vn.SOURCE, ss.SOURCE])
     build_s = time.perf_counter() - t0
     emit(
         {
@@ -880,7 +1182,7 @@ def main() -> int:
             "peaks": {"part": part, "bytes_per_s": peak_bw, "f32_flop_per_s": peak_f32},
         }
     )
-    counters = Counters(ds, sp, bs, vn)
+    counters = Counters(ds, sp, bs, vn, ss)
 
     # 2. kernels against their plain versions, and their times
     dev = torch.device("cuda")
@@ -1018,7 +1320,7 @@ def main() -> int:
     def structure_info(st):
         return {"tiles": st.num_tiles, "chunks": st.num_chunks, "blocks_stored": st.num_blocks, "blocks_nonzero": st.tile_blocks.numel()}
 
-    path_launches["bcsr"] = atomic_path(
+    path_launches["bcsr"] = checked_path(
         torch,
         counters,
         card,
@@ -1034,10 +1336,9 @@ def main() -> int:
             "undirected_edges": int(entry["edge_index"].shape[0]),
         },
     )
-    del b_batch
 
     # 10. the clustered BCSR path and its profile
-    path_launches["clustered_bcsr"] = atomic_path(
+    path_launches["clustered_bcsr"] = checked_path(
         torch,
         counters,
         card,
@@ -1094,7 +1395,7 @@ def main() -> int:
 
     # 12. the blocked-edge path and its profile
     st = bl_batch.structure
-    path_launches["blocked"] = atomic_path(
+    path_launches["blocked"] = checked_path(
         torch,
         counters,
         card,
@@ -1113,7 +1414,125 @@ def main() -> int:
             "undirected_edges": int(entry["edge_index"].shape[0]),
         },
     )
-    del bl_batch, st
+    del st
+
+    # 13. the sorted segment-sum kernel against its plain version, and its times
+    t0 = time.perf_counter()
+    coo_batch, _ = collate_graphs(entries, device=dev)
+    coo_collate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cc_batch, _ = collate_graphs(c_entries, device=dev)
+    coo_clustered_collate_s = time.perf_counter() - t0
+    atomic_coo, _ = collate_graphs([entry], device=dev)
+    v_coo, v_cc, v_atomic = coo_batch.num_nodes, cc_batch.num_nodes, atomic_coo.num_nodes
+    pooled_rows = community_pool(
+        torch.zeros(v_cc, 1, device=dev), cc_batch.pos, cc_batch.edge_index, cc_batch.edge_attr, cc_batch.edge_mask, cc_batch.node_graph, cc_batch.cluster0, cc_batch.num_graphs
+    )[2][0].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    ragged_n, ragged_e = 5000, 40000
+    ragged_rows = torch.sort(torch.randint(0, ragged_n, (ragged_e,), generator=gen, device=dev)).values.to(torch.int32)
+    ragged_rows = ragged_rows[(ragged_rows <= 100) | (ragged_rows >= 400)]  # 299 segments without messages
+    ragged_rows[-123:] = ragged_n + 7
+    coo_rows, cc_rows = coo_batch.edge_index[0].contiguous(), cc_batch.edge_index[0].contiguous()
+    n_checks = len(checks.rows)
+    check_segment_kernel(
+        torch,
+        ss,
+        checks,
+        [
+            (f"coo E={coo_rows.numel()}", coo_rows, v_coo, 16, False),
+            (f"coo E={coo_rows.numel()}", coo_rows, v_coo, 32, False),
+            (f"coo_clustered full E={cc_rows.numel()}", cc_rows, v_cc, 16, False),
+            (f"coo_clustered pooled E={pooled_rows.numel()}", pooled_rows, v_cc, 32, False),
+            ("coo_vanilla messages (relu)", coo_rows, v_coo, 32, True),
+            (f"atomic 100k E={atomic_coo.num_edges}", atomic_coo.edge_index[0].contiguous(), v_atomic, 32, False),
+            ("ragged n=5000 padding n+7", ragged_rows, ragged_n, 12, False),
+            ("E=0", torch.zeros(0, dtype=torch.int32, device=dev), 100, 32, False),
+        ],
+        dev,
+    )
+    emit({"phase": "segment_kernel_vs_plain", "tolerance": {"segment_sum_sorted_kernel": TOL}, "checks": checks.rows[n_checks:]})
+    timer = Timer(torch)
+    segment_calls = time_segment_calls(
+        torch, ss, timer, {"coo": (coo_rows, v_coo), "coo_clustered": (cc_rows, v_cc), "coo_clustered_pooled": (pooled_rows, v_cc)}, peak_bw, peak_f32
+    )
+    del timer, ragged_rows, pooled_rows
+    emit({"phase": "segment_kernel_times", "card": card, "l2_flushed": True, "calls": segment_calls})
+    calls += segment_calls
+
+    # 14. the COO paths, each checked against the CPU, counted and profiled
+    def coo_describe(model, batch_info, collate_s, batch, undirected):
+        return {
+            "model": model,
+            "batch": {**batch_info, "layout": "coo", "nodes_cap": batch.num_nodes, "edges_cap": batch.num_edges},
+            "collate_s": collate_s,
+            "undirected_edges": undirected,
+        }
+
+    bench_undirected = int(sum(e["edge_index"].shape[0] for e in entries))
+    path_launches["coo"] = checked_path(
+        torch,
+        counters,
+        card,
+        coo_batch,
+        lambda d: GINetNoCluster(BENCH["feat"], 2, BENCH["edge_dim"], device=d, generator=torch.Generator().manual_seed(0)),
+        want_launches(segment_sum_sorted_kernel=4 * SEGMENT_STEPS + 4),
+        dev,
+        "main_path_coo",
+        coo_describe("GINet no-cluster (38, 2, 6)", BENCH, coo_collate_s, coo_batch, bench_undirected),
+        steps=SEGMENT_STEPS,
+    )
+    path_launches["coo_clustered"] = checked_path(
+        torch,
+        counters,
+        card,
+        cc_batch,
+        lambda d: GINet(CLUSTERED["feat"], 2, 1, device=d, generator=torch.Generator().manual_seed(0)),
+        want_launches(segment_sum_sorted_kernel=4 * SEGMENT_STEPS + 4),
+        dev,
+        "main_path_coo_clustered",
+        coo_describe("GINet clustered (38, 2, 1)", CLUSTERED, coo_clustered_collate_s, cc_batch, int(sum(e["edge_index"].shape[0] for e in c_entries))),
+        steps=SEGMENT_STEPS,
+    )
+    path_launches["coo_vanilla"] = checked_path(
+        torch,
+        counters,
+        card,
+        coo_batch,
+        lambda d: VanillaNetwork(BENCH["feat"], 2, BENCH["edge_dim"], device=d, generator=torch.Generator().manual_seed(0)),
+        want_launches(segment_sum_sorted_kernel=2 * SEGMENT_STEPS + 2),
+        dev,
+        "main_path_coo_vanilla",
+        coo_describe("VanillaNetwork(38, 2, 6)", BENCH, coo_collate_s, coo_batch, bench_undirected),
+        steps=SEGMENT_STEPS,
+    )
+
+    # 15. the host time of the segment ops' earlier boolean masks
+    emit(host_sync_probe(torch, card, GINet(CLUSTERED["feat"], 2, 1, device=dev, generator=torch.Generator().manual_seed(0)), cc_batch, SYNC_PROBE_STEPS, dev))
+
+    # 16. the fast paths against their COO oracle (card-only forwards)
+    dense_batch, _ = collate_graphs_dense(entries, pad_graphs=BENCH["num_graphs"], pad_nodes=BENCH["nodes"], device=dev)
+    diag_batch, _ = collate_graphs_diag_clustered(c_entries, device=dev)
+    oracle = GINetNoCluster(BCSR["feat"], 2, BCSR["edge_dim"], device=dev, generator=torch.Generator().manual_seed(3))
+    cross = [
+        cross_check(torch, "GINetDense vs GINet no-cluster, bench batch", oracle, coo_batch, GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev), dense_batch),
+        cross_check(torch, "GINetBlockSparse vs GINet no-cluster, atomic 100k", oracle, atomic_coo, GINetBlockSparse(BCSR["feat"], 2, BCSR["edge_dim"], device=dev), b_batch),
+    ]
+    del dense_batch, b_batch
+    c_oracle = GINet(CLUSTERED["feat"], 2, 1, device=dev, generator=torch.Generator().manual_seed(3))
+    diag_model = GINetClusteredDiag(CLUSTERED["feat"], 2, 1, device=dev)
+    # the conv weights' gradients pass through the max pools, whose tie rules
+    # differ (full_tie_pools): reported under both rules, gated under neither
+    head_only = lambda name: not name.startswith("conv")  # noqa: E731
+    for rule, context in (("shared ties", contextlib.nullcontext), ("full-cotangent ties", lambda: full_tie_pools(torch))):
+        cross.append(
+            cross_check(torch, f"GINetClusteredDiag vs GINet clustered ({rule})", c_oracle, cc_batch, diag_model, diag_batch, CLUSTERED_GATE, context, head_only)
+        )
+    del diag_batch
+    v_oracle = VanillaNetwork(BCSR["feat"], 2, BCSR["edge_dim"], device=dev, generator=torch.Generator().manual_seed(3))
+    cross.append(cross_check(torch, "VanillaNetworkBlocked vs VanillaNetwork, atomic 100k", v_oracle, atomic_coo, VanillaNetworkBlocked(BCSR["feat"], 2, BCSR["edge_dim"], device=dev), bl_batch))
+    del bl_batch, atomic_coo, coo_batch, cc_batch
+    emit({"phase": "coo_cross_checks", "checks": cross})
 
     emit({"kernels": kernels_line(calls, path_launches, checks.errs)})
     print(card_line(), flush=True)

@@ -16,27 +16,22 @@ the JAX package also leaves outside its Pallas kernels.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
-from deeprank2_tpu_torch.device import resolve_device
 from deeprank2_tpu_torch.neuralnets import nn as dnn
-from deeprank2_tpu_torch.neuralnets.gnn.ginet import init_ginet_conv
+from deeprank2_tpu_torch.neuralnets.gnn.ginet import GINet
 from deeprank2_tpu_torch.ops.batch import DenseGraphBatch, DiagClusteredBatch
 from deeprank2_tpu_torch.ops.diag_spmm import diag_layer_pool_t, diag_layer_t
 from deeprank2_tpu_torch.ops.pooling import diag_depth0_pool, member_max_pool
 from deeprank2_tpu_torch.ops.segment import segment_max, segment_mean
 
 
-class GINetDense(nn.Module):
-    """No-cluster GINet over :class:`DenseGraphBatch` (dual tower, mean pool).
-
-    Parameter names are the reference's torch ``state_dict`` keys
-    (``conv1.fc.weight [out, in]`` ... ``fc2.bias``), so one initialization
-    loads into this model and, through ``neuralnets/param_interop.py``, into
-    the JAX one. ``generator`` draws the initial weights (a fixed seed when
-    None)."""
-
-    dropout = 0.4
+class GINetDense(GINet):
+    """No-cluster GINet over :class:`DenseGraphBatch` (dual tower, mean pool),
+    with the parameter set of the COO :class:`GINet` (the reference's torch
+    ``state_dict`` keys, ``conv1.fc.weight [out, in]`` ... ``fc2.bias``), so one
+    initialization loads into every GINet of the port and, through
+    ``neuralnets/param_interop.py``, into the JAX one. ``generator`` draws the
+    initial weights (a fixed seed when None)."""
 
     def __init__(
         self,
@@ -47,22 +42,10 @@ class GINetDense(nn.Module):
         generator: torch.Generator | None = None,
         compute_dtype: torch.dtype | None = None,
     ):
-        super().__init__()
         if compute_dtype is not None:
             msg = f"{type(self).__name__}(compute_dtype=...) is not ported yet; the port computes in float32"
             raise NotImplementedError(msg)
-        dev = resolve_device(device)
-        gen = generator if generator is not None else torch.Generator().manual_seed(0)
-        fe = input_shape_edge
-        self.input_shape = input_shape
-        self.output_shape = output_shape
-        self.input_shape_edge = input_shape_edge
-        self.conv1 = init_ginet_conv(input_shape, 16, fe, gen, dev)
-        self.conv2 = init_ginet_conv(16, 32, fe, gen, dev)
-        self.conv1_ext = init_ginet_conv(input_shape, 16, fe, gen, dev)
-        self.conv2_ext = init_ginet_conv(16, 32, fe, gen, dev)
-        self.fc1 = dnn.init_linear(2 * 32, 128, generator=gen, device=dev)
-        self.fc2 = dnn.init_linear(128, output_shape, generator=gen, device=dev)
+        super().__init__(input_shape, output_shape, input_shape_edge, device, generator)
 
     def fused_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The conv layers' weights with the towers fused, in torch's

@@ -3,10 +3,11 @@
 
 Per-edge messages ``relu(MLP([x_i ‖ x_j ‖ e_ij]))`` summed onto the edge's
 first endpoint, then a node MLP over ``[x ‖ msg_sum]``; two such layers, a
-graph mean pool and an output MLP. The COO formulation (``VanillaNetwork``)
-waits for the COO collate and segment backend; ``VanillaNetworkBlocked``
-runs the same math on the blocked-edge layout, where the message sum is the
-CUDA kernel pair of ops/vanilla.py.
+graph mean pool and an output MLP. ``VanillaNetwork`` runs on the COO
+layout, where the message sum is the sorted segment sum (kernel K7 of
+ops/segment_sorted.py); ``VanillaNetworkBlocked`` runs the same math on the
+blocked-edge layout, where the message sum is the CUDA kernel pair of
+ops/vanilla.py.
 """
 
 from __future__ import annotations
@@ -16,9 +17,10 @@ from torch import nn
 
 from deeprank2_tpu_torch.device import resolve_device
 from deeprank2_tpu_torch.neuralnets import nn as dnn
-from deeprank2_tpu_torch.ops.batch import BlockedEdgeBatch
+from deeprank2_tpu_torch.ops.batch import BlockedEdgeBatch, GraphBatch
 from deeprank2_tpu_torch.ops.blocked_edges import EDGE_TILE, BlockedEdgeStructure, blocked_message_sum
-from deeprank2_tpu_torch.ops.pooling import tiled_graph_mean_pool_rows
+from deeprank2_tpu_torch.ops.pooling import graph_mean_pool, tiled_graph_mean_pool_rows
+from deeprank2_tpu_torch.ops.segment import gather_rows, segment_sum
 
 MESSAGE_SIZE = 32
 HIDDEN_SIZE = 128
@@ -64,9 +66,27 @@ class VanillaNetwork(nn.Module):
             dnn.init_linear(HIDDEN_SIZE, output_shape, generator=gen, device=dev),
         )
 
-    def forward(self, batch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
-        msg = "the COO VanillaNetwork needs the COO collate and segment backend, not ported yet (ROADMAP.md queue 1, item 3); use VanillaNetworkBlocked"
-        raise NotImplementedError(msg)
+    @staticmethod
+    def _conv(layer: _ConvLayer, x: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+        # the node parts of the edge MLP per node ([V, F] products), gathered
+        # per edge: cheaper than per-edge products since E >> V
+        row, col = batch.edge_index[0], batch.edge_index[1]
+        w, b = layer._edge_mlp[0].weight, layer._edge_mlp[0].bias  # [M, 2F + Fe], [M]
+        f = x.shape[1]
+        xr = nn.functional.linear(x, w[:, :f], b)  # the bias rides the destination part
+        xc = nn.functional.linear(x, w[:, f : 2 * f])
+        ew = nn.functional.linear(batch.edge_attr, w[:, 2 * f :])  # [E, M]
+        messages = dnn.relu(gather_rows(xr, row) + gather_rows(xc, col) + ew) * batch.edge_mask[:, None]
+        msg_sums = segment_sum(messages, row, x.shape[0], indices_sorted=True)
+        return dnn.relu(dnn.linear(layer._node_mlp[0], torch.cat([x, msg_sums], dim=1)))
+
+    def forward(self, batch: GraphBatch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits ``[G, output_shape]`` over a COO :class:`GraphBatch`. No
+        dropout, so ``training`` and ``generator`` change nothing."""
+        x = self._conv(self._external1, batch.x, batch)
+        x = self._conv(self._external2, x, batch)
+        means = graph_mean_pool(x * batch.node_mask[:, None], batch.node_graph, batch.num_graphs)
+        return self._graph_mlp(means)
 
 
 class VanillaNetworkBlocked(VanillaNetwork):

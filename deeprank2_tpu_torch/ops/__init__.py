@@ -1,3 +1,4 @@
-"""Compute primitives of the port: dense and clustered graph batching, the
-graph-diagonal aggregation and slot max-pool kernels, segment ops and
-community pooling, losses and the optimizer."""
+"""Compute primitives of the port: dense, clustered, block-sparse,
+blocked-edge and COO graph batching, the aggregation, slot max-pool,
+message-sum and sorted segment-sum kernels, segment ops and community
+pooling, losses and the optimizer."""

@@ -2,8 +2,9 @@
 ``DenseGraphBatch``, ``collate_graphs_dense``, the clustered
 ``DiagClusteredBatch`` with ``collate_graphs_diag_clustered``, and the
 block-sparse ``BlockSparseBatch`` and ``ClusteredBlockSparseBatch`` with
-their collates, and the blocked-edge ``BlockedEdgeBatch`` with
-``collate_graphs_blocked``).
+their collates, the blocked-edge ``BlockedEdgeBatch`` with
+``collate_graphs_blocked``, and the COO ``GraphBatch`` with
+``collate_graphs``).
 
 The batch adjacency of collated graphs is block-diagonal: with graphs padded
 to ``N`` nodes, graph ``g`` owns rows and columns ``[g*N, (g+1)*N)`` and no
@@ -14,7 +15,9 @@ block is symmetric. Graphs too large for ``[G, N, N]`` (atomic resolution)
 collate block-sparse instead: locality-ordered, tile-padded and concatenated,
 with one BCSR adjacency over the whole batch (ops/block_sparse.py). Models
 whose messages read per-edge features keep the edge list itself, in
-tile-sorted slabs (ops/blocked_edges.py).
+tile-sorted slabs (ops/blocked_edges.py). The COO layout, the one every
+model without a layout of its own runs on, keeps the mirrored edge list
+sorted by destination row (ops/segment_sorted.py).
 """
 
 from __future__ import annotations
@@ -1014,3 +1017,120 @@ def collate_graphs_blocked(
         y_mask=y_mask,
     )
     return BlockedEdgeBatch(**arrays, structure=structure, num_graphs=num_graphs), names
+
+
+# ---------------------------------------------------------------------------
+# COO batches (port of ``GraphBatch`` and ``collate_graphs``)
+
+
+@dataclass
+class GraphBatch:
+    """One padded COO batch of graphs, on one device: nodes of all graphs
+    concatenated and padded to a bucketed ``V``, mirrored edges padded to a
+    bucketed ``E`` and sorted by destination row (padded edges carry ``V``
+    and sort last), as the JAX package's ``GraphBatch``."""
+
+    x: torch.Tensor  # f32 [V, F] node features (padded rows 0)
+    edge_index: torch.Tensor  # i32 [2, E] mirrored edges, sorted by row; padded entries = V
+    edge_attr: torch.Tensor  # f32 [E, Fe]
+    pos: torch.Tensor  # f32 [V, 3]
+    node_graph: torch.Tensor  # i32 [V] graph id per node; padded = G
+    edge_mask: torch.Tensor  # bool [E]
+    node_mask: torch.Tensor  # bool [V]
+    y: torch.Tensor  # f32 [G] targets (0 where missing)
+    y_mask: torch.Tensor  # bool [G] real-graph mask
+    cluster0: torch.Tensor  # i32 [V] batch-global depth-0 cluster ids; padded = V
+    cluster1: torch.Tensor  # i32 [V] batch-global depth-1 cluster ids, indexed by depth-0 cluster; padded = V
+    num_graphs: int
+
+    @property
+    def num_nodes(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def num_edges(self) -> int:
+        return self.edge_index.shape[1]
+
+    def to(self, device: str | torch.device) -> GraphBatch:
+        """A copy of the batch on ``device``."""
+        dev = resolve_device(device)
+        return GraphBatch(**{k: self.num_graphs if k == "num_graphs" else getattr(self, k).to(dev) for k in self.__dataclass_fields__})
+
+
+def collate_graphs(entries: list[dict], pad_graphs: int | None = None, device: str | torch.device | None = None) -> tuple[GraphBatch, list[str]]:
+    """Collate entries (``x [v, F]``, ``edge_index [e, 2]`` undirected,
+    ``edge_attr [e, Fe]``, ``pos [v, 3]``, ``y`` or None, optional
+    ``cluster0 [v]`` and ``cluster1 [c0]``, ``entry_name``) into one padded
+    :class:`GraphBatch` on ``device`` (CUDA unless ``"cpu"`` is asked for),
+    array for array as the JAX package's ``collate_graphs``. Returns the batch
+    and the entry names (padded graphs get "")."""
+    dev = resolve_device(device)
+    num_graphs, names = _num_graphs(entries, pad_graphs)
+
+    total_v = int(sum(e["x"].shape[0] for e in entries))
+    total_e = int(sum(e["edge_index"].shape[0] * 2 for e in entries))
+    cap_v = bucket_size(total_v)
+    cap_e = bucket_size(total_e)
+    feat_dim = entries[0]["x"].shape[1]
+    edge_dim = entries[0]["edge_attr"].shape[1] if entries[0]["edge_attr"].ndim == 2 else 1
+
+    x = np.zeros((cap_v, feat_dim), dtype=np.float32)
+    pos = np.zeros((cap_v, 3), dtype=np.float32)
+    node_graph = np.full(cap_v, num_graphs, dtype=np.int32)
+    node_mask = np.zeros(cap_v, dtype=bool)
+    edge_index = np.full((2, cap_e), cap_v, dtype=np.int32)
+    edge_attr = np.zeros((cap_e, edge_dim), dtype=np.float32)
+    edge_mask = np.zeros(cap_e, dtype=bool)
+    cluster0 = np.full(cap_v, cap_v, dtype=np.int32)
+    cluster1 = np.full(cap_v, cap_v, dtype=np.int32)
+    have_clusters = all(e.get("cluster0") is not None and e.get("cluster1") is not None for e in entries)
+
+    v_off = e_off = c0_off = c1_off = 0
+    for g, entry in enumerate(entries):
+        v = entry["x"].shape[0]
+        x[v_off : v_off + v] = entry["x"]
+        pos[v_off : v_off + v] = entry["pos"]
+        node_graph[v_off : v_off + v] = g
+        node_mask[v_off : v_off + v] = True
+
+        und = np.asarray(entry["edge_index"], dtype=np.int64)
+        mirrored = np.concatenate([und, und[:, ::-1]], axis=0)  # [2e, 2]
+        e2 = mirrored.shape[0]
+        edge_index[:, e_off : e_off + e2] = (mirrored + v_off).T
+        ea = np.asarray(entry["edge_attr"], dtype=np.float32)
+        if ea.ndim == 1:
+            ea = ea[:, None]
+        edge_attr[e_off : e_off + e2] = np.concatenate([ea, ea], axis=0)
+        edge_mask[e_off : e_off + e2] = True
+
+        if have_clusters:
+            c0 = np.asarray(entry["cluster0"], dtype=np.int64)
+            c1 = np.asarray(entry["cluster1"], dtype=np.int64)
+            n_c0 = int(c0.max()) + 1 if c0.size else 0
+            n_c1 = int(c1.max()) + 1 if c1.size else 0
+            cluster0[v_off : v_off + v] = c0 + c0_off
+            cluster1[c0_off : c0_off + n_c0] = c1 + c1_off  # indexed by depth-0 cluster id
+            c0_off += n_c0
+            c1_off += n_c1
+        v_off += v
+        e_off += e2
+
+    # edges sorted by destination row (padded edges carry cap_v and stay
+    # last): ascending segment ids, the precondition of the sorted segment sum
+    order = np.argsort(edge_index[0], kind="stable")
+    y, y_mask = _targets(entries, num_graphs)
+    arrays = _tensors(
+        dev,
+        x=x,
+        edge_index=edge_index[:, order],
+        edge_attr=edge_attr[order],
+        pos=pos,
+        node_graph=node_graph,
+        edge_mask=edge_mask[order],
+        node_mask=node_mask,
+        y=y,
+        y_mask=y_mask,
+        cluster0=cluster0,
+        cluster1=cluster1,
+    )
+    return GraphBatch(**arrays, num_graphs=num_graphs), names

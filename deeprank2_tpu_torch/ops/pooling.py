@@ -1,6 +1,7 @@
 """Community and graph pooling (port of ``deeprank2_tpu/ops/pooling.py``:
-``member_max_pool``, ``diag_depth0_pool``, ``tiled_graph_mean_pool`` and
-``tiled_graph_mean_pool_rows``).
+``member_max_pool``, ``diag_depth0_pool``, ``tiled_graph_mean_pool``,
+``tiled_graph_mean_pool_rows``, and the COO ``pool_edges_coalesce``,
+``community_pool``, ``max_pool_x`` and ``graph_mean_pool``).
 
 Conventions, as in the JAX package: cluster ids are batch-global and below
 the capacity; padded rows carry out-of-range ids. Pooled features are
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from deeprank2_tpu_torch.ops.segment import segment_max, segment_sum
+from deeprank2_tpu_torch.ops.segment import segment_max, segment_mean, segment_min, segment_sum
 from deeprank2_tpu_torch.ops.slotpool import slot_group_max
 
 
@@ -132,3 +133,82 @@ def tiled_graph_mean_pool_rows(x: torch.Tensor, node_graph: torch.Tensor, node_m
     layout uses 256-node tiles."""
     vpad, f = x.shape
     return _tile_means(x.reshape(vpad // block, block, f).sum(dim=1), node_graph, node_mask, num_graphs, block)
+
+
+# ---------------------------------------------------------------------------
+# COO pooling (port of ``pool_edges_coalesce``, ``community_pool``,
+# ``max_pool_x`` and ``graph_mean_pool``)
+
+
+def pool_edges_coalesce(
+    edge_index: torch.Tensor, edge_attr: torch.Tensor, edge_mask: torch.Tensor, cluster: torch.Tensor, capacity: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Map edges ``[2, E]`` (padded entries out of range) to cluster pairs,
+    drop self-loops, and coalesce duplicates, summing their attributes (PyG
+    ``coalesce``). Returns ``(edge_index [2, E] int32, edge_attr [E, Fe],
+    edge_mask [E])``: the pooled edges in ascending ``(ci, cj)`` order, the
+    invalid slots last and pointing at ``capacity``, so the pooled rows stay
+    sorted for the sorted segment sum."""
+    num_edges = edge_index.shape[1]
+    safe_nodes = edge_index.clamp(0, cluster.shape[0] - 1)
+    ci, cj = cluster[safe_nodes[0]], cluster[safe_nodes[1]]
+    valid = edge_mask & (ci != cj) & (ci < capacity) & (cj < capacity)
+
+    # the JAX package's stable lexsort on (ci, cj), invalid pairs keyed
+    # (capacity, capacity) so they sort last: one stable sort of an int64
+    # composite key
+    ci_s = torch.where(valid, ci, capacity).to(torch.int32)
+    cj_s = torch.where(valid, cj, capacity).to(torch.int32)
+    order = torch.sort(ci_s.long() * (capacity + 1) + cj_s.long(), stable=True).indices
+    sci, scj = ci_s[order], cj_s[order]
+    sorted_attr = edge_attr[order]
+
+    first = torch.ones(min(num_edges, 1), dtype=torch.bool, device=sci.device)
+    is_first = torch.cat([first, (sci[1:] != sci[:-1]) | (scj[1:] != scj[:-1])])
+    group = torch.cumsum(is_first.to(torch.int32), 0, dtype=torch.int32) - 1  # [E] 0..K-1
+    group_or_oob = torch.where(sci < capacity, group, num_edges)
+
+    pooled_attr = segment_sum(sorted_attr, group_or_oob, num_edges)
+    # representative cluster pair of each group (all members share it)
+    slot_ci = segment_min(sci, group_or_oob, num_edges, capacity)
+    slot_cj = segment_min(scj, group_or_oob, num_edges, capacity)
+    pooled_mask = slot_ci < capacity
+    # invalid slots point out of range, so downstream scatters drop them
+    pooled = torch.stack([torch.where(pooled_mask, slot_ci, capacity), torch.where(pooled_mask, slot_cj, capacity)])
+    return pooled, pooled_attr, pooled_mask
+
+
+def community_pool(
+    x: torch.Tensor,
+    pos: torch.Tensor,
+    edge_index: torch.Tensor,
+    edge_attr: torch.Tensor,
+    edge_mask: torch.Tensor,
+    node_graph: torch.Tensor,
+    cluster: torch.Tensor,
+    num_graphs: int,
+) -> tuple[torch.Tensor, ...]:
+    """Pool all cluster members into single nodes (max features, mean
+    position). Returns ``(x' [V, F], pos' [V, 3], edge_index' [2, E],
+    edge_attr' [E, Fe], edge_mask' [E], node_graph' [V], node_mask' [V])``,
+    where row c of the pooled arrays is cluster c (the same capacity V,
+    empty clusters masked)."""
+    capacity = x.shape[0]
+    x_pooled = segment_max(x, cluster, capacity)
+    pos_pooled = segment_mean(pos, cluster, capacity)
+    # graph id per cluster: all members share it (empty clusters: num_graphs)
+    graph_pooled = segment_min(node_graph, cluster, capacity, num_graphs)
+    member_counts = segment_sum((cluster < capacity).to(torch.float32), cluster, capacity)
+    ei, ea, em = pool_edges_coalesce(edge_index, edge_attr, edge_mask, cluster, capacity)
+    return x_pooled, pos_pooled, ei, ea, em, graph_pooled, member_counts > 0
+
+
+def max_pool_x(cluster: torch.Tensor, x: torch.Tensor, node_graph: torch.Tensor, num_graphs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-cluster feature max and per-cluster graph id (PyG ``max_pool_x``)."""
+    capacity = x.shape[0]
+    return segment_max(x, cluster, capacity), segment_min(node_graph, cluster, capacity, num_graphs)
+
+
+def graph_mean_pool(x: torch.Tensor, node_graph: torch.Tensor, num_graphs: int) -> torch.Tensor:
+    """Mean of node features per graph (padded nodes carry out-of-range graph ids)."""
+    return segment_mean(x, node_graph, num_graphs)

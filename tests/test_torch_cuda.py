@@ -16,13 +16,17 @@ import numpy as np
 from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag, GINetDense
-from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetworkBlocked
+from deeprank2_tpu_torch.neuralnets.gnn.ginet import GINet
+from deeprank2_tpu_torch.neuralnets.gnn.ginet_nocluster import GINet as GINetNoCluster
+from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetwork, VanillaNetworkBlocked
 from deeprank2_tpu_torch.ops import block_sparse as bs
 from deeprank2_tpu_torch.ops import blocked_edges as be
 from deeprank2_tpu_torch.ops import diag_spmm as ds
+from deeprank2_tpu_torch.ops import segment_sorted as ss
 from deeprank2_tpu_torch.ops import slotpool as sp
 from deeprank2_tpu_torch.ops import vanilla as vn
 from deeprank2_tpu_torch.ops.batch import (
+    collate_graphs,
     collate_graphs_blocksparse,
     collate_graphs_blocked,
     collate_graphs_blocksparse_clustered,
@@ -294,3 +298,63 @@ def test_blocked_train_step_matches_cpu_and_counts_launches(cuda) -> None:
     torch.testing.assert_close(loss.detach().cpu(), cpu_loss.detach(), rtol=1e-4, atol=1e-5)
     for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
         torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)
+
+
+# F = 12, 16, 32 and one past a warp; padding at n + 7; empty segments; E = 0
+@pytest.mark.parametrize(("num_edges", "num_segments", "f"), [(5000, 700, 12), (5000, 700, 16), (20000, 3000, 32), (3000, 200, 70), (0, 50, 16)])
+def test_segment_kernel_matches_plain_version(cuda, num_edges, num_segments, f) -> None:
+    gen = torch.Generator().manual_seed(num_edges + f)
+    rows = torch.sort(torch.randint(0, num_segments, (num_edges,), generator=gen)).values.to(torch.int32)
+    rows[(rows > 10) & (rows < 20)] = 5  # segments 11-19 empty, still ascending
+    rows = torch.sort(rows).values
+    if num_edges:
+        rows[-37:] = num_segments + 7
+    msgs = torch.randn(num_edges, f, generator=gen).to(cuda)
+    rows, cot = rows.to(cuda), torch.randn(num_segments, f, generator=gen).to(cuda)
+    ss.reset_launches()
+    out = ss.segment_sum_sorted_kernel(msgs, rows, num_segments)
+    torch.testing.assert_close(out, ss.segment_sum_sorted_kernel_ref(msgs, rows, num_segments), **TOL)
+    assert not out[11:20].any()
+    assert ss.launches == {"segment_sum_sorted_kernel": 1}
+    # through the autograd Function: the same launch, and a gather for the VJP
+    m = msgs.clone().requires_grad_(True)
+    out_fn = ss.segment_sum_sorted(m, rows, num_segments)
+    (grad,) = torch.autograd.grad(out_fn, m, cot)
+    torch.testing.assert_close(out_fn.detach(), out, rtol=0, atol=0)  # deterministic: no atomics
+    want_grad = cot[rows.long().clamp(max=num_segments - 1)] * (rows < num_segments).float()[:, None]
+    torch.testing.assert_close(grad, want_grad, rtol=0, atol=0)
+    assert ss.launches == {"segment_sum_sorted_kernel": 2}
+
+
+# (model, entries, edge features, K7 launches in one forward)
+COO_MODELS = {
+    "ginet_nocluster": (GINetNoCluster, lambda: synthetic_entries(6, 40, 38, 6, seed=2), 6, 4),
+    "ginet": (GINet, lambda: ppi_clustered_entries(6, 40, 38, seed=2), 1, 4),
+    "vanilla": (VanillaNetwork, lambda: synthetic_entries(6, 40, 38, 6, seed=2), 6, 2),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(COO_MODELS))
+def test_coo_train_step_matches_cpu_and_counts_launches(cuda, kind) -> None:
+    cls, make, fe, per_forward = COO_MODELS[kind]
+    entries = make()
+    entries[1]["y"] = None
+    batch, _ = collate_graphs(entries, pad_graphs=8, device=cuda)
+    model, cpu_model = cls(38, 2, fe, device=cuda), cls(38, 2, fe, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loss_fn = CrossEntropyLoss()
+    for m in (bs, ds, sp, vn, ss):
+        m.reset_launches()
+    loss = loss_fn(model(batch), batch.y, batch.y_mask)
+    loss.backward()
+    assert ss.launches == {"segment_sum_sorted_kernel": per_forward}  # the backward is a gather
+    assert not any(v for m in (bs, ds, sp, vn) for v in m.launches.values())
+    cpu_batch = batch.to("cpu")
+    cpu_loss = loss_fn(cpu_model(cpu_batch), cpu_batch.y, cpu_batch.y_mask)
+    cpu_loss.backward()
+    torch.testing.assert_close(loss.detach().cpu(), cpu_loss.detach(), rtol=1e-4, atol=1e-5)
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        if p.grad is None:
+            assert q.grad is None, name
+        else:
+            torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)

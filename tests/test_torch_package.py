@@ -26,6 +26,7 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.ops.optim",
     "deeprank2_tpu_torch.ops.pooling",
     "deeprank2_tpu_torch.ops.segment",
+    "deeprank2_tpu_torch.ops.segment_sorted",
     "deeprank2_tpu_torch.ops.slotpool",
     "deeprank2_tpu_torch.ops.synthetic",
     "deeprank2_tpu_torch.ops.vanilla",
@@ -37,6 +38,7 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.neuralnets.gnn.ginet",
     "deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse",
     "deeprank2_tpu_torch.neuralnets.gnn.ginet_dense",
+    "deeprank2_tpu_torch.neuralnets.gnn.ginet_nocluster",
     "deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn",
 ]
 
@@ -175,6 +177,25 @@ def test_blocked_entry_points_raise_without_cuda(no_cuda) -> None:
     with pytest.raises(RuntimeError, match="no CUDA device"):
         batch.structure.to("cuda")
     assert VanillaNetworkBlocked(4, 2, 6, device="cpu")(batch).shape == (1, 2)
+
+
+def test_coo_entry_points_raise_without_cuda(no_cuda) -> None:
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet import GINet
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_nocluster import GINet as GINetNoCluster
+    from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetwork
+    from deeprank2_tpu_torch.ops.batch import collate_graphs
+    from deeprank2_tpu_torch.ops.synthetic import ppi_clustered_entries
+
+    entries = ppi_clustered_entries(2, 20, 4, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        collate_graphs(entries)
+    batch, _ = collate_graphs(entries, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch.to("cuda")
+    for cls in (GINet, GINetNoCluster, VanillaNetwork):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(4, 2, 1)
+        assert cls(4, 2, 1, device="cpu")(batch).shape == (2, 2)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -196,5 +196,10 @@ def test_training_flag_and_unported_parts() -> None:
         assert torch.equal(model(tb, training=True, generator=torch.Generator().manual_seed(0)), model(tb))
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         VanillaNetworkBlocked(FEAT, 2, FE, compute_dtype=torch.bfloat16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        VanillaNetwork(FEAT, 2, FE, device="cpu")(tb)
+    # the COO VanillaNetwork, with the same parameters, on the COO collate of
+    # the same entries: the same function
+    coo = VanillaNetwork(FEAT, 2, FE, device="cpu")
+    coo.load_state_dict(model.state_dict())
+    coo_batch, _ = tbatch.collate_graphs(BATCHES["small"](), pad_graphs=4, device="cpu")
+    with torch.no_grad():
+        torch.testing.assert_close(coo(coo_batch), model(tb), rtol=1e-4, atol=1e-5)
