@@ -112,8 +112,8 @@ Phases, each printing one JSON line:
 16. the fast paths against their COO oracle on one shared state_dict, eval
    mode, logits and the gradient of the sum of the logits, the oracle
    computed in float64 (its f32 run's own errors reported): GINetDense on the
-   bench batch and GINetBlockSparse on the atomic BCSR batch against the
-   no-cluster GINet, VanillaNetworkBlocked on the atomic blocked batch
+   bench batch (on its flat route and on the batched tower backend) and
+   GINetBlockSparse on the atomic BCSR batch against the no-cluster GINet, VanillaNetworkBlocked on the atomic blocked batch
    against VanillaNetwork (rtol 1e-4, atol 1e-5), and GINetClusteredDiag
    (pure slot8) against the clustered GINet at the 1e-3 gate of
    tests/perf/clustered_parity.py: logits and the head's gradients (1e-3 of
@@ -121,7 +121,33 @@ Phases, each printing one JSON line:
    which pass through the max pools, are reported with the COO pools under
    their own tie rule (shared among tied rows) and under the fast path's
    (full cotangent to each), since structural positive ties make the two
-   rules differ.
+   rules differ;
+17. the fused GINet tower kernels against their plain versions on the card:
+   ginet_tower_fwd_kernel and ginet_tower_bwd_kernel (K8f/K8b, batched
+   layout) and tower_fwd_kernel and tower_bwd_kernel (K9f/K9b, flat layout),
+   with the fused weights of a seeded GINetDense(38, 2, 6), at the bench
+   batch, at the ragged batch (G=7, N=96) and at the largest N the shape rule
+   admits (ginet_tower.supports: 251), directly and through their autograd
+   Functions: pooled and h1 at rtol=atol=1e-5; dw1, dw2, t1 and t2 (t1
+   cancels terms far larger than itself) at rtol 1e-5 and an atol of DW_TOL
+   times the sum of their products' absolute values, at least 1e-5; the sign
+   exactly wherever |h2| > 1e-6 max|h2|. Then each kernel's
+   time at the bench batch beside its plain version, the flat route's
+   kernels for the same function (K1 relu F=32 and K1 pool F=64 forward, K2
+   and K1 plain F=32 backward) and its bound (no single PyTorch call
+   computes any of them);
+18. the dense path on the batched tower backend
+   (set_dense_tower_backend("pallas")): the dropout-free step against the
+   CPU at STEP_TOL (the CPU runs the plain version at full size), STEPS train
+   steps and one eval forward with the counters at 0
+   (ginet_tower_fwd_kernel STEPS + 1, ginet_tower_bwd_kernel STEPS, every
+   other kernel 0), and a profile;
+19. the fused flat tower, tower_pooled, on the bench batch with the same
+   weights: once against tower_pooled_ref and against the flat route
+   (diag_layer_t then diag_layer_pool_t), pooled sums and weight gradients at
+   CROSS_TOL, then STEPS forward/backward passes and one forward with the
+   counters at 0 (tower_fwd_kernel STEPS + 1, tower_bwd_kernel STEPS, every
+   other kernel 0).
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -173,6 +199,10 @@ KERNELS = (
     "blocked_fwd_kernel",
     "blocked_bwd_kernel",
     "segment_sum_sorted_kernel",
+    "ginet_tower_fwd_kernel",
+    "ginet_tower_bwd_kernel",
+    "tower_fwd_kernel",
+    "tower_bwd_kernel",
 )
 # each path's calls of each kernel in one train step: (kernel, mode or slot, F)
 STEP_CALLS = {
@@ -206,6 +236,10 @@ REPLACES = {
     "blocked_fwd_kernel": "deeprank2_tpu/ops/pallas_vanilla.py:122 (_fwd_kernel, pallas_call at :243)",
     "blocked_bwd_kernel": "deeprank2_tpu/ops/pallas_vanilla.py:145 (_bwd_kernel, pallas_call at :274)",
     "segment_sum_sorted_kernel": "deeprank2_tpu/ops/pallas_segment.py:42 (_kernel, pallas_call at :157)",
+    "ginet_tower_fwd_kernel": "deeprank2_tpu/ops/pallas_ginet.py:70 (_fwd_kernel, pallas_call at :170)",
+    "ginet_tower_bwd_kernel": "deeprank2_tpu/ops/pallas_ginet.py:82 (_bwd_kernel, pallas_call at :195)",
+    "tower_fwd_kernel": "deeprank2_tpu/ops/diag_spmm.py:386 (_tower_fwd_kernel, pallas_call at :489)",
+    "tower_bwd_kernel": "deeprank2_tpu/ops/diag_spmm.py:435 (_tower_bwd_kernel, pallas_call at :521)",
 }
 SOURCES = {
     "diag_kernel": "deeprank2_tpu_torch/csrc/diag_spmm.cu",
@@ -216,6 +250,10 @@ SOURCES = {
     "blocked_fwd_kernel": "deeprank2_tpu_torch/csrc/blocked_edges.cu",
     "blocked_bwd_kernel": "deeprank2_tpu_torch/csrc/blocked_edges.cu",
     "segment_sum_sorted_kernel": "deeprank2_tpu_torch/csrc/segment_sum.cu",
+    "ginet_tower_fwd_kernel": "deeprank2_tpu_torch/csrc/ginet_tower.cu",
+    "ginet_tower_bwd_kernel": "deeprank2_tpu_torch/csrc/ginet_tower.cu",
+    "tower_fwd_kernel": "deeprank2_tpu_torch/csrc/diag_tower.cu",
+    "tower_bwd_kernel": "deeprank2_tpu_torch/csrc/diag_tower.cu",
 }
 LIBRARY = {
     "diag_kernel": "torch.bmm of the f32 adjacency [G,N,N] with the [G,N,F] slab (contraction only)",
@@ -226,6 +264,10 @@ LIBRARY = {
     "blocked_fwd_kernel": None,
     "blocked_bwd_kernel": None,
     "segment_sum_sorted_kernel": "buf.index_add_(0, ids clamped to n, msgs) into an [n+1, F] buffer",
+    "ginet_tower_fwd_kernel": None,
+    "ginet_tower_bwd_kernel": None,
+    "tower_fwd_kernel": None,
+    "tower_bwd_kernel": None,
 }
 # published peaks (NVIDIA data sheets; dense, f32 outside the tensor cores):
 # (memory bytes/s, f32 FLOP/s). The SXM part is the default.
@@ -1000,6 +1042,172 @@ def cross_check(torch, name, oracle, oracle_batch, fast, fast_batch, gate=None, 
     scale = {k: gw[k].abs().max().item() for k in gw}
     return {"check": name, "tolerance": tolerance, "logits_shape": list(lg.shape), "max_abs_err": errs, "coo_f32_max_abs_err": coo_f32_errs, "grad_max_abs": scale}
 
+
+def tower_weights(model):
+    """The fused weights ``w1 [F, 32]`` and ``w2 [32, 64]`` of a GINetDense
+    (the layouts of ginet_tower_pooled and tower_pooled), detached."""
+    w1_t, w2_t = model.fused_weights()
+    return w1_t.detach().T.contiguous(), w2_t.detach().T.contiguous()
+
+
+def check_tower_kernels(torch, gt, ds, checks, shapes, w1, w2, dev) -> None:
+    """The fused tower kernels against their plain versions, directly and
+    through their autograd Functions: K8f/K8b (ginet_tower.py) on the
+    batched layout, K9f/K9b (diag_spmm.py) on the flat one. pooled and h1
+    within TOL; dw1/dw2 and t1/t2 within rtol 1e-5 and DW_TOL times the sum
+    of their products' absolute values (at least TOL's atol); the sign
+    exactly wherever |h2| is above 1e-6 of its largest value."""
+    for tag, b in shapes:
+        g = b.x.shape[0]
+        gen = torch.Generator(device=dev).manual_seed(len(checks.rows))
+        dp = torch.randn(g, w2.shape[1], generator=gen, device=dev)
+        args = (w1, w2, b.x, b.adj_i8, b.node_mask)
+        scales = gt.dw_error_scale(*args, dp)
+        dw_tols = [{"rtol": 1e-5, "atol": max(TOL["atol"], DW_TOL * sc.max().item())} for sc in scales]
+        checks.close("ginet_tower_fwd_kernel", f"{tag} direct", gt.ginet_tower_fwd_kernel(*args), gt.ginet_tower_fwd_kernel_ref(*args), TOL)
+        direct = gt.ginet_tower_bwd_kernel(*args, dp)
+        outs = []
+        for fn in (gt.ginet_tower_pooled, gt.ginet_tower_pooled_ref):
+            a, c = w1.clone().requires_grad_(True), w2.clone().requires_grad_(True)
+            out = fn(a, c, *args[2:])
+            outs.append((out.detach(), *torch.autograd.grad(out, (a, c), dp)))
+        checks.close("ginet_tower_fwd_kernel", f"{tag} ginet_tower_pooled fwd", outs[0][0], outs[1][0], TOL)
+        for what, got_d, got_f, want, tol in zip(("dw1", "dw2"), direct, outs[0][1:], outs[1][1:], dw_tols):
+            checks.close("ginet_tower_bwd_kernel", f"{tag} direct {what}", got_d, want, tol)
+            checks.close("ginet_tower_bwd_kernel", f"{tag} ginet_tower_pooled vjp {what}", got_f, want, tol)
+            checks.rows[-1]["atol"] = tol["atol"]
+        fargs = (b.adj_i8, b.x_t, b.node_mask, w1, w2)
+        h1, sign, pooled = ds.tower_fwd_kernel(*fargs)
+        h1_r, sign_r, pooled_r = ds.tower_fwd_kernel_ref(*fargs)
+        checks.close("tower_fwd_kernel", f"{tag} direct h1", h1, h1_r, TOL)
+        checks.close("tower_fwd_kernel", f"{tag} direct pooled", pooled, pooled_r, TOL)
+        h2 = ds.diag_kernel_ref(b.adj_i8, w2.T @ h1_r, b.node_mask, "relu_mask")
+        flips = ((sign != sign_r) & (h2.abs() > 1e-6 * h2.abs().max())).sum().item()
+        checks.rows.append({"kernel": "tower_fwd_kernel", "check": f"{tag} sign", "sign_flips_clear_of_zero": flips})
+        if flips:
+            msg = f"tower_fwd_kernel {tag}: the sign differs from the plain version at {flips} values clear of zero"
+            raise AssertionError(msg)
+        bwd = (b.adj_i8, dp.T.contiguous(), sign_r, h1_r, w2)
+        for what, got, want, scale in zip(("t2", "t1"), ds.tower_bwd_kernel(*bwd), ds.tower_bwd_kernel_ref(*bwd), ds.tower_bwd_error_scale(*bwd)):
+            tol = {"rtol": 1e-5, "atol": max(TOL["atol"], DW_TOL * scale.max().item())}
+            checks.close("tower_bwd_kernel", f"{tag} direct {what}", got, want, tol)
+            checks.rows[-1]["atol"] = tol["atol"]
+        g_pool = bwd[1]
+        outs = []
+        for fn in (ds.tower_pooled, ds.tower_pooled_ref):
+            a, c = w1.clone().requires_grad_(True), w2.clone().requires_grad_(True)
+            out = fn(b.adj_i8, b.node_mask, b.x_t, a, c)
+            outs.append((out.detach(), *torch.autograd.grad(out, (a, c), g_pool)))
+        checks.close("tower_fwd_kernel", f"{tag} tower_pooled fwd", outs[0][0], outs[1][0], TOL)
+        for what, got, want in zip(("dw1", "dw2"), outs[0][1:], outs[1][1:]):
+            checks.close("tower_bwd_kernel", f"{tag} tower_pooled vjp {what}", got, want, CROSS_TOL)
+        del direct, outs, h1, sign, pooled, h1_r, sign_r, pooled_r, h2
+    sync(torch, dev)
+
+
+def time_tower_calls(torch, gt, ds, timer, b, w1, w2, peak_bw, peak_f32) -> list:
+    """Kernel and plain-version times of K8f, K8b, K9f and K9b at the bench
+    batch, beside the flat route that computes the same function on the same
+    card (forward: K1 relu F=32 and K1 pool F=64; backward: K2 F=64 and K1
+    plain F=32), and each call's bound: bytes, every input read once and
+    every output written once; operations, the weight products (dense) and
+    the aggregates over this adjacency's nonzeros (2 per entry and
+    channel). No single PyTorch call computes any of them."""
+    g, n, f = b.x.shape
+    c1, c2 = w1.shape[1], w2.shape[1]
+    gn = g * n
+    nnz = int(b.adj_i8.count_nonzero().item())
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    dp = torch.randn(g, c2, generator=gen, device="cuda")
+    g_pool = dp.T.contiguous()
+    args = (w1, w2, b.x, b.adj_i8, b.node_mask)
+    fargs = (b.adj_i8, b.x_t, b.node_mask, w1, w2)
+    h1, sign, _ = ds.tower_fwd_kernel_ref(*fargs)
+    # the flat route's kernels on the same batch and weights
+    fcx1, fcx2 = w1.T @ b.x_t, w2.T @ h1
+    flat_sign, _ = ds.diag_kernel(b.adj_i8, fcx2, b.node_mask, "relu_mask_pool")
+    u1 = torch.randn(c1, gn, generator=gen, device="cuda")
+    flat_fwd = timer.ms(lambda: ds.diag_kernel(b.adj_i8, fcx1, b.node_mask, "relu_mask")) + timer.ms(lambda: ds.diag_kernel(b.adj_i8, fcx2, b.node_mask, "relu_mask_pool"))
+    flat_bwd = timer.ms(lambda: ds.pool_bwd_kernel(b.adj_i8, flat_sign, g_pool)) + timer.ms(lambda: ds.diag_kernel(b.adj_i8, u1))
+    weights = 4 * (f * c1 + c1 * c2)
+    w_ops = 2 * gn * (f * c1 + c1 * c2)
+    agg_ops = 2 * nnz * (c1 + c2)
+    dense_agg = 2 * g * n * n * (c1 + c2)
+    adj_bytes = b.adj_i8.numel()
+    specs = (
+        ("ginet_tower_fwd_kernel", "dense_tower", lambda: gt.ginet_tower_fwd_kernel(*args), lambda: gt.ginet_tower_fwd_kernel_ref(*args),
+         adj_bytes + 4 * gn * f + gn + weights, 4 * g * c2, w_ops + agg_ops, w_ops + dense_agg, flat_fwd),
+        ("ginet_tower_bwd_kernel", "dense_tower", lambda: gt.ginet_tower_bwd_kernel(*args, dp), lambda: gt.ginet_tower_bwd_kernel_ref(*args, dp),
+         adj_bytes + 4 * gn * f + gn + weights + 4 * g * c2, weights, 2 * w_ops + 2 * gn * c1 * c2 + 2 * agg_ops, 2 * w_ops + 2 * gn * c1 * c2 + 2 * dense_agg, flat_bwd),
+        ("tower_fwd_kernel", "dense_fused_tower", lambda: ds.tower_fwd_kernel(*fargs), lambda: ds.tower_fwd_kernel_ref(*fargs),
+         adj_bytes + 4 * gn * f + gn + weights, 4 * c1 * gn + c2 * gn + 4 * c2 * g, w_ops + agg_ops, w_ops + dense_agg, flat_fwd),
+        ("tower_bwd_kernel", "dense_fused_tower", lambda: ds.tower_bwd_kernel(b.adj_i8, g_pool, sign, h1, w2), lambda: ds.tower_bwd_kernel_ref(b.adj_i8, g_pool, sign, h1, w2),
+         adj_bytes + 4 * c2 * g + c2 * gn + 4 * c1 * gn + 4 * c1 * c2, 4 * (c1 + c2) * gn, 2 * gn * c1 * c2 + agg_ops, 2 * gn * c1 * c2 + dense_agg, flat_bwd),
+    )
+    return [
+        {
+            "path": path,
+            "kernel": kernel,
+            "mode": "fused tower",
+            "shape": [g, n, n],
+            "F": f,
+            "ms": timer.ms(run),
+            "plain_ms": timer.ms(plain),
+            "library_ms": None,
+            "flat_route_ms": flat,
+            **bound(in_bytes, out_bytes, ops, peak_bw, peak_f32),
+            "adjacency_nnz": nnz,
+            "flop_needed": ops,
+            "flop_dense": dense,
+        }
+        for kernel, path, run, plain, in_bytes, out_bytes, ops, dense, flat in specs
+    ]
+
+
+def fused_tower_drive(torch, ds, counters, b, w1, w2, steps, dev) -> dict:
+    """tower_pooled on the bench batch: once against tower_pooled_ref and
+    against the flat route (diag_layer_t then diag_layer_pool_t, the same
+    function), pooled sums and weight gradients within CROSS_TOL; then, with
+    the counters at 0, ``steps`` forward/backward passes and one forward:
+    K9f steps + 1, K9b steps, every other kernel 0."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    g_pool = torch.randn(w2.shape[1], b.x.shape[0], generator=gen, device=dev)
+
+    def flat(adj, mask, x_t, a, c):
+        return ds.diag_layer_pool_t(adj, mask, c.T @ ds.diag_layer_t(adj, mask, a.T @ x_t))
+
+    def pass_(fn):
+        a, c = w1.clone().requires_grad_(True), w2.clone().requires_grad_(True)
+        out = fn(b.adj_i8, b.node_mask, b.x_t, a, c)
+        return (out.detach(), *torch.autograd.grad(out, (a, c), g_pool))
+
+    got, ref, flat_out = pass_(ds.tower_pooled), pass_(ds.tower_pooled_ref), pass_(flat)
+    errs = {}
+    for oracle, want in (("tower_pooled_ref", ref), ("flat route", flat_out)):
+        for what, x, y in zip(("pooled", "dw1", "dw2"), got, want):
+            torch.testing.assert_close(x, y, **CROSS_TOL, msg=lambda m, what=what, oracle=oracle: f"tower_pooled {what} vs {oracle}: {m}")
+            errs[f"{what} vs {oracle}"] = (x - y).abs().max().item()
+    sync(torch, dev)
+    counters.reset()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        pass_(ds.tower_pooled)
+    sync(torch, dev)
+    pass_s = (time.perf_counter() - t0) / steps
+    with torch.no_grad():
+        last = ds.tower_pooled(b.adj_i8, b.node_mask, b.x_t, w1, w2)
+    sync(torch, dev)
+    launches = counters.read()
+    want = want_launches(tower_fwd_kernel=steps + 1, tower_bwd_kernel=steps)
+    if launches != want:
+        msg = f"dense_fused_tower launches {launches}, expected {want}"
+        raise AssertionError(msg)
+    if not torch.isfinite(last).all() or tuple(last.shape) != (w2.shape[1], b.x.shape[0]):
+        msg = f"non-finite or misshapen pooled sums {tuple(last.shape)}"
+        raise AssertionError(msg)
+    return {"tolerance": CROSS_TOL, "max_abs_err": errs, "passes": steps, "pass_ms": pass_s * 1e3, "launches": launches, "launches_expected": want}
+
+
 def kernels_line(calls, path_launches, errs) -> list:
     """One entry per kernel: times and bounds summed over the kernel's calls in
     one train step of each path it runs on (also given by path); launches
@@ -1032,6 +1240,7 @@ def kernels_line(calls, path_launches, errs) -> list:
                 "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in mine) else "operations",
                 "library_ms": total(mine, "library_ms"),
                 "library": LIBRARY[name],
+                **({"flat_route_ms": total(mine, "flat_route_ms")} if mine and all("flat_route_ms" in c for c in mine) else {}),
                 "by_path": {
                     path: {k: total(rows, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")} for path, rows in by_path.items()
                 },
@@ -1137,13 +1346,14 @@ def main() -> int:
     from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
     from deeprank2_tpu_torch.neuralnets.gnn.ginet import GINet
     from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
-    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag, GINetDense
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag, GINetDense, set_dense_tower_backend
     from deeprank2_tpu_torch.neuralnets.gnn.ginet_nocluster import GINet as GINetNoCluster
     from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetwork, VanillaNetworkBlocked
     from deeprank2_tpu_torch.ops import _build
     from deeprank2_tpu_torch.ops import block_sparse as bs
     from deeprank2_tpu_torch.ops import blocked_edges as be
     from deeprank2_tpu_torch.ops import diag_spmm as ds
+    from deeprank2_tpu_torch.ops import ginet_tower as gt
     from deeprank2_tpu_torch.ops import segment_sorted as ss
     from deeprank2_tpu_torch.ops import slotpool as sp
     from deeprank2_tpu_torch.ops import vanilla as vn
@@ -1167,7 +1377,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.build([ds.SOURCE, sp.SOURCE, bs.SOURCE, vn.SOURCE, ss.SOURCE])
+    _build.build([ds.SOURCE, sp.SOURCE, bs.SOURCE, vn.SOURCE, ss.SOURCE, gt.SOURCE, ds.TOWER_SOURCE])
     build_s = time.perf_counter() - t0
     emit(
         {
@@ -1178,11 +1388,11 @@ def main() -> int:
             "python": sys.version.split()[0],
             "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32, "cudnn": torch.backends.cudnn.allow_tf32},
             "build_s": build_s,
-            "ptxas": [ln.strip() for log in _build.build_logs.values() for ln in log.splitlines() if "registers" in ln or "Compiling" in ln],
+            "ptxas": [ln.strip() for log in _build.build_logs.values() for ln in log.splitlines() if "registers" in ln or "Compiling" in ln or "spill" in ln],
             "peaks": {"part": part, "bytes_per_s": peak_bw, "f32_flop_per_s": peak_f32},
         }
     )
-    counters = Counters(ds, sp, bs, vn, ss)
+    counters = Counters(ds, sp, bs, vn, ss, gt)
 
     # 2. kernels against their plain versions, and their times
     dev = torch.device("cuda")
@@ -1518,7 +1728,14 @@ def main() -> int:
         cross_check(torch, "GINetDense vs GINet no-cluster, bench batch", oracle, coo_batch, GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev), dense_batch),
         cross_check(torch, "GINetBlockSparse vs GINet no-cluster, atomic 100k", oracle, atomic_coo, GINetBlockSparse(BCSR["feat"], 2, BCSR["edge_dim"], device=dev), b_batch),
     ]
-    del dense_batch, b_batch
+    set_dense_tower_backend("pallas")
+    try:
+        cross.append(
+            cross_check(torch, "GINetDense (pallas tower backend) vs GINet no-cluster, bench batch", oracle, coo_batch, GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev), dense_batch)
+        )
+    finally:
+        set_dense_tower_backend("xla")
+    del b_batch
     c_oracle = GINet(CLUSTERED["feat"], 2, 1, device=dev, generator=torch.Generator().manual_seed(3))
     diag_model = GINetClusteredDiag(CLUSTERED["feat"], 2, 1, device=dev)
     # the conv weights' gradients pass through the max pools, whose tie rules
@@ -1533,6 +1750,53 @@ def main() -> int:
     cross.append(cross_check(torch, "VanillaNetworkBlocked vs VanillaNetwork, atomic 100k", v_oracle, atomic_coo, VanillaNetworkBlocked(BCSR["feat"], 2, BCSR["edge_dim"], device=dev), bl_batch))
     del bl_batch, atomic_coo, coo_batch, cc_batch
     emit({"phase": "coo_cross_checks", "checks": cross})
+
+    # 17. the fused tower kernels against their plain versions, and their times
+    tower_model = GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev, generator=torch.Generator().manual_seed(0))
+    w1, w2 = tower_weights(tower_model)
+    n_max = max(n for n in range(1, 1025) if gt.supports(1, n, BENCH["feat"]))
+    largest, _ = collate_graphs_dense(synthetic_entries(32, n_max - 15, BENCH["feat"], BENCH["edge_dim"], seed=9), pad_nodes=n_max, device=dev)
+    n_checks = len(checks.rows)
+    check_tower_kernels(
+        torch, gt, ds, checks, [("bench G=512 N=160", dense_batch), ("ragged G=7 N=96", ragged), (f"largest supported G=32 N={n_max}", largest)], w1, w2, dev
+    )
+    emit(
+        {
+            "phase": "tower_kernels_vs_plain",
+            "tolerance": {"pooled, h1": TOL, "dw1, dw2, t1, t2": {"rtol": 1e-5, "atol": f"max(1e-5, {DW_TOL} * sum of |products|)"}, "sign": "exact where |h2| > 1e-6 max|h2|", "tower_pooled dw1, dw2": CROSS_TOL},
+            "largest_supported_nodes": n_max,
+            "checks": checks.rows[n_checks:],
+        }
+    )
+    del largest, ragged
+    timer = Timer(torch)
+    tower_calls = time_tower_calls(torch, gt, ds, timer, dense_batch, w1, w2, peak_bw, peak_f32)
+    del timer
+    emit({"phase": "tower_kernel_times", "card": card, "l2_flushed": True, "calls": tower_calls})
+    calls += tower_calls
+
+    # 18. the dense path on the batched tower backend, and its profile
+    set_dense_tower_backend("pallas")
+    try:
+        model = GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev, generator=torch.Generator().manual_seed(0))
+        step, _, _ = card_vs_cpu_step(torch, model, dense_batch, loss_fn, lambda: GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device="cpu"), STEP_TOL, STEP_TOL)
+        emit({"phase": "dense_tower_card_vs_cpu_step", "tolerance": STEP_TOL, **step})
+        opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
+        want = want_launches(ginet_tower_fwd_kernel=STEPS + 1, ginet_tower_bwd_kernel=STEPS)
+        run = run_main_path(torch, counters, model, dense_batch, loss_fn, opt, dev, want, STEPS)
+        train_step = run.pop("train_step")
+        emit({"phase": "main_path_dense_tower", "card": card, "model": "GINetDense(38, 2, 6), tower backend pallas", "batch": BENCH, **run, "step_ms": run["step_s"] * 1e3, "edges_per_s": real_edges / run["step_s"], "real_edges": real_edges})
+        path_launches["dense_tower"] = run["launches"]
+        emit({"phase": "profile_dense_tower", "card": card, **profile_steps(torch, train_step, run["step_s"])})
+        del model, opt, train_step
+    finally:
+        set_dense_tower_backend("xla")
+
+    # 19. the fused flat tower (tower_pooled) on the bench batch
+    fused = fused_tower_drive(torch, ds, counters, dense_batch, w1, w2, STEPS, dev)
+    emit({"phase": "dense_fused_tower", "card": card, "weights": "GINetDense(38, 2, 6) fused, torch seed 0", "batch": BENCH, **fused})
+    path_launches["dense_fused_tower"] = fused["launches"]
+    del dense_batch
 
     emit({"kernels": kernels_line(calls, path_launches, checks.errs)})
     print(card_line(), flush=True)

@@ -1,16 +1,19 @@
 """GINet on graph-diagonal batches (port of
 ``deeprank2_tpu/neuralnets/gnn/ginet_dense.py``): the no-cluster
-``GINetDense`` (its flat path ``_apply_flat``) and the clustered
-``GINetClusteredDiag``.
+``GINetDense`` (its flat path ``_apply_flat`` and the batched branch of its
+"pallas" tower backend) and the clustered ``GINetClusteredDiag``.
 
 With the reference's attention identically 1.0 (see the JAX ``ginet.py``),
 one conv layer is ``relu(A (x W))``. The two towers ("external" and
 "internal") are fused on the weight side: ``w1 = [w1a ‖ w1b]`` and
 ``w2 = blockdiag(w2a, w2b)``, which is the same math as two half-width towers
-concatenated at the end. The whole tower runs in the flat transposed
-``[C, G*N]`` layout with the per-graph aggregation in the CUDA kernels of
-ops/diag_spmm.py; the weight applications are plain matrix products, which
-the JAX package also leaves outside its Pallas kernels.
+concatenated at the end. By default the whole tower runs in the flat
+transposed ``[C, G*N]`` layout with the per-graph aggregation in the CUDA
+kernels of ops/diag_spmm.py; the weight applications are plain matrix
+products, which the JAX package also leaves outside its Pallas kernels.
+``set_dense_tower_backend("pallas")`` switches ``GINetDense`` to the fused
+batched tower of ops/ginet_tower.py (one forward and one backward kernel a
+step) wherever its shape rule holds.
 """
 
 from __future__ import annotations
@@ -19,10 +22,25 @@ import torch
 
 from deeprank2_tpu_torch.neuralnets import nn as dnn
 from deeprank2_tpu_torch.neuralnets.gnn.ginet import GINet
+from deeprank2_tpu_torch.ops import ginet_tower
 from deeprank2_tpu_torch.ops.batch import DenseGraphBatch, DiagClusteredBatch
 from deeprank2_tpu_torch.ops.diag_spmm import diag_layer_pool_t, diag_layer_t
 from deeprank2_tpu_torch.ops.pooling import diag_depth0_pool, member_max_pool
 from deeprank2_tpu_torch.ops.segment import segment_max, segment_mean
+
+_TOWER_BACKEND = "xla"
+
+
+def set_dense_tower_backend(name: str) -> None:
+    """Select the tower of :class:`GINetDense`: "xla" (the default; the flat
+    graph-diagonal route, which is the JAX package's route on its device) or
+    "pallas" (the fused batched tower, ops/ginet_tower.py, taken where
+    ``ginet_tower.supports`` holds for the batch, else the flat route)."""
+    global _TOWER_BACKEND
+    if name not in ("xla", "pallas"):
+        msg = f"unknown dense tower backend: {name}"
+        raise ValueError(msg)
+    _TOWER_BACKEND = name
 
 
 class GINetDense(GINet):
@@ -60,10 +78,14 @@ class GINetDense(GINet):
         """Logits ``[G, output_shape]``. Dropout (rate 0.4) runs only when
         ``training`` and a ``generator`` on the batch's device are given."""
         w1_t, w2_t = self.fused_weights()
-        h = diag_layer_t(batch.adj_i8, batch.node_mask, w1_t @ batch.x_t)  # [32, G*N]
-        pooled = diag_layer_pool_t(batch.adj_i8, batch.node_mask, w2_t @ h)  # [64, G]
+        g, n, f = batch.x.shape
+        if _TOWER_BACKEND == "pallas" and ginet_tower.supports(g, n, f, w1_t.shape[0], w2_t.shape[0]):
+            pooled = ginet_tower.ginet_tower_pooled(w1_t.T, w2_t.T, batch.x, batch.adj_i8, batch.node_mask)  # [G, 64]
+        else:
+            h = diag_layer_t(batch.adj_i8, batch.node_mask, w1_t @ batch.x_t)  # [32, G*N]
+            pooled = diag_layer_pool_t(batch.adj_i8, batch.node_mask, w2_t @ h).T  # [G, 64]
         counts = batch.node_mask.sum(dim=1).to(pooled.dtype).clamp_min(1.0)
-        out = pooled.T / counts[:, None]
+        out = pooled / counts[:, None]
         out = dnn.relu(dnn.linear(self.fc1, out))
         out = dnn.dropout(out, self.dropout, training, generator)
         return dnn.linear(self.fc2, out)

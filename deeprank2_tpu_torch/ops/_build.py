@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -38,9 +39,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of the source, the local headers
+    it includes (``#include "x.cuh"`` from ``csrc/``) and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    headers = re.findall(rb'^#include "([^"]+)"', text, flags=re.MULTILINE)
+    digest = hashlib.sha256(b"".join([text, *((CSRC / h.decode()).read_bytes() for h in headers)]) + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: list[str]) -> None:

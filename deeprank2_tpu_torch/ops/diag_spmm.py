@@ -12,6 +12,11 @@ relu/mask plus per-graph sum pool) and ``pool_bwd_kernel`` (the pooled
 layer's backward). Edges are mirrored, so ``A^T = A`` per graph and each VJP
 is the same aggregation applied to the cotangent.
 
+:func:`tower_pooled` fuses the whole two-layer tower with its per-graph sum
+pool into one forward and one backward kernel (``csrc/diag_tower.cu``:
+``tower_fwd_kernel`` and ``tower_bwd_kernel``), which read the adjacency
+once per direction.
+
 Each kernel wrapper takes its plain PyTorch version (``*_ref``) for tensors
 on the CPU, launches its kernel for tensors on a CUDA device, and raises for
 anything else; each counts its kernel launches in :data:`launches`.
@@ -26,10 +31,11 @@ import torch
 from deeprank2_tpu_torch.ops import _build
 
 SOURCE = "diag_spmm"
+TOWER_SOURCE = "diag_tower"
 MODES = {"plain": 0, "relu_mask": 1, "relu_mask_pool": 2}
 
 # kernel launches since the last reset_launches(), by kernel
-launches = {"diag_kernel": 0, "pool_bwd_kernel": 0}
+launches = {"diag_kernel": 0, "pool_bwd_kernel": 0, "tower_fwd_kernel": 0, "tower_bwd_kernel": 0}
 
 
 def reset_launches() -> None:
@@ -45,6 +51,17 @@ def _lib() -> ctypes.CDLL:
         lib.diag_kernel.restype = i
         lib.pool_bwd_kernel.argtypes = [p, p, p, p, i, i, i, p]
         lib.pool_bwd_kernel.restype = i
+    return lib
+
+
+def _tower_lib() -> ctypes.CDLL:
+    lib = _build.library(TOWER_SOURCE)
+    if lib.tower_fwd_kernel.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.tower_fwd_kernel.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.tower_fwd_kernel.restype = i
+        lib.tower_bwd_kernel.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.tower_bwd_kernel.restype = i
     return lib
 
 
@@ -255,3 +272,124 @@ def diag_layer_pool_t_ref(adj_i8: torch.Tensor, node_mask: torch.Tensor, fcx_t: 
     """Plain PyTorch version of :func:`diag_layer_pool_t`."""
     g, n, _ = adj_i8.shape
     return diag_layer_t_ref(adj_i8, node_mask, fcx_t).reshape(fcx_t.shape[0], g, n).sum(dim=2)
+
+
+# ---------------------------------------------------------------------------
+# K9f: tower_fwd_kernel (replaces deeprank2_tpu/ops/diag_spmm.py:_tower_fwd_kernel)
+
+
+def tower_fwd_kernel_ref(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
+    """Plain PyTorch version of :func:`tower_fwd_kernel` (the JAX
+    ``_tower_ref``, with h2 kept as its sign)."""
+    h1 = diag_kernel_ref(adj_i8, w1.T @ x_t, mask, "relu_mask")
+    sign, pooled = diag_kernel_ref(adj_i8, w2.T @ h1, mask, "relu_mask_pool")
+    return h1, sign, pooled
+
+
+def tower_fwd_kernel(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
+    """The fused tower's forward on the flat layout: ``(h1, sign, pooled)``
+    with ``h1 = relu(A (w1ᵀ x_t)) ⊙ mask`` (f32 ``[C1, G*N]``), ``sign``
+    (uint8 ``[C2, G*N]``) ``= h2 > 0`` for ``h2 = relu(A (w2ᵀ h1)) ⊙ mask``,
+    and ``pooled [C2, G]`` = h2 summed over each graph's nodes. ``adj_i8
+    [G, N, N]`` (int8 0/1), ``x_t [F, G*N]`` (f32), ``mask [G, N]`` (bool),
+    ``w1 [F, C1]``, ``w2 [C1, C2]``."""
+    g, n, f = _dims(adj_i8, x_t)
+    dev = x_t.device
+    c1, c2 = w1.shape[-1], w2.shape[-1]
+    _require(x_t, "x_t", torch.float32, (f, g * n), dev)
+    _require(mask, "mask", torch.bool, (g, n), dev)
+    _require(w1, "w1", torch.float32, (f, c1), dev)
+    _require(w2, "w2", torch.float32, (c1, c2), dev)
+    if not _route(dev):
+        return tower_fwd_kernel_ref(adj_i8, x_t, mask, w1, w2)
+    lib = _tower_lib()
+    with torch.cuda.device(dev):
+        h1 = torch.empty((c1, g * n), dtype=torch.float32, device=dev)
+        sign = torch.empty((c2, g * n), dtype=torch.uint8, device=dev)
+        pooled = torch.empty((c2, g), dtype=torch.float32, device=dev)
+        code = lib.tower_fwd_kernel(
+            adj_i8.data_ptr(), x_t.data_ptr(), mask.data_ptr(), w1.data_ptr(), w2.data_ptr(), h1.data_ptr(), sign.data_ptr(), pooled.data_ptr(),
+            g, n, f, c1, c2, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(lib, code, "tower_fwd_kernel")
+    launches["tower_fwd_kernel"] += 1
+    return h1, sign, pooled
+
+
+# ---------------------------------------------------------------------------
+# K9b: tower_bwd_kernel (replaces deeprank2_tpu/ops/diag_spmm.py:_tower_bwd_kernel)
+
+
+def tower_bwd_kernel_ref(adj_i8: torch.Tensor, g_pool: torch.Tensor, sign: torch.Tensor, h1: torch.Tensor, w2: torch.Tensor):
+    """Plain PyTorch version of :func:`tower_bwd_kernel`."""
+    t2 = pool_bwd_kernel_ref(adj_i8, sign, g_pool)
+    t1 = diag_kernel_ref(adj_i8, (w2 @ t2) * (h1 > 0).to(t2.dtype))
+    return t2, t1
+
+
+def tower_bwd_error_scale(adj_i8: torch.Tensor, g_pool: torch.Tensor, sign: torch.Tensor, h1: torch.Tensor, w2: torch.Tensor):
+    """``(|A| |u2|, |A| ((|w2| s2) ⊙ [h1 > 0]))`` with ``s2`` the first: the
+    sums of the absolute values of the products that make ``t2`` and ``t1``,
+    the scale of their f32 rounding error in any summation order (t1 cancels:
+    its terms can be far larger than it)."""
+    s2 = pool_bwd_kernel_ref(adj_i8, sign, g_pool.abs())
+    return s2, diag_kernel_ref(adj_i8, (w2.abs() @ s2) * (h1 > 0).to(s2.dtype))
+
+
+def tower_bwd_kernel(adj_i8: torch.Tensor, g_pool: torch.Tensor, sign: torch.Tensor, h1: torch.Tensor, w2: torch.Tensor):
+    """The fused tower's backward aggregates ``(t2, t1)``: ``t2 = A (sign ⊙
+    broadcast(g_pool))`` (f32 ``[C2, G*N]``, the cotangent ``g_pool [C2, G]``
+    broadcast over each graph's nodes) and ``t1 = A ((w2 t2) ⊙ [h1 > 0])``
+    (``[C1, G*N]``). The weight gradients are ``dw2 = h1 t2ᵀ`` and
+    ``dw1 = x_t t1ᵀ``."""
+    g, n, c2 = _dims(adj_i8, sign)
+    dev = sign.device
+    c1 = h1.shape[0]
+    _require(sign, "sign", torch.uint8, (c2, g * n), dev)
+    _require(g_pool, "g_pool", torch.float32, (c2, g), dev)
+    _require(h1, "h1", torch.float32, (c1, g * n), dev)
+    _require(w2, "w2", torch.float32, (c1, c2), dev)
+    if not _route(dev):
+        return tower_bwd_kernel_ref(adj_i8, g_pool, sign, h1, w2)
+    lib = _tower_lib()
+    with torch.cuda.device(dev):
+        t2 = torch.empty((c2, g * n), dtype=torch.float32, device=dev)
+        t1 = torch.empty((c1, g * n), dtype=torch.float32, device=dev)
+        code = lib.tower_bwd_kernel(
+            adj_i8.data_ptr(), g_pool.data_ptr(), sign.data_ptr(), h1.data_ptr(), w2.data_ptr(), t2.data_ptr(), t1.data_ptr(),
+            g, n, c1, c2, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(lib, code, "tower_bwd_kernel")
+    launches["tower_bwd_kernel"] += 1
+    return t2, t1
+
+
+class _TowerPooled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w1, w2, adj_i8, node_mask, x_t):
+        h1, sign, pooled = tower_fwd_kernel(adj_i8, x_t, node_mask, w1, w2)
+        ctx.save_for_backward(adj_i8, x_t, h1, sign, w2)
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g_pool):
+        adj_i8, x_t, h1, sign, w2 = ctx.saved_tensors
+        t2, t1 = tower_bwd_kernel(adj_i8, g_pool.contiguous(), sign, h1, w2)
+        # the weight gradients contract over the flat node axis outside the
+        # kernels, as in the JAX package
+        return x_t @ t1.T, h1 @ t2.T, None, None, None
+
+
+def tower_pooled(adj_i8: torch.Tensor, node_mask: torch.Tensor, x_t: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """The whole GINet no-cluster tower (two conv layers, relu/mask, and
+    per-graph SUM pooling) as one forward and one backward kernel. Returns
+    the pooled sums ``[C2, G]``; differentiable w.r.t. ``w1 [F, C1]`` and
+    ``w2 [C1, C2]`` only (``x_t [F, G*N]`` is batch data)."""
+    return _TowerPooled.apply(w1.contiguous(), w2.contiguous(), adj_i8, node_mask, x_t)
+
+
+def tower_pooled_ref(adj_i8: torch.Tensor, node_mask: torch.Tensor, x_t: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`tower_pooled` (the JAX ``_tower_ref``'s
+    pooled sums, autograd through the plain ops)."""
+    h1 = diag_layer_t_ref(adj_i8, node_mask, w1.T @ x_t)
+    return diag_layer_pool_t_ref(adj_i8, node_mask, w2.T @ h1)

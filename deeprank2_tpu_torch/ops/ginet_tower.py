@@ -1,0 +1,216 @@
+"""Fused two-layer GINet tower on batched ``[G, N, F]`` graphs (port of
+``deeprank2_tpu/ops/pallas_ginet.py``).
+
+Per graph, with the towers fused on the weight side (``w1 [F, C1]``,
+``w2 [C1, C2]``, see ``GINetDense``):
+
+    h1 = relu(A (x w1));  h2 = relu(A (h1 w2)) * mask;  pooled = sum_n h2
+
+runs in the CUDA kernels of ``csrc/ginet_tower.cu``: ``ginet_tower_fwd_kernel``
+(one thread block per graph, every intermediate in shared memory, only the
+``[G, C2]`` pooled sums written) and ``ginet_tower_bwd_kernel`` (recomputes
+h1 and h2 from the same resident adjacency and returns the weight gradients,
+summed over graphs in a fixed order). ``x``, the adjacency and the mask are
+batch data: their cotangents are zeros, as in the JAX package.
+
+Each kernel wrapper takes its plain PyTorch version (``*_ref``) for tensors
+on the CPU, launches its kernel for tensors on a CUDA device, and raises for
+anything else; each counts its kernel launches in :data:`launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from deeprank2_tpu_torch.ops import _build
+from deeprank2_tpu_torch.ops.diag_spmm import _require, _route
+
+SOURCE = "ginet_tower"
+# the per-block shared-memory limit of an H100 (232,448 bytes, opt-in)
+SMEM_LIMIT = 232_448
+
+# kernel launches since the last reset_launches(), by kernel
+launches = {"ginet_tower_fwd_kernel": 0, "ginet_tower_bwd_kernel": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def smem_bytes(nodes: int, feat: int, c1: int, c2: int) -> int:
+    """Shared memory of one block of the tower kernels (the plan of
+    ``csrc/tower_common.cuh:layout``): two ``[N, stride(max(F, c2p))]`` and
+    two ``[N, stride(c1p)]`` f32 slabs (``c1p``, ``c2p``: C1, C2 rounded up to
+    4; ``stride``: rounded up to an odd number of 4-float groups), the padded
+    weights ``[F, c1p]`` and ``[c1p, stride(c2p)]``, the mask, one per-graph
+    vector and one bit per adjacency entry (rows of 32-bit words)."""
+
+    def r4(v: int) -> int:
+        return (v + 3) // 4 * 4
+
+    def stride(v: int) -> int:
+        return r4(v) if (r4(v) // 4) % 2 else r4(v) + 4
+
+    c1p, c2p = r4(c1), r4(c2)
+    s1, s2 = stride(max(feat, c2p)), stride(c1p)
+    words = (nodes + 31) // 32
+    floats = 2 * nodes * s1 + 2 * nodes * s2 + feat * c1p + c1p * stride(c2p) + r4(nodes) + c2p + nodes * words
+    return 4 * floats
+
+
+def supports(num_graphs: int, nodes: int, feat: int = 38, c1: int = 32, c2: int = 64) -> bool:
+    """The kernels' shape rule: at least one graph, and one graph's tower in
+    the shared memory of one block, ``smem_bytes(nodes, feat, c1, c2) <=
+    SMEM_LIMIT``. At GINetDense's widths (F=38, C1=32, C2=64) that is
+    N <= 251 nodes a graph; there is no rule on the number of graphs."""
+    return num_graphs >= 1 and nodes >= 1 and smem_bytes(nodes, feat, c1, c2) <= SMEM_LIMIT
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library(SOURCE)
+    if lib.ginet_tower_fwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ginet_tower_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.ginet_tower_fwd.restype = i
+        lib.ginet_tower_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.ginet_tower_bwd.restype = i
+    return lib
+
+
+def _dims(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, adj_i8: torch.Tensor, mask: torch.Tensor) -> tuple[int, int, int, int, int]:
+    if x.dim() != 3 or w1.dim() != 2 or w2.dim() != 2:
+        msg = f"expected w1 [F, C1], w2 [C1, C2] and x [G, N, F], got {tuple(w1.shape)}, {tuple(w2.shape)} and {tuple(x.shape)}"
+        raise ValueError(msg)
+    g, n, f = x.shape
+    c1, c2 = w1.shape[1], w2.shape[1]
+    dev = x.device
+    _require(x, "x", torch.float32, (g, n, f), dev)
+    _require(adj_i8, "adj_i8", torch.int8, (g, n, n), dev)
+    _require(mask, "mask", torch.bool, (g, n), dev)
+    _require(w1, "w1", torch.float32, (f, c1), dev)
+    _require(w2, "w2", torch.float32, (c1, c2), dev)
+    return g, n, f, c1, c2
+
+
+# ---------------------------------------------------------------------------
+# K8f: ginet_tower_fwd_kernel (replaces deeprank2_tpu/ops/pallas_ginet.py:_fwd_kernel)
+
+
+def ginet_tower_fwd_kernel_ref(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, adj_i8: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ginet_tower_fwd_kernel` (the JAX
+    ``ginet_tower_pooled_reference``)."""
+    adj = adj_i8.to(x.dtype)
+    h1 = torch.relu(adj @ (x @ w1))
+    h2 = torch.relu(adj @ (h1 @ w2)) * mask.to(x.dtype)[:, :, None]
+    return h2.sum(dim=1)
+
+
+def ginet_tower_fwd_kernel(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, adj_i8: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Pooled sums ``[G, C2]`` of the fused tower: ``w1 [F, C1]``,
+    ``w2 [C1, C2]``, ``x [G, N, F]`` (f32), ``adj_i8 [G, N, N]`` (int8 0/1,
+    symmetric), ``mask [G, N]`` (bool)."""
+    g, n, f, c1, c2 = _dims(w1, w2, x, adj_i8, mask)
+    dev = x.device
+    if not _route(dev):
+        return ginet_tower_fwd_kernel_ref(w1, w2, x, adj_i8, mask)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        pooled = torch.empty((g, c2), dtype=torch.float32, device=dev)
+        code = lib.ginet_tower_fwd(
+            adj_i8.data_ptr(), x.data_ptr(), mask.data_ptr(), w1.data_ptr(), w2.data_ptr(), pooled.data_ptr(),
+            g, n, f, c1, c2, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(lib, code, "ginet_tower_fwd_kernel")
+    launches["ginet_tower_fwd_kernel"] += 1
+    return pooled
+
+
+# ---------------------------------------------------------------------------
+# K8b: ginet_tower_bwd_kernel (replaces deeprank2_tpu/ops/pallas_ginet.py:_bwd_kernel)
+
+
+def _bwd_terms(w1, w2, x, adj_i8, mask, dpooled):
+    """The per-graph factors of the weight gradients: ``(x, dfcx1, h1, dfcx2)``
+    with ``dw1 = Σ_g x[g]ᵀ dfcx1[g]`` and ``dw2 = Σ_g h1[g]ᵀ dfcx2[g]``."""
+    adj = adj_i8.to(x.dtype)
+    h1 = torch.relu(adj @ (x @ w1))
+    h2 = torch.relu(adj @ (h1 @ w2)) * mask.to(x.dtype)[:, :, None]
+    # adj is symmetric: adjᵀ v == adj v
+    dfcx2 = adj @ (dpooled[:, None, :] * (h2 > 0).to(x.dtype))
+    dh1 = (dfcx2 @ w2.T) * (h1 > 0).to(x.dtype)
+    return x, adj @ dh1, h1, dfcx2
+
+
+def ginet_tower_bwd_kernel_ref(w1, w2, x, adj_i8, mask, dpooled) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`ginet_tower_bwd_kernel`."""
+    x, dfcx1, h1, dfcx2 = _bwd_terms(w1, w2, x, adj_i8, mask, dpooled)
+    return torch.einsum("gnf,gnc->fc", x, dfcx1), torch.einsum("gnc,gnd->cd", h1, dfcx2)
+
+
+def dw_error_scale(w1, w2, x, adj_i8, mask, dpooled) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(Σ_g |x[g]|ᵀ |dfcx1[g]|, Σ_g |h1[g]|ᵀ |dfcx2[g]|)``: the sums of the
+    absolute values of the products that make ``dw1`` and ``dw2``, the scale
+    of the rounding error of their f32 sums in any order (the tolerance
+    scale when two orders are compared)."""
+    x, dfcx1, h1, dfcx2 = _bwd_terms(w1, w2, x, adj_i8, mask, dpooled)
+    return torch.einsum("gnf,gnc->fc", x.abs(), dfcx1.abs()), torch.einsum("gnc,gnd->cd", h1.abs(), dfcx2.abs())
+
+
+def ginet_tower_bwd_kernel(w1, w2, x, adj_i8, mask, dpooled) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dw1 [F, C1], dw2 [C1, C2])``: the gradients of ``sum(dpooled ⊙
+    pooled)`` for the forward of :func:`ginet_tower_fwd_kernel`, with the
+    cotangent ``dpooled [G, C2]`` (f32), summed over graphs."""
+    g, n, f, c1, c2 = _dims(w1, w2, x, adj_i8, mask)
+    dev = x.device
+    _require(dpooled, "dpooled", torch.float32, (g, c2), dev)
+    if not _route(dev):
+        return ginet_tower_bwd_kernel_ref(w1, w2, x, adj_i8, mask, dpooled)
+    lib = _lib()
+    entries = f * c1 + c1 * c2
+    with torch.cuda.device(dev):
+        part = torch.empty((g, entries), dtype=torch.float32, device=dev)
+        out = torch.empty(entries, dtype=torch.float32, device=dev)
+        code = lib.ginet_tower_bwd(
+            adj_i8.data_ptr(), x.data_ptr(), mask.data_ptr(), w1.data_ptr(), w2.data_ptr(), dpooled.data_ptr(),
+            part.data_ptr(), out.data_ptr(), g, n, f, c1, c2, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(lib, code, "ginet_tower_bwd_kernel")
+    launches["ginet_tower_bwd_kernel"] += 1
+    return out[: f * c1].view(f, c1), out[f * c1 :].view(c1, c2)
+
+
+# ---------------------------------------------------------------------------
+# The differentiable tower (the JAX package's custom_vjp)
+
+
+class _GINetTowerPooled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w1, w2, x, adj_i8, mask):
+        ctx.save_for_backward(w1, w2, x, adj_i8, mask)
+        return ginet_tower_fwd_kernel(w1, w2, x, adj_i8, mask)
+
+    @staticmethod
+    def backward(ctx, dpooled):
+        w1, w2, x, adj_i8, mask = ctx.saved_tensors
+        dw1, dw2 = ginet_tower_bwd_kernel(w1, w2, x, adj_i8, mask, dpooled.contiguous())
+        # x is batch data: a zero cotangent, as the JAX custom_vjp returns
+        dx = torch.zeros_like(x) if ctx.needs_input_grad[2] else None
+        return dw1, dw2, dx, None, None
+
+
+def ginet_tower_pooled(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, adj_i8: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked-sum pooled output ``[G, C2]`` of the fused two-layer GINet
+    tower (divide by the node counts outside for the mean), differentiable
+    w.r.t. ``w1 [F, C1]`` and ``w2 [C1, C2]``; ``x [G, N, F]`` gets a zero
+    cotangent, ``adj_i8 [G, N, N]`` (int8 0/1, symmetric) and ``mask [G, N]``
+    (bool) none."""
+    return _GINetTowerPooled.apply(w1.contiguous(), w2.contiguous(), x, adj_i8, mask)
+
+
+def ginet_tower_pooled_ref(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, adj_i8: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ginet_tower_pooled` (autograd through
+    the plain ops; the JAX ``ginet_tower_pooled_reference``)."""
+    return ginet_tower_fwd_kernel_ref(w1, w2, x, adj_i8, mask)

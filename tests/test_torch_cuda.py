@@ -15,13 +15,14 @@ import numpy as np
 
 from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
-from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag, GINetDense
+from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag, GINetDense, set_dense_tower_backend
 from deeprank2_tpu_torch.neuralnets.gnn.ginet import GINet
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_nocluster import GINet as GINetNoCluster
 from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetwork, VanillaNetworkBlocked
 from deeprank2_tpu_torch.ops import block_sparse as bs
 from deeprank2_tpu_torch.ops import blocked_edges as be
 from deeprank2_tpu_torch.ops import diag_spmm as ds
+from deeprank2_tpu_torch.ops import ginet_tower as gt
 from deeprank2_tpu_torch.ops import segment_sorted as ss
 from deeprank2_tpu_torch.ops import slotpool as sp
 from deeprank2_tpu_torch.ops import vanilla as vn
@@ -91,7 +92,7 @@ def test_train_step_matches_cpu_and_counts_launches(cuda) -> None:
     ds.reset_launches()
     loss = loss_fn(model(batch), batch.y, batch.y_mask)
     loss.backward()
-    assert ds.launches == {"diag_kernel": 3, "pool_bwd_kernel": 1}
+    assert ds.launches == {"diag_kernel": 3, "pool_bwd_kernel": 1, "tower_fwd_kernel": 0, "tower_bwd_kernel": 0}
     cpu_batch = batch.to("cpu")
     cpu_loss = loss_fn(cpu_model(cpu_batch), cpu_batch.y, cpu_batch.y_mask)
     cpu_loss.backward()
@@ -223,7 +224,7 @@ def test_blocksparse_train_step_matches_cpu_and_counts_launches(cuda, kind) -> N
     loss = loss_fn(model(batch), batch.y, batch.y_mask)
     loss.backward()
     assert bs.launches == {"bcsr_spmm_kernel": 4}
-    assert sp.launches == slot and ds.launches == {"diag_kernel": 0, "pool_bwd_kernel": 0}
+    assert sp.launches == slot and not any(ds.launches.values())
     cpu_batch = batch.to("cpu")
     cpu_loss = loss_fn(cpu_model(cpu_batch), cpu_batch.y, cpu_batch.y_mask)
     cpu_loss.backward()
@@ -358,3 +359,103 @@ def test_coo_train_step_matches_cpu_and_counts_launches(cuda, kind) -> None:
             assert q.grad is None, name
         else:
             torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)
+
+
+def _tower_operands(g, n, f, c1, c2, dev, seed=0):
+    """A symmetric 0/1 adjacency with a masked, edgeless tail in every graph,
+    features in both layouts, the two weights and the pooled cotangents."""
+    gen = torch.Generator().manual_seed(seed)
+    adj = torch.rand(g, n, n, generator=gen) < 0.05
+    adj = adj | adj.transpose(1, 2)
+    mask = torch.ones(g, n, dtype=torch.bool)
+    for i in range(g):
+        mask[i, n - 1 - (7 * i) % (n // 3) :] = False
+    adj &= mask[:, :, None] & mask[:, None, :]
+    x = torch.randn(g, n, f, generator=gen)
+    w1, w2 = torch.randn(f, c1, generator=gen) * 0.2, torch.randn(c1, c2, generator=gen) * 0.2
+    dpooled = torch.randn(g, c2, generator=gen)
+    out = (adj.to(torch.int8), mask, x, x.reshape(g * n, f).T.contiguous(), w1, w2, dpooled)
+    return [t.to(dev) for t in out]
+
+
+# the dense bench widths at a ragged G, at the largest N the shape rule
+# admits (251), and widths that are not multiples of 4 (padded channels);
+# pooled and h1 sum f32 products in another order; dw1/dw2 sum one product
+# per node and graph, and t1 cancels terms far larger than itself, so their
+# atol is 1e-6 of the products' absolute sum (t2 likewise)
+@pytest.mark.parametrize(("g", "n", "f", "c1", "c2"), [(7, 96, 38, 32, 64), (3, 251, 38, 32, 64), (5, 40, 5, 6, 10)])
+def test_tower_kernels_match_plain_versions(cuda, g, n, f, c1, c2) -> None:
+    assert gt.supports(g, n, f, c1, c2)
+    adj, mask, x, x_t, w1, w2, dp = _tower_operands(g, n, f, c1, c2, cuda)
+    gt.reset_launches()
+    ds.reset_launches()
+    torch.testing.assert_close(gt.ginet_tower_fwd_kernel(w1, w2, x, adj, mask), gt.ginet_tower_fwd_kernel_ref(w1, w2, x, adj, mask), **TOL)
+    got, want = gt.ginet_tower_bwd_kernel(w1, w2, x, adj, mask, dp), gt.ginet_tower_bwd_kernel_ref(w1, w2, x, adj, mask, dp)
+    for a, b, scale in zip(got, want, gt.dw_error_scale(w1, w2, x, adj, mask, dp)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * scale.max().item())
+    assert gt.launches == {"ginet_tower_fwd_kernel": 1, "ginet_tower_bwd_kernel": 1}
+    h1, sign, pooled = ds.tower_fwd_kernel(adj, x_t, mask, w1, w2)
+    h1_r, sign_r, pooled_r = ds.tower_fwd_kernel_ref(adj, x_t, mask, w1, w2)
+    torch.testing.assert_close(h1, h1_r, **TOL)
+    torch.testing.assert_close(pooled, pooled_r, **TOL)
+    h2 = torch.relu(ds.diag_kernel_ref(adj, w2.T @ h1_r)) * mask.reshape(1, -1)
+    assert not ((sign != sign_r) & (h2.abs() > 1e-6 * h2.abs().max())).any()
+    g_pool = dp.T.contiguous()
+    bwd = (adj, g_pool, sign_r, h1_r, w2)
+    for a, b, scale in zip(ds.tower_bwd_kernel(*bwd), ds.tower_bwd_kernel_ref(*bwd), ds.tower_bwd_error_scale(*bwd)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=max(1e-5, 1e-6 * scale.max().item()))
+    assert ds.launches["tower_fwd_kernel"] == ds.launches["tower_bwd_kernel"] == 1
+
+
+@pytest.mark.parametrize("n", [252, 2048])
+def test_tower_kernels_raise_beyond_the_shape_rule(cuda, n) -> None:
+    assert not gt.supports(1, n)
+    adj, mask, x, x_t, w1, w2, dp = _tower_operands(1, n, 38, 32, 64, cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        gt.ginet_tower_fwd_kernel(w1, w2, x, adj, mask)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        gt.ginet_tower_bwd_kernel(w1, w2, x, adj, mask, dp)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ds.tower_fwd_kernel(adj, x_t, mask, w1, w2)
+
+
+def test_dense_tower_train_step_matches_cpu_and_counts_launches(cuda) -> None:
+    entries = synthetic_entries(6, 40, 38, 6, seed=2)
+    batch, _ = collate_graphs_dense(entries, pad_graphs=7, pad_nodes=64, device=cuda)
+    model = GINetDense(38, 2, 6, device=cuda)
+    cpu_model = GINetDense(38, 2, 6, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loss_fn = CrossEntropyLoss()
+    set_dense_tower_backend("pallas")
+    try:
+        ds.reset_launches()
+        gt.reset_launches()
+        loss = loss_fn(model(batch), batch.y, batch.y_mask)
+        loss.backward()
+        assert gt.launches == {"ginet_tower_fwd_kernel": 1, "ginet_tower_bwd_kernel": 1}
+        assert not any(ds.launches.values())
+        cpu_batch = batch.to("cpu")
+        cpu_loss = loss_fn(cpu_model(cpu_batch), cpu_batch.y, cpu_batch.y_mask)
+        cpu_loss.backward()
+    finally:
+        set_dense_tower_backend("xla")
+    torch.testing.assert_close(loss.detach().cpu(), cpu_loss.detach(), rtol=1e-4, atol=1e-6)
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        if p.grad is None:
+            assert q.grad is None, name
+        else:
+            torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)
+
+
+def test_tower_pooled_matches_plain_version_and_counts_launches(cuda) -> None:
+    adj, mask, _, x_t, w1, w2, dp = _tower_operands(9, 80, 38, 32, 64, cuda, seed=3)
+    ds.reset_launches()
+    outs = []
+    for fn in (ds.tower_pooled, ds.tower_pooled_ref):
+        a, b = w1.clone().requires_grad_(True), w2.clone().requires_grad_(True)
+        out = fn(adj, mask, x_t, a, b)
+        outs.append((out.detach(), *torch.autograd.grad(out, (a, b), dp.T.contiguous())))
+    assert ds.launches == {"diag_kernel": 0, "pool_bwd_kernel": 0, "tower_fwd_kernel": 1, "tower_bwd_kernel": 1}
+    # dw1 and dw2 sum 720 node terms that cancel: atol relative to their size
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * want.abs().max().item())

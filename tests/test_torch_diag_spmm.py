@@ -158,4 +158,4 @@ def test_launch_counts_stay_zero_on_cpu() -> None:
     td.reset_launches()
     adj, mask, x_t, _ = _operands(2, 32, 4, seed=1)
     td.diag_layer_pool_t(torch.from_numpy(adj), torch.from_numpy(mask), torch.from_numpy(x_t))
-    assert td.launches == {"diag_kernel": 0, "pool_bwd_kernel": 0}
+    assert td.launches == {"diag_kernel": 0, "pool_bwd_kernel": 0, "tower_fwd_kernel": 0, "tower_bwd_kernel": 0}

@@ -22,6 +22,7 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.ops.block_sparse",
     "deeprank2_tpu_torch.ops.blocked_edges",
     "deeprank2_tpu_torch.ops.diag_spmm",
+    "deeprank2_tpu_torch.ops.ginet_tower",
     "deeprank2_tpu_torch.ops.losses",
     "deeprank2_tpu_torch.ops.optim",
     "deeprank2_tpu_torch.ops.pooling",
@@ -196,6 +197,36 @@ def test_coo_entry_points_raise_without_cuda(no_cuda) -> None:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(4, 2, 1)
         assert cls(4, 2, 1, device="cpu")(batch).shape == (2, 2)
+
+
+def test_fused_tower_entry_points_raise_without_cuda(no_cuda) -> None:
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense, set_dense_tower_backend
+    from deeprank2_tpu_torch.ops.batch import collate_graphs_dense
+    from deeprank2_tpu_torch.ops.diag_spmm import tower_pooled
+    from deeprank2_tpu_torch.ops.ginet_tower import ginet_tower_pooled
+    from deeprank2_tpu_torch.ops.synthetic import synthetic_entries
+
+    entries = synthetic_entries(2, 8, 4, 2, seed=0)
+    batch, _ = collate_graphs_dense(entries, device="cpu")
+    w1, w2 = torch.ones(4, 32), torch.ones(32, 64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch.to("cuda")
+    # the kernels run on the tensors' device: a batch that is not on the CPU
+    # or a CUDA device has neither kernel nor plain version
+    meta = [t.to("meta") for t in (w1, w2, batch.x, batch.adj_i8, batch.node_mask, batch.x_t)]
+    with pytest.raises(ValueError, match="no kernel"):
+        ginet_tower_pooled(*meta[:5])
+    with pytest.raises(ValueError, match="no kernel"):
+        tower_pooled(meta[3], meta[4], meta[5], meta[0], meta[1])
+    set_dense_tower_backend("pallas")
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            GINetDense(4, 2, 2)
+        assert GINetDense(4, 2, 2, device="cpu")(batch).shape == (2, 2)
+    finally:
+        set_dense_tower_backend("xla")
+    assert ginet_tower_pooled(w1, w2, batch.x, batch.adj_i8, batch.node_mask).shape == (2, 64)
+    assert tower_pooled(batch.adj_i8, batch.node_mask, batch.x_t, w1, w2).shape == (64, 2)
 
 
 @pytest.mark.parametrize("alone", [False, True])
