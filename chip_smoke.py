@@ -147,10 +147,43 @@ Phases, each printing one JSON line:
    (diag_layer_t then diag_layer_pool_t), pooled sums and weight gradients at
    CROSS_TOL, then STEPS forward/backward passes and one forward with the
    counters at 0 (tower_fwd_kernel STEPS + 1, tower_bwd_kernel STEPS, every
-   other kernel 0).
+   other kernel 0);
+20. the weighted kernel forms against their plain versions on the card
+   (both f32 on the same exact weights, only the summation order differs;
+   K1/K2 at rtol=atol=1e-5, K5 at rtol 1e-5 and an atol of DW_TOL times the
+   largest sum of the products' absolute values, at least 1e-5, since a
+   pooled pair's weight sums its member edges'): bcsr_spmm_kernel (K5) on
+   the bf16 blocks of the weighted
+   100k-node clustered graph (full structure F=16, pooled F=32), on the
+   pooled blocks cast to f32, and on a ragged weighted batch (F=19);
+   diag_kernel and pool_bwd_kernel (K1, K2) on the bf16 weighted adjacencies
+   of the clustered PPI batch ([512, 296, 296] F=16, pooled F=32), on the
+   pooled one cast to f32, on a small weighted batch (F=38) and on a
+   synthetic weighted N=336 (every mode, directly and through the autograd
+   Functions); the launch counters by adjacency and block type must show
+   every one of these calls on the kernel;
+21. their times at the new paths' calls beside the plain versions, one
+   library call (cuSPARSE on the f32 weights; torch.bmm of the adjacency
+   cast to f32) and the bounds (bf16 weights at 2 bytes an entry), with the
+   FoutNet paths' unweighted calls (K1 and K5 at F=16 and 32) and the slot
+   kernels at F=16; the f32 storage forms on no path's step;
+22-25. the FoutNet and sGAT paths, CrossEntropy and Adam (lr 1e-3, wd 1e-5),
+   no dropout: SGATDiag(38, 2, 1) on the weighted clustered PPI batch
+   (sgat_diag: bf16 K1 4 a step), FoutNetDiag(38, 2, 1) on the unweighted one
+   (foutnet_diag: int8 K1 4 a step), SGATBlockSparse(38, 2, 1) on the
+   weighted clustered_entry(100_000, 38, 1) in slot8 (sgat_bcsr: bf16 K5 4
+   a step) and FoutNetBlockSparse(38, 2, 1) on the unweighted one
+   (foutnet_bcsr: int8 K5 4 a step), each with K3 and K4 once a step: one
+   step against the CPU (on clustered_entry(20_000, 38, 1) for the two
+   100k-node paths; gradients at rtol 1e-4, atol 1e-5), SGAT_FOUTNET_STEPS steps and one eval forward with the
+   counters at 0, totals and types (4*S + 2, slot S + 1 and S), and a
+   profile;
+26. the four against their COO oracle (SGAT, FoutNet) in f64, with f32
+   weight storage, logits and the head's gradients at the 1e-4 gate, the
+   conv gradients reported under both max-pool tie rules.
 
-Then the ``kernels`` line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+Then the ``kernels`` line (K1, K2 and K5 also by adjacency or block type),
+the card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without CUDA, or without the package beside this file, it exits non-zero
 before printing any result.
 """
@@ -183,6 +216,13 @@ EXACT = {"rtol": 0.0, "atol": 0.0}
 STEP_TOL = {"rtol": 1e-4, "atol": 1e-6}
 CROSS_TOL = {"rtol": 1e-4, "atol": 1e-5}
 CLUSTERED_GATE = 1e-3  # tests/perf/clustered_parity.py:93
+SGAT_FOUTNET_GATE = 1e-4  # the FoutNet and sGAT fast paths' logits and head gradients against the f64 COO oracle
+# the FoutNet and sGAT steps against the CPU: their conv gradients sum
+# weighted products over 10^5 nodes, and on an H100 one entry of sGAT's
+# (5.2e-3) moved by 2.0e-6 with the summation order
+SGAT_FOUTNET_GRAD_TOL = {"rtol": 1e-4, "atol": 1e-5}
+SGAT_FOUTNET_STEPS = 20
+SGAT_FOUTNET_CHECK_NODES = 20_000
 CLUSTERED_TOL = {"rtol": 1e-4, "atol": 1e-5}
 # f32 on both sides: the largest gradient error seen on the card is ~3e-7
 CLUSTERED_GRAD_TOL = {"rtol": 1e-4, "atol": 1e-6}
@@ -256,11 +296,11 @@ SOURCES = {
     "tower_bwd_kernel": "deeprank2_tpu_torch/csrc/diag_tower.cu",
 }
 LIBRARY = {
-    "diag_kernel": "torch.bmm of the f32 adjacency [G,N,N] with the [G,N,F] slab (contraction only)",
-    "pool_bwd_kernel": "torch.bmm of the f32 adjacency [G,N,N] with the [G,N,F] slab (contraction only)",
+    "diag_kernel": "torch.bmm of the adjacency [G,N,N] cast to f32 (int8 0/1 or bf16 weights) with the [G,N,F] slab (contraction only)",
+    "pool_bwd_kernel": "torch.bmm of the adjacency [G,N,N] cast to f32 with the [G,N,F] slab (contraction only)",
     "slot_fwd_kernel": "h.view(F, V//slot, slot).amax(2) (also the plain version)",
     "slot_bwd_kernel": None,
-    "bcsr_spmm_kernel": "torch.sparse_csr_tensor of the mirrored pairs @ x [N, F] (cuSPARSE SpMM)",
+    "bcsr_spmm_kernel": "torch.sparse_csr_tensor of the mirrored pairs, f32 values (1, or the bf16/f32 weights), @ x [N, F] (cuSPARSE SpMM)",
     "blocked_fwd_kernel": None,
     "blocked_bwd_kernel": None,
     "segment_sum_sorted_kernel": "buf.index_add_(0, ids clamped to n, msgs) into an [n+1, F] buffer",
@@ -315,6 +355,11 @@ class Counters:
     def read(self) -> dict:
         return {k: v for m in self.modules for k, v in m.launches.items()}
 
+    def read_forms(self) -> dict:
+        """The nonzero launch counts of K1, K2 and K5 by adjacency or block
+        type, as ``"kernel[type]"``."""
+        return {f"{k}[{form}]": n for m in self.modules for k, forms in getattr(m, "launches_by_dtype", {}).items() for form, n in forms.items() if n}
+
 
 def ragged_entries(synthetic_entries, num_graphs=7, nodes=96, feat=38):
     """Graphs of decreasing size: padded nodes inside real graphs."""
@@ -333,12 +378,17 @@ class Checks:
     def __init__(self, torch):
         self.torch = torch
         self.errs = dict.fromkeys(KERNELS, 0.0)
+        self.form_errs = {}  # (kernel, adjacency or block type) -> largest error
         self.rows = []
 
-    def close(self, kernel, what, got, want, tol) -> None:
+    def close(self, kernel, what, got, want, tol, form=None) -> None:
         err = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
         self.errs[kernel] = max(self.errs[kernel], err)
-        self.rows.append({"kernel": kernel, "check": what, "max_abs_err": err})
+        row = {"kernel": kernel, "check": what, "max_abs_err": err}
+        if form is not None:
+            self.form_errs[kernel, form] = max(self.form_errs.get((kernel, form), 0.0), err)
+            row["form"] = form
+        self.rows.append(row)
         self.torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{kernel} {what}: {m}")
 
 
@@ -346,10 +396,12 @@ def check_diag_kernels(torch, ds, checks, shapes, dev) -> None:
     """diag_kernel and pool_bwd_kernel against their plain versions, directly
     and through the autograd Functions."""
 
-    def close(kernel, what, got, want):
-        checks.close(kernel, what, got, want, TOL)
-
     for tag, adj, mask, feats in shapes:
+        form = ds.dtype_name(adj.dtype)
+
+        def close(kernel, what, got, want, form=form):
+            checks.close(kernel, what, got, want, TOL, form)
+
         gen = torch.Generator(device=dev).manual_seed(len(checks.rows))
         g, n, _ = adj.shape
         for f in feats:
@@ -362,7 +414,7 @@ def check_diag_kernels(torch, ds, checks, shapes, dev) -> None:
             close("diag_kernel", f"{tag} relu_mask_pool pooled F={f}", pooled, pooled_ref)
             # the stored sign may differ only where h is zero to summation order
             flips = ((sign != sign_ref) & (h_ref.abs() > TOL["atol"])).sum().item()
-            checks.rows.append({"kernel": "diag_kernel", "check": f"{tag} relu_mask_pool sign F={f}", "sign_flips_clear_of_zero": flips})
+            checks.rows.append({"kernel": "diag_kernel", "check": f"{tag} relu_mask_pool sign F={f}", "form": form, "sign_flips_clear_of_zero": flips})
             if flips:
                 msg = f"diag_kernel pool-mode sign differs from the plain version at {flips} values clear of zero"
                 raise AssertionError(msg)
@@ -482,10 +534,11 @@ def slot_winner_flips(torch, ds, model, batch, cpu_model, cpu_batch) -> dict:
     return {"groups_with_a_positive_max": groups, "winner_flips": flips}
 
 
-def run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps, warm=WARM_STEPS) -> dict:
+def run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps, warm=WARM_STEPS, want_forms=None) -> dict:
     """``steps`` train steps and one eval forward, with the launch counters
     set to 0 just before and read just after; ``want`` is the expected count
-    of every kernel."""
+    of every kernel and ``want_forms``, where given, of every nonzero count
+    by adjacency or block type (``"kernel[type]"``)."""
     drop_gen = torch.Generator(device=dev).manual_seed(1)
 
     def train_step():
@@ -507,10 +560,13 @@ def run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps,
     with torch.no_grad():
         eval_logits = model(batch, training=False)
     sync(torch, dev)
-    launches = counters.read()
+    launches, forms = counters.read(), counters.read_forms()
     losses = torch.stack(losses).cpu()
     if dev.type == "cuda" and launches != want:
         msg = f"main path launches {launches}, expected {want}"
+        raise AssertionError(msg)
+    if dev.type == "cuda" and want_forms is not None and forms != want_forms:
+        msg = f"main path launches by type {forms}, expected {want_forms}"
         raise AssertionError(msg)
     if not torch.isfinite(losses).all() or not torch.isfinite(eval_logits).all() or tuple(eval_logits.shape) != (batch.num_graphs, 2):
         msg = f"non-finite or misshapen results: losses {losses.tolist()}, logits {tuple(eval_logits.shape)}"
@@ -523,6 +579,7 @@ def run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps,
         "loss_last": losses[-1].item(),
         "launches": launches,
         "launches_expected": want,
+        "launches_by_form": forms,
         "train_step": train_step,
     }
 
@@ -567,24 +624,25 @@ def time_diag_calls(torch, ds, timer, path, adj, mask, specs, peak_bw, peak_f32)
     adjacency's nonzeros need)."""
     g, n, _ = adj.shape
     adj_f32 = adj.float()
+    adj_bytes = adj.numel() * adj.element_size()
     nnz = int(adj.count_nonzero().item())
     gen = torch.Generator(device="cuda").manual_seed(11)
     calls = []
-    for kernel, mode, f in specs:
+    for kernel, mode, f, *per_step in specs:
         x = torch.randn(f, g * n, generator=gen, device="cuda")
         x_gnf = x.reshape(f, g, n).permute(1, 2, 0).contiguous()
         if kernel == "diag_kernel":
             m = None if mode == "plain" else mask
             run = lambda x=x, m=m, mode=mode: ds.diag_kernel(adj, x, m, mode)  # noqa: E731
             plain = lambda x=x, m=m, mode=mode: ds.diag_kernel_ref(adj, x, m, mode)  # noqa: E731
-            in_bytes = adj.numel() + 4 * f * g * n + (0 if mode == "plain" else g * n)
+            in_bytes = adj_bytes + 4 * f * g * n + (0 if mode == "plain" else g * n)
             out_bytes = (f * g * n + 4 * f * g) if mode == "relu_mask_pool" else 4 * f * g * n
         else:
             sign, _ = ds.diag_kernel(adj, x, mask, "relu_mask_pool")
             g_pool = torch.randn(f, g, generator=gen, device="cuda")
             run = lambda sign=sign, g_pool=g_pool: ds.pool_bwd_kernel(adj, sign, g_pool)  # noqa: E731
             plain = lambda sign=sign, g_pool=g_pool: ds.pool_bwd_kernel_ref(adj, sign, g_pool)  # noqa: E731
-            in_bytes = adj.numel() + f * g * n + 4 * f * g
+            in_bytes = adj_bytes + f * g * n + 4 * f * g
             out_bytes = 4 * f * g * n
         library = lambda x_gnf=x_gnf: torch.bmm(adj_f32, x_gnf)  # noqa: E731
         flop = 2 * f * nnz
@@ -593,8 +651,10 @@ def time_diag_calls(torch, ds, timer, path, adj, mask, specs, peak_bw, peak_f32)
                 "path": path,
                 "kernel": kernel,
                 "mode": mode or "pool_bwd",
+                "form": ds.dtype_name(adj.dtype),
                 "shape": [g, n, n],
                 "F": f,
+                "per_step": per_step[0] if per_step else 1,
                 "ms": timer.ms(run),
                 "plain_ms": timer.ms(plain),
                 "library_ms": timer.ms(library),
@@ -645,26 +705,46 @@ def time_slot_calls(torch, sp, timer, path, mask_row, specs, peak_bw, peak_f32) 
 
 def check_bcsr_kernel(torch, bs, checks, shapes, dev) -> None:
     """bcsr_spmm_kernel against its plain version, directly and through
-    bcsr_spmm_t's autograd (whose VJP is the same SpMM of the cotangent)."""
+    bcsr_spmm_t's autograd (whose VJP is the same SpMM of the cotangent).
+    int8 0/1 blocks within TOL; weighted blocks within rtol 1e-5 and an atol
+    of DW_TOL times the largest sum of the products' absolute values (at
+    least TOL's atol): a pooled pair's weight sums its member edges' (tens),
+    so a row's products reach hundreds and another f32 summation order moves
+    the sum by more than 1e-5."""
+    import dataclasses
+
     for tag, st, feats in shapes:
         gen = torch.Generator(device=dev).manual_seed(len(checks.rows))
+        form = bs.dtype_name(st.blocks_t.dtype)
+        st_abs = dataclasses.replace(st, blocks_t=st.blocks_t.abs())
+
+        def tol(v, st_abs=st_abs, form=form):
+            if form == "int8":
+                return TOL
+            return {"rtol": TOL["rtol"], "atol": max(TOL["atol"], DW_TOL * bs.bcsr_spmm_kernel_ref(st_abs, v.abs()).max().item())}
+
         for f in feats:
             x = torch.randn(f, st.padded_nodes, generator=gen, device=dev)
-            checks.close("bcsr_spmm_kernel", f"{tag} direct F={f}", bs.bcsr_spmm_kernel(st, x), bs.bcsr_spmm_kernel_ref(st, x), TOL)
+            t = tol(x)
+            checks.close("bcsr_spmm_kernel", f"{tag} direct F={f}", bs.bcsr_spmm_kernel(st, x), bs.bcsr_spmm_kernel_ref(st, x), t, form)
+            checks.rows[-1]["atol"] = t["atol"]
             cot = torch.randn(f, st.padded_rows, generator=gen, device=dev)
             xk = x.clone().requires_grad_(True)
             (grad,) = torch.autograd.grad(bs.bcsr_spmm_t(st, xk), xk, cot)
-            checks.close("bcsr_spmm_kernel", f"{tag} bcsr_spmm_t vjp F={f}", grad, bs.bcsr_spmm_kernel_ref(st, cot), TOL)
+            t = tol(cot)
+            checks.close("bcsr_spmm_kernel", f"{tag} bcsr_spmm_t vjp F={f}", grad, bs.bcsr_spmm_kernel_ref(st, cot), t, form)
+            checks.rows[-1]["atol"] = t["atol"]
     sync(torch, dev)
 
 
 def csr_of(torch, st):
     """The structure's adjacency as a CUDA ``torch.sparse_csr_tensor``
-    (the mirrored pairs, ``[padded_rows, padded_nodes]``)."""
+    (the mirrored pairs, ``[padded_rows, padded_nodes]``), with f32 values:
+    1 for int8 blocks, the weights of bf16 or f32 ones."""
     k, c, i = st.blocks_t.nonzero(as_tuple=True)
     rows = st.block_row[k].long() * st.block + i
     cols = st.block_col[k].long() * st.block + c
-    values = torch.ones(rows.numel(), dtype=torch.float32, device=rows.device)
+    values = st.blocks_t[k, c, i].float()
     coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), values, (st.padded_rows, st.padded_nodes))
     return coo.coalesce().to_sparse_csr()
 
@@ -683,7 +763,7 @@ def time_bcsr_calls(torch, bs, timer, path, batch, specs, peak_bw, peak_f32) -> 
         real = st.tile_blocks.numel()
         x = torch.randn(f, st.padded_nodes, generator=gen, device="cuda")
         x_rows = x.T.contiguous()
-        in_bytes = real * st.block**2 + 4 * f * st.padded_nodes + 4 * (2 * real + st.tile_ptr.numel())
+        in_bytes = real * st.block**2 * st.blocks_t.element_size() + 4 * f * st.padded_nodes + 4 * (2 * real + st.tile_ptr.numel())
         # source nodes (block rows) with an edge into the row tile: the share
         # of the dense product that meets a nonzero
         rows_share = st.blocks_t[st.tile_blocks.long()].ne(0).any(dim=2).float().mean().item() if real else 0.0
@@ -692,6 +772,7 @@ def time_bcsr_calls(torch, bs, timer, path, batch, specs, peak_bw, peak_f32) -> 
                 "path": path,
                 "kernel": "bcsr_spmm_kernel",
                 "mode": name,
+                "form": bs.dtype_name(st.blocks_t.dtype),
                 "shape": {"blocks_stored": st.num_blocks, "blocks_nonzero": real, "chunks": st.num_chunks, "nodes": st.padded_nodes},
                 "F": f,
                 "per_step": per_step,
@@ -1208,22 +1289,33 @@ def fused_tower_drive(torch, ds, counters, b, w1, w2, steps, dev) -> dict:
     return {"tolerance": CROSS_TOL, "max_abs_err": errs, "passes": steps, "pass_ms": pass_s * 1e3, "launches": launches, "launches_expected": want}
 
 
-def kernels_line(calls, path_launches, errs) -> list:
+def kernels_line(calls, path_launches, errs, path_forms, form_errs, form_calls=()) -> list:
     """One entry per kernel: times and bounds summed over the kernel's calls in
     one train step of each path it runs on (also given by path); launches
-    summed over the counted runs of every path (also given by path)."""
+    summed over the counted runs of every path (also given by path). K1, K2
+    and K5 also by adjacency or block type (``forms``: int8 0/1, the bf16
+    and f32 weights of sGAT), each with its launches, its largest error and
+    every timed call of that type (the paths' calls and ``form_calls``, timed
+    on no path's step), per launch."""
 
     def total(rows, key):
         values = [c[key] for c in rows]
-        return None if any(x is None for x in values) else sum(c[key] * c.get("per_step", 1) for c in rows)
+        return None if not rows or any(x is None for x in values) else sum(c[key] * c.get("per_step", 1) for c in rows)
+
+    def times(rows):
+        return {k: total(rows, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
 
     kernels = []
     for name in KERNELS:
         mine = [c for c in calls if c["kernel"] == name]
-        by_path = {}
+        by_path, by_form = {}, {}
         for c in mine:
-            p = by_path.setdefault(c["path"].removesuffix("_pooled").removesuffix("_slot"), [])
-            p.append(c)
+            by_path.setdefault(c["path"].removesuffix("_pooled").removesuffix("_slot"), []).append(c)
+        for c in [*mine, *(c for c in form_calls if c["kernel"] == name)]:
+            if "form" in c:
+                by_form.setdefault(c["form"], []).append(c)
+        forms = {form for (kernel, form) in form_errs if kernel == name} | set(by_form)
+        forms |= {key.split("[")[1].rstrip("]") for launches in path_forms.values() for key in launches if key.startswith(f"{name}[")}
         kernels.append(
             {
                 "name": name,
@@ -1241,9 +1333,24 @@ def kernels_line(calls, path_launches, errs) -> list:
                 "library_ms": total(mine, "library_ms"),
                 "library": LIBRARY[name],
                 **({"flat_route_ms": total(mine, "flat_route_ms")} if mine and all("flat_route_ms" in c for c in mine) else {}),
-                "by_path": {
-                    path: {k: total(rows, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")} for path, rows in by_path.items()
-                },
+                "by_path": {path: times(rows) for path, rows in by_path.items()},
+                **(
+                    {
+                        "forms": {
+                            form: {
+                                "launches": sum(launches.get(f"{name}[{form}]", 0) for launches in path_forms.values()),
+                                "max_abs_err": form_errs.get((name, form)),
+                                "calls": [
+                                    {k: c[k] for k in ("path", "mode", "F", "per_step", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms") if k in c}
+                                    for c in by_form.get(form, [])
+                                ],
+                            }
+                            for form in sorted(forms)
+                        }
+                    }
+                    if forms
+                    else {}
+                ),
             }
         )
     return kernels
@@ -1287,7 +1394,7 @@ def clustered_path(torch, ds, counters, card, entries, layout_check, steps, dev,
             "real_edges": real_edges,
         }
     )
-    return {"batch": batch, "launches": run["launches"], "train_step": train_step, "step_s": run["step_s"]}
+    return {"batch": batch, "launches": run["launches"], "launches_by_form": run["launches_by_form"], "train_step": train_step, "step_s": run["step_s"]}
 
 
 def bcsr_winner_flips(torch, bs, model, batch, cpu_model, cpu_batch) -> dict:
@@ -1304,32 +1411,238 @@ def bcsr_winner_flips(torch, bs, model, batch, cpu_model, cpu_batch) -> dict:
     return {"groups_with_a_positive_max": int(live.sum()), "winner_flips": {"slot8": int(((win[0] != win[1]) & live).sum())}}
 
 
-def checked_path(torch, counters, card, batch, model_factory, want, dev, phase, describe, flips=None, steps=BCSR_STEPS) -> dict:
-    """Check one path (BCSR, blocked-edge or COO) against the CPU, drive it
-    with the counters at 0, and profile a few of its steps."""
+def checked_path(
+    torch,
+    counters,
+    card,
+    batch,
+    model_factory,
+    want,
+    dev,
+    phase,
+    describe,
+    flips=None,
+    steps=BCSR_STEPS,
+    want_forms=None,
+    check_batch=None,
+    grad_tol=CLUSTERED_GRAD_TOL,
+) -> dict:
+    """Check one path (BCSR, blocked-edge, COO or Diag) against the CPU,
+    drive it with the counters at 0, and profile a few of its steps. The
+    check runs on ``check_batch`` where one is given (a smaller batch of the
+    same layout, when the plain versions at full size cost too much on the
+    CPU), else on ``batch``."""
     from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
     from deeprank2_tpu_torch.ops.optim import Adam
 
     model = model_factory(dev)
     loss_fn = CrossEntropyLoss()
-    step, cpu_model, cpu_batch = card_vs_cpu_step(torch, model, batch, loss_fn, lambda: model_factory("cpu"), CLUSTERED_TOL, CLUSTERED_GRAD_TOL)
-    info = {"phase": f"{phase}_card_vs_cpu_step", "tolerance": CLUSTERED_TOL, "grad_tolerance": CLUSTERED_GRAD_TOL, **step}
+    checked = batch if check_batch is None else check_batch
+    step, cpu_model, cpu_batch = card_vs_cpu_step(torch, model, checked, loss_fn, lambda: model_factory("cpu"), CLUSTERED_TOL, grad_tol)
+    info = {"phase": f"{phase}_card_vs_cpu_step", "tolerance": CLUSTERED_TOL, "grad_tolerance": grad_tol, **step}
+    if check_batch is not None:
+        info["checked_on"] = describe.get("check_batch", "a smaller batch")
     if flips is not None:
-        info["max_pool"] = flips(model, batch, cpu_model, cpu_batch)
+        info["max_pool"] = flips(model, checked, cpu_model, cpu_batch)
     del cpu_model, cpu_batch
     # a cross-entropy that saturates on one confident graph has vanishing
     # gradients; the sum of the logits holds the whole backward all the same
     probe, _, _ = card_vs_cpu_step(
-        torch, model, batch, lambda logits, y, y_mask: logits.sum(), lambda: model_factory("cpu"), CLUSTERED_TOL, CLUSTERED_GRAD_TOL
+        torch, model, checked, lambda logits, y, y_mask: logits.sum(), lambda: model_factory("cpu"), CLUSTERED_TOL, grad_tol
     )
     emit({**info, "sum_of_logits_probe": probe})
     opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
-    run = run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps)
+    run = run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps, want_forms=want_forms)
     train_step = run.pop("train_step")
     real_edges = 2 * describe.pop("undirected_edges")
     emit({"phase": phase, "card": card, **describe, **run, "step_ms": run["step_s"] * 1e3, "edges_per_s": real_edges / run["step_s"], "real_edges": real_edges})
     emit({"phase": f"profile_{phase.removeprefix('main_path_')}", "card": card, **profile_steps(torch, train_step, run["step_s"])})
-    return run["launches"]
+    return run
+
+
+def weighted_adjacency(torch, g, n, dtype, dev, seed):
+    """A symmetric weighted adjacency (|N(0, 1)| + 0.1, summed over both
+    directions) on 16 neighbours a node, with a masked, edgeless tail, stored
+    as ``dtype``, and its node mask."""
+    gen = torch.Generator().manual_seed(seed)
+    edges = torch.rand(g, n, n, generator=gen) < 16 / n
+    edges = edges | edges.transpose(1, 2)
+    mask = torch.ones(g, n, dtype=torch.bool)
+    mask[:, n - n // 5 :] = False
+    edges &= mask[:, :, None] & mask[:, None, :]
+    w = torch.randn(g, n, n, generator=gen).abs() + 0.1
+    return ((w + w.transpose(1, 2)) * edges).to(dtype).to(dev), mask.to(dev)
+
+
+def expected_check_launches(ds, bs, diag_shapes, bcsr_shapes) -> dict:
+    """The launches by type that check_diag_kernels and check_bcsr_kernel
+    make through the wrappers: per feature width, K1 six times (three modes
+    directly, two layer forwards, one layer VJP) and K2 twice; K5 three
+    times (directly, and bcsr_spmm_t's forward and VJP)."""
+    want = {}
+    for _, adj, _, feats in diag_shapes:
+        form = ds.dtype_name(adj.dtype)
+        want[f"diag_kernel[{form}]"] = want.get(f"diag_kernel[{form}]", 0) + 6 * len(feats)
+        want[f"pool_bwd_kernel[{form}]"] = want.get(f"pool_bwd_kernel[{form}]", 0) + 2 * len(feats)
+    for _, st, feats in bcsr_shapes:
+        form = bs.dtype_name(st.blocks_t.dtype)
+        want[f"bcsr_spmm_kernel[{form}]"] = want.get(f"bcsr_spmm_kernel[{form}]", 0) + 3 * len(feats)
+    return want
+
+
+def sgat_foutnet_phases(torch, dev, card, counters, checks, peak_bw, peak_f32, record, c_entries, c_batch, c_entry, cb_batch, cc_batch) -> list:
+    """Phases 20-26: the weighted forms of K5 and K1 against their plain
+    versions and their times, then the four FoutNet and sGAT paths (each
+    checked one step against the CPU, driven with the counters at 0 and
+    profiled), then their cross-checks against the COO oracle. ``c_batch``
+    and ``cb_batch`` are the unweighted Diag and BCSR batches of the
+    clustered cells, ``cc_batch`` the COO batch of ``c_entries``. Returns
+    the timed calls of the paths and those of the f32 storage (on no path's
+    step)."""
+    import dataclasses
+    import types
+
+    from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import FoutNetBlockSparse, SGATBlockSparse
+    from deeprank2_tpu_torch.neuralnets.gnn.foutnet import FoutNet, FoutNetDiag
+    from deeprank2_tpu_torch.neuralnets.gnn.sgat import SGAT, SGATDiag
+    from deeprank2_tpu_torch.ops import block_sparse as bs
+    from deeprank2_tpu_torch.ops import diag_spmm as ds
+    from deeprank2_tpu_torch.ops import slotpool as sp
+    from deeprank2_tpu_torch.ops.batch import collate_graphs, collate_graphs_blocksparse_clustered, collate_graphs_diag_clustered
+    from deeprank2_tpu_torch.ops.synthetic import clustered_entry, ppi_clustered_entries
+
+    # 20. the weighted kernel forms against their plain versions
+    t0 = time.perf_counter()
+    sd_batch, _ = collate_graphs_diag_clustered(c_entries, with_edge_weights=True, device=dev)
+    sgat_diag_collate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sw_batch, _ = collate_graphs_blocksparse_clustered([c_entry], with_edge_weights=True, slot8=True, device=dev)
+    sgat_bcsr_collate_s = time.perf_counter() - t0
+    ragged_w, _ = collate_graphs_blocksparse_clustered(
+        [clustered_entry(700, 38, 1, seed=1), clustered_entry(1300, 38, 1, seed=2)], pad_graphs=3, with_edge_weights=True, device=dev
+    )
+    small_w, _ = collate_graphs_diag_clustered(ppi_clustered_entries(7, 96, 38, seed=5), with_edge_weights=True, min_slot_nodes=1, device=dev)
+    adj336, mask336 = weighted_adjacency(torch, 4, 336, torch.bfloat16, dev, seed=336)
+    pooled_f32 = dataclasses.replace(sw_batch.structure_p, blocks_t=sw_batch.structure_p.blocks_t.float())
+    n, k = sd_batch.adj_w.shape[1], sd_batch.adj_wp.shape[1]
+    diag_shapes = [
+        (f"sgat_diag adj_w bf16 G=512 N={n}", sd_batch.adj_w, sd_batch.node_mask, (16,)),
+        (f"sgat_diag adj_wp bf16 G=512 K={k}", sd_batch.adj_wp, sd_batch.pooled_mask, (32,)),
+        (f"sgat_diag adj_wp as f32 G=512 K={k}", sd_batch.adj_wp.float(), sd_batch.pooled_mask, (32,)),
+        (f"weighted ragged bf16 G=7 N={small_w.adj_w.shape[1]}", small_w.adj_w, small_w.node_mask, (38,)),
+        ("synthetic weighted bf16 G=4 N=336", adj336, mask336, (16,)),
+    ]
+    bcsr_shapes = [
+        (f"sgat_bcsr full bf16 {sw_batch.structure.num_chunks} chunks", sw_batch.structure, (16,)),
+        ("sgat_bcsr pooled bf16", sw_batch.structure_p, (32,)),
+        ("sgat_bcsr pooled as f32", pooled_f32, (32,)),
+        ("weighted ragged bf16 700+1300+empty graph", ragged_w.structure, (19,)),
+    ]
+    n_checks = len(checks.rows)
+    counters.reset()
+    check_diag_kernels(torch, ds, checks, diag_shapes, dev)
+    check_bcsr_kernel(torch, bs, checks, bcsr_shapes, dev)
+    forms, want = counters.read_forms(), expected_check_launches(ds, bs, diag_shapes, bcsr_shapes)
+    if forms != want:
+        msg = f"the weighted checks launched {forms}, expected {want}"
+        raise AssertionError(msg)
+    tolerance = {"K1, K2": TOL, "K5 weighted": {"rtol": 1e-5, "atol": f"max(1e-5, {DW_TOL} * max |A| |x|)"}}
+    emit({"phase": "weighted_kernels_vs_plain", "tolerance": tolerance, "launches_by_form": forms, "checks": checks.rows[n_checks:]})
+    del ragged_w, small_w, adj336, mask336
+
+    # 21. their times, and those of the FoutNet paths' unweighted calls
+    timer = Timer(torch)
+    bcsr_specs = [("structure", 16, 2), ("structure_p", 32, 2)]
+    calls = time_bcsr_calls(torch, bs, timer, "sgat_bcsr", sw_batch, bcsr_specs, peak_bw, peak_f32)
+    calls += time_bcsr_calls(torch, bs, timer, "foutnet_bcsr", cb_batch, bcsr_specs, peak_bw, peak_f32)
+    for path, batch, full, pooled in (("sgat_diag", sd_batch, sd_batch.adj_w, sd_batch.adj_wp), ("foutnet_diag", c_batch, c_batch.adj_i8, c_batch.adj_p_i8)):
+        calls += time_diag_calls(torch, ds, timer, path, full, batch.node_mask, [("diag_kernel", "plain", 16, 2)], peak_bw, peak_f32)
+        calls += time_diag_calls(torch, ds, timer, f"{path}_pooled", pooled, batch.pooled_mask, [("diag_kernel", "plain", 32, 2)], peak_bw, peak_f32)
+    slot_specs = [("slot_fwd_kernel", 8, 16), ("slot_bwd_kernel", 8, 16)]
+    for path, batch in (("sgat_diag", sd_batch), ("foutnet_diag", c_batch), ("sgat_bcsr", sw_batch), ("foutnet_bcsr", cb_batch)):
+        calls += time_slot_calls(torch, sp, timer, f"{path}_slot", batch.node_mask.float().reshape(1, -1), slot_specs, peak_bw, peak_f32)
+    # the f32 storage (the collates' exact-oracle mode), timed on no path's step
+    f32_calls = time_bcsr_calls(torch, bs, timer, "f32_storage", types.SimpleNamespace(structure_p=pooled_f32), [("structure_p", 32, 0)], peak_bw, peak_f32)
+    f32_calls += time_diag_calls(torch, ds, timer, "f32_storage", sd_batch.adj_wp.float(), sd_batch.pooled_mask, [("diag_kernel", "plain", 32, 0)], peak_bw, peak_f32)
+    del timer, pooled_f32
+    emit({"phase": "weighted_kernel_times", "card": card, "l2_flushed": True, "calls": calls, "f32_storage_calls": f32_calls})
+
+    # 22-25. the four paths, each checked against the CPU, counted and profiled
+    steps = SGAT_FOUTNET_STEPS
+    per_path = want_launches(slot_fwd_kernel=steps + 1, slot_bwd_kernel=steps)
+    diag_undirected = int(sum(e["edge_index"].shape[0] for e in c_entries))
+    for name, cls, batch, collate_s in (("sgat_diag", SGATDiag, sd_batch, sgat_diag_collate_s), ("foutnet_diag", FoutNetDiag, c_batch, None)):
+        form = ds.dtype_name(batch.adj_w.dtype if name == "sgat_diag" else batch.adj_i8.dtype)
+        record(name, checked_path(
+            torch,
+            counters,
+            card,
+            batch,
+            lambda d, cls=cls: cls(CLUSTERED["feat"], 2, 1, device=d, generator=torch.Generator().manual_seed(0)),
+            {**per_path, "diag_kernel": 4 * steps + 2},
+            dev,
+            f"main_path_{name}",
+            {
+                "model": f"{cls.__name__}(38, 2, 1)",
+                "batch": {**CLUSTERED, "weighted": name == "sgat_diag", "form": form, "adj": list(batch.adj_i8.shape), "adj_p": list(batch.adj_p_i8.shape)},
+                "collate_s": collate_s,
+                "undirected_edges": diag_undirected,
+            },
+            steps=steps,
+            want_forms={f"diag_kernel[{form}]": 4 * steps + 2},
+            grad_tol=SGAT_FOUTNET_GRAD_TOL,
+        ))
+    # the CPU side of the 100k-node steps checks a 20k-node graph of the same
+    # generator (the plain versions at full size would double the script's time)
+    small = clustered_entry(SGAT_FOUTNET_CHECK_NODES, 38, 1, seed=CLUSTERED_BCSR["seed"])
+    for name, cls, batch, collate_s in (("sgat_bcsr", SGATBlockSparse, sw_batch, sgat_bcsr_collate_s), ("foutnet_bcsr", FoutNetBlockSparse, cb_batch, None)):
+        weighted = name == "sgat_bcsr"
+        form = bs.dtype_name(batch.structure.blocks_t.dtype)
+        check_batch, _ = collate_graphs_blocksparse_clustered([small], with_edge_weights=weighted, slot8=True, device=dev)
+        record(name, checked_path(
+            torch,
+            counters,
+            card,
+            batch,
+            lambda d, cls=cls: cls(CLUSTERED_BCSR["feat"], 2, 1, device=d, generator=torch.Generator().manual_seed(0)),
+            {**per_path, "bcsr_spmm_kernel": 4 * steps + 2},
+            dev,
+            f"main_path_{name}",
+            {
+                "model": f"{cls.__name__}(38, 2, 1)",
+                "batch": {**CLUSTERED_BCSR, "weighted": weighted, "form": form, "blocks_nonzero": batch.structure.tile_blocks.numel()},
+                "collate_s": collate_s,
+                "undirected_edges": int(c_entry["edge_index"].shape[0]),
+                "check_batch": f"clustered_entry({SGAT_FOUTNET_CHECK_NODES}, 38, 1), slot8",
+            },
+            steps=steps,
+            want_forms={f"bcsr_spmm_kernel[{form}]": 4 * steps + 2},
+            check_batch=check_batch,
+            grad_tol=SGAT_FOUTNET_GRAD_TOL,
+        ))
+        del check_batch
+
+    # 26. against the COO oracle in float64, with f32 weight storage; the
+    # conv gradients pass through the max pools (both tie rules reported)
+    sd32, _ = collate_graphs_diag_clustered(c_entries, with_edge_weights=True, weight_dtype=torch.float32, device=dev)
+    sw32, _ = collate_graphs_blocksparse_clustered([c_entry], with_edge_weights=True, weight_dtype=torch.float32, slot8=True, device=dev)
+    atomic_c, _ = collate_graphs([c_entry], device=dev)
+    head_only = lambda name: not name.startswith("conv")  # noqa: E731
+    cross = []
+    for oracle_cls, fast_cls, fast_batch, oracle_batch, what in (
+        (SGAT, SGATDiag, sd32, cc_batch, "PPI clustered entries"),
+        (FoutNet, FoutNetDiag, c_batch, cc_batch, "PPI clustered entries"),
+        (SGAT, SGATBlockSparse, sw32, atomic_c, "atomic clustered 100k"),
+        (FoutNet, FoutNetBlockSparse, cb_batch, atomic_c, "atomic clustered 100k"),
+    ):
+        oracle = oracle_cls(CLUSTERED["feat"], 2, 1, device=dev, generator=torch.Generator().manual_seed(3))
+        fast = fast_cls(CLUSTERED["feat"], 2, 1, device=dev)
+        for rule, context in (("shared ties", contextlib.nullcontext), ("full-cotangent ties", lambda: full_tie_pools(torch))):
+            cross.append(
+                cross_check(torch, f"{fast_cls.__name__} vs {oracle_cls.__name__}, {what} ({rule})", oracle, oracle_batch, fast, fast_batch, SGAT_FOUTNET_GATE, context, head_only)
+            )
+    emit({"phase": "sgat_foutnet_cross_checks", "checks": cross})
+    return calls, f32_calls
 
 
 def main() -> int:
@@ -1439,7 +1752,7 @@ def main() -> int:
     calls += time_slot_calls(torch, sp, timer, "clustered_slot", c_mask_row, STEP_CALLS["clustered_slot"], peak_bw, peak_f32)
     del timer
     emit({"phase": "kernel_times", "card": card, "l2_flushed": True, "calls": calls})
-    del c_batch, m_batch
+    del m_batch
 
     # 3. the dense path
     model = GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev, generator=torch.Generator().manual_seed(0))
@@ -1463,7 +1776,13 @@ def main() -> int:
             "real_edges": real_edges,
         }
     )
-    path_launches = {"dense": run["launches"]}
+    path_launches, path_forms = {}, {}
+
+    def record(path, run):
+        path_launches[path] = run["launches"]
+        path_forms[path] = run.get("launches_by_form", {})
+
+    record("dense", run)
 
     # 4. profile of a few dense steps (after the counted run)
     emit({"phase": "profile", "card": card, **profile_steps(torch, train_step, run["step_s"])})
@@ -1476,7 +1795,7 @@ def main() -> int:
             raise AssertionError(msg)
 
     pure = clustered_path(torch, ds, counters, card, c_entries, pure_layout, CLUSTERED_STEPS, dev, "main_path_clustered")
-    path_launches["clustered"] = pure["launches"]
+    record("clustered", pure)
     emit({"phase": "profile_clustered", "card": card, **profile_steps(torch, pure["train_step"], pure["step_s"])})
     del pure
 
@@ -1487,7 +1806,7 @@ def main() -> int:
             raise AssertionError(msg)
 
     mixed = clustered_path(torch, ds, counters, card, m_entries, mixed_layout, MIXED_STEPS, dev, "main_path_clustered_mixed")
-    path_launches["clustered_mixed"] = mixed["launches"]
+    record("clustered_mixed", mixed)
     del mixed
 
     # 8. the BCSR kernel against its plain version, and its times
@@ -1530,7 +1849,7 @@ def main() -> int:
     def structure_info(st):
         return {"tiles": st.num_tiles, "chunks": st.num_chunks, "blocks_stored": st.num_blocks, "blocks_nonzero": st.tile_blocks.numel()}
 
-    path_launches["bcsr"] = checked_path(
+    record("bcsr", checked_path(
         torch,
         counters,
         card,
@@ -1545,10 +1864,10 @@ def main() -> int:
             "collate_s": bcsr_collate_s,
             "undirected_edges": int(entry["edge_index"].shape[0]),
         },
-    )
+    ))
 
     # 10. the clustered BCSR path and its profile
-    path_launches["clustered_bcsr"] = checked_path(
+    record("clustered_bcsr", checked_path(
         torch,
         counters,
         card,
@@ -1570,8 +1889,7 @@ def main() -> int:
             "undirected_edges": int(c_entry["edge_index"].shape[0]),
         },
         flips=lambda *a: bcsr_winner_flips(torch, bs, *a),
-    )
-    del cb_batch
+    ))
 
     # 11. the blocked-edge kernels against their plain versions, and their times
     t0 = time.perf_counter()
@@ -1605,7 +1923,7 @@ def main() -> int:
 
     # 12. the blocked-edge path and its profile
     st = bl_batch.structure
-    path_launches["blocked"] = checked_path(
+    record("blocked", checked_path(
         torch,
         counters,
         card,
@@ -1623,7 +1941,7 @@ def main() -> int:
             "collate_s": blocked_collate_s,
             "undirected_edges": int(entry["edge_index"].shape[0]),
         },
-    )
+    ))
     del st
 
     # 13. the sorted segment-sum kernel against its plain version, and its times
@@ -1680,7 +1998,7 @@ def main() -> int:
         }
 
     bench_undirected = int(sum(e["edge_index"].shape[0] for e in entries))
-    path_launches["coo"] = checked_path(
+    record("coo", checked_path(
         torch,
         counters,
         card,
@@ -1691,8 +2009,8 @@ def main() -> int:
         "main_path_coo",
         coo_describe("GINet no-cluster (38, 2, 6)", BENCH, coo_collate_s, coo_batch, bench_undirected),
         steps=SEGMENT_STEPS,
-    )
-    path_launches["coo_clustered"] = checked_path(
+    ))
+    record("coo_clustered", checked_path(
         torch,
         counters,
         card,
@@ -1703,8 +2021,8 @@ def main() -> int:
         "main_path_coo_clustered",
         coo_describe("GINet clustered (38, 2, 1)", CLUSTERED, coo_clustered_collate_s, cc_batch, int(sum(e["edge_index"].shape[0] for e in c_entries))),
         steps=SEGMENT_STEPS,
-    )
-    path_launches["coo_vanilla"] = checked_path(
+    ))
+    record("coo_vanilla", checked_path(
         torch,
         counters,
         card,
@@ -1715,7 +2033,7 @@ def main() -> int:
         "main_path_coo_vanilla",
         coo_describe("VanillaNetwork(38, 2, 6)", BENCH, coo_collate_s, coo_batch, bench_undirected),
         steps=SEGMENT_STEPS,
-    )
+    ))
 
     # 15. the host time of the segment ops' earlier boolean masks
     emit(host_sync_probe(torch, card, GINet(CLUSTERED["feat"], 2, 1, device=dev, generator=torch.Generator().manual_seed(0)), cc_batch, SYNC_PROBE_STEPS, dev))
@@ -1748,7 +2066,7 @@ def main() -> int:
     del diag_batch
     v_oracle = VanillaNetwork(BCSR["feat"], 2, BCSR["edge_dim"], device=dev, generator=torch.Generator().manual_seed(3))
     cross.append(cross_check(torch, "VanillaNetworkBlocked vs VanillaNetwork, atomic 100k", v_oracle, atomic_coo, VanillaNetworkBlocked(BCSR["feat"], 2, BCSR["edge_dim"], device=dev), bl_batch))
-    del bl_batch, atomic_coo, coo_batch, cc_batch
+    del bl_batch, atomic_coo, coo_batch
     emit({"phase": "coo_cross_checks", "checks": cross})
 
     # 17. the fused tower kernels against their plain versions, and their times
@@ -1786,7 +2104,7 @@ def main() -> int:
         run = run_main_path(torch, counters, model, dense_batch, loss_fn, opt, dev, want, STEPS)
         train_step = run.pop("train_step")
         emit({"phase": "main_path_dense_tower", "card": card, "model": "GINetDense(38, 2, 6), tower backend pallas", "batch": BENCH, **run, "step_ms": run["step_s"] * 1e3, "edges_per_s": real_edges / run["step_s"], "real_edges": real_edges})
-        path_launches["dense_tower"] = run["launches"]
+        record("dense_tower", run)
         emit({"phase": "profile_dense_tower", "card": card, **profile_steps(torch, train_step, run["step_s"])})
         del model, opt, train_step
     finally:
@@ -1795,10 +2113,18 @@ def main() -> int:
     # 19. the fused flat tower (tower_pooled) on the bench batch
     fused = fused_tower_drive(torch, ds, counters, dense_batch, w1, w2, STEPS, dev)
     emit({"phase": "dense_fused_tower", "card": card, "weights": "GINetDense(38, 2, 6) fused, torch seed 0", "batch": BENCH, **fused})
-    path_launches["dense_fused_tower"] = fused["launches"]
+    record("dense_fused_tower", fused)
     del dense_batch
 
-    emit({"kernels": kernels_line(calls, path_launches, checks.errs)})
+    # 20-26. FoutNet and sGAT on the clustered fast paths, with the weighted
+    # forms of K5 and K1
+    sgat_foutnet_calls, f32_calls = sgat_foutnet_phases(
+        torch, dev, card, counters, checks, peak_bw, peak_f32, record, c_entries, c_batch, c_entry, cb_batch, cc_batch
+    )
+    calls += sgat_foutnet_calls
+    del c_batch, cb_batch, cc_batch
+
+    emit({"kernels": kernels_line(calls, path_launches, checks.errs, path_forms, checks.form_errs, f32_calls)})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

@@ -7,34 +7,38 @@
 // It computes, in the transposed layout, for every destination row tile r
 //   out[f, r*128 + i] = sum_k sum_c x[f, block_col[k]*128 + c] * blocks_t[k][c, i]
 // over the nonzero blocks k of row tile r (tile_blocks[tile_ptr[r] ..
-// tile_ptr[r+1]]), with x [F, ldx] and out [F, ldo] f32 and the blocks int8
-// 0/1, 128 x 128, stored transposed ([c][i]).
+// tile_ptr[r+1]]), with x [F, ldx] and out [F, ldo] f32 and the blocks
+// 128 x 128, stored transposed ([c][i]), of one of three element types:
+// int8 0/1 (the unweighted adjacency), bf16 or f32 (sGAT's weighted one).
+// Every weight enters the products at its exact f32 value, so the result is
+// exact up to summation order whatever the block type.
 //
 // What bounds it on an H100 SXM, per call at the 100k-node atomic graph
 // (15,222 nonzero blocks, 3.27M directed edges): the nonzero blocks are
-// read once (249 MB int8) and x and out once each (12.8 MB at F=32), about
-// 80 us at 3.35 TB/s; the edges need 2*F*nnz = 0.2 GFLOP, 3 us at 67 TFLOP/s.
-// So the function is bound by bytes. This kernel does the dense product of
-// every stored block on CUDA cores (2*128^2*F per block: 16 GFLOP at F=32,
-// about 100x the work the 1.3 % fill needs), exact up to summation order;
-// tensor cores or skipping zero entries are later work.
+// read once (249 MB int8, 499 MB bf16, 997 MB f32) and x and out once each
+// (12.8 MB at F=32), about 80 / 155 / 300 us at 3.35 TB/s; the edges need
+// 2*F*nnz = 0.2 GFLOP, 3 us at 67 TFLOP/s. So the function is bound by
+// bytes. This kernel does the dense product of every stored block on CUDA
+// cores (2*128^2*F per block: 16 GFLOP at F=32, about 100x the work the
+// 1.3 % fill needs); tensor cores or skipping zero entries are later work.
 //
 // Design (none of the TPU kernel's VMEM chunking, bf16 hi/lo split, slab sum
 // or double-buffered flushes carry over: x^T is at most 28 MB and sits in
 // global memory and L2): one thread block per (row tile, slice of FS = 32 or
 // 64 features), FS/16 warps. The block walks its row tile's nonzero blocks
-// in order; for each it stages the int8 block (16 KB) and the [128, FS] x
-// slab in shared memory, then every thread accumulates a 4 (nodes) x 16
-// (features) tile in registers: per source node c one 32-bit load of four
-// block bytes and four broadcast float4 loads of x feed 64 FMAs. The x slab
-// is stored node-major with its 4-float groups XOR-swizzled by (c & 7), so
-// both the transposing stores and the float4 loads are free of bank
-// conflicts. The 0/1 bytes become floats through the 2^23 trick (one byte
-// permute and one subtract, no int-to-float conversion, which runs at 1/8
-// of the FMA rate). Each row tile's sum runs in a fixed order and its output
-// is written once: no atomics, no slabs, deterministic; row tiles with no
-// block (padding) come out as exact zeros, and zero pad blocks are never
-// read.
+// in order; for each it stages the block (16, 32 or 64 KB) and the [128, FS]
+// x slab in shared memory, then every thread accumulates a 4 (nodes) x 16
+// (features) tile in registers: per source node c one load of the four
+// block entries of its nodes (a 4-, 8- or 16-byte word) and four broadcast
+// float4 loads of x feed 64 FMAs. The x slab is stored node-major with its
+// 4-float groups XOR-swizzled by (c & 7), so both the transposing stores and
+// the float4 loads are free of bank conflicts. Entries become floats
+// exactly: 0/1 bytes through the 2^23 trick (one byte permute and one
+// subtract, no int-to-float conversion, which runs at 1/8 of the FMA rate),
+// bf16 by a 16-bit shift. Each row tile's sum runs in a fixed order and its
+// output is written once: no atomics, no slabs, deterministic; row tiles
+// with no block (padding) come out as exact zeros, and zero pad blocks are
+// never read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,35 +46,73 @@
 namespace {
 
 constexpr int B = 128;   // block edge: nodes per tile
-constexpr int IPT = 4;   // output nodes per thread (one 32-bit word of a block row)
+constexpr int IPT = 4;   // output nodes per thread (four consecutive entries of a block row)
 constexpr int FPT = 16;  // features per thread (one warp covers 16 features)
+
+enum BlockType { INT8 = 0, BF16 = 1, F32 = 2 };
+
+// The four entries of a block row that one lane reads (nodes 4*lane ..
+// 4*lane + 3), as one word, and their exact f32 values.
+template <typename T>
+struct Entries;
+
+template <>
+struct Entries<int8_t> {
+    using Word = uint32_t;
+    // 0/1 byte j of w as a float: 0x4B0000bj is 2^23 + b exactly
+    static __device__ __forceinline__ void to_float(Word w, float (&a)[IPT]) {
+#pragma unroll
+        for (int j = 0; j < IPT; ++j) a[j] = __int_as_float((int)__byte_perm(w, 0x4B000000u, 0x7650u | j)) - 8388608.f;
+    }
+};
+
+template <>
+struct Entries<uint16_t> {  // bf16, as its bit patterns
+    using Word = uint2;
+    // a bf16 is the top half of the f32 of the same value
+    static __device__ __forceinline__ void to_float(Word w, float (&a)[IPT]) {
+        a[0] = __uint_as_float(w.x << 16);
+        a[1] = __uint_as_float(w.x & 0xFFFF0000u);
+        a[2] = __uint_as_float(w.y << 16);
+        a[3] = __uint_as_float(w.y & 0xFFFF0000u);
+    }
+};
+
+template <>
+struct Entries<float> {
+    using Word = float4;
+    static __device__ __forceinline__ void to_float(Word w, float (&a)[IPT]) {
+        a[0] = w.x;
+        a[1] = w.y;
+        a[2] = w.z;
+        a[3] = w.w;
+    }
+};
 
 template <int FS>
 __host__ __device__ constexpr int threads() {
     return FS / FPT * 32;
 }
 
-template <int FS>
+// the staged block and the x slab, both dynamic (no static arrays)
+template <typename T, int FS>
 __host__ __device__ constexpr size_t smem_bytes() {
-    return (size_t)B * B + (size_t)B * FS * sizeof(float);
+    return (size_t)B * B * sizeof(T) + (size_t)B * FS * sizeof(float);
 }
 
-// 0/1 byte j of w as a float: 0x4B0000bj is 2^23 + b exactly
-__device__ __forceinline__ float byte_as_float(uint32_t w, uint32_t j) {
-    return __int_as_float((int)__byte_perm(w, 0x4B000000u, 0x7650u | j)) - 8388608.f;
-}
-
-template <int FS>
-__global__ void __launch_bounds__(threads<FS>()) bcsr_rows(const int8_t* __restrict__ blocks,
+template <typename T, int FS>
+__global__ void __launch_bounds__(threads<FS>()) bcsr_rows(const T* __restrict__ blocks,
                                                            const int* __restrict__ block_col,
                                                            const int* __restrict__ tile_ptr,
                                                            const int* __restrict__ tile_blocks,
                                                            const float* __restrict__ x, float* __restrict__ out, int F,
                                                            int ldx, int ldo) {
+    using Word = typename Entries<T>::Word;
     constexpr int THREADS = threads<FS>();
+    constexpr int BLOCK_UINT4 = B * B * (int)sizeof(T) / 16;
     extern __shared__ uint4 smem4[];
-    const uint32_t* blk = reinterpret_cast<const uint32_t*>(smem4);  // [c][i/4]: bytes i..i+3 of block row c
-    float* xs = reinterpret_cast<float*>(smem4 + B * B / 16);         // [c][FS], 4-float groups swizzled by c & 7
+    const Word* blk = reinterpret_cast<const Word*>(smem4);  // [c][i/4]: entries i..i+3 of block row c
+    float* xs = reinterpret_cast<float*>(smem4 + BLOCK_UINT4);  // [c][FS], 4-float groups swizzled by c & 7
 
     const int r = blockIdx.x;
     const int f0 = blockIdx.y * FS;
@@ -90,7 +132,7 @@ __global__ void __launch_bounds__(threads<FS>()) bcsr_rows(const int8_t* __restr
         const size_t col0 = (size_t)block_col[k] * B;
         const uint4* src = reinterpret_cast<const uint4*>(blocks + (size_t)k * B * B);
         __syncthreads();  // the previous block is consumed
-        for (int idx = tid; idx < B * B / 16; idx += THREADS) smem4[idx] = src[idx];
+        for (int idx = tid; idx < BLOCK_UINT4; idx += THREADS) smem4[idx] = src[idx];
         // lanes: 8 consecutive nodes (one 32-byte sector) x 4 features
         for (int idx = tid; idx < B * FS; idx += THREADS) {
             const int lo = idx & 7;
@@ -104,10 +146,8 @@ __global__ void __launch_bounds__(threads<FS>()) bcsr_rows(const int8_t* __restr
         __syncthreads();
 #pragma unroll 2
         for (int c = 0; c < B; ++c) {
-            const uint32_t w = blk[c * (B / 4) + lane];
             float av[IPT];
-#pragma unroll
-            for (int j = 0; j < IPT; ++j) av[j] = byte_as_float(w, j);
+            Entries<T>::to_float(blk[c * (B / IPT) + lane], av);
             const float* xr = xs + c * FS;
             const int s = (c & 7) << 2;
 #pragma unroll
@@ -135,40 +175,57 @@ __global__ void __launch_bounds__(threads<FS>()) bcsr_rows(const int8_t* __restr
     }
 }
 
-template <int FS>
+template <typename T, int FS>
 int launch(const void* blocks, const void* block_col, const void* tile_ptr, const void* tile_blocks, const void* x,
            void* out, int R, int F, int ldx, int ldo, void* stream) {
     // the error returned after the launch must be this launch's: drop any
     // earlier non-sticky error still recorded for this thread
     (void)cudaGetLastError();
-    // all of the block's shared memory is dynamic (no static arrays): 48 KB at
-    // FS=64, the most a block may use without opting in
-    constexpr size_t smem = smem_bytes<FS>();
+    // all of the block's shared memory is dynamic: 32-48 KB for int8 blocks,
+    // 48-64 KB for bf16 and 80-96 KB for f32; above 48 KB the block must
+    // opt in, for every byte it uses
+    constexpr size_t smem = smem_bytes<T, FS>();
     if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(bcsr_rows<FS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        const cudaError_t e = cudaFuncSetAttribute(bcsr_rows<T, FS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) {
             (void)cudaGetLastError();
             return (int)e;
         }
     }
     const dim3 grid((unsigned)R, (unsigned)((F + FS - 1) / FS));
-    bcsr_rows<FS><<<grid, threads<FS>(), smem, (cudaStream_t)stream>>>(
-        (const int8_t*)blocks, (const int*)block_col, (const int*)tile_ptr, (const int*)tile_blocks, (const float*)x,
+    bcsr_rows<T, FS><<<grid, threads<FS>(), smem, (cudaStream_t)stream>>>(
+        (const T*)blocks, (const int*)block_col, (const int*)tile_ptr, (const int*)tile_blocks, (const float*)x,
         (float*)out, F, ldx, ldo);
     return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_typed(const void* blocks, const void* block_col, const void* tile_ptr, const void* tile_blocks,
+                 const void* x, void* out, int R, int F, int ldx, int ldo, void* stream) {
+    // one slice of 64 features when F > 32 (the blocks are read once per slice)
+    return F > 32 ? launch<T, 64>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream)
+                  : launch<T, 32>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [F, ldx] and out [F, ldo] f32, contiguous and 16-byte aligned; ldo = R * 128
-int bcsr_spmm_kernel(const void* blocks, const void* block_col, const void* tile_ptr, const void* tile_blocks,
-                     const void* x, void* out, int R, int F, int ldx, int ldo, void* stream) {
+// blocks [NB, 128, 128] of type `dtype` (0 int8, 1 bf16, 2 f32); x [F, ldx]
+// and out [F, ldo] f32, contiguous and 16-byte aligned; ldo = R * 128
+int bcsr_spmm_kernel(const void* blocks, int dtype, const void* block_col, const void* tile_ptr,
+                     const void* tile_blocks, const void* x, void* out, int R, int F, int ldx, int ldo, void* stream) {
     if (R <= 0 || F <= 0 || ldo != R * B || ldx % B) return (int)cudaErrorInvalidValue;
-    // one slice of 64 features when F > 32 (the blocks are read once per slice)
-    return F > 32 ? launch<64>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream)
-                  : launch<32>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream);
+    switch (dtype) {
+        case INT8:
+            return launch_typed<int8_t>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream);
+        case BF16:
+            return launch_typed<uint16_t>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream);
+        case F32:
+            return launch_typed<float>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
 }
 
 const char* cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

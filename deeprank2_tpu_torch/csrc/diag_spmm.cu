@@ -7,8 +7,11 @@
 //
 // Both compute, for each graph g of a batch of G graphs padded to N nodes,
 //   out[f, g*N + i] = sum_j adj[g, i, j] * u[f, g*N + j]
-// on flat transposed f32 activations [F, G*N] and an int8 0/1 adjacency
-// [G, N, N]. They differ in u and in the epilogue:
+// on flat transposed f32 activations [F, G*N] and an adjacency [G, N, N] of
+// one of three types: int8 0/1 (the unweighted graphs), bf16 or f32 (sGAT's
+// edge weights). Each entry enters the products at its exact f32 value, so
+// every type is exact up to summation order. They differ in u and in the
+// epilogue:
 //   diag_kernel mode 0 (plain)           u = x   out = acc
 //   diag_kernel mode 1 (relu_mask)       u = x   out = relu(acc) * mask
 //   diag_kernel mode 2 (relu_mask_pool)  u = x   h = relu(acc) * mask;
@@ -31,7 +34,9 @@
 // that a thread's 8 features are two float4 loads and every warp reads one
 // address (a broadcast). It then walks the graph's output nodes in tiles of
 // 32; for each tile it streams the adjacency through shared memory in 32x32
-// int8 tiles, transposed so that a warp reads 32 consecutive bytes. Lane =
+// tiles, transposed so that a warp reads 32 consecutive entries (bf16 and f32
+// tile rows are padded by one 32-bit word, so that the transposing stores
+// do not pile onto one bank). Lane =
 // output node, warp = 8 output features: each adjacency value, widened in a
 // register, feeds 8 FMAs. Sums run in a fixed order in f32, and the per-graph
 // pool stays inside the block (warp shuffles), so there are no atomics and
@@ -51,15 +56,36 @@ constexpr int THREADS = (FC / FPW) * 32;
 constexpr int XS = FC + 4;      // slab row stride in floats: float4-aligned, spreads the staging stores over banks
 
 enum Mode { PLAIN = 0, RELU_MASK = 1, RELU_MASK_POOL = 2, POOL_BWD = 3 };
+// a bf16 adjacency is handled as its bit patterns (uint16_t): a bf16 is the
+// top half of the f32 of the same value
+enum AdjType { INT8 = 0, BF16 = 1, F32 = 2 };
 
-template <int MODE>
+// row stride of the adjacency tile in entries: int8 rows unpadded (32
+// bytes), bf16 and f32 rows one 32-bit word longer, so that the transposing
+// stores of consecutive threads land in different banks
+template <typename T>
+__host__ __device__ constexpr int tile_row() {
+    return sizeof(T) == 1 ? TI : TI + 4 / (int)sizeof(T);
+}
+
+// the adjacency tile `at`, the block's only static shared memory
+template <typename T>
+__host__ __device__ constexpr size_t static_smem() {
+    return sizeof(T) * TJ * tile_row<T>();
+}
+
+__device__ __forceinline__ float as_float(int8_t a) { return (float)a; }
+__device__ __forceinline__ float as_float(uint16_t a) { return __uint_as_float((uint32_t)a << 16); }  // bf16 bits
+__device__ __forceinline__ float as_float(float a) { return a; }
+
+template <int MODE, typename T>
 __global__ void __launch_bounds__(THREADS) diag_aggregate(
-    const int8_t* __restrict__ adj, const float* __restrict__ x, const uint8_t* __restrict__ sign_in,
+    const T* __restrict__ adj, const float* __restrict__ x, const uint8_t* __restrict__ sign_in,
     const float* __restrict__ g_pool, const uint8_t* __restrict__ mask, float* __restrict__ out,
     uint8_t* __restrict__ sign_out, float* __restrict__ pooled, int G, int N, int F) {
     extern __shared__ float4 slab4[];
     float* slab = reinterpret_cast<float*>(slab4);  // [N][XS], u of this graph and feature chunk
-    __shared__ int8_t at[TJ][TI];                   // adjacency tile, [j][i]
+    __shared__ T at[TJ][tile_row<T>()];             // adjacency tile, [j][i]
 
     const int g = blockIdx.x;
     const int f0 = blockIdx.y * FC;
@@ -68,7 +94,7 @@ __global__ void __launch_bounds__(THREADS) diag_aggregate(
     const int warp = tid >> 5;
     const size_t gn = (size_t)G * N;
     const size_t base = (size_t)g * N;
-    const int8_t* adj_g = adj + base * N;
+    const T* adj_g = adj + base * N;
 
     for (int idx = tid; idx < FC * N; idx += THREADS) {
         const int fl = idx / N;
@@ -101,12 +127,12 @@ __global__ void __launch_bounds__(THREADS) diag_aggregate(
                 const int jj = idx - ii * TJ;
                 const int i = i0 + ii;
                 const int j = j0 + jj;
-                at[jj][ii] = (i < N && j < N) ? adj_g[(size_t)i * N + j] : (int8_t)0;
+                at[jj][ii] = (i < N && j < N) ? adj_g[(size_t)i * N + j] : T(0);
             }
             __syncthreads();
             const int jn = min(TJ, N - j0);
             for (int jj = 0; jj < jn; ++jj) {
-                const float a = (float)at[jj][lane];
+                const float a = as_float(at[jj][lane]);
                 const float4* up = reinterpret_cast<const float4*>(slab + (j0 + jj) * XS + warp * FPW);
                 const float4 u0 = up[0];
                 const float4 u1 = up[1];
@@ -156,7 +182,7 @@ __global__ void __launch_bounds__(THREADS) diag_aggregate(
     }
 }
 
-template <int MODE>
+template <int MODE, typename T>
 int launch(const void* adj, const void* x, const void* sign_in, const void* g_pool, const void* mask, void* out,
            void* sign_out, void* pooled, int G, int N, int F, void* stream) {
     if (G <= 0 || N <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
@@ -164,47 +190,89 @@ int launch(const void* adj, const void* x, const void* sign_in, const void* g_po
     // earlier non-sticky error still recorded for this thread
     (void)cudaGetLastError();
     const size_t smem = (size_t)N * XS * sizeof(float);
-    const size_t static_smem = sizeof(int8_t) * TJ * TI;  // the adjacency tile `at`
-    if (smem + static_smem > 48 * 1024) {
+    if (smem + static_smem<T>() > 48 * 1024) {
         // a block's static and dynamic shared memory together above 48 KB
-        // must be opted into (N > 334); N beyond the card's per-block limit
-        // fails here and the wrapper raises
+        // must be opted into (from N = 335 int8, 327 bf16, 313 f32); N beyond
+        // the card's per-block limit fails here and the wrapper raises
         const cudaError_t e =
-            cudaFuncSetAttribute(diag_aggregate<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            cudaFuncSetAttribute(diag_aggregate<MODE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) {
             (void)cudaGetLastError();  // not sticky: clear it so later launches are not blamed
             return (int)e;
         }
     }
     const dim3 grid((unsigned)G, (unsigned)((F + FC - 1) / FC));
-    diag_aggregate<MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        (const int8_t*)adj, (const float*)x, (const uint8_t*)sign_in, (const float*)g_pool, (const uint8_t*)mask,
+    diag_aggregate<MODE, T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        (const T*)adj, (const float*)x, (const uint8_t*)sign_in, (const float*)g_pool, (const uint8_t*)mask,
         (float*)out, (uint8_t*)sign_out, (float*)pooled, G, N, F);
     return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int launch_typed(int dtype, const void* adj, const void* x, const void* sign_in, const void* g_pool, const void* mask,
+                 void* out, void* sign_out, void* pooled, int G, int N, int F, void* stream) {
+    switch (dtype) {
+        case INT8:
+            return launch<MODE, int8_t>(adj, x, sign_in, g_pool, mask, out, sign_out, pooled, G, N, F, stream);
+        case BF16:
+            return launch<MODE, uint16_t>(adj, x, sign_in, g_pool, mask, out, sign_out, pooled, G, N, F, stream);
+        case F32:
+            return launch<MODE, float>(adj, x, sign_in, g_pool, mask, out, sign_out, pooled, G, N, F, stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
+template <typename T>
+int max_nodes_typed() {
+    int dev = 0, optin = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess) {
+        (void)cudaGetLastError();
+        return -1;
+    }
+    return (int)(((size_t)optin - static_smem<T>()) / (XS * sizeof(float)));
 }
 
 }  // namespace
 
 extern "C" {
 
-// mode 0 plain (out), 1 relu_mask (mask, out), 2 relu_mask_pool (mask, sign, pooled)
-int diag_kernel(const void* adj, const void* x, const void* mask, void* out, void* sign, void* pooled, int G, int N,
-                int F, int mode, void* stream) {
+// adj [G, N, N] of type `dtype` (0 int8, 1 bf16, 2 f32); mode 0 plain (out),
+// 1 relu_mask (mask, out), 2 relu_mask_pool (mask, sign, pooled)
+int diag_kernel(const void* adj, int dtype, const void* x, const void* mask, void* out, void* sign, void* pooled,
+                int G, int N, int F, int mode, void* stream) {
     switch (mode) {
         case PLAIN:
-            return launch<PLAIN>(adj, x, nullptr, nullptr, nullptr, out, nullptr, nullptr, G, N, F, stream);
+            return launch_typed<PLAIN>(dtype, adj, x, nullptr, nullptr, nullptr, out, nullptr, nullptr, G, N, F, stream);
         case RELU_MASK:
-            return launch<RELU_MASK>(adj, x, nullptr, nullptr, mask, out, nullptr, nullptr, G, N, F, stream);
+            return launch_typed<RELU_MASK>(dtype, adj, x, nullptr, nullptr, mask, out, nullptr, nullptr, G, N, F, stream);
         case RELU_MASK_POOL:
-            return launch<RELU_MASK_POOL>(adj, x, nullptr, nullptr, mask, nullptr, sign, pooled, G, N, F, stream);
+            return launch_typed<RELU_MASK_POOL>(dtype, adj, x, nullptr, nullptr, mask, nullptr, sign, pooled, G, N, F,
+                                                stream);
         default:
             return (int)cudaErrorInvalidValue;
     }
 }
 
-int pool_bwd_kernel(const void* adj, const void* sign, const void* g_pool, void* out, int G, int N, int F,
+int pool_bwd_kernel(const void* adj, int dtype, const void* sign, const void* g_pool, void* out, int G, int N, int F,
                     void* stream) {
-    return launch<POOL_BWD>(adj, nullptr, sign, g_pool, nullptr, out, nullptr, nullptr, G, N, F, stream);
+    return launch_typed<POOL_BWD>(dtype, adj, nullptr, sign, g_pool, nullptr, out, nullptr, nullptr, G, N, F, stream);
+}
+
+// the largest N the current device runs for an adjacency of type `dtype`
+// (its shared memory per block with the opt-in); -1 on a CUDA error
+int diag_max_nodes(int dtype) {
+    switch (dtype) {
+        case INT8:
+            return max_nodes_typed<int8_t>();
+        case BF16:
+            return max_nodes_typed<uint16_t>();
+        case F32:
+            return max_nodes_typed<float>();
+        default:
+            return -1;
+    }
 }
 
 const char* cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

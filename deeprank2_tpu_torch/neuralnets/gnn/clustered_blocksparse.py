@@ -1,27 +1,43 @@
-"""Clustered GINet on block-sparse adjacencies, the atomic-scale path of the
-community-pooling model (port of
-``deeprank2_tpu/neuralnets/gnn/clustered_blocksparse.py``: ``_pool_max_t``
-and ``GINetClusteredBlockSparse``).
+"""Clustered models on block-sparse adjacencies, the atomic-scale path of the
+community-pooling family (port of
+``deeprank2_tpu/neuralnets/gnn/clustered_blocksparse.py``: ``_pool_max_t``,
+``GINetClusteredBlockSparse``, ``FoutNetBlockSparse`` and
+``SGATBlockSparse``).
 
 Both conv layers are BCSR SpMMs (ops/block_sparse.py, kernel K5): on the
-full graph and on the depth-0 pooled graph, each with the towers fused
-channel-wise. Every cluster lookup is built at collate
-(ops/batch.py:collate_graphs_blocksparse_clustered). The JAX ``_lin_t``
-per-tower products are the fused weight products of
-:meth:`GINetDense.fused_weights` here. FoutNet and sGAT on this layout come
-with their slice of the port.
+full graph and on the depth-0 pooled graph. Every cluster lookup is built at
+collate (ops/batch.py:collate_graphs_blocksparse_clustered).
+
+- ``GINetClusteredBlockSparse``: the towers fused channel-wise; the JAX
+  ``_lin_t`` per-tower products are the fused weight products of
+  :meth:`GINetDense.fused_weights` here.
+- ``FoutNetBlockSparse``: the neighbour mean is the row-normalised SpMM
+  ``(A @ x Wn) / deg``.
+- ``SGATBlockSparse``: the edge-weighted mean is
+  ``(row_part * wsum + A_w @ col_part) / deg`` over a weighted BCSR
+  adjacency (bf16 blocks by default; the scalar edge feature is the first
+  edge-attr channel).
+
+FoutNet and sGAT add their bias after the aggregation, so their padded rows
+are not zero: both mask after each conv and after the depth-0 pool, as the
+JAX package does. Each model's parameter set and ``state_dict`` keys are its
+COO twin's.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from deeprank2_tpu_torch.neuralnets import nn as dnn
+from deeprank2_tpu_torch.neuralnets.gnn.foutnet import FoutLayer, FoutNet, fout_layer_t, no_compute_dtype
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
+from deeprank2_tpu_torch.neuralnets.gnn.sgat import SGAT, SGATLayer, sgat_layer_t
 from deeprank2_tpu_torch.ops.batch import ClusteredBlockSparseBatch
-from deeprank2_tpu_torch.ops.block_sparse import bcsr_spmm_t
-from deeprank2_tpu_torch.ops.pooling import member_max_pool
-from deeprank2_tpu_torch.ops.segment import segment_max, segment_mean
+from deeprank2_tpu_torch.ops.block_sparse import BlockSparseStructure, bcsr_spmm_t
+from deeprank2_tpu_torch.ops.pooling import depth1_graph_mean, member_max_pool
+from deeprank2_tpu_torch.ops.segment import segment_max
 from deeprank2_tpu_torch.ops.slotpool import slot_group_max
 
 
@@ -60,13 +76,54 @@ class GINetClusteredBlockSparse(GINetDense):
         h_t = torch.relu(bcsr_spmm_t(batch.structure, w1_t @ batch.x.T))  # [32, V]
         hp_t = _pool_max_t(h_t, batch)  # [32, Vp]; both towers share the clusters
         h2_t = torch.relu(bcsr_spmm_t(batch.structure_p, w2_t @ hp_t))  # [64, Vp]
-
-        # depth-1 max pool and per-graph mean (reference max_pool_x + scatter_mean)
-        if batch.members1.numel():
-            hc = member_max_pool(h2_t.T, batch.members1, batch.cluster1)  # [C1, 64]
-        else:
-            hc = segment_max(h2_t.T, batch.cluster1, batch.c1_graph.shape[0])
-        pooled = segment_mean(hc, batch.c1_graph, batch.num_graphs)
-        out = dnn.relu(dnn.linear(self.fc1, pooled))
+        out = dnn.relu(dnn.linear(self.fc1, depth1_graph_mean(h2_t, batch)))
         out = dnn.dropout(out, self.dropout, training, generator)
         return dnn.linear(self.fc2, out)
+
+
+class _ClusteredBlockSparse:
+    """The FoutNet and sGAT pipeline on :class:`ClusteredBlockSparseBatch`:
+    conv1 on the full graph, the depth-0 max pool, conv2 on the pooled
+    graph, the depth-1 pool and per-graph mean, the head. A subclass gives
+    its transposed conv (``conv_t``, before the relu)."""
+
+    def __init__(
+        self,
+        input_shape: int,
+        output_shape: int = 1,
+        input_shape_edge: int | None = None,
+        precision: str | None = None,
+        compute_dtype: torch.dtype | None = None,
+        device: str | torch.device | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        if precision not in (None, "highest"):
+            msg = f"{type(self).__name__}(precision={precision!r}) is not ported; the port's SpMM is exact f32 (JAX's HIGHEST)"
+            raise NotImplementedError(msg)
+        no_compute_dtype(self, compute_dtype)
+        super().__init__(input_shape, output_shape, input_shape_edge, device, generator)
+
+    def conv_t(self, conv, x_t: torch.Tensor, structure: BlockSparseStructure, deg: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, batch: ClusteredBlockSparseBatch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits ``[G, output_shape]`` (no dropout)."""
+        h_t = torch.relu(self.conv_t(self.conv1, batch.x.T, batch.structure, batch.deg, batch.wsum)) * batch.node_mask[None, :]
+        hp_t = _pool_max_t(h_t, batch) * batch.pooled_node_mask[None, :]
+        h2_t = torch.relu(self.conv_t(self.conv2, hp_t, batch.structure_p, batch.deg_p, batch.wsum_p)) * batch.pooled_node_mask[None, :]
+        return self.head(depth1_graph_mean(h2_t, batch))
+
+
+class FoutNetBlockSparse(_ClusteredBlockSparse, FoutNet):
+    """FoutNet over an unweighted :class:`ClusteredBlockSparseBatch`."""
+
+    def conv_t(self, conv: FoutLayer, x_t: torch.Tensor, structure: BlockSparseStructure, deg: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
+        return fout_layer_t(conv, x_t, partial(bcsr_spmm_t, structure), deg)
+
+
+class SGATBlockSparse(_ClusteredBlockSparse, SGAT):
+    """sGAT over a weighted :class:`ClusteredBlockSparseBatch`
+    (``collate_graphs_blocksparse_clustered(with_edge_weights=True)``)."""
+
+    def conv_t(self, conv: SGATLayer, x_t: torch.Tensor, structure: BlockSparseStructure, deg: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
+        return sgat_layer_t(conv, x_t, partial(bcsr_spmm_t, structure), deg, wsum)

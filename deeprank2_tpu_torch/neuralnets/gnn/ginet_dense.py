@@ -25,8 +25,7 @@ from deeprank2_tpu_torch.neuralnets.gnn.ginet import GINet
 from deeprank2_tpu_torch.ops import ginet_tower
 from deeprank2_tpu_torch.ops.batch import DenseGraphBatch, DiagClusteredBatch
 from deeprank2_tpu_torch.ops.diag_spmm import diag_layer_pool_t, diag_layer_t
-from deeprank2_tpu_torch.ops.pooling import diag_depth0_pool, member_max_pool
-from deeprank2_tpu_torch.ops.segment import segment_max, segment_mean
+from deeprank2_tpu_torch.ops.pooling import depth1_graph_mean, diag_depth0_pool
 
 _TOWER_BACKEND = "xla"
 
@@ -112,14 +111,6 @@ class GINetClusteredDiag(GINetDense):
         h_t = diag_layer_t(batch.adj_i8, batch.node_mask, w1_t @ batch.x_t)  # [32, G*N]
         hp_t = diag_depth0_pool(h_t, batch)  # [32, G*K]
         h2_t = diag_layer_t(batch.adj_p_i8, batch.pooled_mask, w2_t @ hp_t)  # [64, G*K]
-
-        # depth-1 max pool and per-graph mean (reference max_pool_x + scatter_mean)
-        if batch.members1.numel():
-            hc = member_max_pool(h2_t.T, batch.members1, batch.cluster1)  # [C1, 64]
-        else:
-            hc = segment_max(h2_t.T, batch.cluster1, batch.c1_graph.shape[0])
-        pooled = segment_mean(hc, batch.c1_graph, batch.num_graphs)
-
-        out = dnn.relu(dnn.linear(self.fc1, pooled))
+        out = dnn.relu(dnn.linear(self.fc1, depth1_graph_mean(h2_t, batch)))
         out = dnn.dropout(out, self.dropout, training, generator)
         return dnn.linear(self.fc2, out)

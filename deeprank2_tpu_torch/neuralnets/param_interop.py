@@ -9,7 +9,11 @@ convert one into the other and round-trip exactly.
 
 The JAX tree's path is the ``state_dict`` prefix as it stands for GINet; a
 model family whose reference names differ passes ``family``, which renames
-the prefixes through :data:`FAMILY_PREFIXES`.
+the prefixes through :data:`FAMILY_PREFIXES`. FoutNet's and sGAT's conv
+layers are raw ``[in, out]`` matrices, not linear layers (``conv1.wc``,
+``conv1.wn``; sGAT ``conv1.weight [2*in, out]``): their families map those
+keys untransposed (:data:`FAMILY_RAW`), with ``b`` as ``bias``, as
+``deeprank2_tpu/neuralnets/torch_interop.py`` does.
 """
 
 from __future__ import annotations
@@ -26,38 +30,47 @@ FAMILY_PREFIXES = {
         "graph_mlp.fc2": "_graph_mlp.2",
     },
 }
+# raw (untransposed) conv matrices, by family: the same key in both layouts
+# (reference foutnet.py:28-95 and sgat.py:38-113, torch_interop.py:57-76)
+FAMILY_RAW = {
+    "foutnet": frozenset(f"conv{i}.{m}" for i in (1, 2) for m in ("wc", "wn")),
+    "sgat": frozenset(("conv1.weight", "conv2.weight")),
+}
 
 
-def _prefixes(family: str | None) -> dict[str, str]:
+def _family(family: str | None) -> tuple[dict[str, str], frozenset]:
+    """``(prefix renames, raw keys)`` of a model family."""
     if family is None:
-        return {}
-    if family not in FAMILY_PREFIXES:
-        msg = f"unknown model family {family!r}; expected one of {sorted(FAMILY_PREFIXES)} or None"
+        return {}, frozenset()
+    if family not in FAMILY_PREFIXES and family not in FAMILY_RAW:
+        msg = f"unknown model family {family!r}; expected one of {sorted({*FAMILY_PREFIXES, *FAMILY_RAW})} or None"
         raise ValueError(msg)
-    return FAMILY_PREFIXES[family]
+    return FAMILY_PREFIXES.get(family, {}), FAMILY_RAW.get(family, frozenset())
 
 
-def _linear_state(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+def _state(tree: dict, raw: frozenset, prefix: str = "") -> dict[str, torch.Tensor]:
     state = {}
     for key, value in tree.items():
         name = f"{prefix}{key}"
-        if key == "w":
+        if name in raw:
+            state[name] = torch.from_numpy(np.array(value))
+        elif key == "w":
             state[f"{prefix}weight"] = torch.from_numpy(np.array(np.asarray(value).T, order="C"))
         elif key == "b":
             state[f"{prefix}bias"] = torch.from_numpy(np.array(value))
         elif isinstance(value, dict):
-            state.update(_linear_state(value, f"{name}."))
+            state.update(_state(value, raw, f"{name}."))
         else:
-            msg = f"unexpected parameter {name!r}: only linear layers ('w', 'b') are mapped"
+            msg = f"unexpected parameter {name!r}: only linear layers ('w', 'b') and the family's raw matrices are mapped"
             raise ValueError(msg)
     return state
 
 
 def params_from_jax(tree: dict, family: str | None = None) -> dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (JAX layout) -> torch ``state_dict`` (CPU tensors)."""
-    renames = _prefixes(family)
+    renames, raw = _family(family)
     state = {}
-    for key, value in _linear_state(tree).items():
+    for key, value in _state(tree, raw).items():
         prefix, leaf = key.rsplit(".", 1)
         state[f"{renames.get(prefix, prefix)}.{leaf}"] = value
     return state
@@ -65,7 +78,8 @@ def params_from_jax(tree: dict, family: str | None = None) -> dict[str, torch.Te
 
 def params_to_jax(state: dict[str, torch.Tensor], family: str | None = None) -> dict:
     """torch ``state_dict`` -> nested dict of numpy arrays (JAX layout)."""
-    renames = {v: k for k, v in _prefixes(family).items()}
+    renames, raw = _family(family)
+    renames = {v: k for k, v in renames.items()}
     tree: dict = {}
     for key, value in state.items():
         prefix, leaf = key.rsplit(".", 1)
@@ -73,11 +87,13 @@ def params_to_jax(state: dict[str, torch.Tensor], family: str | None = None) -> 
         for part in renames.get(prefix, prefix).split("."):
             node = node.setdefault(part, {})
         array = value.detach().cpu().numpy()
-        if leaf == "weight":
+        if key in raw:
+            node[leaf] = array.copy()
+        elif leaf == "weight":
             node["w"] = np.ascontiguousarray(array.T)
         elif leaf == "bias":
             node["b"] = array.copy()
         else:
-            msg = f"unexpected state_dict key {key!r}: only '.weight' and '.bias' are mapped"
+            msg = f"unexpected state_dict key {key!r}: only '.weight', '.bias' and the family's raw matrices are mapped"
             raise ValueError(msg)
     return tree

@@ -10,8 +10,9 @@ The batch adjacency of collated graphs is block-diagonal: with graphs padded
 to ``N`` nodes, graph ``g`` owns rows and columns ``[g*N, (g+1)*N)`` and no
 edge crosses graphs. The aggregation therefore runs per graph on an int8 0/1
 adjacency ``[G, N, N]`` against node features kept flat and transposed,
-``x_t [F, G*N]`` (ops/diag_spmm.py). Edges are mirrored, so every adjacency
-block is symmetric. Graphs too large for ``[G, N, N]`` (atomic resolution)
+``x_t [F, G*N]`` (ops/diag_spmm.py); sGAT's batches add the same adjacency
+weighted by each edge's scalar feature. Edges are mirrored, so every
+adjacency block is symmetric. Graphs too large for ``[G, N, N]`` (atomic resolution)
 collate block-sparse instead: locality-ordered, tile-padded and concatenated,
 with one BCSR adjacency over the whole batch (ops/block_sparse.py). Models
 whose messages read per-edge features keep the edge list itself, in
@@ -29,7 +30,7 @@ import torch
 
 from deeprank2_tpu_torch.device import resolve_device
 from deeprank2_tpu_torch.ops.blocked_edges import EDGE_TILE, BlockedEdgeStructure, build_blocked_edges
-from deeprank2_tpu_torch.ops.block_sparse import DEFAULT_BLOCK, BlockSparseStructure, build_blocksparse, locality_order
+from deeprank2_tpu_torch.ops.block_sparse import DEFAULT_BLOCK, BlockSparseStructure, build_blocksparse, locality_order, weight_storage
 
 
 def bucket_size(n: int, quantum: int = 128) -> int:
@@ -148,14 +149,19 @@ class DiagClusteredBatch:
 
     Ids are batch-global: pooled slot = ``g*K + local``, depth-1 slot from a
     running offset; padding = the target capacity (the segment ops drop it).
-    The edge-weighted fields of the JAX batch (``adj_w``, ``adj_wp``,
-    ``wsum``, ``wsum_p``) belong to the sGAT slice and are not collated."""
+    sGAT's batches also carry the adjacencies weighted by the scalar edge
+    feature (bf16 by default, f32 on request) and their f32 row sums; other
+    batches hold them empty (``[G, 0, 0]`` and ``[0]``)."""
 
     x_t: torch.Tensor  # f32 [F, G*N] flat transposed features, slot order
     adj_i8: torch.Tensor  # int8 [G, N, N] symmetric 0/1
     node_mask: torch.Tensor  # bool [G, N]
     deg: torch.Tensor  # f32 [G*N] neighbour counts (FoutNet's mean denominator)
     deg_p: torch.Tensor  # f32 [G*K] pooled neighbour counts (distinct pairs)
+    adj_w: torch.Tensor  # bf16/f32 [G, N, N] edge weights, duplicate pairs summed
+    adj_wp: torch.Tensor  # bf16/f32 [G, K, K] pooled: member-edge weights summed per pair
+    wsum: torch.Tensor  # f32 [G*N] row sums of adj_w (before its cast)
+    wsum_p: torch.Tensor  # f32 [G*K] row sums of adj_wp (before its cast)
     slot_cluster: torch.Tensor  # i32 [G*N/8] slot -> global pooled slot; pad = G*K
     members0s: torch.Tensor  # i32 [G*K, S0s] slot indices per pooled slot; pad = G*N/8
     adj_p_i8: torch.Tensor  # int8 [G, K, K] pooled adjacency (distinct pairs)
@@ -346,9 +352,13 @@ class _DepthOne:
         return cluster1, members1, c1_graph
 
 
-def _fill_graph(entry: dict, g: int, posmap, pslot_of_c0, x, adj, adj_p, node_mask, n_cap: int) -> None:
+def _fill_graph(entry: dict, g: int, posmap, pslot_of_c0, x, adj, adj_p, node_mask, n_cap: int, adj_w, adj_wp) -> None:
     """Node features, mask, and the full and pooled adjacencies of graph ``g``
-    (pooled: distinct cluster pairs, self-loop pairs dropped)."""
+    (pooled: distinct cluster pairs, self-loop pairs dropped); unless the
+    f32 accumulators ``adj_w``/``adj_wp`` are empty (unweighted), their
+    weights: the first edge-attr channel, summed over duplicate pairs and,
+    pooled, over member edges, in the JAX package's order (a self-loop's
+    weight lands twice)."""
     x[g * n_cap + posmap] = entry["x"]
     node_mask[g][posmap] = True
     und = np.asarray(entry["edge_index"], dtype=np.int64).reshape(-1, 2)
@@ -360,6 +370,12 @@ def _fill_graph(entry: dict, g: int, posmap, pslot_of_c0, x, adj, adj_p, node_ma
         keep = ci != cj
         adj_p[g, ci[keep], cj[keep]] = 1
         adj_p[g, cj[keep], ci[keep]] = 1
+        if adj_w.shape[1]:
+            ea = np.asarray(entry["edge_attr"], dtype=np.float32).reshape(len(und), -1)[:, 0]
+            np.add.at(adj_w[g], (pi, pj), ea)
+            np.add.at(adj_w[g], (pj, pi), ea)
+            np.add.at(adj_wp[g], (ci[keep], cj[keep]), ea[keep])
+            np.add.at(adj_wp[g], (cj[keep], ci[keep]), ea[keep])
 
 
 def _num_graphs(entries: list[dict], pad_graphs: int | None) -> tuple[int, list[str]]:
@@ -381,20 +397,33 @@ def _targets(entries: list[dict], num_graphs: int) -> tuple[np.ndarray, np.ndarr
     return y, y_mask
 
 
-def _diag_batch(dev, x, adj, node_mask, adj_p, region_caps: tuple = (), **arrays) -> DiagClusteredBatch:
+def _weight_accumulators(with_edge_weights: bool, num_graphs: int, n_cap: int, k_cap: int) -> tuple[np.ndarray, np.ndarray]:
+    """f32 ``adj_w [G, N, N]`` and ``adj_wp [G, K, K]`` (``[G, 0, 0]`` unweighted)."""
+    n, k = (n_cap, k_cap) if with_edge_weights else (0, 0)
+    return np.zeros((num_graphs, n, n), dtype=np.float32), np.zeros((num_graphs, k, k), dtype=np.float32)
+
+
+def _diag_batch(dev, x, adj, node_mask, adj_p, adj_w, adj_wp, weight_dtype, region_caps: tuple = (), **arrays) -> DiagClusteredBatch:
     """The batch on ``dev`` from the collated numpy arrays (``x`` row-major
-    ``[G*N, F]``); ``deg``/``deg_p`` are the adjacencies' row sums."""
+    ``[G*N, F]``); ``deg``/``deg_p`` are the adjacencies' row sums, and
+    ``wsum``/``wsum_p`` those of the f32 weight accumulators, taken before
+    the cast to ``weight_dtype``."""
+    weighted = adj_w.shape[1] > 0
     tensors = {
         "x_t": np.ascontiguousarray(x.T),
         "adj_i8": adj,
         "node_mask": node_mask,
         "deg": adj.astype(np.float32).sum(axis=2).reshape(-1),
         "deg_p": adj_p.astype(np.float32).sum(axis=2).reshape(-1),
+        "wsum": adj_w.sum(axis=2).reshape(-1) if weighted else np.zeros(0, np.float32),
+        "wsum_p": adj_wp.sum(axis=2).reshape(-1) if weighted else np.zeros(0, np.float32),
         "adj_p_i8": adj_p,
         **arrays,
     }
     return DiagClusteredBatch(
         **{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in tensors.items()},
+        adj_w=torch.from_numpy(adj_w).to(weight_dtype).to(dev),  # f32 -> bf16 rounds to nearest even
+        adj_wp=torch.from_numpy(adj_wp).to(weight_dtype).to(dev),
         num_graphs=adj.shape[0],
         region_caps=region_caps,
     )
@@ -409,6 +438,7 @@ def collate_graphs_diag_clustered(
     pad_members0s=None,
     pad_members1=None,
     with_edge_weights: bool = False,
+    weight_dtype: torch.dtype | None = None,
     min_slot_nodes: int | None = None,
     pad_region_caps: dict | None = None,
     device: str | torch.device | None = None,
@@ -423,12 +453,13 @@ def collate_graphs_diag_clustered(
     stride 4/2/1 instead of paying 8-row slot padding), ``None`` = decide
     from the data (:func:`_auto_min_slot_nodes`). ``pad_region_caps``
     buckets the mixed layout's per-region row caps (keys big/s4/s2/s1/kbig).
-    Edge-weighted batches (sGAT) belong to a later slice and raise
-    ``NotImplementedError``."""
-    if with_edge_weights:
-        msg = "edge-weighted clustered batches (sGAT) are not ported yet"
-        raise NotImplementedError(msg)
+
+    ``with_edge_weights`` adds sGAT's weighted adjacencies (``adj_w``,
+    ``adj_wp``, stored as ``weight_dtype``: bf16 by default, or f32) and
+    their f32 row sums (``wsum``, ``wsum_p``), array for array the JAX
+    package's."""
     dev = resolve_device(device)
+    weight_dtype = weight_storage(weight_dtype)
     num_graphs, names = _num_graphs(entries, pad_graphs)
     feat_dim = entries[0]["x"].shape[1]
 
@@ -446,6 +477,8 @@ def collate_graphs_diag_clustered(
             pad_members1=pad_members1,
             pad_region_caps=pad_region_caps,
             pad_clusters=pad_clusters,
+            with_edge_weights=with_edge_weights,
+            weight_dtype=weight_dtype,
         )
         return batch, names
     plans = [_slot8_plan(e, 8) for e in entries]
@@ -457,6 +490,7 @@ def collate_graphs_diag_clustered(
     node_mask = np.zeros((num_graphs, n_cap), dtype=bool)
     slot_cluster = np.full(num_graphs * n_cap // 8, num_graphs * k_cap, dtype=np.int32)
     adj_p = np.zeros((num_graphs, k_cap, k_cap), dtype=np.int8)
+    adj_w, adj_wp = _weight_accumulators(with_edge_weights, num_graphs, n_cap, k_cap)
     pooled_mask = np.zeros((num_graphs, k_cap), dtype=bool)
     depth1 = _DepthOne(num_graphs, k_cap)
     for g, entry in enumerate(entries):
@@ -464,7 +498,7 @@ def collate_graphs_diag_clustered(
         p_inv = plan["p_inv"]
         c0 = np.asarray(entry["cluster0"], dtype=np.int64)
         n_c0 = len(p_inv)
-        _fill_graph(entry, g, plan["posmap"], p_inv[c0], x, adj, adj_p, node_mask, n_cap)
+        _fill_graph(entry, g, plan["posmap"], p_inv[c0], x, adj, adj_p, node_mask, n_cap, adj_w, adj_wp)
         sc = plan["slot_col"]  # local pooled id per slot, -1 = padding
         base = g * n_cap // 8
         slot_cluster[base : base + len(sc)] = np.where(sc >= 0, sc + g * k_cap, num_graphs * k_cap)
@@ -483,6 +517,9 @@ def collate_graphs_diag_clustered(
         adj,
         node_mask,
         adj_p,
+        adj_w,
+        adj_wp,
+        weight_dtype,
         slot_cluster=slot_cluster,
         members0s=members0s,
         pooled_mask=pooled_mask,
@@ -507,6 +544,8 @@ def _collate_diag_mixed(
     pad_members1=None,
     pad_region_caps: dict | None = None,
     pad_clusters=None,
+    with_edge_weights: bool = False,
+    weight_dtype: torch.dtype = torch.bfloat16,
 ) -> DiagClusteredBatch:
     """The MIXED size-class region layout (see DiagClusteredBatch.region_caps).
 
@@ -562,6 +601,7 @@ def _collate_diag_mixed(
     # COMPACT big-region slot map: [G*nb/8] -> [G*kbig]
     slot_cluster = np.full(num_graphs * nb // 8, num_graphs * kbig, dtype=np.int32)
     adj_p = np.zeros((num_graphs, k_cap, k_cap), dtype=np.int8)
+    adj_w, adj_wp = _weight_accumulators(with_edge_weights, num_graphs, n_cap, k_cap)
     pooled_mask = np.zeros((num_graphs, k_cap), dtype=bool)
     depth1 = _DepthOne(num_graphs, k_cap)
     for g, entry in enumerate(entries):
@@ -576,7 +616,7 @@ def _collate_diag_mixed(
             sel = cls == sc
             pslot[sel] = kbase[sc] + rank[sel]
             row0[sel] = 8 * info["slot_base"][sel] if sc == 8 else rbase[sc] + sc * rank[sel]  # noqa: PLR2004
-        _fill_graph(entry, g, row0[c0] + info["mrank"], pslot[c0], x, adj, adj_p, node_mask, n_cap)
+        _fill_graph(entry, g, row0[c0] + info["mrank"], pslot[c0], x, adj, adj_p, node_mask, n_cap, adj_w, adj_wp)
 
         # big-region slots -> compact pooled ids, in increasing slot_base
         # order (= the big clusters' locality order)
@@ -600,6 +640,9 @@ def _collate_diag_mixed(
         adj,
         node_mask,
         adj_p,
+        adj_w,
+        adj_wp,
+        weight_dtype,
         region_caps=(nb, n4, n2, n1, kbig),
         slot_cluster=slot_cluster,
         members0s=members0s,
@@ -786,8 +829,9 @@ class ClusteredBlockSparseBatch(BlockSparseBatch):
     full-graph row to its pooled slot. The member matrices serve the
     scatter-free max pools (ops/pooling.py:member_max_pool); shape (0, 0)
     means "use the segment max" (one pathological cluster). The slot8 fields
-    are empty in the plain layout. The edge-weighted fields of the JAX batch
-    (``wsum``, ``wsum_p``) belong to the sGAT slice and are not collated."""
+    are empty in the plain layout. In sGAT's batches both structures carry
+    the edge weights and ``wsum``/``wsum_p`` their f32 row sums; in others
+    ``wsum``/``wsum_p`` are empty."""
 
     deg: torch.Tensor  # f32 [NT*B] full-graph neighbour counts
     cluster0: torch.Tensor  # i32 [NT*B] row -> pooled slot; padded = NTp*B
@@ -801,6 +845,8 @@ class ClusteredBlockSparseBatch(BlockSparseBatch):
     members1: torch.Tensor  # i32 [C1, S1] pooled slots per depth-1 slot; pad = NTp*B
     slot_cluster: torch.Tensor  # i32 [NT*B/8] slot8: slot -> pooled slot; padding = NTp*B
     members0s: torch.Tensor  # i32 [NTp*B, S0s] slot8: slots per pooled slot; pad = NT*B/8
+    wsum: torch.Tensor  # f32 [NT*B] weighted row sums ([0] unweighted)
+    wsum_p: torch.Tensor  # f32 [NTp*B] pooled weighted row sums ([0] unweighted)
 
 
 # column tiles per chunk of the clustered collate's full-graph structure (its
@@ -812,6 +858,7 @@ def collate_graphs_blocksparse_clustered(
     entries: list[dict],
     pad_graphs: int | None = None,
     with_edge_weights: bool = False,
+    weight_dtype: torch.dtype | None = None,
     slot8: bool = False,
     device: str | torch.device | None = None,
 ) -> tuple[ClusteredBlockSparseBatch, list[str]]:
@@ -824,17 +871,21 @@ def collate_graphs_blocksparse_clustered(
     ``slot8`` lays nodes out cluster-major in 8-lane slots
     (:func:`_slot8_plan`), fills ``slot_cluster``/``members0s`` for the slot
     max-pool kernels and rounds the node capacity to whole groups of 8 tiles.
-    Edge-weighted batches (sGAT) and capacity buckets are not ported yet."""
-    if with_edge_weights:
-        msg = "edge-weighted clustered block-sparse batches (sGAT) are not ported yet"
-        raise NotImplementedError(msg)
+
+    ``with_edge_weights`` (sGAT) weights both adjacencies by the first
+    edge-attr channel (``weight_dtype`` blocks: bf16 by default, or f32): a
+    pooled pair carries the sum of its member edges' weights, and
+    ``wsum``/``wsum_p`` are the f32 row sums, accumulated as the JAX package
+    does. Capacity buckets are not ported yet."""
     dev = resolve_device(device)
+    weight_dtype = weight_storage(weight_dtype)
     block = DEFAULT_BLOCK
     num_graphs, names = _num_graphs(entries, pad_graphs)
     plans = [_slot8_plan(e, block) for e in entries] if slot8 else None
     layout = blocksparse_layout(entries, block, num_graphs, plans=plans)
 
     cluster0_cols, pooled_graph_ids, pooled_masks, cluster1_cols, c1_graphs, pooled_pairs, slot_cols = [], [], [], [], [], [], []
+    weights_full, pooled_weights = [], []
     p_offset = c1_off = 0
     for g, entry in enumerate(entries):
         v = entry["x"].shape[0]
@@ -882,13 +933,20 @@ def collate_graphs_blocksparse_clustered(
             cg[np.unique(c1)] = g
         c1_graphs.append(cg)
 
-        # pooled edges: member edges mapped to clusters, self-loops dropped, coalesced
+        # pooled edges: member edges mapped to clusters, self-loops dropped,
+        # coalesced (weights summed over the members)
         und = np.asarray(entry["edge_index"], dtype=np.int64).reshape(-1, 2)
         pi, pj = p_inv[c0[und[:, 0]]], p_inv[c0[und[:, 1]]]
         keep = pi != pj
         lo, hi = np.minimum(pi[keep], pj[keep]), np.maximum(pi[keep], pj[keep])
-        uniq_key = np.unique(lo * p_cap + hi)
+        uniq_key, inverse = np.unique(lo * p_cap + hi, return_inverse=True)
         pooled_pairs.append(np.stack([uniq_key // p_cap, uniq_key % p_cap], axis=1) + p_offset)
+        if with_edge_weights:
+            w = np.asarray(entry["edge_attr"], dtype=np.float32).reshape(len(und), -1)[:, 0] if und.size else np.zeros(0, np.float32)
+            weights_full.append(w)
+            pw = np.zeros(len(uniq_key), dtype=np.float32)
+            np.add.at(pw, inverse, w[keep])
+            pooled_weights.append(pw)
         p_offset += p_cap
         c1_off += n_c1
 
@@ -916,13 +974,24 @@ def collate_graphs_blocksparse_clustered(
         c1_graph[: len(cg)] = np.where(cg < 0, num_graphs, cg)
 
     pairs = layout["pairs"]
-    structure = build_blocksparse(pairs, num_nodes=node_cap, chunk_tiles=_CLUSTERED_CHUNK_TILES, device=dev)
     p_pairs = np.concatenate(pooled_pairs) if pooled_pairs else np.zeros((0, 2), np.int64)
-    structure_p = build_blocksparse(p_pairs, num_nodes=pooled_cap, device=dev)
+    w_full = np.concatenate(weights_full) if weights_full else None
+    p_w = np.concatenate(pooled_weights) if pooled_weights else None
+    structure = build_blocksparse(
+        pairs, num_nodes=node_cap, chunk_tiles=_CLUSTERED_CHUNK_TILES, weights=w_full, weight_dtype=weight_dtype, device=dev
+    )
+    structure_p = build_blocksparse(p_pairs, num_nodes=pooled_cap, weights=p_w, weight_dtype=weight_dtype, device=dev)
     deg = np.zeros(node_cap, dtype=np.float32)
     np.add.at(deg, pairs.reshape(-1), 1.0)
     deg_p = np.zeros(pooled_cap, dtype=np.float32)
     np.add.at(deg_p, p_pairs.reshape(-1), 1.0)
+    # weighted row sums: both ends of each pair, in the JAX package's order
+    wsum = np.zeros(node_cap if with_edge_weights else 0, dtype=np.float32)
+    wsum_p = np.zeros(pooled_cap if with_edge_weights else 0, dtype=np.float32)
+    for sums, prs, w in ((wsum, pairs, w_full), (wsum_p, p_pairs, p_w)):
+        if with_edge_weights and prs.size:
+            np.add.at(sums, prs[:, 0], w)
+            np.add.at(sums, prs[:, 1], w)
 
     if slot8:
         slot_cluster = np.concatenate(slot_cols)
@@ -951,6 +1020,8 @@ def collate_graphs_blocksparse_clustered(
         members1=_member_matrix(cluster1, c1_cap, pooled_cap),
         slot_cluster=slot_cluster,
         members0s=members0s,
+        wsum=wsum,
+        wsum_p=wsum_p,
     )
     return ClusteredBlockSparseBatch(**arrays, structure=structure, structure_p=structure_p, num_graphs=num_graphs), names
 

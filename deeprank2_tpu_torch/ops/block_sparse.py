@@ -1,15 +1,16 @@
 """Block-sparse (BCSR) adjacency SpMM, the large-graph aggregation path (port
 of ``deeprank2_tpu/ops/block_sparse.py``: ``locality_order``,
-``BlockSparseStructure``, ``build_blocksparse`` for the unweighted symmetric
-adjacency, and ``bcsr_spmm``/``bcsr_spmm_t`` over kernel K5).
+``BlockSparseStructure``, ``build_blocksparse`` for the unweighted and the
+weighted symmetric adjacency, and ``bcsr_spmm``/``bcsr_spmm_t`` over kernel
+K5).
 
 Atomic-resolution graphs (10^4-10^5 nodes) are too large for the dense
 ``[G, N, N]`` adjacency. Nodes are ordered by spatial locality
 (:func:`locality_order`), the adjacency is cut into 128 x 128 blocks and
 only the nonzero blocks are kept (about 1-2 % of them on locality-ordered
-atomic graphs), int8 0/1 and stored transposed:
-``blocks_t[k][c, r] = 1`` iff there is an edge from node
-``block_col[k]*128 + c`` to node ``block_row[k]*128 + r``.
+atomic graphs), stored transposed: ``blocks_t[k][c, r]`` is the weight of
+the edge from node ``block_col[k]*128 + c`` to node ``block_row[k]*128 + r``
+(int8 0/1 unweighted; bf16 or f32 edge weights for sGAT).
 
 The SpMM runs in the transposed layout ``[F, nodes] -> [F, rows]``:
 
@@ -24,7 +25,8 @@ is the same SpMM applied to the cotangent.
 
 The wrapper takes the plain PyTorch version (``bcsr_spmm_kernel_ref``) for
 tensors on the CPU, launches the kernel for tensors on a CUDA device, and
-raises for anything else; it counts its launches in :data:`launches`.
+raises for anything else; it counts its launches in :data:`launches`, and by
+block type in :data:`launches_by_dtype`.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 
 from deeprank2_tpu_torch.device import resolve_device
 from deeprank2_tpu_torch.ops import _build
-from deeprank2_tpu_torch.ops.diag_spmm import _require, _route
+from deeprank2_tpu_torch.ops.diag_spmm import _require, _route, dtype_name
 
 SOURCE = "bcsr_spmm"
 DEFAULT_BLOCK = 128
@@ -46,13 +48,32 @@ SUPER = 16  # KBATCH sub-batches per step of the JAX kernel's grid: the capacity
 CHUNK_TILES = 320  # column tiles per chunk of the JAX kernel's x^T (blocks are sorted by chunk first)
 _CELL = 8.0  # Å — locality-sort cell size (≈ 2x the atomic contact cutoff)
 
-# kernel launches since the last reset_launches(), by kernel
+# the block types the kernel takes, by their code in csrc/bcsr_spmm.cu
+BLOCK_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+# the storage types of a weighted adjacency (the JAX ``weight_dtype``)
+WEIGHT_DTYPES = (torch.bfloat16, torch.float32)
+
+# kernel launches since the last reset_launches(), by kernel and by block type
 launches = {"bcsr_spmm_kernel": 0}
+launches_by_dtype = {"bcsr_spmm_kernel": {dtype_name(d): 0 for d in BLOCK_DTYPES}}
+
+
+def weight_storage(weight_dtype: torch.dtype | None) -> torch.dtype:
+    """The storage type of a weighted adjacency: ``weight_dtype``, bf16 when
+    None (the JAX package's default); anything but bf16 and f32 raises."""
+    if weight_dtype is None:
+        return torch.bfloat16
+    if weight_dtype not in WEIGHT_DTYPES:
+        msg = f"weight_dtype must be one of {WEIGHT_DTYPES}, got {weight_dtype}"
+        raise ValueError(msg)
+    return weight_dtype
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+        for form in launches_by_dtype[name]:
+            launches_by_dtype[name][form] = 0
 
 
 def locality_order(positions: np.ndarray, cell: float = _CELL) -> np.ndarray:
@@ -76,7 +97,7 @@ class BlockSparseStructure:
     tile ``r`` are ``tile_blocks[tile_ptr[r]:tile_ptr[r + 1]]`` (pad blocks
     are all zero and left out)."""
 
-    blocks_t: torch.Tensor  # int8 [NB, B, B] (entries 0/1), NB a kbatch*super_batches multiple
+    blocks_t: torch.Tensor  # [NB, B, B] int8 0/1, or bf16/f32 weights; NB a kbatch*super_batches multiple
     block_row: torch.Tensor  # i32 [NB] destination row tile (zero pads keep their run's row)
     block_col: torch.Tensor  # i32 [NB] source column tile (zero pads: first tile of their chunk)
     batch_row: torch.Tensor  # i32 [NB/kbatch] destination row tile per batch
@@ -120,19 +141,36 @@ def build_blocksparse(
     kbatch: int | None = None,
     super_batches: int | None = None,
     chunk_tiles: int | None = None,
+    weights: np.ndarray | None = None,
+    weight_dtype: torch.dtype | None = None,
     device: str | torch.device | None = None,
 ) -> BlockSparseStructure:
     """BCSR structure from *undirected* node-index pairs (mirrored here, so
     the adjacency is symmetric), on ``device`` (CUDA unless ``"cpu"`` is
     asked for). Node indices must already be in the locality order;
-    ``num_nodes`` is rounded up to a whole number of tiles. The weighted
-    adjacency (sGAT), row and column slices (the parallel paths) and
-    capacity padding (the Trainer's buckets) are not ported yet."""
+    ``num_nodes`` is rounded up to a whole number of tiles.
+
+    ``weights`` (f32, one per pair) builds the *weighted* symmetric
+    adjacency of sGAT: entries (i, j) and (j, i) both carry the pair's
+    weight, and duplicate pairs add up, in f32 and in the JAX package's
+    order (a self-loop's weight is added twice). The blocks are stored as
+    ``weight_dtype``: ``torch.bfloat16`` (the default, rounded to nearest
+    even as the JAX package's ``ml_dtypes`` cast) or ``torch.float32``.
+    Row and column slices (the parallel paths) and capacity padding (the
+    Trainer's buckets) are not ported yet."""
     dev = resolve_device(device)
     und = np.asarray(und_pairs, dtype=np.int64).reshape(-1, 2)
     num_tiles = max(-(-num_nodes // block), 1)
     rows = np.concatenate([und[:, 0], und[:, 1]])
     cols = np.concatenate([und[:, 1], und[:, 0]])
+    wvals = None
+    if weights is not None:
+        weight_dtype = weight_storage(weight_dtype)
+        w = np.asarray(weights, dtype=np.float32).reshape(-1)
+        if w.shape[0] != und.shape[0]:
+            msg = f"weights has {w.shape[0]} entries for {und.shape[0]} pairs"
+            raise ValueError(msg)
+        wvals = np.concatenate([w, w])
     if rows.size and (rows.max() >= num_nodes or rows.min() < 0):
         msg = f"edge index out of range: max {rows.max()} for {num_nodes} nodes"
         raise ValueError(msg)
@@ -162,7 +200,7 @@ def build_blocksparse(
     sb = super_batches or SUPER
     cap = -(-nb_pad // (kb * sb)) * (kb * sb)
 
-    blocks = np.zeros((cap, block, block), dtype=np.int8)
+    blocks = np.zeros((cap, block, block), dtype=np.int8 if wvals is None else np.float32)
     block_row = np.zeros(cap, dtype=np.int32)
     block_col = np.zeros(cap, dtype=np.int32)
     block_chunk = np.zeros(cap, dtype=np.int32)
@@ -182,8 +220,11 @@ def build_blocksparse(
 
     k = np.empty(len(key), dtype=np.int64)
     k[order] = slot[inverse_sorted]
-    if len(key):
-        blocks[k, cols % block, rows % block] = 1  # transposed fill: [slot, col within, row within]
+    # transposed fill: [slot, col within, row within]
+    if len(key) and wvals is None:
+        blocks[k, cols % block, rows % block] = 1
+    elif len(key):
+        np.add.at(blocks, (k, cols % block, rows % block), wvals)
 
     batch_row = block_row[::kb].astype(np.int32)
     batch_chunk = block_chunk[::kb].astype(np.int32)
@@ -203,7 +244,6 @@ def build_blocksparse(
     tile_ptr[1:] = np.cumsum(np.bincount(uniq_row, minlength=num_row_tiles))
 
     arrays = {
-        "blocks_t": blocks,
         "block_row": block_row,
         "block_col": block_col,
         "batch_row": batch_row,
@@ -212,7 +252,11 @@ def build_blocksparse(
         "tile_ptr": tile_ptr,
         "tile_blocks": tile_blocks,
     }
+    blocks_t = torch.from_numpy(blocks)
+    if wvals is not None:
+        blocks_t = blocks_t.to(weight_dtype)  # f32 -> bf16 rounds to nearest even
     return BlockSparseStructure(
+        blocks_t=blocks_t.to(dev),
         **{name: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for name, a in arrays.items()},
         num_tiles=num_tiles,
         num_chunks=num_chunks,
@@ -229,7 +273,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library(SOURCE)
     if lib.bcsr_spmm_kernel.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bcsr_spmm_kernel.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.bcsr_spmm_kernel.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p]
         lib.bcsr_spmm_kernel.restype = i
     return lib
 
@@ -252,7 +296,9 @@ def bcsr_spmm_kernel_ref(structure: BlockSparseStructure, x_t: torch.Tensor) -> 
 
 def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor) -> torch.Tensor:
     """``A @ x`` in the transposed layout: ``x_t [F, padded_nodes]`` (f32)
-    to ``[F, padded_rows]``, exact up to summation order."""
+    to ``[F, padded_rows]``, for int8 0/1, bf16 or f32 blocks; each weight is
+    taken at its exact f32 value, so the result is exact up to summation
+    order."""
     if x_t.dim() != 2:
         msg = f"expected x_t [F, padded_nodes], got shape {tuple(x_t.shape)}"
         raise ValueError(msg)
@@ -260,7 +306,11 @@ def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor) -> torc
     dev = x_t.device
     _require(x_t, "x_t", torch.float32, (f, structure.padded_nodes), dev)
     nb, b = structure.num_blocks, structure.block
-    _require(structure.blocks_t, "blocks_t", torch.int8, (nb, b, b), dev)
+    blocks = structure.blocks_t
+    if blocks.dtype not in BLOCK_DTYPES:
+        msg = f"blocks_t must be one of {tuple(BLOCK_DTYPES)}, got {blocks.dtype}"
+        raise TypeError(msg)
+    _require(blocks, "blocks_t", blocks.dtype, (nb, b, b), dev)
     for name in ("block_col", "tile_ptr", "tile_blocks"):
         t = getattr(structure, name)
         _require(t, name, torch.int32, tuple(t.shape), dev)
@@ -273,7 +323,8 @@ def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor) -> torc
     with torch.cuda.device(dev):
         out = torch.empty((f, structure.padded_rows), dtype=torch.float32, device=dev)
         code = lib.bcsr_spmm_kernel(
-            structure.blocks_t.data_ptr(),
+            blocks.data_ptr(),
+            BLOCK_DTYPES[blocks.dtype],
             structure.block_col.data_ptr(),
             structure.tile_ptr.data_ptr(),
             structure.tile_blocks.data_ptr(),
@@ -287,6 +338,7 @@ def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor) -> torc
         )
         _build.check(lib, code, "bcsr_spmm_kernel")
     launches["bcsr_spmm_kernel"] += 1
+    launches_by_dtype["bcsr_spmm_kernel"][dtype_name(blocks.dtype)] += 1
     return out
 
 

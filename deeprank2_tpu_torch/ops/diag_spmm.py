@@ -6,7 +6,10 @@ flat transposed activations ``[F, G*N]``, and the aggregation is, per graph,
 
     out[f, g*N + i] = sum_j adj[g, i, j] * x[f, g*N + j]
 
-(the oracle ``diag_spmm_t_xla``). It runs in the CUDA kernels of
+(the oracle ``diag_spmm_t_xla``), with ``adj`` int8 0/1, or bf16 or f32
+edge weights (sGAT; the JAX package sends its f32 "exact oracle" adjacency
+to XLA instead of its kernel, the port has no fallback and computes the same
+function in its kernel). It runs in the CUDA kernels of
 ``csrc/diag_spmm.cu``: ``diag_kernel`` (plain, relu/mask epilogue, or
 relu/mask plus per-graph sum pool) and ``pool_bwd_kernel`` (the pooled
 layer's backward). Edges are mirrored, so ``A^T = A`` per graph and each VJP
@@ -15,11 +18,12 @@ is the same aggregation applied to the cotangent.
 :func:`tower_pooled` fuses the whole two-layer tower with its per-graph sum
 pool into one forward and one backward kernel (``csrc/diag_tower.cu``:
 ``tower_fwd_kernel`` and ``tower_bwd_kernel``), which read the adjacency
-once per direction.
+once per direction (int8 adjacency only).
 
 Each kernel wrapper takes its plain PyTorch version (``*_ref``) for tensors
 on the CPU, launches its kernel for tensors on a CUDA device, and raises for
-anything else; each counts its kernel launches in :data:`launches`.
+anything else; each counts its kernel launches in :data:`launches`, and K1
+and K2 also by adjacency type in :data:`launches_by_dtype`.
 """
 
 from __future__ import annotations
@@ -33,24 +37,39 @@ from deeprank2_tpu_torch.ops import _build
 SOURCE = "diag_spmm"
 TOWER_SOURCE = "diag_tower"
 MODES = {"plain": 0, "relu_mask": 1, "relu_mask_pool": 2}
+# the adjacency types K1 and K2 take, by their code in csrc/diag_spmm.cu
+ADJ_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 
-# kernel launches since the last reset_launches(), by kernel
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``"int8"``, ``"bfloat16"``, ...: the key of a form in ``launches_by_dtype``."""
+    return str(dtype).removeprefix("torch.")
+
+
+# kernel launches since the last reset_launches(), by kernel, and for K1 and
+# K2 by adjacency type
 launches = {"diag_kernel": 0, "pool_bwd_kernel": 0, "tower_fwd_kernel": 0, "tower_bwd_kernel": 0}
+launches_by_dtype = {k: {dtype_name(d): 0 for d in ADJ_DTYPES} for k in ("diag_kernel", "pool_bwd_kernel")}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for forms in launches_by_dtype.values():
+        for form in forms:
+            forms[form] = 0
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library(SOURCE)
     if lib.diag_kernel.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.diag_kernel.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.diag_kernel.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p]
         lib.diag_kernel.restype = i
-        lib.pool_bwd_kernel.argtypes = [p, p, p, p, i, i, i, p]
+        lib.pool_bwd_kernel.argtypes = [p, i, p, p, p, i, i, i, p]
         lib.pool_bwd_kernel.restype = i
+        lib.diag_max_nodes.argtypes = [i]
+        lib.diag_max_nodes.restype = i
     return lib
 
 
@@ -80,12 +99,17 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, devic
         raise ValueError(msg)
 
 
-def _dims(adj_i8: torch.Tensor, x_t: torch.Tensor) -> tuple[int, int, int]:
-    if adj_i8.dim() != 3 or x_t.dim() != 2:
-        msg = f"expected adj [G, N, N] and x_t [F, G*N], got {tuple(adj_i8.shape)} and {tuple(x_t.shape)}"
+def _dims(adj: torch.Tensor, x_t: torch.Tensor, dtypes=ADJ_DTYPES) -> tuple[int, int, int]:
+    """``(G, N, F)`` of an adjacency ``[G, N, N]`` of one of ``dtypes`` and
+    activations ``[F, G*N]`` on the same device."""
+    if adj.dim() != 3 or x_t.dim() != 2:
+        msg = f"expected adj [G, N, N] and x_t [F, G*N], got {tuple(adj.shape)} and {tuple(x_t.shape)}"
         raise ValueError(msg)
-    g, n, _ = adj_i8.shape
-    _require(adj_i8, "adj_i8", torch.int8, (g, n, n), x_t.device)
+    if adj.dtype not in dtypes:
+        msg = f"adj must be one of {tuple(dtypes)}, got {adj.dtype}"
+        raise TypeError(msg)
+    g, n, _ = adj.shape
+    _require(adj, "adj", adj.dtype, (g, n, n), x_t.device)
     return g, n, x_t.shape[0]
 
 
@@ -103,11 +127,11 @@ def _route(device: torch.device) -> bool:
 # K1: diag_kernel (replaces deeprank2_tpu/ops/diag_spmm.py:_diag_kernel)
 
 
-def diag_kernel_ref(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None = None, mode: str = "plain"):
+def diag_kernel_ref(adj: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None = None, mode: str = "plain"):
     """Plain PyTorch version of :func:`diag_kernel` (same arguments and results)."""
-    g, n, _ = adj_i8.shape
+    g, n, _ = adj.shape
     f = x_t.shape[0]
-    out = torch.einsum("fgj,gij->fgi", x_t.reshape(f, g, n), adj_i8.to(x_t.dtype)).reshape(f, g * n)
+    out = torch.einsum("fgj,gij->fgi", x_t.reshape(f, g, n), adj.to(x_t.dtype)).reshape(f, g * n)
     if mode == "plain":
         return out
     h = torch.relu(out) * mask.reshape(1, g * n).to(out.dtype)
@@ -116,8 +140,14 @@ def diag_kernel_ref(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor 
     return (h > 0).to(torch.uint8), h.reshape(f, g, n).sum(dim=2)
 
 
-def diag_kernel(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None = None, mode: str = "plain"):
-    """Per-graph aggregation of ``x_t [F, G*N]`` (f32) by ``adj_i8 [G, N, N]`` (int8).
+def _count(kernel: str, adj: torch.Tensor) -> None:
+    launches[kernel] += 1
+    launches_by_dtype[kernel][dtype_name(adj.dtype)] += 1
+
+
+def diag_kernel(adj: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None = None, mode: str = "plain"):
+    """Per-graph aggregation of ``x_t [F, G*N]`` (f32) by ``adj [G, N, N]``
+    (int8 0/1, or bf16 or f32 weights, each taken at its exact f32 value).
 
     ``mode="plain"`` returns the aggregate ``[F, G*N]``; ``"relu_mask"``
     returns ``relu(aggregate) * mask`` (``mask [G, N]`` bool);
@@ -127,13 +157,13 @@ def diag_kernel(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | No
     if mode not in MODES:
         msg = f"unknown mode {mode!r}; expected one of {sorted(MODES)}"
         raise ValueError(msg)
-    g, n, f = _dims(adj_i8, x_t)
+    g, n, f = _dims(adj, x_t)
     dev = x_t.device
     _require(x_t, "x_t", torch.float32, (f, g * n), dev)
     if mode != "plain":
         _require(mask, "mask", torch.bool, (g, n), dev)
     if not _route(dev):
-        return diag_kernel_ref(adj_i8, x_t, mask, mode)
+        return diag_kernel_ref(adj, x_t, mask, mode)
     lib = _lib()
     with torch.cuda.device(dev):
         if mode == "relu_mask_pool":
@@ -144,7 +174,8 @@ def diag_kernel(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | No
             out = torch.empty_like(x_t)
             sign = pooled = None
         code = lib.diag_kernel(
-            adj_i8.data_ptr(),
+            adj.data_ptr(),
+            ADJ_DTYPES[adj.dtype],
             x_t.data_ptr(),
             None if mask is None else mask.data_ptr(),
             None if out is None else out.data_ptr(),
@@ -157,40 +188,58 @@ def diag_kernel(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | No
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, code, "diag_kernel")
-    launches["diag_kernel"] += 1
+    _count("diag_kernel", adj)
     return (sign, pooled) if mode == "relu_mask_pool" else out
+
+
+def max_nodes(adj_dtype: torch.dtype, device: str | torch.device = "cuda") -> int:
+    """The largest N (nodes per graph) for which K1 and K2 run on ``device``
+    with an adjacency of ``adj_dtype``: its shared memory per block, with the
+    opt-in, less the kernel's static tile, over the bytes of one node's
+    staged features. Beyond it the wrappers raise."""
+    if adj_dtype not in ADJ_DTYPES:
+        msg = f"adj_dtype must be one of {tuple(ADJ_DTYPES)}, got {adj_dtype}"
+        raise TypeError(msg)
+    lib = _lib()
+    with torch.cuda.device(torch.device(device)):
+        n = lib.diag_max_nodes(ADJ_DTYPES[adj_dtype])
+    if n < 0:
+        msg = "diag_max_nodes failed: the device's shared-memory limit could not be read"
+        raise RuntimeError(msg)
+    return n
 
 
 # ---------------------------------------------------------------------------
 # K2: pool_bwd_kernel (replaces deeprank2_tpu/ops/diag_spmm.py:_pool_bwd_kernel)
 
 
-def pool_bwd_kernel_ref(adj_i8: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tensor) -> torch.Tensor:
+def pool_bwd_kernel_ref(adj: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`pool_bwd_kernel`."""
-    n = adj_i8.shape[1]
+    n = adj.shape[1]
     u = g_pool.repeat_interleave(n, dim=1) * sign.to(g_pool.dtype)
-    return diag_kernel_ref(adj_i8, u)
+    return diag_kernel_ref(adj, u)
 
 
-def pool_bwd_kernel(adj_i8: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tensor) -> torch.Tensor:
+def pool_bwd_kernel(adj: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tensor) -> torch.Tensor:
     """``d fcx = A @ (sign ⊙ broadcast(g_pool))``: the backward of the pooled
     layer, with ``sign [F, G*N]`` uint8 from :func:`diag_kernel`'s pool mode
     and the cotangent ``g_pool [F, G]`` (f32) broadcast over each graph's
-    nodes inside the kernel."""
-    g, n, f = _dims(adj_i8, sign)
+    nodes inside the kernel; ``adj`` as for :func:`diag_kernel`."""
+    g, n, f = _dims(adj, sign)
     dev = sign.device
     _require(sign, "sign", torch.uint8, (f, g * n), dev)
     _require(g_pool, "g_pool", torch.float32, (f, g), dev)
     if not _route(dev):
-        return pool_bwd_kernel_ref(adj_i8, sign, g_pool)
+        return pool_bwd_kernel_ref(adj, sign, g_pool)
     lib = _lib()
     with torch.cuda.device(dev):
         out = torch.empty((f, g * n), dtype=torch.float32, device=dev)
         code = lib.pool_bwd_kernel(
-            adj_i8.data_ptr(), sign.data_ptr(), g_pool.data_ptr(), out.data_ptr(), g, n, f, torch.cuda.current_stream(dev).cuda_stream
+            adj.data_ptr(), ADJ_DTYPES[adj.dtype], sign.data_ptr(), g_pool.data_ptr(), out.data_ptr(), g, n, f,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, code, "pool_bwd_kernel")
-    launches["pool_bwd_kernel"] += 1
+    _count("pool_bwd_kernel", adj)
     return out
 
 
@@ -200,78 +249,79 @@ def pool_bwd_kernel(adj_i8: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tens
 
 class _DiagSpmmT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x_t, adj_i8):
-        ctx.save_for_backward(adj_i8)
-        return diag_kernel(adj_i8, x_t)
+    def forward(ctx, x_t, adj):
+        ctx.save_for_backward(adj)
+        return diag_kernel(adj, x_t)
 
     @staticmethod
     def backward(ctx, grad):
-        (adj_i8,) = ctx.saved_tensors
-        return diag_kernel(adj_i8, grad.contiguous()), None
+        (adj,) = ctx.saved_tensors
+        return diag_kernel(adj, grad.contiguous()), None
 
 
 class _DiagLayerT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, fcx_t, adj_i8, node_mask):
-        h = diag_kernel(adj_i8, fcx_t, node_mask, "relu_mask")
-        ctx.save_for_backward(adj_i8, h)
+    def forward(ctx, fcx_t, adj, node_mask):
+        h = diag_kernel(adj, fcx_t, node_mask, "relu_mask")
+        ctx.save_for_backward(adj, h)
         return h
 
     @staticmethod
     def backward(ctx, grad):
-        adj_i8, h = ctx.saved_tensors
+        adj, h = ctx.saved_tensors
         # the output is its own relu mask; masked columns are 0 and drop too
         u = grad * (h > 0).to(grad.dtype)
-        return diag_kernel(adj_i8, u.contiguous()), None, None
+        return diag_kernel(adj, u.contiguous()), None, None
 
 
 class _DiagLayerPoolT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, fcx_t, adj_i8, node_mask):
-        sign, pooled = diag_kernel(adj_i8, fcx_t, node_mask, "relu_mask_pool")
-        ctx.save_for_backward(adj_i8, sign)
+    def forward(ctx, fcx_t, adj, node_mask):
+        sign, pooled = diag_kernel(adj, fcx_t, node_mask, "relu_mask_pool")
+        ctx.save_for_backward(adj, sign)
         return pooled
 
     @staticmethod
     def backward(ctx, grad):
-        adj_i8, sign = ctx.saved_tensors
-        return pool_bwd_kernel(adj_i8, sign, grad.contiguous()), None, None
+        adj, sign = ctx.saved_tensors
+        return pool_bwd_kernel(adj, sign, grad.contiguous()), None, None
 
 
-def diag_spmm_t(adj_i8: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
-    """``[F, G*N] -> [F, G*N]`` symmetric per-graph aggregation,
-    differentiable w.r.t. ``x_t`` (VJP = the same aggregation of the cotangent)."""
-    return _DiagSpmmT.apply(x_t, adj_i8)
+def diag_spmm_t(adj: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
+    """``[F, G*N] -> [F, G*N]`` symmetric per-graph aggregation by an int8,
+    bf16 or f32 adjacency, differentiable w.r.t. ``x_t`` (VJP = the same
+    aggregation of the cotangent)."""
+    return _DiagSpmmT.apply(x_t, adj)
 
 
-def diag_spmm_t_ref(adj_i8: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
+def diag_spmm_t_ref(adj: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`diag_spmm_t` (autograd through einsum)."""
-    return diag_kernel_ref(adj_i8, x_t)
+    return diag_kernel_ref(adj, x_t)
 
 
-def diag_layer_t(adj_i8: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
+def diag_layer_t(adj: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
     """``relu(mask ⊙ (fcx_t @ A))`` with the relu and mask fused into the
     kernel. VJP: ``d fcx = A @ (g ⊙ [h > 0])``."""
-    return _DiagLayerT.apply(fcx_t, adj_i8, node_mask)
+    return _DiagLayerT.apply(fcx_t, adj, node_mask)
 
 
-def diag_layer_t_ref(adj_i8: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
+def diag_layer_t_ref(adj: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`diag_layer_t`."""
-    return diag_kernel_ref(adj_i8, fcx_t, node_mask, "relu_mask")
+    return diag_kernel_ref(adj, fcx_t, node_mask, "relu_mask")
 
 
-def diag_layer_pool_t(adj_i8: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
+def diag_layer_pool_t(adj: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
     """Final conv layer plus per-graph SUM pool in one kernel:
     ``pooled[c, g] = Σ_v relu(mask ⊙ (fcx_t @ A))[c, v in graph g]`` (``[F, G]``;
     divide by node counts outside for the mean). The backward broadcasts the
     ``[F, G]`` cotangent inside :func:`pool_bwd_kernel`."""
-    return _DiagLayerPoolT.apply(fcx_t, adj_i8, node_mask)
+    return _DiagLayerPoolT.apply(fcx_t, adj, node_mask)
 
 
-def diag_layer_pool_t_ref(adj_i8: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
+def diag_layer_pool_t_ref(adj: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`diag_layer_pool_t`."""
-    g, n, _ = adj_i8.shape
-    return diag_layer_t_ref(adj_i8, node_mask, fcx_t).reshape(fcx_t.shape[0], g, n).sum(dim=2)
+    g, n, _ = adj.shape
+    return diag_layer_t_ref(adj, node_mask, fcx_t).reshape(fcx_t.shape[0], g, n).sum(dim=2)
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +343,7 @@ def tower_fwd_kernel(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor
     and ``pooled [C2, G]`` = h2 summed over each graph's nodes. ``adj_i8
     [G, N, N]`` (int8 0/1), ``x_t [F, G*N]`` (f32), ``mask [G, N]`` (bool),
     ``w1 [F, C1]``, ``w2 [C1, C2]``."""
-    g, n, f = _dims(adj_i8, x_t)
+    g, n, f = _dims(adj_i8, x_t, (torch.int8,))
     dev = x_t.device
     c1, c2 = w1.shape[-1], w2.shape[-1]
     _require(x_t, "x_t", torch.float32, (f, g * n), dev)
@@ -342,7 +392,7 @@ def tower_bwd_kernel(adj_i8: torch.Tensor, g_pool: torch.Tensor, sign: torch.Ten
     broadcast over each graph's nodes) and ``t1 = A ((w2 t2) ⊙ [h1 > 0])``
     (``[C1, G*N]``). The weight gradients are ``dw2 = h1 t2ᵀ`` and
     ``dw1 = x_t t1ᵀ``."""
-    g, n, c2 = _dims(adj_i8, sign)
+    g, n, c2 = _dims(adj_i8, sign, (torch.int8,))
     dev = sign.device
     c1 = h1.shape[0]
     _require(sign, "sign", torch.uint8, (c2, g * n), dev)

@@ -1,5 +1,6 @@
 """Community and graph pooling (port of ``deeprank2_tpu/ops/pooling.py``:
-``member_max_pool``, ``diag_depth0_pool``, ``tiled_graph_mean_pool``,
+``member_max_pool``, ``diag_depth0_pool``, the fast models' shared depth-1
+pool and mean ``depth1_graph_mean``, ``tiled_graph_mean_pool``,
 ``tiled_graph_mean_pool_rows``, and the COO ``pool_edges_coalesce``,
 ``community_pool``, ``max_pool_x`` and ``graph_mean_pool``).
 
@@ -102,6 +103,21 @@ def diag_depth0_pool(h_t: torch.Tensor, batch) -> torch.Tensor:
     if hp3.shape[2] < k_cap:
         hp3 = torch.nn.functional.pad(hp3, (0, k_cap - hp3.shape[2]))
     return hp3.reshape(f, num_graphs * k_cap)
+
+
+def depth1_graph_mean(h2_t: torch.Tensor, batch) -> torch.Tensor:
+    """The clustered fast layouts' head input, ``[G, F]``: the depth-1 max
+    pool of the pooled-graph activations ``h2_t [F, Vp]`` and the per-graph
+    mean over the depth-1 slots (reference ``max_pool_x`` + ``scatter_mean``),
+    for a :class:`~deeprank2_tpu_torch.ops.batch.DiagClusteredBatch` or a
+    :class:`~deeprank2_tpu_torch.ops.batch.ClusteredBlockSparseBatch`. The
+    segment max is the fallback when the collate declined the member
+    matrix."""
+    if batch.members1.numel():
+        hc = member_max_pool(h2_t.T, batch.members1, batch.cluster1)  # [C1, F]
+    else:
+        hc = segment_max(h2_t.T, batch.cluster1, batch.c1_graph.shape[0])
+    return segment_mean(hc, batch.c1_graph, batch.num_graphs)
 
 
 def _tile_means(tile_sums: torch.Tensor, node_graph: torch.Tensor, node_mask: torch.Tensor, num_graphs: int, block: int) -> torch.Tensor:

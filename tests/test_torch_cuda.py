@@ -13,11 +13,13 @@ import torch
 
 import numpy as np
 
-from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
+from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import FoutNetBlockSparse, GINetClusteredBlockSparse, SGATBlockSparse
+from deeprank2_tpu_torch.neuralnets.gnn.foutnet import FoutNetDiag
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag, GINetDense, set_dense_tower_backend
 from deeprank2_tpu_torch.neuralnets.gnn.ginet import GINet
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_nocluster import GINet as GINetNoCluster
+from deeprank2_tpu_torch.neuralnets.gnn.sgat import SGATDiag
 from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetwork, VanillaNetworkBlocked
 from deeprank2_tpu_torch.ops import block_sparse as bs
 from deeprank2_tpu_torch.ops import blocked_edges as be
@@ -459,3 +461,120 @@ def test_tower_pooled_matches_plain_version_and_counts_launches(cuda) -> None:
     # dw1 and dw2 sum 720 node terms that cancel: atol relative to their size
     for got, want in zip(*outs):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * want.abs().max().item())
+
+
+def _weighted_adjacency(g, n, dtype, dev, seed=0):
+    """A symmetric weighted adjacency (|N(0, 1)| + 0.1, summed over both
+    directions) on 10 % of the pairs, or on 16 neighbours a node where that
+    is fewer (a residue graph's degree: the sums stay of the size the
+    models give the kernel), with a masked, edgeless tail, stored as
+    ``dtype``."""
+    gen = torch.Generator().manual_seed(seed)
+    edges = torch.rand(g, n, n, generator=gen) < min(0.1, 16 / n)
+    edges = edges | edges.transpose(1, 2)
+    mask = torch.ones(g, n, dtype=torch.bool)
+    mask[:, n - n // 5 :] = False
+    edges &= mask[:, :, None] & mask[:, None, :]
+    w = torch.randn(g, n, n, generator=gen).abs() + 0.1
+    w = (w + w.transpose(1, 2)) * edges
+    return w.to(dtype).to(dev), mask.to(dev)
+
+
+# the sGAT widths (16, 32), a ragged one (38); N=336 and the largest N of
+# each adjacency type need the shared-memory opt-in
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(("g", "n", "f"), [(5, 100, 16), (3, 64, 38), (2, 336, 32), (2, "max", 16)])
+def test_weighted_diag_kernels_match_plain_versions(cuda, dtype, g, n, f) -> None:
+    if n == "max":
+        n = ds.max_nodes(dtype)
+    adj, mask = _weighted_adjacency(g, n, dtype, cuda, seed=n)
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    x = torch.randn(f, g * n, generator=gen, device=cuda)
+    g_pool = torch.randn(f, g, generator=gen, device=cuda)
+    ds.reset_launches()
+    torch.testing.assert_close(ds.diag_kernel(adj, x), ds.diag_kernel_ref(adj, x), **TOL)
+    h = ds.diag_kernel_ref(adj, x, mask, "relu_mask")
+    torch.testing.assert_close(ds.diag_kernel(adj, x, mask, "relu_mask"), h, **TOL)
+    sign, pooled = ds.diag_kernel(adj, x, mask, "relu_mask_pool")
+    sign_ref, pooled_ref = ds.diag_kernel_ref(adj, x, mask, "relu_mask_pool")
+    torch.testing.assert_close(pooled, pooled_ref, **TOL)
+    assert not ((sign != sign_ref) & (h.abs() > TOL["atol"])).any()
+    torch.testing.assert_close(ds.pool_bwd_kernel(adj, sign_ref, g_pool), ds.pool_bwd_kernel_ref(adj, sign_ref, g_pool), **TOL)
+    form = ds.dtype_name(dtype)
+    assert ds.launches_by_dtype["diag_kernel"][form] == ds.launches["diag_kernel"] == 3
+    assert ds.launches_by_dtype["pool_bwd_kernel"][form] == ds.launches["pool_bwd_kernel"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+def test_diag_kernels_raise_one_node_past_the_largest(cuda, dtype) -> None:
+    n = ds.max_nodes(dtype) + 1
+    adj = torch.zeros(1, n, n, dtype=dtype, device=cuda)
+    x = torch.randn(4, n, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ds.diag_kernel(adj, x)
+
+
+# several chunks with trailing capacity pads (F=16 and 38 in one 32- or
+# 64-feature slice), one chunk at F=32 and F=70 (two slices), an empty graph
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(("n", "chunk_tiles", "f"), [(2200, 3, 16), (2200, 3, 38), (1500, None, 32), (1500, None, 70), (0, None, 16)])
+def test_weighted_bcsr_kernel_matches_plain_version(cuda, dtype, n, chunk_tiles, f) -> None:
+    pairs = _locality_pairs(n, seed=n) if n else np.zeros((0, 2), np.int64)
+    pairs = np.concatenate([pairs, pairs[:30], [[3, 3]]]) if n else pairs  # duplicate pairs and a self-loop
+    weights = np.abs(np.random.default_rng(n).normal(size=len(pairs))).astype(np.float32) + 0.1
+    st = bs.build_blocksparse(pairs, max(n, 10), chunk_tiles=chunk_tiles, weights=weights, weight_dtype=dtype, device=cuda)
+    assert st.blocks_t.dtype == dtype
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    x = torch.randn(f, st.padded_nodes, generator=gen, device=cuda)
+    cot = torch.randn(f, st.padded_rows, generator=gen, device=cuda)
+    bs.reset_launches()
+    out = bs.bcsr_spmm_kernel(st, x)
+    torch.testing.assert_close(out, bs.bcsr_spmm_kernel_ref(st, x), **TOL)
+    xk = x.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(bs.bcsr_spmm_t(st, xk), xk, cot)
+    torch.testing.assert_close(grad, bs.bcsr_spmm_kernel_ref(st, cot), **TOL)
+    assert bs.launches_by_dtype["bcsr_spmm_kernel"][bs.dtype_name(dtype)] == bs.launches["bcsr_spmm_kernel"] == 3
+    if not n:
+        assert not out.any()
+
+
+# (model, layout, weighted adjacency)
+SGAT_FOUTNET = {
+    "sgat_diag": (SGATDiag, "diag", True),
+    "foutnet_diag": (FoutNetDiag, "diag", False),
+    "sgat_bcsr": (SGATBlockSparse, "bcsr", True),
+    "foutnet_bcsr": (FoutNetBlockSparse, "bcsr", False),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(SGAT_FOUTNET))
+def test_sgat_and_foutnet_train_steps_match_cpu_and_count_launches(cuda, kind) -> None:
+    cls, layout, weighted = SGAT_FOUTNET[kind]
+    if layout == "diag":
+        entries = ppi_clustered_entries(6, 40, 38, seed=2)
+        entries[1]["y"] = None
+        batch, _ = collate_graphs_diag_clustered(entries, pad_graphs=8, with_edge_weights=weighted, min_slot_nodes=1, device=cuda)
+        kernels, module = "diag_kernel", ds
+    else:
+        entries = [clustered_entry(n, 38, seed=i) for i, n in enumerate((3000, 1300))]
+        entries[1]["y"] = 0.0
+        batch, _ = collate_graphs_blocksparse_clustered(entries, pad_graphs=3, with_edge_weights=weighted, slot8=True, device=cuda)
+        kernels, module = "bcsr_spmm_kernel", bs
+    model, cpu_model = cls(38, 2, 1, device=cuda), cls(38, 2, 1, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loss_fn = CrossEntropyLoss()
+    for m in (bs, ds, sp):
+        m.reset_launches()
+    loss = loss_fn(model(batch), batch.y, batch.y_mask)
+    loss.backward()
+    # two aggregations forward and their two VJPs, on the adjacency's form
+    form = "bfloat16" if weighted else "int8"
+    assert module.launches_by_dtype[kernels] == {k: 4 if k == form else 0 for k in module.launches_by_dtype[kernels]}
+    assert sp.launches == {"slot_fwd_kernel": 1, "slot_bwd_kernel": 1}
+    assert sum(v for m in (bs, ds) for v in m.launches.values()) == 4
+    cpu_batch = batch.to("cpu")
+    cpu_loss = loss_fn(cpu_model(cpu_batch), cpu_batch.y, cpu_batch.y_mask)
+    cpu_loss.backward()
+    torch.testing.assert_close(loss.detach().cpu(), cpu_loss.detach(), rtol=1e-4, atol=1e-5)
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)

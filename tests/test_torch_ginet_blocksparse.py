@@ -105,8 +105,8 @@ def test_collate_clustered_matches_jax_field_for_field(variant) -> None:
     assert got.structure.num_chunks > 1
     assert bool(got.slot_cluster.numel()) == slot8
     _assert_batch_equal(got, want)
-    # the JAX batch's edge-weighted fields, which the port leaves to the sGAT slice, are empty here
-    assert np.asarray(want.wsum).size == np.asarray(want.wsum_p).size == 0
+    # the edge-weighted fields are empty in an unweighted batch, in both packages
+    assert np.asarray(want.wsum).size == np.asarray(want.wsum_p).size == got.wsum.numel() == got.wsum_p.numel() == 0
 
 
 def test_slot8_plan_matches_jax() -> None:
@@ -119,8 +119,9 @@ def test_slot8_plan_matches_jax() -> None:
 
 def test_collates_reject_what_is_not_ported_or_does_not_fit() -> None:
     entries = _clustered((300, 200))
-    with pytest.raises(NotImplementedError):
-        tbatch.collate_graphs_blocksparse_clustered(entries, with_edge_weights=True, device="cpu")
+    # the weighted collate takes the storage types of the kernels only
+    with pytest.raises(ValueError, match="weight_dtype"):
+        tbatch.collate_graphs_blocksparse_clustered(entries, with_edge_weights=True, weight_dtype=torch.float16, device="cpu")
     for collate in (tbatch.collate_graphs_blocksparse, tbatch.collate_graphs_blocksparse_clustered):
         with pytest.raises(ValueError, match="exceed pad_graphs"):
             collate(entries, pad_graphs=1, device="cpu")

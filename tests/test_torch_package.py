@@ -36,10 +36,12 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.neuralnets.param_interop",
     "deeprank2_tpu_torch.neuralnets.gnn",
     "deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse",
+    "deeprank2_tpu_torch.neuralnets.gnn.foutnet",
     "deeprank2_tpu_torch.neuralnets.gnn.ginet",
     "deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse",
     "deeprank2_tpu_torch.neuralnets.gnn.ginet_dense",
     "deeprank2_tpu_torch.neuralnets.gnn.ginet_nocluster",
+    "deeprank2_tpu_torch.neuralnets.gnn.sgat",
     "deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn",
 ]
 
@@ -227,6 +229,42 @@ def test_fused_tower_entry_points_raise_without_cuda(no_cuda) -> None:
         set_dense_tower_backend("xla")
     assert ginet_tower_pooled(w1, w2, batch.x, batch.adj_i8, batch.node_mask).shape == (2, 64)
     assert tower_pooled(batch.adj_i8, batch.node_mask, batch.x_t, w1, w2).shape == (64, 2)
+
+
+def test_foutnet_and_sgat_entry_points_raise_without_cuda(no_cuda) -> None:
+    from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import FoutNetBlockSparse, SGATBlockSparse
+    from deeprank2_tpu_torch.neuralnets.gnn.foutnet import FoutNet, FoutNetDiag
+    from deeprank2_tpu_torch.neuralnets.gnn.sgat import SGAT, SGATDiag
+    from deeprank2_tpu_torch.ops.batch import collate_graphs, collate_graphs_blocksparse_clustered, collate_graphs_diag_clustered
+    from deeprank2_tpu_torch.ops.block_sparse import build_blocksparse
+    from deeprank2_tpu_torch.ops.synthetic import clustered_entry, ppi_clustered_entries
+
+    entries = ppi_clustered_entries(2, 20, 4, seed=0)
+    bcsr_entries = [clustered_entry(300, 4, seed=0)]
+    und = bcsr_entries[0]["edge_index"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_blocksparse(und, 300, weights=bcsr_entries[0]["edge_attr"][:, 0])
+    for min_slot_nodes in (1, 5):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            collate_graphs_diag_clustered(entries, with_edge_weights=True, min_slot_nodes=min_slot_nodes)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        collate_graphs_blocksparse_clustered(bcsr_entries, with_edge_weights=True, slot8=True)
+    batches = {
+        "coo": collate_graphs(entries, device="cpu")[0],
+        "diag": collate_graphs_diag_clustered(entries, device="cpu")[0],
+        "diag_weighted": collate_graphs_diag_clustered(entries, with_edge_weights=True, device="cpu")[0],
+        "bcsr": collate_graphs_blocksparse_clustered(bcsr_entries, slot8=True, device="cpu")[0],
+        "bcsr_weighted": collate_graphs_blocksparse_clustered(bcsr_entries, with_edge_weights=True, slot8=True, device="cpu")[0],
+    }
+    for name in ("diag_weighted", "bcsr_weighted"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            batches[name].to("cuda")
+    models = {FoutNet: "coo", SGAT: "coo", FoutNetDiag: "diag", SGATDiag: "diag_weighted", FoutNetBlockSparse: "bcsr", SGATBlockSparse: "bcsr_weighted"}
+    for cls, name in models.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(4, 2, 1)
+        batch = batches[name]
+        assert cls(4, 2, 1, device="cpu")(batch).shape == (batch.num_graphs, 2)
 
 
 @pytest.mark.parametrize("alone", [False, True])
