@@ -180,9 +180,35 @@ Phases, each printing one JSON line:
    profile;
 26. the four against their COO oracle (SGAT, FoutNet) in f64, with f32
    weight storage, logits and the head's gradients at the 1e-4 gate, the
-   conv gradients reported under both max-pool tie rules.
+   conv gradients reported under both max-pool tie rules;
+27. the single-pass bf16 forms (compute_dtype=bfloat16) against their plain
+   versions on the card, which round at the same points (both sum in f32,
+   only the order differs; the tolerances of phases 2, 8, 11 and 20): K1
+   and K2 on the int8 adjacencies of the dense and clustered Diag paths, on
+   sGAT's bf16 one and at the largest N of each adjacency type
+   (diag_max_nodes), every mode and both layer VJPs; K5 on the int8 blocks
+   of both BCSR paths, on sGAT's bf16 blocks and on f32 ones (which the bf16
+   form rounds); K6f and K6b at the atomic blocked graph, a ragged batch and
+   no edges. The launch counters by form must show every call on its bf16
+   form;
+28. their times at the bf16 paths' calls (bf16 operands, 2 bytes an entry
+   in the bounds) beside the f32 form's on the same values, torch.bmm on
+   bf16 operands (K1, K2) and cuSPARSE on bf16 values where it takes them
+   (K5); the bf16-adjacency, bf16-block and f32-block forms on no path's
+   step;
+29-32. the bf16 train paths of the JAX bench (bench.py:129,179,229,324):
+   GINetDense(38, 2, 6) on the bench batch (dense_bf16: K1 3*S + 2 and K2 S
+   of the int8/bfloat16 form), GINetBlockSparse(38, 2, 6) on the atomic
+   BCSR batch (bcsr_bf16: K5 4*S + 2), GINetClusteredBlockSparse(38, 2, 1)
+   on the clustered one (clustered_bcsr_bf16: K5 4*S + 2, K3 S + 1, K4 S)
+   and VanillaNetworkBlocked(38, 2, 6) on the atomic blocked batch
+   (blocked_bf16: K6f 2*S + 2, K6b 2*S), with no launch of any f32 form:
+   each one step against the CPU (which runs the same bf16 forms in their
+   plain versions) at BF16_STEP_TOL, S = BCSR_STEPS steps and one eval
+   forward with the counters at 0, and a profile; then GINetClusteredDiag's
+   bf16 step against the CPU.
 
-Then the ``kernels`` line (K1, K2 and K5 also by adjacency or block type),
+Then the ``kernels`` line (K1, K2, K5, K6f and K6b also by form),
 the card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without CUDA, or without the package beside this file, it exits non-zero
 before printing any result.
@@ -224,6 +250,12 @@ SGAT_FOUTNET_GRAD_TOL = {"rtol": 1e-4, "atol": 1e-5}
 SGAT_FOUTNET_STEPS = 20
 SGAT_FOUTNET_CHECK_NODES = 20_000
 CLUSTERED_TOL = {"rtol": 1e-4, "atol": 1e-5}
+# the bf16 paths' steps against the CPU: their bf16 forms round values that
+# the card and the CPU sum in different orders (the f32 weight products,
+# the bf16 GEMMs of GINetDense), so a value can land on the neighbouring bf16
+# number; atol is one bf16 step at the tensor's largest magnitude (a bf16
+# holds 8 significant bits: one step is 2^-8 to 2^-7 of the value)
+BF16_STEP_TOL = {"rtol": 1e-4, "atol_share": 2.0**-7}
 # f32 on both sides: the largest gradient error seen on the card is ~3e-7
 CLUSTERED_GRAD_TOL = {"rtol": 1e-4, "atol": 1e-6}
 # dw_e sums one product per edge (3.3M at the atomic graph) in an order of its
@@ -356,8 +388,10 @@ class Counters:
         return {k: v for m in self.modules for k, v in m.launches.items()}
 
     def read_forms(self) -> dict:
-        """The nonzero launch counts of K1, K2 and K5 by adjacency or block
-        type, as ``"kernel[type]"``."""
+        """The nonzero launch counts of K1, K2, K5, K6f and K6b by form, as
+        ``"kernel[form]"``: ``"int8/bfloat16"`` (adjacency or block type,
+        then activation type) for K1, K2 and K5, the activation type for
+        K6f and K6b."""
         return {f"{k}[{form}]": n for m in self.modules for k, forms in getattr(m, "launches_by_dtype", {}).items() for form, n in forms.items() if n}
 
 
@@ -392,12 +426,16 @@ class Checks:
         self.torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{kernel} {what}: {m}")
 
 
-def check_diag_kernels(torch, ds, checks, shapes, dev) -> None:
+def check_diag_kernels(torch, ds, checks, shapes, dev, compute_dtype=None) -> None:
     """diag_kernel and pool_bwd_kernel against their plain versions, directly
-    and through the autograd Functions."""
-
+    and through the autograd Functions, in the kernel form ``compute_dtype``
+    selects. The f32 form's layer VJPs are held against autograd through the
+    plain layers; the bf16 form's against the plain kernels on the cotangent
+    (its VJP rounds the cotangent to bf16 in the kernel, which autograd
+    through a plain layer would not)."""
+    cd = compute_dtype
     for tag, adj, mask, feats in shapes:
-        form = ds.dtype_name(adj.dtype)
+        form = ds.form_name(adj.dtype, ds.activation_dtype(cd))
 
         def close(kernel, what, got, want, form=form):
             checks.close(kernel, what, got, want, TOL, form)
@@ -406,11 +444,11 @@ def check_diag_kernels(torch, ds, checks, shapes, dev) -> None:
         g, n, _ = adj.shape
         for f in feats:
             x = torch.randn(f, g * n, generator=gen, device=dev)
-            close("diag_kernel", f"{tag} plain F={f}", ds.diag_kernel(adj, x), ds.diag_kernel_ref(adj, x))
-            h_ref = ds.diag_kernel_ref(adj, x, mask, "relu_mask")
-            close("diag_kernel", f"{tag} relu_mask F={f}", ds.diag_kernel(adj, x, mask, "relu_mask"), h_ref)
-            sign, pooled = ds.diag_kernel(adj, x, mask, "relu_mask_pool")
-            sign_ref, pooled_ref = ds.diag_kernel_ref(adj, x, mask, "relu_mask_pool")
+            close("diag_kernel", f"{tag} plain F={f}", ds.diag_kernel(adj, x, compute_dtype=cd), ds.diag_kernel_ref(adj, x, compute_dtype=cd))
+            h_ref = ds.diag_kernel_ref(adj, x, mask, "relu_mask", cd)
+            close("diag_kernel", f"{tag} relu_mask F={f}", ds.diag_kernel(adj, x, mask, "relu_mask", cd), h_ref)
+            sign, pooled = ds.diag_kernel(adj, x, mask, "relu_mask_pool", cd)
+            sign_ref, pooled_ref = ds.diag_kernel_ref(adj, x, mask, "relu_mask_pool", cd)
             close("diag_kernel", f"{tag} relu_mask_pool pooled F={f}", pooled, pooled_ref)
             # the stored sign may differ only where h is zero to summation order
             flips = ((sign != sign_ref) & (h_ref.abs() > TOL["atol"])).sum().item()
@@ -419,17 +457,24 @@ def check_diag_kernels(torch, ds, checks, shapes, dev) -> None:
                 msg = f"diag_kernel pool-mode sign differs from the plain version at {flips} values clear of zero"
                 raise AssertionError(msg)
             g_pool = torch.randn(f, g, generator=gen, device=dev)
-            close("pool_bwd_kernel", f"{tag} direct F={f}", ds.pool_bwd_kernel(adj, sign_ref, g_pool), ds.pool_bwd_kernel_ref(adj, sign_ref, g_pool))
+            close("pool_bwd_kernel", f"{tag} direct F={f}", ds.pool_bwd_kernel(adj, sign_ref, g_pool, cd), ds.pool_bwd_kernel_ref(adj, sign_ref, g_pool, cd))
             # through the autograd Functions: the layer-1 VJP is diag_kernel
             # plain, the pooled layer's VJP is pool_bwd_kernel
             cot = torch.randn(f, g * n, generator=gen, device=dev)
             for layer, kernel, cotangent in (("diag_layer_t", "diag_kernel", cot), ("diag_layer_pool_t", "pool_bwd_kernel", g_pool)):
                 xk = x.clone().requires_grad_(True)
-                xr = x.clone().requires_grad_(True)
-                out_k = getattr(ds, layer)(adj, mask, xk)
-                out_r = getattr(ds, f"{layer}_ref")(adj, mask, xr)
+                out_k = getattr(ds, layer)(adj, mask, xk, cd)
                 (gk,) = torch.autograd.grad(out_k, xk, cotangent)
-                (gr,) = torch.autograd.grad(out_r, xr, cotangent)
+                if cd is None:
+                    xr = x.clone().requires_grad_(True)
+                    out_r = getattr(ds, f"{layer}_ref")(adj, mask, xr)
+                    (gr,) = torch.autograd.grad(out_r, xr, cotangent)
+                elif layer == "diag_layer_t":
+                    out_r = h_ref
+                    gr = ds.diag_kernel_ref(adj, cot * (h_ref > 0).float(), compute_dtype=cd)
+                else:
+                    out_r = pooled_ref
+                    gr = ds.pool_bwd_kernel_ref(adj, sign_ref, g_pool, cd)
                 close("diag_kernel", f"{tag} {layer} fwd F={f}", out_k.detach(), out_r.detach())
                 close(kernel, f"{tag} {layer} vjp F={f}", gk, gr)
     sync(torch, dev)
@@ -488,8 +533,10 @@ def check_slot_kernels(torch, sp, checks, shapes, dev) -> None:
 
 def card_vs_cpu_step(torch, model, batch, loss_fn, cpu_model_factory, tol, grad_tol) -> tuple[dict, object, object]:
     """One dropout-free step (logits, loss, every gradient) on the model's
-    device and on the CPU from the same parameters and batch. Returns the
-    errors, the CPU model and the CPU batch."""
+    device and on the CPU from the same parameters and batch. A tolerance
+    may give ``atol_share`` instead of ``atol``: that share of the CPU
+    value's largest magnitude. Returns the errors, the CPU model and the CPU
+    batch."""
     cpu_model = cpu_model_factory()
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     cpu_batch = batch.to("cpu")
@@ -507,6 +554,8 @@ def card_vs_cpu_step(torch, model, batch, loss_fn, cpu_model_factory, tol, grad_
         raise AssertionError(msg)
     errs = {}
     for name, got, want, t in [("logits", lg, lc, tol), ("loss", ls, lsc, tol), *[(f"grad {k}", gr[k], grc[k], grad_tol) for k in gr]]:
+        if "atol_share" in t:
+            t = {"rtol": t["rtol"], "atol": t["atol_share"] * want.abs().max().item()}
         torch.testing.assert_close(got, want, **t, msg=lambda m, name=name: f"card vs CPU {name}: {m}")
         errs[name] = (got - want).abs().max().item()
     return {"loss": ls.item(), "max_abs_err": errs}, cpu_model, cpu_batch
@@ -538,7 +587,7 @@ def run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps,
     """``steps`` train steps and one eval forward, with the launch counters
     set to 0 just before and read just after; ``want`` is the expected count
     of every kernel and ``want_forms``, where given, of every nonzero count
-    by adjacency or block type (``"kernel[type]"``)."""
+    by form (``"kernel[form]"``, :meth:`Counters.read_forms`)."""
     drop_gen = torch.Generator(device=dev).manual_seed(1)
 
     def train_step():
@@ -566,7 +615,7 @@ def run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps,
         msg = f"main path launches {launches}, expected {want}"
         raise AssertionError(msg)
     if dev.type == "cuda" and want_forms is not None and forms != want_forms:
-        msg = f"main path launches by type {forms}, expected {want_forms}"
+        msg = f"main path launches by form {forms}, expected {want_forms}"
         raise AssertionError(msg)
     if not torch.isfinite(losses).all() or not torch.isfinite(eval_logits).all() or tuple(eval_logits.shape) != (batch.num_graphs, 2):
         msg = f"non-finite or misshapen results: losses {losses.tolist()}, logits {tuple(eval_logits.shape)}"
@@ -617,47 +666,63 @@ def bound(in_bytes, out_bytes, flop, peak_bw, peak_f32) -> dict:
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": in_bytes + out_bytes}
 
 
-def time_diag_calls(torch, ds, timer, path, adj, mask, specs, peak_bw, peak_f32) -> list:
+def time_diag_calls(torch, ds, timer, path, adj, mask, specs, peak_bw, peak_f32, compute_dtype=None) -> list:
     """Kernel, plain-version and library times of diag_kernel and
     pool_bwd_kernel at one adjacency, with each call's bound (bytes: inputs
     read once, outputs written once; operations: the products this
-    adjacency's nonzeros need)."""
+    adjacency's nonzeros need). The bf16 form is timed on bf16 activations
+    (what its path hands it; 2 bytes an entry in the bound), beside its f32
+    form on the same values (``f32_form_ms``), and the library call is
+    ``torch.bmm`` on bf16 operands."""
+    act = ds.activation_dtype(compute_dtype)
     g, n, _ = adj.shape
-    adj_f32 = adj.float()
+    adj_lib = adj.to(torch.float32 if act == torch.float32 else torch.bfloat16)
     adj_bytes = adj.numel() * adj.element_size()
+    xb = torch.tensor([], dtype=act).element_size()
     nnz = int(adj.count_nonzero().item())
     gen = torch.Generator(device="cuda").manual_seed(11)
     calls = []
     for kernel, mode, f, *per_step in specs:
-        x = torch.randn(f, g * n, generator=gen, device="cuda")
+        x = torch.randn(f, g * n, generator=gen, device="cuda").to(act)
         x_gnf = x.reshape(f, g, n).permute(1, 2, 0).contiguous()
         if kernel == "diag_kernel":
             m = None if mode == "plain" else mask
-            run = lambda x=x, m=m, mode=mode: ds.diag_kernel(adj, x, m, mode)  # noqa: E731
-            plain = lambda x=x, m=m, mode=mode: ds.diag_kernel_ref(adj, x, m, mode)  # noqa: E731
-            in_bytes = adj_bytes + 4 * f * g * n + (0 if mode == "plain" else g * n)
+
+            def run(x=x, m=m, mode=mode, cd=compute_dtype):
+                return ds.diag_kernel(adj, x, m, mode, cd)
+
+            plain = lambda x=x, m=m, mode=mode: ds.diag_kernel_ref(adj, x, m, mode, compute_dtype)  # noqa: E731
+            in_bytes = adj_bytes + xb * f * g * n + (0 if mode == "plain" else g * n)
             out_bytes = (f * g * n + 4 * f * g) if mode == "relu_mask_pool" else 4 * f * g * n
         else:
-            sign, _ = ds.diag_kernel(adj, x, mask, "relu_mask_pool")
-            g_pool = torch.randn(f, g, generator=gen, device="cuda")
-            run = lambda sign=sign, g_pool=g_pool: ds.pool_bwd_kernel(adj, sign, g_pool)  # noqa: E731
-            plain = lambda sign=sign, g_pool=g_pool: ds.pool_bwd_kernel_ref(adj, sign, g_pool)  # noqa: E731
-            in_bytes = adj_bytes + f * g * n + 4 * f * g
+            sign, _ = ds.diag_kernel(adj, x, mask, "relu_mask_pool", compute_dtype)
+            g_pool = torch.randn(f, g, generator=gen, device="cuda").to(act)
+
+            def run(sign=sign, g_pool=g_pool, cd=compute_dtype):
+                return ds.pool_bwd_kernel(adj, sign, g_pool, cd)
+
+            plain = lambda sign=sign, g_pool=g_pool: ds.pool_bwd_kernel_ref(adj, sign, g_pool, compute_dtype)  # noqa: E731
+            in_bytes = adj_bytes + f * g * n + xb * f * g
             out_bytes = 4 * f * g * n
-        library = lambda x_gnf=x_gnf: torch.bmm(adj_f32, x_gnf)  # noqa: E731
+        library = lambda x_gnf=x_gnf: torch.bmm(adj_lib, x_gnf)  # noqa: E731
         flop = 2 * f * nnz
+        extra = {}
+        if act != torch.float32:
+            f32_args = (x.float(),) if kernel == "diag_kernel" else (sign, g_pool.float())
+            extra["f32_form_ms"] = timer.ms(lambda run=run, a=f32_args: run(*a, cd=None))
         calls.append(
             {
                 "path": path,
                 "kernel": kernel,
                 "mode": mode or "pool_bwd",
-                "form": ds.dtype_name(adj.dtype),
+                "form": ds.form_name(adj.dtype, act),
                 "shape": [g, n, n],
                 "F": f,
                 "per_step": per_step[0] if per_step else 1,
                 "ms": timer.ms(run),
                 "plain_ms": timer.ms(plain),
                 "library_ms": timer.ms(library),
+                **extra,
                 **bound(in_bytes, out_bytes, flop, peak_bw, peak_f32),
                 "adjacency_nnz": nnz,
                 "flop_needed": flop,
@@ -703,36 +768,38 @@ def time_slot_calls(torch, sp, timer, path, mask_row, specs, peak_bw, peak_f32) 
     return calls
 
 
-def check_bcsr_kernel(torch, bs, checks, shapes, dev) -> None:
+def check_bcsr_kernel(torch, bs, checks, shapes, dev, compute_dtype=None) -> None:
     """bcsr_spmm_kernel against its plain version, directly and through
-    bcsr_spmm_t's autograd (whose VJP is the same SpMM of the cotangent).
-    int8 0/1 blocks within TOL; weighted blocks within rtol 1e-5 and an atol
-    of DW_TOL times the largest sum of the products' absolute values (at
-    least TOL's atol): a pooled pair's weight sums its member edges' (tens),
-    so a row's products reach hundreds and another f32 summation order moves
-    the sum by more than 1e-5."""
+    bcsr_spmm_t's autograd (whose VJP is the same SpMM of the cotangent), in
+    the kernel form ``compute_dtype`` selects. int8 0/1 blocks within TOL;
+    weighted blocks within rtol 1e-5 and an atol of DW_TOL times the largest
+    sum of the products' absolute values (at least TOL's atol): a pooled
+    pair's weight sums its member edges' (tens), so a row's products reach
+    hundreds and another f32 summation order moves the sum by more than
+    1e-5."""
     import dataclasses
 
+    cd = compute_dtype
     for tag, st, feats in shapes:
         gen = torch.Generator(device=dev).manual_seed(len(checks.rows))
-        form = bs.dtype_name(st.blocks_t.dtype)
+        form = bs.form_name(st.blocks_t.dtype, bs.activation_dtype(cd))
         st_abs = dataclasses.replace(st, blocks_t=st.blocks_t.abs())
 
         def tol(v, st_abs=st_abs, form=form):
-            if form == "int8":
+            if form.startswith("int8/"):
                 return TOL
             return {"rtol": TOL["rtol"], "atol": max(TOL["atol"], DW_TOL * bs.bcsr_spmm_kernel_ref(st_abs, v.abs()).max().item())}
 
         for f in feats:
             x = torch.randn(f, st.padded_nodes, generator=gen, device=dev)
             t = tol(x)
-            checks.close("bcsr_spmm_kernel", f"{tag} direct F={f}", bs.bcsr_spmm_kernel(st, x), bs.bcsr_spmm_kernel_ref(st, x), t, form)
+            checks.close("bcsr_spmm_kernel", f"{tag} direct F={f}", bs.bcsr_spmm_kernel(st, x, cd), bs.bcsr_spmm_kernel_ref(st, x, cd), t, form)
             checks.rows[-1]["atol"] = t["atol"]
             cot = torch.randn(f, st.padded_rows, generator=gen, device=dev)
             xk = x.clone().requires_grad_(True)
-            (grad,) = torch.autograd.grad(bs.bcsr_spmm_t(st, xk), xk, cot)
+            (grad,) = torch.autograd.grad(bs.bcsr_spmm_t(st, xk, cd), xk, cot)
             t = tol(cot)
-            checks.close("bcsr_spmm_kernel", f"{tag} bcsr_spmm_t vjp F={f}", grad, bs.bcsr_spmm_kernel_ref(st, cot), t, form)
+            checks.close("bcsr_spmm_kernel", f"{tag} bcsr_spmm_t vjp F={f}", grad, bs.bcsr_spmm_kernel_ref(st, cot, cd), t, form)
             checks.rows[-1]["atol"] = t["atol"]
     sync(torch, dev)
 
@@ -749,11 +816,15 @@ def csr_of(torch, st):
     return coo.coalesce().to_sparse_csr()
 
 
-def time_bcsr_calls(torch, bs, timer, path, batch, specs, peak_bw, peak_f32) -> list:
+def time_bcsr_calls(torch, bs, timer, path, batch, specs, peak_bw, peak_f32, compute_dtype=None) -> list:
     """Kernel, plain-version and cuSPARSE times of bcsr_spmm_kernel at one
     path's structures, with each call's bound: bytes, the nonzero blocks, x
     and the row-tile index read once and the output written once;
-    operations, 2*F per directed edge (the products these edges need)."""
+    operations, 2*F per directed edge (the products these edges need). The
+    bf16 form is timed on bf16 x (2 bytes an entry in the bound), beside its
+    f32 form (``f32_form_ms``); its library call is cuSPARSE on bf16 values
+    and x where it takes them, else on f32 (``library_form`` says which)."""
+    act = bs.activation_dtype(compute_dtype)
     gen = torch.Generator(device="cuda").manual_seed(12)
     calls = []
     for name, f, per_step in specs:
@@ -761,9 +832,21 @@ def time_bcsr_calls(torch, bs, timer, path, batch, specs, peak_bw, peak_f32) -> 
         csr = csr_of(torch, st)
         nnz = csr._nnz()
         real = st.tile_blocks.numel()
-        x = torch.randn(f, st.padded_nodes, generator=gen, device="cuda")
+        x = torch.randn(f, st.padded_nodes, generator=gen, device="cuda").to(act)
         x_rows = x.T.contiguous()
-        in_bytes = real * st.block**2 * st.blocks_t.element_size() + 4 * f * st.padded_nodes + 4 * (2 * real + st.tile_ptr.numel())
+        lib_form = "float32"
+        if act != torch.float32:
+            try:
+                csr_b = csr.to(act)
+                (csr_b @ x_rows).sum().item()
+                csr, lib_form = csr_b, "bfloat16"
+            except RuntimeError as e:  # cuSPARSE refused bf16: the f32 call is the yardstick
+                lib_form = f"float32 (bf16 refused: {str(e).splitlines()[0][:120]})"
+                x_rows = x_rows.float()
+        extra = {"library_form": lib_form}
+        if act != torch.float32:
+            extra["f32_form_ms"] = timer.ms(lambda st=st, x32=x.float(): bs.bcsr_spmm_kernel(st, x32))
+        in_bytes = real * st.block**2 * st.blocks_t.element_size() + x.element_size() * f * st.padded_nodes + 4 * (2 * real + st.tile_ptr.numel())
         # source nodes (block rows) with an edge into the row tile: the share
         # of the dense product that meets a nonzero
         rows_share = st.blocks_t[st.tile_blocks.long()].ne(0).any(dim=2).float().mean().item() if real else 0.0
@@ -772,13 +855,14 @@ def time_bcsr_calls(torch, bs, timer, path, batch, specs, peak_bw, peak_f32) -> 
                 "path": path,
                 "kernel": "bcsr_spmm_kernel",
                 "mode": name,
-                "form": bs.dtype_name(st.blocks_t.dtype),
+                "form": bs.form_name(st.blocks_t.dtype, act),
                 "shape": {"blocks_stored": st.num_blocks, "blocks_nonzero": real, "chunks": st.num_chunks, "nodes": st.padded_nodes},
                 "F": f,
                 "per_step": per_step,
-                "ms": timer.ms(lambda st=st, x=x: bs.bcsr_spmm_kernel(st, x)),
-                "plain_ms": timer.ms(lambda st=st, x=x: bs.bcsr_spmm_kernel_ref(st, x)),
+                "ms": timer.ms(lambda st=st, x=x: bs.bcsr_spmm_kernel(st, x, compute_dtype)),
+                "plain_ms": timer.ms(lambda st=st, x=x: bs.bcsr_spmm_kernel_ref(st, x, compute_dtype)),
                 "library_ms": timer.ms(lambda csr=csr, x_rows=x_rows: csr @ x_rows),
+                **extra,
                 **bound(in_bytes, 4 * f * st.padded_rows, 2 * f * nnz, peak_bw, peak_f32),
                 "directed_edges": nnz,
                 "flop_dense": 2 * f * real * st.block**2,
@@ -796,25 +880,29 @@ def blocked_operands(torch, st, m, dev, seed):
     return xr, xc, torch.randn(st.edge_dim, m, generator=gen, device=dev), g
 
 
-def check_blocked_kernels(torch, be, vn, checks, shapes, dev) -> None:
+def check_blocked_kernels(torch, be, vn, checks, shapes, dev, compute_dtype=None) -> None:
     """blocked_fwd_kernel and blocked_bwd_kernel against their plain versions,
-    directly and through blocked_message_sum's autograd Function; a structure
-    without edges must give exact zeros."""
+    directly and through blocked_message_sum's autograd Function, in the
+    kernel form ``compute_dtype`` selects (kernel and plain version round at
+    the same points, on bit-identical pre-activations); a structure without
+    edges must give exact zeros."""
+    cd = compute_dtype
+    form = vn.dtype_name(vn.activation_dtype(cd))
     for tag, st, ms in shapes:
         for m in ms:
             xr, xc, w_e, g = blocked_operands(torch, st, m, dev, seed=len(checks.rows))
-            dw_tol = {"rtol": 1e-5, "atol": DW_TOL * vn.dw_error_scale(st, g).max().item() + 1e-6}
-            want_out = vn.blocked_fwd_kernel_ref(st, xr, xc, w_e)
-            want = vn.blocked_bwd_kernel_ref(st, xr, xc, w_e, g)
+            dw_tol = {"rtol": 1e-5, "atol": DW_TOL * vn.dw_error_scale(st, g, cd).max().item() + 1e-6}
+            want_out = vn.blocked_fwd_kernel_ref(st, xr, xc, w_e, cd)
+            want = vn.blocked_bwd_kernel_ref(st, xr, xc, w_e, g, cd)
             args = [t.clone().requires_grad_(True) for t in (xr, xc, w_e)]
-            out_fn = be.blocked_message_sum(st, *args)
+            out_fn = be.blocked_message_sum(st, *args, compute_dtype=cd)
             grads = torch.autograd.grad(out_fn, args, g)
-            direct = (vn.blocked_fwd_kernel(st, xr, xc, w_e), vn.blocked_bwd_kernel(st, xr, xc, w_e, g))
+            direct = (vn.blocked_fwd_kernel(st, xr, xc, w_e, cd), vn.blocked_bwd_kernel(st, xr, xc, w_e, g, cd))
             for how, (out, (dxr, dxc, dw_e)) in (("direct", direct), ("blocked_message_sum", (out_fn.detach(), grads))):
-                checks.close("blocked_fwd_kernel", f"{tag} {how} out M={m}", out, want_out, TOL)
-                checks.close("blocked_bwd_kernel", f"{tag} {how} dxr M={m}", dxr, want[0], TOL)
-                checks.close("blocked_bwd_kernel", f"{tag} {how} dxc M={m}", dxc, want[1], TOL)
-                checks.close("blocked_bwd_kernel", f"{tag} {how} dw_e M={m}", dw_e, want[2], dw_tol)
+                checks.close("blocked_fwd_kernel", f"{tag} {how} out M={m}", out, want_out, TOL, form)
+                checks.close("blocked_bwd_kernel", f"{tag} {how} dxr M={m}", dxr, want[0], TOL, form)
+                checks.close("blocked_bwd_kernel", f"{tag} {how} dxc M={m}", dxc, want[1], TOL, form)
+                checks.close("blocked_bwd_kernel", f"{tag} {how} dw_e M={m}", dw_e, want[2], dw_tol, form)
                 checks.rows[-1]["atol"] = dw_tol["atol"]
                 if not st.edge_order.numel() and any(t.any() for t in (out, dxr, dxc, dw_e)):
                     msg = f"{tag}: a structure without edges gave nonzero results"
@@ -823,7 +911,7 @@ def check_blocked_kernels(torch, be, vn, checks, shapes, dev) -> None:
     sync(torch, dev)
 
 
-def time_blocked_calls(torch, vn, timer, path, st, m, per_step, peak_bw, peak_f32) -> list:
+def time_blocked_calls(torch, vn, timer, path, st, m, per_step, peak_bw, peak_f32, compute_dtype=None) -> list:
     """Kernel and plain-version times of K6f and K6b at one structure, with
     each call's bound. Bytes: the real edges' index (edge_order and
     col_local, 8 B) and features (4·Fe B), row_ptr, sub_col, w_e and the node
@@ -831,27 +919,37 @@ def time_blocked_calls(torch, vn, timer, path, st, m, per_step, peak_bw, peak_f3
     and feature: 2·Fe + 4 forward (the edge term, two adds, the relu, the
     sum), 4·Fe + 8 backward (the edge term, both pre-activations, two
     selects and sums, dw_e's multiply-adds). No single PyTorch call computes
-    either function."""
-    xr, xc, w_e, g = blocked_operands(torch, st, m, "cuda", seed=13)
+    either function. The bf16 form is timed on bf16 operands (2 bytes a node
+    entry in the bound; the edge features stay f32), beside its f32 form
+    (``f32_form_ms``)."""
+    cd = compute_dtype
+    act = vn.activation_dtype(cd)
+    ops32 = blocked_operands(torch, st, m, "cuda", seed=13)
+    xr, xc, w_e, g = (t.to(act) for t in ops32)
     edges, fe = st.edge_order.numel(), st.edge_dim
-    shared = edges * (8 + 4 * fe) + 4 * (st.row_ptr.numel() + st.sub_col.numel() + fe * m)
-    node = 4 * st.padded_nodes * m
+    ab = xr.element_size()
+    shared = edges * (8 + 4 * fe) + 4 * (st.row_ptr.numel() + st.sub_col.numel()) + ab * fe * m
+    node_in, node_out = ab * st.padded_nodes * m, 4 * st.padded_nodes * m
     specs = (
-        ("blocked_fwd_kernel", lambda: vn.blocked_fwd_kernel(st, xr, xc, w_e), lambda: vn.blocked_fwd_kernel_ref(st, xr, xc, w_e), shared + 2 * node, node, 2 * fe + 4),
-        ("blocked_bwd_kernel", lambda: vn.blocked_bwd_kernel(st, xr, xc, w_e, g), lambda: vn.blocked_bwd_kernel_ref(st, xr, xc, w_e, g), shared + 3 * node, 2 * node + 4 * fe * m, 4 * fe + 8),
-    )
+        ("blocked_fwd_kernel", lambda c: vn.blocked_fwd_kernel(st, *((xr, xc, w_e) if c else ops32[:3]), c),
+         lambda: vn.blocked_fwd_kernel_ref(st, xr, xc, w_e, cd), shared + 2 * node_in, node_out, 2 * fe + 4),
+        ("blocked_bwd_kernel", lambda c: vn.blocked_bwd_kernel(st, *((xr, xc, w_e, g) if c else ops32), c),
+         lambda: vn.blocked_bwd_kernel_ref(st, xr, xc, w_e, g, cd), shared + 3 * node_in, 2 * node_out + 4 * fe * m, 4 * fe + 8),
+    )  # fmt: skip
     shape = {"nodes": st.padded_nodes, "real_edges": edges, "edge_slots": st.row_local.numel(), "edge_dim": fe}
     return [
         {
             "path": path,
             "kernel": kernel,
             "mode": "message sum",
+            "form": vn.dtype_name(act),
             "shape": shape,
             "F": m,
             "per_step": per_step,
-            "ms": timer.ms(run),
+            "ms": timer.ms(lambda run=run: run(cd)),
             "plain_ms": timer.ms(plain),
             "library_ms": None,
+            **({"f32_form_ms": timer.ms(lambda run=run: run(None))} if cd is not None else {}),
             **bound(in_bytes, out_bytes, ops * m * edges, peak_bw, peak_f32),
             "flop_needed": ops * m * edges,
         }
@@ -1292,11 +1390,12 @@ def fused_tower_drive(torch, ds, counters, b, w1, w2, steps, dev) -> dict:
 def kernels_line(calls, path_launches, errs, path_forms, form_errs, form_calls=()) -> list:
     """One entry per kernel: times and bounds summed over the kernel's calls in
     one train step of each path it runs on (also given by path); launches
-    summed over the counted runs of every path (also given by path). K1, K2
-    and K5 also by adjacency or block type (``forms``: int8 0/1, the bf16
-    and f32 weights of sGAT), each with its launches, its largest error and
-    every timed call of that type (the paths' calls and ``form_calls``, timed
-    on no path's step), per launch."""
+    summed over the counted runs of every path (also given by path). K1, K2,
+    K5, K6f and K6b also by form (``forms``: the adjacency or block type,
+    int8 0/1 or the bf16 and f32 weights of sGAT, then the activation type,
+    f32 or the single-pass bf16 form; K6 by activation type), each with its
+    launches, its largest error and every timed call of that form (the
+    paths' calls and ``form_calls``, timed on no path's step), per launch."""
 
     def total(rows, key):
         values = [c[key] for c in rows]
@@ -1341,7 +1440,7 @@ def kernels_line(calls, path_launches, errs, path_forms, form_errs, form_calls=(
                                 "launches": sum(launches.get(f"{name}[{form}]", 0) for launches in path_forms.values()),
                                 "max_abs_err": form_errs.get((name, form)),
                                 "calls": [
-                                    {k: c[k] for k in ("path", "mode", "F", "per_step", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms") if k in c}
+                                    {k: c[k] for k in ("path", "mode", "F", "per_step", "ms", "f32_form_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_form") if k in c}
                                     for c in by_form.get(form, [])
                                 ],
                             }
@@ -1399,12 +1498,13 @@ def clustered_path(torch, ds, counters, card, entries, layout_check, steps, dev,
 
 def bcsr_winner_flips(torch, bs, model, batch, cpu_model, cpu_batch) -> dict:
     """Slot groups of the layer-1 activation whose max-pool winner (first
-    max lane) differs between card and CPU: ties to summation-order error."""
+    max lane) differs between card and CPU: ties to summation-order error
+    (and, in the bf16 form, to the bf16 rounding it moves)."""
     hs = []
     with torch.no_grad():
         for m, b in ((model, batch), (cpu_model, cpu_batch)):
             w1_t, _ = m.fused_weights()
-            hs.append(torch.relu(bs.bcsr_spmm_t(b.structure, w1_t @ b.x.T)).cpu())
+            hs.append(torch.relu(bs.bcsr_spmm_t(b.structure, w1_t @ b.x.T, m.compute_dtype)).cpu())
     f, v = hs[0].shape
     win = [h.reshape(f, v // 8, 8).argmax(dim=2) for h in hs]
     live = hs[1].reshape(f, v // 8, 8).amax(dim=2) > 0
@@ -1426,6 +1526,7 @@ def checked_path(
     want_forms=None,
     check_batch=None,
     grad_tol=CLUSTERED_GRAD_TOL,
+    tol=CLUSTERED_TOL,
 ) -> dict:
     """Check one path (BCSR, blocked-edge, COO or Diag) against the CPU,
     drive it with the counters at 0, and profile a few of its steps. The
@@ -1438,8 +1539,8 @@ def checked_path(
     model = model_factory(dev)
     loss_fn = CrossEntropyLoss()
     checked = batch if check_batch is None else check_batch
-    step, cpu_model, cpu_batch = card_vs_cpu_step(torch, model, checked, loss_fn, lambda: model_factory("cpu"), CLUSTERED_TOL, grad_tol)
-    info = {"phase": f"{phase}_card_vs_cpu_step", "tolerance": CLUSTERED_TOL, "grad_tolerance": grad_tol, **step}
+    step, cpu_model, cpu_batch = card_vs_cpu_step(torch, model, checked, loss_fn, lambda: model_factory("cpu"), tol, grad_tol)
+    info = {"phase": f"{phase}_card_vs_cpu_step", "tolerance": tol, "grad_tolerance": grad_tol, **step}
     if check_batch is not None:
         info["checked_on"] = describe.get("check_batch", "a smaller batch")
     if flips is not None:
@@ -1447,9 +1548,7 @@ def checked_path(
     del cpu_model, cpu_batch
     # a cross-entropy that saturates on one confident graph has vanishing
     # gradients; the sum of the logits holds the whole backward all the same
-    probe, _, _ = card_vs_cpu_step(
-        torch, model, checked, lambda logits, y, y_mask: logits.sum(), lambda: model_factory("cpu"), CLUSTERED_TOL, grad_tol
-    )
+    probe, _, _ = card_vs_cpu_step(torch, model, checked, lambda logits, y, y_mask: logits.sum(), lambda: model_factory("cpu"), tol, grad_tol)
     emit({**info, "sum_of_logits_probe": probe})
     opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
     run = run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps, want_forms=want_forms)
@@ -1474,19 +1573,27 @@ def weighted_adjacency(torch, g, n, dtype, dev, seed):
     return ((w + w.transpose(1, 2)) * edges).to(dtype).to(dev), mask.to(dev)
 
 
-def expected_check_launches(ds, bs, diag_shapes, bcsr_shapes) -> dict:
-    """The launches by type that check_diag_kernels and check_bcsr_kernel
-    make through the wrappers: per feature width, K1 six times (three modes
-    directly, two layer forwards, one layer VJP) and K2 twice; K5 three
-    times (directly, and bcsr_spmm_t's forward and VJP)."""
+def expected_check_launches(ds, bs, diag_shapes, bcsr_shapes, compute_dtype=None, blocked_shapes=()) -> dict:
+    """The launches by form that check_diag_kernels, check_bcsr_kernel and
+    check_blocked_kernels make through the wrappers: per feature width, K1
+    six times (three modes directly, two layer forwards, one layer VJP) and
+    K2 twice; K5 three times (directly, and bcsr_spmm_t's forward and VJP);
+    K6f and K6b twice each (directly, and through blocked_message_sum)."""
+    act = ds.activation_dtype(compute_dtype)
     want = {}
+
+    def add(key, n):
+        want[key] = want.get(key, 0) + n
+
     for _, adj, _, feats in diag_shapes:
-        form = ds.dtype_name(adj.dtype)
-        want[f"diag_kernel[{form}]"] = want.get(f"diag_kernel[{form}]", 0) + 6 * len(feats)
-        want[f"pool_bwd_kernel[{form}]"] = want.get(f"pool_bwd_kernel[{form}]", 0) + 2 * len(feats)
+        form = ds.form_name(adj.dtype, act)
+        add(f"diag_kernel[{form}]", 6 * len(feats))
+        add(f"pool_bwd_kernel[{form}]", 2 * len(feats))
     for _, st, feats in bcsr_shapes:
-        form = bs.dtype_name(st.blocks_t.dtype)
-        want[f"bcsr_spmm_kernel[{form}]"] = want.get(f"bcsr_spmm_kernel[{form}]", 0) + 3 * len(feats)
+        add(f"bcsr_spmm_kernel[{bs.form_name(st.blocks_t.dtype, act)}]", 3 * len(feats))
+    for _, _, ms in blocked_shapes:
+        for kernel in ("blocked_fwd_kernel", "blocked_bwd_kernel"):
+            add(f"{kernel}[{ds.dtype_name(act)}]", 2 * len(ms))
     return want
 
 
@@ -1572,7 +1679,7 @@ def sgat_foutnet_phases(torch, dev, card, counters, checks, peak_bw, peak_f32, r
     per_path = want_launches(slot_fwd_kernel=steps + 1, slot_bwd_kernel=steps)
     diag_undirected = int(sum(e["edge_index"].shape[0] for e in c_entries))
     for name, cls, batch, collate_s in (("sgat_diag", SGATDiag, sd_batch, sgat_diag_collate_s), ("foutnet_diag", FoutNetDiag, c_batch, None)):
-        form = ds.dtype_name(batch.adj_w.dtype if name == "sgat_diag" else batch.adj_i8.dtype)
+        form = ds.form_name(batch.adj_w.dtype if name == "sgat_diag" else batch.adj_i8.dtype, torch.float32)
         record(name, checked_path(
             torch,
             counters,
@@ -1597,7 +1704,7 @@ def sgat_foutnet_phases(torch, dev, card, counters, checks, peak_bw, peak_f32, r
     small = clustered_entry(SGAT_FOUTNET_CHECK_NODES, 38, 1, seed=CLUSTERED_BCSR["seed"])
     for name, cls, batch, collate_s in (("sgat_bcsr", SGATBlockSparse, sw_batch, sgat_bcsr_collate_s), ("foutnet_bcsr", FoutNetBlockSparse, cb_batch, None)):
         weighted = name == "sgat_bcsr"
-        form = bs.dtype_name(batch.structure.blocks_t.dtype)
+        form = bs.form_name(batch.structure.blocks_t.dtype, torch.float32)
         check_batch, _ = collate_graphs_blocksparse_clustered([small], with_edge_weights=weighted, slot8=True, device=dev)
         record(name, checked_path(
             torch,
@@ -1642,7 +1749,142 @@ def sgat_foutnet_phases(torch, dev, card, counters, checks, peak_bw, peak_f32, r
                 cross_check(torch, f"{fast_cls.__name__} vs {oracle_cls.__name__}, {what} ({rule})", oracle, oracle_batch, fast, fast_batch, SGAT_FOUTNET_GATE, context, head_only)
             )
     emit({"phase": "sgat_foutnet_cross_checks", "checks": cross})
-    return calls, f32_calls
+    return calls, f32_calls, sd_batch, sw_batch
+
+
+def bf16_phases(torch, dev, card, counters, checks, peak_bw, peak_f32, record, batches, undirected) -> tuple[list, list]:
+    """Phases 27-32: the single-pass bf16 forms (compute_dtype=bfloat16) of
+    K1, K2, K5, K6f and K6b against their plain versions on the card and
+    their times, then the four bf16 train paths (each checked one step
+    against the CPU, driven with the counters at 0 and profiled) and the
+    clustered Diag GINet's bf16 step against the CPU. ``batches`` holds the
+    dense, clustered Diag, BCSR, clustered BCSR, blocked and weighted
+    (sgat_diag, sgat_bcsr) batches; ``undirected`` the edge counts of the
+    dense and atomic graphs. Returns the timed calls of the paths and those
+    of the forms no path runs."""
+    import dataclasses
+    import types
+
+    import numpy as np
+
+    from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag, GINetDense
+    from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetworkBlocked
+    from deeprank2_tpu_torch.ops import block_sparse as bs
+    from deeprank2_tpu_torch.ops import blocked_edges as be
+    from deeprank2_tpu_torch.ops import diag_spmm as ds
+    from deeprank2_tpu_torch.ops import vanilla as vn
+    from deeprank2_tpu_torch.ops.batch import collate_graphs_blocked
+    from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
+    from deeprank2_tpu_torch.ops.synthetic import geometric_entry
+
+    bf = torch.bfloat16
+    b = types.SimpleNamespace(**batches)
+
+    # 27. the bf16 forms against their plain versions, at the paths' shapes and the largest N
+    n_i8, n_bf = ds.max_nodes(torch.int8, dev, bf), ds.max_nodes(bf, dev, bf)
+    adj_big, mask_i8_big = weighted_adjacency(torch, 4, n_i8, torch.float32, dev, seed=n_i8)
+    adj_i8_big = adj_big.ne(0).to(torch.int8)
+    adj_bf_big, mask_bf_big = weighted_adjacency(torch, 4, n_bf, bf, dev, seed=n_bf)
+    pooled_f32 = dataclasses.replace(b.sw_batch.structure_p, blocks_t=b.sw_batch.structure_p.blocks_t.float())
+    edgeless = {**geometric_entry(300, 38, 6, seed=3), "edge_index": np.zeros((0, 2), np.int64), "edge_attr": np.zeros((0, 6), np.float32)}
+    ragged_bl, _ = collate_graphs_blocked([geometric_entry(700, 38, 6, seed=1), geometric_entry(1300, 38, 6, seed=2), edgeless], pad_graphs=4, device=dev)
+    empty_bl, _ = collate_graphs_blocked([edgeless], device=dev)
+    n, k = b.c_batch.adj_i8.shape[1], b.c_batch.adj_p_i8.shape[1]
+    diag_shapes = [
+        ("dense_bf16 G=512 N=160", b.dense_batch.adj_i8, b.dense_batch.node_mask, (32, 64)),
+        (f"clustered_diag_bf16 G=512 N={n}", b.c_batch.adj_i8, b.c_batch.node_mask, (32,)),
+        (f"clustered_diag_bf16 pooled G=512 K={k}", b.c_batch.adj_p_i8, b.c_batch.pooled_mask, (64,)),
+        (f"sgat_diag adj_w bf16 G=512 N={b.sd_batch.adj_w.shape[1]}", b.sd_batch.adj_w, b.sd_batch.node_mask, (16,)),
+        (f"largest int8 G=4 N={n_i8}", adj_i8_big, mask_i8_big, (32,)),
+        (f"largest bf16 G=4 N={n_bf}", adj_bf_big, mask_bf_big, (16,)),
+    ]
+    bcsr_shapes = [
+        (f"bcsr_bf16 {b.b_batch.structure.num_chunks} chunks", b.b_batch.structure, (32, 64)),
+        (f"clustered_bcsr_bf16 full {b.cb_batch.structure.num_chunks} chunks", b.cb_batch.structure, (32,)),
+        ("clustered_bcsr_bf16 pooled", b.cb_batch.structure_p, (64,)),
+        ("sgat_bcsr full, bf16 blocks", b.sw_batch.structure, (16,)),
+        ("sgat_bcsr pooled, f32 blocks (rounded to bf16)", pooled_f32, (32,)),
+    ]
+    blocked_shapes = [
+        ("atomic 100k", b.bl_batch.structure, (32, 12)),
+        ("ragged 700+1300+edgeless+empty graph", ragged_bl.structure, (32,)),
+        ("no edges", empty_bl.structure, (32,)),
+    ]
+    n_checks = len(checks.rows)
+    counters.reset()
+    check_diag_kernels(torch, ds, checks, diag_shapes, dev, bf)
+    check_bcsr_kernel(torch, bs, checks, bcsr_shapes, dev, bf)
+    check_blocked_kernels(torch, be, vn, checks, blocked_shapes, dev, bf)
+    forms, want = counters.read_forms(), expected_check_launches(ds, bs, diag_shapes, bcsr_shapes, bf, blocked_shapes)
+    if forms != want:
+        msg = f"the bf16 checks launched {forms}, expected {want}"
+        raise AssertionError(msg)
+    tolerance = {
+        "K1, K2, K5 int8, K6f out, K6b dxr/dxc": TOL,
+        "K5 weighted": {"rtol": 1e-5, "atol": f"max(1e-5, {DW_TOL} * max |A| |x|)"},
+        "K6b dw_e": {"rtol": 1e-5, "atol": f"{DW_TOL} * max sum_e |e_attr| |g[row]|"},
+    }
+    emit({"phase": "bf16_kernel_checks", "tolerance": tolerance, "largest_nodes": {"int8/bfloat16": n_i8, "bfloat16/bfloat16": n_bf}, "launches_by_form": forms, "checks": checks.rows[n_checks:]})
+    del adj_big, adj_i8_big, mask_i8_big, adj_bf_big, mask_bf_big, ragged_bl, empty_bl
+
+    # 28. their times at the bf16 paths' calls (and the forms no path runs), beside the f32 forms
+    timer = Timer(torch)
+    calls = time_diag_calls(torch, ds, timer, "dense_bf16", b.dense_batch.adj_i8, b.dense_batch.node_mask, STEP_CALLS["dense"], peak_bw, peak_f32, bf)
+    calls += time_bcsr_calls(torch, bs, timer, "bcsr_bf16", b.b_batch, BCSR_STEP_CALLS["bcsr"], peak_bw, peak_f32, bf)
+    calls += time_bcsr_calls(torch, bs, timer, "clustered_bcsr_bf16", b.cb_batch, BCSR_STEP_CALLS["clustered_bcsr"], peak_bw, peak_f32, bf)
+    calls += time_blocked_calls(torch, vn, timer, "blocked_bf16", b.bl_batch.structure, 32, 2, peak_bw, peak_f32, bf)
+    form_calls = time_diag_calls(
+        torch, ds, timer, "bf16_adjacency", b.sd_batch.adj_w, b.sd_batch.node_mask, [("diag_kernel", "plain", 16, 0), ("pool_bwd_kernel", None, 16, 0)], peak_bw, peak_f32, bf
+    )
+    form_calls += time_bcsr_calls(torch, bs, timer, "bf16_blocks", b.sw_batch, [("structure", 16, 0)], peak_bw, peak_f32, bf)
+    form_calls += time_bcsr_calls(torch, bs, timer, "f32_blocks", types.SimpleNamespace(structure_p=pooled_f32), [("structure_p", 32, 0)], peak_bw, peak_f32, bf)
+    del timer, pooled_f32
+    emit({"phase": "bf16_kernel_times", "card": card, "l2_flushed": True, "calls": calls, "no_path_calls": form_calls})
+
+    # 29-32. the four bf16 paths, each checked against the CPU, counted and profiled
+    steps = BCSR_STEPS
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    paths = (
+        ("dense_bf16", b.dense_batch, lambda d: GINetDense(38, 2, 6, device=d, generator=gen(), compute_dtype=bf), "GINetDense(38, 2, 6, bf16)",
+         {"diag_kernel": 3 * steps + 2, "pool_bwd_kernel": steps}, {"diag_kernel[int8/bfloat16]": 3 * steps + 2, "pool_bwd_kernel[int8/bfloat16]": steps},
+         {**BENCH}, undirected["dense"], None),
+        ("bcsr_bf16", b.b_batch, lambda d: GINetBlockSparse(38, 2, 6, device=d, generator=gen(), compute_dtype=bf), "GINetBlockSparse(38, 2, 6, bf16)",
+         {"bcsr_spmm_kernel": 4 * steps + 2}, {"bcsr_spmm_kernel[int8/bfloat16]": 4 * steps + 2}, {**BCSR}, undirected["bcsr"], None),
+        ("clustered_bcsr_bf16", b.cb_batch, lambda d: GINetClusteredBlockSparse(38, 2, 1, device=d, generator=gen(), compute_dtype=bf),
+         "GINetClusteredBlockSparse(38, 2, 1, bf16)", {"bcsr_spmm_kernel": 4 * steps + 2, "slot_fwd_kernel": steps + 1, "slot_bwd_kernel": steps},
+         {"bcsr_spmm_kernel[int8/bfloat16]": 4 * steps + 2}, {**CLUSTERED_BCSR}, undirected["clustered_bcsr"], lambda *a: bcsr_winner_flips(torch, bs, *a)),
+        ("blocked_bf16", b.bl_batch, lambda d: VanillaNetworkBlocked(38, 2, 6, device=d, generator=gen(), compute_dtype=bf), "VanillaNetworkBlocked(38, 2, 6, bf16)",
+         {"blocked_fwd_kernel": 2 * steps + 2, "blocked_bwd_kernel": 2 * steps}, {"blocked_fwd_kernel[bfloat16]": 2 * steps + 2, "blocked_bwd_kernel[bfloat16]": 2 * steps},
+         {**BCSR}, undirected["bcsr"], None),
+    )  # fmt: skip
+    for name, batch, factory, model_name, counts, forms_want, batch_info, n_undirected, flips in paths:
+        record(name, checked_path(
+            torch,
+            counters,
+            card,
+            batch,
+            factory,
+            want_launches(**counts),
+            dev,
+            f"main_path_{name}",
+            {"model": model_name, "batch": batch_info, "collate_s": None, "undirected_edges": n_undirected},
+            flips=flips,
+            steps=steps,
+            want_forms=forms_want,
+            grad_tol=BF16_STEP_TOL,
+            tol=BF16_STEP_TOL,
+        ))
+
+    # the clustered Diag GINet's bf16 step against the CPU
+    model = GINetClusteredDiag(CLUSTERED["feat"], 2, 1, device=dev, generator=gen(), compute_dtype=bf)
+    step, cpu_model, cpu_batch = card_vs_cpu_step(
+        torch, model, b.c_batch, CrossEntropyLoss(), lambda: GINetClusteredDiag(CLUSTERED["feat"], 2, 1, device="cpu", compute_dtype=bf), BF16_STEP_TOL, BF16_STEP_TOL
+    )
+    emit({"phase": "clustered_diag_bf16_card_vs_cpu_step", "tolerance": BF16_STEP_TOL, "grad_tolerance": BF16_STEP_TOL, **step})
+    del model, cpu_model, cpu_batch
+    return calls, form_calls
 
 
 def main() -> int:
@@ -2053,7 +2295,6 @@ def main() -> int:
         )
     finally:
         set_dense_tower_backend("xla")
-    del b_batch
     c_oracle = GINet(CLUSTERED["feat"], 2, 1, device=dev, generator=torch.Generator().manual_seed(3))
     diag_model = GINetClusteredDiag(CLUSTERED["feat"], 2, 1, device=dev)
     # the conv weights' gradients pass through the max pools, whose tie rules
@@ -2066,7 +2307,7 @@ def main() -> int:
     del diag_batch
     v_oracle = VanillaNetwork(BCSR["feat"], 2, BCSR["edge_dim"], device=dev, generator=torch.Generator().manual_seed(3))
     cross.append(cross_check(torch, "VanillaNetworkBlocked vs VanillaNetwork, atomic 100k", v_oracle, atomic_coo, VanillaNetworkBlocked(BCSR["feat"], 2, BCSR["edge_dim"], device=dev), bl_batch))
-    del bl_batch, atomic_coo, coo_batch
+    del atomic_coo, coo_batch
     emit({"phase": "coo_cross_checks", "checks": cross})
 
     # 17. the fused tower kernels against their plain versions, and their times
@@ -2114,17 +2355,32 @@ def main() -> int:
     fused = fused_tower_drive(torch, ds, counters, dense_batch, w1, w2, STEPS, dev)
     emit({"phase": "dense_fused_tower", "card": card, "weights": "GINetDense(38, 2, 6) fused, torch seed 0", "batch": BENCH, **fused})
     record("dense_fused_tower", fused)
-    del dense_batch
 
     # 20-26. FoutNet and sGAT on the clustered fast paths, with the weighted
     # forms of K5 and K1
-    sgat_foutnet_calls, f32_calls = sgat_foutnet_phases(
+    sgat_foutnet_calls, f32_calls, sd_batch, sw_batch = sgat_foutnet_phases(
         torch, dev, card, counters, checks, peak_bw, peak_f32, record, c_entries, c_batch, c_entry, cb_batch, cc_batch
     )
     calls += sgat_foutnet_calls
-    del c_batch, cb_batch, cc_batch
+    del cc_batch
 
-    emit({"kernels": kernels_line(calls, path_launches, checks.errs, path_forms, checks.form_errs, f32_calls)})
+    # 27-32. the single-pass bf16 forms of K1, K2, K5, K6f and K6b, and the bf16 paths
+    bf16_calls, bf16_form_calls = bf16_phases(
+        torch,
+        dev,
+        card,
+        counters,
+        checks,
+        peak_bw,
+        peak_f32,
+        record,
+        {"dense_batch": dense_batch, "c_batch": c_batch, "b_batch": b_batch, "cb_batch": cb_batch, "bl_batch": bl_batch, "sd_batch": sd_batch, "sw_batch": sw_batch},
+        {"dense": bench_undirected, "bcsr": int(entry["edge_index"].shape[0]), "clustered_bcsr": int(c_entry["edge_index"].shape[0])},
+    )
+    calls += bf16_calls
+    del dense_batch, c_batch, b_batch, cb_batch, bl_batch, sd_batch, sw_batch
+
+    emit({"kernels": kernels_line(calls, path_launches, checks.errs, path_forms, checks.form_errs, f32_calls + bf16_form_calls)})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

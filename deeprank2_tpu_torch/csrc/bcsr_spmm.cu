@@ -13,10 +13,18 @@
 // Every weight enters the products at its exact f32 value, so the result is
 // exact up to summation order whatever the block type.
 //
+// Two forms, by the type of x: f32, and the single-pass bf16 form of the
+// JAX kernel (its non-split branch, compute_dtype=bfloat16), whose x the
+// wrapper rounds to bf16 once and whose blocks are cast to bf16: exact for
+// int8 and bf16 blocks, rounded to nearest even (in registers, as JAX's
+// astype) for f32 ones. The kernel widens every bf16 exactly and sums in
+// f32, so the bf16 form is the f32 form on rounded operands.
+//
 // What bounds it on an H100 SXM, per call at the 100k-node atomic graph
 // (15,222 nonzero blocks, 3.27M directed edges): the nonzero blocks are
 // read once (249 MB int8, 499 MB bf16, 997 MB f32) and x and out once each
-// (12.8 MB at F=32), about 80 / 155 / 300 us at 3.35 TB/s; the edges need
+// (12.8 MB at F=32; x 6.4 MB in the bf16 form), about 80 / 155 / 300 us at
+// 3.35 TB/s; the edges need
 // 2*F*nnz = 0.2 GFLOP, 3 us at 67 TFLOP/s. So the function is bound by
 // bytes. This kernel does the dense product of every stored block on CUDA
 // cores (2*128^2*F per block: 16 GFLOP at F=32, about 100x the work the
@@ -89,6 +97,17 @@ struct Entries<float> {
     }
 };
 
+// an f32 rounded to the nearest bf16 (ties to even), as an f32: the value
+// JAX's astype(bfloat16) gives a finite weight
+__device__ __forceinline__ float round_bf16(float v) {
+    const uint32_t u = __float_as_uint(v);
+    return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
+}
+
+// one activation as an f32: itself, or the exact value of its bf16 bits
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(uint16_t v) { return __uint_as_float((uint32_t)v << 16); }
+
 template <int FS>
 __host__ __device__ constexpr int threads() {
     return FS / FPT * 32;
@@ -100,14 +119,17 @@ __host__ __device__ constexpr size_t smem_bytes() {
     return (size_t)B * B * sizeof(T) + (size_t)B * FS * sizeof(float);
 }
 
-template <typename T, int FS>
+// T: the block entry type; X: the type of x (float, or bf16 bits: the bf16
+// form, which rounds f32 block entries to bf16)
+template <typename T, typename X, int FS>
 __global__ void __launch_bounds__(threads<FS>()) bcsr_rows(const T* __restrict__ blocks,
                                                            const int* __restrict__ block_col,
                                                            const int* __restrict__ tile_ptr,
                                                            const int* __restrict__ tile_blocks,
-                                                           const float* __restrict__ x, float* __restrict__ out, int F,
+                                                           const X* __restrict__ x, float* __restrict__ out, int F,
                                                            int ldx, int ldo) {
     using Word = typename Entries<T>::Word;
+    constexpr bool ROUND = sizeof(X) == 2 && sizeof(T) == 4;
     constexpr int THREADS = threads<FS>();
     constexpr int BLOCK_UINT4 = B * B * (int)sizeof(T) / 16;
     extern __shared__ uint4 smem4[];
@@ -141,13 +163,17 @@ __global__ void __launch_bounds__(threads<FS>()) bcsr_rows(const T* __restrict__
             const int c = (rest & (B / 8 - 1)) * 8 + lo;
             const int f = (rest / (B / 8)) * 4 + a;
             const int fg = f0 + f;
-            xs[c * FS + (f ^ (lo << 2))] = fg < F ? x[(size_t)fg * ldx + col0 + c] : 0.f;
+            xs[c * FS + (f ^ (lo << 2))] = fg < F ? widen(x[(size_t)fg * ldx + col0 + c]) : 0.f;
         }
         __syncthreads();
 #pragma unroll 2
         for (int c = 0; c < B; ++c) {
             float av[IPT];
             Entries<T>::to_float(blk[c * (B / IPT) + lane], av);
+            if (ROUND) {
+#pragma unroll
+                for (int j = 0; j < IPT; ++j) av[j] = round_bf16(av[j]);
+            }
             const float* xr = xs + c * FS;
             const int s = (c & 7) << 2;
 #pragma unroll
@@ -175,36 +201,53 @@ __global__ void __launch_bounds__(threads<FS>()) bcsr_rows(const T* __restrict__
     }
 }
 
-template <typename T, int FS>
+template <typename T, typename X, int FS>
 int launch(const void* blocks, const void* block_col, const void* tile_ptr, const void* tile_blocks, const void* x,
            void* out, int R, int F, int ldx, int ldo, void* stream) {
     // the error returned after the launch must be this launch's: drop any
     // earlier non-sticky error still recorded for this thread
     (void)cudaGetLastError();
     // all of the block's shared memory is dynamic: 32-48 KB for int8 blocks,
-    // 48-64 KB for bf16 and 80-96 KB for f32; above 48 KB the block must
-    // opt in, for every byte it uses
+    // 48-64 KB for bf16 and 80-96 KB for f32 (the x slab is f32 in both
+    // forms); above 48 KB the block must opt in, for every byte it uses
     constexpr size_t smem = smem_bytes<T, FS>();
     if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(bcsr_rows<T, FS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        const cudaError_t e =
+            cudaFuncSetAttribute(bcsr_rows<T, X, FS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) {
             (void)cudaGetLastError();
             return (int)e;
         }
     }
     const dim3 grid((unsigned)R, (unsigned)((F + FS - 1) / FS));
-    bcsr_rows<T, FS><<<grid, threads<FS>(), smem, (cudaStream_t)stream>>>(
-        (const T*)blocks, (const int*)block_col, (const int*)tile_ptr, (const int*)tile_blocks, (const float*)x,
+    bcsr_rows<T, X, FS><<<grid, threads<FS>(), smem, (cudaStream_t)stream>>>(
+        (const T*)blocks, (const int*)block_col, (const int*)tile_ptr, (const int*)tile_blocks, (const X*)x,
         (float*)out, F, ldx, ldo);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_typed(const void* blocks, const void* block_col, const void* tile_ptr, const void* tile_blocks,
-                 const void* x, void* out, int R, int F, int ldx, int ldo, void* stream) {
+template <typename T, typename X>
+int launch_sliced(const void* blocks, const void* block_col, const void* tile_ptr, const void* tile_blocks,
+                  const void* x, void* out, int R, int F, int ldx, int ldo, void* stream) {
     // one slice of 64 features when F > 32 (the blocks are read once per slice)
-    return F > 32 ? launch<T, 64>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream)
-                  : launch<T, 32>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream);
+    return F > 32 ? launch<T, X, 64>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream)
+                  : launch<T, X, 32>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream);
+}
+
+// the activation types, by their code in ops/diag_spmm.py (ACT_DTYPES)
+enum ActType { ACT_F32 = 0, ACT_BF16 = 1 };
+
+template <typename T>
+int launch_typed(int xtype, const void* blocks, const void* block_col, const void* tile_ptr, const void* tile_blocks,
+                 const void* x, void* out, int R, int F, int ldx, int ldo, void* stream) {
+    switch (xtype) {
+        case ACT_F32:
+            return launch_sliced<T, float>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream);
+        case ACT_BF16:
+            return launch_sliced<T, uint16_t>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -212,17 +255,20 @@ int launch_typed(const void* blocks, const void* block_col, const void* tile_ptr
 extern "C" {
 
 // blocks [NB, 128, 128] of type `dtype` (0 int8, 1 bf16, 2 f32); x [F, ldx]
-// and out [F, ldo] f32, contiguous and 16-byte aligned; ldo = R * 128
+// of type `xtype` (0 f32, 1 bf16: the bf16 form) and out [F, ldo] f32,
+// contiguous and 16-byte aligned; ldo = R * 128
 int bcsr_spmm_kernel(const void* blocks, int dtype, const void* block_col, const void* tile_ptr,
-                     const void* tile_blocks, const void* x, void* out, int R, int F, int ldx, int ldo, void* stream) {
+                     const void* tile_blocks, const void* x, int xtype, void* out, int R, int F, int ldx, int ldo,
+                     void* stream) {
     if (R <= 0 || F <= 0 || ldo != R * B || ldx % B) return (int)cudaErrorInvalidValue;
     switch (dtype) {
         case INT8:
-            return launch_typed<int8_t>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream);
+            return launch_typed<int8_t>(xtype, blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream);
         case BF16:
-            return launch_typed<uint16_t>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream);
+            return launch_typed<uint16_t>(xtype, blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo,
+                                          stream);
         case F32:
-            return launch_typed<float>(blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream);
+            return launch_typed<float>(xtype, blocks, block_col, tile_ptr, tile_blocks, x, out, R, F, ldx, ldo, stream);
         default:
             return (int)cudaErrorInvalidValue;
     }

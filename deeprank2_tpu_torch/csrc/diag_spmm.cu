@@ -10,14 +10,21 @@
 // on flat transposed f32 activations [F, G*N] and an adjacency [G, N, N] of
 // one of three types: int8 0/1 (the unweighted graphs), bf16 or f32 (sGAT's
 // edge weights). Each entry enters the products at its exact f32 value, so
-// every type is exact up to summation order. They differ in u and in the
-// epilogue:
+// every type is exact up to summation order. Each kernel has two forms, by
+// the type of the activations it reads (x, or g_pool for pool_bwd_kernel):
+// f32, and the single-pass bf16 form of the JAX kernels (their split=False
+// branch, compute_dtype=bfloat16), whose operand the wrapper rounds to bf16
+// once; the kernel widens each value exactly, so the bf16 form is the f32
+// form on rounded activations, with f32 sums. The bf16 form takes int8 and
+// bf16 adjacencies (exact in bf16), as the JAX kernel does. They differ in u
+// and in the epilogue:
 //   diag_kernel mode 0 (plain)           u = x   out = acc
 //   diag_kernel mode 1 (relu_mask)       u = x   out = relu(acc) * mask
 //   diag_kernel mode 2 (relu_mask_pool)  u = x   h = relu(acc) * mask;
 //                                                sign = (h > 0) as uint8,
 //                                                pooled[f, g] = sum_i h
 //   pool_bwd_kernel                      u = sign ? g_pool[f, g] : 0,  out = acc
+// (in the bf16 form x and g_pool are bf16, so u is bf16(x) or bf16(g_pool)).
 // The pooled layer's h is read back only for its sign (the backward), so
 // mode 2 stores one byte per value instead of four.
 //
@@ -27,7 +34,8 @@
 // 10-16 us at 3.35 TB/s. The dense per-graph product is 2*F*N^2*G = 0.84 or
 // 1.68 GFLOP, 12.5 or 25 us at the 67 TFLOP/s f32 CUDA-core peak. So the
 // kernel is bound by operations, not bytes: it does the dense product in
-// f32 on CUDA cores, exact up to summation order.
+// f32 on CUDA cores, exact up to summation order. The bf16 form halves the
+// x read (5.2 or 10.5 MB) and does the same operations.
 //
 // Design: one block per (graph, chunk of 32 features), 128 threads. The block
 // stages its graph's [N, 32] slab of u in shared memory once, node-major, so
@@ -78,10 +86,11 @@ __device__ __forceinline__ float as_float(int8_t a) { return (float)a; }
 __device__ __forceinline__ float as_float(uint16_t a) { return __uint_as_float((uint32_t)a << 16); }  // bf16 bits
 __device__ __forceinline__ float as_float(float a) { return a; }
 
-template <int MODE, typename T>
+// T: the adjacency's entry type; X: the activations' (float, or bf16 bits)
+template <int MODE, typename T, typename X>
 __global__ void __launch_bounds__(THREADS) diag_aggregate(
-    const T* __restrict__ adj, const float* __restrict__ x, const uint8_t* __restrict__ sign_in,
-    const float* __restrict__ g_pool, const uint8_t* __restrict__ mask, float* __restrict__ out,
+    const T* __restrict__ adj, const X* __restrict__ x, const uint8_t* __restrict__ sign_in,
+    const X* __restrict__ g_pool, const uint8_t* __restrict__ mask, float* __restrict__ out,
     uint8_t* __restrict__ sign_out, float* __restrict__ pooled, int G, int N, int F) {
     extern __shared__ float4 slab4[];
     float* slab = reinterpret_cast<float*>(slab4);  // [N][XS], u of this graph and feature chunk
@@ -104,9 +113,9 @@ __global__ void __launch_bounds__(THREADS) diag_aggregate(
         if (f < F) {
             const size_t off = (size_t)f * gn + base + j;
             if (MODE == POOL_BWD) {
-                u = sign_in[off] ? g_pool[(size_t)f * G + g] : 0.f;
+                u = sign_in[off] ? as_float(g_pool[(size_t)f * G + g]) : 0.f;
             } else {
-                u = x[off];
+                u = as_float(x[off]);
             }
         }
         slab[j * XS + fl] = u;
@@ -182,7 +191,7 @@ __global__ void __launch_bounds__(THREADS) diag_aggregate(
     }
 }
 
-template <int MODE, typename T>
+template <int MODE, typename T, typename X>
 int launch(const void* adj, const void* x, const void* sign_in, const void* g_pool, const void* mask, void* out,
            void* sign_out, void* pooled, int G, int N, int F, void* stream) {
     if (G <= 0 || N <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
@@ -192,32 +201,49 @@ int launch(const void* adj, const void* x, const void* sign_in, const void* g_po
     const size_t smem = (size_t)N * XS * sizeof(float);
     if (smem + static_smem<T>() > 48 * 1024) {
         // a block's static and dynamic shared memory together above 48 KB
-        // must be opted into (from N = 335 int8, 327 bf16, 313 f32); N beyond
-        // the card's per-block limit fails here and the wrapper raises
+        // must be opted into (from N = 335 int8, 327 bf16, 313 f32 adjacency;
+        // the slab is f32 in both forms); N beyond the card's per-block
+        // limit fails here and the wrapper raises
         const cudaError_t e =
-            cudaFuncSetAttribute(diag_aggregate<MODE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            cudaFuncSetAttribute(diag_aggregate<MODE, T, X>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) {
             (void)cudaGetLastError();  // not sticky: clear it so later launches are not blamed
             return (int)e;
         }
     }
     const dim3 grid((unsigned)G, (unsigned)((F + FC - 1) / FC));
-    diag_aggregate<MODE, T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        (const T*)adj, (const float*)x, (const uint8_t*)sign_in, (const float*)g_pool, (const uint8_t*)mask,
+    diag_aggregate<MODE, T, X><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        (const T*)adj, (const X*)x, (const uint8_t*)sign_in, (const X*)g_pool, (const uint8_t*)mask,
         (float*)out, (uint8_t*)sign_out, (float*)pooled, G, N, F);
     return (int)cudaGetLastError();
 }
 
+// the activation types, by their code in ops/diag_spmm.py (ACT_DTYPES)
+enum ActType { ACT_F32 = 0, ACT_BF16 = 1 };
+
 template <int MODE>
-int launch_typed(int dtype, const void* adj, const void* x, const void* sign_in, const void* g_pool, const void* mask,
-                 void* out, void* sign_out, void* pooled, int G, int N, int F, void* stream) {
+int launch_typed(int dtype, int xtype, const void* adj, const void* x, const void* sign_in, const void* g_pool,
+                 const void* mask, void* out, void* sign_out, void* pooled, int G, int N, int F, void* stream) {
+    if (xtype == ACT_BF16) {
+        // the bf16 form: int8 and bf16 adjacencies only
+        switch (dtype) {
+            case INT8:
+                return launch<MODE, int8_t, uint16_t>(adj, x, sign_in, g_pool, mask, out, sign_out, pooled, G, N, F, stream);
+            case BF16:
+                return launch<MODE, uint16_t, uint16_t>(adj, x, sign_in, g_pool, mask, out, sign_out, pooled, G, N, F,
+                                                        stream);
+            default:
+                return (int)cudaErrorInvalidValue;
+        }
+    }
+    if (xtype != ACT_F32) return (int)cudaErrorInvalidValue;
     switch (dtype) {
         case INT8:
-            return launch<MODE, int8_t>(adj, x, sign_in, g_pool, mask, out, sign_out, pooled, G, N, F, stream);
+            return launch<MODE, int8_t, float>(adj, x, sign_in, g_pool, mask, out, sign_out, pooled, G, N, F, stream);
         case BF16:
-            return launch<MODE, uint16_t>(adj, x, sign_in, g_pool, mask, out, sign_out, pooled, G, N, F, stream);
+            return launch<MODE, uint16_t, float>(adj, x, sign_in, g_pool, mask, out, sign_out, pooled, G, N, F, stream);
         case F32:
-            return launch<MODE, float>(adj, x, sign_in, g_pool, mask, out, sign_out, pooled, G, N, F, stream);
+            return launch<MODE, float, float>(adj, x, sign_in, g_pool, mask, out, sign_out, pooled, G, N, F, stream);
         default:
             return (int)cudaErrorInvalidValue;
     }
@@ -238,31 +264,39 @@ int max_nodes_typed() {
 
 extern "C" {
 
-// adj [G, N, N] of type `dtype` (0 int8, 1 bf16, 2 f32); mode 0 plain (out),
-// 1 relu_mask (mask, out), 2 relu_mask_pool (mask, sign, pooled)
-int diag_kernel(const void* adj, int dtype, const void* x, const void* mask, void* out, void* sign, void* pooled,
-                int G, int N, int F, int mode, void* stream) {
+// adj [G, N, N] of type `dtype` (0 int8, 1 bf16, 2 f32); x [F, G*N] of type
+// `xtype` (0 f32, 1 bf16: the bf16 form); mode 0 plain (out), 1 relu_mask
+// (mask, out), 2 relu_mask_pool (mask, sign, pooled); out and pooled f32
+int diag_kernel(const void* adj, int dtype, const void* x, int xtype, const void* mask, void* out, void* sign,
+                void* pooled, int G, int N, int F, int mode, void* stream) {
     switch (mode) {
         case PLAIN:
-            return launch_typed<PLAIN>(dtype, adj, x, nullptr, nullptr, nullptr, out, nullptr, nullptr, G, N, F, stream);
+            return launch_typed<PLAIN>(dtype, xtype, adj, x, nullptr, nullptr, nullptr, out, nullptr, nullptr, G, N, F,
+                                       stream);
         case RELU_MASK:
-            return launch_typed<RELU_MASK>(dtype, adj, x, nullptr, nullptr, mask, out, nullptr, nullptr, G, N, F, stream);
+            return launch_typed<RELU_MASK>(dtype, xtype, adj, x, nullptr, nullptr, mask, out, nullptr, nullptr, G, N, F,
+                                           stream);
         case RELU_MASK_POOL:
-            return launch_typed<RELU_MASK_POOL>(dtype, adj, x, nullptr, nullptr, mask, nullptr, sign, pooled, G, N, F,
-                                                stream);
+            return launch_typed<RELU_MASK_POOL>(dtype, xtype, adj, x, nullptr, nullptr, mask, nullptr, sign, pooled, G,
+                                                N, F, stream);
         default:
             return (int)cudaErrorInvalidValue;
     }
 }
 
-int pool_bwd_kernel(const void* adj, int dtype, const void* sign, const void* g_pool, void* out, int G, int N, int F,
-                    void* stream) {
-    return launch_typed<POOL_BWD>(dtype, adj, nullptr, sign, g_pool, nullptr, out, nullptr, nullptr, G, N, F, stream);
+// g_pool [F, G] of type `gtype` (0 f32, 1 bf16: the bf16 form); out f32
+int pool_bwd_kernel(const void* adj, int dtype, const void* sign, const void* g_pool, int gtype, void* out, int G,
+                    int N, int F, void* stream) {
+    return launch_typed<POOL_BWD>(dtype, gtype, adj, nullptr, sign, g_pool, nullptr, out, nullptr, nullptr, G, N, F,
+                                  stream);
 }
 
-// the largest N the current device runs for an adjacency of type `dtype`
-// (its shared memory per block with the opt-in); -1 on a CUDA error
-int diag_max_nodes(int dtype) {
+// the largest N the current device runs in the form (adjacency `dtype`,
+// activation `xtype`): its shared memory per block with the opt-in, which
+// the activation type does not change (the slab is staged as f32); -1 on a
+// CUDA error or a form that does not exist
+int diag_max_nodes(int dtype, int xtype) {
+    if (xtype != ACT_F32 && !(xtype == ACT_BF16 && (dtype == INT8 || dtype == BF16))) return -1;
     switch (dtype) {
         case INT8:
             return max_nodes_typed<int8_t>();

@@ -10,7 +10,8 @@ collate (ops/batch.py:collate_graphs_blocksparse_clustered).
 
 - ``GINetClusteredBlockSparse``: the towers fused channel-wise; the JAX
   ``_lin_t`` per-tower products are the fused weight products of
-  :meth:`GINetDense.fused_weights` here.
+  :meth:`GINetDense.fused_weights` here. ``compute_dtype=torch.bfloat16``
+  runs both SpMMs in their bf16 form, the products in f32, as in JAX.
 - ``FoutNetBlockSparse``: the neighbour mean is the row-normalised SpMM
   ``(A @ x Wn) / deg``.
 - ``SGATBlockSparse``: the edge-weighted mean is
@@ -18,7 +19,8 @@ collate (ops/batch.py:collate_graphs_blocksparse_clustered).
   adjacency (bf16 blocks by default; the scalar edge feature is the first
   edge-attr channel).
 
-FoutNet and sGAT add their bias after the aggregation, so their padded rows
+FoutNet and sGAT have no bf16 form in the port yet (``compute_dtype``
+raises). They add their bias after the aggregation, so their padded rows
 are not zero: both mask after each conv and after the depth-0 pool, as the
 JAX package does. Each model's parameter set and ``state_dict`` keys are its
 COO twin's.
@@ -73,9 +75,10 @@ class GINetClusteredBlockSparse(GINetDense):
         padded rows and columns of A all zero every padded activation is
         relu(0) = 0 already, and the pools give 0 on empty clusters."""
         w1_t, w2_t = self.fused_weights()
-        h_t = torch.relu(bcsr_spmm_t(batch.structure, w1_t @ batch.x.T))  # [32, V]
+        cd = self.compute_dtype
+        h_t = torch.relu(bcsr_spmm_t(batch.structure, w1_t @ batch.x.T, cd))  # [32, V]
         hp_t = _pool_max_t(h_t, batch)  # [32, Vp]; both towers share the clusters
-        h2_t = torch.relu(bcsr_spmm_t(batch.structure_p, w2_t @ hp_t))  # [64, Vp]
+        h2_t = torch.relu(bcsr_spmm_t(batch.structure_p, w2_t @ hp_t, cd))  # [64, Vp]
         out = dnn.relu(dnn.linear(self.fc1, depth1_graph_mean(h2_t, batch)))
         out = dnn.dropout(out, self.dropout, training, generator)
         return dnn.linear(self.fc2, out)

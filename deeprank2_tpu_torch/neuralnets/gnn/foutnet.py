@@ -123,9 +123,10 @@ class FoutNet(ClusteredConvNet):
 
 
 def no_compute_dtype(model: nn.Module, compute_dtype) -> None:
-    """Refuse ``compute_dtype`` (the bf16 compute forms are not ported yet)."""
+    """Refuse ``compute_dtype``: FoutNet and sGAT have no bf16 form in the
+    port yet (the GINets and VanillaNetworkBlocked do)."""
     if compute_dtype is not None:
-        msg = f"{type(model).__name__}(compute_dtype=...) is not ported yet; the port computes in float32"
+        msg = f"{type(model).__name__}(compute_dtype=...) is not ported yet; FoutNet and sGAT compute in float32"
         raise NotImplementedError(msg)
 
 

@@ -9,7 +9,9 @@ costs one SpMM over the concatenated tower channels:
 - layer 2: ``relu(A [h_int W2_int || h_ext W2_ext])`` (16 + 16 -> 32 + 32),
   masked, then the per-graph mean over tiles and the fc1/fc2 head.
 
-The whole tower runs in the SpMM's transposed ``[C, V]`` layout. The
+The whole tower runs in the SpMM's transposed ``[C, V]`` layout. Under
+``compute_dtype=torch.bfloat16`` the weight products stay f32 and only the
+SpMM runs its bf16 form (the JAX ``bcsr_spmm_t(..., compute_dtype)``). The
 parameter set and ``state_dict`` keys are :class:`GINetDense`'s (the JAX
 model's ``init`` delegates to the COO GINet's, which has the same set).
 """
@@ -32,8 +34,9 @@ class GINetBlockSparse(GINetDense):
         """Logits ``[G, output_shape]``. Dropout (rate 0.4) runs only when
         ``training`` and a ``generator`` on the batch's device are given."""
         w1_t, w2_t = self.fused_weights()
-        h_t = torch.relu(bcsr_spmm_t(batch.structure, w1_t @ batch.x.T))  # [32, V]
-        h2_t = torch.relu(bcsr_spmm_t(batch.structure, w2_t @ h_t))  # [64, V]
+        cd = self.compute_dtype
+        h_t = torch.relu(bcsr_spmm_t(batch.structure, w1_t @ batch.x.T, cd))  # [32, V]
+        h2_t = torch.relu(bcsr_spmm_t(batch.structure, w2_t @ h_t, cd))  # [64, V]
         h2_t = h2_t * batch.node_mask[None, :].to(h2_t.dtype)
         # the fused channels are already in the COO model's post-pool order
         pooled = tiled_graph_mean_pool(h2_t, batch.node_graph, batch.node_mask, batch.num_graphs, batch.structure.block)

@@ -14,6 +14,14 @@ products, which the JAX package also leaves outside its Pallas kernels.
 ``set_dense_tower_backend("pallas")`` switches ``GINetDense`` to the fused
 batched tower of ops/ginet_tower.py (one forward and one backward kernel a
 step) wherever its shape rule holds.
+
+``compute_dtype=torch.bfloat16`` follows the JAX models' dtype flow. In
+``GINetDense`` (its flat route) the features and the four conv weights are
+cast to bf16, both weight products run in bf16 (``h`` is cast to bf16
+before the second), and the kernels run their bf16 forms; the pooled sums
+are f32. In ``GINetClusteredDiag`` the weight products stay f32 and only the
+kernels round (the JAX ``lin_t`` and ``diag_layer_t(..., compute_dtype)``).
+The fused tower has no bf16 form in the port yet (K8's; it raises).
 """
 
 from __future__ import annotations
@@ -59,10 +67,8 @@ class GINetDense(GINet):
         generator: torch.Generator | None = None,
         compute_dtype: torch.dtype | None = None,
     ):
-        if compute_dtype is not None:
-            msg = f"{type(self).__name__}(compute_dtype=...) is not ported yet; the port computes in float32"
-            raise NotImplementedError(msg)
         super().__init__(input_shape, output_shape, input_shape_edge, device, generator)
+        self.compute_dtype = dnn.checked_compute_dtype(self, compute_dtype)
 
     def fused_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The conv layers' weights with the towers fused, in torch's
@@ -78,11 +84,20 @@ class GINetDense(GINet):
         ``training`` and a ``generator`` on the batch's device are given."""
         w1_t, w2_t = self.fused_weights()
         g, n, f = batch.x.shape
+        cd = self.compute_dtype
         if _TOWER_BACKEND == "pallas" and ginet_tower.supports(g, n, f, w1_t.shape[0], w2_t.shape[0]):
+            if cd is not None:
+                msg = "the fused tower (K8f/K8b, ops/ginet_tower.py) has no bf16 form in the port yet; use the 'xla' backend"
+                raise NotImplementedError(msg)
             pooled = ginet_tower.ginet_tower_pooled(w1_t.T, w2_t.T, batch.x, batch.adj_i8, batch.node_mask)  # [G, 64]
-        else:
+        elif cd is None:
             h = diag_layer_t(batch.adj_i8, batch.node_mask, w1_t @ batch.x_t)  # [32, G*N]
             pooled = diag_layer_pool_t(batch.adj_i8, batch.node_mask, w2_t @ h).T  # [G, 64]
+        else:
+            # bf16 weight products (bf16 out); the kernels return f32
+            w1_t, w2_t, x_t = w1_t.to(cd), w2_t.to(cd), batch.x_t.to(cd)
+            h = diag_layer_t(batch.adj_i8, batch.node_mask, w1_t @ x_t, cd)
+            pooled = diag_layer_pool_t(batch.adj_i8, batch.node_mask, w2_t @ h.to(cd), cd).T
         counts = batch.node_mask.sum(dim=1).to(pooled.dtype).clamp_min(1.0)
         out = pooled / counts[:, None]
         out = dnn.relu(dnn.linear(self.fc1, out))
@@ -108,9 +123,10 @@ class GINetClusteredDiag(GINetDense):
         """Logits ``[G, output_shape]``. Dropout (rate 0.4) runs only when
         ``training`` and a ``generator`` on the batch's device are given."""
         w1_t, w2_t = self.fused_weights()
-        h_t = diag_layer_t(batch.adj_i8, batch.node_mask, w1_t @ batch.x_t)  # [32, G*N]
+        cd = self.compute_dtype
+        h_t = diag_layer_t(batch.adj_i8, batch.node_mask, w1_t @ batch.x_t, cd)  # [32, G*N]
         hp_t = diag_depth0_pool(h_t, batch)  # [32, G*K]
-        h2_t = diag_layer_t(batch.adj_p_i8, batch.pooled_mask, w2_t @ hp_t)  # [64, G*K]
+        h2_t = diag_layer_t(batch.adj_p_i8, batch.pooled_mask, w2_t @ hp_t, cd)  # [64, G*K]
         out = dnn.relu(dnn.linear(self.fc1, depth1_graph_mean(h2_t, batch)))
         out = dnn.dropout(out, self.dropout, training, generator)
         return dnn.linear(self.fc2, out)

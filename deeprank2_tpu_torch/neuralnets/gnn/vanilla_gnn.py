@@ -92,8 +92,9 @@ class VanillaNetwork(nn.Module):
 class VanillaNetworkBlocked(VanillaNetwork):
     """VanillaNetwork on :class:`BlockedEdgeBatch` inputs: the same math and
     parameter set, with each layer's message sum in kernels K6f (forward) and
-    K6b (backward). No dropout, so ``training`` and ``generator`` change
-    nothing."""
+    K6b (backward). ``compute_dtype=torch.bfloat16`` runs their bf16 form
+    (the node products and MLPs stay f32, as in JAX). No dropout, so
+    ``training`` and ``generator`` change nothing."""
 
     def __init__(
         self,
@@ -104,18 +105,15 @@ class VanillaNetworkBlocked(VanillaNetwork):
         device: str | torch.device | None = None,
         generator: torch.Generator | None = None,
     ):
-        if compute_dtype is not None:
-            msg = f"{type(self).__name__}(compute_dtype=...) is not ported yet; the port computes in float32"
-            raise NotImplementedError(msg)
         super().__init__(input_shape, output_shape, input_shape_edge, device, generator)
+        self.compute_dtype = dnn.checked_compute_dtype(self, compute_dtype)
 
-    @staticmethod
-    def _conv_blocked(layer: _ConvLayer, x: torch.Tensor, structure: BlockedEdgeStructure) -> torch.Tensor:
+    def _conv_blocked(self, layer: _ConvLayer, x: torch.Tensor, structure: BlockedEdgeStructure) -> torch.Tensor:
         w, b = layer._edge_mlp[0].weight, layer._edge_mlp[0].bias  # [M, 2F + Fe], [M]
         f = x.shape[1]
         xr = nn.functional.linear(x, w[:, :f], b)  # the bias rides the destination part
         xc = nn.functional.linear(x, w[:, f : 2 * f])
-        msg_sums = blocked_message_sum(structure, xr, xc, w[:, 2 * f :].T)  # w_e [Fe, M]
+        msg_sums = blocked_message_sum(structure, xr, xc, w[:, 2 * f :].T, self.compute_dtype)  # w_e [Fe, M]
         return dnn.relu(dnn.linear(layer._node_mlp[0], torch.cat([x, msg_sums], dim=1)))
 
     def forward(self, batch: BlockedEdgeBatch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:

@@ -41,6 +41,16 @@ def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 relu = torch.relu
 
 
+def checked_compute_dtype(model: nn.Module, compute_dtype: torch.dtype | None) -> torch.dtype | None:
+    """A model's ``compute_dtype``: None (the kernels' f32 forms) or
+    ``torch.bfloat16`` (their single-pass bf16 forms, the JAX package's fast
+    training setting); anything else raises ``ValueError``."""
+    if compute_dtype is not None and compute_dtype != torch.bfloat16:
+        msg = f"{type(model).__name__}(compute_dtype={compute_dtype}): expected None or torch.bfloat16"
+        raise ValueError(msg)
+    return compute_dtype
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool, generator: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout (torch semantics). No dropout when not training or
     when ``generator`` is None (as the JAX version with ``rng=None``); the

@@ -23,10 +23,16 @@ row tile's nonzero blocks through the per-tile index ``tile_ptr`` /
 ``tile_blocks`` built here. Edges are mirrored, so ``A^T = A`` and the VJP
 is the same SpMM applied to the cotangent.
 
+``compute_dtype=torch.bfloat16`` selects the kernel's single-pass bf16 form
+(the JAX ``_kernel_stream``'s non-split branch): ``x`` is rounded to bf16,
+the blocks are cast to bf16 (exact for int8 and bf16 blocks, rounded to
+nearest even for f32 ones) and the products accumulate in f32. The default
+is the f32 form, exact up to summation order.
+
 The wrapper takes the plain PyTorch version (``bcsr_spmm_kernel_ref``) for
 tensors on the CPU, launches the kernel for tensors on a CUDA device, and
 raises for anything else; it counts its launches in :data:`launches`, and by
-block type in :data:`launches_by_dtype`.
+form in :data:`launches_by_dtype`, keyed ``"<block type>/<activation type>"``.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import torch
 
 from deeprank2_tpu_torch.device import resolve_device
 from deeprank2_tpu_torch.ops import _build
-from deeprank2_tpu_torch.ops.diag_spmm import _require, _route, dtype_name
+from deeprank2_tpu_torch.ops.diag_spmm import ACT_DTYPES, _operand, _require, _route, activation_dtype, form_name, round_to
 
 SOURCE = "bcsr_spmm"
 DEFAULT_BLOCK = 128
@@ -53,9 +59,10 @@ BLOCK_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 # the storage types of a weighted adjacency (the JAX ``weight_dtype``)
 WEIGHT_DTYPES = (torch.bfloat16, torch.float32)
 
-# kernel launches since the last reset_launches(), by kernel and by block type
+# kernel launches since the last reset_launches(), by kernel and by form
+# (every block type in both the f32 and the bf16 form)
 launches = {"bcsr_spmm_kernel": 0}
-launches_by_dtype = {"bcsr_spmm_kernel": {dtype_name(d): 0 for d in BLOCK_DTYPES}}
+launches_by_dtype = {"bcsr_spmm_kernel": {form_name(d, a): 0 for a in ACT_DTYPES for d in BLOCK_DTYPES}}
 
 
 def weight_storage(weight_dtype: torch.dtype | None) -> torch.dtype:
@@ -273,7 +280,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library(SOURCE)
     if lib.bcsr_spmm_kernel.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bcsr_spmm_kernel.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p]
+        lib.bcsr_spmm_kernel.argtypes = [p, i, p, p, p, p, i, p, i, i, i, i, p]
         lib.bcsr_spmm_kernel.restype = i
     return lib
 
@@ -282,29 +289,37 @@ def _lib() -> ctypes.CDLL:
 # K5: bcsr_spmm_kernel (replaces deeprank2_tpu/ops/block_sparse.py:_kernel_stream)
 
 
-def bcsr_spmm_kernel_ref(structure: BlockSparseStructure, x_t: torch.Tensor) -> torch.Tensor:
+def bcsr_spmm_kernel_ref(structure: BlockSparseStructure, x_t: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`bcsr_spmm_kernel` (the JAX
     ``bcsr_spmm_xla`` in the transposed layout): gather the source tiles, one
-    batched block product, then a sum over ``block_row``."""
+    batched block product, then a sum over ``block_row``. The bf16 form
+    rounds ``x_t`` and the blocks to bf16 and sums in f32."""
     nt, b = structure.num_tiles, structure.block
     f = x_t.shape[0]
+    act = activation_dtype(compute_dtype)
+    x_t = round_to(x_t, act)
     gathered = x_t.reshape(f, nt, b)[:, structure.block_col.long().clamp(0, nt - 1)]  # [F, NB, c]
-    prod = torch.einsum("kcr,fkc->fkr", structure.blocks_t.to(x_t.dtype), gathered)  # [F, NB, r]
+    blocks = structure.blocks_t
+    if blocks.dtype == torch.float32:
+        blocks = round_to(blocks, act)  # int8 and bf16 blocks are exact in bf16
+    prod = torch.einsum("kcr,fkc->fkr", blocks.to(x_t.dtype), gathered)  # [F, NB, r]
     out = x_t.new_zeros((f, structure.num_row_tiles, b)).index_add(1, structure.block_row.long(), prod)
     return out.reshape(f, structure.padded_rows)
 
 
-def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor) -> torch.Tensor:
+def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """``A @ x`` in the transposed layout: ``x_t [F, padded_nodes]`` (f32)
-    to ``[F, padded_rows]``, for int8 0/1, bf16 or f32 blocks; each weight is
-    taken at its exact f32 value, so the result is exact up to summation
-    order."""
+    to ``[F, padded_rows]`` (f32), for int8 0/1, bf16 or f32 blocks. The f32
+    form takes each weight at its exact f32 value, so the result is exact up
+    to summation order; ``compute_dtype=torch.bfloat16`` runs the bf16 form
+    (``x_t`` f32 or bf16, rounded to bf16; f32 blocks rounded to bf16)."""
     if x_t.dim() != 2:
         msg = f"expected x_t [F, padded_nodes], got shape {tuple(x_t.shape)}"
         raise ValueError(msg)
     f = x_t.shape[0]
     dev = x_t.device
-    _require(x_t, "x_t", torch.float32, (f, structure.padded_nodes), dev)
+    act = activation_dtype(compute_dtype)
+    x_t = _operand(x_t, "x_t", act, (f, structure.padded_nodes), dev)
     nb, b = structure.num_blocks, structure.block
     blocks = structure.blocks_t
     if blocks.dtype not in BLOCK_DTYPES:
@@ -315,7 +330,7 @@ def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor) -> torc
         t = getattr(structure, name)
         _require(t, name, torch.int32, tuple(t.shape), dev)
     if not _route(dev):
-        return bcsr_spmm_kernel_ref(structure, x_t)
+        return bcsr_spmm_kernel_ref(structure, x_t, act)
     if b != DEFAULT_BLOCK:
         msg = f"the CUDA kernel takes {DEFAULT_BLOCK}-node blocks, got {b}"
         raise ValueError(msg)
@@ -329,6 +344,7 @@ def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor) -> torc
             structure.tile_ptr.data_ptr(),
             structure.tile_blocks.data_ptr(),
             x_t.data_ptr(),
+            ACT_DTYPES[act],
             out.data_ptr(),
             structure.num_row_tiles,
             f,
@@ -338,7 +354,7 @@ def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor) -> torc
         )
         _build.check(lib, code, "bcsr_spmm_kernel")
     launches["bcsr_spmm_kernel"] += 1
-    launches_by_dtype["bcsr_spmm_kernel"][dtype_name(blocks.dtype)] += 1
+    launches_by_dtype["bcsr_spmm_kernel"][form_name(blocks.dtype, act)] += 1
     return out
 
 
@@ -348,13 +364,14 @@ def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor) -> torc
 
 class _BcsrSpmmT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x_t, structure):
+    def forward(ctx, x_t, structure, compute_dtype):
         ctx.structure = structure
-        return bcsr_spmm_kernel(structure, x_t)
+        ctx.compute_dtype = compute_dtype
+        return bcsr_spmm_kernel(structure, x_t, compute_dtype)
 
     @staticmethod
     def backward(ctx, grad):
-        return bcsr_spmm_kernel(ctx.structure, grad.contiguous()), None
+        return bcsr_spmm_kernel(ctx.structure, grad.contiguous(), ctx.compute_dtype), None, None
 
 
 def _check_width(structure: BlockSparseStructure, width: int, what: str) -> None:
@@ -363,13 +380,14 @@ def _check_width(structure: BlockSparseStructure, width: int, what: str) -> None
         raise ValueError(msg)
 
 
-def bcsr_spmm_t(structure: BlockSparseStructure, x_t: torch.Tensor) -> torch.Tensor:
+def bcsr_spmm_t(structure: BlockSparseStructure, x_t: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``A @ x`` with transposed ``[F, padded_nodes] -> [F, padded_rows]``
     input and output (the layout the kernel computes in), differentiable
     w.r.t. ``x_t``: the VJP is the same SpMM of the cotangent (A is
-    symmetric)."""
+    symmetric), in the same kernel form (``compute_dtype``, see
+    :func:`bcsr_spmm_kernel`)."""
     _check_width(structure, x_t.shape[1], "x_t")
-    return _BcsrSpmmT.apply(x_t, structure)
+    return _BcsrSpmmT.apply(x_t, structure, compute_dtype)
 
 
 def bcsr_spmm_t_ref(structure: BlockSparseStructure, x_t: torch.Tensor) -> torch.Tensor:
@@ -379,8 +397,8 @@ def bcsr_spmm_t_ref(structure: BlockSparseStructure, x_t: torch.Tensor) -> torch
     return bcsr_spmm_kernel_ref(structure, x_t)
 
 
-def bcsr_spmm(structure: BlockSparseStructure, x: torch.Tensor) -> torch.Tensor:
+def bcsr_spmm(structure: BlockSparseStructure, x: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``A @ x`` for row-major ``x [padded_nodes, F]``: :func:`bcsr_spmm_t`
     between two transposes."""
     _check_width(structure, x.shape[0], "x")
-    return _BcsrSpmmT.apply(x.T.contiguous(), structure).T
+    return _BcsrSpmmT.apply(x.T.contiguous(), structure, compute_dtype).T

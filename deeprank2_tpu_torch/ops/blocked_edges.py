@@ -16,7 +16,11 @@ slot order. Sentinels and capacity-pad slabs are never listed.
 
 :func:`blocked_message_sum` is differentiable in ``xr``, ``xc`` and ``w_e``
 through the kernels; :func:`blocked_message_sum_ref` is its plain PyTorch
-version (the JAX ``blocked_message_sum_xla``).
+version (the JAX ``blocked_message_sum_xla``). ``compute_dtype=torch.bfloat16``
+selects the kernels' single-pass bf16 form (the JAX ``_make_gdot`` bf16
+branch): every operand (``xr``, ``xc``, ``w_e``, the edge features and the
+cotangent) is rounded to bf16, each message is rounded to bf16 before it is
+summed, and every sum is f32.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from deeprank2_tpu_torch.device import resolve_device
+from deeprank2_tpu_torch.ops.diag_spmm import activation_dtype, round_to
 
 EDGE_TILE = 256  # nodes per tile
 TILE_E = 1024  # edge slots per slab (one destination tile each)
@@ -221,37 +226,46 @@ def global_indices(structure: BlockedEdgeStructure) -> tuple[torch.Tensor, torch
     return grow, gcol
 
 
-def edge_term(eattr_t: torch.Tensor, w_e: torch.Tensor) -> torch.Tensor:
+def edge_term(eattr_t: torch.Tensor, w_e: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``e_attr(e) · w_e`` for every edge slot, ``[E, M]`` from ``eattr_t
     [Fe, E]`` and ``w_e [Fe, M]``: the products and the running sum over the
     ``Fe`` channels rounded one by one in channel order, as the CUDA kernels
     compute it. So a kernel and the plain versions see bit-identical
     pre-activations, and agree on every relu' (a flipped relu' would move a
-    gradient by a whole cotangent entry)."""
+    gradient by a whole cotangent entry). The bf16 form rounds both operands
+    to bf16 first (each product is then exact in f32)."""
+    act = activation_dtype(compute_dtype)
+    eattr_t, w_e = round_to(eattr_t, act), round_to(w_e, act)
     ew = eattr_t.new_zeros((eattr_t.shape[1], w_e.shape[1]))
     for k in range(w_e.shape[0]):
         ew = ew + eattr_t[k][:, None] * w_e[k]
     return ew
 
 
-def pre_activations(structure: BlockedEdgeStructure, xr: torch.Tensor, xc: torch.Tensor, w_e: torch.Tensor):
+def pre_activations(structure: BlockedEdgeStructure, xr: torch.Tensor, xc: torch.Tensor, w_e: torch.Tensor, compute_dtype=None):
     """``(grow, gcol, pre)``: the slots' global indices and
     ``pre = xr[row] + xc[col] + e_attr · w_e`` per slot (``[E_cap, M]``;
-    sentinel slots read row ``padded_nodes - 1`` and must be masked)."""
+    sentinel slots read row ``padded_nodes - 1`` and must be masked); the
+    bf16 form rounds ``xr``, ``xc`` and the edge term's operands to bf16."""
+    act = activation_dtype(compute_dtype)
     grow, gcol = global_indices(structure)
     row = grow.clamp(max=structure.padded_nodes - 1)
-    pre = xr[row] + xc[gcol] + edge_term(structure.eattr_t[: structure.edge_dim], w_e)
+    pre = round_to(xr, act)[row] + round_to(xc, act)[gcol] + edge_term(structure.eattr_t[: structure.edge_dim], w_e, act)
     return grow, gcol, pre
 
 
-def blocked_message_sum_ref(structure: BlockedEdgeStructure, xr: torch.Tensor, xc: torch.Tensor, w_e: torch.Tensor) -> torch.Tensor:
+def blocked_message_sum_ref(structure: BlockedEdgeStructure, xr: torch.Tensor, xc: torch.Tensor, w_e: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`blocked_message_sum` (the JAX
     ``blocked_message_sum_xla``): gathers, relu, the sentinel mask and an
-    ``index_add`` onto the destination rows; differentiable by autograd."""
+    ``index_add`` onto the destination rows; differentiable by autograd. The
+    bf16 form rounds the operands (:func:`pre_activations`) and each message
+    as the kernel does; autograd through its roundings is not the kernels'
+    VJP (``ops/vanilla.py:blocked_bwd_kernel_ref`` is)."""
+    act = activation_dtype(compute_dtype)
     v_pad = structure.padded_nodes
-    grow, _, pre = pre_activations(structure, xr, xc, w_e)
-    msg = torch.relu(pre) * (grow < v_pad)[:, None].to(pre.dtype)
-    return xr.new_zeros((v_pad + 1, xr.shape[1])).index_add(0, grow, msg)[:v_pad]
+    grow, _, pre = pre_activations(structure, xr, xc, w_e, act)
+    msg = round_to(torch.relu(pre), act) * (grow < v_pad)[:, None].to(pre.dtype)
+    return pre.new_zeros((v_pad + 1, xr.shape[1])).index_add(0, grow, msg)[:v_pad]
 
 
 def blocked_message_sum(
@@ -268,11 +282,10 @@ def blocked_message_sum(
     the bias must ride one of them, nothing is added here). ``w_e``:
     ``[edge_dim, M]``. Differentiable in ``xr``, ``xc`` and ``w_e`` (edge
     features are data): forward kernel K6f, backward kernel K6b
-    (ops/vanilla.py); tensors on the CPU take their plain versions.
-    ``compute_dtype`` other than float32 is not ported yet."""
-    if compute_dtype not in (None, torch.float32):
-        msg = f"blocked_message_sum(compute_dtype={compute_dtype}) is not ported yet; the port computes in float32"
-        raise NotImplementedError(msg)
+    (ops/vanilla.py), in the form ``compute_dtype`` selects (None or
+    float32: f32; bfloat16: the single-pass bf16 form); tensors on the CPU
+    take their plain versions."""
+    activation_dtype(compute_dtype)
     if xr.shape[0] != structure.padded_nodes or xc.shape[0] != structure.padded_nodes:
         msg = f"xr/xc must have {structure.padded_nodes} rows, got {xr.shape[0]}/{xc.shape[0]}"
         raise ValueError(msg)
@@ -281,4 +294,4 @@ def blocked_message_sum(
         raise ValueError(msg)
     from deeprank2_tpu_torch.ops.vanilla import _BlockedMessageSum
 
-    return _BlockedMessageSum.apply(xr.contiguous(), xc.contiguous(), w_e.contiguous(), structure)
+    return _BlockedMessageSum.apply(xr.contiguous(), xc.contiguous(), w_e.contiguous(), structure, compute_dtype)

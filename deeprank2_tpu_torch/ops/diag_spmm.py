@@ -9,7 +9,12 @@ flat transposed activations ``[F, G*N]``, and the aggregation is, per graph,
 (the oracle ``diag_spmm_t_xla``), with ``adj`` int8 0/1, or bf16 or f32
 edge weights (sGAT; the JAX package sends its f32 "exact oracle" adjacency
 to XLA instead of its kernel, the port has no fallback and computes the same
-function in its kernel). It runs in the CUDA kernels of
+function in its kernel). ``compute_dtype=torch.bfloat16`` selects the
+single-pass bf16 form of each kernel (the JAX ``split=False`` branch): the
+activations are rounded to bf16 once, the adjacency is taken as bf16 (exact
+for int8 0/1 and bf16 weights; an f32 adjacency has no bf16 form, as JAX's
+kernel never takes one), and the products accumulate in f32. The default is
+the f32 form, exact up to summation order. It runs in the CUDA kernels of
 ``csrc/diag_spmm.cu``: ``diag_kernel`` (plain, relu/mask epilogue, or
 relu/mask plus per-graph sum pool) and ``pool_bwd_kernel`` (the pooled
 layer's backward). Edges are mirrored, so ``A^T = A`` per graph and each VJP
@@ -23,7 +28,8 @@ once per direction (int8 adjacency only).
 Each kernel wrapper takes its plain PyTorch version (``*_ref``) for tensors
 on the CPU, launches its kernel for tensors on a CUDA device, and raises for
 anything else; each counts its kernel launches in :data:`launches`, and K1
-and K2 also by adjacency type in :data:`launches_by_dtype`.
+and K2 also by form in :data:`launches_by_dtype`, keyed
+``"<adjacency type>/<activation type>"`` (``"int8/bfloat16"``, ...).
 """
 
 from __future__ import annotations
@@ -39,17 +45,48 @@ TOWER_SOURCE = "diag_tower"
 MODES = {"plain": 0, "relu_mask": 1, "relu_mask_pool": 2}
 # the adjacency types K1 and K2 take, by their code in csrc/diag_spmm.cu
 ADJ_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+# the activation types of the kernels' two forms (f32, and single-pass
+# bf16), by their code in the CUDA sources
+ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def dtype_name(dtype: torch.dtype) -> str:
-    """``"int8"``, ``"bfloat16"``, ...: the key of a form in ``launches_by_dtype``."""
+    """``"int8"``, ``"bfloat16"``, ...: the name of a type in a form's key."""
     return str(dtype).removeprefix("torch.")
 
 
+def form_name(storage: torch.dtype, act: torch.dtype) -> str:
+    """``"int8/bfloat16"``: the key of a kernel form in ``launches_by_dtype``,
+    the adjacency (or block) type, then the activation type."""
+    return f"{dtype_name(storage)}/{dtype_name(act)}"
+
+
+def activation_dtype(compute_dtype: torch.dtype | None) -> torch.dtype:
+    """The activation type of the kernel form that ``compute_dtype`` selects:
+    float32 for None or float32 (the f32 form), bfloat16 for bfloat16 (the
+    single-pass bf16 form). Anything else raises ``ValueError``."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return torch.float32
+    if compute_dtype == torch.bfloat16:
+        return torch.bfloat16
+    msg = f"compute_dtype must be None, torch.float32 or torch.bfloat16, got {compute_dtype}"
+    raise ValueError(msg)
+
+
+def round_to(x: torch.Tensor, act: torch.dtype) -> torch.Tensor:
+    """The values the form of activation type ``act`` computes with: ``x``
+    itself for float32; for bfloat16, ``x`` rounded to bf16 (nearest even)
+    and widened to f32 exactly."""
+    return x if act == torch.float32 else x.to(act).float()
+
+
+# K1 and K2 forms: every adjacency type in the f32 form, int8 and bf16 in the bf16 form
+FORMS = [(a, torch.float32) for a in ADJ_DTYPES] + [(a, torch.bfloat16) for a in (torch.int8, torch.bfloat16)]
+
 # kernel launches since the last reset_launches(), by kernel, and for K1 and
-# K2 by adjacency type
+# K2 by form
 launches = {"diag_kernel": 0, "pool_bwd_kernel": 0, "tower_fwd_kernel": 0, "tower_bwd_kernel": 0}
-launches_by_dtype = {k: {dtype_name(d): 0 for d in ADJ_DTYPES} for k in ("diag_kernel", "pool_bwd_kernel")}
+launches_by_dtype = {k: {form_name(*f): 0 for f in FORMS} for k in ("diag_kernel", "pool_bwd_kernel")}
 
 
 def reset_launches() -> None:
@@ -64,11 +101,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library(SOURCE)
     if lib.diag_kernel.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.diag_kernel.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p]
+        lib.diag_kernel.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, p]
         lib.diag_kernel.restype = i
-        lib.pool_bwd_kernel.argtypes = [p, i, p, p, p, i, i, i, p]
+        lib.pool_bwd_kernel.argtypes = [p, i, p, p, i, p, i, i, i, p]
         lib.pool_bwd_kernel.restype = i
-        lib.diag_max_nodes.argtypes = [i]
+        lib.diag_max_nodes.argtypes = [i, i]
         lib.diag_max_nodes.restype = i
     return lib
 
@@ -113,6 +150,25 @@ def _dims(adj: torch.Tensor, x_t: torch.Tensor, dtypes=ADJ_DTYPES) -> tuple[int,
     return g, n, x_t.shape[0]
 
 
+def _form(adj: torch.Tensor, compute_dtype: torch.dtype | None) -> torch.dtype:
+    """The activation type of the form that runs ``adj`` under ``compute_dtype``."""
+    act = activation_dtype(compute_dtype)
+    if (adj.dtype, act) not in FORMS:
+        msg = f"the bf16 form takes an int8 or bf16 adjacency, got {adj.dtype} (JAX sends an f32 one to XLA)"
+        raise TypeError(msg)
+    return act
+
+
+def _operand(x: torch.Tensor, name: str, act: torch.dtype, shape: tuple, device: torch.device) -> torch.Tensor:
+    """An f32 activation operand (or a bf16 one, for the bf16 form) as the
+    kernel form ``act`` reads it: itself, or its bf16 copy (half the bytes)."""
+    if x.dtype not in (torch.float32, act):
+        msg = f"{name} must be {torch.float32}" + ("" if act == torch.float32 else f" or {act}") + f", got {x.dtype}"
+        raise TypeError(msg)
+    _require(x, name, x.dtype, shape, device)
+    return x.to(act)
+
+
 def _route(device: torch.device) -> bool:
     """True for the kernel (CUDA), False for the plain version (CPU)."""
     if device.type == "cuda":
@@ -127,11 +183,13 @@ def _route(device: torch.device) -> bool:
 # K1: diag_kernel (replaces deeprank2_tpu/ops/diag_spmm.py:_diag_kernel)
 
 
-def diag_kernel_ref(adj: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None = None, mode: str = "plain"):
-    """Plain PyTorch version of :func:`diag_kernel` (same arguments and results)."""
+def diag_kernel_ref(adj: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None = None, mode: str = "plain", compute_dtype=None):
+    """Plain PyTorch version of :func:`diag_kernel` (same arguments and
+    results): the bf16 form rounds ``x_t`` to bf16 and sums in f32."""
     g, n, _ = adj.shape
     f = x_t.shape[0]
-    out = torch.einsum("fgj,gij->fgi", x_t.reshape(f, g, n), adj.to(x_t.dtype)).reshape(f, g * n)
+    x = round_to(x_t, _form(adj, compute_dtype))
+    out = torch.einsum("fgj,gij->fgi", x.reshape(f, g, n), adj.to(x.dtype)).reshape(f, g * n)
     if mode == "plain":
         return out
     h = torch.relu(out) * mask.reshape(1, g * n).to(out.dtype)
@@ -140,14 +198,16 @@ def diag_kernel_ref(adj: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | N
     return (h > 0).to(torch.uint8), h.reshape(f, g, n).sum(dim=2)
 
 
-def _count(kernel: str, adj: torch.Tensor) -> None:
+def _count(kernel: str, adj: torch.Tensor, act: torch.dtype) -> None:
     launches[kernel] += 1
-    launches_by_dtype[kernel][dtype_name(adj.dtype)] += 1
+    launches_by_dtype[kernel][form_name(adj.dtype, act)] += 1
 
 
-def diag_kernel(adj: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None = None, mode: str = "plain"):
+def diag_kernel(adj: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None = None, mode: str = "plain", compute_dtype=None):
     """Per-graph aggregation of ``x_t [F, G*N]`` (f32) by ``adj [G, N, N]``
     (int8 0/1, or bf16 or f32 weights, each taken at its exact f32 value).
+    ``compute_dtype=torch.bfloat16`` runs the bf16 form (``x_t`` f32 or
+    bf16, rounded to bf16; int8 or bf16 adjacency); the result is f32.
 
     ``mode="plain"`` returns the aggregate ``[F, G*N]``; ``"relu_mask"``
     returns ``relu(aggregate) * mask`` (``mask [G, N]`` bool);
@@ -159,11 +219,12 @@ def diag_kernel(adj: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None 
         raise ValueError(msg)
     g, n, f = _dims(adj, x_t)
     dev = x_t.device
-    _require(x_t, "x_t", torch.float32, (f, g * n), dev)
+    act = _form(adj, compute_dtype)
+    x_t = _operand(x_t, "x_t", act, (f, g * n), dev)
     if mode != "plain":
         _require(mask, "mask", torch.bool, (g, n), dev)
     if not _route(dev):
-        return diag_kernel_ref(adj, x_t, mask, mode)
+        return diag_kernel_ref(adj, x_t, mask, mode, act)
     lib = _lib()
     with torch.cuda.device(dev):
         if mode == "relu_mask_pool":
@@ -171,12 +232,13 @@ def diag_kernel(adj: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None 
             sign = torch.empty((f, g * n), dtype=torch.uint8, device=dev)
             pooled = torch.empty((f, g), dtype=torch.float32, device=dev)
         else:
-            out = torch.empty_like(x_t)
+            out = torch.empty((f, g * n), dtype=torch.float32, device=dev)
             sign = pooled = None
         code = lib.diag_kernel(
             adj.data_ptr(),
             ADJ_DTYPES[adj.dtype],
             x_t.data_ptr(),
+            ACT_DTYPES[act],
             None if mask is None else mask.data_ptr(),
             None if out is None else out.data_ptr(),
             None if sign is None else sign.data_ptr(),
@@ -188,21 +250,22 @@ def diag_kernel(adj: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None 
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, code, "diag_kernel")
-    _count("diag_kernel", adj)
+    _count("diag_kernel", adj, act)
     return (sign, pooled) if mode == "relu_mask_pool" else out
 
 
-def max_nodes(adj_dtype: torch.dtype, device: str | torch.device = "cuda") -> int:
+def max_nodes(adj_dtype: torch.dtype, device: str | torch.device = "cuda", act_dtype: torch.dtype = torch.float32) -> int:
     """The largest N (nodes per graph) for which K1 and K2 run on ``device``
-    with an adjacency of ``adj_dtype``: its shared memory per block, with the
-    opt-in, less the kernel's static tile, over the bytes of one node's
-    staged features. Beyond it the wrappers raise."""
-    if adj_dtype not in ADJ_DTYPES:
-        msg = f"adj_dtype must be one of {tuple(ADJ_DTYPES)}, got {adj_dtype}"
+    in the form of (``adj_dtype``, ``act_dtype``): its shared memory per
+    block, with the opt-in, less the kernel's static tile, over the bytes of
+    one node's staged features (staged as f32 in both forms). Beyond it the
+    wrappers raise."""
+    if (adj_dtype, act_dtype) not in FORMS:
+        msg = f"(adj_dtype, act_dtype) must be one of {FORMS}, got {(adj_dtype, act_dtype)}"
         raise TypeError(msg)
     lib = _lib()
     with torch.cuda.device(torch.device(device)):
-        n = lib.diag_max_nodes(ADJ_DTYPES[adj_dtype])
+        n = lib.diag_max_nodes(ADJ_DTYPES[adj_dtype], ACT_DTYPES[act_dtype])
     if n < 0:
         msg = "diag_max_nodes failed: the device's shared-memory limit could not be read"
         raise RuntimeError(msg)
@@ -213,33 +276,38 @@ def max_nodes(adj_dtype: torch.dtype, device: str | torch.device = "cuda") -> in
 # K2: pool_bwd_kernel (replaces deeprank2_tpu/ops/diag_spmm.py:_pool_bwd_kernel)
 
 
-def pool_bwd_kernel_ref(adj: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`pool_bwd_kernel`."""
+def pool_bwd_kernel_ref(adj: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pool_bwd_kernel`: the bf16 form rounds
+    ``u = where(sign, g_pool column, 0)`` to bf16 (JAX's
+    ``_pool_bwd_kernel``, branch ``split=False``)."""
     n = adj.shape[1]
+    g_pool = round_to(g_pool, _form(adj, compute_dtype))
     u = g_pool.repeat_interleave(n, dim=1) * sign.to(g_pool.dtype)
     return diag_kernel_ref(adj, u)
 
 
-def pool_bwd_kernel(adj: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tensor) -> torch.Tensor:
+def pool_bwd_kernel(adj: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """``d fcx = A @ (sign ⊙ broadcast(g_pool))``: the backward of the pooled
     layer, with ``sign [F, G*N]`` uint8 from :func:`diag_kernel`'s pool mode
-    and the cotangent ``g_pool [F, G]`` (f32) broadcast over each graph's
-    nodes inside the kernel; ``adj`` as for :func:`diag_kernel`."""
+    and the cotangent ``g_pool [F, G]`` (f32; rounded to bf16 in the bf16
+    form) broadcast over each graph's nodes inside the kernel; ``adj`` and
+    ``compute_dtype`` as for :func:`diag_kernel`."""
     g, n, f = _dims(adj, sign)
     dev = sign.device
+    act = _form(adj, compute_dtype)
     _require(sign, "sign", torch.uint8, (f, g * n), dev)
-    _require(g_pool, "g_pool", torch.float32, (f, g), dev)
+    g_pool = _operand(g_pool, "g_pool", act, (f, g), dev)
     if not _route(dev):
-        return pool_bwd_kernel_ref(adj, sign, g_pool)
+        return pool_bwd_kernel_ref(adj, sign, g_pool, act)
     lib = _lib()
     with torch.cuda.device(dev):
         out = torch.empty((f, g * n), dtype=torch.float32, device=dev)
         code = lib.pool_bwd_kernel(
-            adj.data_ptr(), ADJ_DTYPES[adj.dtype], sign.data_ptr(), g_pool.data_ptr(), out.data_ptr(), g, n, f,
+            adj.data_ptr(), ADJ_DTYPES[adj.dtype], sign.data_ptr(), g_pool.data_ptr(), ACT_DTYPES[act], out.data_ptr(), g, n, f,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, code, "pool_bwd_kernel")
-    _count("pool_bwd_kernel", adj)
+    _count("pool_bwd_kernel", adj, act)
     return out
 
 
@@ -247,23 +315,30 @@ def pool_bwd_kernel(adj: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tensor)
 # Differentiable layers (the JAX package's custom_vjp functions)
 
 
+# The VJPs below run the forward's kernel form on the cotangent (the bf16
+# form rounds it to bf16 in the kernel) and return it in f32, as the JAX
+# custom-VJP rules do, whatever the primal's type.
+
+
 class _DiagSpmmT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x_t, adj):
+    def forward(ctx, x_t, adj, compute_dtype):
         ctx.save_for_backward(adj)
-        return diag_kernel(adj, x_t)
+        ctx.compute_dtype = compute_dtype
+        return diag_kernel(adj, x_t, compute_dtype=compute_dtype)
 
     @staticmethod
     def backward(ctx, grad):
         (adj,) = ctx.saved_tensors
-        return diag_kernel(adj, grad.contiguous()), None
+        return diag_kernel(adj, grad.contiguous(), compute_dtype=ctx.compute_dtype), None, None
 
 
 class _DiagLayerT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, fcx_t, adj, node_mask):
-        h = diag_kernel(adj, fcx_t, node_mask, "relu_mask")
+    def forward(ctx, fcx_t, adj, node_mask, compute_dtype):
+        h = diag_kernel(adj, fcx_t, node_mask, "relu_mask", compute_dtype)
         ctx.save_for_backward(adj, h)
+        ctx.compute_dtype = compute_dtype
         return h
 
     @staticmethod
@@ -271,27 +346,29 @@ class _DiagLayerT(torch.autograd.Function):
         adj, h = ctx.saved_tensors
         # the output is its own relu mask; masked columns are 0 and drop too
         u = grad * (h > 0).to(grad.dtype)
-        return diag_kernel(adj, u.contiguous()), None, None
+        return diag_kernel(adj, u.contiguous(), compute_dtype=ctx.compute_dtype), None, None, None
 
 
 class _DiagLayerPoolT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, fcx_t, adj, node_mask):
-        sign, pooled = diag_kernel(adj, fcx_t, node_mask, "relu_mask_pool")
+    def forward(ctx, fcx_t, adj, node_mask, compute_dtype):
+        sign, pooled = diag_kernel(adj, fcx_t, node_mask, "relu_mask_pool", compute_dtype)
         ctx.save_for_backward(adj, sign)
+        ctx.compute_dtype = compute_dtype
         return pooled
 
     @staticmethod
     def backward(ctx, grad):
         adj, sign = ctx.saved_tensors
-        return pool_bwd_kernel(adj, sign, grad.contiguous()), None, None
+        return pool_bwd_kernel(adj, sign, grad.contiguous(), ctx.compute_dtype), None, None, None
 
 
-def diag_spmm_t(adj: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
+def diag_spmm_t(adj: torch.Tensor, x_t: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``[F, G*N] -> [F, G*N]`` symmetric per-graph aggregation by an int8,
     bf16 or f32 adjacency, differentiable w.r.t. ``x_t`` (VJP = the same
-    aggregation of the cotangent)."""
-    return _DiagSpmmT.apply(x_t, adj)
+    aggregation of the cotangent), in the kernel form ``compute_dtype``
+    selects (see :func:`diag_kernel`)."""
+    return _DiagSpmmT.apply(x_t, adj, compute_dtype)
 
 
 def diag_spmm_t_ref(adj: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
@@ -299,10 +376,11 @@ def diag_spmm_t_ref(adj: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
     return diag_kernel_ref(adj, x_t)
 
 
-def diag_layer_t(adj: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
+def diag_layer_t(adj: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``relu(mask ⊙ (fcx_t @ A))`` with the relu and mask fused into the
-    kernel. VJP: ``d fcx = A @ (g ⊙ [h > 0])``."""
-    return _DiagLayerT.apply(fcx_t, adj, node_mask)
+    kernel. VJP: ``d fcx = A @ (g ⊙ [h > 0])``. ``compute_dtype`` as for
+    :func:`diag_kernel`."""
+    return _DiagLayerT.apply(fcx_t, adj, node_mask, compute_dtype)
 
 
 def diag_layer_t_ref(adj: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
@@ -310,12 +388,13 @@ def diag_layer_t_ref(adj: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Te
     return diag_kernel_ref(adj, fcx_t, node_mask, "relu_mask")
 
 
-def diag_layer_pool_t(adj: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:
+def diag_layer_pool_t(adj: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Final conv layer plus per-graph SUM pool in one kernel:
     ``pooled[c, g] = Σ_v relu(mask ⊙ (fcx_t @ A))[c, v in graph g]`` (``[F, G]``;
     divide by node counts outside for the mean). The backward broadcasts the
-    ``[F, G]`` cotangent inside :func:`pool_bwd_kernel`."""
-    return _DiagLayerPoolT.apply(fcx_t, adj, node_mask)
+    ``[F, G]`` cotangent inside :func:`pool_bwd_kernel`. ``compute_dtype``
+    as for :func:`diag_kernel`."""
+    return _DiagLayerPoolT.apply(fcx_t, adj, node_mask, compute_dtype)
 
 
 def diag_layer_pool_t_ref(adj: torch.Tensor, node_mask: torch.Tensor, fcx_t: torch.Tensor) -> torch.Tensor:

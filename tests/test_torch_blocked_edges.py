@@ -210,9 +210,10 @@ def test_wrappers_check_their_operands() -> None:
         tbe.blocked_message_sum(ours, xr[:-1], xc, w_e)
     with pytest.raises(ValueError, match="edge channels"):
         tbe.blocked_message_sum(ours, xr, xc, w_e[:-1])
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        tbe.blocked_message_sum(ours, xr, xc, w_e, compute_dtype=torch.bfloat16)
-    assert tbe.blocked_message_sum(ours, xr, xc, w_e, compute_dtype=torch.float32).shape == xr.shape
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tbe.blocked_message_sum(ours, xr, xc, w_e, compute_dtype=torch.float16)
+    for cd in (torch.float32, torch.bfloat16):
+        assert tbe.blocked_message_sum(ours, xr, xc, w_e, compute_dtype=cd).shape == xr.shape
     moved = ours.to("cpu")
     assert moved.edge_dim == ours.edge_dim and torch.equal(moved.edge_order, ours.edge_order)
 

@@ -500,7 +500,7 @@ def test_weighted_diag_kernels_match_plain_versions(cuda, dtype, g, n, f) -> Non
     torch.testing.assert_close(pooled, pooled_ref, **TOL)
     assert not ((sign != sign_ref) & (h.abs() > TOL["atol"])).any()
     torch.testing.assert_close(ds.pool_bwd_kernel(adj, sign_ref, g_pool), ds.pool_bwd_kernel_ref(adj, sign_ref, g_pool), **TOL)
-    form = ds.dtype_name(dtype)
+    form = ds.form_name(dtype, torch.float32)
     assert ds.launches_by_dtype["diag_kernel"][form] == ds.launches["diag_kernel"] == 3
     assert ds.launches_by_dtype["pool_bwd_kernel"][form] == ds.launches["pool_bwd_kernel"] == 1
 
@@ -533,7 +533,7 @@ def test_weighted_bcsr_kernel_matches_plain_version(cuda, dtype, n, chunk_tiles,
     xk = x.clone().requires_grad_(True)
     (grad,) = torch.autograd.grad(bs.bcsr_spmm_t(st, xk), xk, cot)
     torch.testing.assert_close(grad, bs.bcsr_spmm_kernel_ref(st, cot), **TOL)
-    assert bs.launches_by_dtype["bcsr_spmm_kernel"][bs.dtype_name(dtype)] == bs.launches["bcsr_spmm_kernel"] == 3
+    assert bs.launches_by_dtype["bcsr_spmm_kernel"][bs.form_name(dtype, torch.float32)] == bs.launches["bcsr_spmm_kernel"] == 3
     if not n:
         assert not out.any()
 
@@ -568,7 +568,7 @@ def test_sgat_and_foutnet_train_steps_match_cpu_and_count_launches(cuda, kind) -
     loss = loss_fn(model(batch), batch.y, batch.y_mask)
     loss.backward()
     # two aggregations forward and their two VJPs, on the adjacency's form
-    form = "bfloat16" if weighted else "int8"
+    form = "bfloat16/float32" if weighted else "int8/float32"
     assert module.launches_by_dtype[kernels] == {k: 4 if k == form else 0 for k in module.launches_by_dtype[kernels]}
     assert sp.launches == {"slot_fwd_kernel": 1, "slot_bwd_kernel": 1}
     assert sum(v for m in (bs, ds) for v in m.launches.values()) == 4
@@ -578,3 +578,147 @@ def test_sgat_and_foutnet_train_steps_match_cpu_and_count_launches(cuda, kind) -
     torch.testing.assert_close(loss.detach().cpu(), cpu_loss.detach(), rtol=1e-4, atol=1e-5)
     for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
         torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The single-pass bf16 forms (compute_dtype=bfloat16): kernel and plain
+# version round at the same points and sum in f32, so only the summation
+# order differs (the f32 forms' tolerances); at the largest N of each
+# (adjacency, activation) type pair.
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("adj_dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize(("g", "n", "f"), [(5, 100, 16), (3, 64, 38), (2, 336, 32), (2, "max", 16)])
+def test_bf16_diag_kernels_match_plain_versions(cuda, adj_dtype, g, n, f) -> None:
+    if n == "max":
+        n = ds.max_nodes(adj_dtype, cuda, BF16)
+    if adj_dtype == torch.int8:
+        adj, mask, _, _ = _operands(g, n, f, cuda, seed=n)
+    else:
+        adj, mask = _weighted_adjacency(g, n, adj_dtype, cuda, seed=n)
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    x = torch.randn(f, g * n, generator=gen, device=cuda)
+    g_pool = torch.randn(f, g, generator=gen, device=cuda)
+    ds.reset_launches()
+    torch.testing.assert_close(ds.diag_kernel(adj, x, compute_dtype=BF16), ds.diag_kernel_ref(adj, x, compute_dtype=BF16), **TOL)
+    h = ds.diag_kernel_ref(adj, x, mask, "relu_mask", BF16)
+    torch.testing.assert_close(ds.diag_kernel(adj, x.to(BF16), mask, "relu_mask", BF16), h, **TOL)
+    sign, pooled = ds.diag_kernel(adj, x, mask, "relu_mask_pool", BF16)
+    sign_ref, pooled_ref = ds.diag_kernel_ref(adj, x, mask, "relu_mask_pool", BF16)
+    torch.testing.assert_close(pooled, pooled_ref, **TOL)
+    assert not ((sign != sign_ref) & (h.abs() > TOL["atol"])).any()
+    torch.testing.assert_close(ds.pool_bwd_kernel(adj, sign_ref, g_pool, BF16), ds.pool_bwd_kernel_ref(adj, sign_ref, g_pool, BF16), **TOL)
+    form = ds.form_name(adj_dtype, BF16)
+    assert ds.launches_by_dtype["diag_kernel"][form] == ds.launches["diag_kernel"] == 3
+    assert ds.launches_by_dtype["pool_bwd_kernel"][form] == ds.launches["pool_bwd_kernel"] == 1
+
+
+@pytest.mark.parametrize("adj_dtype", [torch.int8, torch.bfloat16])
+def test_bf16_diag_kernels_raise_one_node_past_the_largest(cuda, adj_dtype) -> None:
+    n = ds.max_nodes(adj_dtype, cuda, BF16) + 1
+    adj = torch.zeros(1, n, n, dtype=adj_dtype, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ds.diag_kernel(adj, torch.randn(4, n, device=cuda), compute_dtype=BF16)
+
+
+# int8 blocks, and bf16 and f32 weighted ones (the bf16 form rounds f32
+# blocks to bf16, as its plain version does); several chunks, two slices, empty
+@pytest.mark.parametrize("block_dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(("n", "chunk_tiles", "f"), [(2200, 3, 16), (1500, None, 70), (0, None, 32)])
+def test_bf16_bcsr_kernel_matches_plain_version(cuda, block_dtype, n, chunk_tiles, f) -> None:
+    pairs = _locality_pairs(n, seed=n) if n else np.zeros((0, 2), np.int64)
+    if block_dtype == torch.int8:
+        st = bs.build_blocksparse(pairs, max(n, 10), chunk_tiles=chunk_tiles, device=cuda)
+    else:
+        weights = np.abs(np.random.default_rng(n).normal(size=len(pairs))).astype(np.float32) + 0.1
+        st = bs.build_blocksparse(pairs, max(n, 10), chunk_tiles=chunk_tiles, weights=weights, weight_dtype=block_dtype, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    x = torch.randn(f, st.padded_nodes, generator=gen, device=cuda)
+    cot = torch.randn(f, st.padded_rows, generator=gen, device=cuda)
+    bs.reset_launches()
+    out = bs.bcsr_spmm_kernel(st, x, BF16)
+    torch.testing.assert_close(out, bs.bcsr_spmm_kernel_ref(st, x, BF16), **TOL)
+    xk = x.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(bs.bcsr_spmm_t(st, xk, BF16), xk, cot)
+    torch.testing.assert_close(grad, bs.bcsr_spmm_kernel_ref(st, cot, BF16), **TOL)
+    assert bs.launches_by_dtype["bcsr_spmm_kernel"][bs.form_name(block_dtype, BF16)] == bs.launches["bcsr_spmm_kernel"] == 3
+    if not n:
+        assert not out.any()
+
+
+@pytest.mark.parametrize("m", [32, 12])
+@pytest.mark.parametrize("case", ["ragged", "pads", "no_edges"])
+def test_bf16_blocked_kernels_match_plain_versions(cuda, case, m) -> None:
+    st = _blocked_structure(case, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    xr, xc, g = (torch.randn(st.padded_nodes, m, generator=gen, device=cuda) for _ in range(3))
+    w_e = torch.randn(st.edge_dim, m, generator=gen, device=cuda)
+    vn.reset_launches()
+    out = vn.blocked_fwd_kernel(st, xr, xc, w_e, BF16)
+    torch.testing.assert_close(out, vn.blocked_fwd_kernel_ref(st, xr, xc, w_e, BF16), **TOL)
+    dxr, dxc, dw_e = vn.blocked_bwd_kernel(st, xr, xc, w_e, g, BF16)
+    want = vn.blocked_bwd_kernel_ref(st, xr, xc, w_e, g, BF16)
+    torch.testing.assert_close(dxr, want[0], **TOL)
+    torch.testing.assert_close(dxc, want[1], **TOL)
+    torch.testing.assert_close(dw_e, want[2], rtol=1e-5, atol=1e-6 * vn.dw_error_scale(st, g, BF16).max().item() + 1e-6)
+    assert vn.launches_by_dtype == {"blocked_fwd_kernel": {"float32": 0, "bfloat16": 1}, "blocked_bwd_kernel": {"float32": 0, "bfloat16": 1}}
+    args = [t.clone().requires_grad_(True) for t in (xr, xc, w_e)]
+    grads = torch.autograd.grad(be.blocked_message_sum(st, *args, compute_dtype=BF16), args, g)
+    for got, ref in zip(grads, (dxr, dxc, dw_e)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)  # deterministic: no atomics
+    if case == "no_edges":
+        assert not out.any() and not dxr.any() and not dxc.any() and not dw_e.any()
+
+
+def _bf16_batch(kind, dev):
+    if kind == "dense":
+        return collate_graphs_dense(synthetic_entries(6, 40, 38, 6, seed=2), pad_graphs=8, pad_nodes=64, device=dev)[0], GINetDense, 6
+    if kind == "clustered_diag":
+        return collate_graphs_diag_clustered(ppi_clustered_entries(6, 40, 38, seed=2), pad_graphs=8, min_slot_nodes=1, device=dev)[0], GINetClusteredDiag, 1
+    if kind == "bcsr":
+        return collate_graphs_blocksparse([geometric_entry(n, 38, 1, seed=i) for i, n in enumerate((700, 1300))], pad_graphs=3, device=dev)[0], GINetBlockSparse, 1
+    if kind == "clustered_bcsr":
+        entries = [clustered_entry(n, 38, seed=i) for i, n in enumerate((3000, 1300))]
+        return collate_graphs_blocksparse_clustered(entries, pad_graphs=3, slot8=True, device=dev)[0], GINetClusteredBlockSparse, 1
+    return collate_graphs_blocked([geometric_entry(n, 38, 6, seed=i) for i, n in enumerate((700, 1300))], pad_graphs=3, device=dev)[0], VanillaNetworkBlocked, 6
+
+
+# kind: {kernel[form]: launches in one forward and backward}
+BF16_FORMS = {
+    "dense": {"diag_kernel[int8/bfloat16]": 3, "pool_bwd_kernel[int8/bfloat16]": 1},
+    "clustered_diag": {"diag_kernel[int8/bfloat16]": 4},
+    "bcsr": {"bcsr_spmm_kernel[int8/bfloat16]": 4},
+    "clustered_bcsr": {"bcsr_spmm_kernel[int8/bfloat16]": 4},
+    "blocked": {"blocked_fwd_kernel[bfloat16]": 2, "blocked_bwd_kernel[bfloat16]": 2},
+}
+
+
+@pytest.mark.parametrize("kind", sorted(BF16_FORMS))
+def test_bf16_train_steps_match_cpu_and_count_launches(cuda, kind) -> None:
+    """The card and the CPU run the same bf16 forms, but round values that
+    they sum in different orders (the f32 weight products, GINetDense's bf16
+    GEMMs), so a value can land on the neighbouring bf16 number: atol is one
+    bf16 step at each tensor's largest magnitude (2^-7 of it: a bf16 holds 8
+    significant bits)."""
+    batch, cls, fe = _bf16_batch(kind, cuda)
+    model, cpu_model = cls(38, 2, fe, device=cuda, compute_dtype=BF16), cls(38, 2, fe, device="cpu", compute_dtype=BF16)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loss_fn = CrossEntropyLoss()
+    modules = (bs, ds, vn)
+    for m in (*modules, sp):
+        m.reset_launches()
+    loss = loss_fn(model(batch), batch.y, batch.y_mask)
+    loss.backward()
+    forms = {f"{k}[{form}]": n for m in modules for k, by_form in m.launches_by_dtype.items() for form, n in by_form.items() if n}
+    assert forms == BF16_FORMS[kind]
+    cpu_batch = batch.to("cpu")
+    cpu_loss = loss_fn(cpu_model(cpu_batch), cpu_batch.y, cpu_batch.y_mask)
+    cpu_loss.backward()
+    torch.testing.assert_close(loss.detach().cpu(), cpu_loss.detach(), rtol=1e-4, atol=2.0**-7 * cpu_loss.abs().item())
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        if q.grad is None:
+            assert p.grad is None, name
+        else:
+            torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=2.0**-7 * q.grad.abs().max().item() + 1e-12, msg=name)

@@ -206,5 +206,7 @@ def test_dropout_and_unported_options() -> None:
         eval_out = model(tb)
         assert torch.equal(model(tb, training=True), eval_out)
         assert not torch.equal(model(tb, training=True, generator=torch.Generator().manual_seed(0)), eval_out)
-    with pytest.raises(NotImplementedError, match="GINetClusteredDiag"):
-        GINetClusteredDiag(FEAT, 2, 1, device="cpu", compute_dtype=torch.bfloat16)
+    # compute_dtype takes None or bfloat16 (the bf16 forms; tests/test_torch_bf16_models.py)
+    assert GINetClusteredDiag(FEAT, 2, 1, device="cpu", compute_dtype=torch.bfloat16).compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="GINetClusteredDiag"):
+        GINetClusteredDiag(FEAT, 2, 1, device="cpu", compute_dtype=torch.float16)

@@ -3,8 +3,9 @@ collate_graphs_blocksparse_clustered, GINetBlockSparse,
 GINetClusteredBlockSparse) against the JAX package's on the CPU: the collates
 field for field, exactly; the models with one JAX initialization loaded into
 both, logits and loss at rtol=atol=1e-5 and every gradient at rtol 1e-4 /
-atol 1e-6. The column-chunk sizes of both packages are cut to 2 tiles, so
-that the structures have several chunks."""
+atol 1e-6, the conv maps' gradients at an atol scaled to the f32 rounding of
+their sums (:func:`_conv_grad_atol`). The column-chunk sizes of both
+packages are cut to 2 tiles, so that the structures have several chunks."""
 
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from deeprank2_tpu.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlo
 from deeprank2_tpu.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse as JaxGINetBlockSparse
 from deeprank2_tpu.ops import batch as jbatch
 from deeprank2_tpu.ops.losses import CrossEntropyLoss as JaxCrossEntropyLoss
-from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
+from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse, _pool_max_t
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
 from deeprank2_tpu_torch.neuralnets.param_interop import params_from_jax, params_to_jax
@@ -27,6 +28,7 @@ from deeprank2_tpu_torch.ops import batch as tbatch
 from deeprank2_tpu_torch.ops import block_sparse as tbs
 from deeprank2_tpu_torch.ops import slotpool as sp
 from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
+from deeprank2_tpu_torch.ops.pooling import depth1_graph_mean, tiled_graph_mean_pool
 from deeprank2_tpu_torch.ops.synthetic import clustered_entry, geometric_entry
 
 FEAT = 38
@@ -157,6 +159,48 @@ def _assert_trees_close(got, want, **tol):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), err_msg=jax.tree_util.keystr(path), **tol)
 
 
+def _conv_grad_atol(model, tb, kind) -> dict[str, np.ndarray]:
+    """The atol of each conv map's gradient entry: ``max(1e-6, 2^-24 sqrt(V)
+    S)``, with ``S = |dY| |X|^T`` the sum of the absolute products of the
+    entry's contraction ``dW = dY X^T`` over the ``V`` nodes of its layer
+    (for ``Y = W X``), from a second f32 pass of the port's conv stack under
+    the same loss.
+
+    Each entry is a sum of ``V`` (about 2,400) products whose terms reach
+    1e-1; ``2^-24 sqrt(V) S`` is the random-walk size of the f32 rounding of
+    such a sum in any order. Against the same gradients computed in f64 by
+    the port's plain route on the same inputs (one CPU run), the port's f32
+    result lies at most 1.3e-6 S from it and JAX's at most 8.4e-7 S
+    ("bcsr" and "plain"; the slot kernels take f32 only), and on the entry
+    that missed the old atol of 1e-6 (conv2.fc.weight, 1.39e-3, S = 1.33)
+    the port is 9.8e-8 from f64 and JAX 1.07e-6: JAX's summation order,
+    which moves with its thread count, not the port. The floor is the old
+    atol, for entries whose error comes from the sums upstream."""
+    w1_t, w2_t = (w.detach() for w in model.fused_weights())
+    x_t = tb.x.T
+    f1 = (w1_t @ x_t).requires_grad_()
+    h = torch.relu(tbs.bcsr_spmm_t(tb.structure, f1))
+    structure = tb.structure
+    if kind != "bcsr":
+        h, structure = _pool_max_t(h, tb), tb.structure_p
+    f2 = w2_t @ h
+    f2.retain_grad()
+    h2 = torch.relu(tbs.bcsr_spmm_t(structure, f2))
+    if kind == "bcsr":
+        pooled = tiled_graph_mean_pool(h2 * tb.node_mask[None, :], tb.node_graph, tb.node_mask, tb.num_graphs, structure.block)
+    else:
+        pooled = depth1_graph_mean(h2, tb)
+    linear = torch.nn.functional.linear
+    out = torch.relu(linear(pooled, model.fc1.weight.detach(), model.fc1.bias.detach()))
+    logits = linear(out, model.fc2.weight.detach(), model.fc2.bias.detach())
+    CrossEntropyLoss()(logits, tb.y, tb.y_mask).backward()
+    s1 = f1.grad.abs() @ x_t.abs().T  # [32, F]
+    s2 = f2.grad.abs() @ h.detach().abs().T  # [64, 32]
+    sums = {"conv1.fc.weight": (s1[:16], x_t), "conv1_ext.fc.weight": (s1[16:], x_t),
+            "conv2.fc.weight": (s2[:32, :16], h), "conv2_ext.fc.weight": (s2[32:, 16:], h)}  # fmt: skip
+    return {k: np.maximum(GRAD_TOL["atol"], 2.0**-24 * np.sqrt(x.shape[1]) * s.numpy()) for k, (s, x) in sums.items()}
+
+
 @pytest.mark.parametrize("kind", ["bcsr", "slot8", "plain"])
 def test_logits_loss_and_every_gradient_match_jax(kind) -> None:
     jmodel, params, jb, model, tb = _setup(kind)
@@ -176,10 +220,17 @@ def test_logits_loss_and_every_gradient_match_jax(kind) -> None:
     assert logits.shape == (4, 2)
     np.testing.assert_allclose(logits.detach().numpy(), want_logits, **TOL)
     np.testing.assert_allclose(float(loss.detach()), float(loss_want), **TOL)
-    grads = params_to_jax({k: torch.zeros_like(p) if p.grad is None else p.grad for k, p in model.named_parameters()})
-    _assert_trees_close(grads, jax.tree.map(np.asarray, grads_want), **GRAD_TOL)
+    grads = {k: torch.zeros_like(p) if p.grad is None else p.grad for k, p in model.named_parameters()}
+    want = params_from_jax(jax.tree.map(np.asarray, grads_want))
+    assert grads.keys() == want.keys()
+    conv_atol = _conv_grad_atol(model, tb, kind)
+    for key, grad in grads.items():
+        got, err = grad.numpy(), np.abs(grad.numpy() - want[key].numpy())
+        bound = GRAD_TOL["rtol"] * np.abs(want[key].numpy()) + conv_atol.get(key, GRAD_TOL["atol"])
+        worst = np.unravel_index(np.argmax(err - bound), err.shape)
+        assert np.all(err <= bound), f"{key}: {got[worst]} vs {want[key].numpy()[worst]}, error {err[worst]:.3e} > {bound[worst]:.3e}"
     for name in ("conv1", "conv1_ext", "conv2", "conv2_ext"):
-        assert np.abs(grads[name]["fc"]["w"]).max() > 0, name
+        assert grads[f"{name}.fc.weight"].abs().max() > 0, name
 
 
 def test_pool_fallbacks_match_the_member_pools() -> None:
@@ -215,5 +266,7 @@ def test_dropout_and_unported_options(kind) -> None:
         eval_out = model(tb)
         assert torch.equal(model(tb, training=True), eval_out)
         assert not torch.equal(model(tb, training=True, generator=torch.Generator().manual_seed(0)), eval_out)
-    with pytest.raises(NotImplementedError, match=type(model).__name__):
-        type(model)(FEAT, 2, 1, device="cpu", compute_dtype=torch.bfloat16)
+    # compute_dtype takes None or bfloat16 (the bf16 forms; tests/test_torch_bf16_models.py)
+    assert type(model)(FEAT, 2, 1, device="cpu", compute_dtype=torch.bfloat16).compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match=type(model).__name__):
+        type(model)(FEAT, 2, 1, device="cpu", compute_dtype=torch.float16)

@@ -162,5 +162,18 @@ def test_training_forward_uses_dropout_only_with_a_generator() -> None:
 
 
 def test_bfloat16_is_not_ported() -> None:
-    with pytest.raises(NotImplementedError):
-        GINetDense(FEAT, 2, EDGE, device="cpu", compute_dtype=torch.bfloat16)
+    """bf16 runs on the flat route (tests/test_torch_bf16_models.py); the
+    fused batched tower (K8) has no bf16 form yet, and float16 none at all."""
+    from deeprank2_tpu_torch.neuralnets.gnn import ginet_dense
+
+    model = GINetDense(FEAT, 2, EDGE, device="cpu", compute_dtype=torch.bfloat16)
+    batch, _ = collate_graphs_dense(synthetic_entries(4, 24, FEAT, EDGE, seed=1), device="cpu")
+    assert model(batch).dtype == torch.float32
+    ginet_dense.set_dense_tower_backend("pallas")
+    try:
+        with pytest.raises(NotImplementedError, match="K8"):
+            model(batch)
+    finally:
+        ginet_dense.set_dense_tower_backend("xla")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        GINetDense(FEAT, 2, EDGE, device="cpu", compute_dtype=torch.float16)

@@ -267,6 +267,59 @@ def test_foutnet_and_sgat_entry_points_raise_without_cuda(no_cuda) -> None:
         assert cls(4, 2, 1, device="cpu")(batch).shape == (batch.num_graphs, 2)
 
 
+def test_bf16_entry_points_raise_without_cuda(no_cuda) -> None:
+    from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag, GINetDense
+    from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetworkBlocked
+
+    for cls in (GINetDense, GINetClusteredDiag, GINetBlockSparse, GINetClusteredBlockSparse, VanillaNetworkBlocked):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(4, 2, 1, compute_dtype=torch.bfloat16)
+        assert cls(4, 2, 1, compute_dtype=torch.bfloat16, device="cpu").compute_dtype == torch.bfloat16
+
+
+# (what is refused, the exception and the message it names)
+UNPORTED_COMPUTE_DTYPES = {
+    "pallas_tower_bf16": (NotImplementedError, "K8"),
+    "foutnet_diag_bf16": (NotImplementedError, "FoutNetDiag"),
+    "sgat_diag_bf16": (NotImplementedError, "SGATDiag"),
+    "foutnet_bcsr_bf16": (NotImplementedError, "FoutNetBlockSparse"),
+    "sgat_bcsr_bf16": (NotImplementedError, "SGATBlockSparse"),
+    "float16": (ValueError, "compute_dtype"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED_COMPUTE_DTYPES))
+def test_compute_dtypes_without_a_port_raise(case) -> None:
+    """The bf16 forms still to port (the fused tower K8, FoutNet and sGAT)
+    and float16, which no kernel has, refuse to run."""
+    from deeprank2_tpu_torch.neuralnets.gnn import clustered_blocksparse, foutnet, ginet_dense, sgat
+    from deeprank2_tpu_torch.ops.batch import collate_graphs_dense
+    from deeprank2_tpu_torch.ops.synthetic import synthetic_entries
+
+    error, match = UNPORTED_COMPUTE_DTYPES[case]
+    models = {
+        "foutnet_diag_bf16": foutnet.FoutNetDiag,
+        "sgat_diag_bf16": sgat.SGATDiag,
+        "foutnet_bcsr_bf16": clustered_blocksparse.FoutNetBlockSparse,
+        "sgat_bcsr_bf16": clustered_blocksparse.SGATBlockSparse,
+    }
+    with pytest.raises(error, match=match):
+        if case == "pallas_tower_bf16":
+            batch, _ = collate_graphs_dense(synthetic_entries(2, 8, 4, 2, seed=0), device="cpu")
+            model = ginet_dense.GINetDense(4, 2, 2, device="cpu", compute_dtype=torch.bfloat16)
+            ginet_dense.set_dense_tower_backend("pallas")
+            try:
+                model(batch)
+            finally:
+                ginet_dense.set_dense_tower_backend("xla")
+        elif case == "float16":
+            ginet_dense.GINetDense(4, 2, 2, device="cpu", compute_dtype=torch.float16)
+        else:
+            models[case](4, 2, 1, device="cpu", compute_dtype=torch.bfloat16)
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_cuda_or_without_the_repo(no_cuda, tmp_path, alone) -> None:
     cwd = ROOT

@@ -194,8 +194,10 @@ def test_training_flag_and_unported_parts() -> None:
     *_, model, tb = _setup("small")
     with torch.no_grad():
         assert torch.equal(model(tb, training=True, generator=torch.Generator().manual_seed(0)), model(tb))
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        VanillaNetworkBlocked(FEAT, 2, FE, compute_dtype=torch.bfloat16, device="cpu")
+    # compute_dtype takes None or bfloat16 (the bf16 forms; tests/test_torch_bf16_models.py)
+    assert VanillaNetworkBlocked(FEAT, 2, FE, compute_dtype=torch.bfloat16, device="cpu").compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="compute_dtype"):
+        VanillaNetworkBlocked(FEAT, 2, FE, compute_dtype=torch.float16, device="cpu")
     # the COO VanillaNetwork, with the same parameters, on the COO collate of
     # the same entries: the same function
     coo = VanillaNetwork(FEAT, 2, FE, device="cpu")
