@@ -206,9 +206,42 @@ Phases, each printing one JSON line:
    each one step against the CPU (which runs the same bf16 forms in their
    plain versions) at BF16_STEP_TOL, S = BCSR_STEPS steps and one eval
    forward with the counters at 0, and a profile; then GINetClusteredDiag's
-   bf16 step against the CPU.
+   bf16 step against the CPU;
+33. the bf16 forms of the fused towers (K8f, K8b, K9f, K9b) against their
+   plain versions at the shapes of phase 17, directly and through
+   ginet_tower_pooled and tower_pooled: f32 order (rtol 1e-5, atol DW_TOL
+   times the sum of the terms' absolute values) on all but FLIP_SHARE of
+   each output's entries, which may be off by one bf16 step of the chain
+   (FLIP: a value rounded after sums in other orders can land on the
+   neighbouring bf16 number), K9f's sign only within that band of zero, t2
+   and t1 bf16; every call on the int8/bfloat16 form;
+34. their times at the bench batch (f32 x, rounded as it is staged; K9b
+   writes t2/t1 at 2 bytes; the weight products' bound at the bf16
+   tensor-core rate), beside the f32 forms on the same values and the flat
+   route's bf16 K1/K2;
+35. dense_tower_bf16: GINetDense(38, 2, 6, compute_dtype=bfloat16) on the
+   "pallas" tower at the bench batch: one step against the CPU at
+   BF16_STEP_TOL, STEPS steps and one eval forward with the counters at 0
+   (K8f STEPS + 1, K8b STEPS, all of the int8/bfloat16 form, every other
+   kernel 0), and a profile;
+36. dense_fused_tower_bf16: tower_pooled in bf16 on the bench batch, once
+   against the CPU's pass and against tower_pooled_ref in bf16 (the plain
+   ops, written apart) at BF16_STEP_TOL, then STEPS passes and one forward
+   (K9f STEPS + 1, K9b STEPS, all int8/bfloat16);
+37. the bf16 K1 and K5 calls of the four FoutNet/sGAT bf16 paths, timed
+   beside their f32 forms;
+38-41. sgat_diag_bf16, foutnet_diag_bf16, sgat_bcsr_bf16 and
+   foutnet_bcsr_bf16: the models of phases 22-25 with
+   compute_dtype=bfloat16 on the same batches, each one step against the CPU
+   at BF16_STEP_TOL (the 100k-node ones on clustered_entry(20_000, 38, 1)),
+   SGAT_FOUTNET_STEPS steps and one eval forward with the counters at 0
+   (4*S + 2 of the bf16 K1 or K5 form: bfloat16/bfloat16 for sGAT,
+   int8/bfloat16 for FoutNet; K3 S + 1, K4 S), and a profile; then SGATDiag
+   in bf16 on the f32 adjacency of weight_dtype=float32 (JAX's XLA
+   fallback: K1's bf16 form on the adjacency rounded to bf16, its output
+   rounded) one step against the CPU.
 
-Then the ``kernels`` line (K1, K2, K5, K6f and K6b also by form),
+Then the ``kernels`` line (every kernel with forms also by form),
 the card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without CUDA, or without the package beside this file, it exits non-zero
 before printing any result.
@@ -262,6 +295,15 @@ CLUSTERED_GRAD_TOL = {"rtol": 1e-4, "atol": 1e-6}
 # own: its atol is this share of the sum of the products' absolute values,
 # the scale of any f32 summation order's rounding error
 DW_TOL = 1e-6
+# the bf16 tower forms against their plain versions: both round at the same
+# points, but a value about to be rounded that the two sum in other orders
+# can land on the neighbouring bf16 number (a flip), which moves what
+# follows by at most one bf16 step of that value (2^-8 of it; 2^-7 counting
+# an output's own rounding). So each output is held to the f32-order bound
+# (rtol 1e-5, atol DW_TOL x the sum of its terms' absolute values) except at
+# most FLIP_SHARE of its entries, each within FLIP x (that sum + |value|)
+FLIP = 2.0**-7
+FLIP_SHARE = 1e-3
 KERNELS = (
     "diag_kernel",
     "pool_bwd_kernel",
@@ -341,9 +383,10 @@ LIBRARY = {
     "tower_fwd_kernel": None,
     "tower_bwd_kernel": None,
 }
-# published peaks (NVIDIA data sheets; dense, f32 outside the tensor cores):
-# (memory bytes/s, f32 FLOP/s). The SXM part is the default.
-PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12), "SXM": (3.35e12, 67e12)}
+# published peaks (NVIDIA data sheets; dense, without sparsity): (memory
+# bytes/s, f32 FLOP/s outside the tensor cores, bf16 FLOP/s on the tensor
+# cores). The SXM part is the default.
+PEAKS = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12), "SXM": (3.35e12, 67e12, 989e12)}
 
 
 def want_launches(**counts) -> dict:
@@ -362,11 +405,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def peaks(name: str) -> tuple[str, float, float]:
-    for key in ("PCIe", "NVL"):
-        if key in name:
-            return (key, *PEAKS[key])
-    return ("SXM", *PEAKS["SXM"])
+def peaks(name: str) -> tuple[str, tuple[float, float, float]]:
+    """The part of the H100 that ``name`` names, and its ``PEAKS`` entry."""
+    key = next((k for k in ("PCIe", "NVL") if k in name), "SXM")
+    return key, PEAKS[key]
 
 
 def sync(torch, dev) -> None:
@@ -388,10 +430,11 @@ class Counters:
         return {k: v for m in self.modules for k, v in m.launches.items()}
 
     def read_forms(self) -> dict:
-        """The nonzero launch counts of K1, K2, K5, K6f and K6b by form, as
-        ``"kernel[form]"``: ``"int8/bfloat16"`` (adjacency or block type,
-        then activation type) for K1, K2 and K5, the activation type for
-        K6f and K6b."""
+        """The nonzero launch counts of every kernel with forms (K1, K2, K5,
+        K6f, K6b, K8f, K8b, K9f, K9b) by form, as ``"kernel[form]"``:
+        ``"int8/bfloat16"`` (adjacency or block type, then activation type)
+        for K1, K2, K5 and the towers, the activation type for K6f and
+        K6b."""
         return {f"{k}[{form}]": n for m in self.modules for k, forms in getattr(m, "launches_by_dtype", {}).items() for form, n in forms.items() if n}
 
 
@@ -424,6 +467,21 @@ class Checks:
             row["form"] = form
         self.rows.append(row)
         self.torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{kernel} {what}: {m}")
+
+    def close_flips(self, kernel, what, got, want, scale, form) -> None:
+        """The bf16 tower forms' gate (FLIP, FLIP_SHARE): f32 order except a
+        counted share of flips, each within one bf16 step of the chain."""
+        got, want, scale = (t.detach().double() for t in (got, want, scale))
+        err = (got - want).abs()
+        off = err > 1e-5 * want.abs() + DW_TOL * scale
+        e = err.max().item() if err.numel() else 0.0
+        self.errs[kernel] = max(self.errs[kernel], e)
+        self.form_errs[kernel, form] = max(self.form_errs.get((kernel, form), 0.0), e)
+        n_off = int(off.sum().item())
+        self.rows.append({"kernel": kernel, "check": what, "form": form, "max_abs_err": e, "off_f32_order": n_off, "entries": off.numel()})
+        if n_off > FLIP_SHARE * off.numel() or not bool((err[off] <= FLIP * (scale + want.abs())[off]).all()):
+            msg = f"{kernel} {what}: {n_off} of {off.numel()} entries off the f32-order bound (at most {FLIP_SHARE:g}), largest error {e:.3e}"
+            raise AssertionError(msg)
 
 
 def check_diag_kernels(torch, ds, checks, shapes, dev, compute_dtype=None) -> None:
@@ -661,12 +719,18 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(in_bytes, out_bytes, flop, peak_bw, peak_f32) -> dict:
-    t_bytes, t_ops = (in_bytes + out_bytes) / peak_bw, flop / peak_f32
+def bound(in_bytes, out_bytes, flop, peak, mma_flop=0) -> dict:
+    """The least time of a call: its bytes over the memory rate, or its
+    operations, whichever takes longer. ``flop`` counts at the f32 rate
+    outside the tensor cores, except ``mma_flop``, the part of it that is
+    dense products of bf16 operands with f32 sums (the weight products of a
+    bf16 form), at the bf16 tensor-core rate; the two units may run at once."""
+    bw, f32, bf16 = peak
+    t_bytes, t_ops = (in_bytes + out_bytes) / bw, max((flop - mma_flop) / f32, mma_flop / bf16)
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": in_bytes + out_bytes}
 
 
-def time_diag_calls(torch, ds, timer, path, adj, mask, specs, peak_bw, peak_f32, compute_dtype=None) -> list:
+def time_diag_calls(torch, ds, timer, path, adj, mask, specs, peak, compute_dtype=None) -> list:
     """Kernel, plain-version and library times of diag_kernel and
     pool_bwd_kernel at one adjacency, with each call's bound (bytes: inputs
     read once, outputs written once; operations: the products this
@@ -723,7 +787,7 @@ def time_diag_calls(torch, ds, timer, path, adj, mask, specs, peak_bw, peak_f32,
                 "plain_ms": timer.ms(plain),
                 "library_ms": timer.ms(library),
                 **extra,
-                **bound(in_bytes, out_bytes, flop, peak_bw, peak_f32),
+                **bound(in_bytes, out_bytes, flop, peak),
                 "adjacency_nnz": nnz,
                 "flop_needed": flop,
                 "flop_dense": 2 * f * n * n * g,
@@ -732,7 +796,7 @@ def time_diag_calls(torch, ds, timer, path, adj, mask, specs, peak_bw, peak_f32,
     return calls
 
 
-def time_slot_calls(torch, sp, timer, path, mask_row, specs, peak_bw, peak_f32) -> list:
+def time_slot_calls(torch, sp, timer, path, mask_row, specs, peak) -> list:
     """Kernel, plain-version and library times of the slot kernels at the
     clustered path's activation width, with each call's byte bound."""
     v = mask_row.shape[1]
@@ -762,7 +826,7 @@ def time_slot_calls(torch, sp, timer, path, mask_row, specs, peak_bw, peak_f32) 
                 "ms": timer.ms(run),
                 "plain_ms": timer.ms(plain),
                 "library_ms": library_ms,
-                **bound(in_bytes, out_bytes, ops, peak_bw, peak_f32),
+                **bound(in_bytes, out_bytes, ops, peak),
             }
         )
     return calls
@@ -816,7 +880,7 @@ def csr_of(torch, st):
     return coo.coalesce().to_sparse_csr()
 
 
-def time_bcsr_calls(torch, bs, timer, path, batch, specs, peak_bw, peak_f32, compute_dtype=None) -> list:
+def time_bcsr_calls(torch, bs, timer, path, batch, specs, peak, compute_dtype=None) -> list:
     """Kernel, plain-version and cuSPARSE times of bcsr_spmm_kernel at one
     path's structures, with each call's bound: bytes, the nonzero blocks, x
     and the row-tile index read once and the output written once;
@@ -863,7 +927,7 @@ def time_bcsr_calls(torch, bs, timer, path, batch, specs, peak_bw, peak_f32, com
                 "plain_ms": timer.ms(lambda st=st, x=x: bs.bcsr_spmm_kernel_ref(st, x, compute_dtype)),
                 "library_ms": timer.ms(lambda csr=csr, x_rows=x_rows: csr @ x_rows),
                 **extra,
-                **bound(in_bytes, 4 * f * st.padded_rows, 2 * f * nnz, peak_bw, peak_f32),
+                **bound(in_bytes, 4 * f * st.padded_rows, 2 * f * nnz, peak),
                 "directed_edges": nnz,
                 "flop_dense": 2 * f * real * st.block**2,
                 "nonzero_source_rows_share": rows_share,
@@ -911,7 +975,7 @@ def check_blocked_kernels(torch, be, vn, checks, shapes, dev, compute_dtype=None
     sync(torch, dev)
 
 
-def time_blocked_calls(torch, vn, timer, path, st, m, per_step, peak_bw, peak_f32, compute_dtype=None) -> list:
+def time_blocked_calls(torch, vn, timer, path, st, m, per_step, peak, compute_dtype=None) -> list:
     """Kernel and plain-version times of K6f and K6b at one structure, with
     each call's bound. Bytes: the real edges' index (edge_order and
     col_local, 8 B) and features (4·Fe B), row_ptr, sub_col, w_e and the node
@@ -921,7 +985,8 @@ def time_blocked_calls(torch, vn, timer, path, st, m, per_step, peak_bw, peak_f3
     selects and sums, dw_e's multiply-adds). No single PyTorch call computes
     either function. The bf16 form is timed on bf16 operands (2 bytes a node
     entry in the bound; the edge features stay f32), beside its f32 form
-    (``f32_form_ms``)."""
+    (``f32_form_ms``); its products of bf16 operands with f32 sums (the edge
+    term, 2·Fe, and dw_e's, 2·Fe) count at the bf16 tensor-core rate."""
     cd = compute_dtype
     act = vn.activation_dtype(cd)
     ops32 = blocked_operands(torch, st, m, "cuda", seed=13)
@@ -932,9 +997,9 @@ def time_blocked_calls(torch, vn, timer, path, st, m, per_step, peak_bw, peak_f3
     node_in, node_out = ab * st.padded_nodes * m, 4 * st.padded_nodes * m
     specs = (
         ("blocked_fwd_kernel", lambda c: vn.blocked_fwd_kernel(st, *((xr, xc, w_e) if c else ops32[:3]), c),
-         lambda: vn.blocked_fwd_kernel_ref(st, xr, xc, w_e, cd), shared + 2 * node_in, node_out, 2 * fe + 4),
+         lambda: vn.blocked_fwd_kernel_ref(st, xr, xc, w_e, cd), shared + 2 * node_in, node_out, 2 * fe + 4, 2 * fe),
         ("blocked_bwd_kernel", lambda c: vn.blocked_bwd_kernel(st, *((xr, xc, w_e, g) if c else ops32), c),
-         lambda: vn.blocked_bwd_kernel_ref(st, xr, xc, w_e, g, cd), shared + 3 * node_in, 2 * node_out + 4 * fe * m, 4 * fe + 8),
+         lambda: vn.blocked_bwd_kernel_ref(st, xr, xc, w_e, g, cd), shared + 3 * node_in, 2 * node_out + 4 * fe * m, 4 * fe + 8, 4 * fe),
     )  # fmt: skip
     shape = {"nodes": st.padded_nodes, "real_edges": edges, "edge_slots": st.row_local.numel(), "edge_dim": fe}
     return [
@@ -950,10 +1015,10 @@ def time_blocked_calls(torch, vn, timer, path, st, m, per_step, peak_bw, peak_f3
             "plain_ms": timer.ms(plain),
             "library_ms": None,
             **({"f32_form_ms": timer.ms(lambda run=run: run(None))} if cd is not None else {}),
-            **bound(in_bytes, out_bytes, ops * m * edges, peak_bw, peak_f32),
+            **bound(in_bytes, out_bytes, ops * m * edges, peak, 0 if cd is None else mma * m * edges),
             "flop_needed": ops * m * edges,
         }
-        for kernel, run, plain, in_bytes, out_bytes, ops in specs
+        for kernel, run, plain, in_bytes, out_bytes, ops, mma in specs
     ]
 
 
@@ -1032,7 +1097,7 @@ def check_segment_kernel(torch, ss, checks, shapes, dev) -> None:
     sync(torch, dev)
 
 
-def time_segment_calls(torch, ss, timer, rows_by_name, peak_bw, peak_f32) -> list:
+def time_segment_calls(torch, ss, timer, rows_by_name, peak) -> list:
     """Kernel, plain-version and library times of K7 at each COO path's calls,
     with each call's bound: bytes, the valid messages (4·F) and their row ids
     (4) read once and the output written once; operations, the E_valid·F
@@ -1056,7 +1121,7 @@ def time_segment_calls(torch, ss, timer, rows_by_name, peak_bw, peak_f32) -> lis
                 "ms": timer.ms(lambda msgs=msgs, rows=rows, n=n: ss.segment_sum_sorted_kernel(msgs, rows, n)),
                 "plain_ms": timer.ms(lambda msgs=msgs, rows=rows, n=n: ss.segment_sum_sorted_kernel_ref(msgs, rows, n)),
                 "library_ms": timer.ms(lambda buf=buf, ids=ids, msgs=msgs: buf.index_add_(0, ids, msgs)),
-                **bound((4 * f + 4) * valid, 4 * f * n, f * valid, peak_bw, peak_f32),
+                **bound((4 * f + 4) * valid, 4 * f * n, f * valid, peak),
                 "bytes_all_rows": (4 * f + 4) * rows.numel() + 4 * f * n,
             }
         )
@@ -1284,14 +1349,21 @@ def check_tower_kernels(torch, gt, ds, checks, shapes, w1, w2, dev) -> None:
     sync(torch, dev)
 
 
-def time_tower_calls(torch, gt, ds, timer, b, w1, w2, peak_bw, peak_f32) -> list:
+def time_tower_calls(torch, gt, ds, timer, b, w1, w2, peak, compute_dtype=None) -> list:
     """Kernel and plain-version times of K8f, K8b, K9f and K9b at the bench
     batch, beside the flat route that computes the same function on the same
     card (forward: K1 relu F=32 and K1 pool F=64; backward: K2 F=64 and K1
     plain F=32), and each call's bound: bytes, every input read once and
     every output written once; operations, the weight products (dense) and
     the aggregates over this adjacency's nonzeros (2 per entry and
-    channel). No single PyTorch call computes any of them."""
+    channel), the weight products of the bf16 form (bf16 operands, f32
+    sums) at the bf16 tensor-core rate. No single PyTorch call computes any
+    of them. The bf16 form (``compute_dtype``) reads the same f32 x and
+    weights (K9b writes t2/t1 at 2 bytes), and is timed beside its f32 form
+    (``f32_form_ms``) and the flat route's bf16 K1/K2."""
+    cd = compute_dtype
+    act = ds.activation_dtype(cd)
+    tb = torch.tensor([], dtype=act).element_size()
     g, n, f = b.x.shape
     c1, c2 = w1.shape[1], w2.shape[1]
     gn = g * n
@@ -1301,90 +1373,115 @@ def time_tower_calls(torch, gt, ds, timer, b, w1, w2, peak_bw, peak_f32) -> list
     g_pool = dp.T.contiguous()
     args = (w1, w2, b.x, b.adj_i8, b.node_mask)
     fargs = (b.adj_i8, b.x_t, b.node_mask, w1, w2)
-    h1, sign, _ = ds.tower_fwd_kernel_ref(*fargs)
+    h1, sign, _ = ds.tower_fwd_kernel_ref(*fargs, cd)
     # the flat route's kernels on the same batch and weights
-    fcx1, fcx2 = w1.T @ b.x_t, w2.T @ h1
-    flat_sign, _ = ds.diag_kernel(b.adj_i8, fcx2, b.node_mask, "relu_mask_pool")
-    u1 = torch.randn(c1, gn, generator=gen, device="cuda")
-    flat_fwd = timer.ms(lambda: ds.diag_kernel(b.adj_i8, fcx1, b.node_mask, "relu_mask")) + timer.ms(lambda: ds.diag_kernel(b.adj_i8, fcx2, b.node_mask, "relu_mask_pool"))
-    flat_bwd = timer.ms(lambda: ds.pool_bwd_kernel(b.adj_i8, flat_sign, g_pool)) + timer.ms(lambda: ds.diag_kernel(b.adj_i8, u1))
+    fcx1, fcx2 = (w1.T @ b.x_t).to(act), (w2.T @ h1).to(act)
+    flat_sign, _ = ds.diag_kernel(b.adj_i8, fcx2, b.node_mask, "relu_mask_pool", cd)
+    u1 = torch.randn(c1, gn, generator=gen, device="cuda").to(act)
+    g_pool_act = g_pool.to(act)
+    flat_fwd = timer.ms(lambda: ds.diag_kernel(b.adj_i8, fcx1, b.node_mask, "relu_mask", cd)) + timer.ms(lambda: ds.diag_kernel(b.adj_i8, fcx2, b.node_mask, "relu_mask_pool", cd))
+    flat_bwd = timer.ms(lambda: ds.pool_bwd_kernel(b.adj_i8, flat_sign, g_pool_act, cd)) + timer.ms(lambda: ds.diag_kernel(b.adj_i8, u1, compute_dtype=cd))
     weights = 4 * (f * c1 + c1 * c2)
     w_ops = 2 * gn * (f * c1 + c1 * c2)
     agg_ops = 2 * nnz * (c1 + c2)
     dense_agg = 2 * g * n * n * (c1 + c2)
     adj_bytes = b.adj_i8.numel()
+    x_bytes = 4 * gn * f
+    # (kernel, path, run, plain version, bytes in, bytes out, weight-product
+    # operations, aggregate operations, aggregates counted dense, flat route)
     specs = (
-        ("ginet_tower_fwd_kernel", "dense_tower", lambda: gt.ginet_tower_fwd_kernel(*args), lambda: gt.ginet_tower_fwd_kernel_ref(*args),
-         adj_bytes + 4 * gn * f + gn + weights, 4 * g * c2, w_ops + agg_ops, w_ops + dense_agg, flat_fwd),
-        ("ginet_tower_bwd_kernel", "dense_tower", lambda: gt.ginet_tower_bwd_kernel(*args, dp), lambda: gt.ginet_tower_bwd_kernel_ref(*args, dp),
-         adj_bytes + 4 * gn * f + gn + weights + 4 * g * c2, weights, 2 * w_ops + 2 * gn * c1 * c2 + 2 * agg_ops, 2 * w_ops + 2 * gn * c1 * c2 + 2 * dense_agg, flat_bwd),
-        ("tower_fwd_kernel", "dense_fused_tower", lambda: ds.tower_fwd_kernel(*fargs), lambda: ds.tower_fwd_kernel_ref(*fargs),
-         adj_bytes + 4 * gn * f + gn + weights, 4 * c1 * gn + c2 * gn + 4 * c2 * g, w_ops + agg_ops, w_ops + dense_agg, flat_fwd),
-        ("tower_bwd_kernel", "dense_fused_tower", lambda: ds.tower_bwd_kernel(b.adj_i8, g_pool, sign, h1, w2), lambda: ds.tower_bwd_kernel_ref(b.adj_i8, g_pool, sign, h1, w2),
-         adj_bytes + 4 * c2 * g + c2 * gn + 4 * c1 * gn + 4 * c1 * c2, 4 * (c1 + c2) * gn, 2 * gn * c1 * c2 + agg_ops, 2 * gn * c1 * c2 + dense_agg, flat_bwd),
-    )
+        ("ginet_tower_fwd_kernel", "dense_tower", lambda c=cd: gt.ginet_tower_fwd_kernel(*args, c), lambda: gt.ginet_tower_fwd_kernel_ref(*args, cd),
+         adj_bytes + x_bytes + gn + weights, 4 * g * c2, w_ops, agg_ops, dense_agg, flat_fwd),
+        ("ginet_tower_bwd_kernel", "dense_tower", lambda c=cd: gt.ginet_tower_bwd_kernel(*args, dp, c), lambda: gt.ginet_tower_bwd_kernel_ref(*args, dp, cd),
+         adj_bytes + x_bytes + gn + weights + 4 * g * c2, weights, 2 * w_ops + 2 * gn * c1 * c2, 2 * agg_ops, 2 * dense_agg, flat_bwd),
+        ("tower_fwd_kernel", "dense_fused_tower", lambda c=cd: ds.tower_fwd_kernel(*fargs, c), lambda: ds.tower_fwd_kernel_ref(*fargs, cd),
+         adj_bytes + x_bytes + gn + weights, 4 * c1 * gn + c2 * gn + 4 * c2 * g, w_ops, agg_ops, dense_agg, flat_fwd),
+        ("tower_bwd_kernel", "dense_fused_tower", lambda c=cd: ds.tower_bwd_kernel(b.adj_i8, g_pool, sign, h1, w2, c), lambda: ds.tower_bwd_kernel_ref(b.adj_i8, g_pool, sign, h1, w2, cd),
+         adj_bytes + 4 * c2 * g + c2 * gn + 4 * c1 * gn + 4 * c1 * c2, tb * (c1 + c2) * gn, 2 * gn * c1 * c2, agg_ops, dense_agg, flat_bwd),
+    )  # fmt: skip
+    suffix = "" if cd is None else "_bf16"
     return [
         {
-            "path": path,
+            "path": path + suffix,
             "kernel": kernel,
             "mode": "fused tower",
+            "form": ds.form_name(torch.int8, act),
             "shape": [g, n, n],
             "F": f,
             "ms": timer.ms(run),
+            **({} if cd is None else {"f32_form_ms": timer.ms(lambda run=run: run(None))}),
             "plain_ms": timer.ms(plain),
             "library_ms": None,
             "flat_route_ms": flat,
-            **bound(in_bytes, out_bytes, ops, peak_bw, peak_f32),
+            **bound(in_bytes, out_bytes, w + agg, peak, 0 if cd is None else w),
             "adjacency_nnz": nnz,
-            "flop_needed": ops,
-            "flop_dense": dense,
+            "flop_needed": w + agg,
+            "flop_dense": w + dense,
         }
-        for kernel, path, run, plain, in_bytes, out_bytes, ops, dense, flat in specs
+        for kernel, path, run, plain, in_bytes, out_bytes, w, agg, dense, flat in specs
     ]
 
 
-def fused_tower_drive(torch, ds, counters, b, w1, w2, steps, dev) -> dict:
+def fused_tower_drive(torch, ds, counters, b, w1, w2, steps, dev, compute_dtype=None) -> dict:
     """tower_pooled on the bench batch: once against tower_pooled_ref and
     against the flat route (diag_layer_t then diag_layer_pool_t, the same
     function), pooled sums and weight gradients within CROSS_TOL; then, with
     the counters at 0, ``steps`` forward/backward passes and one forward:
-    K9f steps + 1, K9b steps, every other kernel 0."""
+    K9f steps + 1, K9b steps, every other kernel 0, all of the form
+    ``compute_dtype`` selects. The bf16 form is held instead against the
+    same pass on the CPU (the kernels' plain versions of that form) and
+    against tower_pooled_ref in bf16 (the plain ops, written apart, on the
+    card) at BF16_STEP_TOL: each rounds values that they sum in other
+    orders."""
+    cd = compute_dtype
     gen = torch.Generator(device=dev).manual_seed(17)
     g_pool = torch.randn(w2.shape[1], b.x.shape[0], generator=gen, device=dev)
 
     def flat(adj, mask, x_t, a, c):
         return ds.diag_layer_pool_t(adj, mask, c.T @ ds.diag_layer_t(adj, mask, a.T @ x_t))
 
-    def pass_(fn):
+    def fused(adj, mask, x_t, a, c):
+        return ds.tower_pooled(adj, mask, x_t, a, c, cd)
+
+    def pass_(fn, b=b, w1=w1, w2=w2, g_pool=g_pool):
         a, c = w1.clone().requires_grad_(True), w2.clone().requires_grad_(True)
         out = fn(b.adj_i8, b.node_mask, b.x_t, a, c)
         return (out.detach(), *torch.autograd.grad(out, (a, c), g_pool))
 
-    got, ref, flat_out = pass_(ds.tower_pooled), pass_(ds.tower_pooled_ref), pass_(flat)
+    got = pass_(fused)
+    if cd is None:
+        oracles, tol = (("tower_pooled_ref", pass_(ds.tower_pooled_ref)), ("flat route", pass_(flat))), CROSS_TOL
+    else:
+        cpu = pass_(fused, b.to("cpu"), w1.cpu(), w2.cpu(), g_pool.cpu())
+        ref = pass_(lambda *a: ds.tower_pooled_ref(*a, compute_dtype=cd))
+        oracles, tol = (("the CPU", [t.to(dev) for t in cpu]), ("tower_pooled_ref", ref)), BF16_STEP_TOL
     errs = {}
-    for oracle, want in (("tower_pooled_ref", ref), ("flat route", flat_out)):
+    for oracle, want in oracles:
         for what, x, y in zip(("pooled", "dw1", "dw2"), got, want):
-            torch.testing.assert_close(x, y, **CROSS_TOL, msg=lambda m, what=what, oracle=oracle: f"tower_pooled {what} vs {oracle}: {m}")
+            t = tol if "atol" in tol else {"rtol": tol["rtol"], "atol": tol["atol_share"] * y.abs().max().item()}
+            torch.testing.assert_close(x, y, **t, msg=lambda m, what=what, oracle=oracle: f"tower_pooled {what} vs {oracle}: {m}")
             errs[f"{what} vs {oracle}"] = (x - y).abs().max().item()
     sync(torch, dev)
     counters.reset()
     t0 = time.perf_counter()
     for _ in range(steps):
-        pass_(ds.tower_pooled)
+        pass_(fused)
     sync(torch, dev)
     pass_s = (time.perf_counter() - t0) / steps
     with torch.no_grad():
-        last = ds.tower_pooled(b.adj_i8, b.node_mask, b.x_t, w1, w2)
+        last = fused(b.adj_i8, b.node_mask, b.x_t, w1, w2)
     sync(torch, dev)
-    launches = counters.read()
+    launches, forms = counters.read(), counters.read_forms()
     want = want_launches(tower_fwd_kernel=steps + 1, tower_bwd_kernel=steps)
-    if launches != want:
-        msg = f"dense_fused_tower launches {launches}, expected {want}"
+    form = ds.form_name(torch.int8, ds.activation_dtype(cd))
+    want_forms = {f"tower_fwd_kernel[{form}]": steps + 1, f"tower_bwd_kernel[{form}]": steps}
+    if launches != want or forms != want_forms:
+        msg = f"dense_fused_tower launches {launches} by form {forms}, expected {want} by form {want_forms}"
         raise AssertionError(msg)
     if not torch.isfinite(last).all() or tuple(last.shape) != (w2.shape[1], b.x.shape[0]):
         msg = f"non-finite or misshapen pooled sums {tuple(last.shape)}"
         raise AssertionError(msg)
-    return {"tolerance": CROSS_TOL, "max_abs_err": errs, "passes": steps, "pass_ms": pass_s * 1e3, "launches": launches, "launches_expected": want}
+    return {"tolerance": tol, "max_abs_err": errs, "passes": steps, "pass_ms": pass_s * 1e3, "launches": launches, "launches_expected": want, "launches_by_form": forms}
 
 
 def kernels_line(calls, path_launches, errs, path_forms, form_errs, form_calls=()) -> list:
@@ -1440,7 +1537,7 @@ def kernels_line(calls, path_launches, errs, path_forms, form_errs, form_calls=(
                                 "launches": sum(launches.get(f"{name}[{form}]", 0) for launches in path_forms.values()),
                                 "max_abs_err": form_errs.get((name, form)),
                                 "calls": [
-                                    {k: c[k] for k in ("path", "mode", "F", "per_step", "ms", "f32_form_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_form") if k in c}
+                                    {k: c[k] for k in ("path", "mode", "F", "per_step", "ms", "f32_form_ms", "plain_ms", "flat_route_ms", "bound_ms", "bound_by", "library_ms", "library_form") if k in c}
                                     for c in by_form.get(form, [])
                                 ],
                             }
@@ -1597,7 +1694,7 @@ def expected_check_launches(ds, bs, diag_shapes, bcsr_shapes, compute_dtype=None
     return want
 
 
-def sgat_foutnet_phases(torch, dev, card, counters, checks, peak_bw, peak_f32, record, c_entries, c_batch, c_entry, cb_batch, cc_batch) -> list:
+def sgat_foutnet_phases(torch, dev, card, counters, checks, peak, record, c_entries, c_batch, c_entry, cb_batch, cc_batch) -> list:
     """Phases 20-26: the weighted forms of K5 and K1 against their plain
     versions and their times, then the four FoutNet and sGAT paths (each
     checked one step against the CPU, driven with the counters at 0 and
@@ -1660,17 +1757,17 @@ def sgat_foutnet_phases(torch, dev, card, counters, checks, peak_bw, peak_f32, r
     # 21. their times, and those of the FoutNet paths' unweighted calls
     timer = Timer(torch)
     bcsr_specs = [("structure", 16, 2), ("structure_p", 32, 2)]
-    calls = time_bcsr_calls(torch, bs, timer, "sgat_bcsr", sw_batch, bcsr_specs, peak_bw, peak_f32)
-    calls += time_bcsr_calls(torch, bs, timer, "foutnet_bcsr", cb_batch, bcsr_specs, peak_bw, peak_f32)
+    calls = time_bcsr_calls(torch, bs, timer, "sgat_bcsr", sw_batch, bcsr_specs, peak)
+    calls += time_bcsr_calls(torch, bs, timer, "foutnet_bcsr", cb_batch, bcsr_specs, peak)
     for path, batch, full, pooled in (("sgat_diag", sd_batch, sd_batch.adj_w, sd_batch.adj_wp), ("foutnet_diag", c_batch, c_batch.adj_i8, c_batch.adj_p_i8)):
-        calls += time_diag_calls(torch, ds, timer, path, full, batch.node_mask, [("diag_kernel", "plain", 16, 2)], peak_bw, peak_f32)
-        calls += time_diag_calls(torch, ds, timer, f"{path}_pooled", pooled, batch.pooled_mask, [("diag_kernel", "plain", 32, 2)], peak_bw, peak_f32)
+        calls += time_diag_calls(torch, ds, timer, path, full, batch.node_mask, [("diag_kernel", "plain", 16, 2)], peak)
+        calls += time_diag_calls(torch, ds, timer, f"{path}_pooled", pooled, batch.pooled_mask, [("diag_kernel", "plain", 32, 2)], peak)
     slot_specs = [("slot_fwd_kernel", 8, 16), ("slot_bwd_kernel", 8, 16)]
     for path, batch in (("sgat_diag", sd_batch), ("foutnet_diag", c_batch), ("sgat_bcsr", sw_batch), ("foutnet_bcsr", cb_batch)):
-        calls += time_slot_calls(torch, sp, timer, f"{path}_slot", batch.node_mask.float().reshape(1, -1), slot_specs, peak_bw, peak_f32)
+        calls += time_slot_calls(torch, sp, timer, f"{path}_slot", batch.node_mask.float().reshape(1, -1), slot_specs, peak)
     # the f32 storage (the collates' exact-oracle mode), timed on no path's step
-    f32_calls = time_bcsr_calls(torch, bs, timer, "f32_storage", types.SimpleNamespace(structure_p=pooled_f32), [("structure_p", 32, 0)], peak_bw, peak_f32)
-    f32_calls += time_diag_calls(torch, ds, timer, "f32_storage", sd_batch.adj_wp.float(), sd_batch.pooled_mask, [("diag_kernel", "plain", 32, 0)], peak_bw, peak_f32)
+    f32_calls = time_bcsr_calls(torch, bs, timer, "f32_storage", types.SimpleNamespace(structure_p=pooled_f32), [("structure_p", 32, 0)], peak)
+    f32_calls += time_diag_calls(torch, ds, timer, "f32_storage", sd_batch.adj_wp.float(), sd_batch.pooled_mask, [("diag_kernel", "plain", 32, 0)], peak)
     del timer, pooled_f32
     emit({"phase": "weighted_kernel_times", "card": card, "l2_flushed": True, "calls": calls, "f32_storage_calls": f32_calls})
 
@@ -1752,7 +1849,7 @@ def sgat_foutnet_phases(torch, dev, card, counters, checks, peak_bw, peak_f32, r
     return calls, f32_calls, sd_batch, sw_batch
 
 
-def bf16_phases(torch, dev, card, counters, checks, peak_bw, peak_f32, record, batches, undirected) -> tuple[list, list]:
+def bf16_phases(torch, dev, card, counters, checks, peak, record, batches, undirected) -> tuple[list, list]:
     """Phases 27-32: the single-pass bf16 forms (compute_dtype=bfloat16) of
     K1, K2, K5, K6f and K6b against their plain versions on the card and
     their times, then the four bf16 train paths (each checked one step
@@ -1831,15 +1928,15 @@ def bf16_phases(torch, dev, card, counters, checks, peak_bw, peak_f32, record, b
 
     # 28. their times at the bf16 paths' calls (and the forms no path runs), beside the f32 forms
     timer = Timer(torch)
-    calls = time_diag_calls(torch, ds, timer, "dense_bf16", b.dense_batch.adj_i8, b.dense_batch.node_mask, STEP_CALLS["dense"], peak_bw, peak_f32, bf)
-    calls += time_bcsr_calls(torch, bs, timer, "bcsr_bf16", b.b_batch, BCSR_STEP_CALLS["bcsr"], peak_bw, peak_f32, bf)
-    calls += time_bcsr_calls(torch, bs, timer, "clustered_bcsr_bf16", b.cb_batch, BCSR_STEP_CALLS["clustered_bcsr"], peak_bw, peak_f32, bf)
-    calls += time_blocked_calls(torch, vn, timer, "blocked_bf16", b.bl_batch.structure, 32, 2, peak_bw, peak_f32, bf)
+    calls = time_diag_calls(torch, ds, timer, "dense_bf16", b.dense_batch.adj_i8, b.dense_batch.node_mask, STEP_CALLS["dense"], peak, bf)
+    calls += time_bcsr_calls(torch, bs, timer, "bcsr_bf16", b.b_batch, BCSR_STEP_CALLS["bcsr"], peak, bf)
+    calls += time_bcsr_calls(torch, bs, timer, "clustered_bcsr_bf16", b.cb_batch, BCSR_STEP_CALLS["clustered_bcsr"], peak, bf)
+    calls += time_blocked_calls(torch, vn, timer, "blocked_bf16", b.bl_batch.structure, 32, 2, peak, bf)
     form_calls = time_diag_calls(
-        torch, ds, timer, "bf16_adjacency", b.sd_batch.adj_w, b.sd_batch.node_mask, [("diag_kernel", "plain", 16, 0), ("pool_bwd_kernel", None, 16, 0)], peak_bw, peak_f32, bf
+        torch, ds, timer, "bf16_adjacency", b.sd_batch.adj_w, b.sd_batch.node_mask, [("diag_kernel", "plain", 16, 0), ("pool_bwd_kernel", None, 16, 0)], peak, bf
     )
-    form_calls += time_bcsr_calls(torch, bs, timer, "bf16_blocks", b.sw_batch, [("structure", 16, 0)], peak_bw, peak_f32, bf)
-    form_calls += time_bcsr_calls(torch, bs, timer, "f32_blocks", types.SimpleNamespace(structure_p=pooled_f32), [("structure_p", 32, 0)], peak_bw, peak_f32, bf)
+    form_calls += time_bcsr_calls(torch, bs, timer, "bf16_blocks", b.sw_batch, [("structure", 16, 0)], peak, bf)
+    form_calls += time_bcsr_calls(torch, bs, timer, "f32_blocks", types.SimpleNamespace(structure_p=pooled_f32), [("structure_p", 32, 0)], peak, bf)
     del timer, pooled_f32
     emit({"phase": "bf16_kernel_times", "card": card, "l2_flushed": True, "calls": calls, "no_path_calls": form_calls})
 
@@ -1887,6 +1984,239 @@ def bf16_phases(torch, dev, card, counters, checks, peak_bw, peak_f32, record, b
     return calls, form_calls
 
 
+def check_bf16_tower_kernels(torch, gt, ds, checks, shapes, w1, w2, dev) -> None:
+    """The bf16 forms of K8f/K8b and K9f/K9b against their plain versions
+    (which round at the same points), directly and through ginet_tower_pooled
+    and tower_pooled, at Checks.close_flips's gate: f32 order against
+    Σ|terms| (the same output on the absolute operands, or dw_error_scale /
+    tower_bwd_error_scale) except a counted share of bf16 flips; t2 and t1
+    must come back as bf16; K9f's sign may differ only where |h2| is within
+    FLIP x Σ|terms| of zero, on at most FLIP_SHARE of the entries."""
+    bf = torch.bfloat16
+    form = ds.form_name(torch.int8, bf)
+    for tag, b in shapes:
+        g = b.x.shape[0]
+        gen = torch.Generator(device=dev).manual_seed(len(checks.rows))
+        dp = torch.randn(g, w2.shape[1], generator=gen, device=dev)
+        args = (w1, w2, b.x, b.adj_i8, b.node_mask)
+        fwd_ref = gt.ginet_tower_fwd_kernel_ref(*args, bf)
+        fwd_scale = gt.ginet_tower_fwd_kernel_ref(w1.abs(), w2.abs(), b.x.abs(), b.adj_i8, b.node_mask, bf)
+        checks.close_flips("ginet_tower_fwd_kernel", f"{tag} direct", gt.ginet_tower_fwd_kernel(*args, bf), fwd_ref, fwd_scale, form)
+        bwd_ref, scales = gt.ginet_tower_bwd_kernel_ref(*args, dp, bf), gt.dw_error_scale(*args, dp, bf)
+        direct = gt.ginet_tower_bwd_kernel(*args, dp, bf)
+        a, c = w1.clone().requires_grad_(True), w2.clone().requires_grad_(True)
+        out = gt.ginet_tower_pooled(a, c, *args[2:], bf)
+        grads = torch.autograd.grad(out, (a, c), dp)
+        checks.close_flips("ginet_tower_fwd_kernel", f"{tag} ginet_tower_pooled fwd", out.detach(), fwd_ref, fwd_scale, form)
+        for what, got_d, got_f, want, scale in zip(("dw1", "dw2"), direct, grads, bwd_ref, scales):
+            checks.close_flips("ginet_tower_bwd_kernel", f"{tag} direct {what}", got_d, want, scale, form)
+            checks.close_flips("ginet_tower_bwd_kernel", f"{tag} ginet_tower_pooled vjp {what}", got_f, want, scale, form)
+        fargs = (b.adj_i8, b.x_t, b.node_mask, w1, w2)
+        h1, sign, pooled = ds.tower_fwd_kernel(*fargs, bf)
+        h1_r, sign_r, pooled_r = ds.tower_fwd_kernel_ref(*fargs, bf)
+        h1_s, _, pooled_s = ds.tower_fwd_kernel_ref(b.adj_i8, b.x_t.abs(), b.node_mask, w1.abs(), w2.abs(), bf)
+        checks.close_flips("tower_fwd_kernel", f"{tag} direct h1", h1, h1_r, h1_s, form)
+        checks.close_flips("tower_fwd_kernel", f"{tag} direct pooled", pooled, pooled_r, pooled_s, form)
+        rw2 = ds.round_to(w2, bf)
+        h2 = torch.relu(ds.diag_kernel_ref(b.adj_i8, rw2.T @ ds.round_to(h1_r, bf), compute_dtype=bf)) * b.node_mask.reshape(1, -1)
+        h2_s = ds.diag_kernel_ref(b.adj_i8, rw2.abs().T @ ds.round_to(h1_s, bf), compute_dtype=bf)
+        differ = sign != sign_r
+        n_differ, beyond = int(differ.sum().item()), int((differ & (h2 > FLIP * h2_s)).sum().item())
+        checks.rows.append({"kernel": "tower_fwd_kernel", "check": f"{tag} sign", "form": form, "sign_differs": n_differ, "beyond_the_flip_band": beyond, "entries": sign.numel()})
+        if beyond or n_differ > FLIP_SHARE * sign.numel():
+            msg = f"tower_fwd_kernel {tag}: the bf16 sign differs at {n_differ} values, {beyond} of them beyond a flip of h2"
+            raise AssertionError(msg)
+        g_pool = dp.T.contiguous()
+        bwd = (b.adj_i8, g_pool, sign_r, h1_r, w2)
+        t_ref = ds.tower_bwd_kernel_ref(*bwd, bf)
+        for what, got, want, scale in zip(("t2", "t1"), ds.tower_bwd_kernel(*bwd, bf), t_ref, ds.tower_bwd_error_scale(*bwd, bf)):
+            if got.dtype != bf:
+                msg = f"tower_bwd_kernel {tag}: {what} is {got.dtype}, expected bf16"
+                raise AssertionError(msg)
+            checks.close_flips("tower_bwd_kernel", f"{tag} direct {what}", got.float(), want.float(), scale, form)
+        # through tower_pooled: the VJP's weight gradients are f32 products of
+        # x_t and h1 with the bf16 t1 and t2 widened
+        a, c = w1.clone().requires_grad_(True), w2.clone().requires_grad_(True)
+        out = ds.tower_pooled(b.adj_i8, b.node_mask, b.x_t, a, c, bf)
+        grads = torch.autograd.grad(out, (a, c), g_pool)
+        t2_r, t1_r = (t.float() for t in t_ref)
+        checks.close_flips("tower_fwd_kernel", f"{tag} tower_pooled fwd", out.detach(), pooled_r, pooled_s, form)
+        for what, got, want, scale in zip(("dw1", "dw2"), grads, (b.x_t @ t1_r.T, h1_r @ t2_r.T), (b.x_t.abs() @ t1_r.abs().T, h1_r.abs() @ t2_r.abs().T)):
+            checks.close_flips("tower_bwd_kernel", f"{tag} tower_pooled vjp {what}", got, want, scale, form)
+        del direct, grads, h1, sign, pooled, h1_r, sign_r, pooled_r, h1_s, pooled_s, h2, h2_s, t_ref
+    sync(torch, dev)
+
+
+def bf16_tower_phases(torch, dev, card, counters, checks, peak, record, dense_batch, tower_shapes, loss_fn, real_edges) -> list:
+    """Phases 33-36: the bf16 forms of K8f, K8b, K9f and K9b against their
+    plain versions (``tower_shapes``: the bench, ragged and largest-N
+    batches) and their times beside the f32 forms and the flat route's bf16
+    K1/K2, then the dense_tower_bf16 path (GINetDense with
+    compute_dtype=bfloat16 on the "pallas" tower: checked one step against
+    the CPU, driven with the counters at 0, profiled) and the
+    dense_fused_tower_bf16 drive (tower_pooled in bf16). Returns the timed
+    calls."""
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense, set_dense_tower_backend
+    from deeprank2_tpu_torch.ops import diag_spmm as ds
+    from deeprank2_tpu_torch.ops import ginet_tower as gt
+    from deeprank2_tpu_torch.ops.optim import Adam
+
+    bf = torch.bfloat16
+    model = GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev, generator=torch.Generator().manual_seed(0))
+    w1, w2 = tower_weights(model)
+    del model
+
+    # 33. the bf16 tower forms against their plain versions
+    n_checks = len(checks.rows)
+    counters.reset()
+    check_bf16_tower_kernels(torch, gt, ds, checks, tower_shapes, w1, w2, dev)
+    forms, k = counters.read_forms(), 2 * len(tower_shapes)
+    want = {f"{kernel}[int8/bfloat16]": k for kernel in ("ginet_tower_fwd_kernel", "ginet_tower_bwd_kernel", "tower_fwd_kernel", "tower_bwd_kernel")}
+    if forms != want:
+        msg = f"the bf16 tower checks launched {forms}, expected {want}"
+        raise AssertionError(msg)
+    tolerance = {"every output": f"f32 order (rtol 1e-5, atol {DW_TOL} * sum |terms|) but at most {FLIP_SHARE:g} of the entries, each within {FLIP} * (sum |terms| + |value|)", "sign": f"differs only where |h2| <= {FLIP} * sum |terms|"}
+    emit({"phase": "bf16_tower_kernels_vs_plain", "tolerance": tolerance, "launches_by_form": forms, "checks": checks.rows[n_checks:]})
+
+    # 34. their times beside the f32 forms and the flat route's bf16 K1/K2
+    timer = Timer(torch)
+    calls = time_tower_calls(torch, gt, ds, timer, dense_batch, w1, w2, peak, bf)
+    del timer
+    emit({"phase": "bf16_tower_kernel_times", "card": card, "l2_flushed": True, "calls": calls})
+
+    # 35. the dense path on the batched tower backend in bf16, and its profile
+    set_dense_tower_backend("pallas")
+    try:
+        model = GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev, generator=torch.Generator().manual_seed(0), compute_dtype=bf)
+        step, _, _ = card_vs_cpu_step(
+            torch, model, dense_batch, loss_fn, lambda: GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device="cpu", compute_dtype=bf), BF16_STEP_TOL, BF16_STEP_TOL
+        )
+        emit({"phase": "dense_tower_bf16_card_vs_cpu_step", "tolerance": BF16_STEP_TOL, **step})
+        opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
+        want = want_launches(ginet_tower_fwd_kernel=STEPS + 1, ginet_tower_bwd_kernel=STEPS)
+        want_forms = {"ginet_tower_fwd_kernel[int8/bfloat16]": STEPS + 1, "ginet_tower_bwd_kernel[int8/bfloat16]": STEPS}
+        run = run_main_path(torch, counters, model, dense_batch, loss_fn, opt, dev, want, STEPS, want_forms=want_forms)
+        train_step = run.pop("train_step")
+        emit({"phase": "main_path_dense_tower_bf16", "card": card, "model": "GINetDense(38, 2, 6, bf16), tower backend pallas", "batch": BENCH, **run, "step_ms": run["step_s"] * 1e3, "edges_per_s": real_edges / run["step_s"], "real_edges": real_edges})
+        record("dense_tower_bf16", run)
+        emit({"phase": "profile_dense_tower_bf16", "card": card, **profile_steps(torch, train_step, run["step_s"])})
+        del model, opt, train_step
+    finally:
+        set_dense_tower_backend("xla")
+
+    # 36. the fused flat tower (tower_pooled) in bf16 on the bench batch
+    fused = fused_tower_drive(torch, ds, counters, dense_batch, w1, w2, STEPS, dev, bf)
+    emit({"phase": "dense_fused_tower_bf16", "card": card, "weights": "GINetDense(38, 2, 6) fused, torch seed 0", "batch": BENCH, "compute_dtype": "bfloat16", **fused})
+    record("dense_fused_tower_bf16", fused)
+    return calls
+
+
+def bf16_sgat_foutnet_phases(torch, dev, card, counters, peak, record, c_entries, c_batch, sd_batch, c_entry, cb_batch, sw_batch) -> list:
+    """Phases 37-41: the FoutNet and sGAT paths with compute_dtype=bfloat16
+    (K1's bf16 form on the int8 and bf16 adjacencies, K5's on the int8 and
+    bf16 blocks): their kernel calls timed beside the f32 forms, then each
+    path checked one step against the CPU at BF16_STEP_TOL (the 100k-node
+    ones on clustered_entry(20_000, 38, 1)), driven with the counters at 0
+    (4 S + 2 launches of its bf16 K1/K5 form, K3 S + 1 and K4 S) and
+    profiled; then SGATDiag in bf16 on the f32 adjacency of
+    weight_dtype=float32 (JAX's XLA fallback) against the CPU. Returns the
+    timed calls."""
+    from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import FoutNetBlockSparse, SGATBlockSparse
+    from deeprank2_tpu_torch.neuralnets.gnn.foutnet import FoutNetDiag
+    from deeprank2_tpu_torch.neuralnets.gnn.sgat import SGATDiag
+    from deeprank2_tpu_torch.ops import block_sparse as bs
+    from deeprank2_tpu_torch.ops import diag_spmm as ds
+    from deeprank2_tpu_torch.ops.batch import collate_graphs_blocksparse_clustered, collate_graphs_diag_clustered
+    from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
+    from deeprank2_tpu_torch.ops.synthetic import clustered_entry
+
+    bf = torch.bfloat16
+    steps = SGAT_FOUTNET_STEPS
+
+    # 37. the paths' bf16 K1 and K5 calls, beside the f32 forms
+    timer = Timer(torch)
+    calls = []
+    for path, batch, full, pooled in (("sgat_diag_bf16", sd_batch, sd_batch.adj_w, sd_batch.adj_wp), ("foutnet_diag_bf16", c_batch, c_batch.adj_i8, c_batch.adj_p_i8)):
+        calls += time_diag_calls(torch, ds, timer, path, full, batch.node_mask, [("diag_kernel", "plain", 16, 2)], peak, bf)
+        calls += time_diag_calls(torch, ds, timer, f"{path}_pooled", pooled, batch.pooled_mask, [("diag_kernel", "plain", 32, 2)], peak, bf)
+    bcsr_specs = [("structure", 16, 2), ("structure_p", 32, 2)]
+    calls += time_bcsr_calls(torch, bs, timer, "sgat_bcsr_bf16", sw_batch, bcsr_specs, peak, bf)
+    calls += time_bcsr_calls(torch, bs, timer, "foutnet_bcsr_bf16", cb_batch, bcsr_specs, peak, bf)
+    del timer
+    emit({"phase": "bf16_sgat_foutnet_kernel_times", "card": card, "l2_flushed": True, "calls": calls})
+
+    # 38-41. the four paths, each checked against the CPU, counted and profiled
+    per_path = want_launches(slot_fwd_kernel=steps + 1, slot_bwd_kernel=steps)
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    diag_undirected = int(sum(e["edge_index"].shape[0] for e in c_entries))
+    for name, cls, batch in (("sgat_diag_bf16", SGATDiag, sd_batch), ("foutnet_diag_bf16", FoutNetDiag, c_batch)):
+        form = ds.form_name(batch.adj_w.dtype if cls is SGATDiag else batch.adj_i8.dtype, bf)
+        record(name, checked_path(
+            torch,
+            counters,
+            card,
+            batch,
+            lambda d, cls=cls: cls(CLUSTERED["feat"], 2, 1, device=d, generator=gen(), compute_dtype=bf),
+            {**per_path, "diag_kernel": 4 * steps + 2},
+            dev,
+            f"main_path_{name}",
+            {
+                "model": f"{cls.__name__}(38, 2, 1, bf16)",
+                "batch": {**CLUSTERED, "weighted": cls is SGATDiag, "form": form, "adj": list(batch.adj_i8.shape), "adj_p": list(batch.adj_p_i8.shape)},
+                "collate_s": None,
+                "undirected_edges": diag_undirected,
+            },
+            steps=steps,
+            want_forms={f"diag_kernel[{form}]": 4 * steps + 2},
+            grad_tol=BF16_STEP_TOL,
+            tol=BF16_STEP_TOL,
+        ))
+    small = clustered_entry(SGAT_FOUTNET_CHECK_NODES, 38, 1, seed=CLUSTERED_BCSR["seed"])
+    for name, cls, batch in (("sgat_bcsr_bf16", SGATBlockSparse, sw_batch), ("foutnet_bcsr_bf16", FoutNetBlockSparse, cb_batch)):
+        weighted = cls is SGATBlockSparse
+        form = bs.form_name(batch.structure.blocks_t.dtype, bf)
+        check_batch, _ = collate_graphs_blocksparse_clustered([small], with_edge_weights=weighted, slot8=True, device=dev)
+        record(name, checked_path(
+            torch,
+            counters,
+            card,
+            batch,
+            lambda d, cls=cls: cls(CLUSTERED_BCSR["feat"], 2, 1, device=d, generator=gen(), compute_dtype=bf),
+            {**per_path, "bcsr_spmm_kernel": 4 * steps + 2},
+            dev,
+            f"main_path_{name}",
+            {
+                "model": f"{cls.__name__}(38, 2, 1, bf16)",
+                "batch": {**CLUSTERED_BCSR, "weighted": weighted, "form": form, "blocks_nonzero": batch.structure.tile_blocks.numel()},
+                "collate_s": None,
+                "undirected_edges": int(c_entry["edge_index"].shape[0]),
+                "check_batch": f"clustered_entry({SGAT_FOUTNET_CHECK_NODES}, 38, 1), slot8",
+            },
+            steps=steps,
+            want_forms={f"bcsr_spmm_kernel[{form}]": 4 * steps + 2},
+            check_batch=check_batch,
+            grad_tol=BF16_STEP_TOL,
+            tol=BF16_STEP_TOL,
+        ))
+        del check_batch
+
+    # SGATDiag in bf16 on the f32 adjacency: K1's bf16 form on the adjacency
+    # rounded to bf16, its output rounded (four launches of bfloat16/bfloat16)
+    sd32, _ = collate_graphs_diag_clustered(c_entries, with_edge_weights=True, weight_dtype=torch.float32, device=dev)
+    model = SGATDiag(CLUSTERED["feat"], 2, 1, device=dev, generator=gen(), compute_dtype=bf)
+    counters.reset()
+    step, cpu_model, cpu_batch = card_vs_cpu_step(
+        torch, model, sd32, CrossEntropyLoss(), lambda: SGATDiag(CLUSTERED["feat"], 2, 1, device="cpu", compute_dtype=bf), BF16_STEP_TOL, BF16_STEP_TOL
+    )
+    forms = counters.read_forms()
+    if forms != {"diag_kernel[bfloat16/bfloat16]": 4}:
+        msg = f"SGATDiag bf16 on the f32 adjacency launched {forms}, expected diag_kernel[bfloat16/bfloat16] 4"
+        raise AssertionError(msg)
+    emit({"phase": "sgat_diag_bf16_f32_adjacency_card_vs_cpu_step", "tolerance": BF16_STEP_TOL, "grad_tolerance": BF16_STEP_TOL, "adj_w": str(sd32.adj_w.dtype), "launches_by_form": forms, **step})
+    del model, cpu_model, cpu_batch, sd32
+    return calls
+
+
 def main() -> int:
     if not (HERE / "deeprank2_tpu_torch").is_dir():
         print("chip_smoke.py: the deeprank2_tpu_torch package is not beside this script", file=sys.stderr)
@@ -1928,7 +2258,7 @@ def main() -> int:
     # 1. device and build (one nvcc per source, all at once)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    part, peak_bw, peak_f32 = peaks(kind)
+    part, peak = peaks(kind)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -1944,7 +2274,7 @@ def main() -> int:
             "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32, "cudnn": torch.backends.cudnn.allow_tf32},
             "build_s": build_s,
             "ptxas": [ln.strip() for log in _build.build_logs.values() for ln in log.splitlines() if "registers" in ln or "Compiling" in ln or "spill" in ln],
-            "peaks": {"part": part, "bytes_per_s": peak_bw, "f32_flop_per_s": peak_f32},
+            "peaks": {"part": part, "bytes_per_s": peak[0], "f32_flop_per_s": peak[1], "bf16_tensor_flop_per_s": peak[2]},
         }
     )
     counters = Counters(ds, sp, bs, vn, ss, gt)
@@ -1988,10 +2318,10 @@ def main() -> int:
     emit({"phase": "kernels_vs_plain", "tolerance": {"diag_kernel": TOL, "pool_bwd_kernel": TOL, "slot_fwd_kernel": EXACT, "slot_bwd_kernel": EXACT}, "checks": checks.rows})
     n_checks = len(checks.rows)
     timer = Timer(torch)
-    calls = time_diag_calls(torch, ds, timer, "dense", batch.adj_i8, batch.node_mask, STEP_CALLS["dense"], peak_bw, peak_f32)
-    calls += time_diag_calls(torch, ds, timer, "clustered", c_batch.adj_i8, c_batch.node_mask, STEP_CALLS["clustered"], peak_bw, peak_f32)
-    calls += time_diag_calls(torch, ds, timer, "clustered_pooled", c_batch.adj_p_i8, c_batch.pooled_mask, STEP_CALLS["clustered_pooled"], peak_bw, peak_f32)
-    calls += time_slot_calls(torch, sp, timer, "clustered_slot", c_mask_row, STEP_CALLS["clustered_slot"], peak_bw, peak_f32)
+    calls = time_diag_calls(torch, ds, timer, "dense", batch.adj_i8, batch.node_mask, STEP_CALLS["dense"], peak)
+    calls += time_diag_calls(torch, ds, timer, "clustered", c_batch.adj_i8, c_batch.node_mask, STEP_CALLS["clustered"], peak)
+    calls += time_diag_calls(torch, ds, timer, "clustered_pooled", c_batch.adj_p_i8, c_batch.pooled_mask, STEP_CALLS["clustered_pooled"], peak)
+    calls += time_slot_calls(torch, sp, timer, "clustered_slot", c_mask_row, STEP_CALLS["clustered_slot"], peak)
     del timer
     emit({"phase": "kernel_times", "card": card, "l2_flushed": True, "calls": calls})
     del m_batch
@@ -2080,9 +2410,9 @@ def main() -> int:
     check_slot_kernels(torch, sp, checks, [(f"clustered_bcsr F=32 V={cb_mask_row.shape[1]}", 32, cb_mask_row.shape[1], cb_mask_row, (8,))], dev)
     emit({"phase": "bcsr_kernels_vs_plain", "tolerance": {"bcsr_spmm_kernel": TOL, "slot_fwd_kernel": EXACT, "slot_bwd_kernel": EXACT}, "checks": checks.rows[n_checks:]})
     timer = Timer(torch)
-    bcsr_calls = time_bcsr_calls(torch, bs, timer, "bcsr", b_batch, BCSR_STEP_CALLS["bcsr"], peak_bw, peak_f32)
-    bcsr_calls += time_bcsr_calls(torch, bs, timer, "clustered_bcsr", cb_batch, BCSR_STEP_CALLS["clustered_bcsr"], peak_bw, peak_f32)
-    bcsr_calls += time_slot_calls(torch, sp, timer, "clustered_bcsr_slot", cb_mask_row, STEP_CALLS["clustered_bcsr_slot"], peak_bw, peak_f32)
+    bcsr_calls = time_bcsr_calls(torch, bs, timer, "bcsr", b_batch, BCSR_STEP_CALLS["bcsr"], peak)
+    bcsr_calls += time_bcsr_calls(torch, bs, timer, "clustered_bcsr", cb_batch, BCSR_STEP_CALLS["clustered_bcsr"], peak)
+    bcsr_calls += time_slot_calls(torch, sp, timer, "clustered_bcsr_slot", cb_mask_row, STEP_CALLS["clustered_bcsr_slot"], peak)
     del timer, ragged_bcsr, empty_bcsr
     emit({"phase": "bcsr_kernel_times", "card": card, "l2_flushed": True, "calls": bcsr_calls})
     calls += bcsr_calls
@@ -2158,7 +2488,7 @@ def main() -> int:
     emit({"phase": "blocked_kernels_vs_plain", "tolerance": {"out, dxr, dxc": TOL, "dw_e": {"rtol": 1e-5, "atol": f"{DW_TOL} * max sum_e |e_attr| |g[row]|"}}, "checks": checks.rows[n_checks:]})
     del ragged_bl, padded_bl, empty_bl
     timer = Timer(torch)
-    blocked_calls = time_blocked_calls(torch, vn, timer, "blocked", bl_batch.structure, 32, 2, peak_bw, peak_f32)
+    blocked_calls = time_blocked_calls(torch, vn, timer, "blocked", bl_batch.structure, 32, 2, peak)
     del timer
     emit({"phase": "blocked_kernel_times", "card": card, "l2_flushed": True, "calls": blocked_calls})
     calls += blocked_calls
@@ -2224,7 +2554,7 @@ def main() -> int:
     emit({"phase": "segment_kernel_vs_plain", "tolerance": {"segment_sum_sorted_kernel": TOL}, "checks": checks.rows[n_checks:]})
     timer = Timer(torch)
     segment_calls = time_segment_calls(
-        torch, ss, timer, {"coo": (coo_rows, v_coo), "coo_clustered": (cc_rows, v_cc), "coo_clustered_pooled": (pooled_rows, v_cc)}, peak_bw, peak_f32
+        torch, ss, timer, {"coo": (coo_rows, v_coo), "coo_clustered": (cc_rows, v_cc), "coo_clustered_pooled": (pooled_rows, v_cc)}, peak
     )
     del timer, ragged_rows, pooled_rows
     emit({"phase": "segment_kernel_times", "card": card, "l2_flushed": True, "calls": segment_calls})
@@ -2327,9 +2657,9 @@ def main() -> int:
             "checks": checks.rows[n_checks:],
         }
     )
-    del largest, ragged
+    tower_shapes = [("bench G=512 N=160", dense_batch), ("ragged G=7 N=96", ragged), (f"largest supported G=32 N={n_max}", largest)]
     timer = Timer(torch)
-    tower_calls = time_tower_calls(torch, gt, ds, timer, dense_batch, w1, w2, peak_bw, peak_f32)
+    tower_calls = time_tower_calls(torch, gt, ds, timer, dense_batch, w1, w2, peak)
     del timer
     emit({"phase": "tower_kernel_times", "card": card, "l2_flushed": True, "calls": tower_calls})
     calls += tower_calls
@@ -2359,7 +2689,7 @@ def main() -> int:
     # 20-26. FoutNet and sGAT on the clustered fast paths, with the weighted
     # forms of K5 and K1
     sgat_foutnet_calls, f32_calls, sd_batch, sw_batch = sgat_foutnet_phases(
-        torch, dev, card, counters, checks, peak_bw, peak_f32, record, c_entries, c_batch, c_entry, cb_batch, cc_batch
+        torch, dev, card, counters, checks, peak, record, c_entries, c_batch, c_entry, cb_batch, cc_batch
     )
     calls += sgat_foutnet_calls
     del cc_batch
@@ -2371,14 +2701,21 @@ def main() -> int:
         card,
         counters,
         checks,
-        peak_bw,
-        peak_f32,
+        peak,
         record,
         {"dense_batch": dense_batch, "c_batch": c_batch, "b_batch": b_batch, "cb_batch": cb_batch, "bl_batch": bl_batch, "sd_batch": sd_batch, "sw_batch": sw_batch},
         {"dense": bench_undirected, "bcsr": int(entry["edge_index"].shape[0]), "clustered_bcsr": int(c_entry["edge_index"].shape[0])},
     )
     calls += bf16_calls
-    del dense_batch, c_batch, b_batch, cb_batch, bl_batch, sd_batch, sw_batch
+    del b_batch, bl_batch
+
+    # 33-36. the bf16 forms of the fused towers, the dense_tower_bf16 path and the dense_fused_tower_bf16 drive
+    calls += bf16_tower_phases(torch, dev, card, counters, checks, peak, record, dense_batch, tower_shapes, loss_fn, real_edges)
+    del tower_shapes, largest, ragged
+
+    # 37-41. FoutNet and sGAT in bf16 on the Diag and BCSR paths, and SGATDiag in bf16 on an f32 adjacency
+    calls += bf16_sgat_foutnet_phases(torch, dev, card, counters, peak, record, c_entries, c_batch, sd_batch, c_entry, cb_batch, sw_batch)
+    del dense_batch, c_batch, cb_batch, sd_batch, sw_batch
 
     emit({"kernels": kernels_line(calls, path_launches, checks.errs, path_forms, checks.form_errs, f32_calls + bf16_form_calls)})
     print(card_line(), flush=True)

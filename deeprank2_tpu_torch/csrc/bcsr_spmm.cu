@@ -51,7 +51,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
+
 namespace {
+
+using bf16::round_bf16;
+using bf16::widen;
 
 constexpr int B = 128;   // block edge: nodes per tile
 constexpr int IPT = 4;   // output nodes per thread (four consecutive entries of a block row)
@@ -96,17 +101,6 @@ struct Entries<float> {
         a[3] = w.w;
     }
 };
-
-// an f32 rounded to the nearest bf16 (ties to even), as an f32: the value
-// JAX's astype(bfloat16) gives a finite weight
-__device__ __forceinline__ float round_bf16(float v) {
-    const uint32_t u = __float_as_uint(v);
-    return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
-}
-
-// one activation as an f32: itself, or the exact value of its bf16 bits
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(uint16_t v) { return __uint_as_float((uint32_t)v << 16); }
 
 template <int FS>
 __host__ __device__ constexpr int threads() {

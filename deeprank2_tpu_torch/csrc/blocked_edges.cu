@@ -56,7 +56,12 @@
 
 #include <algorithm>
 
+#include "bf16.cuh"
+
 namespace {
+
+using bf16::round_bf16;
+using bf16::widen;
 
 constexpr int TILE = 256;     // EDGE_TILE: nodes per tile
 constexpr int SUB_SHIFT = 8;  // SUB_E = 256 edge slots per sub-block
@@ -64,17 +69,6 @@ constexpr int MAX_FE = 8;     // edge channels held in registers
 constexpr int WARPS = 8;      // warps per block
 constexpr int THREADS = WARPS * 32;
 constexpr unsigned FULL = 0xffffffffu;
-
-// an f32 rounded to the nearest bf16 (ties to even), as an f32: the value
-// JAX's astype(bfloat16) gives a finite number
-__device__ __forceinline__ float round_bf16(float v) {
-    const uint32_t u = __float_as_uint(v);
-    return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
-}
-
-// one activation as an f32: itself, or the exact value of its bf16 bits
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(uint16_t v) { return __uint_as_float((uint32_t)v << 16); }
 
 struct Edges {
     const int* row_ptr;    // [V + 1] start of each node's edges in order

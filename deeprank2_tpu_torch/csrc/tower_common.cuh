@@ -37,13 +37,27 @@
 // reductions over nodes (the backward's dw) four by four channels. Every sum
 // runs in a fixed order in f32: results are deterministic and differ from
 // the plain PyTorch versions only by summation order.
+//
+// Two forms, by the compile-time flag BF16: f32, and the single-pass bf16
+// form of the JAX kernels (compute_dtype=bfloat16), which rounds to bf16
+// (nearest even, csrc/bf16.cuh) exactly where the Pallas bodies cast a matmul
+// operand to bf16: each value once, as it is staged or produced (x and the
+// weights as they are loaded), never inside an FMA loop. Every input, every
+// sum and every slab stays f32, so both forms share one shared-memory plan.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16.cuh"
+
 namespace tower {
+
+using bf16::put;
+using bf16::round_bf16;
 
 constexpr int THREADS = 512;
 
@@ -88,6 +102,22 @@ __host__ __device__ inline Layout layout(int n, int f, int c1, int c2) {
     return L;
 }
 
+// a value as the form computes with it: itself, or rounded to bf16
+template <bool BF16>
+__device__ inline float at_form(float v) {
+    return BF16 ? round_bf16(v) : v;
+}
+
+template <bool BF16>
+__device__ inline float4 at_form(const float4& v) {
+    return make_float4(at_form<BF16>(v.x), at_form<BF16>(v.y), at_form<BF16>(v.z), at_form<BF16>(v.w));
+}
+
+// the type of an output the form writes at its own width (K9b's t2 and
+// t1): f32, or bf16 as its bits
+template <bool BF16>
+using act_t = typename std::conditional<BF16, uint16_t, float>::type;
+
 __device__ inline float lane4(const float4& v, int c) { return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w; }
 
 __device__ inline void store4(float* p, const float4& v) { *reinterpret_cast<float4*>(p) = v; }
@@ -121,21 +151,23 @@ __device__ inline void load_bits(const int8_t* __restrict__ adj_g, int n, int wo
     }
 }
 
-// w1 [F][C1] -> [F][c1p] and w2 [C1][C2] -> [c1p][ldw2], zero-padded (either may be null)
+// w1 [F][C1] -> [F][c1p] and w2 [C1][C2] -> [c1p][ldw2], zero-padded (either
+// may be null), rounded to bf16 in the bf16 form
+template <bool BF16>
 __device__ inline void load_weights(const float* __restrict__ w1, const float* __restrict__ w2, int f, int c1, int c2,
                                     const Layout& L, float* sm) {
     if (w1 != nullptr) {
         for (int idx = threadIdx.x; idx < f * L.c1p; idx += blockDim.x) {
             const int k = idx / L.c1p;
             const int c = idx - k * L.c1p;
-            sm[L.w1 + idx] = c < c1 ? w1[(size_t)k * c1 + c] : 0.f;
+            sm[L.w1 + idx] = c < c1 ? at_form<BF16>(w1[(size_t)k * c1 + c]) : 0.f;
         }
     }
     if (w2 != nullptr) {
         for (int idx = threadIdx.x; idx < L.c1p * L.ldw2; idx += blockDim.x) {
             const int r = idx / L.ldw2;
             const int c = idx - r * L.ldw2;
-            sm[L.w2 + idx] = (r < c1 && c < c2) ? w2[(size_t)r * c2 + c] : 0.f;
+            sm[L.w2 + idx] = (r < c1 && c < c2) ? at_form<BF16>(w2[(size_t)r * c2 + c]) : 0.f;
         }
     }
 }
@@ -259,8 +291,11 @@ __device__ inline void node_product(const float* a, int lda, const float* b, int
 
 // One graph's forward tower; FLAT selects the layout (x [G, N, F] and
 // pooled [G, C2], or x_t [F, G*N], pooled [C2, G], h1 [C1, G*N] and the sign
-// of h2 [C2, G*N] written too). The flat tower masks h1 as well.
-template <bool FLAT>
+// of h2 [C2, G*N] written too). The flat tower masks h1 as well. The bf16
+// form rounds x and the weights as it stages them, and fcx, h1 and fcx2
+// before the products that take them (h1 is written in f32, unrounded, as
+// JAX does).
+template <bool FLAT, bool BF16>
 __global__ void __launch_bounds__(THREADS) tower_fwd(const int8_t* __restrict__ adj, const float* __restrict__ x,
                                                      const uint8_t* __restrict__ mask, const float* __restrict__ w1,
                                                      const float* __restrict__ w2, float* __restrict__ pooled,
@@ -281,7 +316,7 @@ __global__ void __launch_bounds__(THREADS) tower_fwd(const int8_t* __restrict__ 
     const size_t gn = (size_t)G * N;
 
     load_bits(adj + base * N, N, L.words, bits);
-    load_weights(w1, w2, F, C1, C2, L, sm);
+    load_weights<BF16>(w1, w2, F, C1, C2, L, sm);
     for (int i = tid; i < N; i += blockDim.x) msk[i] = mask[base + i] ? 1.f : 0.f;
     const int f4 = round4(F);
 #pragma unroll 4
@@ -289,23 +324,23 @@ __global__ void __launch_bounds__(THREADS) tower_fwd(const int8_t* __restrict__ 
         if (FLAT) {
             const int f = idx / N;
             const int i = idx - f * N;
-            r1[(size_t)i * L.s1 + f] = f < F ? x[(size_t)f * gn + base + i] : 0.f;
+            r1[(size_t)i * L.s1 + f] = f < F ? at_form<BF16>(x[(size_t)f * gn + base + i]) : 0.f;
         } else {
             const int i = idx / f4;
             const int f = idx - i * f4;
-            r1[(size_t)i * L.s1 + f] = f < F ? x[(base + i) * F + f] : 0.f;
+            r1[(size_t)i * L.s1 + f] = f < F ? at_form<BF16>(x[(base + i) * F + f]) : 0.f;
         }
     }
     __syncthreads();
     const int q1 = L.c1p / 4;
     const int q2 = L.c2p / 4;
     // fcx = x w1 -> R2
-    weight_product<false>(r1, L.s1, sm + L.w1, L.c1p, F, N, q1, [&](int i, int q, float4 a) { store4(r2 + (size_t)i * L.s2 + 4 * q, a); });
+    weight_product<false>(r1, L.s1, sm + L.w1, L.c1p, F, N, q1, [&](int i, int q, float4 a) { store4(r2 + (size_t)i * L.s2 + 4 * q, at_form<BF16>(a)); });
     __syncthreads();
     // h1 = relu(A fcx) (times the mask in the flat tower) -> R3
     aggregate(bits, L.words, r2, L.s2, N, q1, [&](int i, int q, float4 a) {
         const float4 h = relu_scale(a, FLAT ? msk[i] : 1.f);
-        store4(r3 + (size_t)i * L.s2 + 4 * q, h);
+        store4(r3 + (size_t)i * L.s2 + 4 * q, at_form<BF16>(h));
         if (FLAT) {
             for (int c = 0; c < 4; ++c) {
                 if (4 * q + c < C1) h1_out[(size_t)(4 * q + c) * gn + base + i] = lane4(h, c);
@@ -314,7 +349,7 @@ __global__ void __launch_bounds__(THREADS) tower_fwd(const int8_t* __restrict__ 
     });
     __syncthreads();
     // fcx2 = h1 w2 -> R4
-    weight_product<false>(r3, L.s2, sm + L.w2, L.ldw2, C1, N, q2, [&](int i, int q, float4 a) { store4(r4 + (size_t)i * L.s1 + 4 * q, a); });
+    weight_product<false>(r3, L.s2, sm + L.w2, L.ldw2, C1, N, q2, [&](int i, int q, float4 a) { store4(r4 + (size_t)i * L.s1 + 4 * q, at_form<BF16>(a)); });
     __syncthreads();
     // h2 = relu(A fcx2) * mask -> R1 (x is dead)
     aggregate(bits, L.words, r4, L.s1, N, q2, [&](int i, int q, float4 a) {

@@ -19,11 +19,12 @@ collate (ops/batch.py:collate_graphs_blocksparse_clustered).
   adjacency (bf16 blocks by default; the scalar edge feature is the first
   edge-attr channel).
 
-FoutNet and sGAT have no bf16 form in the port yet (``compute_dtype``
-raises). They add their bias after the aggregation, so their padded rows
-are not zero: both mask after each conv and after the depth-0 pool, as the
-JAX package does. Each model's parameter set and ``state_dict`` keys are its
-COO twin's.
+``compute_dtype=torch.bfloat16`` runs the SpMMs of FoutNet and sGAT in K5's
+bf16 form too (int8, bf16 or f32 blocks; JAX's ``_spmm``), the weight
+products in f32. They add their bias after the aggregation, so their padded
+rows are not zero: both mask after each conv and after the depth-0 pool, as
+the JAX package does. Each model's parameter set and ``state_dict`` keys are
+its COO twin's.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from functools import partial
 import torch
 
 from deeprank2_tpu_torch.neuralnets import nn as dnn
-from deeprank2_tpu_torch.neuralnets.gnn.foutnet import FoutLayer, FoutNet, fout_layer_t, no_compute_dtype
+from deeprank2_tpu_torch.neuralnets.gnn.foutnet import FoutLayer, FoutNet, fout_layer_t
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
 from deeprank2_tpu_torch.neuralnets.gnn.sgat import SGAT, SGATLayer, sgat_layer_t
 from deeprank2_tpu_torch.ops.batch import ClusteredBlockSparseBatch
@@ -103,8 +104,9 @@ class _ClusteredBlockSparse:
         if precision not in (None, "highest"):
             msg = f"{type(self).__name__}(precision={precision!r}) is not ported; the port's SpMM is exact f32 (JAX's HIGHEST)"
             raise NotImplementedError(msg)
-        no_compute_dtype(self, compute_dtype)
         super().__init__(input_shape, output_shape, input_shape_edge, device, generator)
+        # JAX drops HIGHEST to DEFAULT under bf16, which the single-pass bf16 form is
+        self.compute_dtype = dnn.checked_compute_dtype(self, compute_dtype)
 
     def conv_t(self, conv, x_t: torch.Tensor, structure: BlockSparseStructure, deg: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -121,7 +123,7 @@ class FoutNetBlockSparse(_ClusteredBlockSparse, FoutNet):
     """FoutNet over an unweighted :class:`ClusteredBlockSparseBatch`."""
 
     def conv_t(self, conv: FoutLayer, x_t: torch.Tensor, structure: BlockSparseStructure, deg: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
-        return fout_layer_t(conv, x_t, partial(bcsr_spmm_t, structure), deg)
+        return fout_layer_t(conv, x_t, partial(bcsr_spmm_t, structure, compute_dtype=self.compute_dtype), deg)
 
 
 class SGATBlockSparse(_ClusteredBlockSparse, SGAT):
@@ -129,4 +131,4 @@ class SGATBlockSparse(_ClusteredBlockSparse, SGAT):
     (``collate_graphs_blocksparse_clustered(with_edge_weights=True)``)."""
 
     def conv_t(self, conv: SGATLayer, x_t: torch.Tensor, structure: BlockSparseStructure, deg: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
-        return sgat_layer_t(conv, x_t, partial(bcsr_spmm_t, structure), deg, wsum)
+        return sgat_layer_t(conv, x_t, partial(bcsr_spmm_t, structure, compute_dtype=self.compute_dtype), deg, wsum)

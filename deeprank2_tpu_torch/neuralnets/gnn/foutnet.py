@@ -122,20 +122,15 @@ class FoutNet(ClusteredConvNet):
         return fout_layer(conv, x, edge_index, edge_mask)
 
 
-def no_compute_dtype(model: nn.Module, compute_dtype) -> None:
-    """Refuse ``compute_dtype``: FoutNet and sGAT have no bf16 form in the
-    port yet (the GINets and VanillaNetworkBlocked do)."""
-    if compute_dtype is not None:
-        msg = f"{type(model).__name__}(compute_dtype=...) is not ported yet; FoutNet and sGAT compute in float32"
-        raise NotImplementedError(msg)
-
-
 class FoutNetDiag(FoutNet):
     """FoutNet at PPI scale over :class:`DiagClusteredBatch` (port of the JAX
     ``FoutNetDiag``): the layout and pools of ``GINetClusteredDiag``, each
     conv the Fout layer with its neighbour mean on K1 (plain mode, int8
     adjacency; the pooled graph's ``adj_p_i8`` for conv2). The parameter set
-    and ``state_dict`` keys are :class:`FoutNet`'s."""
+    and ``state_dict`` keys are :class:`FoutNet`'s. ``compute_dtype=
+    torch.bfloat16`` runs K1 in its bf16 form; the weight products stay f32
+    (the JAX ``diag_spmm_t(..., compute_dtype)``). The COO :class:`FoutNet`
+    takes no ``compute_dtype``, as the JAX one has none."""
 
     def __init__(
         self,
@@ -146,14 +141,15 @@ class FoutNetDiag(FoutNet):
         device: str | torch.device | None = None,
         generator: torch.Generator | None = None,
     ):
-        no_compute_dtype(self, compute_dtype)
         super().__init__(input_shape, output_shape, input_shape_edge, device, generator)
+        self.compute_dtype = dnn.checked_compute_dtype(self, compute_dtype)
 
     def forward(self, batch: DiagClusteredBatch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
         """Logits ``[G, output_shape]`` (no dropout)."""
+        cd = self.compute_dtype
         mask_row = batch.node_mask.to(torch.float32).reshape(1, -1)
-        h_t = torch.relu(fout_layer_t(self.conv1, batch.x_t, partial(diag_spmm_t, batch.adj_i8), batch.deg)) * mask_row
+        h_t = torch.relu(fout_layer_t(self.conv1, batch.x_t, partial(diag_spmm_t, batch.adj_i8, compute_dtype=cd), batch.deg)) * mask_row
         hp_t = diag_depth0_pool(h_t, batch)  # [16, G*K]
         pooled_mask_row = batch.pooled_mask.to(torch.float32).reshape(1, -1)
-        h2_t = torch.relu(fout_layer_t(self.conv2, hp_t, partial(diag_spmm_t, batch.adj_p_i8), batch.deg_p)) * pooled_mask_row
+        h2_t = torch.relu(fout_layer_t(self.conv2, hp_t, partial(diag_spmm_t, batch.adj_p_i8, compute_dtype=cd), batch.deg_p)) * pooled_mask_row
         return self.head(depth1_graph_mean(h2_t, batch))

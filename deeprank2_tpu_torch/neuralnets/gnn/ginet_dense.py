@@ -16,12 +16,14 @@ batched tower of ops/ginet_tower.py (one forward and one backward kernel a
 step) wherever its shape rule holds.
 
 ``compute_dtype=torch.bfloat16`` follows the JAX models' dtype flow. In
-``GINetDense`` (its flat route) the features and the four conv weights are
+``GINetDense`` on its flat route the features and the four conv weights are
 cast to bf16, both weight products run in bf16 (``h`` is cast to bf16
 before the second), and the kernels run their bf16 forms; the pooled sums
-are f32. In ``GINetClusteredDiag`` the weight products stay f32 and only the
-kernels round (the JAX ``lin_t`` and ``diag_layer_t(..., compute_dtype)``).
-The fused tower has no bf16 form in the port yet (K8's; it raises).
+are f32. On the fused tower the f32 weights and features go to the tower's
+bf16 form, which rounds inside the kernels (the JAX
+``ginet_tower_pooled(..., compute_dtype)``); the head stays f32. In
+``GINetClusteredDiag`` the weight products stay f32 and only the kernels
+round (the JAX ``lin_t`` and ``diag_layer_t(..., compute_dtype)``).
 """
 
 from __future__ import annotations
@@ -86,10 +88,7 @@ class GINetDense(GINet):
         g, n, f = batch.x.shape
         cd = self.compute_dtype
         if _TOWER_BACKEND == "pallas" and ginet_tower.supports(g, n, f, w1_t.shape[0], w2_t.shape[0]):
-            if cd is not None:
-                msg = "the fused tower (K8f/K8b, ops/ginet_tower.py) has no bf16 form in the port yet; use the 'xla' backend"
-                raise NotImplementedError(msg)
-            pooled = ginet_tower.ginet_tower_pooled(w1_t.T, w2_t.T, batch.x, batch.adj_i8, batch.node_mask)  # [G, 64]
+            pooled = ginet_tower.ginet_tower_pooled(w1_t.T, w2_t.T, batch.x, batch.adj_i8, batch.node_mask, cd)  # [G, 64]
         elif cd is None:
             h = diag_layer_t(batch.adj_i8, batch.node_mask, w1_t @ batch.x_t)  # [32, G*N]
             pooled = diag_layer_pool_t(batch.adj_i8, batch.node_mask, w2_t @ h).T  # [G, 64]

@@ -24,7 +24,8 @@ from functools import partial
 import torch
 from torch import nn
 
-from deeprank2_tpu_torch.neuralnets.gnn.foutnet import ClusteredConvNet, no_compute_dtype, uniform_parameter
+from deeprank2_tpu_torch.neuralnets import nn as dnn
+from deeprank2_tpu_torch.neuralnets.gnn.foutnet import ClusteredConvNet, uniform_parameter
 from deeprank2_tpu_torch.ops.batch import DiagClusteredBatch
 from deeprank2_tpu_torch.ops.diag_spmm import diag_spmm_t
 from deeprank2_tpu_torch.ops.pooling import depth1_graph_mean, diag_depth0_pool
@@ -84,7 +85,12 @@ class SGATDiag(SGAT):
     JAX ``SGATDiag``): the layout and pools of ``GINetClusteredDiag``, each
     conv's weighted aggregation on K1 (plain mode) over ``adj_w``, then
     ``adj_wp`` for conv2. The parameter set and ``state_dict`` keys are
-    :class:`SGAT`'s."""
+    :class:`SGAT`'s. ``compute_dtype=torch.bfloat16`` runs K1 in its bf16
+    form on a bf16 adjacency, and JAX's XLA fallback (adjacency, x and the
+    aggregate rounded to bf16) on the f32 one of
+    ``weight_dtype=torch.float32``; the weight products stay f32 (the JAX
+    ``diag_spmm_t(adj_w, ..., compute_dtype)``). The COO :class:`SGAT` takes
+    no ``compute_dtype``, as the JAX one has none."""
 
     def __init__(
         self,
@@ -95,14 +101,15 @@ class SGATDiag(SGAT):
         device: str | torch.device | None = None,
         generator: torch.Generator | None = None,
     ):
-        no_compute_dtype(self, compute_dtype)
         super().__init__(input_shape, output_shape, input_shape_edge, device, generator)
+        self.compute_dtype = dnn.checked_compute_dtype(self, compute_dtype)
 
     def forward(self, batch: DiagClusteredBatch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
         """Logits ``[G, output_shape]`` (no dropout)."""
+        cd = self.compute_dtype
         mask_row = batch.node_mask.to(torch.float32).reshape(1, -1)
-        h_t = torch.relu(sgat_layer_t(self.conv1, batch.x_t, partial(diag_spmm_t, batch.adj_w), batch.deg, batch.wsum)) * mask_row
+        h_t = torch.relu(sgat_layer_t(self.conv1, batch.x_t, partial(diag_spmm_t, batch.adj_w, compute_dtype=cd), batch.deg, batch.wsum)) * mask_row
         hp_t = diag_depth0_pool(h_t, batch)  # [16, G*K]
         pooled_mask_row = batch.pooled_mask.to(torch.float32).reshape(1, -1)
-        h2_t = torch.relu(sgat_layer_t(self.conv2, hp_t, partial(diag_spmm_t, batch.adj_wp), batch.deg_p, batch.wsum_p)) * pooled_mask_row
+        h2_t = torch.relu(sgat_layer_t(self.conv2, hp_t, partial(diag_spmm_t, batch.adj_wp, compute_dtype=cd), batch.deg_p, batch.wsum_p)) * pooled_mask_row
         return self.head(depth1_graph_mean(h2_t, batch))

@@ -40,10 +40,15 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     """The library's path, named by a hash of the source, the local headers
-    it includes (``#include "x.cuh"`` from ``csrc/``) and the flags."""
-    text = (CSRC / f"{name}.cu").read_bytes()
-    headers = re.findall(rb'^#include "([^"]+)"', text, flags=re.MULTILINE)
-    digest = hashlib.sha256(b"".join([text, *((CSRC / h.decode()).read_bytes() for h in headers)]) + " ".join(NVCC_FLAGS).encode())
+    it includes (``#include "x.cuh"`` from ``csrc/``, and theirs in turn)
+    and the flags."""
+    texts, pending = {}, [f"{name}.cu"]
+    while pending:
+        file = pending.pop()
+        if file not in texts:
+            texts[file] = (CSRC / file).read_bytes()
+            pending += [h.decode() for h in re.findall(rb'^#include "([^"]+)"', texts[file], flags=re.MULTILINE)]
+    digest = hashlib.sha256(b"".join(texts[f] for f in sorted(texts)) + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

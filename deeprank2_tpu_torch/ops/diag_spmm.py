@@ -13,7 +13,8 @@ function in its kernel). ``compute_dtype=torch.bfloat16`` selects the
 single-pass bf16 form of each kernel (the JAX ``split=False`` branch): the
 activations are rounded to bf16 once, the adjacency is taken as bf16 (exact
 for int8 0/1 and bf16 weights; an f32 adjacency has no bf16 form, as JAX's
-kernel never takes one), and the products accumulate in f32. The default is
+kernel never takes one: :func:`diag_spmm_t` computes JAX's XLA fallback for
+it instead), and the products accumulate in f32. The default is
 the f32 form, exact up to summation order. It runs in the CUDA kernels of
 ``csrc/diag_spmm.cu``: ``diag_kernel`` (plain, relu/mask epilogue, or
 relu/mask plus per-graph sum pool) and ``pool_bwd_kernel`` (the pooled
@@ -23,13 +24,16 @@ is the same aggregation applied to the cotangent.
 :func:`tower_pooled` fuses the whole two-layer tower with its per-graph sum
 pool into one forward and one backward kernel (``csrc/diag_tower.cu``:
 ``tower_fwd_kernel`` and ``tower_bwd_kernel``), which read the adjacency
-once per direction (int8 adjacency only).
+once per direction (int8 adjacency only), in an f32 and a bf16 form (the
+JAX ``split=False`` branch: ``x_t``, the weights, ``fcx1``, ``h1``,
+``fcx2``, then ``u2``, ``t2`` and ``u1`` rounded to bf16 once, in the
+kernel; ``t2`` and ``t1`` returned as bf16).
 
 Each kernel wrapper takes its plain PyTorch version (``*_ref``) for tensors
 on the CPU, launches its kernel for tensors on a CUDA device, and raises for
-anything else; each counts its kernel launches in :data:`launches`, and K1
-and K2 also by form in :data:`launches_by_dtype`, keyed
-``"<adjacency type>/<activation type>"`` (``"int8/bfloat16"``, ...).
+anything else; each counts its kernel launches in :data:`launches`, and by
+form in :data:`launches_by_dtype`, keyed ``"<adjacency type>/<activation
+type>"`` (``"int8/bfloat16"``, ...).
 """
 
 from __future__ import annotations
@@ -82,11 +86,15 @@ def round_to(x: torch.Tensor, act: torch.dtype) -> torch.Tensor:
 
 # K1 and K2 forms: every adjacency type in the f32 form, int8 and bf16 in the bf16 form
 FORMS = [(a, torch.float32) for a in ADJ_DTYPES] + [(a, torch.bfloat16) for a in (torch.int8, torch.bfloat16)]
+# K9f and K9b forms: the int8 adjacency, both activation types
+TOWER_FORMS = [(torch.int8, a) for a in ACT_DTYPES]
 
-# kernel launches since the last reset_launches(), by kernel, and for K1 and
-# K2 by form
+# kernel launches since the last reset_launches(), by kernel and by form
 launches = {"diag_kernel": 0, "pool_bwd_kernel": 0, "tower_fwd_kernel": 0, "tower_bwd_kernel": 0}
-launches_by_dtype = {k: {form_name(*f): 0 for f in FORMS} for k in ("diag_kernel", "pool_bwd_kernel")}
+launches_by_dtype = {
+    **{k: {form_name(*f): 0 for f in FORMS} for k in ("diag_kernel", "pool_bwd_kernel")},
+    **{k: {form_name(*f): 0 for f in TOWER_FORMS} for k in ("tower_fwd_kernel", "tower_bwd_kernel")},
+}
 
 
 def reset_launches() -> None:
@@ -114,9 +122,9 @@ def _tower_lib() -> ctypes.CDLL:
     lib = _build.library(TOWER_SOURCE)
     if lib.tower_fwd_kernel.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tower_fwd_kernel.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.tower_fwd_kernel.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.tower_fwd_kernel.restype = i
-        lib.tower_bwd_kernel.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.tower_bwd_kernel.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, p]
         lib.tower_bwd_kernel.restype = i
     return lib
 
@@ -320,17 +328,36 @@ def pool_bwd_kernel(adj: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tensor,
 # custom-VJP rules do, whatever the primal's type.
 
 
+def _xla_fallback(adj: torch.Tensor, compute_dtype: torch.dtype | None) -> bool:
+    """Whether :func:`diag_spmm_t` takes JAX's XLA fallback for this
+    adjacency and form: an f32 adjacency under bf16, which JAX's kernel never
+    takes (``supports`` is False for 4-byte entries). There JAX casts the
+    adjacency and x to bf16, sums in f32 and rounds the output to bf16
+    (``diag_spmm_t_xla`` on bf16 operands), returned as f32; the port
+    computes that function with K1's bf16 form on the adjacency rounded to
+    bf16, and rounds K1's output."""
+    return adj.dtype == torch.float32 and activation_dtype(compute_dtype) == torch.bfloat16
+
+
+def _aggregate(adj: torch.Tensor, x_t: torch.Tensor, compute_dtype, rounded: bool) -> torch.Tensor:
+    out = diag_kernel(adj, x_t, compute_dtype=compute_dtype)
+    return round_to(out, torch.bfloat16) if rounded else out
+
+
 class _DiagSpmmT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_t, adj, compute_dtype):
+        ctx.rounded = _xla_fallback(adj, compute_dtype)
+        if ctx.rounded:
+            adj = adj.to(torch.bfloat16)
         ctx.save_for_backward(adj)
         ctx.compute_dtype = compute_dtype
-        return diag_kernel(adj, x_t, compute_dtype=compute_dtype)
+        return _aggregate(adj, x_t, compute_dtype, ctx.rounded)
 
     @staticmethod
     def backward(ctx, grad):
         (adj,) = ctx.saved_tensors
-        return diag_kernel(adj, grad.contiguous(), compute_dtype=ctx.compute_dtype), None, None
+        return _aggregate(adj, grad.contiguous(), ctx.compute_dtype, ctx.rounded), None, None
 
 
 class _DiagLayerT(torch.autograd.Function):
@@ -367,7 +394,9 @@ def diag_spmm_t(adj: torch.Tensor, x_t: torch.Tensor, compute_dtype: torch.dtype
     """``[F, G*N] -> [F, G*N]`` symmetric per-graph aggregation by an int8,
     bf16 or f32 adjacency, differentiable w.r.t. ``x_t`` (VJP = the same
     aggregation of the cotangent), in the kernel form ``compute_dtype``
-    selects (see :func:`diag_kernel`)."""
+    selects (see :func:`diag_kernel`). Under bf16 an f32 adjacency gives
+    JAX's XLA fallback: rounded to bf16 with x, f32 sums, the output rounded
+    to bf16 (returned as f32), forward and VJP alike."""
     return _DiagSpmmT.apply(x_t, adj, compute_dtype)
 
 
@@ -407,41 +436,46 @@ def diag_layer_pool_t_ref(adj: torch.Tensor, node_mask: torch.Tensor, fcx_t: tor
 # K9f: tower_fwd_kernel (replaces deeprank2_tpu/ops/diag_spmm.py:_tower_fwd_kernel)
 
 
-def tower_fwd_kernel_ref(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
+def tower_fwd_kernel_ref(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, compute_dtype=None):
     """Plain PyTorch version of :func:`tower_fwd_kernel` (the JAX
-    ``_tower_ref``, with h2 kept as its sign)."""
-    h1 = diag_kernel_ref(adj_i8, w1.T @ x_t, mask, "relu_mask")
-    sign, pooled = diag_kernel_ref(adj_i8, w2.T @ h1, mask, "relu_mask_pool")
+    ``_tower_ref``, with h2 kept as its sign); the bf16 form rounds ``x_t``,
+    the weights, ``fcx1``, ``h1`` and ``fcx2`` before the products that take
+    them, as the JAX kernel's ``split=False`` branch does."""
+    act = activation_dtype(compute_dtype)
+    h1 = diag_kernel_ref(adj_i8, round_to(w1, act).T @ round_to(x_t.float(), act), mask, "relu_mask", act)
+    sign, pooled = diag_kernel_ref(adj_i8, round_to(w2, act).T @ round_to(h1, act), mask, "relu_mask_pool", act)
     return h1, sign, pooled
 
 
-def tower_fwd_kernel(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
+def tower_fwd_kernel(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, compute_dtype=None):
     """The fused tower's forward on the flat layout: ``(h1, sign, pooled)``
     with ``h1 = relu(A (w1ᵀ x_t)) ⊙ mask`` (f32 ``[C1, G*N]``), ``sign``
     (uint8 ``[C2, G*N]``) ``= h2 > 0`` for ``h2 = relu(A (w2ᵀ h1)) ⊙ mask``,
     and ``pooled [C2, G]`` = h2 summed over each graph's nodes. ``adj_i8
     [G, N, N]`` (int8 0/1), ``x_t [F, G*N]`` (f32), ``mask [G, N]`` (bool),
-    ``w1 [F, C1]``, ``w2 [C1, C2]``."""
+    ``w1 [F, C1]``, ``w2 [C1, C2]`` (f32). ``compute_dtype=torch.bfloat16``
+    runs the bf16 form."""
     g, n, f = _dims(adj_i8, x_t, (torch.int8,))
     dev = x_t.device
     c1, c2 = w1.shape[-1], w2.shape[-1]
+    act = activation_dtype(compute_dtype)
     _require(x_t, "x_t", torch.float32, (f, g * n), dev)
     _require(mask, "mask", torch.bool, (g, n), dev)
     _require(w1, "w1", torch.float32, (f, c1), dev)
     _require(w2, "w2", torch.float32, (c1, c2), dev)
     if not _route(dev):
-        return tower_fwd_kernel_ref(adj_i8, x_t, mask, w1, w2)
+        return tower_fwd_kernel_ref(adj_i8, x_t, mask, w1, w2, act)
     lib = _tower_lib()
     with torch.cuda.device(dev):
         h1 = torch.empty((c1, g * n), dtype=torch.float32, device=dev)
         sign = torch.empty((c2, g * n), dtype=torch.uint8, device=dev)
         pooled = torch.empty((c2, g), dtype=torch.float32, device=dev)
         code = lib.tower_fwd_kernel(
-            adj_i8.data_ptr(), x_t.data_ptr(), mask.data_ptr(), w1.data_ptr(), w2.data_ptr(), h1.data_ptr(), sign.data_ptr(), pooled.data_ptr(),
-            g, n, f, c1, c2, torch.cuda.current_stream(dev).cuda_stream,
+            adj_i8.data_ptr(), x_t.data_ptr(), ACT_DTYPES[act], mask.data_ptr(), w1.data_ptr(), w2.data_ptr(), h1.data_ptr(), sign.data_ptr(),
+            pooled.data_ptr(), g, n, f, c1, c2, torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, code, "tower_fwd_kernel")
-    launches["tower_fwd_kernel"] += 1
+    _count("tower_fwd_kernel", adj_i8, act)
     return h1, sign, pooled
 
 
@@ -449,76 +483,123 @@ def tower_fwd_kernel(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor
 # K9b: tower_bwd_kernel (replaces deeprank2_tpu/ops/diag_spmm.py:_tower_bwd_kernel)
 
 
-def tower_bwd_kernel_ref(adj_i8: torch.Tensor, g_pool: torch.Tensor, sign: torch.Tensor, h1: torch.Tensor, w2: torch.Tensor):
-    """Plain PyTorch version of :func:`tower_bwd_kernel`."""
-    t2 = pool_bwd_kernel_ref(adj_i8, sign, g_pool)
-    t1 = diag_kernel_ref(adj_i8, (w2 @ t2) * (h1 > 0).to(t2.dtype))
-    return t2, t1
+def tower_bwd_kernel_ref(adj_i8: torch.Tensor, g_pool: torch.Tensor, sign: torch.Tensor, h1: torch.Tensor, w2: torch.Tensor, compute_dtype=None):
+    """Plain PyTorch version of :func:`tower_bwd_kernel`; the bf16 form
+    rounds ``u2`` (through ``g_pool``), ``t2``, ``w2`` and ``u1``, and
+    returns ``t2`` and ``t1`` as bf16."""
+    act = activation_dtype(compute_dtype)
+    t2 = round_to(pool_bwd_kernel_ref(adj_i8, sign, g_pool, act), act)
+    t1 = diag_kernel_ref(adj_i8, (round_to(w2, act) @ t2) * (h1 > 0).to(t2.dtype), compute_dtype=act)
+    return t2.to(act), t1.to(act)
 
 
-def tower_bwd_error_scale(adj_i8: torch.Tensor, g_pool: torch.Tensor, sign: torch.Tensor, h1: torch.Tensor, w2: torch.Tensor):
+def tower_bwd_error_scale(adj_i8: torch.Tensor, g_pool: torch.Tensor, sign: torch.Tensor, h1: torch.Tensor, w2: torch.Tensor, compute_dtype=None):
     """``(|A| |u2|, |A| ((|w2| s2) ⊙ [h1 > 0]))`` with ``s2`` the first: the
-    sums of the absolute values of the products that make ``t2`` and ``t1``,
-    the scale of their f32 rounding error in any summation order (t1 cancels:
-    its terms can be far larger than it)."""
-    s2 = pool_bwd_kernel_ref(adj_i8, sign, g_pool.abs())
-    return s2, diag_kernel_ref(adj_i8, (w2.abs() @ s2) * (h1 > 0).to(s2.dtype))
+    sums of the absolute values of the products that make ``t2`` and ``t1``
+    (``g_pool`` and ``w2`` rounded in the bf16 form), the scale of their f32
+    rounding error in any summation order (t1 cancels: its terms can be far
+    larger than it)."""
+    act = activation_dtype(compute_dtype)
+    s2 = pool_bwd_kernel_ref(adj_i8, sign, round_to(g_pool, act).abs())
+    return s2, diag_kernel_ref(adj_i8, (round_to(w2, act).abs() @ s2) * (h1 > 0).to(s2.dtype))
 
 
-def tower_bwd_kernel(adj_i8: torch.Tensor, g_pool: torch.Tensor, sign: torch.Tensor, h1: torch.Tensor, w2: torch.Tensor):
+def tower_bwd_kernel(adj_i8: torch.Tensor, g_pool: torch.Tensor, sign: torch.Tensor, h1: torch.Tensor, w2: torch.Tensor, compute_dtype=None):
     """The fused tower's backward aggregates ``(t2, t1)``: ``t2 = A (sign ⊙
-    broadcast(g_pool))`` (f32 ``[C2, G*N]``, the cotangent ``g_pool [C2, G]``
-    broadcast over each graph's nodes) and ``t1 = A ((w2 t2) ⊙ [h1 > 0])``
-    (``[C1, G*N]``). The weight gradients are ``dw2 = h1 t2ᵀ`` and
-    ``dw1 = x_t t1ᵀ``."""
+    broadcast(g_pool))`` (``[C2, G*N]``, the cotangent ``g_pool [C2, G]``
+    (f32) broadcast over each graph's nodes) and ``t1 = A ((w2 t2) ⊙ [h1 >
+    0])`` (``[C1, G*N]``), f32, or bf16 in the bf16 form
+    (``compute_dtype=torch.bfloat16``). The weight gradients are
+    ``dw2 = h1 t2ᵀ`` and ``dw1 = x_t t1ᵀ``."""
     g, n, c2 = _dims(adj_i8, sign, (torch.int8,))
     dev = sign.device
     c1 = h1.shape[0]
+    act = activation_dtype(compute_dtype)
     _require(sign, "sign", torch.uint8, (c2, g * n), dev)
     _require(g_pool, "g_pool", torch.float32, (c2, g), dev)
     _require(h1, "h1", torch.float32, (c1, g * n), dev)
     _require(w2, "w2", torch.float32, (c1, c2), dev)
     if not _route(dev):
-        return tower_bwd_kernel_ref(adj_i8, g_pool, sign, h1, w2)
+        return tower_bwd_kernel_ref(adj_i8, g_pool, sign, h1, w2, act)
     lib = _tower_lib()
     with torch.cuda.device(dev):
-        t2 = torch.empty((c2, g * n), dtype=torch.float32, device=dev)
-        t1 = torch.empty((c1, g * n), dtype=torch.float32, device=dev)
+        t2 = torch.empty((c2, g * n), dtype=act, device=dev)
+        t1 = torch.empty((c1, g * n), dtype=act, device=dev)
         code = lib.tower_bwd_kernel(
-            adj_i8.data_ptr(), g_pool.data_ptr(), sign.data_ptr(), h1.data_ptr(), w2.data_ptr(), t2.data_ptr(), t1.data_ptr(),
+            adj_i8.data_ptr(), g_pool.data_ptr(), sign.data_ptr(), h1.data_ptr(), w2.data_ptr(), ACT_DTYPES[act], t2.data_ptr(), t1.data_ptr(),
             g, n, c1, c2, torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, code, "tower_bwd_kernel")
-    launches["tower_bwd_kernel"] += 1
+    _count("tower_bwd_kernel", adj_i8, act)
     return t2, t1
 
 
 class _TowerPooled(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w1, w2, adj_i8, node_mask, x_t):
-        h1, sign, pooled = tower_fwd_kernel(adj_i8, x_t, node_mask, w1, w2)
+    def forward(ctx, w1, w2, adj_i8, node_mask, x_t, compute_dtype):
+        h1, sign, pooled = tower_fwd_kernel(adj_i8, x_t, node_mask, w1, w2, compute_dtype)
         ctx.save_for_backward(adj_i8, x_t, h1, sign, w2)
+        ctx.compute_dtype = compute_dtype
         return pooled
 
     @staticmethod
     def backward(ctx, g_pool):
         adj_i8, x_t, h1, sign, w2 = ctx.saved_tensors
-        t2, t1 = tower_bwd_kernel(adj_i8, g_pool.contiguous(), sign, h1, w2)
+        t2, t1 = tower_bwd_kernel(adj_i8, g_pool.contiguous(), sign, h1, w2, ctx.compute_dtype)
         # the weight gradients contract over the flat node axis outside the
-        # kernels, as in the JAX package
-        return x_t @ t1.T, h1 @ t2.T, None, None, None
+        # kernels, in f32 (bf16 t1/t2 widened), as in the JAX package
+        return x_t.float() @ t1.float().T, h1 @ t2.float().T, None, None, None, None
 
 
-def tower_pooled(adj_i8: torch.Tensor, node_mask: torch.Tensor, x_t: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+def tower_pooled(adj_i8: torch.Tensor, node_mask: torch.Tensor, x_t: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The whole GINet no-cluster tower (two conv layers, relu/mask, and
     per-graph SUM pooling) as one forward and one backward kernel. Returns
     the pooled sums ``[C2, G]``; differentiable w.r.t. ``w1 [F, C1]`` and
-    ``w2 [C1, C2]`` only (``x_t [F, G*N]`` is batch data)."""
-    return _TowerPooled.apply(w1.contiguous(), w2.contiguous(), adj_i8, node_mask, x_t)
+    ``w2 [C1, C2]`` only (``x_t [F, G*N]`` is batch data).
+    ``compute_dtype=torch.bfloat16`` runs the kernels' bf16 form (the JAX
+    ``tower_pooled(..., compute_dtype=bfloat16)`` on its TPU route)."""
+    return _TowerPooled.apply(w1.contiguous(), w2.contiguous(), adj_i8, node_mask, x_t, compute_dtype)
 
 
-def tower_pooled_ref(adj_i8: torch.Tensor, node_mask: torch.Tensor, x_t: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`tower_pooled` (the JAX ``_tower_ref``'s
-    pooled sums, autograd through the plain ops)."""
+def _per_graph(adj: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``adj [G, N, N]`` (f32) times each graph's node columns of ``v [C, G*N]``."""
+    g, n, _ = adj.shape
+    return torch.einsum("gij,cgj->cgi", adj, v.reshape(-1, g, n)).reshape(v.shape)
+
+
+class _TowerPooledBf16Ref(torch.autograd.Function):
+    """The bf16 form of the tower in plain ops, written apart from the
+    kernels' plain versions: the JAX ``split=False`` forward and the custom
+    VJP of its ``tower_pooled``, each value rounded to bf16 (``round_to``)
+    where the Pallas bodies round it; the weight gradients in f32."""
+
+    @staticmethod
+    def forward(ctx, w1, w2, adj_i8, node_mask, x_t):
+        g, n, _ = adj_i8.shape
+        adj, m = adj_i8.to(torch.float32), node_mask.to(torch.float32).reshape(1, -1)
+        r = lambda t: round_to(t, torch.bfloat16)  # noqa: E731
+        h1 = torch.relu(_per_graph(adj, r(r(w1).T @ r(x_t)))) * m
+        h2 = torch.relu(_per_graph(adj, r(r(w2).T @ r(h1)))) * m
+        ctx.save_for_backward(adj, w2, x_t, h1, h2)
+        return h2.reshape(-1, g, n).sum(dim=2)
+
+    @staticmethod
+    def backward(ctx, g_pool):
+        adj, w2, x_t, h1, h2 = ctx.saved_tensors
+        r = lambda t: round_to(t, torch.bfloat16)  # noqa: E731
+        u2 = (h2 > 0).to(torch.float32) * r(g_pool).repeat_interleave(adj.shape[1], dim=1)
+        t2 = r(_per_graph(adj, u2))
+        t1 = r(_per_graph(adj, r((r(w2) @ t2) * (h1 > 0).to(torch.float32))))
+        return x_t @ t1.T, h1 @ t2.T, None, None, None
+
+
+def tower_pooled_ref(adj_i8: torch.Tensor, node_mask: torch.Tensor, x_t: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`tower_pooled`: in the f32 form the JAX
+    ``_tower_ref``'s pooled sums, autograd through the plain ops; in the
+    bf16 form JAX's ``split=False`` forward and custom VJP, rounded where the
+    kernels round (its VJP rounds where autograd through rounded plain ops
+    would not). Runs on any device."""
+    if activation_dtype(compute_dtype) == torch.bfloat16:
+        return _TowerPooledBf16Ref.apply(w1, w2, adj_i8, node_mask, x_t)
     h1 = diag_layer_t_ref(adj_i8, node_mask, w1.T @ x_t)
     return diag_layer_pool_t_ref(adj_i8, node_mask, w2.T @ h1)

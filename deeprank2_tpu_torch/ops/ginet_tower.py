@@ -13,9 +13,18 @@ h1 and h2 from the same resident adjacency and returns the weight gradients,
 summed over graphs in a fixed order). ``x``, the adjacency and the mask are
 batch data: their cotangents are zeros, as in the JAX package.
 
+``compute_dtype=torch.bfloat16`` selects the single-pass bf16 form of both
+kernels (the JAX kernels with ``compute_dtype=bfloat16``): every matmul
+operand of the Pallas bodies (``x``, ``w1``, ``fcx``, ``h1``, ``w2``,
+``fcx2``; in the backward ``dpooled ⊙ [h2 > 0]``, ``dfcx2``, ``dh1`` and
+``dfcx1``) is rounded to bf16 once, as it is staged or produced; the inputs,
+every sum and the results are f32. The default is the f32 form.
+
 Each kernel wrapper takes its plain PyTorch version (``*_ref``) for tensors
 on the CPU, launches its kernel for tensors on a CUDA device, and raises for
-anything else; each counts its kernel launches in :data:`launches`.
+anything else; each counts its kernel launches in :data:`launches`, and by
+form in :data:`launches_by_dtype` (``"int8/bfloat16"``: the adjacency type,
+then the activation type).
 """
 
 from __future__ import annotations
@@ -25,19 +34,28 @@ import ctypes
 import torch
 
 from deeprank2_tpu_torch.ops import _build
-from deeprank2_tpu_torch.ops.diag_spmm import _require, _route
+from deeprank2_tpu_torch.ops.diag_spmm import ACT_DTYPES, _require, _route, activation_dtype, form_name, round_to
 
 SOURCE = "ginet_tower"
 # the per-block shared-memory limit of an H100 (232,448 bytes, opt-in)
 SMEM_LIMIT = 232_448
 
-# kernel launches since the last reset_launches(), by kernel
+# kernel launches since the last reset_launches(), by kernel and by form
 launches = {"ginet_tower_fwd_kernel": 0, "ginet_tower_bwd_kernel": 0}
+launches_by_dtype = {k: {form_name(torch.int8, a): 0 for a in ACT_DTYPES} for k in launches}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for forms in launches_by_dtype.values():
+        for form in forms:
+            forms[form] = 0
+
+
+def _count(kernel: str, act: torch.dtype) -> None:
+    launches[kernel] += 1
+    launches_by_dtype[kernel][form_name(torch.int8, act)] += 1
 
 
 def smem_bytes(nodes: int, feat: int, c1: int, c2: int) -> int:
@@ -73,14 +91,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library(SOURCE)
     if lib.ginet_tower_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ginet_tower_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.ginet_tower_fwd.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, p]
         lib.ginet_tower_fwd.restype = i
-        lib.ginet_tower_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.ginet_tower_bwd.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.ginet_tower_bwd.restype = i
     return lib
 
 
 def _dims(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, adj_i8: torch.Tensor, mask: torch.Tensor) -> tuple[int, int, int, int, int]:
+    """``(G, N, F, C1, C2)`` of the kernels' operands, checked."""
     if x.dim() != 3 or w1.dim() != 2 or w2.dim() != 2:
         msg = f"expected w1 [F, C1], w2 [C1, C2] and x [G, N, F], got {tuple(w1.shape)}, {tuple(w2.shape)} and {tuple(x.shape)}"
         raise ValueError(msg)
@@ -99,32 +118,40 @@ def _dims(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, adj_i8: torch.Ten
 # K8f: ginet_tower_fwd_kernel (replaces deeprank2_tpu/ops/pallas_ginet.py:_fwd_kernel)
 
 
-def ginet_tower_fwd_kernel_ref(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, adj_i8: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def ginet_tower_fwd_kernel_ref(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, adj_i8: torch.Tensor, mask: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`ginet_tower_fwd_kernel` (the JAX
-    ``ginet_tower_pooled_reference``)."""
-    adj = adj_i8.to(x.dtype)
-    h1 = torch.relu(adj @ (x @ w1))
-    h2 = torch.relu(adj @ (h1 @ w2)) * mask.to(x.dtype)[:, :, None]
+    ``ginet_tower_pooled_reference``; the bf16 form rounds where the JAX
+    kernel casts to bf16)."""
+    act = activation_dtype(compute_dtype)
+
+    def r(t):
+        return round_to(t, act)
+
+    adj = adj_i8.to(torch.float32)
+    h1 = torch.relu(adj @ r(r(x.float()) @ r(w1)))
+    h2 = torch.relu(adj @ r(r(h1) @ r(w2))) * mask.to(torch.float32)[:, :, None]
     return h2.sum(dim=1)
 
 
-def ginet_tower_fwd_kernel(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, adj_i8: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Pooled sums ``[G, C2]`` of the fused tower: ``w1 [F, C1]``,
+def ginet_tower_fwd_kernel(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, adj_i8: torch.Tensor, mask: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """Pooled sums ``[G, C2]`` (f32) of the fused tower: ``w1 [F, C1]``,
     ``w2 [C1, C2]``, ``x [G, N, F]`` (f32), ``adj_i8 [G, N, N]`` (int8 0/1,
-    symmetric), ``mask [G, N]`` (bool)."""
+    symmetric), ``mask [G, N]`` (bool). ``compute_dtype=torch.bfloat16``
+    runs the bf16 form."""
+    act = activation_dtype(compute_dtype)
     g, n, f, c1, c2 = _dims(w1, w2, x, adj_i8, mask)
     dev = x.device
     if not _route(dev):
-        return ginet_tower_fwd_kernel_ref(w1, w2, x, adj_i8, mask)
+        return ginet_tower_fwd_kernel_ref(w1, w2, x, adj_i8, mask, act)
     lib = _lib()
     with torch.cuda.device(dev):
         pooled = torch.empty((g, c2), dtype=torch.float32, device=dev)
         code = lib.ginet_tower_fwd(
-            adj_i8.data_ptr(), x.data_ptr(), mask.data_ptr(), w1.data_ptr(), w2.data_ptr(), pooled.data_ptr(),
+            adj_i8.data_ptr(), x.data_ptr(), ACT_DTYPES[act], mask.data_ptr(), w1.data_ptr(), w2.data_ptr(), pooled.data_ptr(),
             g, n, f, c1, c2, torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, code, "ginet_tower_fwd_kernel")
-    launches["ginet_tower_fwd_kernel"] += 1
+    _count("ginet_tower_fwd_kernel", act)
     return pooled
 
 
@@ -132,53 +159,63 @@ def ginet_tower_fwd_kernel(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, 
 # K8b: ginet_tower_bwd_kernel (replaces deeprank2_tpu/ops/pallas_ginet.py:_bwd_kernel)
 
 
-def _bwd_terms(w1, w2, x, adj_i8, mask, dpooled):
+def _bwd_terms(w1, w2, x, adj_i8, mask, dpooled, act):
     """The per-graph factors of the weight gradients: ``(x, dfcx1, h1, dfcx2)``
-    with ``dw1 = Σ_g x[g]ᵀ dfcx1[g]`` and ``dw2 = Σ_g h1[g]ᵀ dfcx2[g]``."""
-    adj = adj_i8.to(x.dtype)
-    h1 = torch.relu(adj @ (x @ w1))
-    h2 = torch.relu(adj @ (h1 @ w2)) * mask.to(x.dtype)[:, :, None]
+    with ``dw1 = Σ_g x[g]ᵀ dfcx1[g]`` and ``dw2 = Σ_g h1[g]ᵀ dfcx2[g]``, each
+    as the form ``act`` takes it into the products (rounded to bf16 in the
+    bf16 form)."""
+
+    def r(t):
+        return round_to(t, act)
+
+    adj = adj_i8.to(torch.float32)
+    x, w2 = r(x.float()), r(w2)
+    h1 = r(torch.relu(adj @ r(x @ r(w1))))
+    h2 = torch.relu(adj @ r(h1 @ w2)) * mask.to(torch.float32)[:, :, None]
     # adj is symmetric: adjᵀ v == adj v
-    dfcx2 = adj @ (dpooled[:, None, :] * (h2 > 0).to(x.dtype))
-    dh1 = (dfcx2 @ w2.T) * (h1 > 0).to(x.dtype)
-    return x, adj @ dh1, h1, dfcx2
+    dfcx2 = r(adj @ r(dpooled[:, None, :] * (h2 > 0).to(torch.float32)))
+    dh1 = (dfcx2 @ w2.T) * (h1 > 0).to(torch.float32)
+    return x, r(adj @ r(dh1)), h1, dfcx2
 
 
-def ginet_tower_bwd_kernel_ref(w1, w2, x, adj_i8, mask, dpooled) -> tuple[torch.Tensor, torch.Tensor]:
+def ginet_tower_bwd_kernel_ref(w1, w2, x, adj_i8, mask, dpooled, compute_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`ginet_tower_bwd_kernel`."""
-    x, dfcx1, h1, dfcx2 = _bwd_terms(w1, w2, x, adj_i8, mask, dpooled)
+    x, dfcx1, h1, dfcx2 = _bwd_terms(w1, w2, x, adj_i8, mask, dpooled, activation_dtype(compute_dtype))
     return torch.einsum("gnf,gnc->fc", x, dfcx1), torch.einsum("gnc,gnd->cd", h1, dfcx2)
 
 
-def dw_error_scale(w1, w2, x, adj_i8, mask, dpooled) -> tuple[torch.Tensor, torch.Tensor]:
+def dw_error_scale(w1, w2, x, adj_i8, mask, dpooled, compute_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(Σ_g |x[g]|ᵀ |dfcx1[g]|, Σ_g |h1[g]|ᵀ |dfcx2[g]|)``: the sums of the
-    absolute values of the products that make ``dw1`` and ``dw2``, the scale
-    of the rounding error of their f32 sums in any order (the tolerance
-    scale when two orders are compared)."""
-    x, dfcx1, h1, dfcx2 = _bwd_terms(w1, w2, x, adj_i8, mask, dpooled)
+    absolute values of the products that make ``dw1`` and ``dw2`` (in the
+    form ``compute_dtype`` selects), the scale of the rounding error of their
+    f32 sums in any order (the tolerance scale when two orders are
+    compared)."""
+    x, dfcx1, h1, dfcx2 = _bwd_terms(w1, w2, x, adj_i8, mask, dpooled, activation_dtype(compute_dtype))
     return torch.einsum("gnf,gnc->fc", x.abs(), dfcx1.abs()), torch.einsum("gnc,gnd->cd", h1.abs(), dfcx2.abs())
 
 
-def ginet_tower_bwd_kernel(w1, w2, x, adj_i8, mask, dpooled) -> tuple[torch.Tensor, torch.Tensor]:
+def ginet_tower_bwd_kernel(w1, w2, x, adj_i8, mask, dpooled, compute_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(dw1 [F, C1], dw2 [C1, C2])``: the gradients of ``sum(dpooled ⊙
     pooled)`` for the forward of :func:`ginet_tower_fwd_kernel`, with the
-    cotangent ``dpooled [G, C2]`` (f32), summed over graphs."""
+    cotangent ``dpooled [G, C2]`` (f32), summed over graphs, in the form
+    ``compute_dtype`` selects."""
+    act = activation_dtype(compute_dtype)
     g, n, f, c1, c2 = _dims(w1, w2, x, adj_i8, mask)
     dev = x.device
     _require(dpooled, "dpooled", torch.float32, (g, c2), dev)
     if not _route(dev):
-        return ginet_tower_bwd_kernel_ref(w1, w2, x, adj_i8, mask, dpooled)
+        return ginet_tower_bwd_kernel_ref(w1, w2, x, adj_i8, mask, dpooled, act)
     lib = _lib()
     entries = f * c1 + c1 * c2
     with torch.cuda.device(dev):
         part = torch.empty((g, entries), dtype=torch.float32, device=dev)
         out = torch.empty(entries, dtype=torch.float32, device=dev)
         code = lib.ginet_tower_bwd(
-            adj_i8.data_ptr(), x.data_ptr(), mask.data_ptr(), w1.data_ptr(), w2.data_ptr(), dpooled.data_ptr(),
+            adj_i8.data_ptr(), x.data_ptr(), ACT_DTYPES[act], mask.data_ptr(), w1.data_ptr(), w2.data_ptr(), dpooled.data_ptr(),
             part.data_ptr(), out.data_ptr(), g, n, f, c1, c2, torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, code, "ginet_tower_bwd_kernel")
-    launches["ginet_tower_bwd_kernel"] += 1
+    _count("ginet_tower_bwd_kernel", act)
     return out[: f * c1].view(f, c1), out[f * c1 :].view(c1, c2)
 
 
@@ -188,29 +225,31 @@ def ginet_tower_bwd_kernel(w1, w2, x, adj_i8, mask, dpooled) -> tuple[torch.Tens
 
 class _GINetTowerPooled(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w1, w2, x, adj_i8, mask):
+    def forward(ctx, w1, w2, x, adj_i8, mask, compute_dtype):
         ctx.save_for_backward(w1, w2, x, adj_i8, mask)
-        return ginet_tower_fwd_kernel(w1, w2, x, adj_i8, mask)
+        ctx.compute_dtype = compute_dtype
+        return ginet_tower_fwd_kernel(w1, w2, x, adj_i8, mask, compute_dtype)
 
     @staticmethod
     def backward(ctx, dpooled):
         w1, w2, x, adj_i8, mask = ctx.saved_tensors
-        dw1, dw2 = ginet_tower_bwd_kernel(w1, w2, x, adj_i8, mask, dpooled.contiguous())
+        dw1, dw2 = ginet_tower_bwd_kernel(w1, w2, x, adj_i8, mask, dpooled.contiguous(), ctx.compute_dtype)
         # x is batch data: a zero cotangent, as the JAX custom_vjp returns
         dx = torch.zeros_like(x) if ctx.needs_input_grad[2] else None
-        return dw1, dw2, dx, None, None
+        return dw1, dw2, dx, None, None, None
 
 
-def ginet_tower_pooled(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, adj_i8: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def ginet_tower_pooled(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, adj_i8: torch.Tensor, mask: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Masked-sum pooled output ``[G, C2]`` of the fused two-layer GINet
     tower (divide by the node counts outside for the mean), differentiable
     w.r.t. ``w1 [F, C1]`` and ``w2 [C1, C2]``; ``x [G, N, F]`` gets a zero
     cotangent, ``adj_i8 [G, N, N]`` (int8 0/1, symmetric) and ``mask [G, N]``
-    (bool) none."""
-    return _GINetTowerPooled.apply(w1.contiguous(), w2.contiguous(), x, adj_i8, mask)
+    (bool) none. ``compute_dtype=torch.bfloat16`` runs the kernels' bf16
+    form (the JAX ``ginet_tower_pooled(..., compute_dtype=bfloat16)``)."""
+    return _GINetTowerPooled.apply(w1.contiguous(), w2.contiguous(), x, adj_i8, mask, compute_dtype)
 
 
 def ginet_tower_pooled_ref(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor, adj_i8: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`ginet_tower_pooled` (autograd through
-    the plain ops; the JAX ``ginet_tower_pooled_reference``)."""
+    """Plain PyTorch version of :func:`ginet_tower_pooled` in its f32 form
+    (autograd through the plain ops; the JAX ``ginet_tower_pooled_reference``)."""
     return ginet_tower_fwd_kernel_ref(w1, w2, x, adj_i8, mask)

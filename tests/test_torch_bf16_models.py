@@ -1,5 +1,6 @@
-"""The five models of the bf16 slice with ``compute_dtype=torch.bfloat16``
-against their JAX twins with ``compute_dtype=jnp.bfloat16`` on the JAX
+"""The bf16 models (``compute_dtype=torch.bfloat16``: the five of the first
+bf16 slice, then FoutNet and sGAT on the Diag and BCSR paths, sGAT also on
+an f32 adjacency) against their JAX twins with ``compute_dtype=jnp.bfloat16`` on the JAX
 package's TPU route, its Pallas kernels interpreted on the CPU (on its CPU
 route JAX would not run the bf16 kernel forms: the XLA fallbacks ignore
 ``compute_dtype`` or round other values). One JAX initialization loads into
@@ -16,6 +17,19 @@ as a share of that magnitude):
   both sides differ by f32 summation order only: the f32 tests'
   tolerances, rtol 1e-4 and atol 1e-5 for logits, loss and every gradient
   (logits 5e-7 to 1.4e-6, gradients 1.2e-7 to 3.1e-7).
+- ``FoutNetDiag``, ``SGATDiag`` (bf16 adjacency), ``FoutNetBlockSparse``,
+  ``SGATBlockSparse`` (bf16 blocks): only K1 or K5 rounds (its input, to
+  bf16), after an f32 weight product that torch and XLA may sum in other
+  orders, so a rounded input can flip to the neighbouring bf16 value; that
+  moves one node's aggregate by a small part of one bf16 step, and the
+  pools, the mean and the head dilute it: the kernel-only tolerance holds
+  (logits 5e-8 to 1.1e-7, gradients 1.4e-7 to 1.7e-7: no flip at this size).
+- ``SGATDiag`` on the f32 adjacency of ``weight_dtype=float32``: JAX's
+  kernel never takes a 4-byte adjacency, so it runs its XLA fallback
+  (adjacency and x cast to bf16, f32 sums, the aggregate rounded to bf16);
+  the port computes that function (ops/diag_spmm.py:_xla_fallback). The
+  aggregate's own rounding can flip the same way: the kernel-only tolerance
+  (logits 1.8e-7, gradients 1.9e-7).
 - ``GINetDense``: its two weight products run in bf16 outside the kernels
   (bf16 out, ``h`` cast to bf16 first, the cotangents rounded to bf16 on
   their way back, as JAX's dot transposes do), and torch's and XLA's CPU
@@ -47,17 +61,23 @@ import numpy as np
 import pytest
 import torch
 
+from deeprank2_tpu.neuralnets.gnn.clustered_blocksparse import FoutNetBlockSparse as JaxFoutNetBlockSparse
 from deeprank2_tpu.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse as JaxGINetClusteredBlockSparse
+from deeprank2_tpu.neuralnets.gnn.clustered_blocksparse import SGATBlockSparse as JaxSGATBlockSparse
+from deeprank2_tpu.neuralnets.gnn.foutnet import FoutNetDiag as JaxFoutNetDiag
 from deeprank2_tpu.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse as JaxGINetBlockSparse
 from deeprank2_tpu.neuralnets.gnn.ginet_dense import GINetClusteredDiag as JaxGINetClusteredDiag
 from deeprank2_tpu.neuralnets.gnn.ginet_dense import GINetDense as JaxGINetDense
+from deeprank2_tpu.neuralnets.gnn.sgat import SGATDiag as JaxSGATDiag
 from deeprank2_tpu.neuralnets.gnn.vanilla_gnn import VanillaNetworkBlocked as JaxVanillaNetworkBlocked
 from deeprank2_tpu.ops import batch as jbatch
 from deeprank2_tpu.ops.losses import CrossEntropyLoss as JaxCrossEntropyLoss
 from deeprank2_tpu.ops.optim import Adam as JaxAdam
-from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import GINetClusteredBlockSparse
+from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import FoutNetBlockSparse, GINetClusteredBlockSparse, SGATBlockSparse
+from deeprank2_tpu_torch.neuralnets.gnn.foutnet import FoutNetDiag
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
 from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag, GINetDense
+from deeprank2_tpu_torch.neuralnets.gnn.sgat import SGATDiag
 from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetworkBlocked
 from deeprank2_tpu_torch.neuralnets.param_interop import params_from_jax, params_to_jax
 from deeprank2_tpu_torch.ops import batch as tbatch
@@ -80,6 +100,11 @@ TOLS = {
     "bcsr": KERNEL_ONLY_TOL,
     "clustered_bcsr": KERNEL_ONLY_TOL,
     "blocked": KERNEL_ONLY_TOL,
+    "foutnet_diag": KERNEL_ONLY_TOL,
+    "sgat_diag": KERNEL_ONLY_TOL,
+    "sgat_diag_f32": KERNEL_ONLY_TOL,
+    "foutnet_bcsr": KERNEL_ONLY_TOL,
+    "sgat_bcsr": KERNEL_ONLY_TOL,
 }
 
 
@@ -119,21 +144,39 @@ def _geometric_entries():
     return entries
 
 
+def _diag_entries():
+    return ppi_clustered_entries(6, 40, FEAT, cell=10.0, seed=1)
+
+
+# the weighted collates' arguments, by package: bf16 weights (each package's
+# default), or f32 ones (the exact-oracle storage)
+WEIGHTED = {"jax": {"with_edge_weights": True}, "torch": {"with_edge_weights": True}}
+WEIGHTED_F32 = {"jax": {"with_edge_weights": True, "weight_dtype": np.float32}, "torch": {"with_edge_weights": True, "weight_dtype": torch.float32}}
+DIAG_KW = {"pad_graphs": 8, "min_slot_nodes": 1}
+BCSR_KW = {"pad_graphs": 4, "slot8": True}
+
 # name: (JAX class, port class, (feat, edge feat), parameter family, collate name, its arguments, entries)
+# (the arguments are one dict for both packages, or one per package under "jax" and "torch")
 MODELS = {
     "dense": (JaxGINetDense, GINetDense, (FEAT, 6), None, "collate_graphs_dense", {"pad_graphs": 8, "pad_nodes": 32}, _dense_entries),
     "clustered_diag": (JaxGINetClusteredDiag, GINetClusteredDiag, (FEAT, 1), None, "collate_graphs_diag_clustered", {"pad_graphs": 8, "min_slot_nodes": 1}, lambda: ppi_clustered_entries(6, 40, FEAT, cell=10.0, seed=1)),
     "bcsr": (JaxGINetBlockSparse, GINetBlockSparse, (FEAT, 1), None, "collate_graphs_blocksparse", {"pad_graphs": 4}, _geometric_entries),
     "clustered_bcsr": (JaxGINetClusteredBlockSparse, GINetClusteredBlockSparse, (FEAT, 1), None, "collate_graphs_blocksparse_clustered", {"pad_graphs": 4, "slot8": True}, _clustered_bcsr_entries),
     "blocked": (JaxVanillaNetworkBlocked, VanillaNetworkBlocked, (10, 6), "vanilla", "collate_graphs_blocked", {"pad_graphs": 4}, _blocked_entries),
+    "foutnet_diag": (JaxFoutNetDiag, FoutNetDiag, (FEAT, 1), "foutnet", "collate_graphs_diag_clustered", DIAG_KW, _diag_entries),
+    "sgat_diag": (JaxSGATDiag, SGATDiag, (FEAT, 1), "sgat", "collate_graphs_diag_clustered", {k: {**DIAG_KW, **v} for k, v in WEIGHTED.items()}, _diag_entries),
+    "sgat_diag_f32": (JaxSGATDiag, SGATDiag, (FEAT, 1), "sgat", "collate_graphs_diag_clustered", {k: {**DIAG_KW, **v} for k, v in WEIGHTED_F32.items()}, _diag_entries),
+    "foutnet_bcsr": (JaxFoutNetBlockSparse, FoutNetBlockSparse, (FEAT, 1), "foutnet", "collate_graphs_blocksparse_clustered", BCSR_KW, _clustered_bcsr_entries),
+    "sgat_bcsr": (JaxSGATBlockSparse, SGATBlockSparse, (FEAT, 1), "sgat", "collate_graphs_blocksparse_clustered", {k: {**BCSR_KW, **v} for k, v in WEIGHTED.items()}, _clustered_bcsr_entries),
 }  # fmt: skip
 
 
 def _setup(name, compute_dtype=BF16):
     jcls, tcls, (feat, fe), family, collate, kwargs, entries = MODELS[name]
     entries = entries()
-    jb, _ = getattr(jbatch, collate)(entries, **kwargs)
-    tb, _ = getattr(tbatch, collate)(entries, **kwargs, device="cpu")
+    jkw, tkw = (kwargs["jax"], kwargs["torch"]) if "jax" in kwargs else (kwargs, kwargs)
+    jb, _ = getattr(jbatch, collate)(entries, **jkw)
+    tb, _ = getattr(tbatch, collate)(entries, **tkw, device="cpu")
     jmodel = jcls(feat, 2, fe, compute_dtype=None if compute_dtype is None else jnp.bfloat16)
     model = tcls(feat, 2, fe, compute_dtype=compute_dtype, device="cpu")
     params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))

@@ -722,3 +722,111 @@ def test_bf16_train_steps_match_cpu_and_count_launches(cuda, kind) -> None:
             assert p.grad is None, name
         else:
             torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=2.0**-7 * q.grad.abs().max().item() + 1e-12, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 forms of the fused towers (K8f, K8b, K9f, K9b). Kernel and plain
+# version round at the same points, but a value about to be rounded that the
+# two sum in other orders can land on the neighbouring bf16 number (a flip),
+# which moves what follows by at most one bf16 step of that value. So each
+# output is held to the f32-order bound (rtol 1e-5, atol 1e-6 × Σ|terms|,
+# the same value on the absolute operands) except at most 0.1 % of its
+# entries, each within 2^-7 × (Σ|terms| + |value|); K9f's sign may differ
+# only where |h2| is within 2^-7 × Σ|terms| of zero.
+
+FLIP = 2.0**-7
+
+
+def _flip_close(got, want, scale, what) -> None:
+    got, want, scale = (t.detach().double().cpu() for t in (got, want, scale))
+    err = (got - want).abs()
+    off = err > 1e-5 * want.abs() + 1e-6 * scale
+    assert off.double().mean().item() <= 1e-3, f"{what}: {int(off.sum())} of {off.numel()} entries off the f32-order bound"
+    assert (err[off] <= FLIP * (scale + want.abs())[off]).all(), what
+
+
+@pytest.mark.parametrize(("g", "n", "f", "c1", "c2"), [(512, 160, 38, 32, 64), (7, 96, 38, 32, 64), (3, 251, 38, 32, 64), (5, 40, 5, 6, 10)])
+def test_bf16_tower_kernels_match_plain_versions(cuda, g, n, f, c1, c2) -> None:
+    adj, mask, x, x_t, w1, w2, dp = _tower_operands(g, n, f, c1, c2, cuda)
+    gt.reset_launches()
+    ds.reset_launches()
+    args = (w1, w2, x, adj, mask)
+    abs_args = (w1.abs(), w2.abs(), x.abs(), adj, mask)
+    _flip_close(gt.ginet_tower_fwd_kernel(*args, BF16), gt.ginet_tower_fwd_kernel_ref(*args, BF16), gt.ginet_tower_fwd_kernel_ref(*abs_args, BF16), "K8f")
+    got, want = gt.ginet_tower_bwd_kernel(*args, dp, BF16), gt.ginet_tower_bwd_kernel_ref(*args, dp, BF16)
+    for what, a, b, scale in zip(("dw1", "dw2"), got, want, gt.dw_error_scale(*args, dp, BF16)):
+        _flip_close(a, b, scale, f"K8b {what}")
+    assert gt.launches_by_dtype == {k: {"int8/float32": 0, "int8/bfloat16": 1} for k in gt.launches}
+    fargs = (adj, x_t, mask, w1, w2)
+    h1, sign, pooled = ds.tower_fwd_kernel(*fargs, BF16)
+    h1_r, sign_r, pooled_r = ds.tower_fwd_kernel_ref(*fargs, BF16)
+    h1_s, _, pooled_s = ds.tower_fwd_kernel_ref(adj, x_t.abs(), mask, w1.abs(), w2.abs(), BF16)
+    _flip_close(h1, h1_r, h1_s, "K9f h1")
+    _flip_close(pooled, pooled_r, pooled_s, "K9f pooled")
+    rw2 = ds.round_to(w2, BF16)
+    h2 = torch.relu(ds.diag_kernel_ref(adj, rw2.T @ ds.round_to(h1_r, BF16), compute_dtype=BF16)) * mask.reshape(1, -1)
+    h2_s = ds.diag_kernel_ref(adj, rw2.abs().T @ ds.round_to(h1_s, BF16), compute_dtype=BF16)
+    differ = sign != sign_r
+    assert differ.double().mean().item() <= 1e-3 and (h2[differ] <= FLIP * h2_s[differ]).all()
+    bwd = (adj, dp.T.contiguous(), sign_r, h1_r, w2)
+    got, want = ds.tower_bwd_kernel(*bwd, BF16), ds.tower_bwd_kernel_ref(*bwd, BF16)
+    for what, a, b, scale in zip(("t2", "t1"), got, want, ds.tower_bwd_error_scale(*bwd, BF16)):
+        assert a.dtype == b.dtype == BF16
+        _flip_close(a.float(), b.float(), scale, f"K9b {what}")
+    forms = {k: ds.launches_by_dtype[k] for k in ("tower_fwd_kernel", "tower_bwd_kernel")}
+    assert forms == {k: {"int8/float32": 0, "int8/bfloat16": 1} for k in forms}
+
+
+def test_dense_tower_bf16_train_step_matches_cpu_and_counts_launches(cuda) -> None:
+    """GINetDense(compute_dtype=bf16) on the "pallas" backend: only the bf16
+    tower forms run, and the step agrees with the CPU's (the same forms'
+    plain versions) at rtol 1e-4 and one bf16 step at each tensor's largest
+    magnitude (a value rounded after sums in other orders can flip)."""
+    entries = synthetic_entries(6, 40, 38, 6, seed=2)
+    batch, _ = collate_graphs_dense(entries, pad_graphs=7, pad_nodes=64, device=cuda)
+    model, cpu_model = GINetDense(38, 2, 6, device=cuda, compute_dtype=BF16), GINetDense(38, 2, 6, device="cpu", compute_dtype=BF16)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loss_fn = CrossEntropyLoss()
+    set_dense_tower_backend("pallas")
+    try:
+        ds.reset_launches()
+        gt.reset_launches()
+        loss = loss_fn(model(batch), batch.y, batch.y_mask)
+        loss.backward()
+        assert gt.launches_by_dtype == {k: {"int8/float32": 0, "int8/bfloat16": 1} for k in gt.launches}
+        assert not any(ds.launches.values())
+        cpu_batch = batch.to("cpu")
+        cpu_loss = loss_fn(cpu_model(cpu_batch), cpu_batch.y, cpu_batch.y_mask)
+        cpu_loss.backward()
+    finally:
+        set_dense_tower_backend("xla")
+    torch.testing.assert_close(loss.detach().cpu(), cpu_loss.detach(), rtol=1e-4, atol=FLIP * cpu_loss.abs().item())
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        if q.grad is None:
+            assert p.grad is None, name
+        else:
+            torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=FLIP * q.grad.abs().max().item() + 1e-12, msg=name)
+
+
+def test_sgat_diag_bf16_on_an_f32_adjacency_matches_cpu(cuda) -> None:
+    """SGATDiag under bf16 on the f32 adjacency of weight_dtype=float32: JAX's
+    XLA fallback (the adjacency and x rounded to bf16, f32 sums, the
+    aggregate rounded to bf16), run as K1's bf16 form on the rounded
+    adjacency: two aggregations and their VJPs of the bfloat16/bfloat16
+    form. Against the CPU at the bf16 steps' tolerance."""
+    entries = ppi_clustered_entries(6, 40, 38, seed=2)
+    batch, _ = collate_graphs_diag_clustered(entries, pad_graphs=8, with_edge_weights=True, weight_dtype=torch.float32, min_slot_nodes=1, device=cuda)
+    assert batch.adj_w.dtype == torch.float32
+    model, cpu_model = SGATDiag(38, 2, 1, device=cuda, compute_dtype=BF16), SGATDiag(38, 2, 1, device="cpu", compute_dtype=BF16)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loss_fn = CrossEntropyLoss()
+    ds.reset_launches()
+    loss = loss_fn(model(batch), batch.y, batch.y_mask)
+    loss.backward()
+    assert {k: n for k, n in ds.launches_by_dtype["diag_kernel"].items() if n} == {"bfloat16/bfloat16": 4}
+    cpu_batch = batch.to("cpu")
+    cpu_loss = loss_fn(cpu_model(cpu_batch), cpu_batch.y, cpu_batch.y_mask)
+    cpu_loss.backward()
+    torch.testing.assert_close(loss.detach().cpu(), cpu_loss.detach(), rtol=1e-4, atol=FLIP * cpu_loss.abs().item())
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=FLIP * q.grad.abs().max().item() + 1e-12, msg=name)

@@ -4,6 +4,8 @@ loss, every gradient and two Adam steps are compared."""
 
 from __future__ import annotations
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -162,18 +164,27 @@ def test_training_forward_uses_dropout_only_with_a_generator() -> None:
 
 
 def test_bfloat16_is_not_ported() -> None:
-    """bf16 runs on the flat route (tests/test_torch_bf16_models.py); the
-    fused batched tower (K8) has no bf16 form yet, and float16 none at all."""
+    """bf16 runs on both tower backends: the flat route
+    (tests/test_torch_bf16_models.py) and, since the fused batched tower (K8)
+    has its bf16 form, the "pallas" backend (tests/test_torch_bf16_towers.py),
+    which hands the tower the f32 weights and features and gives f32 logits
+    that round where the f32 form does not; float16 has no form at all."""
     from deeprank2_tpu_torch.neuralnets.gnn import ginet_dense
+    from deeprank2_tpu_torch.ops import ginet_tower
 
     model = GINetDense(FEAT, 2, EDGE, device="cpu", compute_dtype=torch.bfloat16)
     batch, _ = collate_graphs_dense(synthetic_entries(4, 24, FEAT, EDGE, seed=1), device="cpu")
     assert model(batch).dtype == torch.float32
+    f32_model = GINetDense(FEAT, 2, EDGE, device="cpu")
     ginet_dense.set_dense_tower_backend("pallas")
     try:
-        with pytest.raises(NotImplementedError, match="K8"):
-            model(batch)
+        with mock.patch.object(ginet_tower, "ginet_tower_pooled", wraps=ginet_tower.ginet_tower_pooled) as spy, torch.no_grad():
+            fused, fused_f32 = model(batch), f32_model(batch)
+        assert [c.args[-1] for c in spy.call_args_list] == [torch.bfloat16, None]
     finally:
         ginet_dense.set_dense_tower_backend("xla")
+    assert fused.dtype == torch.float32
+    assert not torch.equal(fused, fused_f32)
+    torch.testing.assert_close(fused, fused_f32, rtol=0, atol=2e-2 * max(1.0, fused_f32.abs().max().item()))
     with pytest.raises(ValueError, match="compute_dtype"):
         GINetDense(FEAT, 2, EDGE, device="cpu", compute_dtype=torch.float16)

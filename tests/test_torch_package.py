@@ -279,45 +279,67 @@ def test_bf16_entry_points_raise_without_cuda(no_cuda) -> None:
         assert cls(4, 2, 1, compute_dtype=torch.bfloat16, device="cpu").compute_dtype == torch.bfloat16
 
 
-# (what is refused, the exception and the message it names)
-UNPORTED_COMPUTE_DTYPES = {
-    "pallas_tower_bf16": (NotImplementedError, "K8"),
-    "foutnet_diag_bf16": (NotImplementedError, "FoutNetDiag"),
-    "sgat_diag_bf16": (NotImplementedError, "SGATDiag"),
-    "foutnet_bcsr_bf16": (NotImplementedError, "FoutNetBlockSparse"),
-    "sgat_bcsr_bf16": (NotImplementedError, "SGATBlockSparse"),
+# what each case builds: a bf16 model that runs (its collate's keyword
+# arguments), or what is refused (the exception and the message it names)
+COMPUTE_DTYPE_CASES = {
+    "pallas_tower_bf16": "dense",
+    "foutnet_diag_bf16": ("diag", {}),
+    "sgat_diag_bf16": ("diag", {"with_edge_weights": True}),
+    "foutnet_bcsr_bf16": ("bcsr", {}),
+    "sgat_bcsr_bf16": ("bcsr", {"with_edge_weights": True}),
     "float16": (ValueError, "compute_dtype"),
+    "foutnet_coo_bf16": (TypeError, "compute_dtype"),
+    "sgat_coo_bf16": (TypeError, "compute_dtype"),
 }
 
 
-@pytest.mark.parametrize("case", sorted(UNPORTED_COMPUTE_DTYPES))
-def test_compute_dtypes_without_a_port_raise(case) -> None:
-    """The bf16 forms still to port (the fused tower K8, FoutNet and sGAT)
-    and float16, which no kernel has, refuse to run."""
+@pytest.mark.parametrize("case", sorted(COMPUTE_DTYPE_CASES))
+def test_compute_dtypes_without_a_port_raise(no_cuda, case) -> None:
+    """Every model that takes ``compute_dtype`` in the JAX package takes
+    bf16 in the port: GINetDense on the fused tower ("pallas"), FoutNet and
+    sGAT on the Diag and BCSR paths. Each builds on ``device="cpu"``, gives
+    f32 logits, and raises without a device on a machine with no CUDA.
+    float16, which no kernel has, is refused, and so is any
+    ``compute_dtype`` of the COO FoutNet and sGAT, which have none in the
+    JAX package either."""
     from deeprank2_tpu_torch.neuralnets.gnn import clustered_blocksparse, foutnet, ginet_dense, sgat
-    from deeprank2_tpu_torch.ops.batch import collate_graphs_dense
-    from deeprank2_tpu_torch.ops.synthetic import synthetic_entries
+    from deeprank2_tpu_torch.ops.batch import collate_graphs_blocksparse_clustered, collate_graphs_dense, collate_graphs_diag_clustered
+    from deeprank2_tpu_torch.ops.synthetic import ppi_clustered_entries, synthetic_entries
 
-    error, match = UNPORTED_COMPUTE_DTYPES[case]
+    bf16 = torch.bfloat16
     models = {
+        "pallas_tower_bf16": ginet_dense.GINetDense,
         "foutnet_diag_bf16": foutnet.FoutNetDiag,
         "sgat_diag_bf16": sgat.SGATDiag,
         "foutnet_bcsr_bf16": clustered_blocksparse.FoutNetBlockSparse,
         "sgat_bcsr_bf16": clustered_blocksparse.SGATBlockSparse,
+        "float16": ginet_dense.GINetDense,
+        "foutnet_coo_bf16": foutnet.FoutNet,
+        "sgat_coo_bf16": sgat.SGAT,
     }
-    with pytest.raises(error, match=match):
-        if case == "pallas_tower_bf16":
-            batch, _ = collate_graphs_dense(synthetic_entries(2, 8, 4, 2, seed=0), device="cpu")
-            model = ginet_dense.GINetDense(4, 2, 2, device="cpu", compute_dtype=torch.bfloat16)
-            ginet_dense.set_dense_tower_backend("pallas")
-            try:
-                model(batch)
-            finally:
-                ginet_dense.set_dense_tower_backend("xla")
-        elif case == "float16":
-            ginet_dense.GINetDense(4, 2, 2, device="cpu", compute_dtype=torch.float16)
-        else:
-            models[case](4, 2, 1, device="cpu", compute_dtype=torch.bfloat16)
+    cls, what = models[case], COMPUTE_DTYPE_CASES[case]
+    if isinstance(what[0], type):
+        with pytest.raises(what[0], match=what[1]):
+            cls(4, 2, 2, device="cpu", compute_dtype=torch.float16 if case == "float16" else bf16)
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(4, 2, 2, compute_dtype=bf16)
+    model = cls(4, 2, 2, device="cpu", compute_dtype=bf16)
+    assert model.compute_dtype == bf16
+    if what == "dense":
+        batch, _ = collate_graphs_dense(synthetic_entries(2, 8, 4, 2, seed=0), device="cpu")
+        ginet_dense.set_dense_tower_backend("pallas")
+        try:
+            logits = model(batch)
+        finally:
+            ginet_dense.set_dense_tower_backend("xla")
+    else:
+        layout, kwargs = what
+        collate = collate_graphs_diag_clustered if layout == "diag" else collate_graphs_blocksparse_clustered
+        batch, _ = collate(ppi_clustered_entries(2, 30, 4, seed=3), device="cpu", **kwargs)
+        logits = model(batch)
+    assert logits.dtype == torch.float32 and logits.shape == (batch.num_graphs, 2)
+    assert torch.isfinite(logits).all()
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -330,3 +352,19 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(no_cuda, tmp_path, al
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True, text=True, timeout=300, check=False, env=env)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_kernel_library_name_follows_nested_headers(tmp_path, monkeypatch) -> None:
+    """A library is named by its source and every local header it includes,
+    theirs in turn (csrc/tower_common.cuh includes csrc/bf16.cuh): an edit to
+    a nested header gives a new name, so the kernel is rebuilt."""
+    from deeprank2_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "outer.cuh"\n')
+    (tmp_path / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (tmp_path / "inner.cuh").write_text("#pragma once\n// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._target("k")
+    assert _build._target("k") == before
+    (tmp_path / "inner.cuh").write_text("#pragma once\n// two\n")
+    assert _build._target("k") != before

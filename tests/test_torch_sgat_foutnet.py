@@ -237,8 +237,14 @@ def test_parameter_families_round_trip(family) -> None:
 
 
 def test_unported_options_and_unweighted_batches() -> None:
+    # compute_dtype: bf16 on the fast models (tests/test_torch_bf16_models.py),
+    # none on the COO ones, which have none in the JAX package either
     for cls in (FoutNetDiag, SGATDiag, FoutNetBlockSparse, SGATBlockSparse):
-        with pytest.raises(NotImplementedError, match=cls.__name__):
+        assert cls(FEAT, 2, 1, device="cpu", compute_dtype=torch.bfloat16).compute_dtype == torch.bfloat16
+        with pytest.raises(ValueError, match="compute_dtype"):
+            cls(FEAT, 2, 1, device="cpu", compute_dtype=torch.float16)
+    for cls in (FoutNet, SGAT):
+        with pytest.raises(TypeError, match="compute_dtype"):
             cls(FEAT, 2, 1, device="cpu", compute_dtype=torch.bfloat16)
     for cls in (FoutNetBlockSparse, SGATBlockSparse):
         with pytest.raises(NotImplementedError, match="precision"):
