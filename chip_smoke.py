@@ -13,7 +13,10 @@ Phases, each printing one JSON line:
      (F=64) adjacencies of both clustered layouts ([512, 296, 296] and
      [512, 32, 32]; mixed [512, 336, 336] and [512, 104, 104]) and at a
      ragged shape (G=7, N=96, F=38, padded nodes masked), rtol=atol=1e-5 (both
-     f32, only the summation order differs);
+     f32, only the summation order differs); K2 runs the tensor-core body
+     (mma.sync, a count product) and K1's int8 f32 form the FMA body, and
+     the bench adjacency is checked once more as f32 (the FMA body on an
+     f32 adjacency);
    - slot_fwd_kernel and slot_bwd_kernel at slots 8, 4 and 2, at the
      clustered path's activation width (F=32, V=151,552) and at a ragged one
      (F=38, V=8,024), and at the mixed layout's three size-class regions
@@ -24,7 +27,10 @@ Phases, each printing one JSON line:
      no sums);
    then each kernel's time at the main paths' calls beside its plain
    version, one library call of the same function where there is one, and
-   its bound;
+   its bound (K1/K2 rows also with their body, "mma" or "fma", their
+   tensor-core passes and mma_floor_ms, the passes' dense products at the
+   bf16 tensor-core peak), and the f32 adjacency's FMA body at the bench
+   shape;
 3. the dense path: GINetDense(38, 2, 6) on the bench batch
    (synthetic_entries(512, 160, 38, 6, seed=7)). First one dropout-free step
    is held against the same step on the CPU (logits, loss and every gradient
@@ -770,6 +776,7 @@ def time_diag_calls(torch, ds, timer, path, adj, mask, specs, peak, compute_dtyp
             out_bytes = 4 * f * g * n
         library = lambda x_gnf=x_gnf: torch.bmm(adj_lib, x_gnf)  # noqa: E731
         flop = 2 * f * nnz
+        flop_dense = 2 * f * n * n * g
         extra = {}
         if act != torch.float32:
             f32_args = (x.float(),) if kernel == "diag_kernel" else (sign, g_pool.float())
@@ -788,12 +795,29 @@ def time_diag_calls(torch, ds, timer, path, adj, mask, specs, peak, compute_dtyp
                 "library_ms": timer.ms(library),
                 **extra,
                 **bound(in_bytes, out_bytes, flop, peak),
+                **mma_floor(torch, ds, kernel, adj.dtype, act, flop_dense, peak),
                 "adjacency_nnz": nnz,
                 "flop_needed": flop,
-                "flop_dense": 2 * f * n * n * g,
+                "flop_dense": flop_dense,
             }
         )
     return calls
+
+
+def mma_floor(torch, ds, kernel, adj_dtype, act, flop_dense, peak) -> dict:
+    """Which body of csrc/diag_spmm.cu runs this K1/K2 form (``ds.diag_body``:
+    "mma", the tensor cores, or "fma", f32 FMAs on CUDA cores), its passes
+    over the dense [N, N] products on the tensor cores (K1's f32 form three,
+    one per bf16 piece of x; the bf16 forms one; K2 one, the count product),
+    and ``mma_floor_ms``, those passes' dense products at the bf16
+    tensor-core peak: beside the bound, it shows whether bytes or dense
+    products limit the body. Worked out, not measured: these rows only, not
+    the kernels line."""
+    body = ds.diag_body(kernel, adj_dtype, act)
+    if body == "fma":
+        return {"body": body, "passes": None, "mma_floor_ms": None}
+    passes = 3 if kernel == "diag_kernel" and act == torch.float32 else 1
+    return {"body": body, "passes": passes, "mma_floor_ms": passes * flop_dense / peak[2] * 1e3}
 
 
 def time_slot_calls(torch, sp, timer, path, mask_row, specs, peak) -> list:
@@ -1529,6 +1553,7 @@ def kernels_line(calls, path_launches, errs, path_forms, form_errs, form_calls=(
                 "library_ms": total(mine, "library_ms"),
                 "library": LIBRARY[name],
                 **({"flat_route_ms": total(mine, "flat_route_ms")} if mine and all("flat_route_ms" in c for c in mine) else {}),
+                **({"bodies": sorted({c["body"] for c in mine})} if mine and all("body" in c for c in mine) else {}),
                 "by_path": {path: times(rows) for path, rows in by_path.items()},
                 **(
                     {
@@ -1537,7 +1562,7 @@ def kernels_line(calls, path_launches, errs, path_forms, form_errs, form_calls=(
                                 "launches": sum(launches.get(f"{name}[{form}]", 0) for launches in path_forms.values()),
                                 "max_abs_err": form_errs.get((name, form)),
                                 "calls": [
-                                    {k: c[k] for k in ("path", "mode", "F", "per_step", "ms", "f32_form_ms", "plain_ms", "flat_route_ms", "bound_ms", "bound_by", "library_ms", "library_form") if k in c}
+                                    {k: c[k] for k in ("path", "mode", "F", "per_step", "body", "ms", "f32_form_ms", "plain_ms", "flat_route_ms", "bound_ms", "bound_by", "library_ms", "library_form") if k in c}
                                     for c in by_form.get(form, [])
                                 ],
                             }
@@ -2296,6 +2321,7 @@ def main() -> int:
         checks,
         [
             ("bench G=512 N=160", batch.adj_i8, batch.node_mask, (32, 64)),
+            ("bench G=512 N=160 as f32 (FMA body)", batch.adj_i8.float(), batch.node_mask, (32,)),
             ("clustered G=512 N=296", c_batch.adj_i8, c_batch.node_mask, (32,)),
             ("pooled G=512 K=32", c_batch.adj_p_i8, c_batch.pooled_mask, (64,)),
             (f"mixed G=512 N={m_batch.nodes_per_graph}", m_batch.adj_i8, m_batch.node_mask, (32,)),
@@ -2322,8 +2348,12 @@ def main() -> int:
     calls += time_diag_calls(torch, ds, timer, "clustered", c_batch.adj_i8, c_batch.node_mask, STEP_CALLS["clustered"], peak)
     calls += time_diag_calls(torch, ds, timer, "clustered_pooled", c_batch.adj_p_i8, c_batch.pooled_mask, STEP_CALLS["clustered_pooled"], peak)
     calls += time_slot_calls(torch, sp, timer, "clustered_slot", c_mask_row, STEP_CALLS["clustered_slot"], peak)
+    # the f32 adjacency (the FMA body) at the bench shape, on no path's step
+    fma_calls = time_diag_calls(
+        torch, ds, timer, "f32_adjacency", batch.adj_i8.float(), batch.node_mask, [("diag_kernel", "plain", 32, 0), ("pool_bwd_kernel", None, 64, 0)], peak
+    )
     del timer
-    emit({"phase": "kernel_times", "card": card, "l2_flushed": True, "calls": calls})
+    emit({"phase": "kernel_times", "card": card, "l2_flushed": True, "calls": calls, "fma_body_calls": fma_calls})
     del m_batch
 
     # 3. the dense path
@@ -2717,7 +2747,7 @@ def main() -> int:
     calls += bf16_sgat_foutnet_phases(torch, dev, card, counters, peak, record, c_entries, c_batch, sd_batch, c_entry, cb_batch, sw_batch)
     del dense_batch, c_batch, cb_batch, sd_batch, sw_batch
 
-    emit({"kernels": kernels_line(calls, path_launches, checks.errs, path_forms, checks.form_errs, f32_calls + bf16_form_calls)})
+    emit({"kernels": kernels_line(calls, path_launches, checks.errs, path_forms, checks.form_errs, fma_calls + f32_calls + bf16_form_calls)})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

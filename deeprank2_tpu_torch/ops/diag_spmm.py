@@ -18,8 +18,17 @@ it instead), and the products accumulate in f32. The default is
 the f32 form, exact up to summation order. It runs in the CUDA kernels of
 ``csrc/diag_spmm.cu``: ``diag_kernel`` (plain, relu/mask epilogue, or
 relu/mask plus per-graph sum pool) and ``pool_bwd_kernel`` (the pooled
-layer's backward). Edges are mirrored, so ``A^T = A`` per graph and each VJP
-is the same aggregation applied to the cotangent.
+layer's backward). Two bodies run them there, and :func:`diag_body` picks
+one by form: ``"mma"`` (tensor cores, ``mma.sync``, bf16 operands, f32
+sums: the bf16 forms in one pass, ``diag_kernel``'s f32 form on bf16
+weights over the three exact bf16 pieces of each activation
+(:func:`split3`), and ``pool_bwd_kernel`` as a count product, ``g_pool``
+added ``(A @ sign)[f, i]`` times) and ``"fma"`` (f32 FMAs on CUDA cores in
+ascending node order: ``diag_kernel``'s f32 form on an int8 adjacency, the
+order of the fused tower :func:`tower_pooled`, and every form on an f32
+adjacency).
+Edges are mirrored, so ``A^T = A`` per graph and each VJP is the same
+aggregation applied to the cotangent.
 
 :func:`tower_pooled` fuses the whole two-layer tower with its per-graph sum
 pool into one forward and one backward kernel (``csrc/diag_tower.cu``:
@@ -89,6 +98,30 @@ FORMS = [(a, torch.float32) for a in ADJ_DTYPES] + [(a, torch.bfloat16) for a in
 # K9f and K9b forms: the int8 adjacency, both activation types
 TOWER_FORMS = [(torch.int8, a) for a in ACT_DTYPES]
 
+# the two bodies of K1 and K2 in csrc/diag_spmm.cu, by their code there:
+# tensor cores, and f32 FMAs on CUDA cores (every form on an f32 adjacency)
+BODIES = {"mma": 0, "fma": 1}
+
+
+def diag_body(kernel: str, adj_dtype: torch.dtype, act_dtype: torch.dtype) -> str:
+    """The body of ``csrc/diag_spmm.cu`` that runs ``kernel``
+    (``"diag_kernel"`` or ``"pool_bwd_kernel"``) in the form (``adj_dtype``,
+    ``act_dtype``) on the card: ``"fma"`` for every form on an f32 adjacency
+    (the tensor-core body takes none) and for ``diag_kernel``'s f32 form on
+    an int8 one, whose sums GINetDense's flat route holds to the fused
+    tower's ascending node order (``chip_smoke.py``'s ``dense_fused_tower``
+    gate); ``"mma"`` for the rest. The wrappers hand it to the kernel, so
+    this is the one place the split is made."""
+    if kernel not in ("diag_kernel", "pool_bwd_kernel"):
+        msg = f"kernel must be 'diag_kernel' or 'pool_bwd_kernel', got {kernel!r}"
+        raise ValueError(msg)
+    if (adj_dtype, act_dtype) not in FORMS:
+        msg = f"(adj_dtype, act_dtype) must be one of {FORMS}, got {(adj_dtype, act_dtype)}"
+        raise TypeError(msg)
+    if adj_dtype == torch.float32 or (kernel == "diag_kernel" and adj_dtype == torch.int8 and act_dtype == torch.float32):
+        return "fma"
+    return "mma"
+
 # kernel launches since the last reset_launches(), by kernel and by form
 launches = {"diag_kernel": 0, "pool_bwd_kernel": 0, "tower_fwd_kernel": 0, "tower_bwd_kernel": 0}
 launches_by_dtype = {
@@ -109,9 +142,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library(SOURCE)
     if lib.diag_kernel.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.diag_kernel.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, p]
+        lib.diag_kernel.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, i, p]
         lib.diag_kernel.restype = i
-        lib.pool_bwd_kernel.argtypes = [p, i, p, p, i, p, i, i, i, p]
+        lib.pool_bwd_kernel.argtypes = [p, i, p, p, i, p, i, i, i, i, p]
         lib.pool_bwd_kernel.restype = i
         lib.diag_max_nodes.argtypes = [i, i]
         lib.diag_max_nodes.restype = i
@@ -187,6 +220,23 @@ def _route(device: torch.device) -> bool:
     raise ValueError(msg)
 
 
+def split3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three bf16 pieces of f32 ``x`` that K1's f32 form on bf16 weights
+    multiplies on the tensor cores: ``hi`` is ``x`` cut to its top 8
+    significant bits (bf16 toward zero), ``mid`` the same of ``x - hi``, and
+    ``lo = x - hi - mid``. 8 + 8 + 8 significant bits hold f32's 24 and each
+    remainder is exact in f32, so ``hi + mid + lo == x`` (summed in f32), and
+    a piece times an int8 0/1 entry or a bf16 weight is exact in f32. (A
+    zero's pieces are zeros, ``hi`` with its sign.)"""
+    r = x.float()
+    pieces = []
+    for _ in range(3):
+        piece = (r.view(torch.int32) & -65536).view(torch.float32)  # the top 16 bits
+        pieces.append(piece.to(torch.bfloat16))
+        r = r - piece
+    return pieces[0], pieces[1], pieces[2]
+
+
 # ---------------------------------------------------------------------------
 # K1: diag_kernel (replaces deeprank2_tpu/ops/diag_spmm.py:_diag_kernel)
 
@@ -215,7 +265,13 @@ def diag_kernel(adj: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None 
     """Per-graph aggregation of ``x_t [F, G*N]`` (f32) by ``adj [G, N, N]``
     (int8 0/1, or bf16 or f32 weights, each taken at its exact f32 value).
     ``compute_dtype=torch.bfloat16`` runs the bf16 form (``x_t`` f32 or
-    bf16, rounded to bf16; int8 or bf16 adjacency); the result is f32.
+    bf16, rounded to bf16; int8 or bf16 adjacency); the result is f32. On
+    the card the body :func:`diag_body` names runs it: the bf16 forms on the
+    tensor cores in one pass, the f32 form on bf16 weights in three over
+    :func:`split3`'s pieces, the f32 form on an int8 or f32 adjacency as f32
+    FMAs in ascending node order. Every form is its plain version up to the
+    order of the f32 sums (the tensor cores truncate within each window of
+    16 products: see ``csrc/diag_spmm.cu``).
 
     ``mode="plain"`` returns the aggregate ``[F, G*N]``; ``"relu_mask"``
     returns ``relu(aggregate) * mask`` (``mask [G, N]`` bool);
@@ -255,6 +311,7 @@ def diag_kernel(adj: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None 
             n,
             f,
             MODES[mode],
+            BODIES[diag_body("diag_kernel", adj.dtype, act)],
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, code, "diag_kernel")
@@ -299,7 +356,12 @@ def pool_bwd_kernel(adj: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tensor,
     layer, with ``sign [F, G*N]`` uint8 from :func:`diag_kernel`'s pool mode
     and the cotangent ``g_pool [F, G]`` (f32; rounded to bf16 in the bf16
     form) broadcast over each graph's nodes inside the kernel; ``adj`` and
-    ``compute_dtype`` as for :func:`diag_kernel`."""
+    ``compute_dtype`` as for :func:`diag_kernel`. On an int8 or bf16
+    adjacency the card computes it as a count product: ``(A @ sign)[f, i]``
+    in one tensor-core pass (exact integers on an int8 adjacency; then
+    ``g_pool[f, g]`` added that many times in f32, the ascending sum over
+    the row bit for bit on a 0/1 adjacency, or times the count where it is
+    negative), or scaled by ``g_pool[f, g]`` on bf16 weights."""
     g, n, f = _dims(adj, sign)
     dev = sign.device
     act = _form(adj, compute_dtype)
@@ -312,7 +374,7 @@ def pool_bwd_kernel(adj: torch.Tensor, sign: torch.Tensor, g_pool: torch.Tensor,
         out = torch.empty((f, g * n), dtype=torch.float32, device=dev)
         code = lib.pool_bwd_kernel(
             adj.data_ptr(), ADJ_DTYPES[adj.dtype], sign.data_ptr(), g_pool.data_ptr(), ACT_DTYPES[act], out.data_ptr(), g, n, f,
-            torch.cuda.current_stream(dev).cuda_stream,
+            BODIES[diag_body("pool_bwd_kernel", adj.dtype, act)], torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, code, "pool_bwd_kernel")
     _count("pool_bwd_kernel", adj, act)

@@ -8,6 +8,9 @@ GPU machine without JAX run them without the JAX package's conftest:
 
 from __future__ import annotations
 
+import contextlib
+from unittest import mock
+
 import pytest
 import torch
 
@@ -621,6 +624,153 @@ def test_bf16_diag_kernels_raise_one_node_past_the_largest(cuda, adj_dtype) -> N
     adj = torch.zeros(1, n, n, dtype=adj_dtype, device=cuda)
     with pytest.raises(RuntimeError, match="CUDA error"):
         ds.diag_kernel(adj, torch.randn(4, n, device=cuda), compute_dtype=BF16)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core body of K1 and K2 (int8 and bf16 adjacencies; the f32
+# adjacency runs the FMA body beside it): N = 296 and 17 (not multiples of
+# 16, N = 17 not of 4: scalar loads), F = 1 and 38 (a ragged feature chunk),
+# in both forms.
+
+TENSOR_CORE_SHAPES = [(64, 296, 32), (7, 296, 38), (5, 17, 1), (3, 17, 38)]
+
+
+def _adjacency(dtype, g, n, dev, seed):
+    if dtype == torch.int8:
+        adj, mask, _, _ = _operands(g, n, 1, dev, seed=seed)
+        return adj, mask
+    return _weighted_adjacency(g, n, dtype, dev, seed=seed)
+
+
+# every form: (adjacency type, compute_dtype)
+DIAG_FORMS = [(torch.int8, None), (torch.bfloat16, None), (torch.float32, None), (torch.int8, BF16), (torch.bfloat16, BF16)]
+
+
+@pytest.mark.parametrize(("adj_dtype", "compute_dtype"), DIAG_FORMS)
+@pytest.mark.parametrize(("g", "n", "f"), TENSOR_CORE_SHAPES)
+def test_diag_kernels_match_plain_versions_at_tensor_core_shapes(cuda, adj_dtype, compute_dtype, g, n, f) -> None:
+    adj, mask = _adjacency(adj_dtype, g, n, cuda, seed=n + f)
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    x = torch.randn(f, g * n, generator=gen, device=cuda)
+    g_pool = torch.randn(f, g, generator=gen, device=cuda)
+    cd = compute_dtype
+    ds.reset_launches()
+    torch.testing.assert_close(ds.diag_kernel(adj, x, compute_dtype=cd), ds.diag_kernel_ref(adj, x, compute_dtype=cd), **TOL)
+    h = ds.diag_kernel_ref(adj, x, mask, "relu_mask", cd)
+    torch.testing.assert_close(ds.diag_kernel(adj, x, mask, "relu_mask", cd), h, **TOL)
+    sign, pooled = ds.diag_kernel(adj, x, mask, "relu_mask_pool", cd)
+    sign_ref, pooled_ref = ds.diag_kernel_ref(adj, x, mask, "relu_mask_pool", cd)
+    torch.testing.assert_close(pooled, pooled_ref, **TOL)
+    assert not ((sign != sign_ref) & (h.abs() > TOL["atol"])).any()
+    torch.testing.assert_close(ds.pool_bwd_kernel(adj, sign_ref, g_pool, cd), ds.pool_bwd_kernel_ref(adj, sign_ref, g_pool, cd), **TOL)
+    form = ds.form_name(adj_dtype, ds.activation_dtype(cd))
+    assert ds.launches_by_dtype["diag_kernel"][form] == ds.launches["diag_kernel"] == 3
+    assert ds.launches_by_dtype["pool_bwd_kernel"][form] == ds.launches["pool_bwd_kernel"] == 1
+
+
+# x from 1e-30 to 1e30: the three-piece split is exact at every magnitude, so
+# each output is its plain version up to the order of its f32 sums; where
+# they cancel, that order moves an output by a share of the sum of its terms'
+# absolute values (atol 1e-6 x that sum, the gate of sums of many products)
+@pytest.mark.parametrize("scale", [1e-30, 1e-10, 1e10, 1e30])
+@pytest.mark.parametrize("compute_dtype", [None, BF16])
+@pytest.mark.parametrize("adj_dtype", [torch.int8, torch.bfloat16])
+def test_diag_kernels_match_plain_versions_across_magnitudes(cuda, adj_dtype, compute_dtype, scale) -> None:
+    g, n, f = 16, 296, 38
+    adj, mask = _adjacency(adj_dtype, g, n, cuda, seed=7)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(f, g * n, generator=gen, device=cuda) * scale
+    g_pool = torch.randn(f, g, generator=gen, device=cuda) * scale
+    cd = compute_dtype
+
+    def close(got, want, terms):
+        assert torch.isfinite(got).all()
+        err = (got - want).abs()
+        assert bool((err <= 1e-5 * want.abs() + 1e-6 * terms).all()), f"largest error {err.max().item():.3e} at scale {scale:g}"
+
+    terms = ds.diag_kernel_ref(adj.abs(), x.abs(), compute_dtype=cd)
+    close(ds.diag_kernel(adj, x, compute_dtype=cd), ds.diag_kernel_ref(adj, x, compute_dtype=cd), terms)
+    h = ds.diag_kernel_ref(adj, x, mask, "relu_mask", cd)
+    close(ds.diag_kernel(adj, x, mask, "relu_mask", cd), h, terms)
+    sign, pooled = ds.diag_kernel(adj, x, mask, "relu_mask_pool", cd)
+    sign_ref, pooled_ref = ds.diag_kernel_ref(adj, x, mask, "relu_mask_pool", cd)
+    close(pooled, pooled_ref, terms.reshape(f, g, n).sum(2))
+    assert not ((sign != sign_ref) & (h.abs() > 1e-6 * terms)).any()
+    close(ds.pool_bwd_kernel(adj, sign_ref, g_pool, cd), ds.pool_bwd_kernel_ref(adj, sign_ref, g_pool, cd), ds.pool_bwd_kernel_ref(adj.abs(), sign_ref, g_pool.abs(), cd))
+
+
+@contextlib.contextmanager
+def _on_body(body):
+    """Every K1/K2 launch in the block on ``body`` ("mma" or "fma"), whatever
+    form ``ds.diag_body`` gives it."""
+    with mock.patch.object(ds, "diag_body", lambda kernel, adj_dtype, act_dtype: body):
+        yield
+
+
+def _check_diag_forms(adj, mask, x, g_pool, compute_dtype) -> None:
+    """K1 in its three modes and K2 against their plain versions at TOL."""
+    cd = compute_dtype
+    torch.testing.assert_close(ds.diag_kernel(adj, x, compute_dtype=cd), ds.diag_kernel_ref(adj, x, compute_dtype=cd), **TOL)
+    h = ds.diag_kernel_ref(adj, x, mask, "relu_mask", cd)
+    torch.testing.assert_close(ds.diag_kernel(adj, x, mask, "relu_mask", cd), h, **TOL)
+    sign, pooled = ds.diag_kernel(adj, x, mask, "relu_mask_pool", cd)
+    sign_ref, pooled_ref = ds.diag_kernel_ref(adj, x, mask, "relu_mask_pool", cd)
+    torch.testing.assert_close(pooled, pooled_ref, **TOL)
+    assert not ((sign != sign_ref) & (h.abs() > TOL["atol"])).any()
+    torch.testing.assert_close(ds.pool_bwd_kernel(adj, sign_ref, g_pool, cd), ds.pool_bwd_kernel_ref(adj, sign_ref, g_pool, cd), **TOL)
+
+
+# the other body of each form too (diag_body picks one by form; both run
+# every form they take), and the tensor-core body refuses an f32 adjacency
+@pytest.mark.parametrize("body", ["mma", "fma"])
+@pytest.mark.parametrize(("adj_dtype", "compute_dtype"), DIAG_FORMS)
+@pytest.mark.parametrize(("g", "n", "f"), [(7, 96, 38), (3, 17, 38)])
+def test_diag_kernels_on_both_bodies_match_plain_versions(cuda, body, adj_dtype, compute_dtype, g, n, f) -> None:
+    adj, mask = _adjacency(adj_dtype, g, n, cuda, seed=n + f)
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    x = torch.randn(f, g * n, generator=gen, device=cuda)
+    g_pool = torch.randn(f, g, generator=gen, device=cuda)
+    with _on_body(body):
+        if body == "mma" and adj_dtype == torch.float32:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                ds.diag_kernel(adj, x, compute_dtype=compute_dtype)
+            return
+        _check_diag_forms(adj, mask, x, g_pool, compute_dtype)
+
+
+def _signed_adjacency(g, n, dev, seed):
+    """An int8 adjacency with entries in {-2, -1, 0, 1, 3}: a 0/1 graph whose
+    edges in every other 32 x 32 block (the tensor-core body's warp steps)
+    take a weight from {-2, -1, 1, 3}, so that some steps are all 0/1 and the
+    others not."""
+    adj, mask, _, _ = _operands(g, n, 1, "cpu", seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    weights = torch.tensor([-2, -1, 1, 3], dtype=torch.int8)[torch.randint(0, 4, adj.shape, generator=gen)]
+    idx = torch.arange(n) // 32
+    mixed = (idx[:, None] + idx[None, :]) % 2 == 0
+    adj = torch.where(mixed & (adj != 0), weights, adj)
+    assert set(adj.unique().tolist()) == {-2, -1, 0, 1, 3}
+    return adj.to(dev), mask.to(dev)
+
+
+# int8 entries past 0/1 (the tensor-core body's exponent trick for K1's bf16
+# operands, and a K2 count that can be negative) in both forms and on both
+# bodies, at N = 96 (16-byte loads) and N = 77 (scalar loads)
+@pytest.mark.parametrize("body", ["mma", "fma"])
+@pytest.mark.parametrize("compute_dtype", [None, BF16])
+@pytest.mark.parametrize(("g", "n", "f"), [(6, 96, 38), (5, 77, 38)])
+def test_diag_kernels_on_a_signed_int8_adjacency(cuda, body, compute_dtype, g, n, f) -> None:
+    adj, mask = _signed_adjacency(g, n, cuda, seed=n)
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    x = torch.randn(f, g * n, generator=gen, device=cuda)
+    g_pool = torch.randn(f, g, generator=gen, device=cuda)
+    ds.reset_launches()
+    with _on_body(body):
+        _check_diag_forms(adj, mask, x, g_pool, compute_dtype)
+    sign, _ = ds.diag_kernel_ref(adj, x, mask, "relu_mask_pool", compute_dtype)
+    counts = ds.diag_kernel_ref(adj, sign.float())
+    assert (counts < 0).any() and (counts > 0).any()  # K2 met negative counts
+    assert ds.launches["diag_kernel"] == 3 and ds.launches["pool_bwd_kernel"] == 1
 
 
 # int8 blocks, and bf16 and f32 weighted ones (the bf16 form rounds f32

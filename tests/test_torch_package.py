@@ -43,6 +43,8 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.neuralnets.gnn.ginet_nocluster",
     "deeprank2_tpu_torch.neuralnets.gnn.sgat",
     "deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn",
+    "deeprank2_tpu_torch.tools",
+    "deeprank2_tpu_torch.tools.diag_order",
 ]
 
 # Runs in a fresh interpreter (this test process has imported JAX already).
