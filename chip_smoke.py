@@ -25,12 +25,13 @@ Phases, each printing one JSON line:
      masked h with planted ties and an all-zero group, directly and through
      slot_group_max's autograd: exact (rtol=atol=0; a max and a comparison,
      no sums);
-   then each kernel's time at the main paths' calls beside its plain
-   version, one library call of the same function where there is one, and
-   its bound (K1/K2 rows also with their body, "mma" or "fma", their
-   tensor-core passes and mma_floor_ms, the passes' dense products at the
-   bf16 tensor-core peak), and the f32 adjacency's FMA body at the bench
-   shape;
+   then each kernel's time at the main paths' calls (the dense, the pure
+   clustered and the mixed clustered layouts: K1 on the full and pooled
+   adjacencies, K3/K4 on each slot region) beside its plain version, one
+   library call of the same function where there is one, and its bound
+   (K1/K2 rows also with their body, "mma" or "fma", their tensor-core
+   passes and mma_floor_ms, the passes' dense products at the bf16
+   tensor-core peak), and the f32 adjacency's FMA body at the bench shape;
 3. the dense path: GINetDense(38, 2, 6) on the bench batch
    (synthetic_entries(512, 160, 38, 6, seed=7)). First one dropout-free step
    is held against the same step on the CPU (logits, loss and every gradient
@@ -59,11 +60,17 @@ Phases, each printing one JSON line:
    structures, at a ragged batch (graphs of 700 and 1,300 nodes and an empty
    padding graph, F=38) and at an empty-edge graph, directly and through
    bcsr_spmm_t's autograd (the gradient is the same SpMM of the cotangent),
-   rtol=atol=1e-5 (both f32, only the summation order differs); the slot
-   kernels exactly at the clustered BCSR path's width ([32, 108,544], with
-   its node-mask row); then each kernel's time at the two BCSR paths' calls
-   beside its plain version, one cuSPARSE product of the same function
-   (``torch.sparse_csr_tensor @ x``) and its bound;
+   rtol=atol=1e-5 (both f32, only the summation order differs), and at the
+   atomic graph's structure with its int8 blocks reweighted in {-2, -1, 1, 3}
+   (signed_structure; rtol 1e-5, atol DW_TOL x max |A||x|); then, in both
+   forms, the kernel against bcsr_spmm_order_ref, the float32 loop in its
+   summation order, bit for bit (max_abs_diff 0.0) at the atomic graph
+   (F=32, 64) and the clustered full (F=32) and pooled (F=64) structures;
+   the slot kernels exactly at the clustered BCSR path's width ([32,
+   108,544], with its node-mask row); then each kernel's time at the two
+   BCSR paths' calls beside its plain version, one cuSPARSE product of the
+   same function (``torch.sparse_csr_tensor @ x``), one read of the nonzero
+   blocks (blocks_read_ms) and its bound;
 9. the BCSR path: GINetBlockSparse(38, 2, 6) on
    collate_graphs_blocksparse([geometric_entry(100_000, 38, 6)]). One
    dropout-free step against the CPU (logits and loss at rtol=1e-4,
@@ -864,7 +871,8 @@ def check_bcsr_kernel(torch, bs, checks, shapes, dev, compute_dtype=None) -> Non
     sum of the products' absolute values (at least TOL's atol): a pooled
     pair's weight sums its member edges' (tens), so a row's products reach
     hundreds and another f32 summation order moves the sum by more than
-    1e-5."""
+    1e-5. Signed int8 blocks (``signed_structure``) are held as weighted
+    ones."""
     import dataclasses
 
     cd = compute_dtype
@@ -872,9 +880,10 @@ def check_bcsr_kernel(torch, bs, checks, shapes, dev, compute_dtype=None) -> Non
         gen = torch.Generator(device=dev).manual_seed(len(checks.rows))
         form = bs.form_name(st.blocks_t.dtype, bs.activation_dtype(cd))
         st_abs = dataclasses.replace(st, blocks_t=st.blocks_t.abs())
+        zero_one = form.startswith("int8/") and bool(st.blocks_t.ge(0).logical_and(st.blocks_t.le(1)).all().item())
 
-        def tol(v, st_abs=st_abs, form=form):
-            if form.startswith("int8/"):
+        def tol(v, st_abs=st_abs, zero_one=zero_one):
+            if zero_one:
                 return TOL
             return {"rtol": TOL["rtol"], "atol": max(TOL["atol"], DW_TOL * bs.bcsr_spmm_kernel_ref(st_abs, v.abs()).max().item())}
 
@@ -889,6 +898,33 @@ def check_bcsr_kernel(torch, bs, checks, shapes, dev, compute_dtype=None) -> Non
             t = tol(cot)
             checks.close("bcsr_spmm_kernel", f"{tag} bcsr_spmm_t vjp F={f}", grad, bs.bcsr_spmm_kernel_ref(st, cot, cd), t, form)
             checks.rows[-1]["atol"] = t["atol"]
+    sync(torch, dev)
+
+
+def signed_structure(torch, st, seed):
+    """The structure with its int8 0/1 blocks reweighted in {-2, -1, 1, 3}
+    (``signed_int8_blocks``: some blocks stay 0/1, the others are mixed; the
+    JAX kernel and the plain version take each int8 at its signed value)."""
+    import dataclasses
+
+    from deeprank2_tpu_torch.ops.synthetic import signed_int8_blocks
+
+    blocks = signed_int8_blocks(st.blocks_t.cpu().numpy(), st.tile_blocks.cpu().numpy(), seed)
+    return dataclasses.replace(st, blocks_t=torch.from_numpy(blocks).to(st.blocks_t.device))
+
+
+def check_bcsr_order(torch, bs, checks, shapes, dev) -> None:
+    """For 0/1 int8 blocks, bcsr_spmm_kernel in both forms against
+    ``bs.bcsr_spmm_order_ref``, the float32 loop in the kernel's order
+    (block positions in tile_blocks order, then c ascending, one add a
+    term) run in torch on the card: bit for bit (``max_abs_diff`` 0.0)."""
+    for tag, st, feats in shapes:
+        for cd in (None, torch.bfloat16):
+            form = bs.form_name(st.blocks_t.dtype, bs.activation_dtype(cd))
+            for f in feats:
+                x = torch.randn(f, st.padded_nodes, generator=torch.Generator(device=dev).manual_seed(f), device=dev)
+                checks.close("bcsr_spmm_kernel", f"{tag} order loop F={f}", bs.bcsr_spmm_kernel(st, x, cd), bs.bcsr_spmm_order_ref(st, x, cd), EXACT, form)
+                checks.rows[-1]["max_abs_diff"] = checks.rows[-1]["max_abs_err"]
     sync(torch, dev)
 
 
@@ -911,7 +947,10 @@ def time_bcsr_calls(torch, bs, timer, path, batch, specs, peak, compute_dtype=No
     operations, 2*F per directed edge (the products these edges need). The
     bf16 form is timed on bf16 x (2 bytes an entry in the bound), beside its
     f32 form (``f32_form_ms``); its library call is cuSPARSE on bf16 values
-    and x where it takes them, else on f32 (``library_form`` says which)."""
+    and x where it takes them, else on f32 (``library_form`` says which).
+    ``blocks_read_ms`` is one torch read of the nonzero blocks' bytes (an
+    f32 sum over a contiguous copy of them, their bits taken as f32): what
+    streaming the blocks alone takes on this card, beside the byte bound."""
     act = bs.activation_dtype(compute_dtype)
     gen = torch.Generator(device="cuda").manual_seed(12)
     calls = []
@@ -931,7 +970,9 @@ def time_bcsr_calls(torch, bs, timer, path, batch, specs, peak, compute_dtype=No
             except RuntimeError as e:  # cuSPARSE refused bf16: the f32 call is the yardstick
                 lib_form = f"float32 (bf16 refused: {str(e).splitlines()[0][:120]})"
                 x_rows = x_rows.float()
-        extra = {"library_form": lib_form}
+        blocks_nz = st.blocks_t[st.tile_blocks.long()].view(torch.float32)
+        extra = {"library_form": lib_form, "blocks_read_ms": timer.ms(lambda b=blocks_nz: b.sum())}
+        del blocks_nz
         if act != torch.float32:
             extra["f32_form_ms"] = timer.ms(lambda st=st, x32=x.float(): bs.bcsr_spmm_kernel(st, x32))
         in_bytes = real * st.block**2 * st.blocks_t.element_size() + x.element_size() * f * st.padded_nodes + 4 * (2 * real + st.tile_ptr.numel())
@@ -1928,6 +1969,7 @@ def bf16_phases(torch, dev, card, counters, checks, peak, record, batches, undir
         ("clustered_bcsr_bf16 pooled", b.cb_batch.structure_p, (64,)),
         ("sgat_bcsr full, bf16 blocks", b.sw_batch.structure, (16,)),
         ("sgat_bcsr pooled, f32 blocks (rounded to bf16)", pooled_f32, (32,)),
+        ("bcsr_bf16 signed int8 {-2, -1, 0, 1, 3}", signed_structure(torch, b.b_batch.structure, seed=6), (32,)),
     ]
     blocked_shapes = [
         ("atomic 100k", b.bl_batch.structure, (32, 12)),
@@ -1945,7 +1987,7 @@ def bf16_phases(torch, dev, card, counters, checks, peak, record, batches, undir
         raise AssertionError(msg)
     tolerance = {
         "K1, K2, K5 int8, K6f out, K6b dxr/dxc": TOL,
-        "K5 weighted": {"rtol": 1e-5, "atol": f"max(1e-5, {DW_TOL} * max |A| |x|)"},
+        "K5 weighted and signed int8": {"rtol": 1e-5, "atol": f"max(1e-5, {DW_TOL} * max |A| |x|)"},
         "K6b dw_e": {"rtol": 1e-5, "atol": f"{DW_TOL} * max sum_e |e_attr| |g[row]|"},
     }
     emit({"phase": "bf16_kernel_checks", "tolerance": tolerance, "largest_nodes": {"int8/bfloat16": n_i8, "bfloat16/bfloat16": n_bf}, "launches_by_form": forms, "checks": checks.rows[n_checks:]})
@@ -2348,6 +2390,10 @@ def main() -> int:
     calls += time_diag_calls(torch, ds, timer, "clustered", c_batch.adj_i8, c_batch.node_mask, STEP_CALLS["clustered"], peak)
     calls += time_diag_calls(torch, ds, timer, "clustered_pooled", c_batch.adj_p_i8, c_batch.pooled_mask, STEP_CALLS["clustered_pooled"], peak)
     calls += time_slot_calls(torch, sp, timer, "clustered_slot", c_mask_row, STEP_CALLS["clustered_slot"], peak)
+    calls += time_diag_calls(torch, ds, timer, "clustered_mixed", m_batch.adj_i8, m_batch.node_mask, STEP_CALLS["clustered"], peak)
+    calls += time_diag_calls(torch, ds, timer, "clustered_mixed_pooled", m_batch.adj_p_i8, m_batch.pooled_mask, STEP_CALLS["clustered_pooled"], peak)
+    for _, f, _, region_mask, (slot,) in mixed_region_shapes(m_batch, 32):
+        calls += time_slot_calls(torch, sp, timer, "clustered_mixed_slot", region_mask, [("slot_fwd_kernel", slot, f), ("slot_bwd_kernel", slot, f)], peak)
     # the f32 adjacency (the FMA body) at the bench shape, on no path's step
     fma_calls = time_diag_calls(
         torch, ds, timer, "f32_adjacency", batch.adj_i8.float(), batch.node_mask, [("diag_kernel", "plain", 32, 0), ("pool_bwd_kernel", None, 64, 0)], peak
@@ -2434,11 +2480,30 @@ def main() -> int:
             ("clustered_bcsr pooled", cb_batch.structure_p, (64,)),
             ("ragged 700+1300+empty graph", ragged_bcsr.structure, (38,)),
             ("no edges", empty_bcsr.structure, (32,)),
+            ("bcsr signed int8 {-2, -1, 0, 1, 3}", signed_structure(torch, b_batch.structure, seed=5), (32,)),
+        ],
+        dev,
+    )
+    check_bcsr_order(
+        torch,
+        bs,
+        checks,
+        [
+            ("bcsr", b_batch.structure, (32, 64)),
+            ("clustered_bcsr full", cb_batch.structure, (32,)),
+            ("clustered_bcsr pooled", cb_batch.structure_p, (64,)),
         ],
         dev,
     )
     check_slot_kernels(torch, sp, checks, [(f"clustered_bcsr F=32 V={cb_mask_row.shape[1]}", 32, cb_mask_row.shape[1], cb_mask_row, (8,))], dev)
-    emit({"phase": "bcsr_kernels_vs_plain", "tolerance": {"bcsr_spmm_kernel": TOL, "slot_fwd_kernel": EXACT, "slot_bwd_kernel": EXACT}, "checks": checks.rows[n_checks:]})
+    tolerance = {
+        "bcsr_spmm_kernel": TOL,
+        "bcsr_spmm_kernel signed int8": {"rtol": 1e-5, "atol": f"max(1e-5, {DW_TOL} * max |A| |x|)"},
+        "bcsr_spmm_kernel order loop": EXACT,
+        "slot_fwd_kernel": EXACT,
+        "slot_bwd_kernel": EXACT,
+    }
+    emit({"phase": "bcsr_kernels_vs_plain", "tolerance": tolerance, "checks": checks.rows[n_checks:]})
     timer = Timer(torch)
     bcsr_calls = time_bcsr_calls(torch, bs, timer, "bcsr", b_batch, BCSR_STEP_CALLS["bcsr"], peak)
     bcsr_calls += time_bcsr_calls(torch, bs, timer, "clustered_bcsr", cb_batch, BCSR_STEP_CALLS["clustered_bcsr"], peak)

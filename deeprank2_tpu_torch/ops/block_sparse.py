@@ -20,8 +20,11 @@ over the blocks ``k`` whose ``block_row`` is ``r`` (the oracle
 ``bcsr_spmm_xla``). On a CUDA device it runs in the kernel of
 ``csrc/bcsr_spmm.cu`` (``bcsr_spmm_kernel``), which walks each destination
 row tile's nonzero blocks through the per-tile index ``tile_ptr`` /
-``tile_blocks`` built here. Edges are mirrored, so ``A^T = A`` and the VJP
-is the same SpMM applied to the cotangent.
+``tile_blocks`` built here, and in each block only its nonzero entries:
+each output is one f32 chain over the tile's blocks in ``tile_blocks``
+order, then the source rows ``c`` ascending (``bcsr_spmm_order_ref`` is
+that loop). Edges are mirrored, so ``A^T = A`` and the VJP is the same SpMM
+applied to the cotangent.
 
 ``compute_dtype=torch.bfloat16`` selects the kernel's single-pass bf16 form
 (the JAX ``_kernel_stream``'s non-split branch): ``x`` is rounded to bf16,
@@ -280,7 +283,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library(SOURCE)
     if lib.bcsr_spmm_kernel.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bcsr_spmm_kernel.argtypes = [p, i, p, p, p, p, i, p, i, i, i, i, p]
+        lib.bcsr_spmm_kernel.argtypes = [p, i, p, p, p, p, i, p, i, p, i, i, i, i, p]
         lib.bcsr_spmm_kernel.restype = i
     return lib
 
@@ -307,12 +310,51 @@ def bcsr_spmm_kernel_ref(structure: BlockSparseStructure, x_t: torch.Tensor, com
     return out.reshape(f, structure.padded_rows)
 
 
+def bcsr_spmm_order_ref(structure: BlockSparseStructure, x_t: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """The kernel's summation order as a plain float32 loop: over the block
+    positions of each row tile in ``tile_blocks`` order, then the source rows
+    ``c`` ascending, one add of ``blocks_t[k][c, :] * x`` a term, vectorised
+    over row tiles, features and destination nodes. For 0/1 blocks each term
+    is exact, so one add is the kernel's ``fmaf`` and the two agree bit for
+    bit; for other weights the product here is rounded before the add. The
+    bf16 form rounds ``x_t`` (and f32 blocks) to bf16 first, as the kernel."""
+    nt, b, r = structure.num_tiles, structure.block, structure.num_row_tiles
+    f = x_t.shape[0]
+    act = activation_dtype(compute_dtype)
+    xs = round_to(x_t, act).float().reshape(f, nt, b)
+    blocks = structure.blocks_t
+    if blocks.dtype == torch.float32:
+        blocks = round_to(blocks, act)
+    ptr = structure.tile_ptr.long()
+    counts = ptr[1:] - ptr[:-1]
+    out = torch.zeros((f, r, b), dtype=torch.float32, device=x_t.device)
+    for pos in range(int(counts.max().item()) if r else 0):
+        tiles = torch.nonzero(counts > pos).flatten()
+        k = structure.tile_blocks.long()[ptr[tiles] + pos]
+        src = xs[:, structure.block_col.long()[k]]  # [F, tiles, c]
+        blk = blocks[k].float()  # [tiles, c, i]
+        acc = out[:, tiles]
+        for c in range(b):
+            acc = acc + blk[None, :, c, :] * src[:, :, c, None]
+        out[:, tiles] = acc
+    return out.reshape(f, structure.padded_rows)
+
+
 def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """``A @ x`` in the transposed layout: ``x_t [F, padded_nodes]`` (f32)
-    to ``[F, padded_rows]`` (f32), for int8 0/1, bf16 or f32 blocks. The f32
-    form takes each weight at its exact f32 value, so the result is exact up
-    to summation order; ``compute_dtype=torch.bfloat16`` runs the bf16 form
-    (``x_t`` f32 or bf16, rounded to bf16; f32 blocks rounded to bf16)."""
+    to ``[F, padded_rows]`` (f32), for int8 (0/1, or any signed value, taken
+    at that value), bf16 or f32 blocks. The f32 form takes each weight at
+    its exact f32 value, so the result is exact up to summation order;
+    ``compute_dtype=torch.bfloat16`` runs the bf16 form (``x_t`` f32 or
+    bf16, rounded to bf16; f32 blocks rounded to bf16).
+
+    The CUDA kernel first copies ``x_t`` node-major into a scratch tensor
+    (``[padded_nodes, F rounded up to 4]``, allocated here each call), then
+    multiplies only the nonzero entries, in the order of
+    :func:`bcsr_spmm_order_ref`. So an Inf or NaN in ``x_t`` under a zero
+    weight adds nothing there (as in cuSPARSE), where the plain version's
+    dense product turns it into NaN; on finite inputs skipping a zero
+    changes no bit of the sum."""
     if x_t.dim() != 2:
         msg = f"expected x_t [F, padded_nodes], got shape {tuple(x_t.shape)}"
         raise ValueError(msg)
@@ -337,6 +379,8 @@ def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor, compute
     lib = _lib()
     with torch.cuda.device(dev):
         out = torch.empty((f, structure.padded_rows), dtype=torch.float32, device=dev)
+        ldn = -(-f // 4) * 4
+        x_nodes = torch.empty((structure.padded_nodes, ldn), dtype=x_t.dtype, device=dev)  # the kernel's node-major x
         code = lib.bcsr_spmm_kernel(
             blocks.data_ptr(),
             BLOCK_DTYPES[blocks.dtype],
@@ -345,6 +389,8 @@ def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor, compute
             structure.tile_blocks.data_ptr(),
             x_t.data_ptr(),
             ACT_DTYPES[act],
+            x_nodes.data_ptr(),
+            ldn,
             out.data_ptr(),
             structure.num_row_tiles,
             f,

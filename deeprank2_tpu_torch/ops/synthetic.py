@@ -3,7 +3,8 @@ runs). Numpy-only copies of ``deeprank2_tpu/ops/synthetic.py``, of the
 clustered PPI generator of ``tests/perf/diag_clustered_perf.py`` and of the
 atomic-scale generators of ``tests/perf/blocksparse_perf.py`` and
 ``tests/perf/clustered_bcsr_perf.py``: the same seed gives the same entries
-in both packages."""
+in both packages. ``signed_int8_blocks`` (the port's own) makes BCSR blocks
+with signed int8 weights for the kernel checks."""
 
 from __future__ import annotations
 
@@ -118,3 +119,15 @@ def clustered_entry(n: int, feat_dim: int = 38, edge_dim: int = 1, seed: int = 0
     entry["cluster1"] = c1.astype(np.int32)
     entry["edge_attr"] = np.abs(entry["edge_attr"]) + 0.1
     return entry
+
+
+def signed_int8_blocks(blocks: np.ndarray, tile_blocks: np.ndarray, seed: int = 0) -> np.ndarray:
+    """A copy of int8 0/1 BCSR blocks ``[NB, B, B]`` whose every other nonzero
+    block (by position in ``tile_blocks``) has its edges reweighted from
+    {-2, -1, 1, 3}: some blocks stay 0/1, the others are mixed."""
+    rng = np.random.default_rng(seed)
+    out = np.array(blocks, dtype=np.int8)
+    mixed = np.asarray(tile_blocks)[::2]
+    weights = np.array([-2, -1, 1, 3], np.int8)[rng.integers(0, 4, out[mixed].shape)]
+    out[mixed] = np.where(out[mixed] != 0, weights, out[mixed])
+    return out

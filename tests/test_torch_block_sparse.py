@@ -8,6 +8,8 @@ its bf16 hi/lo split); the SpMM's gradient against the dense ``Aᵀ g``; and
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,7 @@ import deeprank2_tpu.ops.block_sparse as jbs
 from deeprank2_tpu.ops.pooling import tiled_graph_mean_pool as jax_tiled_graph_mean_pool
 from deeprank2_tpu_torch.ops import block_sparse as tbs
 from deeprank2_tpu_torch.ops.pooling import tiled_graph_mean_pool
-from deeprank2_tpu_torch.ops.synthetic import clustered_entry, geometric_entry
+from deeprank2_tpu_torch.ops.synthetic import clustered_entry, geometric_entry, signed_int8_blocks
 from tests.perf.blocksparse_perf import geometric_entry as jax_geometric_entry
 from tests.perf.clustered_bcsr_perf import clustered_entry as jax_clustered_entry
 
@@ -132,6 +134,45 @@ def test_plain_version_matches_bcsr_spmm_xla(case, feat) -> None:
     assert tbs.launches == {"bcsr_spmm_kernel": 0}  # the CPU takes the plain version
     np.testing.assert_allclose(got.numpy().T, want, **TOL)
     np.testing.assert_allclose(got.numpy().T, _dense_adj(pairs, ours.padded_nodes) @ x, **TOL)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("feat", [16, 64])
+def test_plain_version_on_signed_int8_blocks_matches_bcsr_spmm_xla(case, feat) -> None:
+    ours, theirs, _ = _build_both(*CASES[case])
+    blocks = signed_int8_blocks(ours.blocks_t.numpy(), ours.tile_blocks.numpy(), seed=feat)
+    assert set(np.unique(blocks).tolist()) == {-2, -1, 0, 1, 3}
+    ours = dataclasses.replace(ours, blocks_t=torch.from_numpy(blocks))
+    theirs = dataclasses.replace(theirs, blocks_t=jnp.asarray(blocks))
+    x = np.random.default_rng(feat).normal(size=(ours.padded_nodes, feat)).astype(np.float32)
+    want = np.asarray(jbs.bcsr_spmm_xla(theirs, jnp.asarray(x)))
+    got = tbs.bcsr_spmm_kernel(ours, torch.from_numpy(np.ascontiguousarray(x.T)))
+    np.testing.assert_allclose(got.numpy().T, want, **TOL)
+    # the signs are taken: not the answer of the blocks' absolute values
+    assert np.abs(want - np.asarray(jbs.bcsr_spmm_xla(dataclasses.replace(theirs, blocks_t=jnp.abs(theirs.blocks_t)), jnp.asarray(x)))).max() > 1.0
+
+
+# the kernel's order as a loop, against the plain version: 0/1 blocks in
+# both forms, weighted bf16 and f32 blocks, and signed int8 ones
+@pytest.mark.parametrize("blocks", ["int8", "int8_bf16_form", "bfloat16", "float32", "signed_int8"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_order_loop_matches_plain_version(case, blocks) -> None:
+    n, chunk_tiles, kbatch, super_batches = CASES[case]
+    pairs = _pairs(n, seed=n)
+    pairs = pairs[((pairs // 128) != 1).all(axis=1)]  # an empty row tile
+    kw = {"chunk_tiles": chunk_tiles, "kbatch": kbatch, "super_batches": super_batches}
+    if blocks in ("bfloat16", "float32"):
+        weights = np.random.default_rng(n).uniform(0.1, 2.0, len(pairs)).astype(np.float32)
+        st = tbs.build_blocksparse(pairs, n, weights=weights, weight_dtype=getattr(torch, blocks), device="cpu", **kw)
+    else:
+        st = tbs.build_blocksparse(pairs, n, device="cpu", **kw)
+    if blocks == "signed_int8":
+        st = dataclasses.replace(st, blocks_t=torch.from_numpy(signed_int8_blocks(st.blocks_t.numpy(), st.tile_blocks.numpy(), seed=n)))
+    cd = torch.bfloat16 if blocks == "int8_bf16_form" else None
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(19, st.padded_nodes)).astype(np.float32))
+    got = tbs.bcsr_spmm_order_ref(st, x, cd)
+    torch.testing.assert_close(got, tbs.bcsr_spmm_kernel_ref(st, x, cd), **TOL)
+    assert not got.reshape(19, -1, 128)[:, 1].any()
 
 
 # F=19 on one chunk; F=64 on several chunks, with capacity-pad batches

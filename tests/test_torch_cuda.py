@@ -9,6 +9,7 @@ GPU machine without JAX run them without the JAX package's conftest:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from unittest import mock
 
 import pytest
@@ -40,7 +41,7 @@ from deeprank2_tpu_torch.ops.batch import (
     collate_graphs_diag_clustered,
 )
 from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
-from deeprank2_tpu_torch.ops.synthetic import clustered_entry, geometric_entry, ppi_clustered_entries, synthetic_entries
+from deeprank2_tpu_torch.ops.synthetic import clustered_entry, geometric_entry, ppi_clustered_entries, signed_int8_blocks, synthetic_entries
 
 pytestmark = pytest.mark.cuda
 TOL = {"rtol": 1e-5, "atol": 1e-5}
@@ -185,15 +186,34 @@ def _locality_pairs(n, seed):
     return inv[entry["edge_index"]]
 
 
+POOLED_NODES = 2304  # 18 row tiles, as the clustered BCSR path's pooled structure
+
+
+def _bcsr_pairs(n):
+    """The undirected pairs of a BCSR test structure and its node count: a
+    locality-ordered geometric graph of ``n`` nodes, an edgeless one for 0,
+    or for ``"pooled"`` the regime of the pooled structures: 18 row tiles of
+    denser blocks (each node linked to 24 nodes within 200 of it, around the
+    ring, so no node is a hub)."""
+    if n == "pooled":
+        rng = np.random.default_rng(18)
+        src = np.repeat(np.arange(POOLED_NODES), 24)
+        dst = (src + rng.integers(-200, 201, src.size)) % POOLED_NODES
+        return np.stack([src, dst], axis=1), POOLED_NODES
+    return (_locality_pairs(n, seed=n) if n else np.zeros((0, 2), np.int64)), max(n, 10)
+
+
 # several chunks with trailing capacity-pad batches (F=38: one 64-feature
-# slice, ragged; F=19: one 32-feature slice), one chunk at F=64 and F=70 (two
-# slices), and an empty graph
+# slice, ragged; F=19: one 32-feature slice; F=16: one 16-feature slice), one
+# chunk at F=64 and F=70 (two slices), an empty graph, and the pooled regime
+# (18 row tiles: the destination nodes split in groups)
 @pytest.mark.parametrize(
-    ("n", "chunk_tiles", "f"), [(2200, 3, 38), (2200, 3, 19), (1500, None, 64), (1500, None, 70), (0, None, 32)]
+    ("n", "chunk_tiles", "f"),
+    [(2200, 3, 38), (2200, 3, 19), (2200, 3, 16), (1500, None, 64), (1500, None, 70), (0, None, 32), ("pooled", None, 64), ("pooled", None, 16)],
 )
 def test_bcsr_kernel_matches_plain_version(cuda, n, chunk_tiles, f) -> None:
-    pairs = _locality_pairs(n, seed=n) if n else np.zeros((0, 2), np.int64)
-    st = bs.build_blocksparse(pairs, max(n, 10), chunk_tiles=chunk_tiles, device=cuda)
+    pairs, nodes = _bcsr_pairs(n)
+    st = bs.build_blocksparse(pairs, nodes, chunk_tiles=chunk_tiles, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(f)
     x = torch.randn(f, st.padded_nodes, generator=gen, device=cuda)
     cot = torch.randn(f, st.padded_rows, generator=gen, device=cuda)
@@ -517,15 +537,18 @@ def test_diag_kernels_raise_one_node_past_the_largest(cuda, dtype) -> None:
         ds.diag_kernel(adj, x)
 
 
-# several chunks with trailing capacity pads (F=16 and 38 in one 32- or
-# 64-feature slice), one chunk at F=32 and F=70 (two slices), an empty graph
+# several chunks with trailing capacity pads (F=16 and 38 in one 16- or
+# 64-feature slice), one chunk at F=32 and F=70 (two slices), an empty
+# graph, and the pooled regime
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize(("n", "chunk_tiles", "f"), [(2200, 3, 16), (2200, 3, 38), (1500, None, 32), (1500, None, 70), (0, None, 16)])
+@pytest.mark.parametrize(
+    ("n", "chunk_tiles", "f"), [(2200, 3, 16), (2200, 3, 38), (1500, None, 32), (1500, None, 70), (0, None, 16), ("pooled", None, 32), ("pooled", None, 16)]
+)
 def test_weighted_bcsr_kernel_matches_plain_version(cuda, dtype, n, chunk_tiles, f) -> None:
-    pairs = _locality_pairs(n, seed=n) if n else np.zeros((0, 2), np.int64)
+    pairs, nodes = _bcsr_pairs(n)
     pairs = np.concatenate([pairs, pairs[:30], [[3, 3]]]) if n else pairs  # duplicate pairs and a self-loop
-    weights = np.abs(np.random.default_rng(n).normal(size=len(pairs))).astype(np.float32) + 0.1
-    st = bs.build_blocksparse(pairs, max(n, 10), chunk_tiles=chunk_tiles, weights=weights, weight_dtype=dtype, device=cuda)
+    weights = np.abs(np.random.default_rng(nodes).normal(size=len(pairs))).astype(np.float32) + 0.1
+    st = bs.build_blocksparse(pairs, nodes, chunk_tiles=chunk_tiles, weights=weights, weight_dtype=dtype, device=cuda)
     assert st.blocks_t.dtype == dtype
     gen = torch.Generator(device=cuda).manual_seed(f)
     x = torch.randn(f, st.padded_nodes, generator=gen, device=cuda)
@@ -774,16 +797,17 @@ def test_diag_kernels_on_a_signed_int8_adjacency(cuda, body, compute_dtype, g, n
 
 
 # int8 blocks, and bf16 and f32 weighted ones (the bf16 form rounds f32
-# blocks to bf16, as its plain version does); several chunks, two slices, empty
+# blocks to bf16, as its plain version does); several chunks, two slices,
+# empty, and the pooled regime
 @pytest.mark.parametrize("block_dtype", [torch.int8, torch.bfloat16, torch.float32])
-@pytest.mark.parametrize(("n", "chunk_tiles", "f"), [(2200, 3, 16), (1500, None, 70), (0, None, 32)])
+@pytest.mark.parametrize(("n", "chunk_tiles", "f"), [(2200, 3, 16), (1500, None, 70), (0, None, 32), ("pooled", None, 32), ("pooled", None, 16)])
 def test_bf16_bcsr_kernel_matches_plain_version(cuda, block_dtype, n, chunk_tiles, f) -> None:
-    pairs = _locality_pairs(n, seed=n) if n else np.zeros((0, 2), np.int64)
+    pairs, nodes = _bcsr_pairs(n)
     if block_dtype == torch.int8:
-        st = bs.build_blocksparse(pairs, max(n, 10), chunk_tiles=chunk_tiles, device=cuda)
+        st = bs.build_blocksparse(pairs, nodes, chunk_tiles=chunk_tiles, device=cuda)
     else:
-        weights = np.abs(np.random.default_rng(n).normal(size=len(pairs))).astype(np.float32) + 0.1
-        st = bs.build_blocksparse(pairs, max(n, 10), chunk_tiles=chunk_tiles, weights=weights, weight_dtype=block_dtype, device=cuda)
+        weights = np.abs(np.random.default_rng(nodes).normal(size=len(pairs))).astype(np.float32) + 0.1
+        st = bs.build_blocksparse(pairs, nodes, chunk_tiles=chunk_tiles, weights=weights, weight_dtype=block_dtype, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(f)
     x = torch.randn(f, st.padded_nodes, generator=gen, device=cuda)
     cot = torch.randn(f, st.padded_rows, generator=gen, device=cuda)
@@ -796,6 +820,61 @@ def test_bf16_bcsr_kernel_matches_plain_version(cuda, block_dtype, n, chunk_tile
     assert bs.launches_by_dtype["bcsr_spmm_kernel"][bs.form_name(block_dtype, BF16)] == bs.launches["bcsr_spmm_kernel"] == 3
     if not n:
         assert not out.any()
+
+
+DW_TOL = 1e-6  # chip_smoke.py's share of sum |A||x| for sums of weighted products
+
+
+def _signed_blocks(st, seed):
+    """The structure with its int8 0/1 blocks reweighted in {-2, -1, 1, 3}
+    (``signed_int8_blocks``: some blocks stay 0/1, the others are mixed)."""
+    blocks = signed_int8_blocks(st.blocks_t.cpu().numpy(), st.tile_blocks.cpu().numpy(), seed)
+    assert set(np.unique(blocks).tolist()) == {-2, -1, 0, 1, 3}
+    return dataclasses.replace(st, blocks_t=torch.from_numpy(blocks).to(st.blocks_t.device))
+
+
+# int8 entries past 0/1 in both forms, directly and through the VJP: several
+# chunks, F=16 and 70, and the pooled regime
+@pytest.mark.parametrize("compute_dtype", [None, BF16])
+@pytest.mark.parametrize(("n", "chunk_tiles", "f"), [(2200, 3, 16), (1500, None, 70), ("pooled", None, 64)])
+def test_bcsr_kernel_on_signed_int8_blocks(cuda, compute_dtype, n, chunk_tiles, f) -> None:
+    pairs, nodes = _bcsr_pairs(n)
+    st = _signed_blocks(bs.build_blocksparse(pairs, nodes, chunk_tiles=chunk_tiles, device=cuda), seed=f)
+    st_abs = dataclasses.replace(st, blocks_t=st.blocks_t.abs())
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    x = torch.randn(f, st.padded_nodes, generator=gen, device=cuda)
+    cot = torch.randn(f, st.padded_rows, generator=gen, device=cuda)
+
+    def tol(v):
+        return {"rtol": 1e-5, "atol": max(1e-5, DW_TOL * bs.bcsr_spmm_kernel_ref(st_abs, v.abs(), compute_dtype).max().item())}
+
+    bs.reset_launches()
+    out = bs.bcsr_spmm_kernel(st, x, compute_dtype)
+    want = bs.bcsr_spmm_kernel_ref(st, x, compute_dtype)
+    torch.testing.assert_close(out, want, **tol(x))
+    assert (want - bs.bcsr_spmm_kernel_ref(st_abs, x, compute_dtype)).abs().max() > 1.0  # the signs matter
+    xk = x.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(bs.bcsr_spmm_t(st, xk, compute_dtype), xk, cot)
+    torch.testing.assert_close(grad, bs.bcsr_spmm_kernel_ref(st, cot, compute_dtype), **tol(cot))
+    form = bs.form_name(torch.int8, ds.activation_dtype(compute_dtype))
+    assert bs.launches_by_dtype["bcsr_spmm_kernel"][form] == bs.launches["bcsr_spmm_kernel"] == 3
+
+
+# 0/1 blocks: the kernel is the f32 loop in its order, bit for bit, in both
+# forms: several chunks with an empty row tile, one chunk, F = 16, 19, 64, 70
+@pytest.mark.parametrize("compute_dtype", [None, BF16])
+@pytest.mark.parametrize(("n", "chunk_tiles", "f"), [(2200, 3, 16), (2200, 3, 19), (1500, None, 64), (1500, None, 70), ("pooled", None, 64)])
+def test_bcsr_kernel_is_its_order_loop_bit_for_bit(cuda, compute_dtype, n, chunk_tiles, f) -> None:
+    pairs, nodes = _bcsr_pairs(n)
+    if n != "pooled":  # no edge into the second row tile
+        pairs = pairs[((pairs // 128) != 1).all(axis=1)]
+    st = bs.build_blocksparse(pairs, nodes, chunk_tiles=chunk_tiles, device=cuda)
+    counts = st.tile_ptr[1:] - st.tile_ptr[:-1]
+    assert n == "pooled" or (counts == 0).any()
+    x = torch.randn(f, st.padded_nodes, generator=torch.Generator(device=cuda).manual_seed(f), device=cuda)
+    out = bs.bcsr_spmm_kernel(st, x, compute_dtype)
+    torch.testing.assert_close(out, bs.bcsr_spmm_order_ref(st, x, compute_dtype), rtol=0, atol=0)
+    assert not out.reshape(f, -1, 128)[:, counts == 0].any()
 
 
 @pytest.mark.parametrize("m", [32, 12])
