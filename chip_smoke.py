@@ -94,8 +94,12 @@ Phases, each printing one JSON line:
    rtol=atol=1e-5 (both f32 on bit-identical pre-activations, only the
    summation order differs); dw_e, which sums one product per edge, at rtol
    1e-5 and an atol of DW_TOL times the sum of the products' absolute
-   values. Then each kernel's time at the blocked path's calls beside its
-   plain version and its bound (no single PyTorch call computes either);
+   values; out, dxr and dxc against blocked_order_ref, the float32 loop in
+   ascending slot order, bit for bit (max_abs_diff 0.0). Then each kernel's
+   time at the blocked path's calls, with the L2 flushed and warm, beside
+   its plain version and its bound (no single PyTorch call computes
+   either), and the edge bytes read per edge through the edge slots (the
+   earlier kernels' read) and from the destination-ordered stream;
 12. the blocked-edge path: VanillaNetworkBlocked(38, 2, 6) on
    collate_graphs_blocked([geometric_entry(100_000, 38, 6)]): the same step
    against the CPU and sum-of-logits probe as the BCSR paths, then
@@ -202,8 +206,9 @@ Phases, each printing one JSON line:
    (diag_max_nodes), every mode and both layer VJPs; K5 on the int8 blocks
    of both BCSR paths, on sGAT's bf16 blocks and on f32 ones (which the bf16
    form rounds); K6f and K6b at the atomic blocked graph, a ragged batch and
-   no edges. The launch counters by form must show every call on its bf16
-   form;
+   no edges (out, dxr and dxc also bit for bit against the ordered float32
+   loop, which rounds as the bf16 form does). The launch counters by form
+   must show every call on its bf16 form;
 28. their times at the bf16 paths' calls (bf16 operands, 2 bytes an entry
    in the bounds) beside the f32 form's on the same values, torch.bmm on
    bf16 operands (K1, K2) and cuSPARSE on bf16 values where it takes them
@@ -716,13 +721,16 @@ class Timer:
         self.flush = torch.ones(32 * 2**20, dtype=torch.float32, device="cuda")
         self.sink = torch.empty((), dtype=torch.float32, device="cuda")
 
-    def ms(self, fn, reps: int = 25) -> float:
+    def ms(self, fn, reps: int = 25, flush: bool = True) -> float:
+        """``flush=False``: calls back to back, each finding the L2 as the
+        previous call left it (warm)."""
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         events = []
         for _ in range(reps):
-            torch.sum(self.flush, dim=0, out=self.sink)
+            if flush:
+                torch.sum(self.flush, dim=0, out=self.sink)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
@@ -1013,8 +1021,10 @@ def check_blocked_kernels(torch, be, vn, checks, shapes, dev, compute_dtype=None
     """blocked_fwd_kernel and blocked_bwd_kernel against their plain versions,
     directly and through blocked_message_sum's autograd Function, in the
     kernel form ``compute_dtype`` selects (kernel and plain version round at
-    the same points, on bit-identical pre-activations); a structure without
-    edges must give exact zeros."""
+    the same points, on bit-identical pre-activations); out, dxr and dxc
+    also against ``vn.blocked_order_ref``, the float32 loop in ascending slot
+    order, bit for bit (``max_abs_diff`` 0.0); a structure without edges must
+    give exact zeros."""
     cd = compute_dtype
     form = vn.dtype_name(vn.activation_dtype(cd))
     for tag, st, ms in shapes:
@@ -1027,6 +1037,10 @@ def check_blocked_kernels(torch, be, vn, checks, shapes, dev, compute_dtype=None
             out_fn = be.blocked_message_sum(st, *args, compute_dtype=cd)
             grads = torch.autograd.grad(out_fn, args, g)
             direct = (vn.blocked_fwd_kernel(st, xr, xc, w_e, cd), vn.blocked_bwd_kernel(st, xr, xc, w_e, g, cd))
+            order = vn.blocked_order_ref(st, xr, xc, w_e, g, cd)
+            for name, got, want_o in zip(("out", "dxr", "dxc"), (direct[0], *direct[1][:2]), order):
+                checks.close("blocked_fwd_kernel" if name == "out" else "blocked_bwd_kernel", f"{tag} order loop {name} M={m}", got, want_o, EXACT, form)
+                checks.rows[-1]["max_abs_diff"] = checks.rows[-1]["max_abs_err"]
             for how, (out, (dxr, dxc, dw_e)) in (("direct", direct), ("blocked_message_sum", (out_fn.detach(), grads))):
                 checks.close("blocked_fwd_kernel", f"{tag} {how} out M={m}", out, want_out, TOL, form)
                 checks.close("blocked_bwd_kernel", f"{tag} {how} dxr M={m}", dxr, want[0], TOL, form)
@@ -1036,22 +1050,50 @@ def check_blocked_kernels(torch, be, vn, checks, shapes, dev, compute_dtype=None
                 if not st.edge_order.numel() and any(t.any() for t in (out, dxr, dxc, dw_e)):
                     msg = f"{tag}: a structure without edges gave nonzero results"
                     raise AssertionError(msg)
-            del want, want_out, out_fn, grads, direct
+            del want, want_out, out_fn, grads, direct, order
     sync(torch, dev)
+
+
+def edge_read_bytes(torch, st) -> dict:
+    """Bytes read per real edge from the edge arrays. ``slot_read``: the 32 B
+    sectors a read through the edge slots touches (the earlier kernels'), a
+    warp loading 32 of one node's edges at a time through ``edge_order`` (4 B
+    an edge, contiguous), then per edge slot ``col_local``, ``sub_col`` and
+    the Fe rows of ``eattr_t``: the distinct sectors of each 32-edge load,
+    counted on this structure.
+    ``stream_read``: the destination-ordered stream, its source node and its
+    ``fe_pad`` features (contiguous). ``bound_counts``: what the bound counts
+    (8 + 4·Fe)."""
+    ptr, order = st.row_ptr.long(), st.edge_order.long()
+    edges, fe = order.numel(), st.edge_dim
+    out = {"bound_counts": 8 + 4 * fe, "stream_read": st.edge_src.element_size() + st.edge_feat.element_size() * st.edge_feat.shape[1]}
+    if not edges:
+        return {**out, "slot_read": 0.0}
+    i = torch.arange(edges, device=order.device)
+    start = ptr[:-1].repeat_interleave(ptr[1:] - ptr[:-1])
+    first = start + (i - start) // 32 * 32  # the first edge of each edge's 32-edge load
+
+    def sectors(sector):
+        return torch.unique(first * 2**24 + sector).numel()
+
+    touched = sectors(order >> 3) * (1 + fe) + sectors(order >> 11)
+    return {**out, "slot_read": 4 + 32 * touched / edges}
 
 
 def time_blocked_calls(torch, vn, timer, path, st, m, per_step, peak, compute_dtype=None) -> list:
     """Kernel and plain-version times of K6f and K6b at one structure, with
-    each call's bound. Bytes: the real edges' index (edge_order and
-    col_local, 8 B) and features (4·Fe B), row_ptr, sub_col, w_e and the node
-    arrays read once, the outputs written once. Operations, per real edge
-    and feature: 2·Fe + 4 forward (the edge term, two adds, the relu, the
+    each call's bound. Bytes: the real edges' index (8 B) and features
+    (4·Fe B; the stream the kernels read holds 4 + 4·Fe_pad), row_ptr,
+    sub_col, w_e and the node arrays read once, the outputs written once.
+    Operations, per real edge and feature: 2·Fe + 4 forward (the edge term, two adds, the relu, the
     sum), 4·Fe + 8 backward (the edge term, both pre-activations, two
     selects and sums, dw_e's multiply-adds). No single PyTorch call computes
     either function. The bf16 form is timed on bf16 operands (2 bytes a node
     entry in the bound; the edge features stay f32), beside its f32 form
     (``f32_form_ms``); its products of bf16 operands with f32 sums (the edge
-    term, 2·Fe, and dw_e's, 2·Fe) count at the bf16 tensor-core rate."""
+    term, 2·Fe, and dw_e's, 2·Fe) count at the bf16 tensor-core rate.
+    ``warm_ms``: the same calls back to back, without the L2 flush;
+    ``edge_bytes_per_edge``: :func:`edge_read_bytes`."""
     cd = compute_dtype
     act = vn.activation_dtype(cd)
     ops32 = blocked_operands(torch, st, m, "cuda", seed=13)
@@ -1067,6 +1109,7 @@ def time_blocked_calls(torch, vn, timer, path, st, m, per_step, peak, compute_dt
          lambda: vn.blocked_bwd_kernel_ref(st, xr, xc, w_e, g, cd), shared + 3 * node_in, 2 * node_out + 4 * fe * m, 4 * fe + 8, 4 * fe),
     )  # fmt: skip
     shape = {"nodes": st.padded_nodes, "real_edges": edges, "edge_slots": st.row_local.numel(), "edge_dim": fe}
+    read = edge_read_bytes(torch, st)
     return [
         {
             "path": path,
@@ -1077,8 +1120,10 @@ def time_blocked_calls(torch, vn, timer, path, st, m, per_step, peak, compute_dt
             "F": m,
             "per_step": per_step,
             "ms": timer.ms(lambda run=run: run(cd)),
+            "warm_ms": timer.ms(lambda run=run: run(cd), flush=False),
             "plain_ms": timer.ms(plain),
             "library_ms": None,
+            "edge_bytes_per_edge": read,
             **({"f32_form_ms": timer.ms(lambda run=run: run(None))} if cd is not None else {}),
             **bound(in_bytes, out_bytes, ops * m * edges, peak, 0 if cd is None else mma * m * edges),
             "flop_needed": ops * m * edges,
@@ -1989,6 +2034,7 @@ def bf16_phases(torch, dev, card, counters, checks, peak, record, batches, undir
         "K1, K2, K5 int8, K6f out, K6b dxr/dxc": TOL,
         "K5 weighted and signed int8": {"rtol": 1e-5, "atol": f"max(1e-5, {DW_TOL} * max |A| |x|)"},
         "K6b dw_e": {"rtol": 1e-5, "atol": f"{DW_TOL} * max sum_e |e_attr| |g[row]|"},
+        "K6f out, K6b dxr/dxc against the ordered loop": EXACT,
     }
     emit({"phase": "bf16_kernel_checks", "tolerance": tolerance, "largest_nodes": {"int8/bfloat16": n_i8, "bfloat16/bfloat16": n_bf}, "launches_by_form": forms, "checks": checks.rows[n_checks:]})
     del adj_big, adj_i8_big, mask_i8_big, adj_bf_big, mask_bf_big, ragged_bl, empty_bl
@@ -2580,7 +2626,7 @@ def main() -> int:
         ],
         dev,
     )
-    emit({"phase": "blocked_kernels_vs_plain", "tolerance": {"out, dxr, dxc": TOL, "dw_e": {"rtol": 1e-5, "atol": f"{DW_TOL} * max sum_e |e_attr| |g[row]|"}}, "checks": checks.rows[n_checks:]})
+    emit({"phase": "blocked_kernels_vs_plain", "tolerance": {"out, dxr, dxc": TOL, "order loop": EXACT, "dw_e": {"rtol": 1e-5, "atol": f"{DW_TOL} * max sum_e |e_attr| |g[row]|"}}, "checks": checks.rows[n_checks:]})
     del ragged_bl, padded_bl, empty_bl
     timer = Timer(torch)
     blocked_calls = time_blocked_calls(torch, vn, timer, "blocked", bl_batch.structure, 32, 2, peak)
@@ -2603,7 +2649,8 @@ def main() -> int:
             "model": "VanillaNetworkBlocked(38, 2, 6)",
             "batch": {
                 **BCSR,
-                "structure": {"tiles": st.num_node_tiles, "slabs": st.num_slabs, "edge_slots": st.row_local.numel(), "real_edges": st.edge_order.numel(), "fe_pad": st.eattr_t.shape[0]},
+                "structure": {"tiles": st.num_node_tiles, "slabs": st.num_slabs, "edge_slots": st.row_local.numel(), "real_edges": st.edge_order.numel(), "fe_pad": st.eattr_t.shape[0],
+                              "stream_bytes": st.edge_src.numel() * st.edge_src.element_size() + st.edge_feat.numel() * st.edge_feat.element_size()},
             },
             "collate_s": blocked_collate_s,
             "undirected_edges": int(entry["edge_index"].shape[0]),

@@ -10,9 +10,12 @@ source tile each; ``K_SUB`` sub-blocks that share a destination tile make one
 ``TILE_E``-edge slab. Padded edge slots carry the row sentinel ``EDGE_TILE``.
 
 The CUDA kernels (ops/vanilla.py, ``csrc/blocked_edges.cu``) walk the real
-edges of each destination node instead of the slabs, through an index built
-here: ``row_ptr``/``edge_order``, the edge slots of each destination node in
-slot order. Sentinels and capacity-pad slabs are never listed.
+edges of each destination node instead of the slabs, over a stream built
+here beside its index: ``row_ptr``/``edge_order`` list the edge slots of each
+destination node in slot order, and ``edge_src``/``edge_feat`` hold, in that
+order, each edge's global source node and its features, so the kernels read
+them contiguously and never through a slot. Sentinels and capacity-pad slabs
+are never listed.
 
 :func:`blocked_message_sum` is differentiable in ``xr``, ``xc`` and ``w_e``
 through the kernels; :func:`blocked_message_sum_ref` is its plain PyTorch
@@ -47,9 +50,11 @@ class BlockedEdgeStructure:
     ``s`` covers edge slots ``[s*TILE_E, (s+1)*TILE_E)`` with destination
     tile ``step_row[s]``; its ``K_SUB`` sub-blocks have source tiles
     ``sub_col[s*K_SUB : (s+1)*K_SUB]``; padded slots hold the row sentinel
-    ``EDGE_TILE``. ``row_ptr`` and ``edge_order`` are the CUDA kernels'
-    index: the slots of the real edges into global node ``v`` are
-    ``edge_order[row_ptr[v]:row_ptr[v + 1]]``, ascending."""
+    ``EDGE_TILE``. The last four are the CUDA kernels' stream: the slots of
+    the real edges into global node ``v`` are
+    ``edge_order[row_ptr[v]:row_ptr[v + 1]]``, ascending, and ``edge_src``
+    and ``edge_feat`` hold each listed edge's global source node and its
+    features (zero past ``edge_dim``) at the same positions."""
 
     row_local: torch.Tensor  # i32 [E_cap] destination within its tile; sentinel EDGE_TILE
     col_local: torch.Tensor  # i32 [E_cap] source within its tile
@@ -59,6 +64,8 @@ class BlockedEdgeStructure:
     out_visited: torch.Tensor  # bool [num_node_tiles] row tiles the TPU kernel writes
     row_ptr: torch.Tensor  # i32 [padded_nodes + 1] start of each node's edges in edge_order
     edge_order: torch.Tensor  # i32 [real edges] slots by (destination node, slot)
+    edge_src: torch.Tensor  # i32 [real edges] global source node of each, in edge_order's order
+    edge_feat: torch.Tensor  # f32 [real edges, Fe_pad] its features, in edge_order's order
     num_node_tiles: int
     edge_dim: int  # un-padded Fe
 
@@ -198,6 +205,9 @@ def build_blocked_edges(
     edge_order = slots[np.argsort(grow, kind="stable")].astype(np.int32)
     row_ptr = np.zeros(num_tiles * tile + 1, dtype=np.int32)
     row_ptr[1:] = np.cumsum(np.bincount(grow, minlength=num_tiles * tile))
+    # the kernels' stream: each listed edge's source node and features, in order
+    edge_src = (sub_col[edge_order // SUB_E].astype(np.int64) * tile + col_local[edge_order]).astype(np.int32)
+    edge_feat = eattr_t[:, edge_order].T
 
     arrays = {
         "row_local": row_local,
@@ -208,6 +218,8 @@ def build_blocked_edges(
         "out_visited": out_visited,
         "row_ptr": row_ptr,
         "edge_order": edge_order,
+        "edge_src": edge_src,
+        "edge_feat": edge_feat,
     }
     return BlockedEdgeStructure(
         **{name: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for name, a in arrays.items()},

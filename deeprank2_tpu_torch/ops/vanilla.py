@@ -13,6 +13,10 @@ Two CUDA kernels in ``csrc/blocked_edges.cu`` compute
   at each row from the edge's mirror message (the structure is closed under
   mirroring with equal features), as the TPU kernel does.
 
+Both read only the structure's destination-ordered stream (``row_ptr``,
+``edge_src``, ``edge_feat``) and sum each node's messages in ascending slot
+order, which :func:`blocked_order_ref` spells out as a plain loop.
+
 Both have two forms, chosen by ``compute_dtype``: f32, and the single-pass
 bf16 form of the JAX kernels (``_make_gdot``'s bf16 branch): the wrapper
 hands the kernel bf16 copies of ``xr``, ``xc``, ``w_e`` and ``g``, the
@@ -35,7 +39,7 @@ import ctypes
 import torch
 
 from deeprank2_tpu_torch.ops import _build
-from deeprank2_tpu_torch.ops.blocked_edges import BlockedEdgeStructure, blocked_message_sum_ref, global_indices, pre_activations
+from deeprank2_tpu_torch.ops.blocked_edges import BlockedEdgeStructure, blocked_message_sum_ref, edge_term, global_indices, pre_activations
 from deeprank2_tpu_torch.ops.diag_spmm import ACT_DTYPES, _operand, _require, _route, activation_dtype, dtype_name, round_to
 
 SOURCE = "blocked_edges"
@@ -58,8 +62,8 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.library(SOURCE)
     if lib.blocked_fwd_kernel.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        edges = [p, p, p, p, p, ll, i]  # row_ptr, edge_order, col_local, sub_col, eattr_t, E_cap, Fe
+        p, i = ctypes.c_void_p, ctypes.c_int
+        edges = [p, p, p, i, i]  # row_ptr, edge_src, edge_feat, Fe_pad, Fe
         lib.blocked_fwd_kernel.argtypes = [*edges, i, p, p, p, p, i, i, p]
         lib.blocked_fwd_kernel.restype = i
         lib.blocked_bwd_kernel.argtypes = [*edges, i, p, p, p, p, p, p, p, i, p, i, i, p]
@@ -78,23 +82,16 @@ def _check(structure: BlockedEdgeStructure, act: torch.dtype, xr: torch.Tensor, 
     v, m = structure.padded_nodes, xr.shape[1]
     shapes = {"xr": (v, m), "xc": (v, m), "w_e": (structure.edge_dim, m), "g": (v, m)}
     ops = [_operand(t, name, act, shapes[name], dev) for name, t in zip(shapes, (xr, xc, w_e, g)) if t is not None]
-    _require(structure.eattr_t, "eattr_t", torch.float32, tuple(structure.eattr_t.shape), dev)
-    for name in ("row_ptr", "edge_order", "col_local", "sub_col"):
+    _require(structure.edge_feat, "edge_feat", torch.float32, tuple(structure.edge_feat.shape), dev)
+    for name in ("row_ptr", "edge_src"):
         t = getattr(structure, name)
         _require(t, name, torch.int32, tuple(t.shape), dev)
     return ops
 
 
 def _edge_args(structure: BlockedEdgeStructure) -> list:
-    return [
-        structure.row_ptr.data_ptr(),
-        structure.edge_order.data_ptr(),
-        structure.col_local.data_ptr(),
-        structure.sub_col.data_ptr(),
-        structure.eattr_t.data_ptr(),
-        structure.eattr_t.shape[1],
-        structure.edge_dim,
-    ]
+    """The stream the kernels read: ``row_ptr``, ``edge_src``, ``edge_feat``, its row stride and ``Fe``."""
+    return [structure.row_ptr.data_ptr(), structure.edge_src.data_ptr(), structure.edge_feat.data_ptr(), structure.edge_feat.shape[1], structure.edge_dim]
 
 
 def _cuda_lib(structure: BlockedEdgeStructure) -> ctypes.CDLL:
@@ -168,6 +165,39 @@ def blocked_bwd_kernel_ref(
     dxr = g.new_zeros(g.shape).index_add(0, row, dmsg)
     dxc = g.new_zeros(g.shape).index_add(0, gcol, dmsg)
     return dxr, dxc, round_to(structure.eattr_t[: structure.edge_dim], act) @ dmsg
+
+
+def blocked_order_ref(
+    structure: BlockedEdgeStructure, xr: torch.Tensor, xc: torch.Tensor, w_e: torch.Tensor, g: torch.Tensor | None = None, compute_dtype=None
+) -> tuple[torch.Tensor, ...]:
+    """The kernels' summation order as a plain float32 loop: ``(out,)``, or
+    ``(out, dxr, dxc)`` given the cotangent ``g``, each node's messages added
+    one at a time in ascending slot order (the stream's order), vectorised
+    over nodes and features: at most max-degree steps. The pre-activations
+    (``xr[v] + xc[c]``, then the channel-ordered edge term) and the bf16
+    form's roundings are the kernels', so K6f's ``out`` and K6b's ``dxr`` and
+    ``dxc`` equal these bit for bit."""
+    act = activation_dtype(compute_dtype)
+    xr, xc = round_to(xr, act), round_to(xc, act)
+    ptr = structure.row_ptr.long()
+    deg = ptr[1:] - ptr[:-1]
+    dst = torch.arange(structure.padded_nodes, device=xr.device).repeat_interleave(deg)
+    src = structure.edge_src.long()
+    pos = torch.arange(src.numel(), device=xr.device) - ptr[dst]
+    ew = edge_term(structure.edge_feat[:, : structure.edge_dim].T, w_e, act)
+    pre = xr[dst] + xc[src] + ew
+    terms = [round_to(torch.relu(pre), act)]
+    if g is not None:
+        g = round_to(g, act)
+        zero = g.new_zeros(())
+        terms += [torch.where(pre > 0, g[dst], zero), torch.where(xr[src] + xc[dst] + ew > 0, g[src], zero)]
+    sums = [xr.new_zeros(xr.shape) for _ in terms]
+    for step in range(int(deg.max().item()) if src.numel() else 0):
+        sel = torch.nonzero(pos == step).flatten()
+        rows = dst[sel]
+        for total, term in zip(sums, terms):
+            total[rows] = total[rows] + term[sel]
+    return tuple(sums)
 
 
 def dw_error_scale(structure: BlockedEdgeStructure, g: torch.Tensor, compute_dtype=None) -> torch.Tensor:

@@ -5,7 +5,9 @@ versions of kernels K6f and K6b against ``blocked_message_sum_xla`` (outputs
 at rtol=atol=1e-5, the JAX test's; gradients at rtol=atol=1e-4, the JAX
 gradient test's) and against the Pallas kernels in interpret mode (the
 forward at atol 1e-4 and the backward at atol 1e-3, the JAX interpret test's
-tolerances for its bf16 hi/lo split); ``tiled_graph_mean_pool_rows``."""
+tolerances for its bf16 hi/lo split); ``tiled_graph_mean_pool_rows``; the
+CUDA kernels' destination-ordered stream (``edge_src``, ``edge_feat``) and
+their summation order as a float32 loop (``blocked_order_ref``)."""
 
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ from deeprank2_tpu.ops import pallas_vanilla
 from deeprank2_tpu.ops.pooling import tiled_graph_mean_pool_rows as jax_tiled_graph_mean_pool_rows
 from deeprank2_tpu_torch.ops import blocked_edges as tbe
 from deeprank2_tpu_torch.ops import vanilla as tv
+from deeprank2_tpu_torch.ops.batch import collate_graphs_blocked
 from deeprank2_tpu_torch.ops.pooling import tiled_graph_mean_pool_rows
+from deeprank2_tpu_torch.ops.synthetic import geometric_entry
 
 TOL = {"rtol": 1e-5, "atol": 1e-5}
 GRAD_TOL = {"rtol": 1e-4, "atol": 1e-4}
@@ -98,6 +102,87 @@ def test_kernel_index_lists_each_real_edge_once_by_row(case) -> None:
         mine = order[ptr[v] : ptr[v + 1]]
         assert (grow[mine] == v).all()
         assert (np.diff(mine) > 0).all()
+
+
+def _ragged_structure(pad_slabs=None):
+    """The blocked collate of graphs of 700 and 1,300 nodes, one of 200
+    without edges and an empty padding graph."""
+    entries = [geometric_entry(700, 4, 6, seed=1), geometric_entry(1300, 4, 6, seed=2), geometric_entry(200, 4, 6, seed=3)]
+    entries[2]["edge_index"] = entries[2]["edge_index"][:0]
+    entries[2]["edge_attr"] = entries[2]["edge_attr"][:0]
+    return collate_graphs_blocked(entries, pad_graphs=4, pad_slabs=pad_slabs, device="cpu")[0].structure
+
+
+STREAM_CASES = [*sorted(CASES), "ragged", "ragged_pad_slabs"]
+
+
+def _stream_structure(case):
+    if case.startswith("ragged"):
+        return _ragged_structure((lambda req: req + 3) if case == "ragged_pad_slabs" else None)
+    return _build_both(case)[0]
+
+
+def _assert_stream_is_the_listed_edges(st) -> None:
+    order = st.edge_order.long()
+    _, gcol = tbe.global_indices(st)
+    fe, fe_pad = st.edge_dim, st.eattr_t.shape[0]
+    assert st.edge_src.dtype == torch.int32 and st.edge_feat.dtype == torch.float32
+    assert st.edge_src.is_contiguous() and st.edge_feat.is_contiguous()
+    assert tuple(st.edge_feat.shape) == (order.numel(), fe_pad) and st.edge_src.shape == order.shape
+    torch.testing.assert_close(st.edge_src.long(), gcol[order], rtol=0, atol=0)
+    torch.testing.assert_close(st.edge_feat[:, :fe], st.eattr_t[:fe, order].T, rtol=0, atol=0)
+    assert not st.edge_feat[:, fe:].any()
+
+
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_stream_holds_each_listed_edge_source_and_features(case) -> None:
+    """edge_src and edge_feat are the gathers through edge_order of the
+    slots' global source nodes and features (zero pad channels), before and
+    after ``.to()``."""
+    st = _stream_structure(case)
+    _assert_stream_is_the_listed_edges(st)
+    moved = st.to("cpu")
+    _assert_stream_is_the_listed_edges(moved)
+    assert torch.equal(moved.edge_src, st.edge_src) and torch.equal(moved.edge_feat, st.edge_feat)
+    if case == "no_edges":
+        assert st.edge_src.numel() == 0 and st.edge_feat.shape == (0, 8)
+    if case.startswith("ragged"):
+        ptr = st.row_ptr.long()
+        assert (ptr[1:] == ptr[:-1]).any() and st.edge_src.numel() > 0  # edgeless nodes and real edges
+
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("m", [12, 32, 5])
+@pytest.mark.parametrize("case", ["ragged", "pad_slabs_int", "no_edges"])
+def test_order_loop_is_the_plain_version_in_slot_order(case, m, compute_dtype) -> None:
+    """blocked_order_ref, the kernels' order as a float32 loop, against the
+    plain versions (which add in index_add's order: rtol=atol=1e-5) and, for
+    the first nodes, bit for bit against one add at a time in ascending slot
+    order."""
+    st = _stream_structure(case)
+    xr, xc, w_e, g = _t(*_operands(st, m, seed=m))
+    out, dxr, dxc = tv.blocked_order_ref(st, xr, xc, w_e, g, compute_dtype)
+    torch.testing.assert_close(out, tv.blocked_fwd_kernel_ref(st, xr, xc, w_e, compute_dtype), **TOL)
+    for got, want in zip((dxr, dxc), tv.blocked_bwd_kernel_ref(st, xr, xc, w_e, g, compute_dtype)):
+        torch.testing.assert_close(got, want, **TOL)
+    (out_only,) = tv.blocked_order_ref(st, xr, xc, w_e, compute_dtype=compute_dtype)
+    torch.testing.assert_close(out_only, out, rtol=0, atol=0)
+    act = tv.activation_dtype(compute_dtype)
+    xr, xc, g = (tv.round_to(t, act) for t in (xr, xc, g))
+    ew = tbe.edge_term(st.edge_feat[:, : st.edge_dim].T, w_e, act)
+    ptr, src = st.row_ptr.tolist(), st.edge_src.tolist()
+    for v in range(0, st.padded_nodes, 97):
+        acc = [torch.zeros(m) for _ in range(3)]
+        for i in range(ptr[v], ptr[v + 1]):
+            c = src[i]
+            pre = xr[v] + xc[c] + ew[i]
+            acc[0] = acc[0] + tv.round_to(torch.relu(pre), act)
+            acc[1] = acc[1] + torch.where(pre > 0, g[v], 0.0)
+            acc[2] = acc[2] + torch.where(xr[c] + xc[v] + ew[i] > 0, g[c], 0.0)
+        for got, want in zip((out, dxr, dxc), acc):
+            torch.testing.assert_close(got[v], want, rtol=0, atol=0)
+    if case == "no_edges":
+        assert not out.any() and not dxr.any() and not dxc.any()
 
 
 def test_global_indices_match_jax() -> None:
@@ -216,6 +301,7 @@ def test_wrappers_check_their_operands() -> None:
         assert tbe.blocked_message_sum(ours, xr, xc, w_e, compute_dtype=cd).shape == xr.shape
     moved = ours.to("cpu")
     assert moved.edge_dim == ours.edge_dim and torch.equal(moved.edge_order, ours.edge_order)
+    assert torch.equal(moved.edge_src, ours.edge_src) and torch.equal(moved.edge_feat, ours.edge_feat)
 
 
 def test_tiled_graph_mean_pool_rows_matches_jax() -> None:

@@ -274,10 +274,22 @@ def _blocked_structure(case, dev):
     return batch.structure
 
 
+# M = 32 (8 lanes a node), 12, 5 and 38 (rows not a multiple of 4: masked
+# loads), 136 (two feature slices)
+BLOCKED_M = [32, 12, 5, 38, 136]
+
+
+def _assert_blocked_order(st, xr, xc, w_e, g, out, dxr, dxc, compute_dtype=None) -> None:
+    """K6f's out and K6b's dxr and dxc equal the float32 loop in ascending
+    slot order (``blocked_order_ref``) bit for bit."""
+    for name, got, want in zip(("out", "dxr", "dxc"), (out, dxr, dxc), vn.blocked_order_ref(st, xr, xc, w_e, g, compute_dtype)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0, msg=lambda m, name=name: f"{name}: {m}")
+
+
 # f32 on both sides and the same pre-activations: out, dxr and dxc differ in
 # summation order only; dw_e sums every edge's product, so its tolerance is
 # 1e-6 of the sum of their absolute values
-@pytest.mark.parametrize("m", [32, 12])
+@pytest.mark.parametrize("m", BLOCKED_M)
 @pytest.mark.parametrize("case", ["ragged", "pads", "no_edges"])
 def test_blocked_kernels_match_plain_versions(cuda, case, m) -> None:
     st = _blocked_structure(case, cuda)
@@ -292,6 +304,7 @@ def test_blocked_kernels_match_plain_versions(cuda, case, m) -> None:
     torch.testing.assert_close(dxr, want[0], **TOL)
     torch.testing.assert_close(dxc, want[1], **TOL)
     torch.testing.assert_close(dw_e, want[2], rtol=1e-5, atol=1e-6 * vn.dw_error_scale(st, g).max().item() + 1e-6)
+    _assert_blocked_order(st, xr, xc, w_e, g, out, dxr, dxc)
     assert vn.launches == {"blocked_fwd_kernel": 1, "blocked_bwd_kernel": 1}
     # through the autograd Function
     args = [t.clone().requires_grad_(True) for t in (xr, xc, w_e)]
@@ -303,6 +316,20 @@ def test_blocked_kernels_match_plain_versions(cuda, case, m) -> None:
         torch.testing.assert_close(got, ref, rtol=0, atol=0)  # deterministic: no atomics
     if case == "no_edges":
         assert not out.any() and not dxr.any() and not dxc.any() and not dw_e.any()
+
+
+def test_blocked_kernels_take_rows_off_their_vector_alignment(cuda) -> None:
+    """Node arrays whose rows start off a 16-byte boundary take the masked
+    loads: the same sums, in the same order."""
+    st = _blocked_structure("ragged", cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    v, m = st.padded_nodes, 32
+    xr, xc, g = (torch.randn(v * m + 1, generator=gen, device=cuda)[1:].view(v, m) for _ in range(3))
+    assert xr.data_ptr() % 16 and xr.is_contiguous()
+    w_e = torch.randn(st.edge_dim, m, generator=gen, device=cuda)
+    dxr, dxc, dw_e = vn.blocked_bwd_kernel(st, xr, xc, w_e, g)
+    _assert_blocked_order(st, xr, xc, w_e, g, vn.blocked_fwd_kernel(st, xr, xc, w_e), dxr, dxc)
+    torch.testing.assert_close(dw_e, vn.blocked_bwd_kernel_ref(st, xr, xc, w_e, g)[2], rtol=1e-5, atol=1e-6 * vn.dw_error_scale(st, g).max().item() + 1e-6)
 
 
 def test_blocked_train_step_matches_cpu_and_counts_launches(cuda) -> None:
@@ -877,7 +904,7 @@ def test_bcsr_kernel_is_its_order_loop_bit_for_bit(cuda, compute_dtype, n, chunk
     assert not out.reshape(f, -1, 128)[:, counts == 0].any()
 
 
-@pytest.mark.parametrize("m", [32, 12])
+@pytest.mark.parametrize("m", BLOCKED_M)
 @pytest.mark.parametrize("case", ["ragged", "pads", "no_edges"])
 def test_bf16_blocked_kernels_match_plain_versions(cuda, case, m) -> None:
     st = _blocked_structure(case, cuda)
@@ -892,6 +919,7 @@ def test_bf16_blocked_kernels_match_plain_versions(cuda, case, m) -> None:
     torch.testing.assert_close(dxr, want[0], **TOL)
     torch.testing.assert_close(dxc, want[1], **TOL)
     torch.testing.assert_close(dw_e, want[2], rtol=1e-5, atol=1e-6 * vn.dw_error_scale(st, g, BF16).max().item() + 1e-6)
+    _assert_blocked_order(st, xr, xc, w_e, g, out, dxr, dxc, BF16)
     assert vn.launches_by_dtype == {"blocked_fwd_kernel": {"float32": 0, "bfloat16": 1}, "blocked_bwd_kernel": {"float32": 0, "bfloat16": 1}}
     args = [t.clone().requires_grad_(True) for t in (xr, xc, w_e)]
     grads = torch.autograd.grad(be.blocked_message_sum(st, *args, compute_dtype=BF16), args, g)
