@@ -115,7 +115,8 @@ Phases, each printing one JSON line:
    rtol=atol=1e-5 (both f32, only the summation order differs); segments
    without a message must be exact zeros. Then K7's time at each COO path's
    calls beside its plain version, one library call (index_add_ into an
-   [n+1, F] buffer with the ids clamped to n) and its byte bound;
+   [n+1, F] buffer with the ids clamped to n) and its byte bound, and its
+   two launches apart from the profiler (offsets_ms, sum_ms);
 14. the COO paths, each checked one step against the CPU (with the
    sum-of-logits probe), driven SEGMENT_STEPS train steps and one eval
    forward with the counters at 0, and profiled: GINet no-cluster (38, 2, 6)
@@ -152,7 +153,7 @@ Phases, each printing one JSON line:
    time at the bench batch beside its plain version, the flat route's
    kernels for the same function (K1 relu F=32 and K1 pool F=64 forward, K2
    and K1 plain F=32 backward) and its bound (no single PyTorch call
-   computes any of them);
+   computes any of them), K8b's two launches apart (partials_ms, sum_ms);
 18. the dense path on the batched tower backend
    (set_dense_tower_backend("pallas")): the dropout-free step against the
    CPU at STEP_TOL (the CPU runs the plain version at full size), STEPS train
@@ -751,6 +752,24 @@ def bound(in_bytes, out_bytes, flop, peak, mma_flop=0) -> dict:
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": in_bytes + out_bytes}
 
 
+def launch_ms(torch, timer, fn, launches, reps: int = 10) -> dict:
+    """The device time of each launch of a call that launches several
+    kernels, per call, from the profiler (each call after an L2 flush, as
+    Timer.ms times it): ``launches`` maps a key to a substring of one
+    kernel's name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.sum(timer.flush, dim=0, out=timer.sink)
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    return {key: sum(e.self_device_time_total for e in events if name in e.key) / reps / 1e3 for key, name in launches.items()}
+
+
 def time_diag_calls(torch, ds, timer, path, adj, mask, specs, peak, compute_dtype=None) -> list:
     """Kernel, plain-version and library times of diag_kernel and
     pool_bwd_kernel at one adjacency, with each call's bound (bytes: inputs
@@ -1211,7 +1230,8 @@ def time_segment_calls(torch, ss, timer, rows_by_name, peak) -> list:
     """Kernel, plain-version and library times of K7 at each COO path's calls,
     with each call's bound: bytes, the valid messages (4·F) and their row ids
     (4) read once and the output written once; operations, the E_valid·F
-    additions (the padding entries are neither read nor summed)."""
+    additions (the padding entries are neither read nor summed). The
+    kernel's two launches also apart (``offsets_ms``, ``sum_ms``)."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     calls = []
     for path, name, f, per_step in SEGMENT_STEP_CALLS:
@@ -1229,6 +1249,7 @@ def time_segment_calls(torch, ss, timer, rows_by_name, peak) -> list:
                 "F": f,
                 "per_step": per_step,
                 "ms": timer.ms(lambda msgs=msgs, rows=rows, n=n: ss.segment_sum_sorted_kernel(msgs, rows, n)),
+                **launch_ms(torch, timer, lambda msgs=msgs, rows=rows, n=n: ss.segment_sum_sorted_kernel(msgs, rows, n), {"offsets_ms": "row_offsets", "sum_ms": "sum_rows"}),
                 "plain_ms": timer.ms(lambda msgs=msgs, rows=rows, n=n: ss.segment_sum_sorted_kernel_ref(msgs, rows, n)),
                 "library_ms": timer.ms(lambda buf=buf, ids=ids, msgs=msgs: buf.index_add_(0, ids, msgs)),
                 **bound((4 * f + 4) * valid, 4 * f * n, f * valid, peak),
@@ -1470,7 +1491,8 @@ def time_tower_calls(torch, gt, ds, timer, b, w1, w2, peak, compute_dtype=None) 
     sums) at the bf16 tensor-core rate. No single PyTorch call computes any
     of them. The bf16 form (``compute_dtype``) reads the same f32 x and
     weights (K9b writes t2/t1 at 2 bytes), and is timed beside its f32 form
-    (``f32_form_ms``) and the flat route's bf16 K1/K2."""
+    (``f32_form_ms``) and the flat route's bf16 K1/K2. K8b's two launches
+    also apart (``partials_ms``, ``sum_ms``)."""
     cd = compute_dtype
     act = ds.activation_dtype(cd)
     tb = torch.tensor([], dtype=act).element_size()
@@ -1519,6 +1541,7 @@ def time_tower_calls(torch, gt, ds, timer, b, w1, w2, peak, compute_dtype=None) 
             "shape": [g, n, n],
             "F": f,
             "ms": timer.ms(run),
+            **({} if kernel != "ginet_tower_bwd_kernel" else launch_ms(torch, timer, run, {"partials_ms": "ginet_tower_bwd_graph", "sum_ms": "sum_partials"})),
             **({} if cd is None else {"f32_form_ms": timer.ms(lambda run=run: run(None))}),
             "plain_ms": timer.ms(plain),
             "library_ms": None,
@@ -1648,7 +1671,7 @@ def kernels_line(calls, path_launches, errs, path_forms, form_errs, form_calls=(
                                 "launches": sum(launches.get(f"{name}[{form}]", 0) for launches in path_forms.values()),
                                 "max_abs_err": form_errs.get((name, form)),
                                 "calls": [
-                                    {k: c[k] for k in ("path", "mode", "F", "per_step", "body", "ms", "f32_form_ms", "plain_ms", "flat_route_ms", "bound_ms", "bound_by", "library_ms", "library_form") if k in c}
+                                    {k: c[k] for k in ("path", "mode", "F", "per_step", "body", "ms", "offsets_ms", "partials_ms", "sum_ms", "f32_form_ms", "plain_ms", "flat_route_ms", "bound_ms", "bound_by", "library_ms", "library_form") if k in c}
                                     for c in by_form.get(form, [])
                                 ],
                             }

@@ -33,10 +33,10 @@
 // that a warp writes 32 consecutive nodes of one channel (coalesced in the
 // flat layout). The weight products give a thread four nodes and four
 // channels (q fastest: the lanes of a warp share the nodes' float4 loads and
-// read consecutive weights), 16 FMAs for every 8 float4 loads; the
-// reductions over nodes (the backward's dw) four by four channels. Every sum
+// read consecutive weights), 16 FMAs for every 8 float4 loads. Every sum
 // runs in a fixed order in f32: results are deterministic and differ from
-// the plain PyTorch versions only by summation order.
+// the plain PyTorch versions only by summation order. (K8b, the batched
+// backward, has a plan and products of its own in csrc/ginet_tower.cu.)
 //
 // Two forms, by the compile-time flag BF16: f32, and the single-pass bf16
 // form of the JAX kernels (compute_dtype=bfloat16), which rounds to bf16
@@ -263,29 +263,6 @@ __device__ inline void weight_product(const float* a, int lda, const float* w, i
         for (int r = 0; r < 4; ++r) {
             if (i0 + r < n) epi(i0 + r, q, acc[r]);
         }
-    }
-}
-
-// epi(k, q, sum_{i < n} a[i][k] * b[i][4q .. 4q+3]) for the four k of each
-// k-quad below kquads, ascending i (a's columns up to 4*kquads are defined)
-template <class Epi>
-__device__ inline void node_product(const float* a, int lda, const float* b, int ldb, int kquads, int n, int quads, Epi epi) {
-    for (int item = threadIdx.x; item < kquads * quads; item += blockDim.x) {
-        const int q = item % quads;
-        const int k4 = item / quads;
-        float4 acc[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int i = 0; i < n; ++i) {
-            const float4 a4 = load4(a + (size_t)i * lda + 4 * k4);
-            const float4 b4 = load4(b + (size_t)i * ldb + 4 * q);
-            fma4(a4.x, b4, acc[0]);
-            fma4(a4.y, b4, acc[1]);
-            fma4(a4.z, b4, acc[2]);
-            fma4(a4.w, b4, acc[3]);
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) epi(4 * k4 + r, q, acc[r]);
     }
 }
 

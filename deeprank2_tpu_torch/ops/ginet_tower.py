@@ -8,10 +8,13 @@ Per graph, with the towers fused on the weight side (``w1 [F, C1]``,
 
 runs in the CUDA kernels of ``csrc/ginet_tower.cu``: ``ginet_tower_fwd_kernel``
 (one thread block per graph, every intermediate in shared memory, only the
-``[G, C2]`` pooled sums written) and ``ginet_tower_bwd_kernel`` (recomputes
-h1 and h2 from the same resident adjacency and returns the weight gradients,
-summed over graphs in a fixed order). ``x``, the adjacency and the mask are
-batch data: their cotangents are zeros, as in the JAX package.
+``[G, C2]`` pooled sums written) and ``ginet_tower_bwd_kernel`` (a block per
+graph too, on a plan of its own that fits two or three graphs an SM: it
+recomputes h1 and h2 from the same resident adjacency, runs its node
+products on the tensor cores in the bf16 form and every other product in
+register tiles, and returns the weight gradients, summed over graphs in a
+fixed order). ``x``, the adjacency and the mask are batch data: their cotangents
+are zeros, as in the JAX package.
 
 ``compute_dtype=torch.bfloat16`` selects the single-pass bf16 form of both
 kernels (the JAX kernels with ``compute_dtype=bfloat16``): every matmul
@@ -79,12 +82,37 @@ def smem_bytes(nodes: int, feat: int, c1: int, c2: int) -> int:
     return 4 * floats
 
 
+def bwd_smem_bytes(nodes: int, feat: int, c1: int, c2: int, elem_bytes: int = 4) -> int:
+    """Shared memory of one block of the backward kernel (the plan of
+    ``csrc/ginet_tower.cu:backward::plan``; ``elem_bytes`` 4 in the f32 form,
+    2 in the bf16 form): nodes, features and channels padded to 16; the
+    adjacency's bit rows ``[N, words]``, the mask's bits ``[words]``, the
+    signs of h2 ``[c2p, words]`` (uint32) and dpooled ``[c2p]`` (f32); then,
+    of ``elem_bytes`` each, w1 ``[kx, ldw1]``, w2 ``[c1p, ldw2]`` and the
+    slabs ``[rows, ldp]`` and twice ``[rows, ldh]``, each row padded to an
+    odd number of 16-byte units and each part to 16 bytes."""
+
+    def r16(v: int) -> int:
+        return (v + 15) // 16 * 16
+
+    def row(cols: int) -> int:
+        units = (cols * elem_bytes + 15) // 16
+        return (units if units % 2 else units + 1) * 16
+
+    rows, kx, c1p, c2p, words = r16(nodes), r16(feat), r16(c1), r16(c2), (nodes + 31) // 32
+    parts = (4 * nodes * words, 4 * words, 4 * c2p * words, 4 * c2p, kx * row(c1p), c1p * row(c2p), rows * row(max(c2p, kx)), rows * row(c1p), rows * row(c1p))
+    return sum(r16(b) for b in parts)
+
+
 def supports(num_graphs: int, nodes: int, feat: int = 38, c1: int = 32, c2: int = 64) -> bool:
-    """The kernels' shape rule: at least one graph, and one graph's tower in
-    the shared memory of one block, ``smem_bytes(nodes, feat, c1, c2) <=
-    SMEM_LIMIT``. At GINetDense's widths (F=38, C1=32, C2=64) that is
-    N <= 251 nodes a graph; there is no rule on the number of graphs."""
-    return num_graphs >= 1 and nodes >= 1 and smem_bytes(nodes, feat, c1, c2) <= SMEM_LIMIT
+    """The kernels' shape rule: at least one graph, and one graph's forward
+    and backward each in the shared memory of one block,
+    ``smem_bytes(nodes, feat, c1, c2) <= SMEM_LIMIT`` and the same of
+    ``bwd_smem_bytes`` (its f32 form, the larger). At GINetDense's widths
+    (F=38, C1=32, C2=64) that is N <= 251 nodes a graph, the forward's
+    limit; there is no rule on the number of graphs."""
+    fits = smem_bytes(nodes, feat, c1, c2) <= SMEM_LIMIT and bwd_smem_bytes(nodes, feat, c1, c2) <= SMEM_LIMIT
+    return num_graphs >= 1 and nodes >= 1 and fits
 
 
 def _lib() -> ctypes.CDLL:

@@ -5,8 +5,10 @@
 The CUDA kernel ``segment_sum_sorted_kernel`` (K7, ``csrc/segment_sum.cu``)
 computes ``out[v] = sum_{e: rows[e] = v} messages[e]`` over messages whose
 rows are ascending with the padding (``>= num_segments``) last, as the COO
-collate emits them: one warp per output row over its contiguous run of
-messages, no atomics.
+collate emits them, in two launches: the row offsets
+(:func:`segment_offsets_ref` is their plain version), then each output row's
+contiguous run of messages summed in edge order, lanes on feature quads, no
+atomics.
 
 The wrapper takes its plain PyTorch version
 (:func:`segment_sum_sorted_kernel_ref`) for tensors on the CPU, launches the
@@ -39,7 +41,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library(SOURCE)
     if lib.segment_sum_sorted_kernel.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.segment_sum_sorted_kernel.argtypes = [p, p, ll, i, i, p, p]  # msg, rows, E, V, F, out, stream
+        lib.segment_sum_sorted_kernel.argtypes = [p, p, ll, i, i, p, p, p]  # msg, rows, E, V, F, row_ptr, out, stream
         lib.segment_sum_sorted_kernel.restype = i
     return lib
 
@@ -48,11 +50,40 @@ def _lib() -> ctypes.CDLL:
 # K7: segment_sum_sorted_kernel (replaces deeprank2_tpu/ops/pallas_segment.py:_kernel)
 
 
+def segment_offsets_ref(rows: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's first launch: ``row_ptr
+    [num_segments + 1]`` (int64), ``row_ptr[v]`` the first ``e`` with
+    ``rows[e] >= v``, so that segment ``v``'s messages are ``row_ptr[v] ..
+    row_ptr[v + 1] - 1`` and the padding lies past ``row_ptr[num_segments]``."""
+    bounds = torch.arange(num_segments + 1, dtype=rows.dtype, device=rows.device)
+    return torch.searchsorted(rows, bounds, side="left")
+
+
 def segment_sum_sorted_kernel_ref(messages: torch.Tensor, rows: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`segment_sum_sorted_kernel`: an
-    ``index_add`` into a spare row that takes the out-of-range rows."""
-    out = messages.new_zeros((num_segments + 1, messages.shape[1]))
-    return out.index_add(0, rows.clamp(max=num_segments).long(), messages)[:num_segments]
+    """Plain PyTorch version of :func:`segment_sum_sorted_kernel`, through the
+    row offsets: message ``e`` goes to the segment whose run holds it (the
+    last ``v`` with ``row_ptr[v] <= e``), the messages outside every run (the
+    padding) to a spare row, by an ``index_add``."""
+    row_ptr = segment_offsets_ref(rows, num_segments)
+    edges = torch.arange(messages.shape[0], dtype=torch.int64, device=messages.device)
+    ids = (torch.searchsorted(row_ptr, edges, right=True) - 1).clamp(-1, num_segments)
+    out = messages.new_zeros((num_segments + 2, messages.shape[1]))
+    return out.index_add(0, ids + 1, messages)[1 : num_segments + 1]
+
+
+def segment_sum_order_ref(messages: torch.Tensor, rows: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The kernel's f32 sums in its order: step ``k`` adds the ``k``-th
+    message of every segment's run to the running sums (from +0), so each
+    output row is the ascending f32 sum over its run, as the kernel adds it.
+    A loop of as many steps as the longest run (the card tests hold the
+    kernel to it bit for bit)."""
+    row_ptr = segment_offsets_ref(rows, num_segments)
+    beg, lengths = row_ptr[:-1], row_ptr.diff()
+    out = messages.new_zeros((num_segments, messages.shape[1]))
+    for k in range(int(lengths.max())):
+        live = lengths > k
+        out[live] += messages[beg[live] + k]
+    return out
 
 
 def segment_sum_sorted_kernel(messages: torch.Tensor, rows: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -73,9 +104,10 @@ def segment_sum_sorted_kernel(messages: torch.Tensor, rows: torch.Tensor, num_se
         return segment_sum_sorted_kernel_ref(messages, rows, num_segments)
     lib = _lib()
     with torch.cuda.device(dev):
+        row_ptr = torch.empty(num_segments + 1, dtype=torch.int64, device=dev)
         out = torch.empty((num_segments, f), dtype=torch.float32, device=dev)
         code = lib.segment_sum_sorted_kernel(
-            messages.data_ptr(), rows.data_ptr(), e, num_segments, f, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream
+            messages.data_ptr(), rows.data_ptr(), e, num_segments, f, row_ptr.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream
         )
         _build.check(lib, code, "segment_sum_sorted_kernel")
     launches["segment_sum_sorted_kernel"] += 1

@@ -379,6 +379,52 @@ def test_segment_kernel_matches_plain_version(cuda, num_edges, num_segments, f) 
     assert ss.launches == {"segment_sum_sorted_kernel": 2}
 
 
+def _segment_case(case, n, f, dev):
+    """Ascending rows (padding at n + 7 or n + 3) and messages of the K7
+    cases; "misaligned" messages start one float past a 16-byte boundary."""
+    gen = torch.Generator().manual_seed(f)
+    if case == "no_edges":
+        rows = torch.zeros(0, dtype=torch.int32)
+    elif case == "all_padding":
+        rows = torch.full((700,), n + 3, dtype=torch.int32)
+    elif case == "long_run":  # segment 17 has 10^4 messages and more
+        rows = torch.sort(torch.cat([torch.randint(0, n, (3000,), generator=gen), torch.full((10_000,), 17)])).values.to(torch.int32)
+    else:  # segments 100-149 empty, 50 padding entries
+        rows = torch.sort(torch.randint(0, n, (4000,), generator=gen)).values.to(torch.int32)
+        rows[(rows >= 100) & (rows < 150)] = 99
+        rows = torch.sort(rows).values
+        rows[-50:] = n + 7
+    e = rows.numel()
+    store = torch.randn(e * f + 1, generator=gen).to(dev)
+    msgs = (store[1:] if case == "misaligned" else store[:-1]).view(e, f)
+    return msgs, rows.to(dev)
+
+
+# F = 1 and 5 (a lane on a feature), 16 and 32 (lanes on feature quads, 8 and
+# 4 rows a warp), 38 (not a multiple of 4) and 64; a run of 10^4 messages;
+# only padding; no messages; messages off their 16-byte alignment. Each
+# output row is the ascending f32 sum over its run (segment_sum_order_ref)
+# bit for bit, two calls give the same bits, and empty segments are +0.
+@pytest.mark.parametrize("f", [1, 5, 16, 32, 38, 64])
+@pytest.mark.parametrize("case", ["ragged", "long_run", "all_padding", "no_edges", "misaligned"])
+def test_segment_kernel_is_its_order_loop_bit_for_bit(cuda, case, f) -> None:
+    n = 300
+    msgs, rows = _segment_case(case, n, f, cuda)
+    assert (msgs.data_ptr() % 16 != 0) == (case == "misaligned")
+    ss.reset_launches()
+    out = ss.segment_sum_sorted_kernel(msgs, rows, n)
+    again = ss.segment_sum_sorted_kernel(msgs, rows, n)
+    assert ss.launches == {"segment_sum_sorted_kernel": 2}
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(out.view(torch.int32), ss.segment_sum_order_ref(msgs, rows, n).view(torch.int32))
+    counts = torch.bincount(rows[rows < n].long(), minlength=n)
+    assert not out.view(torch.int32)[counts == 0].any()
+    # against the plain version (index_add): f32 sums of up to 10^4 terms in
+    # another order, atol 1e-6 of the largest sum of |terms|
+    scale = ss.segment_sum_sorted_kernel_ref(msgs.abs(), rows, n).max().item() if rows.numel() else 0.0
+    torch.testing.assert_close(out, ss.segment_sum_sorted_kernel_ref(msgs, rows, n), rtol=1e-5, atol=max(1e-5, 1e-6 * scale))
+
+
 # (model, entries, edge features, K7 launches in one forward)
 COO_MODELS = {
     "ginet_nocluster": (GINetNoCluster, lambda: synthetic_entries(6, 40, 38, 6, seed=2), 6, 4),
@@ -459,16 +505,23 @@ def test_tower_kernels_match_plain_versions(cuda, g, n, f, c1, c2) -> None:
     assert ds.launches["tower_fwd_kernel"] == ds.launches["tower_bwd_kernel"] == 1
 
 
-@pytest.mark.parametrize("n", [252, 2048])
+# supports() holds both kernels' plans; at these widths the forward's ends at
+# N = 251 and the backward's (its own plan, bwd_smem_bytes) at N = 352
+@pytest.mark.parametrize("n", [252, 353, 2048])
 def test_tower_kernels_raise_beyond_the_shape_rule(cuda, n) -> None:
     assert not gt.supports(1, n)
     adj, mask, x, x_t, w1, w2, dp = _tower_operands(1, n, 38, 32, 64, cuda)
     with pytest.raises(RuntimeError, match="CUDA error"):
         gt.ginet_tower_fwd_kernel(w1, w2, x, adj, mask)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        gt.ginet_tower_bwd_kernel(w1, w2, x, adj, mask, dp)
-    with pytest.raises(RuntimeError, match="CUDA error"):
         ds.tower_fwd_kernel(adj, x_t, mask, w1, w2)
+    if gt.bwd_smem_bytes(n, 38, 32, 64) > gt.SMEM_LIMIT:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            gt.ginet_tower_bwd_kernel(w1, w2, x, adj, mask, dp)
+    else:
+        got, want = gt.ginet_tower_bwd_kernel(w1, w2, x, adj, mask, dp), gt.ginet_tower_bwd_kernel_ref(w1, w2, x, adj, mask, dp)
+        for a, b, scale in zip(got, want, gt.dw_error_scale(w1, w2, x, adj, mask, dp)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * scale.max().item())
 
 
 def test_dense_tower_train_step_matches_cpu_and_counts_launches(cuda) -> None:
@@ -1032,6 +1085,48 @@ def test_bf16_tower_kernels_match_plain_versions(cuda, g, n, f, c1, c2) -> None:
         _flip_close(a.float(), b.float(), scale, f"K9b {what}")
     forms = {k: ds.launches_by_dtype[k] for k in ("tower_fwd_kernel", "tower_bwd_kernel")}
     assert forms == {k: {"int8/float32": 0, "int8/bfloat16": 1} for k in forms}
+
+
+def _ragged_tower_operands(g, n, f, c1, c2, dev, seed=0):
+    """As _tower_operands, for any N >= 1: graph i keeps its first n - (3 i)
+    mod (n // 2 + 1) nodes."""
+    gen = torch.Generator().manual_seed(seed)
+    adj = torch.rand(g, n, n, generator=gen) < 0.05
+    adj = adj | adj.transpose(1, 2)
+    mask = torch.ones(g, n, dtype=torch.bool)
+    for i in range(g):
+        mask[i, n - (3 * i) % (n // 2 + 1) :] = False
+    adj &= mask[:, :, None] & mask[:, None, :]
+    x = torch.randn(g, n, f, generator=gen)
+    w1, w2 = torch.randn(f, c1, generator=gen) * 0.2, torch.randn(c1, c2, generator=gen) * 0.2
+    dpooled = torch.randn(g, c2, generator=gen)
+    return [t.to(dev) for t in (adj.to(torch.int8), mask, x, w1, w2, dpooled)]
+
+
+# K8b in both forms at N = 1, 17 (padded to the 16-node tiles), 160 and the
+# largest N supports() admits at these widths (384, the backward plan's own
+# limit), C1 = 20 and C2 = 36 (padded to 32 and 48); ragged masks. The f32
+# form at the f32-order bound (dw_error_scale), the bf16 form at _flip_close;
+# two calls give the same bits (no atomics).
+@pytest.mark.parametrize("compute_dtype", [None, BF16])
+@pytest.mark.parametrize(("g", "n"), [(9, 1), (9, 17), (12, 160), (3, "max")])
+def test_tower_bwd_kernel_in_both_forms_matches_plain_version(cuda, compute_dtype, g, n) -> None:
+    f, c1, c2 = 38, 20, 36
+    if n == "max":
+        n = max(k for k in range(1, 1025) if gt.supports(1, k, f, c1, c2))
+        assert n == 384 and gt.bwd_smem_bytes(n + 1, f, c1, c2) > gt.SMEM_LIMIT
+    adj, mask, x, w1, w2, dp = _ragged_tower_operands(g, n, f, c1, c2, cuda)
+    args = (w1, w2, x, adj, mask, dp, compute_dtype)
+    gt.reset_launches()
+    got, again = gt.ginet_tower_bwd_kernel(*args), gt.ginet_tower_bwd_kernel(*args)
+    assert gt.launches["ginet_tower_bwd_kernel"] == 2
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for what, a, b, scale in zip(("dw1", "dw2"), got, gt.ginet_tower_bwd_kernel_ref(*args), gt.dw_error_scale(*args)):
+        if compute_dtype is None:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * scale.max().item(), msg=what)
+        else:
+            _flip_close(a, b, scale, f"K8b {what}")
 
 
 def test_dense_tower_bf16_train_step_matches_cpu_and_counts_launches(cuda) -> None:

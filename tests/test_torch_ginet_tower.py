@@ -163,6 +163,39 @@ def test_supports_is_the_shared_memory_rule(g, n, ok) -> None:
     assert gt.smem_bytes(160, 38, 32, 64) == 4 * (2 * 160 * 68 + 2 * 160 * 36 + 38 * 32 + 32 * 68 + 160 + 64 + 160 * 5)
 
 
+# the backward's own plan (csrc/ginet_tower.cu:backward::plan): N, F, C1, C2
+# padded to 16 (160, 48, 32, 64), each row an odd number of 16-byte units
+# (f32: 36 and 68 floats; bf16: 40 and 72), bits [160, 5], the mask's bits
+# [5] and signs [64, 5] as uint32, dpooled [64] as f32, then w1 [48, ld(C1)],
+# w2 [32, ld(C2)], the slab [160, ld(C2)] and two [160, ld(C1)]; N = F = C1 =
+# C2 = 1 pads all to 16 (rows of 5 units, bits, mask and signs one word,
+# each part 16-byte aligned)
+@pytest.mark.parametrize(
+    ("shape", "elem", "want", "graphs_an_sm"),
+    [
+        ((160, 38, 32, 64), 4, 4 * (160 * 5 + 8 + 64 * 5 + 64) + 4 * (48 * 36 + 32 * 68 + 160 * 68 + 2 * 160 * 36), 2),
+        ((160, 38, 32, 64), 2, 4 * (160 * 5 + 8 + 64 * 5 + 64) + 2 * (48 * 40 + 32 * 72 + 160 * 72 + 2 * 160 * 40), 3),
+        ((1, 1, 1, 1), 4, 16 + 16 + 64 + 64 + 5 * 16 * 80, None),
+    ],
+)
+def test_bwd_smem_bytes_mirrors_the_backward_plan(shape, elem, want, graphs_an_sm) -> None:
+    got = gt.bwd_smem_bytes(*shape, elem)
+    assert got == want
+    if graphs_an_sm is not None:  # an H100 SM: 233,472 bytes of shared memory, 1 KB reserved a block
+        assert 233_472 // (got + 1024) == graphs_an_sm
+
+
+# supports() holds both plans: the forward binds at the bench widths and
+# at a wide F, the backward at narrow channels
+@pytest.mark.parametrize(("f", "c1", "c2", "n_max"), [(38, 32, 64, 251), (38, 20, 36, 384), (200, 32, 64, 102)])
+def test_supports_holds_the_forward_and_the_backward_plan(f, c1, c2, n_max) -> None:
+    assert max(n for n in range(1, 600) if gt.supports(1, n, f, c1, c2)) == n_max
+    fwd = max(n for n in range(1, 600) if gt.smem_bytes(n, f, c1, c2) <= gt.SMEM_LIMIT)
+    bwd = max(n for n in range(1, 600) if gt.bwd_smem_bytes(n, f, c1, c2) <= gt.SMEM_LIMIT)
+    assert n_max == min(fwd, bwd)
+    assert gt.bwd_smem_bytes(n_max, f, c1, c2, 2) < gt.bwd_smem_bytes(n_max, f, c1, c2)  # the bf16 form fits wherever the f32 form does
+
+
 def test_wrappers_check_their_operands() -> None:
     w1, w2, x, adj, mask = _torch_args(*_inputs(G=2, N=16))
     with pytest.raises(TypeError):

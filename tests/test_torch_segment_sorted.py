@@ -89,6 +89,65 @@ def test_kernel_ref_matches_the_oracle_and_gives_exact_zeros_on_empty_segments(n
     assert not got[4:9].any()
 
 
+def _offsets_case(case, num_segments=40, feat=5, seed=11):
+    """Ascending rows of the row-offset cases: padding past the last real
+    row, empty segments, no messages, one long run, only padding."""
+    rng = np.random.default_rng(seed)
+    if case == "no_edges":
+        rows = np.zeros(0, np.int32)
+    elif case == "all_padding":
+        rows = np.full(30, num_segments + 3, np.int32)
+    elif case == "long_run":
+        rows = np.sort(np.concatenate([rng.integers(0, num_segments, 60), np.full(2000, 17)])).astype(np.int32)
+    else:  # padded, with segments 4-8 and the last five empty
+        rows = np.sort(rng.integers(0, num_segments - 5, 300)).astype(np.int32)
+        rows[(rows > 3) & (rows < 9)] = 2
+        rows = np.sort(rows)
+        rows[-25:] = num_segments + 7
+    msgs = rng.normal(size=(rows.shape[0], feat)).astype(np.float32)
+    return msgs, rows
+
+
+OFFSET_CASES = ["padded", "no_edges", "long_run", "all_padding"]
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES)
+def test_row_offsets_match_the_jax_wrappers_searchsorted(case) -> None:
+    num_segments = 40
+    _, rows = _offsets_case(case, num_segments)
+    # _segment_sum_sorted_impl's edge_bounds, at row granularity
+    want = np.asarray(jnp.searchsorted(jnp.asarray(rows), jnp.arange(num_segments + 1, dtype=jnp.int32), side="left"))
+    got = ss.segment_offsets_ref(torch.from_numpy(rows), num_segments)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    # every segment's run holds exactly its messages; the padding lies past the last
+    counts = np.bincount(rows[rows < num_segments], minlength=num_segments)
+    np.testing.assert_array_equal(np.diff(got.numpy()), counts)
+    assert (rows[got[-1].item() :] >= num_segments).all()
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES)
+def test_kernel_ref_through_the_offsets_matches_the_jax_kernel(case) -> None:
+    num_segments = 40
+    msgs, rows = _offsets_case(case, num_segments)
+    cot = np.random.default_rng(12).normal(size=(num_segments, msgs.shape[1])).astype(np.float32)
+    if rows.size:
+        want, _ = _jax_kernel_vjp(msgs, rows, num_segments, cot)
+    else:  # the interpreted Pallas kernel takes no empty grid: JAX's segment op, its XLA route
+        want = np.asarray(jseg.segment_sum(jnp.asarray(msgs), jnp.asarray(rows), num_segments, indices_sorted=True))
+    m, r = torch.from_numpy(msgs), torch.from_numpy(rows)
+    ref = ss.segment_sum_sorted_kernel_ref(m, r, num_segments)
+    np.testing.assert_allclose(ref.numpy(), want, **KERNEL_TOL)
+    # f32 sums of up to 2000 terms against float64: atol 1e-6 of the largest
+    # sum of |terms|, the scale of their rounding in any order
+    scale = _oracle(np.abs(msgs), rows, num_segments).max(initial=0.0)
+    np.testing.assert_allclose(ref.numpy(), _oracle(msgs, rows, num_segments), rtol=1e-6, atol=1e-6 * max(scale, 1.0))
+    # the kernel's order loop: the same sums, each in ascending edge order
+    np.testing.assert_allclose(ss.segment_sum_order_ref(m, r, num_segments).numpy(), ref.numpy(), rtol=1e-6, atol=1e-6 * max(scale, 1.0))
+    empty = np.bincount(rows[rows < num_segments], minlength=num_segments) == 0
+    assert not ref[torch.from_numpy(empty)].any()
+
+
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take() -> None:
     msgs, rows, _ = _sorted_case(100, 10, 8, seed=3, pad=0)
     m, r = torch.from_numpy(msgs), torch.from_numpy(rows)
