@@ -144,8 +144,9 @@ Phases, each printing one JSON line:
    ginet_tower_fwd_kernel and ginet_tower_bwd_kernel (K8f/K8b, batched
    layout) and tower_fwd_kernel and tower_bwd_kernel (K9f/K9b, flat layout),
    with the fused weights of a seeded GINetDense(38, 2, 6), at the bench
-   batch, at the ragged batch (G=7, N=96) and at the largest N the shape rule
-   admits (ginet_tower.supports: 251), directly and through their autograd
+   batch, at the ragged batches (G=9, N=33; G=7, N=96) and at the largest N
+   each family's shape rule admits (ginet_tower.supports: 352 for K8,
+   diag_spmm.tower_supports: 251 for K9), directly and through their autograd
    Functions: pooled and h1 at rtol=atol=1e-5; dw1, dw2, t1 and t2 (t1
    cancels terms far larger than itself) at rtol 1e-5 and an atol of DW_TOL
    times the sum of their products' absolute values, at least 1e-5; the sign
@@ -710,37 +711,6 @@ def run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps,
     }
 
 
-class Timer:
-    """Median CUDA-event time of one call, with the L2 cache flushed before
-    each call (the 50 MB L2 would otherwise hold much of a call's inputs).
-    The flush reads a 128 MB buffer, so that the L2 holds clean lines: a
-    flush by writing would leave ~50 MB of dirty lines for the timed call to
-    write back."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush = torch.ones(32 * 2**20, dtype=torch.float32, device="cuda")
-        self.sink = torch.empty((), dtype=torch.float32, device="cuda")
-
-    def ms(self, fn, reps: int = 25, flush: bool = True) -> float:
-        """``flush=False``: calls back to back, each finding the L2 as the
-        previous call left it (warm)."""
-        torch = self.torch
-        fn()
-        torch.cuda.synchronize()
-        events = []
-        for _ in range(reps):
-            if flush:
-                torch.sum(self.flush, dim=0, out=self.sink)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            events.append((start, end))
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
 def bound(in_bytes, out_bytes, flop, peak, mma_flop=0) -> dict:
     """The least time of a call: its bytes over the memory rate, or its
     operations, whichever takes longer. ``flop`` counts at the f32 rate
@@ -750,24 +720,6 @@ def bound(in_bytes, out_bytes, flop, peak, mma_flop=0) -> dict:
     bw, f32, bf16 = peak
     t_bytes, t_ops = (in_bytes + out_bytes) / bw, max((flop - mma_flop) / f32, mma_flop / bf16)
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": in_bytes + out_bytes}
-
-
-def launch_ms(torch, timer, fn, launches, reps: int = 10) -> dict:
-    """The device time of each launch of a call that launches several
-    kernels, per call, from the profiler (each call after an L2 flush, as
-    Timer.ms times it): ``launches`` maps a key to a substring of one
-    kernel's name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            torch.sum(timer.flush, dim=0, out=timer.sink)
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
-    return {key: sum(e.self_device_time_total for e in events if name in e.key) / reps / 1e3 for key, name in launches.items()}
 
 
 def time_diag_calls(torch, ds, timer, path, adj, mask, specs, peak, compute_dtype=None) -> list:
@@ -856,7 +808,9 @@ def mma_floor(torch, ds, kernel, adj_dtype, act, flop_dense, peak) -> dict:
 
 def time_slot_calls(torch, sp, timer, path, mask_row, specs, peak) -> list:
     """Kernel, plain-version and library times of the slot kernels at the
-    clustered path's activation width, with each call's byte bound."""
+    clustered path's activation width, with each call's byte bound; the
+    kernel's and the library call's device times too (``device_ms``,
+    ``library_device_ms``: the profiler's, without the host's launch)."""
     v = mask_row.shape[1]
     calls = []
     for kernel, slot, f in specs:
@@ -864,11 +818,12 @@ def time_slot_calls(torch, sp, timer, path, mask_row, specs, peak) -> list:
         h = h * mask_row
         pooled = sp.slot_fwd_kernel_ref(h, slot)
         g = cot[:, : v // slot].contiguous()
-        library_ms = None
+        library = {"library_ms": None}
         if kernel == "slot_fwd_kernel":
             run = lambda h=h, slot=slot: sp.slot_fwd_kernel(h, slot)  # noqa: E731
             plain = lambda h=h, slot=slot: sp.slot_fwd_kernel_ref(h, slot)  # noqa: E731
-            library_ms = timer.ms(lambda h=h, slot=slot: h.view(f, v // slot, slot).amax(2))
+            amax = lambda h=h, slot=slot: h.view(f, v // slot, slot).amax(2)  # noqa: E731
+            library = {"library_ms": timer.ms(amax), "library_device_ms": timer.launch_ms(amax, {"ms": ""})["ms"]}
             in_bytes, out_bytes, ops = 4 * f * v, 4 * f * v // slot, f * v
         else:
             run = lambda h=h, pooled=pooled, g=g, slot=slot: sp.slot_bwd_kernel(h, mask_row, pooled, g, slot)  # noqa: E731
@@ -882,8 +837,9 @@ def time_slot_calls(torch, sp, timer, path, mask_row, specs, peak) -> list:
                 "shape": [f, v],
                 "F": f,
                 "ms": timer.ms(run),
+                **timer.launch_ms(run, {"device_ms": ""}),
                 "plain_ms": timer.ms(plain),
-                "library_ms": library_ms,
+                **library,
                 **bound(in_bytes, out_bytes, ops, peak),
             }
         )
@@ -1249,7 +1205,7 @@ def time_segment_calls(torch, ss, timer, rows_by_name, peak) -> list:
                 "F": f,
                 "per_step": per_step,
                 "ms": timer.ms(lambda msgs=msgs, rows=rows, n=n: ss.segment_sum_sorted_kernel(msgs, rows, n)),
-                **launch_ms(torch, timer, lambda msgs=msgs, rows=rows, n=n: ss.segment_sum_sorted_kernel(msgs, rows, n), {"offsets_ms": "row_offsets", "sum_ms": "sum_rows"}),
+                **timer.launch_ms(lambda msgs=msgs, rows=rows, n=n: ss.segment_sum_sorted_kernel(msgs, rows, n), {"offsets_ms": "row_offsets", "sum_ms": "sum_rows"}),
                 "plain_ms": timer.ms(lambda msgs=msgs, rows=rows, n=n: ss.segment_sum_sorted_kernel_ref(msgs, rows, n)),
                 "library_ms": timer.ms(lambda buf=buf, ids=ids, msgs=msgs: buf.index_add_(0, ids, msgs)),
                 **bound((4 * f + 4) * valid, 4 * f * n, f * valid, peak),
@@ -1431,8 +1387,10 @@ def check_tower_kernels(torch, gt, ds, checks, shapes, w1, w2, dev) -> None:
     batched layout, K9f/K9b (diag_spmm.py) on the flat one. pooled and h1
     within TOL; dw1/dw2 and t1/t2 within rtol 1e-5 and DW_TOL times the sum
     of their products' absolute values (at least TOL's atol); the sign
-    exactly wherever |h2| is above 1e-6 of its largest value."""
-    for tag, b in shapes:
+    exactly wherever |h2| is above 1e-6 of its largest value. ``shapes``
+    maps each family ("batched": K8, "flat": K9) to its batches, each
+    family's largest at its own shape rule."""
+    for tag, b in shapes["batched"]:
         g = b.x.shape[0]
         gen = torch.Generator(device=dev).manual_seed(len(checks.rows))
         dp = torch.randn(g, w2.shape[1], generator=gen, device=dev)
@@ -1451,6 +1409,10 @@ def check_tower_kernels(torch, gt, ds, checks, shapes, w1, w2, dev) -> None:
             checks.close("ginet_tower_bwd_kernel", f"{tag} direct {what}", got_d, want, tol)
             checks.close("ginet_tower_bwd_kernel", f"{tag} ginet_tower_pooled vjp {what}", got_f, want, tol)
             checks.rows[-1]["atol"] = tol["atol"]
+        del direct, outs
+    for tag, b in shapes["flat"]:
+        gen = torch.Generator(device=dev).manual_seed(len(checks.rows))
+        dp = torch.randn(b.x.shape[0], w2.shape[1], generator=gen, device=dev)
         fargs = (b.adj_i8, b.x_t, b.node_mask, w1, w2)
         h1, sign, pooled = ds.tower_fwd_kernel(*fargs)
         h1_r, sign_r, pooled_r = ds.tower_fwd_kernel_ref(*fargs)
@@ -1476,7 +1438,7 @@ def check_tower_kernels(torch, gt, ds, checks, shapes, w1, w2, dev) -> None:
         checks.close("tower_fwd_kernel", f"{tag} tower_pooled fwd", outs[0][0], outs[1][0], TOL)
         for what, got, want in zip(("dw1", "dw2"), outs[0][1:], outs[1][1:]):
             checks.close("tower_bwd_kernel", f"{tag} tower_pooled vjp {what}", got, want, CROSS_TOL)
-        del direct, outs, h1, sign, pooled, h1_r, sign_r, pooled_r, h2
+        del outs, h1, sign, pooled, h1_r, sign_r, pooled_r, h2
     sync(torch, dev)
 
 
@@ -1491,8 +1453,9 @@ def time_tower_calls(torch, gt, ds, timer, b, w1, w2, peak, compute_dtype=None) 
     sums) at the bf16 tensor-core rate. No single PyTorch call computes any
     of them. The bf16 form (``compute_dtype``) reads the same f32 x and
     weights (K9b writes t2/t1 at 2 bytes), and is timed beside its f32 form
-    (``f32_form_ms``) and the flat route's bf16 K1/K2. K8b's two launches
-    also apart (``partials_ms``, ``sum_ms``)."""
+    (``f32_form_ms``) and the flat route's bf16 K1/K2. Each call's device
+    time from the profiler too (``device_ms``), and K8b's two launches apart
+    (``partials_ms``, ``sum_ms``)."""
     cd = compute_dtype
     act = ds.activation_dtype(cd)
     tb = torch.tensor([], dtype=act).element_size()
@@ -1541,7 +1504,7 @@ def time_tower_calls(torch, gt, ds, timer, b, w1, w2, peak, compute_dtype=None) 
             "shape": [g, n, n],
             "F": f,
             "ms": timer.ms(run),
-            **({} if kernel != "ginet_tower_bwd_kernel" else launch_ms(torch, timer, run, {"partials_ms": "ginet_tower_bwd_graph", "sum_ms": "sum_partials"})),
+            **timer.launch_ms(run, {"device_ms": "", **({"partials_ms": "ginet_tower_bwd_graph", "sum_ms": "sum_partials"} if kernel == "ginet_tower_bwd_kernel" else {})}),
             **({} if cd is None else {"f32_form_ms": timer.ms(lambda run=run: run(None))}),
             "plain_ms": timer.ms(plain),
             "library_ms": None,
@@ -1656,6 +1619,7 @@ def kernels_line(calls, path_launches, errs, path_forms, form_errs, form_calls=(
                 "max_abs_err": errs[name],
                 "per": "one train step of each path: " + ", ".join(f"{c['path']} {c['mode']} F={c['F']} x{c.get('per_step', 1)}" for c in mine),
                 "ms": total(mine, "ms"),
+                **({"device_ms": total(mine, "device_ms")} if mine and all("device_ms" in c for c in mine) else {}),
                 "plain_ms": total(mine, "plain_ms"),
                 "bound_ms": total(mine, "bound_ms"),
                 "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in mine) else "operations",
@@ -1671,7 +1635,7 @@ def kernels_line(calls, path_launches, errs, path_forms, form_errs, form_calls=(
                                 "launches": sum(launches.get(f"{name}[{form}]", 0) for launches in path_forms.values()),
                                 "max_abs_err": form_errs.get((name, form)),
                                 "calls": [
-                                    {k: c[k] for k in ("path", "mode", "F", "per_step", "body", "ms", "offsets_ms", "partials_ms", "sum_ms", "f32_form_ms", "plain_ms", "flat_route_ms", "bound_ms", "bound_by", "library_ms", "library_form") if k in c}
+                                    {k: c[k] for k in ("path", "mode", "F", "per_step", "body", "ms", "device_ms", "offsets_ms", "partials_ms", "sum_ms", "f32_form_ms", "plain_ms", "flat_route_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms", "library_form") if k in c}
                                     for c in by_form.get(form, [])
                                 ],
                             }
@@ -1848,6 +1812,7 @@ def sgat_foutnet_phases(torch, dev, card, counters, checks, peak, record, c_entr
     from deeprank2_tpu_torch.ops import slotpool as sp
     from deeprank2_tpu_torch.ops.batch import collate_graphs, collate_graphs_blocksparse_clustered, collate_graphs_diag_clustered
     from deeprank2_tpu_torch.ops.synthetic import clustered_entry, ppi_clustered_entries
+    from deeprank2_tpu_torch.tools.timing import Timer
 
     # 20. the weighted kernel forms against their plain versions
     t0 = time.perf_counter()
@@ -1889,7 +1854,7 @@ def sgat_foutnet_phases(torch, dev, card, counters, checks, peak, record, c_entr
     del ragged_w, small_w, adj336, mask336
 
     # 21. their times, and those of the FoutNet paths' unweighted calls
-    timer = Timer(torch)
+    timer = Timer()
     bcsr_specs = [("structure", 16, 2), ("structure_p", 32, 2)]
     calls = time_bcsr_calls(torch, bs, timer, "sgat_bcsr", sw_batch, bcsr_specs, peak)
     calls += time_bcsr_calls(torch, bs, timer, "foutnet_bcsr", cb_batch, bcsr_specs, peak)
@@ -2009,6 +1974,7 @@ def bf16_phases(torch, dev, card, counters, checks, peak, record, batches, undir
     from deeprank2_tpu_torch.ops.batch import collate_graphs_blocked
     from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
     from deeprank2_tpu_torch.ops.synthetic import geometric_entry
+    from deeprank2_tpu_torch.tools.timing import Timer
 
     bf = torch.bfloat16
     b = types.SimpleNamespace(**batches)
@@ -2063,7 +2029,7 @@ def bf16_phases(torch, dev, card, counters, checks, peak, record, batches, undir
     del adj_big, adj_i8_big, mask_i8_big, adj_bf_big, mask_bf_big, ragged_bl, empty_bl
 
     # 28. their times at the bf16 paths' calls (and the forms no path runs), beside the f32 forms
-    timer = Timer(torch)
+    timer = Timer()
     calls = time_diag_calls(torch, ds, timer, "dense_bf16", b.dense_batch.adj_i8, b.dense_batch.node_mask, STEP_CALLS["dense"], peak, bf)
     calls += time_bcsr_calls(torch, bs, timer, "bcsr_bf16", b.b_batch, BCSR_STEP_CALLS["bcsr"], peak, bf)
     calls += time_bcsr_calls(torch, bs, timer, "clustered_bcsr_bf16", b.cb_batch, BCSR_STEP_CALLS["clustered_bcsr"], peak, bf)
@@ -2127,10 +2093,11 @@ def check_bf16_tower_kernels(torch, gt, ds, checks, shapes, w1, w2, dev) -> None
     Σ|terms| (the same output on the absolute operands, or dw_error_scale /
     tower_bwd_error_scale) except a counted share of bf16 flips; t2 and t1
     must come back as bf16; K9f's sign may differ only where |h2| is within
-    FLIP x Σ|terms| of zero, on at most FLIP_SHARE of the entries."""
+    FLIP x Σ|terms| of zero, on at most FLIP_SHARE of the entries.
+    ``shapes`` as check_tower_kernels takes them."""
     bf = torch.bfloat16
     form = ds.form_name(torch.int8, bf)
-    for tag, b in shapes:
+    for tag, b in shapes["batched"]:
         g = b.x.shape[0]
         gen = torch.Generator(device=dev).manual_seed(len(checks.rows))
         dp = torch.randn(g, w2.shape[1], generator=gen, device=dev)
@@ -2147,6 +2114,10 @@ def check_bf16_tower_kernels(torch, gt, ds, checks, shapes, w1, w2, dev) -> None
         for what, got_d, got_f, want, scale in zip(("dw1", "dw2"), direct, grads, bwd_ref, scales):
             checks.close_flips("ginet_tower_bwd_kernel", f"{tag} direct {what}", got_d, want, scale, form)
             checks.close_flips("ginet_tower_bwd_kernel", f"{tag} ginet_tower_pooled vjp {what}", got_f, want, scale, form)
+        del direct, grads
+    for tag, b in shapes["flat"]:
+        gen = torch.Generator(device=dev).manual_seed(len(checks.rows))
+        dp = torch.randn(b.x.shape[0], w2.shape[1], generator=gen, device=dev)
         fargs = (b.adj_i8, b.x_t, b.node_mask, w1, w2)
         h1, sign, pooled = ds.tower_fwd_kernel(*fargs, bf)
         h1_r, sign_r, pooled_r = ds.tower_fwd_kernel_ref(*fargs, bf)
@@ -2179,14 +2150,14 @@ def check_bf16_tower_kernels(torch, gt, ds, checks, shapes, w1, w2, dev) -> None
         checks.close_flips("tower_fwd_kernel", f"{tag} tower_pooled fwd", out.detach(), pooled_r, pooled_s, form)
         for what, got, want, scale in zip(("dw1", "dw2"), grads, (b.x_t @ t1_r.T, h1_r @ t2_r.T), (b.x_t.abs() @ t1_r.abs().T, h1_r.abs() @ t2_r.abs().T)):
             checks.close_flips("tower_bwd_kernel", f"{tag} tower_pooled vjp {what}", got, want, scale, form)
-        del direct, grads, h1, sign, pooled, h1_r, sign_r, pooled_r, h1_s, pooled_s, h2, h2_s, t_ref
+        del grads, h1, sign, pooled, h1_r, sign_r, pooled_r, h1_s, pooled_s, h2, h2_s, t_ref
     sync(torch, dev)
 
 
 def bf16_tower_phases(torch, dev, card, counters, checks, peak, record, dense_batch, tower_shapes, loss_fn, real_edges) -> list:
     """Phases 33-36: the bf16 forms of K8f, K8b, K9f and K9b against their
-    plain versions (``tower_shapes``: the bench, ragged and largest-N
-    batches) and their times beside the f32 forms and the flat route's bf16
+    plain versions (``tower_shapes``: the bench, ragged N=33, ragged N=96
+    and each family's largest-N batches) and their times beside the f32 forms and the flat route's bf16
     K1/K2, then the dense_tower_bf16 path (GINetDense with
     compute_dtype=bfloat16 on the "pallas" tower: checked one step against
     the CPU, driven with the counters at 0, profiled) and the
@@ -2196,6 +2167,7 @@ def bf16_tower_phases(torch, dev, card, counters, checks, peak, record, dense_ba
     from deeprank2_tpu_torch.ops import diag_spmm as ds
     from deeprank2_tpu_torch.ops import ginet_tower as gt
     from deeprank2_tpu_torch.ops.optim import Adam
+    from deeprank2_tpu_torch.tools.timing import Timer
 
     bf = torch.bfloat16
     model = GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev, generator=torch.Generator().manual_seed(0))
@@ -2206,8 +2178,9 @@ def bf16_tower_phases(torch, dev, card, counters, checks, peak, record, dense_ba
     n_checks = len(checks.rows)
     counters.reset()
     check_bf16_tower_kernels(torch, gt, ds, checks, tower_shapes, w1, w2, dev)
-    forms, k = counters.read_forms(), 2 * len(tower_shapes)
-    want = {f"{kernel}[int8/bfloat16]": k for kernel in ("ginet_tower_fwd_kernel", "ginet_tower_bwd_kernel", "tower_fwd_kernel", "tower_bwd_kernel")}
+    forms, k_batched, k_flat = counters.read_forms(), 2 * len(tower_shapes["batched"]), 2 * len(tower_shapes["flat"])
+    want = {f"{kernel}[int8/bfloat16]": k_batched for kernel in ("ginet_tower_fwd_kernel", "ginet_tower_bwd_kernel")}
+    want.update({f"{kernel}[int8/bfloat16]": k_flat for kernel in ("tower_fwd_kernel", "tower_bwd_kernel")})
     if forms != want:
         msg = f"the bf16 tower checks launched {forms}, expected {want}"
         raise AssertionError(msg)
@@ -2215,7 +2188,7 @@ def bf16_tower_phases(torch, dev, card, counters, checks, peak, record, dense_ba
     emit({"phase": "bf16_tower_kernels_vs_plain", "tolerance": tolerance, "launches_by_form": forms, "checks": checks.rows[n_checks:]})
 
     # 34. their times beside the f32 forms and the flat route's bf16 K1/K2
-    timer = Timer(torch)
+    timer = Timer()
     calls = time_tower_calls(torch, gt, ds, timer, dense_batch, w1, w2, peak, bf)
     del timer
     emit({"phase": "bf16_tower_kernel_times", "card": card, "l2_flushed": True, "calls": calls})
@@ -2265,12 +2238,13 @@ def bf16_sgat_foutnet_phases(torch, dev, card, counters, peak, record, c_entries
     from deeprank2_tpu_torch.ops.batch import collate_graphs_blocksparse_clustered, collate_graphs_diag_clustered
     from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
     from deeprank2_tpu_torch.ops.synthetic import clustered_entry
+    from deeprank2_tpu_torch.tools.timing import Timer
 
     bf = torch.bfloat16
     steps = SGAT_FOUTNET_STEPS
 
     # 37. the paths' bf16 K1 and K5 calls, beside the f32 forms
-    timer = Timer(torch)
+    timer = Timer()
     calls = []
     for path, batch, full, pooled in (("sgat_diag_bf16", sd_batch, sd_batch.adj_w, sd_batch.adj_wp), ("foutnet_diag_bf16", c_batch, c_batch.adj_i8, c_batch.adj_p_i8)):
         calls += time_diag_calls(torch, ds, timer, path, full, batch.node_mask, [("diag_kernel", "plain", 16, 2)], peak, bf)
@@ -2390,6 +2364,7 @@ def main() -> int:
     from deeprank2_tpu_torch.ops.optim import Adam
     from deeprank2_tpu_torch.ops.pooling import community_pool
     from deeprank2_tpu_torch.ops.synthetic import clustered_entry, geometric_entry, ppi_clustered_entries, synthetic_entries
+    from deeprank2_tpu_torch.tools.timing import Timer
 
     # 1. device and build (one nvcc per source, all at once)
     card = card_line()
@@ -2454,7 +2429,7 @@ def main() -> int:
     )
     emit({"phase": "kernels_vs_plain", "tolerance": {"diag_kernel": TOL, "pool_bwd_kernel": TOL, "slot_fwd_kernel": EXACT, "slot_bwd_kernel": EXACT}, "checks": checks.rows})
     n_checks = len(checks.rows)
-    timer = Timer(torch)
+    timer = Timer()
     calls = time_diag_calls(torch, ds, timer, "dense", batch.adj_i8, batch.node_mask, STEP_CALLS["dense"], peak)
     calls += time_diag_calls(torch, ds, timer, "clustered", c_batch.adj_i8, c_batch.node_mask, STEP_CALLS["clustered"], peak)
     calls += time_diag_calls(torch, ds, timer, "clustered_pooled", c_batch.adj_p_i8, c_batch.pooled_mask, STEP_CALLS["clustered_pooled"], peak)
@@ -2573,7 +2548,7 @@ def main() -> int:
         "slot_bwd_kernel": EXACT,
     }
     emit({"phase": "bcsr_kernels_vs_plain", "tolerance": tolerance, "checks": checks.rows[n_checks:]})
-    timer = Timer(torch)
+    timer = Timer()
     bcsr_calls = time_bcsr_calls(torch, bs, timer, "bcsr", b_batch, BCSR_STEP_CALLS["bcsr"], peak)
     bcsr_calls += time_bcsr_calls(torch, bs, timer, "clustered_bcsr", cb_batch, BCSR_STEP_CALLS["clustered_bcsr"], peak)
     bcsr_calls += time_slot_calls(torch, sp, timer, "clustered_bcsr_slot", cb_mask_row, STEP_CALLS["clustered_bcsr_slot"], peak)
@@ -2651,7 +2626,7 @@ def main() -> int:
     )
     emit({"phase": "blocked_kernels_vs_plain", "tolerance": {"out, dxr, dxc": TOL, "order loop": EXACT, "dw_e": {"rtol": 1e-5, "atol": f"{DW_TOL} * max sum_e |e_attr| |g[row]|"}}, "checks": checks.rows[n_checks:]})
     del ragged_bl, padded_bl, empty_bl
-    timer = Timer(torch)
+    timer = Timer()
     blocked_calls = time_blocked_calls(torch, vn, timer, "blocked", bl_batch.structure, 32, 2, peak)
     del timer
     emit({"phase": "blocked_kernel_times", "card": card, "l2_flushed": True, "calls": blocked_calls})
@@ -2717,7 +2692,7 @@ def main() -> int:
         dev,
     )
     emit({"phase": "segment_kernel_vs_plain", "tolerance": {"segment_sum_sorted_kernel": TOL}, "checks": checks.rows[n_checks:]})
-    timer = Timer(torch)
+    timer = Timer()
     segment_calls = time_segment_calls(
         torch, ss, timer, {"coo": (coo_rows, v_coo), "coo_clustered": (cc_rows, v_cc), "coo_clustered_pooled": (pooled_rows, v_cc)}, peak
     )
@@ -2808,12 +2783,20 @@ def main() -> int:
     # 17. the fused tower kernels against their plain versions, and their times
     tower_model = GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev, generator=torch.Generator().manual_seed(0))
     w1, w2 = tower_weights(tower_model)
-    n_max = max(n for n in range(1, 1025) if gt.supports(1, n, BENCH["feat"]))
-    largest, _ = collate_graphs_dense(synthetic_entries(32, n_max - 15, BENCH["feat"], BENCH["edge_dim"], seed=9), pad_nodes=n_max, device=dev)
+    # each family's largest N: K8's (gt.supports) and K9's (ds.tower_supports)
+    n_max = {
+        "batched": max(n for n in range(1, 1025) if gt.supports(1, n, BENCH["feat"])),
+        "flat": max(n for n in range(1, 1025) if ds.tower_supports(1, n, BENCH["feat"])),
+    }
+    largest = {
+        family: collate_graphs_dense(synthetic_entries(32, n - 15, BENCH["feat"], BENCH["edge_dim"], seed=9), pad_nodes=n, device=dev)[0] for family, n in n_max.items()
+    }
+    # N = 33: off the 16-node tiles and the 32-node bit words, ragged graphs
+    odd, _ = collate_graphs_dense(ragged_entries(synthetic_entries, num_graphs=9, nodes=33), pad_nodes=33, device=dev)
+    common = [("bench G=512 N=160", dense_batch), ("ragged G=9 N=33", odd), ("ragged G=7 N=96", ragged)]
+    tower_shapes = {family: [*common, (f"largest supported G=32 N={n}", largest[family])] for family, n in n_max.items()}
     n_checks = len(checks.rows)
-    check_tower_kernels(
-        torch, gt, ds, checks, [("bench G=512 N=160", dense_batch), ("ragged G=7 N=96", ragged), (f"largest supported G=32 N={n_max}", largest)], w1, w2, dev
-    )
+    check_tower_kernels(torch, gt, ds, checks, tower_shapes, w1, w2, dev)
     emit(
         {
             "phase": "tower_kernels_vs_plain",
@@ -2822,8 +2805,7 @@ def main() -> int:
             "checks": checks.rows[n_checks:],
         }
     )
-    tower_shapes = [("bench G=512 N=160", dense_batch), ("ragged G=7 N=96", ragged), (f"largest supported G=32 N={n_max}", largest)]
-    timer = Timer(torch)
+    timer = Timer()
     tower_calls = time_tower_calls(torch, gt, ds, timer, dense_batch, w1, w2, peak)
     del timer
     emit({"phase": "tower_kernel_times", "card": card, "l2_flushed": True, "calls": tower_calls})
@@ -2876,7 +2858,7 @@ def main() -> int:
 
     # 33-36. the bf16 forms of the fused towers, the dense_tower_bf16 path and the dense_fused_tower_bf16 drive
     calls += bf16_tower_phases(torch, dev, card, counters, checks, peak, record, dense_batch, tower_shapes, loss_fn, real_edges)
-    del tower_shapes, largest, ragged
+    del tower_shapes, largest, common, odd, ragged
 
     # 37-41. FoutNet and sGAT in bf16 on the Diag and BCSR paths, and SGATDiag in bf16 on an f32 adjacency
     calls += bf16_sgat_foutnet_phases(torch, dev, card, counters, peak, record, c_entries, c_batch, sd_batch, c_entry, cb_batch, sw_batch)

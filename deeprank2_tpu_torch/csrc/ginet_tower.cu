@@ -34,16 +34,26 @@
 // (forward 0.5 us, backward 1.4 us), and only the aggregates stay at the f32
 // rate (1.8 and 3.6 us): both directions are bound by their bytes (7.7 us).
 //
-// Forward (K8f, tower_common.cuh:tower_fwd): one block of 512 threads per
-// graph; the graph's adjacency (as bits), x and every intermediate stay in
-// shared memory (150 KB at N=160, one block an SM), so the forward writes
-// only [C2] per graph.
+// Both kernels run one graph a block of 256 threads on one shared-memory
+// plan (plan(); its slabs hold bf16 in the bf16 form, since every value that
+// form stores is rounded to bf16), so one block's barriers and loads overlap
+// other blocks' products. Both stage the graph (stage: the adjacency as
+// bits, x, the mask's bits, the weights) and compute the same forward
+// through one code path (forward_fcx2: fcx = x w1 and fcx2 = h1 w2 in
+// register tiles, h1 = relu(A fcx) one lane a row; tower_common.cuh).
 //
-// Backward (K8b, backward::ginet_tower_bwd_graph): one block of 256 threads
-// per graph, on a plan of its own (backward::plan) that fits two graphs an SM
-// in the f32 form (110 KB at the bench shape) and three in the bf16 form (62
-// KB: its slabs hold bf16, since every value that form stores is rounded to
-// bf16), so one block's barriers and loads overlap another's products.
+// Forward (K8f, forward::ginet_tower_fwd_graph), on the backward's plan cut
+// down: fcx kept beside x in the wide slab and no third slab, so two graphs
+// an SM fit in the f32 form (98 KB at the bench shape) and four in the bf16
+// form (55 KB; 512 graphs then run in one wave of 132 x 4 blocks, where
+// three blocks an SM left a tail wave of 116 blocks: 0.095 ms against 0.075
+// on an H100, tools/tower_times.py). h2 = relu(A fcx2) * mask, one lane a row, and
+// pooled[g] = sum_n h2 as a fixed-order tree: each lane sums its rows, a
+// butterfly of shuffles sums a warp's lanes, and the warps' sums are added
+// in order. Only [C2] a graph is written; two calls give the same bits.
+//
+// Backward (K8b, backward::ginet_tower_bwd_graph), two graphs an SM in the
+// f32 form (110 KB at the bench shape) and three in the bf16 form (62 KB):
 //   - The node products, this graph's dw2 = h1^T dfcx2 and dw1 = x^T dfcx1,
 //     run on the tensor cores in the bf16 form: warp-level mma.sync
 //     m16n8k16 (bf16 operands, exact products), fragments from the bf16
@@ -71,112 +81,84 @@
 //     shape) and backward::sum_partials sums them over graphs in a fixed
 //     order, with 8 loads in flight a thread: no atomics, deterministic.
 
+
 #include "tower_common.cuh"
 
 namespace {
 
 using namespace tower;
 
-namespace backward {
-
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr unsigned FULL = 0xffffffffu;
-
-__host__ __device__ inline int round16(int v) { return (v + 15) & ~15; }
-
-// a slab row of `cols` elements of `esize` bytes, padded to an odd number of
-// 16-byte units: 8 consecutive rows then start in 8 different 16-byte bank
-// groups (ldmatrix's 8 row reads, the f32 tiles' 8 lanes on 8 rows)
-__host__ __device__ inline int row_elems(int cols, int esize) {
-    int units = (cols * esize + 15) / 16;
-    if (units % 2 == 0) ++units;
-    return units * 16 / esize;
-}
-
-__host__ __device__ inline size_t take(size_t& at, size_t bytes) {
-    const size_t here = at;
-    at += (bytes + 15) / 16 * 16;
-    return here;
-}
-
-// The backward's shared-memory plan (byte offsets; ops/ginet_tower.py:
-// bwd_smem_bytes mirrors it). Every dimension a product runs over is padded
-// to 16 (rows: nodes; kx: features; c1p, c2p: channels) and the pads hold
-// exact zeros, so the tensor cores take whole tiles:
-//   bits [N][words], the mask mbits [words] and sgn [c2p][words] (uint32),
-//   dp [c2p] (f32);
+// The shared-memory plan of both kernels (byte offsets; ops/ginet_tower.py:
+// smem_bytes, the forward's, and bwd_smem_bytes mirror it). Every dimension
+// a product runs over is padded to 16 (rows: nodes; kx: features; c1p, c2p:
+// channels) and the pads hold exact zeros, so the tensor cores take whole
+// tiles:
+//   bits [N][words] and the mask mbits [words] (uint32); the backward's
+//   signs of h2 sgn [c2p][words] (uint32) and dpooled dp [c2p] (f32), or the
+//   forward's warp sums pool [WARPS][c2p] (f32);
 //   w1 [kx][ldw1], w2 [c1p][ldw2];
-//   P [rows][ldp]: x, then fcx2, then dfcx2, then x again;
-//   H [rows][ldh]: h1, then dfcx1;  T [rows][ldh]: fcx, then dh1
+//   P [rows][ldp]: x, then fcx2, then (backward) dfcx2, then x again;
+//   H [rows][ldh]: h1, then dfcx1;  T [rows][ldt]: fcx, then (backward) dh1
+//   (the backward's own slab; the forward's fcx sits in P's columns kx ..
+//   kx + c1p, beside x, which the product that writes it reads)
 // (slabs and weights of esize bytes: 4 in the f32 form, 2 in the bf16 form).
 struct Plan {
-    int rows, kx, c1p, c2p, words, ldp, ldh, ldw1, ldw2;
-    size_t bits, mbits, sgn, dp, w1, w2, p, h, t, bytes;
+    int rows, kx, c1p, c2p, words, ldp, ldh, ldt, ldw1, ldw2;
+    size_t bits, mbits, sgn, dp, pool, w1, w2, p, h, t, bytes;
 };
 
-__host__ __device__ inline Plan plan(int n, int f, int c1, int c2, int esize) {
+__host__ __device__ inline Plan plan(int n, int f, int c1, int c2, int esize, bool is_forward) {
     Plan L;
     L.rows = round16(n);
     L.kx = round16(f);
     L.c1p = round16(c1);
     L.c2p = round16(c2);
     L.words = (n + 31) / 32;
-    L.ldp = row_elems(L.c2p > L.kx ? L.c2p : L.kx, esize);
+    // the forward keeps fcx beside x in P (columns kx .. kx + c1p): no T
+    const int pcols = is_forward ? L.kx + L.c1p : L.kx;
+    L.ldp = row_elems(L.c2p > pcols ? L.c2p : pcols, esize);
     L.ldh = row_elems(L.c1p, esize);
+    L.ldt = is_forward ? L.ldp : L.ldh;
     L.ldw1 = row_elems(L.c1p, esize);
     L.ldw2 = row_elems(L.c2p, esize);
     size_t at = 0;
     L.bits = take(at, (size_t)4 * n * L.words);
     L.mbits = take(at, (size_t)4 * L.words);
-    L.sgn = take(at, (size_t)4 * L.c2p * L.words);
-    L.dp = take(at, (size_t)4 * L.c2p);
+    L.sgn = take(at, is_forward ? 0 : (size_t)4 * L.c2p * L.words);
+    L.dp = take(at, is_forward ? 0 : (size_t)4 * L.c2p);
+    L.pool = take(at, is_forward ? (size_t)4 * WARPS * L.c2p : 0);
     L.w1 = take(at, (size_t)esize * L.kx * L.ldw1);
     L.w2 = take(at, (size_t)esize * L.c1p * L.ldw2);
     L.p = take(at, (size_t)esize * L.rows * L.ldp);
     L.h = take(at, (size_t)esize * L.rows * L.ldh);
-    L.t = take(at, (size_t)esize * L.rows * L.ldh);
+    L.t = is_forward ? L.p + (size_t)esize * L.kx : take(at, (size_t)esize * L.rows * L.ldh);
     L.bytes = at;
     return L;
 }
 
-// slab elements: f32, or bf16 as its bits (a store rounds to nearest even)
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(uint16_t* p, float v) { *p = bf16::bf16_bits(v); }
-__device__ __forceinline__ float get(const float* p) { return *p; }
-__device__ __forceinline__ float get(const uint16_t* p) { return bf16::widen(*p); }
-__device__ __forceinline__ float4 get4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 widen4(uint32_t lo, uint32_t hi) {
-    return make_float4(__uint_as_float(lo << 16), __uint_as_float(lo & 0xffff0000u), __uint_as_float(hi << 16),
-                       __uint_as_float(hi & 0xffff0000u));
-}
-__device__ __forceinline__ float4 get4(const uint16_t* p) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    return widen4(v.x, v.y);
-}
+// the parts of one block's plan that both kernels use
+template <typename E>
+struct Slabs {
+    uint32_t* bits;
+    uint32_t* mbits;
+    E* w1;
+    E* w2;
+    E* p;
+    E* h;
+    E* t;
 
-// 4 bits, one per byte of u: bit b <=> byte b != 0
-__device__ __forceinline__ uint32_t nonzero_nibble(uint32_t u) { return ((__vcmpne4(u, 0u) & 0x08040201u) * 0x01010101u) >> 24; }
+    __device__ __forceinline__ Slabs(char* sm, const Plan& L)
+        : bits(reinterpret_cast<uint32_t*>(sm + L.bits)),
+          mbits(reinterpret_cast<uint32_t*>(sm + L.mbits)),
+          w1(reinterpret_cast<E*>(sm + L.w1)),
+          w2(reinterpret_cast<E*>(sm + L.w2)),
+          p(reinterpret_cast<E*>(sm + L.p)),
+          h(reinterpret_cast<E*>(sm + L.h)),
+          t(reinterpret_cast<E*>(sm + L.t)) {}
+};
 
-__device__ __forceinline__ uint32_t nonzero_bits16(const int4& v) {
-    return nonzero_nibble((uint32_t)v.x) | nonzero_nibble((uint32_t)v.y) << 4 | nonzero_nibble((uint32_t)v.z) << 8 |
-           nonzero_nibble((uint32_t)v.w) << 12;
-}
-
-// tower::load_bits from 16-byte loads, when every adjacency row starts
-// 16-byte aligned (N % 16 == 0): a thread builds each word from two pieces
-__device__ __forceinline__ void load_bits16(const int8_t* __restrict__ adj_g, int n, int words, uint32_t* bits) {
-    const int pieces = n / 16;
-#pragma unroll 4
-    for (int item = threadIdx.x; item < n * words; item += THREADS) {
-        const int i = item / words;
-        const int w = item - i * words;
-        const int4* row = reinterpret_cast<const int4*>(adj_g + (size_t)i * n);
-        const int4 lo = __ldg(row + 2 * w);
-        const int4 hi = 2 * w + 1 < pieces ? __ldg(row + 2 * w + 1) : make_int4(0, 0, 0, 0);
-        bits[item] = nonzero_bits16(lo) | nonzero_bits16(hi) << 16;
-    }
-}
+// the quads an aggregate's lane holds: C1's 8 at the bench widths
+constexpr int QMAX = 8;
 
 // x [N][F] of one graph -> X [rows][ld], columns F .. kx and rows N .. rows
 // zero; float4 loads of the graph's flat block when it is 16-byte aligned
@@ -202,185 +184,159 @@ __device__ __forceinline__ void stage_x(E* X, int ld, const float* __restrict__ 
             for (int c = 0; c < 4; ++c) {
                 const int e = 4 * idx + c;
                 const int i = e / f;
-                put(X + (size_t)i * ld + (e - i * f), tower::at_form<BF16>(tower::lane4(v, c)));
+                put(X + (size_t)i * ld + (e - i * f), at_form<BF16>(lane4(v, c)));
             }
         }
     } else {
 #pragma unroll 4
         for (int e = t; e < n * f; e += nt) {
             const int i = e / f;
-            put(X + (size_t)i * ld + (e - i * f), tower::at_form<BF16>(__ldg(xg + e)));
+            put(X + (size_t)i * ld + (e - i * f), at_form<BF16>(__ldg(xg + e)));
         }
     }
 }
 
-// A walk over one bit row's set bits in ascending order; the next word is
-// read one word ahead, so that its load is not on the walk's path.
-struct BitWalk {
-    const uint32_t* row;
-    int words, w;
-    uint32_t b, ahead;
-
-    __device__ __forceinline__ BitWalk(const uint32_t* r, int n_words, bool live)
-        : row(r), words(live ? n_words : 0), w(0), b(live ? r[0] : 0u), ahead(live && n_words > 1 ? r[1] : 0u) {}
-
-    // the next set bit, or -1 past the last word
-    __device__ __forceinline__ int next() {
-        while (b == 0) {
-            if (++w >= words) return -1;
-            b = ahead;
-            ahead = w + 1 < words ? row[w + 1] : 0u;
-        }
-        const int j = w * 32 + __ffs(b) - 1;
-        b &= b - 1;
-        return j;
-    }
-};
-
-__device__ __forceinline__ void add4(float4& acc, const float4& t) {
-    acc.x += t.x;
-    acc.y += t.y;
-    acc.z += t.z;
-    acc.w += t.w;
+// whether graph g's x [N][F] starts 16-byte aligned and fills whole float4s
+__device__ __forceinline__ bool x_vectors(const float* x, int N, int F) {
+    return (N * F) % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
 }
 
-// epi(i, q, sum over the set bits j of row i of v[j][4q .. 4q+3]) for every
-// row i < rows (0 past N) and quad q < quads, ascending j. One lane a row
-// (threads 0 .. rows - 1, then again past THREADS), which walks the row's
-// bits once for each QMAX quads and holds their sums in registers: the walk
-// costs one lane's instructions, and the lane's 16-byte reads of a
-// neighbour's row are independent of each other.
-template <int QMAX, typename E, class Epi>
-__device__ __forceinline__ void aggregate(const uint32_t* bits, int words, const E* v, int ldv, int n, int rows, int quads,
-                                          Epi epi) {
-    for (int i = threadIdx.x; i < rows; i += THREADS) {
-        for (int q0 = 0; q0 < quads; q0 += QMAX) {
+// 0. graph g's adjacency as bits, x -> P, the mask's bits and the weights,
+// zero-padded, x and the weights rounded in the bf16 form (no barrier)
+template <bool BF16, typename E>
+__device__ __forceinline__ void stage(const Plan& L, const Slabs<E>& s, const int8_t* __restrict__ adj, const float* __restrict__ x,
+                                      const uint8_t* __restrict__ mask, const float* __restrict__ w1,
+                                      const float* __restrict__ w2, int g, int N, int F, int C1, int C2) {
+    const int tid = threadIdx.x;
+    adjacency_bits(adj, adj + (size_t)g * N * N, N, L.words, s.bits);
+    stage_x<BF16>(s.p, L.ldp, x + (size_t)g * N * F, N, F, L.rows, L.kx, x_vectors(x, N, F), tid, THREADS);
+    const uint8_t* mask_g = mask + (size_t)g * N;
+    for (int i = tid; i < 32 * L.words; i += THREADS) {  // every lane of a warp reaches the ballot
+        const uint32_t m = __ballot_sync(FULL, i < N && mask_g[i] != 0);
+        if ((i & 31) == 0) s.mbits[i / 32] = m;
+    }
+#pragma unroll 4
+    for (int idx = tid; idx < L.kx * L.c1p; idx += THREADS) {
+        const int k = idx / L.c1p;
+        const int c = idx - k * L.c1p;
+        put(s.w1 + (size_t)k * L.ldw1 + c, k < F && c < C1 ? at_form<BF16>(w1[(size_t)k * C1 + c]) : 0.f);
+    }
+#pragma unroll 4
+    for (int idx = tid; idx < L.c1p * L.c2p; idx += THREADS) {
+        const int k = idx / L.c2p;
+        const int c = idx - k * L.c2p;
+        put(s.w2 + (size_t)k * L.ldw2 + c, k < C1 && c < C2 ? at_form<BF16>(w2[(size_t)k * C2 + c]) : 0.f);
+    }
+}
+
+// 1-3, after stage() and a barrier: fcx = x w1 -> T; h1 = relu(A fcx) -> H;
+// fcx2 = h1 w2 -> P, each step behind a barrier (the slab stores round in
+// the bf16 form). The forward and the backward's recompute run this one path.
+template <int TR, typename E>
+__device__ __forceinline__ void forward_fcx2(const Plan& L, const Slabs<E>& s, int N, int F, int C1) {
+    const auto to_t = [&](int m, int n, float v) { put(s.t + (size_t)m * L.ldt + n, v); };
+    tile_gemm<TR, false>(s.p, L.ldp, s.w1, L.ldw1, L.rows, L.c1p, round4(F), to_t);
+    __syncthreads();
+    aggregate<QMAX>(s.bits, L.words, s.t, L.ldt, N, L.rows, L.c1p / 4, [&](int i, int q, float4 a) {
+        E* h = s.h + (size_t)i * L.ldh + 4 * q;
+        put(h, fmaxf(a.x, 0.f));
+        put(h + 1, fmaxf(a.y, 0.f));
+        put(h + 2, fmaxf(a.z, 0.f));
+        put(h + 3, fmaxf(a.w, 0.f));
+    });
+    __syncthreads();
+    const auto to_p = [&](int m, int n, float v) { put(s.p + (size_t)m * L.ldp + n, v); };
+    tile_gemm<TR, false>(s.h, L.ldh, s.w2, L.ldw2, L.rows, L.c2p, round4(C1), to_p);
+    __syncthreads();
+}
+
+namespace forward {
+
+// part[warp][4q .. 4q+3] = the sum over the warp's rows i < n (i = 32 warp
+// + lane, then again THREADS further) of relu((A v)[i][4q .. 4q+3]) *
+// mask[i], q < quads: a lane walks its row once for each QMAX quads, a
+// butterfly of shuffles sums the warp's 32 rows (every lane ends with the
+// same bits), and lane 0 adds that to the warp's sum, in row order. Only
+// the row sums of one walk are held in registers.
+template <int QMAX, typename E>
+__device__ __forceinline__ void pool_rows(const uint32_t* bits, const uint32_t* mbits, int words, const E* v, int ldv, int n,
+                                          int quads, float* part) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    float* mine = part + (size_t)warp * 4 * quads;
+    if (lane == 0) {
+        for (int c = 0; c < 4 * quads; ++c) mine[c] = 0.f;
+    }
+    for (int q0 = 0; q0 < quads; q0 += QMAX) {
+        for (int i0 = 32 * warp; i0 < n; i0 += THREADS) {  // the same rounds for every lane of the warp
+            const int i = i0 + lane;
             float4 acc[QMAX];
-#pragma unroll
-            for (int q = 0; q < QMAX; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-            BitWalk walk(bits + i * words, words, i < n);
-            for (int j = walk.next(); j >= 0; j = walk.next()) {
-                const E* vj = v + (size_t)j * ldv + 4 * q0;
-                if constexpr (sizeof(E) == 2) {  // bf16: two quads a 16-byte read
-#pragma unroll
-                    for (int q = 0; q < QMAX; q += 2) {
-                        if (q0 + q + 1 < quads) {
-                            const uint4 t = *reinterpret_cast<const uint4*>(vj + 4 * q);
-                            add4(acc[q], widen4(t.x, t.y));
-                            add4(acc[q + 1], widen4(t.z, t.w));
-                        } else if (q0 + q < quads) {
-                            add4(acc[q], get4(vj + 4 * q));
-                        }
-                    }
-                } else {
-#pragma unroll
-                    for (int q = 0; q < QMAX; ++q) {
-                        if (q0 + q < quads) add4(acc[q], get4(vj + 4 * q));
-                    }
-                }
-            }
+            row_sum<QMAX>(bits + (size_t)i * words, words, i < n, v, ldv, q0, quads, acc);
+            const float m = i < n && (mbits[i >> 5] >> (i & 31)) & 1u ? 1.f : 0.f;
 #pragma unroll
             for (int q = 0; q < QMAX; ++q) {
-                if (q0 + q < quads) epi(i, q0 + q, acc[q]);
+                acc[q] = make_float4(fmaxf(acc[q].x, 0.f) * m, fmaxf(acc[q].y, 0.f) * m, fmaxf(acc[q].z, 0.f) * m, fmaxf(acc[q].w, 0.f) * m);
+            }
+#pragma unroll
+            for (int d = 16; d > 0; d >>= 1) {
+#pragma unroll
+                for (int q = 0; q < QMAX; ++q) {
+                    acc[q].x += __shfl_xor_sync(FULL, acc[q].x, d);
+                    acc[q].y += __shfl_xor_sync(FULL, acc[q].y, d);
+                    acc[q].z += __shfl_xor_sync(FULL, acc[q].z, d);
+                    acc[q].w += __shfl_xor_sync(FULL, acc[q].w, d);
+                }
+            }
+            if (lane == 0) {
+#pragma unroll
+                for (int q = 0; q < QMAX; ++q) {
+                    if (q0 + q < quads) {
+                        float4* sum = reinterpret_cast<float4*>(mine + 4 * (q0 + q));
+                        float4 t = *sum;
+                        add4(t, acc[q]);
+                        *sum = t;
+                    }
+                }
             }
         }
     }
 }
 
-// ---------------------------------------------------------------------------
-// f32 form: register tiles on the CUDA cores
+// One graph's forward a block (see the header): pooled[g] [C2]
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS, BF16 ? 4 : 2) ginet_tower_fwd_graph(const int8_t* __restrict__ adj, const float* __restrict__ x,
+                                                                               const uint8_t* __restrict__ mask, const float* __restrict__ w1,
+                                                                               const float* __restrict__ w2, float* __restrict__ pooled,
+                                                                               int N, int F, int C1, int C2) {
+    using E = elem_t<BF16>;
+    extern __shared__ float4 smem4[];
+    char* sm = reinterpret_cast<char*>(smem4);
+    const Plan L = plan(N, F, C1, C2, (int)sizeof(E), true);
+    const Slabs<E> s(sm, L);
+    float* part = reinterpret_cast<float*>(sm + L.pool);
+    const int g = blockIdx.x;
 
-// epi(m, n, sum_{k < K} a[m*lda + k] * B(k, n)) for m < M, n < Nn, with
-// B(k, n) = b[k*ldb + n], or b[n*ldb + k] when B_NK; K a multiple of 4
-// (operands zero-padded there), in f32 FMAs in ascending k: the order of the
-// plain versions' products, so that a bf16 form rounds the same sums. A
-// thread holds a TR x 8 tile: rows m0 + RL*j and, with CL = the least power
-// of two with 8 CL >= Nn (at most 32; RL x CL = 32 lanes), columns
-// n0 + 8*cl + i (B(k, n) row-major: two 16-byte reads a row of B) or
-// n0 + cl + CL*i (B_NK: one 16-byte read of 4 k a column). A takes one
-// 16-byte read of 4 k a row. With row strides of an odd number of 16-byte
-// units, each read of a quarter-warp meets each bank once. An 8 x 8 tile
-// reads 64 values for 256 FMAs per 4 k.
-__device__ __forceinline__ int column_lanes_log2(int Nn) {
-    int cl_log2 = 0;
-    while (cl_log2 < 5 && (8 << cl_log2) < Nn) ++cl_log2;
-    return cl_log2;
-}
+    stage<BF16>(L, s, adj, x, mask, w1, w2, g, N, F, C1, C2);
+    __syncthreads();
+    // tile rows: 2 in the bf16 form, within the 64 registers four blocks an
+    // SM leave a thread
+    forward_fcx2<BF16 ? 2 : 8>(L, s, N, F, C1);
 
-// the warp tasks of tile_gemm<TR>
-__device__ __forceinline__ int tile_tasks(int TR, int M, int Nn) {
-    const int cl_log2 = column_lanes_log2(Nn);
-    const int RL = 32 >> cl_log2;
-    return ((M + TR * RL - 1) / (TR * RL)) * ((Nn + (8 << cl_log2) - 1) / (8 << cl_log2));
-}
-
-// warps w0 .. w0 + nw - 1 take part
-template <int TR, bool B_NK, typename E, class Epi>
-__device__ __forceinline__ void tile_gemm(const E* a, int lda, const E* b, int ldb, int M, int Nn, int K, Epi epi, int w0 = 0,
-                                          int nw = WARPS) {
-    const int lane = threadIdx.x & 31;
-    const int cl_log2 = column_lanes_log2(Nn);
-    const int CL = 1 << cl_log2;
-    const int RL = 32 >> cl_log2;
-    const int cblocks = (Nn + 8 * CL - 1) / (8 * CL);
-    const int warp = (threadIdx.x >> 5) - w0;
-    if (warp < 0 || warp >= nw) return;
-    const int cl = lane & (CL - 1);
-    for (int task = warp; task < tile_tasks(TR, M, Nn); task += nw) {
-        const int m0 = (task / cblocks) * TR * RL + (lane >> cl_log2);
-        const int nb = (task % cblocks) * 8 * CL;
-        const auto column = [&](int i) { return B_NK ? nb + cl + CL * i : nb + 8 * cl + i; };
-        int ao[TR];  // rows past the end read the last one
+    // 4. h2 = relu(A fcx2) * mask, summed over the nodes: the warps' sums,
+    // then the warps added in order
+    pool_rows<QMAX>(s.bits, s.mbits, L.words, s.p, L.ldp, N, L.c2p / 4, part);
+    __syncthreads();
+    for (int c = threadIdx.x; c < C2; c += THREADS) {
+        float t = 0.f;
 #pragma unroll
-        for (int j = 0; j < TR; ++j) ao[j] = min(m0 + RL * j, M - 1) * lda;
-        int bo[B_NK ? 8 : 1];  // B_NK: each column's row of b (past the end: the last)
-#pragma unroll
-        for (int i = 0; i < (B_NK ? 8 : 1); ++i) bo[i] = B_NK ? min(column(i), Nn - 1) * ldb : column(0);
-        float acc[TR][8];
-#pragma unroll
-        for (int j = 0; j < TR; ++j)
-#pragma unroll
-            for (int i = 0; i < 8; ++i) acc[j][i] = 0.f;
-        for (int k = 0; k < K; k += 4) {
-            float4 av[TR];
-#pragma unroll
-            for (int j = 0; j < TR; ++j) av[j] = get4(a + ao[j] + k);
-            if constexpr (B_NK) {
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    const float4 bv = get4(b + bo[i] + k);
-#pragma unroll
-                    for (int j = 0; j < TR; ++j) {
-                        acc[j][i] = fmaf(av[j].x, bv.x, acc[j][i]);
-                        acc[j][i] = fmaf(av[j].y, bv.y, acc[j][i]);
-                        acc[j][i] = fmaf(av[j].z, bv.z, acc[j][i]);
-                        acc[j][i] = fmaf(av[j].w, bv.w, acc[j][i]);
-                    }
-                }
-            } else {
-#pragma unroll
-                for (int kk = 0; kk < 4; ++kk) {
-                    const E* bk = b + (size_t)(k + kk) * ldb + bo[0];
-                    const float4 b0 = get4(bk);
-                    const float4 b1 = get4(bk + 4);
-                    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-                    for (int j = 0; j < TR; ++j) {
-                        const float a_k = tower::lane4(av[j], kk);
-#pragma unroll
-                        for (int i = 0; i < 8; ++i) acc[j][i] = fmaf(a_k, bv[i], acc[j][i]);
-                    }
-                }
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < TR; ++j)
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                if (m0 + RL * j < M && column(i) < Nn) epi(m0 + RL * j, column(i), acc[j][i]);
-            }
+        for (int w = 0; w < WARPS; ++w) t += part[w * L.c2p + c];
+        pooled[(size_t)g * C2 + c] = t;
     }
 }
+
+}  // namespace forward
+
+namespace backward {
 
 // epi(m, n, sum_{i < nodes} a[i*lda + m] * b[i*ldb + n]) for m < M, n < Nn,
 // whose columns up to 8 ceil(M/8) and 8 ceil(Nn/8) are defined. 8 x 8 tiles
@@ -515,94 +471,49 @@ __global__ void __launch_bounds__(THREADS, BF16 ? 3 : 2) ginet_tower_bwd_graph(
     const int8_t* __restrict__ adj, const float* __restrict__ x, const uint8_t* __restrict__ mask,
     const float* __restrict__ w1, const float* __restrict__ w2, const float* __restrict__ dpooled,
     float* __restrict__ part, int N, int F, int C1, int C2) {
-    using E = typename std::conditional<BF16, uint16_t, float>::type;
-    // the weight products' tile rows (see the header): 4 in the bf16 form,
-    // within the registers of three blocks an SM
-    constexpr int TILE_ROWS = BF16 ? 4 : 8;
+    using E = elem_t<BF16>;
+    // the weight products' tile rows: 4 in the bf16 form, within the 80
+    // registers three blocks an SM leave a thread
+    constexpr int TR = BF16 ? 4 : 8;
     extern __shared__ float4 smem4[];
     char* sm = reinterpret_cast<char*>(smem4);
-    const Plan L = plan(N, F, C1, C2, (int)sizeof(E));
-    uint32_t* bits = reinterpret_cast<uint32_t*>(sm + L.bits);
-    uint32_t* mbits = reinterpret_cast<uint32_t*>(sm + L.mbits);
+    const Plan L = plan(N, F, C1, C2, (int)sizeof(E), false);
+    const Slabs<E> s(sm, L);
     uint32_t* sgn = reinterpret_cast<uint32_t*>(sm + L.sgn);
     float* dp = reinterpret_cast<float*>(sm + L.dp);
-    E* W1 = reinterpret_cast<E*>(sm + L.w1);
-    E* W2 = reinterpret_cast<E*>(sm + L.w2);
-    E* P = reinterpret_cast<E*>(sm + L.p);
-    E* H = reinterpret_cast<E*>(sm + L.h);
-    E* T = reinterpret_cast<E*>(sm + L.t);
+    E* P = s.p;
+    E* H = s.h;
+    E* T = s.t;
     const int g = blockIdx.x;
     const int tid = threadIdx.x;
     const int rows = L.rows;
-    const int8_t* adj_g = adj + (size_t)g * N * N;
     const float* x_g = x + (size_t)g * N * F;
-    const uint8_t* mask_g = mask + (size_t)g * N;
     float* part_g = part + (size_t)g * ((size_t)F * C1 + (size_t)C1 * C2);
     float* dw2_g = part_g + (size_t)F * C1;
-    const bool x_vec = (N * F) % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-    // the quads an aggregate's lane holds: C1's 8 at the bench widths, and
-    // C2's 16 in the f32 form (the bf16 form, in the 80 registers three blocks
-    // an SM leave a thread, walks a row twice for C2's 16)
-    constexpr int QMAX = 8;
+    // the quads of C2 a lane of step 4 holds: 16 in the f32 form (the bf16
+    // form, in the 80 registers three blocks an SM leave a thread, walks a
+    // row twice)
     constexpr int SIGN_QMAX = BF16 ? 8 : 16;
 
-    // 0. the adjacency as bits, x, dpooled (rounded once: dh2 takes its
-    // values or 0) and the weights, zero-padded
-    if (N % 16 == 0 && (reinterpret_cast<uintptr_t>(adj) & 15) == 0) {
-        load_bits16(adj_g, N, L.words, bits);
-    } else {
-        tower::load_bits(adj_g, N, L.words, bits);
-    }
-    stage_x<BF16>(P, L.ldp, x_g, N, F, rows, L.kx, x_vec, tid, THREADS);
-    for (int c = tid; c < L.c2p; c += THREADS) dp[c] = c < C2 ? tower::at_form<BF16>(dpooled[(size_t)g * C2 + c]) : 0.f;
+    // 0. the graph (stage), dpooled (rounded once: dh2 takes its values or 0)
+    // and the signs' bits cleared
+    stage<BF16>(L, s, adj, x, mask, w1, w2, g, N, F, C1, C2);
+    for (int c = tid; c < L.c2p; c += THREADS) dp[c] = c < C2 ? at_form<BF16>(dpooled[(size_t)g * C2 + c]) : 0.f;
     for (int u = tid; u < L.c2p * L.words; u += THREADS) sgn[u] = 0u;
-    for (int i = tid; i < 32 * L.words; i += THREADS) {  // every lane of a warp reaches the ballot
-        const uint32_t m = __ballot_sync(FULL, i < N && mask_g[i] != 0);
-        if ((i & 31) == 0) mbits[i / 32] = m;
-    }
-#pragma unroll 4
-    for (int idx = tid; idx < L.kx * L.c1p; idx += THREADS) {
-        const int k = idx / L.c1p;
-        const int c = idx - k * L.c1p;
-        put(W1 + (size_t)k * L.ldw1 + c, k < F && c < C1 ? tower::at_form<BF16>(w1[(size_t)k * C1 + c]) : 0.f);
-    }
-#pragma unroll 4
-    for (int idx = tid; idx < L.c1p * L.c2p; idx += THREADS) {
-        const int k = idx / L.c2p;
-        const int c = idx - k * L.c2p;
-        put(W2 + (size_t)k * L.ldw2 + c, k < C1 && c < C2 ? tower::at_form<BF16>(w2[(size_t)k * C2 + c]) : 0.f);
-    }
     __syncthreads();
 
-    // 1. fcx = x w1 -> T
-    const auto to_t = [&](int m, int n, float v) { put(T + (size_t)m * L.ldh + n, v); };
-    tile_gemm<TILE_ROWS, false>(P, L.ldp, W1, L.ldw1, rows, L.c1p, tower::round4(F), to_t);
-    __syncthreads();
-
-    // 2. h1 = relu(A fcx) -> H
-    aggregate<QMAX>(bits, L.words, T, L.ldh, N, rows, L.c1p / 4, [&](int i, int q, float4 a) {
-        E* h = H + (size_t)i * L.ldh + 4 * q;
-        put(h, fmaxf(a.x, 0.f));
-        put(h + 1, fmaxf(a.y, 0.f));
-        put(h + 2, fmaxf(a.z, 0.f));
-        put(h + 3, fmaxf(a.w, 0.f));
-    });
-    __syncthreads();
-
-    // 3. fcx2 = h1 w2 -> P
-    const auto to_p = [&](int m, int n, float v) { put(P + (size_t)m * L.ldp + n, v); };
-    tile_gemm<TILE_ROWS, false>(H, L.ldh, W2, L.ldw2, rows, L.c2p, tower::round4(C1), to_p);
-    __syncthreads();
+    // 1-3. fcx -> T, h1 -> H, fcx2 -> P (the forward's path)
+    forward_fcx2<TR>(L, s, N, F, C1);
 
     // 4. the sign of h2 = relu(A fcx2) * mask, as bits: sgn[c][w] bit b <=>
     // h2[32 w + b][c] > 0 (sgn is zero from step 0)
-    aggregate<SIGN_QMAX>(bits, L.words, P, L.ldp, N, N, L.c2p / 4, [&](int i, int q, float4 a) {
+    aggregate<SIGN_QMAX>(s.bits, L.words, P, L.ldp, N, N, L.c2p / 4, [&](int i, int q, float4 a) {
         const uint32_t bit = 1u << (i % 32);
-        if ((mbits[i / 32] & bit) == 0) return;
+        if ((s.mbits[i / 32] & bit) == 0) return;
         uint32_t* word = sgn + 4 * q * L.words + i / 32;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-            if (tower::lane4(a, c) > 0.f) atomicOr(word + c * L.words, bit);
+            if (lane4(a, c) > 0.f) atomicOr(word + c * L.words, bit);
         }
     });
     __syncthreads();
@@ -612,14 +523,8 @@ __global__ void __launch_bounds__(THREADS, BF16 ? 3 : 2) ginet_tower_bwd_graph(
     for (int item = tid; item < rows * (L.c2p / 8); item += THREADS) {
         const int i = item / (L.c2p / 8);
         const int c0 = 8 * (item - i * (L.c2p / 8));
-        int count[8] = {};
-        if (i < N) {
-            for (int u = 0; u < L.words; ++u) {
-                const uint32_t a = bits[i * L.words + u];
-#pragma unroll
-                for (int k = 0; k < 8; ++k) count[k] += __popc(a & sgn[(c0 + k) * L.words + u]);
-            }
-        }
+        int count[8];
+        count_signs<8>(s.bits + i * L.words, sgn + c0 * L.words, i < N ? L.words : 0, count);
 #pragma unroll
         for (int k = 0; k < 8; ++k) put(P + (size_t)i * L.ldp + c0 + k, (float)count[k] * dp[c0 + k]);
     }
@@ -636,8 +541,8 @@ __global__ void __launch_bounds__(THREADS, BF16 ? 3 : 2) ginet_tower_bwd_graph(
         put(T + (size_t)m * L.ldh + n, get(H + (size_t)m * L.ldh + n) > 0.f ? v : 0.f);
     };
     {
-        const int split = min(tile_tasks(TILE_ROWS, rows, L.c1p), WARPS - 1);
-        tile_gemm<TILE_ROWS, true>(P, L.ldp, W2, L.ldw2, rows, L.c1p, tower::round4(C2), to_dh1, 0, split);
+        const int split = min(tile_tasks(TR, rows, L.c1p), WARPS - 1);
+        tile_gemm<TR, true>(P, L.ldp, s.w2, L.ldw2, rows, L.c1p, round4(C2), to_dh1, 0, split);
         if constexpr (BF16) {
             node_mma(H, L.ldh, P, L.ldp, L.c1p, L.c2p, rows, to_dw2, split, WARPS - split);
         } else {
@@ -649,9 +554,10 @@ __global__ void __launch_bounds__(THREADS, BF16 ? 3 : 2) ginet_tower_bwd_graph(
     // 7. dfcx1 = A dh1 -> H (h1 is dead); x again -> P (dfcx2 is dead), on
     // the warps the aggregate leaves idle (all, after it, when it takes all)
     {
+        const bool x_vec = x_vectors(x, N, F);
         const int agg_warps = min(WARPS, (rows + 31) / 32);
         if (tid < 32 * agg_warps) {
-            aggregate<QMAX>(bits, L.words, T, L.ldh, N, rows, L.c1p / 4, [&](int i, int q, float4 a) {
+            aggregate<QMAX>(s.bits, L.words, T, L.ldh, N, rows, L.c1p / 4, [&](int i, int q, float4 a) {
                 E* h = H + (size_t)i * L.ldh + 4 * q;
                 put(h, a.x);
                 put(h + 1, a.y);
@@ -717,30 +623,22 @@ __global__ void __launch_bounds__(SUM_COLS* SUM_ROWS) sum_partials(const float* 
 template <bool BF16>
 cudaError_t fwd(const void* adj, const void* x, const void* mask, const void* w1, const void* w2, void* pooled, int G, int N,
                 int F, int C1, int C2, cudaStream_t stream) {
-    const size_t smem = layout(N, F, C1, C2).bytes;
-    const cudaError_t e = prepare(tower_fwd<false, BF16>, smem);
+    const size_t smem = plan(N, F, C1, C2, BF16 ? 2 : 4, true).bytes;
+    const cudaError_t e = prepare(forward::ginet_tower_fwd_graph<BF16>, smem, true);
     if (e != cudaSuccess) return e;
-    tower_fwd<false, BF16><<<G, THREADS, smem, stream>>>((const int8_t*)adj, (const float*)x, (const uint8_t*)mask,
-                                                         (const float*)w1, (const float*)w2, (float*)pooled, nullptr, nullptr,
-                                                         G, N, F, C1, C2);
+    forward::ginet_tower_fwd_graph<BF16><<<G, THREADS, smem, stream>>>((const int8_t*)adj, (const float*)x, (const uint8_t*)mask,
+                                                                       (const float*)w1, (const float*)w2, (float*)pooled, N, F, C1,
+                                                                       C2);
     return cudaGetLastError();
 }
 
 template <bool BF16>
 cudaError_t bwd(const void* adj, const void* x, const void* mask, const void* w1, const void* w2, const void* dpooled,
                 void* part, void* out, int G, int N, int F, int C1, int C2, cudaStream_t stream) {
-    const size_t smem = backward::plan(N, F, C1, C2, BF16 ? 2 : 4).bytes;
-    cudaError_t e = prepare(backward::ginet_tower_bwd_graph<BF16>, smem);
+    const size_t smem = plan(N, F, C1, C2, BF16 ? 2 : 4, false).bytes;
+    cudaError_t e = prepare(backward::ginet_tower_bwd_graph<BF16>, smem, true);
     if (e != cudaSuccess) return e;
-    // all of an SM's shared memory to the carveout, so that two (f32) or three
-    // (bf16) blocks fit
-    e = cudaFuncSetAttribute(backward::ginet_tower_bwd_graph<BF16>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) {
-        (void)cudaGetLastError();
-        return e;
-    }
-    backward::ginet_tower_bwd_graph<BF16><<<G, backward::THREADS, smem, stream>>>(
+    backward::ginet_tower_bwd_graph<BF16><<<G, THREADS, smem, stream>>>(
         (const int8_t*)adj, (const float*)x, (const uint8_t*)mask, (const float*)w1, (const float*)w2,
         (const float*)dpooled, (float*)part, N, F, C1, C2);
     e = cudaGetLastError();

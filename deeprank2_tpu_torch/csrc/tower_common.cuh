@@ -1,49 +1,43 @@
-// Device code shared by the fused GINet tower kernels for Hopper (sm_90a):
-// csrc/ginet_tower.cu (K8f/K8b, the batched [G, N, F] layout) and
-// csrc/diag_tower.cu (K9f/K9b, the flat [F, G*N] layout).
+// Device code shared by the fused GINet tower kernels for Hopper (sm_90a)
+// that run one graph a thread block on a compact shared-memory plan: K8f and
+// K8b (csrc/ginet_tower.cu, the batched [G, N, F] layout) and K9b
+// (csrc/diag_tower.cu, the flat [C, G*N] layout). K9f keeps the older plan
+// of one 512-thread block a graph (csrc/diag_tower.cu, namespace flat_fwd).
 //
-// Both run the two-layer GINet tower of one graph per thread block,
-//   h1 = relu(A (x w1)),  h2 = relu(A (h1 w2)) * mask,  pooled = sum_n h2
-// with every intermediate in shared memory, so that a graph's adjacency and
-// activations are read from device memory once per pass.
+// - The adjacency of a graph is 0/1 and sparse (about 8 neighbours of 160
+//   nodes at the dense bench shape). A block turns its int8 [N, N] block
+//   into one bit per entry (load_bits16 from 16-byte loads, or load_bits by
+//   warp ballots; a nonzero entry counts as 1), and an aggregate A v walks a
+//   row's set bits in ascending column order (BitWalk): it adds only the
+//   neighbours' rows, in the order a dense sum over all columns would add
+//   them, and skips the exact zeros.
+// - A channel-major 0/1 array ([C, G*N]: the sign of h2, or h1 > 0) is kept
+//   as bits too, a word per 32 nodes and channel (row_bits: a warp ballots
+//   32 consecutive nodes of one channel, so its loads are coalesced). Then
+//   A (g ⊙ sign) at node i and channel c is g[c] times the count of row i's
+//   neighbours whose sign is set at c: popcounts of the adjacency's bit row
+//   against the sign's (count_signs). In the bf16 form, where g is a bf16
+//   value, that product is exact in f32 and equals every ordered sum of the
+//   count's copies of g.
+// - Slabs hold f32, or bf16 (as its bits, E = uint16_t) in the bf16 form,
+//   where every value the form stores is rounded to bf16 anyway. A slab row
+//   is padded to an odd number of 16-byte units (row_elems), so that 8
+//   consecutive rows start in 8 different 16-byte bank groups.
+// - aggregate: one lane a row, QMAX channel quads of the row's sum in
+//   registers; the lane's 16-byte reads of its neighbours' rows are
+//   independent of each other.
+// - tile_gemm: the weight products in register tiles (TR x 8 a thread), in
+//   f32 FMAs in ascending k: the plain versions' order, so that a bf16 form
+//   rounds the same sums (a sum in the tensor cores' order lands on the
+//   neighbouring bf16 often enough to flip a sign against the plain
+//   version).
 //
-// The adjacency is 0/1 and sparse (about 8 neighbours of 160 nodes at the
-// dense bench shape), so a block first turns its graph's int8 [N, N] block
-// into one bit per entry (warp ballots over coalesced 32-byte rows) and each
-// aggregate then walks a row's set bits in ascending column order: it adds
-// only the neighbours' rows, in the order a dense sum over all columns would
-// add them, and skips the exact zeros. A nonzero int8 entry counts as 1.
-//
-// Shared-memory plan of one block (all of it dynamic; no static shared
-// memory), in floats: two wide slabs R1, R4 [N][s1] with
-// s1 = stride(max(F, c2p)), two narrow slabs R2, R3 [N][s2] with
-// s2 = stride(c1p), w1 [F][c1p], w2 [c1p][stride(c2p)] (zero-padded), the mask [N]
-// (rounded to 4), one per-graph vector [c2p] and the bit rows [N][ceil(N/32)]
-// (uint32); c1p and c2p are C1 and C2 rounded up to 4, so that a thread
-// reads four channels as one float4, and the padded channels stay exact
-// zeros. stride(v) rounds v up to an odd number of float4s: the 8 lanes of a
-// quarter-warp that read or write one float4 each on 8 consecutive rows then
-// touch all 32 banks once (a stride of 32 or 64 floats would put them all on
-// the same 4 banks). x's columns F .. round4(F) are staged as zeros.
-// ops/ginet_tower.py:smem_bytes mirrors this plan (the shape rule of
-// supports()); a plan above the card's per-block opt-in limit fails the
-// cudaFuncSetAttribute call and the wrapper raises.
-//
-// An aggregate's work items are (node i, four channels q) with i fastest, so
-// that a warp writes 32 consecutive nodes of one channel (coalesced in the
-// flat layout). The weight products give a thread four nodes and four
-// channels (q fastest: the lanes of a warp share the nodes' float4 loads and
-// read consecutive weights), 16 FMAs for every 8 float4 loads. Every sum
-// runs in a fixed order in f32: results are deterministic and differ from
-// the plain PyTorch versions only by summation order. (K8b, the batched
-// backward, has a plan and products of its own in csrc/ginet_tower.cu.)
-//
-// Two forms, by the compile-time flag BF16: f32, and the single-pass bf16
+// Two forms by the compile-time flag BF16: f32, and the single-pass bf16
 // form of the JAX kernels (compute_dtype=bfloat16), which rounds to bf16
 // (nearest even, csrc/bf16.cuh) exactly where the Pallas bodies cast a matmul
-// operand to bf16: each value once, as it is staged or produced (x and the
-// weights as they are loaded), never inside an FMA loop. Every input, every
-// sum and every slab stays f32, so both forms share one shared-memory plan.
+// operand to bf16. Every sum runs in a fixed order in f32: results are
+// deterministic and differ from the plain PyTorch versions only by summation
+// order.
 
 #pragma once
 
@@ -59,47 +53,32 @@ namespace tower {
 using bf16::put;
 using bf16::round_bf16;
 
-constexpr int THREADS = 512;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
+
+// a slab element: f32, or bf16 as its bits
+template <bool BF16>
+using elem_t = typename std::conditional<BF16, uint16_t, float>::type;
 
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+__host__ __device__ inline int round16(int v) { return (v + 15) & ~15; }
 
-__host__ __device__ inline int stride(int v) { return (round4(v) / 4) % 2 ? round4(v) : round4(v) + 4; }
+// a slab row of `cols` elements of `esize` bytes, padded to an odd number of
+// 16-byte units: 8 consecutive rows then start in 8 different 16-byte bank
+// groups (ldmatrix's 8 row reads, the tiles' 8 lanes on 8 rows)
+__host__ __device__ inline int row_elems(int cols, int esize) {
+    int units = (cols * esize + 15) / 16;
+    if (units % 2 == 0) ++units;
+    return units * 16 / esize;
+}
 
-struct Layout {
-    int s1, s2, c1p, c2p, ldw2, words;
-    size_t r1, r4, r2, r3, w1, w2, mask, vec, bits;  // offsets in floats
-    size_t bytes;
-};
-
-__host__ __device__ inline Layout layout(int n, int f, int c1, int c2) {
-    Layout L;
-    L.c1p = round4(c1);
-    L.c2p = round4(c2);
-    L.s1 = stride(f > L.c2p ? f : L.c2p);
-    L.s2 = stride(L.c1p);
-    L.ldw2 = stride(L.c2p);
-    L.words = (n + 31) / 32;
-    size_t o = 0;
-    L.r1 = o;
-    o += (size_t)n * L.s1;
-    L.r4 = o;
-    o += (size_t)n * L.s1;
-    L.r2 = o;
-    o += (size_t)n * L.s2;
-    L.r3 = o;
-    o += (size_t)n * L.s2;
-    L.w1 = o;
-    o += (size_t)f * L.c1p;
-    L.w2 = o;
-    o += (size_t)L.c1p * L.ldw2;
-    L.mask = o;
-    o += round4(n);
-    L.vec = o;
-    o += L.c2p;
-    L.bits = o;
-    o += (size_t)n * L.words;
-    L.bytes = o * sizeof(float);
-    return L;
+// the offset of a part of `bytes` bytes at `at`, which moves past it (parts
+// 16-byte aligned)
+__host__ __device__ inline size_t take(size_t& at, size_t bytes) {
+    const size_t here = at;
+    at += (bytes + 15) / 16 * 16;
+    return here;
 }
 
 // a value as the form computes with it: itself, or rounded to bf16
@@ -108,23 +87,36 @@ __device__ inline float at_form(float v) {
     return BF16 ? round_bf16(v) : v;
 }
 
-template <bool BF16>
-__device__ inline float4 at_form(const float4& v) {
-    return make_float4(at_form<BF16>(v.x), at_form<BF16>(v.y), at_form<BF16>(v.z), at_form<BF16>(v.w));
-}
-
-// the type of an output the form writes at its own width (K9b's t2 and
-// t1): f32, or bf16 as its bits
-template <bool BF16>
-using act_t = typename std::conditional<BF16, uint16_t, float>::type;
-
 __device__ inline float lane4(const float4& v, int c) { return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w; }
 
-__device__ inline void store4(float* p, const float4& v) { *reinterpret_cast<float4*>(p) = v; }
-
-__device__ inline float4 relu_scale(const float4& a, float m) {
-    return make_float4(fmaxf(a.x, 0.f) * m, fmaxf(a.y, 0.f) * m, fmaxf(a.z, 0.f) * m, fmaxf(a.w, 0.f) * m);
+// slab elements: f32, or bf16 as its bits (a store rounds to nearest even)
+__device__ __forceinline__ float get(const float* p) { return *p; }
+__device__ __forceinline__ float get(const uint16_t* p) { return bf16::widen(*p); }
+__device__ __forceinline__ float4 get4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 widen4(uint32_t lo, uint32_t hi) {
+    return make_float4(__uint_as_float(lo << 16), __uint_as_float(lo & 0xffff0000u), __uint_as_float(hi << 16),
+                       __uint_as_float(hi & 0xffff0000u));
 }
+__device__ __forceinline__ float4 get4(const uint16_t* p) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    return widen4(v.x, v.y);
+}
+__device__ __forceinline__ void put4(float* p, const float4& v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void put4(uint16_t* p, const float4& v) {
+    const uint32_t lo = bf16::bf16_bits(v.x) | (uint32_t)bf16::bf16_bits(v.y) << 16;
+    const uint32_t hi = bf16::bf16_bits(v.z) | (uint32_t)bf16::bf16_bits(v.w) << 16;
+    *reinterpret_cast<uint2*>(p) = make_uint2(lo, hi);
+}
+
+__device__ __forceinline__ void add4(float4& acc, const float4& t) {
+    acc.x += t.x;
+    acc.y += t.y;
+    acc.z += t.z;
+    acc.w += t.w;
+}
+
+// ---------------------------------------------------------------------------
+// bits
 
 // bits[i*words + w] bit b <=> adj_g[i][32*w + b] != 0. A warp takes BITS_ROUND
 // 32-byte pieces at a time, their loads in flight together, then ballots each.
@@ -151,220 +143,269 @@ __device__ inline void load_bits(const int8_t* __restrict__ adj_g, int n, int wo
     }
 }
 
-// w1 [F][C1] -> [F][c1p] and w2 [C1][C2] -> [c1p][ldw2], zero-padded (either
-// may be null), rounded to bf16 in the bf16 form
-template <bool BF16>
-__device__ inline void load_weights(const float* __restrict__ w1, const float* __restrict__ w2, int f, int c1, int c2,
-                                    const Layout& L, float* sm) {
-    if (w1 != nullptr) {
-        for (int idx = threadIdx.x; idx < f * L.c1p; idx += blockDim.x) {
-            const int k = idx / L.c1p;
-            const int c = idx - k * L.c1p;
-            sm[L.w1 + idx] = c < c1 ? at_form<BF16>(w1[(size_t)k * c1 + c]) : 0.f;
-        }
-    }
-    if (w2 != nullptr) {
-        for (int idx = threadIdx.x; idx < L.c1p * L.ldw2; idx += blockDim.x) {
-            const int r = idx / L.ldw2;
-            const int c = idx - r * L.ldw2;
-            sm[L.w2 + idx] = (r < c1 && c < c2) ? at_form<BF16>(w2[(size_t)r * c2 + c]) : 0.f;
-        }
-    }
+// 4 bits, one per byte of u: bit b <=> byte b != 0
+__device__ __forceinline__ uint32_t nonzero_nibble(uint32_t u) { return ((__vcmpne4(u, 0u) & 0x08040201u) * 0x01010101u) >> 24; }
+
+__device__ __forceinline__ uint32_t nonzero_bits16(const int4& v) {
+    return nonzero_nibble((uint32_t)v.x) | nonzero_nibble((uint32_t)v.y) << 4 | nonzero_nibble((uint32_t)v.z) << 8 |
+           nonzero_nibble((uint32_t)v.w) << 12;
 }
 
-// epi(i, q, sum over the set bits j of row i of v[j][4q .. 4q+3]), ascending j
-template <class Epi>
-__device__ inline void aggregate(const uint32_t* bits, int words, const float* v, int ldv, int n, int quads, Epi epi) {
-    for (int item = threadIdx.x; item < n * quads; item += blockDim.x) {
-        const int i = item % n;
-        const int q = item / n;
-        const float* vq = v + 4 * q;
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int w = 0; w < words; ++w) {
-            uint32_t b = bits[i * words + w];
-            while (b) {
-                const int j = w * 32 + __ffs(b) - 1;
-                b &= b - 1;
-                const float4 t = *reinterpret_cast<const float4*>(vq + (size_t)j * ldv);
-                acc.x += t.x;
-                acc.y += t.y;
-                acc.z += t.z;
-                acc.w += t.w;
-            }
-        }
-        epi(i, q, acc);
-    }
-}
-
-__device__ inline void fma4(float a, const float4& w, float4& acc) {
-    acc.x = fmaf(a, w.x, acc.x);
-    acc.y = fmaf(a, w.y, acc.y);
-    acc.z = fmaf(a, w.z, acc.z);
-    acc.w = fmaf(a, w.w, acc.w);
-}
-
-__device__ inline float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-
-// epi(i, q, sum_{k < kdim} a[i][k] * w(k, 4q .. 4q+3)), ascending k, with
-// w(k, c) = w[k*ldw + c], or w[c*ldw + k] when TRANS. A thread takes nodes
-// i0 .. i0+3 (rows past n read row n-1 and are not passed to epi) and one
-// channel quad; a's rows are read four values at a time (lda and ldw are
-// multiples of 4).
-template <bool TRANS, class Epi>
-__device__ inline void weight_product(const float* a, int lda, const float* w, int ldw, int kdim, int n, int quads, Epi epi) {
-    const int tiles = (n + 3) / 4;
-    for (int item = threadIdx.x; item < tiles * quads; item += blockDim.x) {
-        const int q = item % quads;
-        const int i0 = (item / quads) * 4;
-        const float* ar[4];
-        float4 acc[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            ar[r] = a + (size_t)min(i0 + r, n - 1) * lda;
-            acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-        int k = 0;
-        for (; k + 4 <= kdim; k += 4) {
-            float4 wv[4];  // wv[j] = w(k + j, 4q .. 4q+3)
-            if (TRANS) {
-                const float4 t0 = load4(w + (size_t)(4 * q) * ldw + k);
-                const float4 t1 = load4(w + (size_t)(4 * q + 1) * ldw + k);
-                const float4 t2 = load4(w + (size_t)(4 * q + 2) * ldw + k);
-                const float4 t3 = load4(w + (size_t)(4 * q + 3) * ldw + k);
-                wv[0] = make_float4(t0.x, t1.x, t2.x, t3.x);
-                wv[1] = make_float4(t0.y, t1.y, t2.y, t3.y);
-                wv[2] = make_float4(t0.z, t1.z, t2.z, t3.z);
-                wv[3] = make_float4(t0.w, t1.w, t2.w, t3.w);
-            } else {
-#pragma unroll
-                for (int j = 0; j < 4; ++j) wv[j] = load4(w + (size_t)(k + j) * ldw + 4 * q);
-            }
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-                const float4 a4 = load4(ar[r] + k);
-                fma4(a4.x, wv[0], acc[r]);
-                fma4(a4.y, wv[1], acc[r]);
-                fma4(a4.z, wv[2], acc[r]);
-                fma4(a4.w, wv[3], acc[r]);
-            }
-        }
-        for (; k < kdim; ++k) {
-            float4 wk;
-            if (TRANS) {
-                wk = make_float4(w[(size_t)(4 * q) * ldw + k], w[(size_t)(4 * q + 1) * ldw + k], w[(size_t)(4 * q + 2) * ldw + k],
-                                 w[(size_t)(4 * q + 3) * ldw + k]);
-            } else {
-                wk = load4(w + (size_t)k * ldw + 4 * q);
-            }
-#pragma unroll
-            for (int r = 0; r < 4; ++r) fma4(ar[r][k], wk, acc[r]);
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            if (i0 + r < n) epi(i0 + r, q, acc[r]);
-        }
-    }
-}
-
-// One graph's forward tower; FLAT selects the layout (x [G, N, F] and
-// pooled [G, C2], or x_t [F, G*N], pooled [C2, G], h1 [C1, G*N] and the sign
-// of h2 [C2, G*N] written too). The flat tower masks h1 as well. The bf16
-// form rounds x and the weights as it stages them, and fcx, h1 and fcx2
-// before the products that take them (h1 is written in f32, unrounded, as
-// JAX does).
-template <bool FLAT, bool BF16>
-__global__ void __launch_bounds__(THREADS) tower_fwd(const int8_t* __restrict__ adj, const float* __restrict__ x,
-                                                     const uint8_t* __restrict__ mask, const float* __restrict__ w1,
-                                                     const float* __restrict__ w2, float* __restrict__ pooled,
-                                                     float* __restrict__ h1_out, uint8_t* __restrict__ sign_out, int G,
-                                                     int N, int F, int C1, int C2) {
-    extern __shared__ float4 smem4[];
-    float* sm = reinterpret_cast<float*>(smem4);
-    const Layout L = layout(N, F, C1, C2);
-    float* r1 = sm + L.r1;
-    float* r2 = sm + L.r2;
-    float* r3 = sm + L.r3;
-    float* r4 = sm + L.r4;
-    float* msk = sm + L.mask;
-    uint32_t* bits = reinterpret_cast<uint32_t*>(sm + L.bits);
-    const int g = blockIdx.x;
-    const int tid = threadIdx.x;
-    const size_t base = (size_t)g * N;
-    const size_t gn = (size_t)G * N;
-
-    load_bits(adj + base * N, N, L.words, bits);
-    load_weights<BF16>(w1, w2, F, C1, C2, L, sm);
-    for (int i = tid; i < N; i += blockDim.x) msk[i] = mask[base + i] ? 1.f : 0.f;
-    const int f4 = round4(F);
+// load_bits from 16-byte loads, when every adjacency row starts 16-byte
+// aligned (N % 16 == 0): a thread builds each word from two pieces
+__device__ __forceinline__ void load_bits16(const int8_t* __restrict__ adj_g, int n, int words, uint32_t* bits) {
+    const int pieces = n / 16;
 #pragma unroll 4
-    for (int idx = tid; idx < N * f4; idx += blockDim.x) {
-        if (FLAT) {
-            const int f = idx / N;
-            const int i = idx - f * N;
-            r1[(size_t)i * L.s1 + f] = f < F ? at_form<BF16>(x[(size_t)f * gn + base + i]) : 0.f;
-        } else {
-            const int i = idx / f4;
-            const int f = idx - i * f4;
-            r1[(size_t)i * L.s1 + f] = f < F ? at_form<BF16>(x[(base + i) * F + f]) : 0.f;
-        }
+    for (int item = threadIdx.x; item < n * words; item += blockDim.x) {
+        const int i = item / words;
+        const int w = item - i * words;
+        const int4* row = reinterpret_cast<const int4*>(adj_g + (size_t)i * n);
+        const int4 lo = __ldg(row + 2 * w);
+        const int4 hi = 2 * w + 1 < pieces ? __ldg(row + 2 * w + 1) : make_int4(0, 0, 0, 0);
+        bits[item] = nonzero_bits16(lo) | nonzero_bits16(hi) << 16;
     }
-    __syncthreads();
-    const int q1 = L.c1p / 4;
-    const int q2 = L.c2p / 4;
-    // fcx = x w1 -> R2
-    weight_product<false>(r1, L.s1, sm + L.w1, L.c1p, F, N, q1, [&](int i, int q, float4 a) { store4(r2 + (size_t)i * L.s2 + 4 * q, at_form<BF16>(a)); });
-    __syncthreads();
-    // h1 = relu(A fcx) (times the mask in the flat tower) -> R3
-    aggregate(bits, L.words, r2, L.s2, N, q1, [&](int i, int q, float4 a) {
-        const float4 h = relu_scale(a, FLAT ? msk[i] : 1.f);
-        store4(r3 + (size_t)i * L.s2 + 4 * q, at_form<BF16>(h));
-        if (FLAT) {
-            for (int c = 0; c < 4; ++c) {
-                if (4 * q + c < C1) h1_out[(size_t)(4 * q + c) * gn + base + i] = lane4(h, c);
-            }
+}
+
+// the adjacency of one graph (adj: the batch's [G, N, N] base, for the
+// alignment test) as bits
+__device__ __forceinline__ void adjacency_bits(const int8_t* __restrict__ adj, const int8_t* __restrict__ adj_g, int n, int words,
+                                               uint32_t* bits) {
+    if (n % 16 == 0 && (reinterpret_cast<uintptr_t>(adj) & 15) == 0) {
+        load_bits16(adj_g, n, words, bits);
+    } else {
+        load_bits(adj_g, n, words, bits);
+    }
+}
+
+// bits[c*words + w] bit b <=> on(src[c*stride + 32*w + b]) for c < rows and
+// 32 w + b < n; rows up to rows_pad are zero. A warp ballots 32 consecutive
+// nodes of one row (coalesced), ROUND words at a time with their loads in
+// flight together.
+template <int ROUND, class T, class On>
+__device__ __forceinline__ void row_bits(const T* __restrict__ src, size_t stride, int rows, int rows_pad, int n, int words,
+                                         uint32_t* bits, On on) {
+    const int lane = threadIdx.x & 31;
+    const int total = rows_pad * words;
+    for (int p0 = threadIdx.x >> 5; p0 < total; p0 += ROUND * WARPS) {
+        T v[ROUND];
+#pragma unroll
+        for (int r = 0; r < ROUND; ++r) {
+            const int p = p0 + r * WARPS;
+            const int c = p / words;
+            const int j = (p - c * words) * 32 + lane;
+            v[r] = p < total && c < rows && j < n ? __ldg(src + c * stride + j) : T(0);
         }
-    });
-    __syncthreads();
-    // fcx2 = h1 w2 -> R4
-    weight_product<false>(r3, L.s2, sm + L.w2, L.ldw2, C1, N, q2, [&](int i, int q, float4 a) { store4(r4 + (size_t)i * L.s1 + 4 * q, at_form<BF16>(a)); });
-    __syncthreads();
-    // h2 = relu(A fcx2) * mask -> R1 (x is dead)
-    aggregate(bits, L.words, r4, L.s1, N, q2, [&](int i, int q, float4 a) {
-        const float4 h = relu_scale(a, msk[i]);
-        store4(r1 + (size_t)i * L.s1 + 4 * q, h);
-        if (FLAT) {
-            for (int c = 0; c < 4; ++c) {
-                if (4 * q + c < C2) sign_out[(size_t)(4 * q + c) * gn + base + i] = lane4(h, c) > 0.f ? 1 : 0;
-            }
-        }
-    });
-    __syncthreads();
-    // the per-graph sum over nodes, in node order
-    for (int c = tid; c < C2; c += blockDim.x) {
-        float s = 0.f;
-        for (int i = 0; i < N; ++i) s += r1[(size_t)i * L.s1 + c];
-        if (FLAT) {
-            pooled[(size_t)c * G + g] = s;
-        } else {
-            pooled[(size_t)g * C2 + c] = s;
+#pragma unroll
+        for (int r = 0; r < ROUND; ++r) {
+            const uint32_t m = __ballot_sync(FULL, on(v[r]));
+            if (lane == 0 && p0 + r * WARPS < total) bits[p0 + r * WARPS] = m;
         }
     }
 }
+
+// count[k] = the number of set bits of the bit row `row` that are also set in
+// channel k's sign bits (sgn + k*words), k < K
+template <int K>
+__device__ __forceinline__ void count_signs(const uint32_t* row, const uint32_t* sgn, int words, int (&count)[K]) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) count[k] = 0;
+    for (int u = 0; u < words; ++u) {
+        const uint32_t a = row[u];
+#pragma unroll
+        for (int k = 0; k < K; ++k) count[k] += __popc(a & sgn[k * words + u]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// aggregates
+
+// A walk over one bit row's set bits in ascending order; the next word is
+// read one word ahead, so that its load is not on the walk's path.
+struct BitWalk {
+    const uint32_t* row;
+    int words, w;
+    uint32_t b, ahead;
+
+    __device__ __forceinline__ BitWalk(const uint32_t* r, int n_words, bool live)
+        : row(r), words(live ? n_words : 0), w(0), b(live ? r[0] : 0u), ahead(live && n_words > 1 ? r[1] : 0u) {}
+
+    // the next set bit, or -1 past the last word
+    __device__ __forceinline__ int next() {
+        while (b == 0) {
+            if (++w >= words) return -1;
+            b = ahead;
+            ahead = w + 1 < words ? row[w + 1] : 0u;
+        }
+        const int j = w * 32 + __ffs(b) - 1;
+        b &= b - 1;
+        return j;
+    }
+};
+
+// acc[q] = sum over the set bits j of the bit row (none unless live) of
+// v[j][4(q0+q) .. 4(q0+q)+3] for q0 + q < quads (0 past), ascending j
+template <int QMAX, typename E>
+__device__ __forceinline__ void row_sum(const uint32_t* row, int words, bool live, const E* v, int ldv, int q0, int quads,
+                                        float4 (&acc)[QMAX]) {
+#pragma unroll
+    for (int q = 0; q < QMAX; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    BitWalk walk(row, words, live);
+    for (int j = walk.next(); j >= 0; j = walk.next()) {
+        const E* vj = v + (size_t)j * ldv + 4 * q0;
+        if constexpr (sizeof(E) == 2) {  // bf16: two quads a 16-byte read
+#pragma unroll
+            for (int q = 0; q < QMAX; q += 2) {
+                if (q0 + q + 1 < quads) {
+                    const uint4 t = *reinterpret_cast<const uint4*>(vj + 4 * q);
+                    add4(acc[q], widen4(t.x, t.y));
+                    add4(acc[q + 1], widen4(t.z, t.w));
+                } else if (q0 + q < quads) {
+                    add4(acc[q], get4(vj + 4 * q));
+                }
+            }
+        } else {
+#pragma unroll
+            for (int q = 0; q < QMAX; ++q) {
+                if (q0 + q < quads) add4(acc[q], get4(vj + 4 * q));
+            }
+        }
+    }
+}
+
+// epi(i, q, sum over the set bits j of row i of v[j][4q .. 4q+3]) for every
+// row i < rows (0 past N) and quad q < quads, ascending j. One lane a row
+// (threads 0 .. rows - 1, then again past THREADS), which walks the row's
+// bits once for each QMAX quads and holds their sums in registers: the walk
+// costs one lane's instructions, and the lane's 16-byte reads of a
+// neighbour's row are independent of each other.
+template <int QMAX, typename E, class Epi>
+__device__ __forceinline__ void aggregate(const uint32_t* bits, int words, const E* v, int ldv, int n, int rows, int quads,
+                                          Epi epi) {
+    for (int i = threadIdx.x; i < rows; i += THREADS) {
+        for (int q0 = 0; q0 < quads; q0 += QMAX) {
+            float4 acc[QMAX];
+            row_sum<QMAX>(bits + i * words, words, i < n, v, ldv, q0, quads, acc);
+#pragma unroll
+            for (int q = 0; q < QMAX; ++q) {
+                if (q0 + q < quads) epi(i, q0 + q, acc[q]);
+            }
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// weight products: register tiles on the CUDA cores
+
+// epi(m, n, sum_{k < K} a[m*lda + k] * B(k, n)) for m < M, n < Nn, with
+// B(k, n) = b[k*ldb + n], or b[n*ldb + k] when B_NK; K a multiple of 4
+// (operands zero-padded there), in f32 FMAs in ascending k: the order of the
+// plain versions' products, so that a bf16 form rounds the same sums. A
+// thread holds a TR x 8 tile: rows m0 + RL*j and, with CL = the least power
+// of two with 8 CL >= Nn (at most 32; RL x CL = 32 lanes), columns
+// n0 + 8*cl + i (B(k, n) row-major: two 16-byte reads a row of B) or
+// n0 + cl + CL*i (B_NK: one 16-byte read of 4 k a column). A takes one
+// 16-byte read of 4 k a row. With row strides of an odd number of 16-byte
+// units, each read of a quarter-warp meets each bank once. An 8 x 8 tile
+// reads 64 values for 256 FMAs per 4 k.
+__device__ __forceinline__ int column_lanes_log2(int Nn) {
+    int cl_log2 = 0;
+    while (cl_log2 < 5 && (8 << cl_log2) < Nn) ++cl_log2;
+    return cl_log2;
+}
+
+// the warp tasks of tile_gemm<TR>
+__device__ __forceinline__ int tile_tasks(int TR, int M, int Nn) {
+    const int cl_log2 = column_lanes_log2(Nn);
+    const int RL = 32 >> cl_log2;
+    return ((M + TR * RL - 1) / (TR * RL)) * ((Nn + (8 << cl_log2) - 1) / (8 << cl_log2));
+}
+
+// warps w0 .. w0 + nw - 1 take part
+template <int TR, bool B_NK, typename E, class Epi>
+__device__ __forceinline__ void tile_gemm(const E* a, int lda, const E* b, int ldb, int M, int Nn, int K, Epi epi, int w0 = 0,
+                                          int nw = WARPS) {
+    const int lane = threadIdx.x & 31;
+    const int cl_log2 = column_lanes_log2(Nn);
+    const int CL = 1 << cl_log2;
+    const int RL = 32 >> cl_log2;
+    const int cblocks = (Nn + 8 * CL - 1) / (8 * CL);
+    const int warp = (threadIdx.x >> 5) - w0;
+    if (warp < 0 || warp >= nw) return;
+    const int cl = lane & (CL - 1);
+    for (int task = warp; task < tile_tasks(TR, M, Nn); task += nw) {
+        const int m0 = (task / cblocks) * TR * RL + (lane >> cl_log2);
+        const int nb = (task % cblocks) * 8 * CL;
+        const auto column = [&](int i) { return B_NK ? nb + cl + CL * i : nb + 8 * cl + i; };
+        int ao[TR];  // rows past the end read the last one
+#pragma unroll
+        for (int j = 0; j < TR; ++j) ao[j] = min(m0 + RL * j, M - 1) * lda;
+        int bo[B_NK ? 8 : 1];  // B_NK: each column's row of b (past the end: the last)
+#pragma unroll
+        for (int i = 0; i < (B_NK ? 8 : 1); ++i) bo[i] = B_NK ? min(column(i), Nn - 1) * ldb : column(0);
+        float acc[TR][8];
+#pragma unroll
+        for (int j = 0; j < TR; ++j)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[j][i] = 0.f;
+        for (int k = 0; k < K; k += 4) {
+            float4 av[TR];
+#pragma unroll
+            for (int j = 0; j < TR; ++j) av[j] = get4(a + ao[j] + k);
+            if constexpr (B_NK) {
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const float4 bv = get4(b + bo[i] + k);
+#pragma unroll
+                    for (int j = 0; j < TR; ++j) {
+                        acc[j][i] = fmaf(av[j].x, bv.x, acc[j][i]);
+                        acc[j][i] = fmaf(av[j].y, bv.y, acc[j][i]);
+                        acc[j][i] = fmaf(av[j].z, bv.z, acc[j][i]);
+                        acc[j][i] = fmaf(av[j].w, bv.w, acc[j][i]);
+                    }
+                }
+            } else {
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+                    const E* bk = b + (size_t)(k + kk) * ldb + bo[0];
+                    const float4 b0 = get4(bk);
+                    const float4 b1 = get4(bk + 4);
+                    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+                    for (int j = 0; j < TR; ++j) {
+                        const float a_k = lane4(av[j], kk);
+#pragma unroll
+                        for (int i = 0; i < 8; ++i) acc[j][i] = fmaf(a_k, bv[i], acc[j][i]);
+                    }
+                }
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < TR; ++j)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                if (m0 + RL * j < M && column(i) < Nn) epi(m0 + RL * j, column(i), acc[j][i]);
+            }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// launch
 
 // Clears any earlier non-sticky error and opts the kernel into `smem` bytes
-// of dynamic shared memory when that is above the default 48 KB. A plan
-// above the card's limit fails here: the caller returns the error.
+// of dynamic shared memory when that is above the default 48 KB; with
+// `max_shared`, also all of an SM's shared memory to the carveout, so that
+// several blocks of a compact plan fit. A plan above the card's limit fails
+// here: the caller returns the error.
 template <class Kernel>
-inline cudaError_t prepare(Kernel* kernel, size_t smem) {
+inline cudaError_t prepare(Kernel* kernel, size_t smem, bool max_shared = false) {
     (void)cudaGetLastError();
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) {
-            (void)cudaGetLastError();  // not sticky: clear it so later launches are not blamed
-            return e;
-        }
+    cudaError_t e = cudaSuccess;
+    if (smem > 48 * 1024) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess && max_shared) {
+        e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, (int)cudaSharedmemCarveoutMaxShared);
     }
-    return cudaSuccess;
+    if (e != cudaSuccess) (void)cudaGetLastError();  // not sticky: clear it so later launches are not blamed
+    return e;
 }
 
 }  // namespace tower

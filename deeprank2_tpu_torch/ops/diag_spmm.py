@@ -36,7 +36,13 @@ pool into one forward and one backward kernel (``csrc/diag_tower.cu``:
 once per direction (int8 adjacency only), in an f32 and a bf16 form (the
 JAX ``split=False`` branch: ``x_t``, the weights, ``fcx1``, ``h1``,
 ``fcx2``, then ``u2``, ``t2`` and ``u1`` rounded to bf16 once, in the
-kernel; ``t2`` and ``t1`` returned as bf16).
+kernel; ``t2`` and ``t1`` returned as bf16). The backward takes ``t2 = A
+(sign ⊙ g_pool)`` from the count of each node's neighbours whose sign is
+set: ``g_pool`` times it in the bf16 form (exact: the plain version's
+value), that many copies of ``g_pool`` added in ascending order in f32 (the
+ascending sum over the neighbours, bit for bit). :func:`tower_supports` is the flat tower's
+shape rule (:func:`tower_fwd_smem_bytes` and :func:`tower_bwd_smem_bytes`
+mirror the kernels' shared-memory plans).
 
 Each kernel wrapper takes its plain PyTorch version (``*_ref``) for tensors
 on the CPU, launches its kernel for tensors on a CUDA device, and raises for
@@ -52,6 +58,7 @@ import ctypes
 import torch
 
 from deeprank2_tpu_torch.ops import _build
+from deeprank2_tpu_torch.ops.tower_plan import SMEM_LIMIT, round16, row_bytes
 
 SOURCE = "diag_spmm"
 TOWER_SOURCE = "diag_tower"
@@ -492,6 +499,61 @@ def diag_layer_pool_t_ref(adj: torch.Tensor, node_mask: torch.Tensor, fcx_t: tor
     """Plain PyTorch version of :func:`diag_layer_pool_t`."""
     g, n, _ = adj.shape
     return diag_layer_t_ref(adj, node_mask, fcx_t).reshape(fcx_t.shape[0], g, n).sum(dim=2)
+
+
+# ---------------------------------------------------------------------------
+# The fused tower's shape rule
+
+
+def tower_fwd_smem_bytes(nodes: int, feat: int, c1: int, c2: int) -> int:
+    """Shared memory of one block of ``tower_fwd_kernel`` (the plan of
+    ``csrc/diag_tower.cu:flat_fwd::layout``): two ``[N, stride(max(F, c2p))]``
+    and two ``[N, stride(c1p)]`` f32 slabs (``c1p``, ``c2p``: C1, C2 rounded
+    up to 4; ``stride``: rounded up to an odd number of 4-float groups), the
+    padded weights ``[F, c1p]`` and ``[c1p, stride(c2p)]``, the mask, one
+    per-graph vector and one bit per adjacency entry (rows of 32-bit
+    words)."""
+
+    def r4(v: int) -> int:
+        return (v + 3) // 4 * 4
+
+    def stride(v: int) -> int:
+        return r4(v) if (r4(v) // 4) % 2 else r4(v) + 4
+
+    c1p, c2p = r4(c1), r4(c2)
+    s1, s2 = stride(max(feat, c2p)), stride(c1p)
+    words = (nodes + 31) // 32
+    floats = 2 * nodes * s1 + 2 * nodes * s2 + feat * c1p + c1p * stride(c2p) + r4(nodes) + c2p + nodes * words
+    return 4 * floats
+
+
+def tower_bwd_smem_bytes(nodes: int, c1: int, c2: int, elem_bytes: int = 4) -> int:
+    """Shared memory of one block of ``tower_bwd_kernel`` (the plan of
+    ``csrc/diag_tower.cu:bwd_plan``; ``elem_bytes`` 4 in the f32 form, 2 in
+    the bf16 form), channels padded to 4 (``c1p``, ``c2p``): the adjacency's
+    bit rows ``[N, words]``, the sign of h2 ``[c2p, words]`` and ``h1 > 0``
+    ``[c1p, words]`` (uint32), the graph's ``g_pool`` ``[c2p]`` and, in the
+    f32 form, the ascending sums of its copies ``[c2p, 32]`` (f32); then,
+    of ``elem_bytes`` each, w2 ``[c1p, ld(c2p)]``, the t2 slab
+    ``[N, ld(c2p)]`` and the u1 slab ``[N, ld(c1p)]``, each row padded to an
+    odd number of 16-byte units and each part to 16 bytes."""
+
+    c1p, c2p, words = (c1 + 3) // 4 * 4, (c2 + 3) // 4 * 4, (nodes + 31) // 32
+    ld1, ld2 = row_bytes(c1p, elem_bytes), row_bytes(c2p, elem_bytes)
+    sums = 4 * c2p * 32 if elem_bytes == 4 else 0
+    parts = (4 * nodes * words, 4 * c2p * words, 4 * c1p * words, 4 * c2p, sums, c1p * ld2, nodes * ld2, nodes * ld1)
+    return sum(round16(b) for b in parts)
+
+
+def tower_supports(num_graphs: int, nodes: int, feat: int = 38, c1: int = 32, c2: int = 64) -> bool:
+    """The fused flat tower's shape rule: at least one graph, and one
+    graph's forward and backward each in the shared memory of one block
+    (:func:`tower_fwd_smem_bytes` and the f32 form of
+    :func:`tower_bwd_smem_bytes`, at most ``SMEM_LIMIT``). At GINetDense's
+    widths (F=38, C1=32, C2=64) that is N <= 251 nodes a graph, the
+    forward's limit (the backward's is N <= 444); beyond it a kernel raises."""
+    fits = tower_fwd_smem_bytes(nodes, feat, c1, c2) <= SMEM_LIMIT and tower_bwd_smem_bytes(nodes, c1, c2) <= SMEM_LIMIT
+    return num_graphs >= 1 and nodes >= 1 and fits
 
 
 # ---------------------------------------------------------------------------

@@ -6,15 +6,16 @@ Per graph, with the towers fused on the weight side (``w1 [F, C1]``,
 
     h1 = relu(A (x w1));  h2 = relu(A (h1 w2)) * mask;  pooled = sum_n h2
 
-runs in the CUDA kernels of ``csrc/ginet_tower.cu``: ``ginet_tower_fwd_kernel``
-(one thread block per graph, every intermediate in shared memory, only the
-``[G, C2]`` pooled sums written) and ``ginet_tower_bwd_kernel`` (a block per
-graph too, on a plan of its own that fits two or three graphs an SM: it
-recomputes h1 and h2 from the same resident adjacency, runs its node
-products on the tensor cores in the bf16 form and every other product in
-register tiles, and returns the weight gradients, summed over graphs in a
-fixed order). ``x``, the adjacency and the mask are batch data: their cotangents
-are zeros, as in the JAX package.
+runs in the CUDA kernels of ``csrc/ginet_tower.cu``, one thread block per
+graph on one shared-memory plan, every intermediate in shared memory:
+``ginet_tower_fwd_kernel`` (two graphs an SM in f32, four in bf16; only the
+``[G, C2]`` pooled sums written, summed over the nodes in a fixed order)
+and ``ginet_tower_bwd_kernel`` (two graphs an SM in f32, three in bf16; it
+recomputes h1 and h2 from the same resident adjacency through the
+forward's code, runs its node products on the tensor cores in the bf16 form
+and every other product in register tiles, and returns the weight
+gradients, summed over graphs in a fixed order). ``x``, the adjacency and
+the mask are batch data: their cotangents are zeros, as in the JAX package.
 
 ``compute_dtype=torch.bfloat16`` selects the single-pass bf16 form of both
 kernels (the JAX kernels with ``compute_dtype=bfloat16``): every matmul
@@ -38,10 +39,9 @@ import torch
 
 from deeprank2_tpu_torch.ops import _build
 from deeprank2_tpu_torch.ops.diag_spmm import ACT_DTYPES, _require, _route, activation_dtype, form_name, round_to
+from deeprank2_tpu_torch.ops.tower_plan import SMEM_LIMIT, round16, row_bytes
 
 SOURCE = "ginet_tower"
-# the per-block shared-memory limit of an H100 (232,448 bytes, opt-in)
-SMEM_LIMIT = 232_448
 
 # kernel launches since the last reset_launches(), by kernel and by form
 launches = {"ginet_tower_fwd_kernel": 0, "ginet_tower_bwd_kernel": 0}
@@ -61,56 +61,52 @@ def _count(kernel: str, act: torch.dtype) -> None:
     launches_by_dtype[kernel][form_name(torch.int8, act)] += 1
 
 
-def smem_bytes(nodes: int, feat: int, c1: int, c2: int) -> int:
-    """Shared memory of one block of the tower kernels (the plan of
-    ``csrc/tower_common.cuh:layout``): two ``[N, stride(max(F, c2p))]`` and
-    two ``[N, stride(c1p)]`` f32 slabs (``c1p``, ``c2p``: C1, C2 rounded up to
-    4; ``stride``: rounded up to an odd number of 4-float groups), the padded
-    weights ``[F, c1p]`` and ``[c1p, stride(c2p)]``, the mask, one per-graph
-    vector and one bit per adjacency entry (rows of 32-bit words)."""
+# the warps of one block of the tower kernels (csrc/tower_common.cuh:WARPS)
+WARPS = 8
 
-    def r4(v: int) -> int:
-        return (v + 3) // 4 * 4
 
-    def stride(v: int) -> int:
-        return r4(v) if (r4(v) // 4) % 2 else r4(v) + 4
+def _plan_bytes(nodes: int, feat: int, c1: int, c2: int, elem_bytes: int, forward: bool) -> int:
+    """Shared memory of one block on ``csrc/ginet_tower.cu:plan``, the
+    forward's or the backward's (:func:`smem_bytes`, :func:`bwd_smem_bytes`)."""
 
-    c1p, c2p = r4(c1), r4(c2)
-    s1, s2 = stride(max(feat, c2p)), stride(c1p)
-    words = (nodes + 31) // 32
-    floats = 2 * nodes * s1 + 2 * nodes * s2 + feat * c1p + c1p * stride(c2p) + r4(nodes) + c2p + nodes * words
-    return 4 * floats
+    def row(cols: int) -> int:
+        return row_bytes(cols, elem_bytes)
+
+    rows, kx, c1p, c2p, words = round16(nodes), round16(feat), round16(c1), round16(c2), (nodes + 31) // 32
+    if forward:  # the warp sums; fcx beside x in the slab, no third slab
+        parts = (4 * nodes * words, 4 * words, 4 * WARPS * c2p, kx * row(c1p), c1p * row(c2p), rows * row(max(c2p, kx + c1p)), rows * row(c1p))
+    else:
+        parts = (4 * nodes * words, 4 * words, 4 * c2p * words, 4 * c2p, kx * row(c1p), c1p * row(c2p), rows * row(max(c2p, kx)), rows * row(c1p), rows * row(c1p))
+    return sum(round16(b) for b in parts)
+
+
+def smem_bytes(nodes: int, feat: int, c1: int, c2: int, elem_bytes: int = 4) -> int:
+    """Shared memory of one block of the forward kernel: the backward's plan
+    (:func:`bwd_smem_bytes`) with the signs and dpooled replaced by the warp
+    sums of the pool, ``[8, c2p]`` f32, and fcx kept beside x in the wide
+    slab (``[rows, ld(max(c2p, kx + c1p))]``) in place of the third slab."""
+    return _plan_bytes(nodes, feat, c1, c2, elem_bytes, forward=True)
 
 
 def bwd_smem_bytes(nodes: int, feat: int, c1: int, c2: int, elem_bytes: int = 4) -> int:
     """Shared memory of one block of the backward kernel (the plan of
-    ``csrc/ginet_tower.cu:backward::plan``; ``elem_bytes`` 4 in the f32 form,
+    ``csrc/ginet_tower.cu:plan``; ``elem_bytes`` 4 in the f32 form,
     2 in the bf16 form): nodes, features and channels padded to 16; the
     adjacency's bit rows ``[N, words]``, the mask's bits ``[words]``, the
     signs of h2 ``[c2p, words]`` (uint32) and dpooled ``[c2p]`` (f32); then,
     of ``elem_bytes`` each, w1 ``[kx, ldw1]``, w2 ``[c1p, ldw2]`` and the
     slabs ``[rows, ldp]`` and twice ``[rows, ldh]``, each row padded to an
     odd number of 16-byte units and each part to 16 bytes."""
-
-    def r16(v: int) -> int:
-        return (v + 15) // 16 * 16
-
-    def row(cols: int) -> int:
-        units = (cols * elem_bytes + 15) // 16
-        return (units if units % 2 else units + 1) * 16
-
-    rows, kx, c1p, c2p, words = r16(nodes), r16(feat), r16(c1), r16(c2), (nodes + 31) // 32
-    parts = (4 * nodes * words, 4 * words, 4 * c2p * words, 4 * c2p, kx * row(c1p), c1p * row(c2p), rows * row(max(c2p, kx)), rows * row(c1p), rows * row(c1p))
-    return sum(r16(b) for b in parts)
+    return _plan_bytes(nodes, feat, c1, c2, elem_bytes, forward=False)
 
 
 def supports(num_graphs: int, nodes: int, feat: int = 38, c1: int = 32, c2: int = 64) -> bool:
     """The kernels' shape rule: at least one graph, and one graph's forward
     and backward each in the shared memory of one block,
     ``smem_bytes(nodes, feat, c1, c2) <= SMEM_LIMIT`` and the same of
-    ``bwd_smem_bytes`` (its f32 form, the larger). At GINetDense's widths
-    (F=38, C1=32, C2=64) that is N <= 251 nodes a graph, the forward's
-    limit; there is no rule on the number of graphs."""
+    ``bwd_smem_bytes`` (their f32 forms, the larger). At GINetDense's widths
+    (F=38, C1=32, C2=64) that is N <= 352 nodes a graph, where both plans
+    end; there is no rule on the number of graphs."""
     fits = smem_bytes(nodes, feat, c1, c2) <= SMEM_LIMIT and bwd_smem_bytes(nodes, feat, c1, c2) <= SMEM_LIMIT
     return num_graphs >= 1 and nodes >= 1 and fits
 

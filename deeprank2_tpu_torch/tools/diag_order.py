@@ -27,7 +27,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import statistics
 import subprocess
 from unittest import mock
 
@@ -37,6 +36,7 @@ from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
 from deeprank2_tpu_torch.ops import diag_spmm as ds
 from deeprank2_tpu_torch.ops.batch import collate_graphs_dense, collate_graphs_diag_clustered
 from deeprank2_tpu_torch.ops.synthetic import ppi_clustered_entries, synthetic_entries
+from deeprank2_tpu_torch.tools.timing import Timer
 
 CROSS_TOL = {"rtol": 1e-4, "atol": 1e-5}  # chip_smoke.py's gate between GINetDense's routes
 # K1's calls a train step: (batch, adjacency, mode, F)
@@ -171,23 +171,6 @@ def order_witness(dev, num_graphs: int = 512, nodes: int = 160) -> dict:
     return report
 
 
-def timed_ms(fn, flush, sink, reps=25) -> float:
-    """Median CUDA-event time of one call, the L2 flushed (a 128 MB read)
-    before each."""
-    fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(reps):
-        torch.sum(flush, dim=0, out=sink)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
 def body_times(dev) -> dict:
     dense, _ = collate_graphs_dense(synthetic_entries(512, 160, 38, 6, seed=7), pad_graphs=512, pad_nodes=160, device=dev)
     clustered, _ = collate_graphs_diag_clustered(ppi_clustered_entries(512, 160, 38, seed=0), device=dev)
@@ -196,8 +179,7 @@ def body_times(dev) -> dict:
         ("clustered", "adj"): (clustered.adj_i8, clustered.node_mask),
         ("clustered", "adj_p"): (clustered.adj_p_i8, clustered.pooled_mask),
     }
-    flush = torch.ones(32 * 2**20, dtype=torch.float32, device=dev)
-    sink = torch.empty((), dtype=torch.float32, device=dev)
+    timer = Timer(dev)
     gen = torch.Generator(device=dev).manual_seed(11)
     out = {}
     for path, calls in STEP_CALLS.items():
@@ -214,10 +196,10 @@ def body_times(dev) -> dict:
                     got = ds.diag_kernel(adj, x, m, mode)
                     pairs = zip(got, want) if mode == "relu_mask_pool" else [(got, want)]
                     row[f"{body}_max_abs_err"] = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
-                    row[f"{body}_ms"] = timed_ms(lambda: ds.diag_kernel(adj, x, m, mode), flush, sink)
+                    row[f"{body}_ms"] = timer.ms(lambda: ds.diag_kernel(adj, x, m, mode))
                 step[body] += row[f"{body}_ms"]
             adj_f, x_gnf = adj.float(), x.reshape(f, g, n).permute(1, 2, 0).contiguous()
-            row["bmm_ms"] = timed_ms(lambda: torch.bmm(adj_f, x_gnf), flush, sink)
+            row["bmm_ms"] = timer.ms(lambda: torch.bmm(adj_f, x_gnf))
             step["bmm"] += row["bmm_ms"]
             rows.append(row)
         out[path] = {"calls": rows, "step_ms": step}

@@ -505,23 +505,40 @@ def test_tower_kernels_match_plain_versions(cuda, g, n, f, c1, c2) -> None:
     assert ds.launches["tower_fwd_kernel"] == ds.launches["tower_bwd_kernel"] == 1
 
 
-# supports() holds both kernels' plans; at these widths the forward's ends at
-# N = 251 and the backward's (its own plan, bwd_smem_bytes) at N = 352
-@pytest.mark.parametrize("n", [252, 353, 2048])
+# Each kernel's own plan at these widths: K8f's ends at N = 400, K8b's at
+# N = 352 (where supports(), both, ends), K9f's at N = 251 (where
+# tower_supports() ends) and K9b's at N = 444. Beyond its plan a kernel
+# raises; within it, it agrees with its plain version.
+@pytest.mark.parametrize("n", [252, 353, 401, 445, 2048])
 def test_tower_kernels_raise_beyond_the_shape_rule(cuda, n) -> None:
-    assert not gt.supports(1, n)
     adj, mask, x, x_t, w1, w2, dp = _tower_operands(1, n, 38, 32, 64, cuda)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        gt.ginet_tower_fwd_kernel(w1, w2, x, adj, mask)
+    args = (w1, w2, x, adj, mask)
+    fwd_fits, bwd_fits = gt.smem_bytes(n, 38, 32, 64) <= gt.SMEM_LIMIT, gt.bwd_smem_bytes(n, 38, 32, 64) <= gt.SMEM_LIMIT
+    assert gt.supports(1, n) == (fwd_fits and bwd_fits) and fwd_fits == (n <= 400) and bwd_fits == (n <= 352)
+    if fwd_fits:
+        torch.testing.assert_close(gt.ginet_tower_fwd_kernel(*args), gt.ginet_tower_fwd_kernel_ref(*args), **TOL)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            gt.ginet_tower_fwd_kernel(*args)
+    if bwd_fits:
+        got, want = gt.ginet_tower_bwd_kernel(*args, dp), gt.ginet_tower_bwd_kernel_ref(*args, dp)
+        for a, b, scale in zip(got, want, gt.dw_error_scale(*args, dp)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * scale.max().item())
+    else:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            gt.ginet_tower_bwd_kernel(*args, dp)
+    assert not ds.tower_supports(1, n)
     with pytest.raises(RuntimeError, match="CUDA error"):
         ds.tower_fwd_kernel(adj, x_t, mask, w1, w2)
-    if gt.bwd_smem_bytes(n, 38, 32, 64) > gt.SMEM_LIMIT:
+    h1, sign, _ = ds.tower_fwd_kernel_ref(adj, x_t, mask, w1, w2)
+    bwd = (adj, dp.T.contiguous(), sign, h1, w2)
+    if ds.tower_bwd_smem_bytes(n, 32, 64) > ds.SMEM_LIMIT:
+        assert n > 444
         with pytest.raises(RuntimeError, match="CUDA error"):
-            gt.ginet_tower_bwd_kernel(w1, w2, x, adj, mask, dp)
+            ds.tower_bwd_kernel(*bwd)
     else:
-        got, want = gt.ginet_tower_bwd_kernel(w1, w2, x, adj, mask, dp), gt.ginet_tower_bwd_kernel_ref(w1, w2, x, adj, mask, dp)
-        for a, b, scale in zip(got, want, gt.dw_error_scale(w1, w2, x, adj, mask, dp)):
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * scale.max().item())
+        for a, b, scale in zip(ds.tower_bwd_kernel(*bwd), ds.tower_bwd_kernel_ref(*bwd), ds.tower_bwd_error_scale(*bwd)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=max(1e-5, 1e-6 * scale.max().item()))
 
 
 def test_dense_tower_train_step_matches_cpu_and_counts_launches(cuda) -> None:
@@ -1182,3 +1199,74 @@ def test_sgat_diag_bf16_on_an_f32_adjacency_matches_cpu(cuda) -> None:
     torch.testing.assert_close(loss.detach().cpu(), cpu_loss.detach(), rtol=1e-4, atol=FLIP * cpu_loss.abs().item())
     for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
         torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=FLIP * q.grad.abs().max().item() + 1e-12, msg=name)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+# K8f and K9b in both forms at N = 1, 33 (off the 16-node tiles and the
+# 32-node bit words), 160 and each kernel's largest N (its own plan's end:
+# K8f 400, K9b 444), at G = 1 and at G = 300
+# (more graphs than the blocks resident at once), ragged masks. Two calls
+# give the same bits, and a graph computed alone gives the same bits as
+# inside the batch. The f32 forms at the f32-order bounds, the bf16 forms at
+# _flip_close; K9b's bf16 t2 is its plain version's values exactly (a count
+# times a bf16 value is exact), and an all-zero sign or a zero g_pool gives zeros.
+@pytest.mark.parametrize("compute_dtype", [None, BF16])
+@pytest.mark.parametrize("n", [1, 33, 160, "max"])
+@pytest.mark.parametrize("g", [1, 300])
+def test_ginet_tower_fwd_kernel_in_both_forms_matches_plain_version(cuda, compute_dtype, n, g) -> None:
+    f, c1, c2 = 38, 32, 64
+    if n == "max":
+        n = max(k for k in range(1, 1025) if gt.smem_bytes(k, f, c1, c2) <= gt.SMEM_LIMIT)
+        assert n == 400
+    adj, mask, x, w1, w2, _ = _ragged_tower_operands(g, n, f, c1, c2, cuda, seed=n)
+    args = (w1, w2, x, adj, mask)
+    gt.reset_launches()
+    got, again = gt.ginet_tower_fwd_kernel(*args, compute_dtype), gt.ginet_tower_fwd_kernel(*args, compute_dtype)
+    k = g // 2
+    alone = gt.ginet_tower_fwd_kernel(w1, w2, x[k : k + 1].contiguous(), adj[k : k + 1].contiguous(), mask[k : k + 1].contiguous(), compute_dtype)
+    assert gt.launches["ginet_tower_fwd_kernel"] == 3
+    assert torch.equal(_bits(got), _bits(again))
+    assert torch.equal(_bits(alone), _bits(got[k : k + 1]))
+    want = gt.ginet_tower_fwd_kernel_ref(*args, compute_dtype)
+    if compute_dtype is None:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        _flip_close(got, want, gt.ginet_tower_fwd_kernel_ref(w1.abs(), w2.abs(), x.abs(), adj, mask, compute_dtype), "K8f")
+
+
+@pytest.mark.parametrize("compute_dtype", [None, BF16])
+@pytest.mark.parametrize("n", [1, 33, 160, "max"])
+@pytest.mark.parametrize("g", [1, 300])
+def test_tower_bwd_kernel_in_both_forms_on_its_plan_matches_plain_version(cuda, compute_dtype, n, g) -> None:
+    f, c1, c2 = 38, 32, 64
+    if n == "max":
+        n = max(k for k in range(1, 1025) if ds.tower_bwd_smem_bytes(k, c1, c2) <= ds.SMEM_LIMIT)
+        assert n == 444
+    adj, mask, x, w1, w2, dp = _ragged_tower_operands(g, n, f, c1, c2, cuda, seed=n)
+    x_t = x.reshape(g * n, f).T.contiguous()
+    h1, sign, _ = ds.tower_fwd_kernel_ref(adj, x_t, mask, w1, w2, compute_dtype)
+    g_pool = dp.T.contiguous()
+    k = g // 2
+    cols = slice(k * n, (k + 1) * n)
+    for case, s, gp in (("signs", sign, g_pool), ("no sign set", torch.zeros_like(sign), g_pool), ("zero g_pool", sign, torch.zeros_like(g_pool))):
+        bwd = (adj, gp, s, h1, w2)
+        ds.reset_launches()
+        got, again = ds.tower_bwd_kernel(*bwd, compute_dtype), ds.tower_bwd_kernel(*bwd, compute_dtype)
+        alone = ds.tower_bwd_kernel(adj[k : k + 1].contiguous(), gp[:, k : k + 1].contiguous(), s[:, cols].contiguous(), h1[:, cols].contiguous(), w2, compute_dtype)
+        assert ds.launches["tower_bwd_kernel"] == 3
+        want = ds.tower_bwd_kernel_ref(*bwd, compute_dtype)
+        for what, a, b, c, w, scale in zip(("t2", "t1"), got, again, alone, want, ds.tower_bwd_error_scale(*bwd, compute_dtype)):
+            assert a.dtype == w.dtype == (compute_dtype or torch.float32), (case, what)
+            assert torch.equal(_bits(a), _bits(b)), (case, what)
+            assert torch.equal(_bits(c), _bits(a[:, cols])), (case, what)
+            if case != "signs":
+                assert not a.any(), (case, what)
+            elif compute_dtype is None:
+                torch.testing.assert_close(a, w, rtol=1e-5, atol=max(1e-5, 1e-6 * scale.max().item()), msg=f"K9b {what}")
+            elif what == "t2":
+                assert torch.equal(a, w)  # the same values (a zero's sign aside)
+            else:
+                _flip_close(a.float(), w.float(), scale, f"K9b {what}")

@@ -179,3 +179,81 @@ def test_tower_wrappers_check_their_operands() -> None:
         td.tower_bwd_kernel(adj, g_pool[:, :1].contiguous(), sign, h1, w2)
     with pytest.raises(ValueError, match="no kernel"):
         td.tower_fwd_kernel(*(t.to("meta") for t in (adj, x_t, mask, w1, w2)))
+
+
+# K9b's plan (csrc/diag_tower.cu:bwd_plan), channels padded to 4: the
+# adjacency's bit rows [N, words], the sign's [64, words] and h1's
+# [32, words], g_pool [64] and, in the f32 form, the sums of its copies
+# [64, 32] (f32), then w2 [32, ld], the t2 slab [N, ld] and the u1 slab
+# [N, ld'] (f32 rows of 68 and 36, bf16 rows of 72 and 40), each part
+# 16-byte aligned; at N = 444 it still fits one block's opt-in limit
+@pytest.mark.parametrize(
+    ("n", "elem", "want", "blocks_an_sm"),
+    [
+        (1, 4, 16 + 4 * (64 + 32 + 64) + 4 * 64 * 32 + 4 * (32 * 68 + 1 * 68 + 1 * 36), None),
+        (33, 4, 272 + 4 * 2 * (64 + 32) + 4 * 64 + 4 * 64 * 32 + 4 * (32 * 68 + 33 * 68 + 33 * 36), None),
+        (160, 4, 4 * 5 * (160 + 64 + 32) + 4 * 64 + 4 * 64 * 32 + 4 * (32 * 68 + 160 * 68 + 160 * 36), 2),
+        (160, 2, 4 * 5 * (160 + 64 + 32) + 4 * 64 + 2 * (32 * 72 + 160 * 72 + 160 * 40), 4),
+        (444, 4, 4 * 14 * (444 + 64 + 32) + 4 * 64 + 4 * 64 * 32 + 4 * (32 * 68 + 444 * 68 + 444 * 36), 1),
+    ],
+)
+def test_tower_bwd_smem_bytes_mirrors_the_backward_plan(n, elem, want, blocks_an_sm) -> None:
+    got = td.tower_bwd_smem_bytes(n, 32, 64, elem)
+    assert got == want
+    assert got <= td.SMEM_LIMIT < td.tower_bwd_smem_bytes(445, 32, 64)
+    if blocks_an_sm is not None:  # an H100 SM: 233,472 bytes of shared memory, 1 KB reserved a block
+        assert 233_472 // (got + 1024) == blocks_an_sm
+
+
+# tower_supports() holds K9f's plan (two [N, 68] and two [N, 36] f32 slabs,
+# the weights, the mask, one vector, the bit rows), which ends at N = 251 at
+# the bench widths, and K9b's, which goes on to N = 444
+@pytest.mark.parametrize(("g", "n", "ok"), [(512, 160, True), (1, 33, True), (1, 251, True), (1, 252, False), (0, 160, False)])
+def test_tower_supports_is_both_plans(g, n, ok) -> None:
+    assert td.tower_supports(g, n) == ok
+    assert (td.tower_fwd_smem_bytes(n, 38, 32, 64) <= td.SMEM_LIMIT) == (n <= 251)
+    assert td.tower_bwd_smem_bytes(n, 32, 64) <= td.SMEM_LIMIT
+    assert td.tower_fwd_smem_bytes(160, 38, 32, 64) == 4 * (2 * 160 * 68 + 2 * 160 * 36 + 38 * 32 + 32 * 68 + 160 + 64 + 160 * 5)
+    assert max(k for k in range(1, 1000) if td.tower_supports(1, k)) == 251
+
+
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
+def test_t2_is_g_pool_times_the_sign_counts(act) -> None:
+    """K9b's t2 = A (sign ⊙ g_pool) from the count of row i's neighbours
+    whose sign is set at c. In the bf16 form g_pool is a bf16 value, so
+    g_pool times the count and every partial sum of the plain version (K2's,
+    pool_bwd_kernel_ref) are exact: bit for bit. In f32 the product is the
+    exact sum rounded once, and the plain version's sum, which rounds each
+    of its count partial sums, is within count roundings of it; the kernel's
+    f32 form adds the count's copies in ascending order instead, which is
+    the ascending sum over the neighbours bit for bit."""
+    rng = np.random.default_rng(21)
+    g, n, c = 16, 96, 64
+    adj = rng.random((g, n, n)) < 0.3
+    adj[:, n - 8 :, :] = adj[:, :, n - 8 :] = False  # edgeless padded nodes: counts of 0
+    adj = torch.from_numpy((adj | adj.transpose(0, 2, 1)).astype(np.int8))
+    sign = torch.from_numpy((rng.random((c, g * n)) < 0.5).astype(np.uint8))
+    g_pool = torch.from_numpy((rng.normal(size=(c, g)) * np.exp(rng.normal(size=(c, g)))).astype(np.float32))
+    counts = torch.einsum("gij,cgj->cgi", adj.float(), sign.float().reshape(c, g, n)).reshape(c, g * n)
+    assert counts.max() > 20 and counts.min() == 0
+    g_r = td.round_to(g_pool, act).repeat_interleave(n, dim=1)
+    t2 = g_r * counts
+    want = td.pool_bwd_kernel_ref(adj, sign, g_pool, act)
+    exact = g_r.double() * counts.double()
+    assert torch.equal(t2, exact.float())  # one rounding
+    if act == torch.bfloat16:
+        assert torch.equal(t2, want)
+        assert torch.equal(td.round_to(t2, act), td.tower_bwd_kernel_ref(adj, g_pool, sign, torch.zeros(32, g * n), torch.zeros(32, c), act)[0].float())
+    else:
+        assert ((want.double() - t2.double()).abs() <= 2.0**-24 * counts.double() * exact.abs()).all()
+        # the count's copies added in ascending order == the ascending sum over
+        # each row's neighbours (an unset sign adds +0), bit for bit
+        copies = torch.zeros(c, g * n)
+        for k in range(int(counts.max())):
+            copies = torch.where(counts > k, copies + g_r, copies)
+        u = (g_r * sign.float()).reshape(c, g, n)
+        ascending = torch.zeros(c, g, n)
+        a = adj.float()
+        for j in range(n):
+            ascending = ascending + a[None, :, :, j] * u[:, :, j : j + 1]
+        assert torch.equal(copies, ascending.reshape(c, g * n))

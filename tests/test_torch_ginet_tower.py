@@ -154,13 +154,38 @@ def test_kernel_plain_versions_match_the_interpreted_pallas_calls(interpret_pall
     assert (s1 >= got1.abs()).all() and (s2 >= got2.abs()).all()
 
 
-@pytest.mark.parametrize(("g", "n", "ok"), [(512, 160, True), (7, 96, True), (1, 251, True), (1, 252, False), (0, 160, False)])
+@pytest.mark.parametrize(("g", "n", "ok"), [(512, 160, True), (7, 96, True), (1, 352, True), (1, 353, False), (0, 160, False)])
 def test_supports_is_the_shared_memory_rule(g, n, ok) -> None:
     assert gt.supports(g, n) == ok
-    assert (gt.smem_bytes(n, 38, 32, 64) <= gt.SMEM_LIMIT) == (n <= 251)
-    # 2 x [160, 68] + 2 x [160, 36] slabs, w1 [38, 32], w2 [32, 68], mask,
-    # one [64] vector, [160, 5] bit words
-    assert gt.smem_bytes(160, 38, 32, 64) == 4 * (2 * 160 * 68 + 2 * 160 * 36 + 38 * 32 + 32 * 68 + 160 + 64 + 160 * 5)
+    assert (gt.smem_bytes(n, 38, 32, 64) <= gt.SMEM_LIMIT) == (n <= 400)
+    # the adjacency's [160, 5] and the mask's [5] bit words (16-byte parts),
+    # the warp sums [8, 64], then w1 [48, 36], w2 [32, 68], the slab
+    # [160, 84] (x and fcx side by side) and h1's [160, 36]
+    assert gt.smem_bytes(160, 38, 32, 64) == 4 * (160 * 5 + 8 + 8 * 64) + 4 * (48 * 36 + 32 * 68 + 160 * 84 + 160 * 36)
+
+
+# the forward's plan (csrc/ginet_tower.cu:plan): the backward's, with the
+# signs and dpooled replaced by the pool's warp sums [8, c2p] (f32) and fcx
+# kept beside x in the wide slab (48 + 32 columns: f32 rows of 84, bf16 of
+# 88), so no third slab; N padded to 16 rows (1 -> 16, 33 -> 48), bit rows
+# of ceil(N/32) words, each part 16-byte aligned; at N = 400 it still fits
+# one block's opt-in limit
+@pytest.mark.parametrize(
+    ("n", "elem", "want", "graphs_an_sm"),
+    [
+        (1, 4, 16 + 16 + 4 * 8 * 64 + 4 * (48 * 36 + 32 * 68 + 16 * 84 + 16 * 36), None),
+        (33, 4, 272 + 16 + 4 * 8 * 64 + 4 * (48 * 36 + 32 * 68 + 48 * 84 + 48 * 36), None),
+        (160, 4, 4 * (160 * 5 + 8 + 8 * 64) + 4 * (48 * 36 + 32 * 68 + 160 * 84 + 160 * 36), 2),
+        (160, 2, 4 * (160 * 5 + 8 + 8 * 64) + 2 * (48 * 40 + 32 * 72 + 160 * 88 + 160 * 40), 4),
+        (400, 4, 4 * (400 * 13 + 16 + 8 * 64) + 4 * (48 * 36 + 32 * 68 + 400 * 84 + 400 * 36), 1),
+    ],
+)
+def test_smem_bytes_mirrors_the_forward_plan(n, elem, want, graphs_an_sm) -> None:
+    got = gt.smem_bytes(n, 38, 32, 64, elem)
+    assert got == want
+    assert got <= gt.SMEM_LIMIT < gt.smem_bytes(401, 38, 32, 64)
+    if graphs_an_sm is not None:  # an H100 SM: 233,472 bytes of shared memory, 1 KB reserved a block
+        assert 233_472 // (got + 1024) == graphs_an_sm
 
 
 # the backward's own plan (csrc/ginet_tower.cu:backward::plan): N, F, C1, C2
@@ -185,9 +210,10 @@ def test_bwd_smem_bytes_mirrors_the_backward_plan(shape, elem, want, graphs_an_s
         assert 233_472 // (got + 1024) == graphs_an_sm
 
 
-# supports() holds both plans: the forward binds at the bench widths and
-# at a wide F, the backward at narrow channels
-@pytest.mark.parametrize(("f", "c1", "c2", "n_max"), [(38, 32, 64, 251), (38, 20, 36, 384), (200, 32, 64, 102)])
+# supports() holds both plans (the forward's cut from the backward's): the
+# backward's binds at the bench widths (N = 352) and at narrow channels
+# (N = 384); at a wide F both end at N = 160
+@pytest.mark.parametrize(("f", "c1", "c2", "n_max"), [(38, 32, 64, 352), (38, 20, 36, 384), (200, 32, 64, 160)])
 def test_supports_holds_the_forward_and_the_backward_plan(f, c1, c2, n_max) -> None:
     assert max(n for n in range(1, 600) if gt.supports(1, n, f, c1, c2)) == n_max
     fwd = max(n for n in range(1, 600) if gt.smem_bytes(n, f, c1, c2) <= gt.SMEM_LIMIT)
@@ -305,9 +331,9 @@ def test_backend_switch_leaves_the_flat_route_and_the_clustered_model_unchanged(
         tgd.set_dense_tower_backend("xla")
         flat = model(tbatch)
     torch.testing.assert_close(fused, flat, rtol=1e-5, atol=1e-5)
-    # beyond the shape rule (N > 251) and in GINetClusteredDiag the "pallas"
+    # beyond the shape rule (N > 352) and in GINetClusteredDiag the "pallas"
     # backend takes the flat route: the same values, and no batched tower
-    _, _, _, model, wide = _setup(pad_nodes=280)
+    _, _, _, model, wide = _setup(pad_nodes=384)
     c_entries = ppi_clustered_entries(3, 40, FEAT, seed=2)
     c_batch, _ = collate_graphs_diag_clustered(c_entries, device="cpu")
     clustered = tgd.GINetClusteredDiag(FEAT, 2, 1, device="cpu")

@@ -30,6 +30,7 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.ops.segment_sorted",
     "deeprank2_tpu_torch.ops.slotpool",
     "deeprank2_tpu_torch.ops.synthetic",
+    "deeprank2_tpu_torch.ops.tower_plan",
     "deeprank2_tpu_torch.ops.vanilla",
     "deeprank2_tpu_torch.neuralnets",
     "deeprank2_tpu_torch.neuralnets.nn",
@@ -45,6 +46,8 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn",
     "deeprank2_tpu_torch.tools",
     "deeprank2_tpu_torch.tools.diag_order",
+    "deeprank2_tpu_torch.tools.timing",
+    "deeprank2_tpu_torch.tools.tower_times",
 ]
 
 # Runs in a fresh interpreter (this test process has imported JAX already).
