@@ -13,10 +13,10 @@ Phases, each printing one JSON line:
      (F=64) adjacencies of both clustered layouts ([512, 296, 296] and
      [512, 32, 32]; mixed [512, 336, 336] and [512, 104, 104]) and at a
      ragged shape (G=7, N=96, F=38, padded nodes masked), rtol=atol=1e-5 (both
-     f32, only the summation order differs); K2 runs the tensor-core body
-     (mma.sync, a count product) and K1's int8 f32 form the FMA body, and
-     the bench adjacency is checked once more as f32 (the FMA body on an
-     f32 adjacency);
+     f32, only the summation order differs); K1 and K2 run the tensor-core
+     body (mma.sync; K1's f32 form over three exact bf16 pieces of x, K2 a
+     count product), and the bench adjacency is checked once more as f32
+     (the FMA body on an f32 adjacency);
    - slot_fwd_kernel and slot_bwd_kernel at slots 8, 4 and 2, at the
      clustered path's activation width (F=32, V=151,552) and at a ragged one
      (F=38, V=8,024), and at the mixed layout's three size-class regions
@@ -31,7 +31,9 @@ Phases, each printing one JSON line:
    library call of the same function where there is one, and its bound
    (K1/K2 rows also with their body, "mma" or "fma", their tensor-core
    passes and mma_floor_ms, the passes' dense products at the bf16
-   tensor-core peak), and the f32 adjacency's FMA body at the bench shape;
+   tensor-core peak), and the FMA body (fma_body_calls: the f32 adjacency
+   at the bench shape, and K1's int8 f32 form, which it ran before, at the
+   dense and clustered paths' calls);
 3. the dense path: GINetDense(38, 2, 6) on the bench batch
    (synthetic_entries(512, 160, 38, 6, seed=7)). First one dropout-free step
    is held against the same step on the CPU (logits, loss and every gradient
@@ -45,7 +47,9 @@ Phases, each printing one JSON line:
    data selects (pure slot8: [512, 296, 296]). One dropout-free step against
    the CPU (logits and loss at rtol=1e-4, atol=1e-5; gradients at
    rtol=1e-4, atol=1e-6, as the dense step: both sides are f32), the number of
-   slot groups whose max-pool winner differs between card and CPU, then
+   slot groups whose max-pool winner differs between card and CPU (each
+   flip only inside its rounding band against float64: the two lanes'
+   activations within c 2^-24 of their sums of |terms|), then
    CLUSTERED_STEPS train steps and one eval forward with the counters at 0:
    diag_kernel 4*S + 2, slot_fwd_kernel S + 1, slot_bwd_kernel S;
 6. a profile of a few clustered train steps;
@@ -130,8 +134,13 @@ Phases, each printing one JSON line:
 16. the fast paths against their COO oracle on one shared state_dict, eval
    mode, logits and the gradient of the sum of the logits, the oracle
    computed in float64 (its f32 run's own errors reported): GINetDense on the
-   bench batch (on its flat route and on the batched tower backend) and
-   GINetBlockSparse on the atomic BCSR batch against the no-cluster GINet, VanillaNetworkBlocked on the atomic blocked batch
+   bench batch (on its flat route and on the batched tower backend; logits
+   and the head's gradients at rtol 1e-4, atol 1e-5, the conv weights'
+   gradients, sums over every node, against the tower function in float64
+   at the per-entry gate of tools/f64_gate.py, atol max(1e-5, c 2^-24 x the
+   entry's sum of |products|), with the flat route's relu flips held to
+   their band) and GINetBlockSparse on the atomic BCSR batch against the
+   no-cluster GINet, VanillaNetworkBlocked on the atomic blocked batch
    against VanillaNetwork (rtol 1e-4, atol 1e-5), and GINetClusteredDiag
    (pure slot8) against the clustered GINet at the 1e-3 gate of
    tests/perf/clustered_parity.py: logits and the head's gradients (1e-3 of
@@ -146,11 +155,15 @@ Phases, each printing one JSON line:
    with the fused weights of a seeded GINetDense(38, 2, 6), at the bench
    batch, at the ragged batches (G=9, N=33; G=7, N=96) and at the largest N
    each family's shape rule admits (ginet_tower.supports: 352 for K8,
-   diag_spmm.tower_supports: 251 for K9), directly and through their autograd
+   diag_spmm.tower_supports: 400 for K9), directly and through their autograd
    Functions: pooled and h1 at rtol=atol=1e-5; dw1, dw2, t1 and t2 (t1
    cancels terms far larger than itself) at rtol 1e-5 and an atol of DW_TOL
    times the sum of their products' absolute values, at least 1e-5; the sign
-   exactly wherever |h2| > 1e-6 max|h2|. Then each kernel's
+   exactly wherever |h2| > 1e-6 max|h2|; K9f's h1 and sign bit for bit
+   against tower_fwd_order_ref (the kernel's order as a loop), K9b's f32 t2
+   bit for bit against fl(g_pool x the count of neighbours whose sign is
+   set), and tower_pooled's dw1, dw2 against float64 at the per-entry gate
+   (against tower_pooled_ref reported). Then each kernel's
    time at the bench batch beside its plain version, the flat route's
    kernels for the same function (K1 relu F=32 and K1 pool F=64 forward, K2
    and K1 plain F=32 backward) and its bound (no single PyTorch call
@@ -162,11 +175,14 @@ Phases, each printing one JSON line:
    (ginet_tower_fwd_kernel STEPS + 1, ginet_tower_bwd_kernel STEPS, every
    other kernel 0), and a profile;
 19. the fused flat tower, tower_pooled, on the bench batch with the same
-   weights: once against tower_pooled_ref and against the flat route
-   (diag_layer_t then diag_layer_pool_t), pooled sums and weight gradients at
-   CROSS_TOL, then STEPS forward/backward passes and one forward with the
-   counters at 0 (tower_fwd_kernel STEPS + 1, tower_bwd_kernel STEPS, every
-   other kernel 0);
+   weights: the fused tower, the flat route (diag_layer_t then
+   diag_layer_pool_t) and tower_pooled_ref each against the function in
+   float64 (tools/f64_gate.py: pooled at CROSS_TOL, dw1 and dw2 at the
+   per-entry gate, each route's relu flips counted and held to their band;
+   a gate row per route), the routes against each other reported, then
+   STEPS forward/backward passes and one forward with the counters at 0
+   (tower_fwd_kernel STEPS + 1, tower_bwd_kernel STEPS, every other kernel
+   0);
 20. the weighted kernel forms against their plain versions on the card
    (both f32 on the same exact weights, only the summation order differs;
    K1/K2 at rtol=atol=1e-5, K5 at rtol 1e-5 and an atol of DW_TOL times the
@@ -458,16 +474,6 @@ class Counters:
         return {f"{k}[{form}]": n for m in self.modules for k, forms in getattr(m, "launches_by_dtype", {}).items() for form, n in forms.items() if n}
 
 
-def ragged_entries(synthetic_entries, num_graphs=7, nodes=96, feat=38):
-    """Graphs of decreasing size: padded nodes inside real graphs."""
-    entries = synthetic_entries(num_graphs, nodes, feat, 6, seed=3)
-    for i, e in enumerate(entries):
-        v = nodes - (9 * i) % (nodes // 2)
-        e["x"], e["pos"] = e["x"][:v], e["pos"][:v]
-        e["edge_index"] = e["edge_index"][(e["edge_index"] < v).all(axis=1)]
-    return entries
-
-
 class Checks:
     """Each comparison of a kernel with its plain version; raises on the first
     disagreement and keeps the largest error of each kernel."""
@@ -639,26 +645,42 @@ def card_vs_cpu_step(torch, model, batch, loss_fn, cpu_model_factory, tol, grad_
     return {"loss": ls.item(), "max_abs_err": errs}, cpu_model, cpu_batch
 
 
-def slot_winner_flips(torch, ds, model, batch, cpu_model, cpu_batch) -> dict:
+def slot_winner_flips(torch, ds, fg, model, batch, cpu_model, cpu_batch) -> dict:
     """Slot groups of the layer-1 activation whose max-pool winner (first
-    max lane) differs between card and CPU: ties to summation-order error."""
+    max lane) differs between card and CPU: ties to summation-order error.
+    A flip is allowed only inside its rounding band: the two lanes' float64
+    activations differ by at most c 2^-24 times the sum of their sums of
+    |terms| (tools/f64_gate.py); a flip outside it fails."""
     hs = []
     with torch.no_grad():
         for m, b in ((model, batch), (cpu_model, cpu_batch)):
             w1_t = torch.cat([m.conv1["fc"].weight, m.conv1_ext["fc"].weight], dim=0)
             hs.append(ds.diag_layer_t(b.adj_i8, b.node_mask, w1_t @ b.x_t).cpu())
+        z, s_z = fg.layer_f64(batch.adj_i8, batch.x_t, torch.cat([model.conv1["fc"].weight, model.conv1_ext["fc"].weight], dim=0).T)
+        live = batch.node_mask.reshape(1, -1)
+        h64, s64 = (torch.relu(z) * live).cpu(), (s_z * live).cpu()
+        del z, s_z
     f = hs[0].shape[0]
     g, n = batch.node_mask.shape
     nb, n4, n2 = batch.region_caps[:3] if batch.region_caps else (n, 0, 0)
-    flips, groups, off = {}, 0, 0
+    flips, groups, off, in_band, out_of_band = {}, 0, 0, 0, 0
     for slot, ns in ((8, nb), (4, n4), (2, n2)):
         if ns:
-            win = [h.reshape(f, g, n)[:, :, off : off + ns].reshape(f, g, ns // slot, slot).argmax(dim=3) for h in hs]
-            live = hs[1].reshape(f, g, n)[:, :, off : off + ns].reshape(f, g, ns // slot, slot).amax(dim=3) > 0
-            flips[f"slot{slot}"] = int(((win[0] != win[1]) & live).sum())
-            groups += int(live.sum())
+            lanes = [t.reshape(f, g, n)[:, :, off : off + ns].reshape(f, g, ns // slot, slot) for t in (*hs, h64, s64)]
+            win = [lanes[k].argmax(dim=3) for k in (0, 1)]
+            live_groups = lanes[1].amax(dim=3) > 0
+            flipped = (win[0] != win[1]) & live_groups
+            flips[f"slot{slot}"] = int(flipped.sum())
+            groups += int(live_groups.sum())
+            at = [torch.gather(lanes[k], 3, w[..., None])[..., 0][flipped] for k in (2, 3) for w in win]  # h64 at a, b; s64 at a, b
+            band = (at[0] - at[1]).abs() <= fg.C * fg.UNIT * (at[2] + at[3])
+            in_band += int(band.sum())
+            out_of_band += int((~band).sum())
         off += ns
-    return {"groups_with_a_positive_max": groups, "winner_flips": flips}
+    if out_of_band:
+        msg = f"{out_of_band} slot winner flips between card and CPU outside their rounding band (c = {fg.C})"
+        raise AssertionError(msg)
+    return {"groups_with_a_positive_max": groups, "winner_flips": flips, "winner_flips_in_band": in_band}
 
 
 def run_main_path(torch, counters, model, batch, loss_fn, opt, dev, want, steps, warm=WARM_STEPS, want_forms=None) -> dict:
@@ -1341,13 +1363,61 @@ def f64_oracle(torch, oracle, batch, context) -> tuple:
         tseg.set_segment_backend("pallas")
 
 
-def cross_check(torch, name, oracle, oracle_batch, fast, fast_batch, gate=None, oracle_context=contextlib.nullcontext, gated=lambda name: True) -> dict:
+def ginet_dense_gate(torch, ds, fg, route: str, flat: bool):
+    """The per-entry float64 gate of GINetDense's conv weight gradients, for
+    cross_check's ``tower_gate``: the fused tower's dw1 and dw2 in float64
+    (tools/f64_gate.py) for the cotangent of the sum of the logits (the
+    head in float64), mapped to the conv weights, first held against the COO
+    oracle's float64 gradients (the same function: within their own f32
+    rounding and 2^-40 of each entry's sum of |products|), then the fast
+    path's gradients against them.
+    On the flat route (K1, K2; ``flat``) the route's relu decisions are read
+    from its own layers and its flips held to the band; the batched tower
+    (K8) shows none."""
+
+    def gate(model, batch, grads, coo_f64) -> dict:
+        w1_t, w2_t = (w.detach() for w in model.fused_weights())
+        w1, w2 = w1_t.T.contiguous(), w2_t.T.contiguous()
+        adj, mask, x_t = batch.adj_i8, batch.node_mask, batch.x_t
+        zeros = torch.zeros(w2.shape[1], adj.shape[0], device=adj.device)
+        pooled = fg.tower_f64(adj, mask, x_t, w1, w2, zeros).pooled
+        counts = mask.sum(dim=1).clamp_min(1)
+        g_pool, g_scale = fg.dense_head_cotangent(pooled, counts, model.fc1.weight.detach(), model.fc1.bias.detach(), model.fc2.weight.detach())
+        masks = None
+        if flat:
+            with torch.no_grad():  # the model's own layer calls
+                h = ds.diag_layer_t(adj, mask, w1_t @ x_t)
+                sign, _ = ds.diag_kernel(adj, w2_t @ h, mask, "relu_mask_pool")
+            masks = (h > 0, sign.bool())
+
+        def pick(t):
+            return fg.ginet_dense_grads(t.dw1, t.dw2), fg.ginet_dense_grads(t.s_dw1, t.s_dw2)
+
+        want, scale = pick(fg.tower_f64(adj, mask, x_t, w1, w2, g_pool, g_scale=g_scale))
+        same = {k: (want[k] - coo_f64[k].double()).abs().max().item() for k in want}
+        # coo_f64: the COO oracle's float64 gradients, as logits_and_grads
+        # hands them, rounded to f32
+        if any(not bool(((want[k] - coo_f64[k].double()).abs() <= 2.0**-24 * want[k].abs() + 2.0**-40 * scale[k] + 1e-12).all()) for k in want):
+            msg = f"{route}: the float64 tower is not the COO oracle's float64 function: {same}"
+            raise AssertionError(msg)
+        row = fg.hold_tower(route, {k: grads[k] for k in want}, (adj, mask, x_t, w1, w2, g_pool), g_scale=g_scale, route_masks=masks, pick=pick)
+        row["f64_tower_vs_coo_f64"] = same
+        row["share_of_cross_tol_vs_coo_f64"] = {k: fg.share(grads[k], coo_f64[k], fg.ATOL) for k in want}
+        return row
+
+    return gate
+
+
+def cross_check(torch, name, oracle, oracle_batch, fast, fast_batch, gate=None, oracle_context=contextlib.nullcontext, gated=lambda name: True, tower_gate=None) -> dict:
     """Logits and the gradient of the sum of the logits of a fast path, on
     the oracle's parameters in eval mode, against its COO oracle computed in
     float64 (the oracle run inside ``oracle_context``): within CROSS_TOL, or
     within ``gate`` (logits absolute; gradients relative to their largest
     magnitude, at least ``gate``); the gradients of the parameters that
-    ``gated`` rejects are reported, not gated. The f64 oracle keeps the reference's own f32
+    ``gated`` rejects are reported, not gated; those that ``tower_gate``
+    (:func:`ginet_dense_gate`) holds, the conv weights' sums over every
+    node, go to its per-entry float64 gate instead (reported against the
+    COO oracle too). The f64 oracle keeps the reference's own f32
     rounding out of the comparison (one f32 sum of 100k node rows is exact
     to about 1e-5 relative); the f32 oracle's errors against it are reported
     beside the fast path's."""
@@ -1359,10 +1429,13 @@ def cross_check(torch, name, oracle, oracle_batch, fast, fast_batch, gate=None, 
         msg = f"{name}: gradients differ in which parameters have one: {sorted(gr)} vs {sorted(go)}"
         raise AssertionError(msg)
     errs, coo_f32_errs = {}, {}
+    tower_row = None if tower_gate is None else tower_gate(fast, fast_batch, gr, gw)
     for what, got, want, f32, is_grad in [("logits", lg, lw, lo, False), *[(f"grad {k}", gr[k], gw[k], go[k], True) for k in gr]]:
         errs[what] = (got - want).abs().max().item()
         coo_f32_errs[what] = (f32 - want).abs().max().item()
         if is_grad and not gated(what.removeprefix("grad ")):
+            continue
+        if is_grad and tower_row is not None and what.removeprefix("grad ") in tower_row["share_of_gate"]:
             continue
         if gate is None:
             torch.testing.assert_close(got, want, **CROSS_TOL, msg=lambda m, what=what: f"{name} {what}: {m}")
@@ -1370,8 +1443,13 @@ def cross_check(torch, name, oracle, oracle_batch, fast, fast_batch, gate=None, 
             msg = f"{name} {what}: max abs error {errs[what]} beyond the {gate} gate"
             raise AssertionError(msg)
     tolerance = CROSS_TOL if gate is None else {"gate": gate, "gradients_gated": sorted(k for k in gr if gated(k))}
+    if tower_row is not None:
+        tolerance = {"logits and the head's gradients": CROSS_TOL, "conv weights' gradients": f"against float64, atol max({CROSS_TOL['atol']}, c 2^-24 sum of |products|), rtol {CROSS_TOL['rtol']}"}
     scale = {k: gw[k].abs().max().item() for k in gw}
-    return {"check": name, "tolerance": tolerance, "logits_shape": list(lg.shape), "max_abs_err": errs, "coo_f32_max_abs_err": coo_f32_errs, "grad_max_abs": scale}
+    out = {"check": name, "tolerance": tolerance, "logits_shape": list(lg.shape), "max_abs_err": errs, "coo_f32_max_abs_err": coo_f32_errs, "grad_max_abs": scale}
+    if tower_row is not None:
+        out["f64_gate"] = tower_row
+    return out
 
 
 def tower_weights(model):
@@ -1381,13 +1459,16 @@ def tower_weights(model):
     return w1_t.detach().T.contiguous(), w2_t.detach().T.contiguous()
 
 
-def check_tower_kernels(torch, gt, ds, checks, shapes, w1, w2, dev) -> None:
+def check_tower_kernels(torch, gt, ds, fg, checks, shapes, w1, w2, dev) -> None:
     """The fused tower kernels against their plain versions, directly and
     through their autograd Functions: K8f/K8b (ginet_tower.py) on the
     batched layout, K9f/K9b (diag_spmm.py) on the flat one. pooled and h1
     within TOL; dw1/dw2 and t1/t2 within rtol 1e-5 and DW_TOL times the sum
     of their products' absolute values (at least TOL's atol); the sign
-    exactly wherever |h2| is above 1e-6 of its largest value. ``shapes``
+    exactly wherever |h2| is above 1e-6 of its largest value; K9f's h1 and
+    sign bit for bit against the kernel's order as a loop, K9b's t2 bit for
+    bit against fl(g_pool x count); tower_pooled's weight gradients against
+    float64 at the per-entry gate (``fg.hold_tower``). ``shapes``
     maps each family ("batched": K8, "flat": K9) to its batches, each
     family's largest at its own shape rule."""
     for tag, b in shapes["batched"]:
@@ -1418,6 +1499,11 @@ def check_tower_kernels(torch, gt, ds, checks, shapes, w1, w2, dev) -> None:
         h1_r, sign_r, pooled_r = ds.tower_fwd_kernel_ref(*fargs)
         checks.close("tower_fwd_kernel", f"{tag} direct h1", h1, h1_r, TOL)
         checks.close("tower_fwd_kernel", f"{tag} direct pooled", pooled, pooled_r, TOL)
+        # h1 and the sign of h2 in the kernel's order: bit for bit
+        h1_o, sign_o = ds.tower_fwd_order_ref(*fargs)
+        checks.close("tower_fwd_kernel", f"{tag} h1 vs the order loop", h1, h1_o, EXACT)
+        checks.close("tower_fwd_kernel", f"{tag} sign vs the order loop", sign, sign_o, EXACT)
+        del h1_o, sign_o
         h2 = ds.diag_kernel_ref(b.adj_i8, w2.T @ h1_r, b.node_mask, "relu_mask")
         flips = ((sign != sign_r) & (h2.abs() > 1e-6 * h2.abs().max())).sum().item()
         checks.rows.append({"kernel": "tower_fwd_kernel", "check": f"{tag} sign", "sign_flips_clear_of_zero": flips})
@@ -1425,10 +1511,16 @@ def check_tower_kernels(torch, gt, ds, checks, shapes, w1, w2, dev) -> None:
             msg = f"tower_fwd_kernel {tag}: the sign differs from the plain version at {flips} values clear of zero"
             raise AssertionError(msg)
         bwd = (b.adj_i8, dp.T.contiguous(), sign_r, h1_r, w2)
-        for what, got, want, scale in zip(("t2", "t1"), ds.tower_bwd_kernel(*bwd), ds.tower_bwd_kernel_ref(*bwd), ds.tower_bwd_error_scale(*bwd)):
+        t2_t1 = ds.tower_bwd_kernel(*bwd)
+        for what, got, want, scale in zip(("t2", "t1"), t2_t1, ds.tower_bwd_kernel_ref(*bwd), ds.tower_bwd_error_scale(*bwd)):
             tol = {"rtol": 1e-5, "atol": max(TOL["atol"], DW_TOL * scale.max().item())}
             checks.close("tower_bwd_kernel", f"{tag} direct {what}", got, want, tol)
             checks.rows[-1]["atol"] = tol["atol"]
+        # t2 = fl(g_pool x the count of neighbours whose sign is set): exact
+        n = b.adj_i8.shape[1]
+        counts = ds.diag_kernel_ref(b.adj_i8, sign_r.float())
+        checks.close("tower_bwd_kernel", f"{tag} t2 vs fl(g_pool x count)", t2_t1[0], bwd[1].repeat_interleave(n, dim=1) * counts + 0.0, EXACT)
+        del t2_t1, counts
         g_pool = bwd[1]
         outs = []
         for fn in (ds.tower_pooled, ds.tower_pooled_ref):
@@ -1436,8 +1528,16 @@ def check_tower_kernels(torch, gt, ds, checks, shapes, w1, w2, dev) -> None:
             out = fn(b.adj_i8, b.node_mask, b.x_t, a, c)
             outs.append((out.detach(), *torch.autograd.grad(out, (a, c), g_pool)))
         checks.close("tower_fwd_kernel", f"{tag} tower_pooled fwd", outs[0][0], outs[1][0], TOL)
-        for what, got, want in zip(("dw1", "dw2"), outs[0][1:], outs[1][1:]):
-            checks.close("tower_bwd_kernel", f"{tag} tower_pooled vjp {what}", got, want, CROSS_TOL)
+        # the weight gradients of tower_pooled and tower_pooled_ref against
+        # float64 at the per-entry gate; against each other reported with
+        # their share of the fixed gate
+        args = (b.adj_i8, b.node_mask, b.x_t, w1, w2, g_pool)
+        rows = [
+            fg.hold_tower(f"{tag} {name}", dict(zip(("pooled", "dw1", "dw2"), out)), args, route_masks=masks)
+            for name, out, masks in (("tower_pooled", outs[0], (h1 > 0, sign.bool())), ("tower_pooled_ref", outs[1], (h1_r > 0, sign_r.bool())))
+        ]
+        between = {what: {"max_abs_err": (x - y).abs().max().item(), "share_of_fixed_gate": fg.share(x, y, fg.ATOL)} for what, x, y in zip(("dw1", "dw2"), outs[0][1:], outs[1][1:])}
+        checks.rows.append({"kernel": "tower_bwd_kernel", "check": f"{tag} tower_pooled vjp dw1, dw2 vs float64", "gate": rows, "vs_tower_pooled_ref": between})
         del outs, h1, sign, pooled, h1_r, sign_r, pooled_r, h2
     sync(torch, dev)
 
@@ -1518,10 +1618,13 @@ def time_tower_calls(torch, gt, ds, timer, b, w1, w2, peak, compute_dtype=None) 
     ]
 
 
-def fused_tower_drive(torch, ds, counters, b, w1, w2, steps, dev, compute_dtype=None) -> dict:
-    """tower_pooled on the bench batch: once against tower_pooled_ref and
-    against the flat route (diag_layer_t then diag_layer_pool_t, the same
-    function), pooled sums and weight gradients within CROSS_TOL; then, with
+def fused_tower_drive(torch, ds, fg, do, counters, b, w1, w2, steps, dev, compute_dtype=None) -> dict:
+    """tower_pooled on the bench batch: the fused tower, the flat route
+    (diag_layer_t then diag_layer_pool_t, the same function) and
+    tower_pooled_ref each against the function in float64 (``fg.hold_tower``:
+    pooled sums within CROSS_TOL, weight gradients at the per-entry gate,
+    each route's relu flips held to their band), the routes against each
+    other reported (``do`` reads the flat route's relu decisions); then, with
     the counters at 0, ``steps`` forward/backward passes and one forward:
     K9f steps + 1, K9b steps, every other kernel 0, all of the form
     ``compute_dtype`` selects. The bf16 form is held instead against the
@@ -1545,18 +1648,34 @@ def fused_tower_drive(torch, ds, counters, b, w1, w2, steps, dev, compute_dtype=
         return (out.detach(), *torch.autograd.grad(out, (a, c), g_pool))
 
     got = pass_(fused)
+    errs, gates = {}, None
     if cd is None:
-        oracles, tol = (("tower_pooled_ref", pass_(ds.tower_pooled_ref)), ("flat route", pass_(flat))), CROSS_TOL
+        # each route against float64: pooled at CROSS_TOL, dw1 and dw2 at the
+        # per-entry gate; the routes against each other reported
+        args = (b.adj_i8, b.node_mask, b.x_t, w1, w2, g_pool)
+        h1, sign, _ = ds.tower_fwd_kernel(b.adj_i8, b.x_t, b.node_mask, w1, w2)
+        h1_r, sign_r, _ = ds.tower_fwd_kernel_ref(b.adj_i8, b.x_t, b.node_mask, w1, w2)
+        routes = {
+            "fused tower": (got, (h1 > 0, sign.bool())),
+            "flat route": (pass_(flat), do.flat_masks(b.adj_i8, b.node_mask, b.x_t, w1, w2)),
+            "tower_pooled_ref": (pass_(ds.tower_pooled_ref), (h1_r > 0, sign_r.bool())),
+        }
+        del h1, sign, h1_r, sign_r
+        gates = [fg.hold_tower(name, dict(zip(("pooled", "dw1", "dw2"), outs)), args, route_masks=masks) for name, (outs, masks) in routes.items()]
+        for oracle in ("tower_pooled_ref", "flat route"):
+            for what, x, y in zip(("pooled", "dw1", "dw2"), got, routes[oracle][0]):
+                errs[f"{what} vs {oracle}"] = {"max_abs_err": (x - y).abs().max().item(), "share_of_cross_tol": fg.share(x, y, CROSS_TOL["atol"])}
+        tol = {"pooled": CROSS_TOL, "dw1, dw2": f"each route against float64: atol max({fg.ATOL}, {fg.C} * 2^-24 * sum of |products|), rtol {fg.RTOL}"}
+        del routes
     else:
         cpu = pass_(fused, b.to("cpu"), w1.cpu(), w2.cpu(), g_pool.cpu())
         ref = pass_(lambda *a: ds.tower_pooled_ref(*a, compute_dtype=cd))
-        oracles, tol = (("the CPU", [t.to(dev) for t in cpu]), ("tower_pooled_ref", ref)), BF16_STEP_TOL
-    errs = {}
-    for oracle, want in oracles:
-        for what, x, y in zip(("pooled", "dw1", "dw2"), got, want):
-            t = tol if "atol" in tol else {"rtol": tol["rtol"], "atol": tol["atol_share"] * y.abs().max().item()}
-            torch.testing.assert_close(x, y, **t, msg=lambda m, what=what, oracle=oracle: f"tower_pooled {what} vs {oracle}: {m}")
-            errs[f"{what} vs {oracle}"] = (x - y).abs().max().item()
+        tol = BF16_STEP_TOL
+        for oracle, want in (("the CPU", [t.to(dev) for t in cpu]), ("tower_pooled_ref", ref)):
+            for what, x, y in zip(("pooled", "dw1", "dw2"), got, want):
+                t = {"rtol": tol["rtol"], "atol": tol["atol_share"] * y.abs().max().item()}
+                torch.testing.assert_close(x, y, **t, msg=lambda m, what=what, oracle=oracle: f"tower_pooled {what} vs {oracle}: {m}")
+                errs[f"{what} vs {oracle}"] = (x - y).abs().max().item()
     sync(torch, dev)
     counters.reset()
     t0 = time.perf_counter()
@@ -1577,7 +1696,16 @@ def fused_tower_drive(torch, ds, counters, b, w1, w2, steps, dev, compute_dtype=
     if not torch.isfinite(last).all() or tuple(last.shape) != (w2.shape[1], b.x.shape[0]):
         msg = f"non-finite or misshapen pooled sums {tuple(last.shape)}"
         raise AssertionError(msg)
-    return {"tolerance": tol, "max_abs_err": errs, "passes": steps, "pass_ms": pass_s * 1e3, "launches": launches, "launches_expected": want, "launches_by_form": forms}
+    return {
+        "tolerance": tol,
+        **({} if gates is None else {"gate_rows": gates}),
+        "max_abs_err": errs,
+        "passes": steps,
+        "pass_ms": pass_s * 1e3,
+        "launches": launches,
+        "launches_expected": want,
+        "launches_by_form": forms,
+    }
 
 
 def kernels_line(calls, path_launches, errs, path_forms, form_errs, form_calls=()) -> list:
@@ -1650,7 +1778,7 @@ def kernels_line(calls, path_launches, errs, path_forms, form_errs, form_calls=(
     return kernels
 
 
-def clustered_path(torch, ds, counters, card, entries, layout_check, steps, dev, phase) -> dict:
+def clustered_path(torch, ds, fg, counters, card, entries, layout_check, steps, dev, phase) -> dict:
     """Collate, check against the CPU, and drive one clustered layout."""
     from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag
     from deeprank2_tpu_torch.ops.batch import collate_graphs_diag_clustered
@@ -1667,7 +1795,7 @@ def clustered_path(torch, ds, counters, card, entries, layout_check, steps, dev,
     step, cpu_model, cpu_batch = card_vs_cpu_step(
         torch, model, batch, loss_fn, lambda: GINetClusteredDiag(feat, 2, 1, device="cpu"), CLUSTERED_TOL, CLUSTERED_GRAD_TOL
     )
-    flips = slot_winner_flips(torch, ds, model, batch, cpu_model, cpu_batch)
+    flips = slot_winner_flips(torch, ds, fg, model, batch, cpu_model, cpu_batch)
     emit({"phase": f"{phase}_card_vs_cpu_step", "tolerance": CLUSTERED_TOL, "grad_tolerance": CLUSTERED_GRAD_TOL, **step, "max_pool": flips})
     opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
     regions = sum(1 for ns in (batch.region_caps or (1,))[:3] if ns)
@@ -2124,6 +2252,11 @@ def check_bf16_tower_kernels(torch, gt, ds, checks, shapes, w1, w2, dev) -> None
         h1_s, _, pooled_s = ds.tower_fwd_kernel_ref(b.adj_i8, b.x_t.abs(), b.node_mask, w1.abs(), w2.abs(), bf)
         checks.close_flips("tower_fwd_kernel", f"{tag} direct h1", h1, h1_r, h1_s, form)
         checks.close_flips("tower_fwd_kernel", f"{tag} direct pooled", pooled, pooled_r, pooled_s, form)
+        # h1 and the sign of h2 in the kernel's order and roundings: bit for bit
+        h1_o, sign_o = ds.tower_fwd_order_ref(*fargs, bf)
+        checks.close("tower_fwd_kernel", f"{tag} h1 vs the order loop", h1, h1_o, EXACT, form)
+        checks.close("tower_fwd_kernel", f"{tag} sign vs the order loop", sign, sign_o, EXACT, form)
+        del h1_o, sign_o
         rw2 = ds.round_to(w2, bf)
         h2 = torch.relu(ds.diag_kernel_ref(b.adj_i8, rw2.T @ ds.round_to(h1_r, bf), compute_dtype=bf)) * b.node_mask.reshape(1, -1)
         h2_s = ds.diag_kernel_ref(b.adj_i8, rw2.abs().T @ ds.round_to(h1_s, bf), compute_dtype=bf)
@@ -2214,7 +2347,7 @@ def bf16_tower_phases(torch, dev, card, counters, checks, peak, record, dense_ba
         set_dense_tower_backend("xla")
 
     # 36. the fused flat tower (tower_pooled) in bf16 on the bench batch
-    fused = fused_tower_drive(torch, ds, counters, dense_batch, w1, w2, STEPS, dev, bf)
+    fused = fused_tower_drive(torch, ds, None, None, counters, dense_batch, w1, w2, STEPS, dev, bf)
     emit({"phase": "dense_fused_tower_bf16", "card": card, "weights": "GINetDense(38, 2, 6) fused, torch seed 0", "batch": BENCH, "compute_dtype": "bfloat16", **fused})
     record("dense_fused_tower_bf16", fused)
     return calls
@@ -2364,6 +2497,8 @@ def main() -> int:
     from deeprank2_tpu_torch.ops.optim import Adam
     from deeprank2_tpu_torch.ops.pooling import community_pool
     from deeprank2_tpu_torch.ops.synthetic import clustered_entry, geometric_entry, ppi_clustered_entries, synthetic_entries
+    from deeprank2_tpu_torch.tools import diag_order as do
+    from deeprank2_tpu_torch.tools import f64_gate as fg
     from deeprank2_tpu_torch.tools.timing import Timer
 
     # 1. device and build (one nvcc per source, all at once)
@@ -2394,7 +2529,7 @@ def main() -> int:
     dev = torch.device("cuda")
     entries = synthetic_entries(BENCH["num_graphs"], BENCH["nodes"], BENCH["feat"], BENCH["edge_dim"], seed=BENCH["seed"])
     batch, _ = collate_graphs_dense(entries, pad_graphs=BENCH["num_graphs"], pad_nodes=BENCH["nodes"], device=dev)
-    ragged, _ = collate_graphs_dense(ragged_entries(synthetic_entries), pad_nodes=96, device=dev)
+    ragged, _ = collate_graphs_dense(do.ragged_entries(), pad_nodes=96, device=dev)
     c_entries = ppi_clustered_entries(CLUSTERED["num_graphs"], CLUSTERED["nodes"], CLUSTERED["feat"], seed=CLUSTERED["seed"])
     c_batch, _ = collate_graphs_diag_clustered(c_entries, device=dev)
     c_mask_row = c_batch.node_mask.float().reshape(1, -1)
@@ -2442,6 +2577,17 @@ def main() -> int:
     fma_calls = time_diag_calls(
         torch, ds, timer, "f32_adjacency", batch.adj_i8.float(), batch.node_mask, [("diag_kernel", "plain", 32, 0), ("pool_bwd_kernel", None, 64, 0)], peak
     )
+    # K1's int8 f32 form on the FMA body, which ran it before the tensor
+    # cores, at the dense and clustered paths' calls (on no path's step)
+    with do.on_body("fma"):
+        for path, adj, mask, specs in (
+            ("dense", batch.adj_i8, batch.node_mask, STEP_CALLS["dense"]),
+            ("clustered", c_batch.adj_i8, c_batch.node_mask, STEP_CALLS["clustered"]),
+            ("clustered_pooled", c_batch.adj_p_i8, c_batch.pooled_mask, STEP_CALLS["clustered_pooled"]),
+            ("clustered_mixed", m_batch.adj_i8, m_batch.node_mask, STEP_CALLS["clustered"]),
+            ("clustered_mixed_pooled", m_batch.adj_p_i8, m_batch.pooled_mask, STEP_CALLS["clustered_pooled"]),
+        ):
+            fma_calls += time_diag_calls(torch, ds, timer, f"{path} (FMA body)", adj, mask, [(k, m, f, 0) for k, m, f in specs if k == "diag_kernel"], peak)
     del timer
     emit({"phase": "kernel_times", "card": card, "l2_flushed": True, "calls": calls, "fma_body_calls": fma_calls})
     del m_batch
@@ -2486,7 +2632,7 @@ def main() -> int:
             msg = f"expected the pure slot8 layout at [512, 296, 296], got {b.region_caps} {tuple(b.adj_i8.shape)}"
             raise AssertionError(msg)
 
-    pure = clustered_path(torch, ds, counters, card, c_entries, pure_layout, CLUSTERED_STEPS, dev, "main_path_clustered")
+    pure = clustered_path(torch, ds, fg, counters, card, c_entries, pure_layout, CLUSTERED_STEPS, dev, "main_path_clustered")
     record("clustered", pure)
     emit({"phase": "profile_clustered", "card": card, **profile_steps(torch, pure["train_step"], pure["step_s"])})
     del pure
@@ -2497,7 +2643,7 @@ def main() -> int:
             msg = f"expected the mixed layout with slot8, stride-4 and stride-2 regions, got {b.region_caps}"
             raise AssertionError(msg)
 
-    mixed = clustered_path(torch, ds, counters, card, m_entries, mixed_layout, MIXED_STEPS, dev, "main_path_clustered_mixed")
+    mixed = clustered_path(torch, ds, fg, counters, card, m_entries, mixed_layout, MIXED_STEPS, dev, "main_path_clustered_mixed")
     record("clustered_mixed", mixed)
     del mixed
 
@@ -2755,13 +2901,19 @@ def main() -> int:
     diag_batch, _ = collate_graphs_diag_clustered(c_entries, device=dev)
     oracle = GINetNoCluster(BCSR["feat"], 2, BCSR["edge_dim"], device=dev, generator=torch.Generator().manual_seed(3))
     cross = [
-        cross_check(torch, "GINetDense vs GINet no-cluster, bench batch", oracle, coo_batch, GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev), dense_batch),
+        cross_check(
+            torch, "GINetDense vs GINet no-cluster, bench batch", oracle, coo_batch, GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev), dense_batch,
+            tower_gate=ginet_dense_gate(torch, ds, fg, "GINetDense flat route (K1, K2)", flat=True),
+        ),
         cross_check(torch, "GINetBlockSparse vs GINet no-cluster, atomic 100k", oracle, atomic_coo, GINetBlockSparse(BCSR["feat"], 2, BCSR["edge_dim"], device=dev), b_batch),
     ]
     set_dense_tower_backend("pallas")
     try:
         cross.append(
-            cross_check(torch, "GINetDense (pallas tower backend) vs GINet no-cluster, bench batch", oracle, coo_batch, GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev), dense_batch)
+            cross_check(
+                torch, "GINetDense (pallas tower backend) vs GINet no-cluster, bench batch", oracle, coo_batch, GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev), dense_batch,
+                tower_gate=ginet_dense_gate(torch, ds, fg, "GINetDense batched tower (K8)", flat=False),
+            )
         )
     finally:
         set_dense_tower_backend("xla")
@@ -2788,19 +2940,20 @@ def main() -> int:
         "batched": max(n for n in range(1, 1025) if gt.supports(1, n, BENCH["feat"])),
         "flat": max(n for n in range(1, 1025) if ds.tower_supports(1, n, BENCH["feat"])),
     }
-    largest = {
-        family: collate_graphs_dense(synthetic_entries(32, n - 15, BENCH["feat"], BENCH["edge_dim"], seed=9), pad_nodes=n, device=dev)[0] for family, n in n_max.items()
-    }
-    # N = 33: off the 16-node tiles and the 32-node bit words, ragged graphs
-    odd, _ = collate_graphs_dense(ragged_entries(synthetic_entries, num_graphs=9, nodes=33), pad_nodes=33, device=dev)
-    common = [("bench G=512 N=160", dense_batch), ("ragged G=9 N=33", odd), ("ragged G=7 N=96", ragged)]
-    tower_shapes = {family: [*common, (f"largest supported G=32 N={n}", largest[family])] for family, n in n_max.items()}
+    shapes = {family: do.tower_shapes(dev, n) for family, n in n_max.items()}
+    tower_shapes = {family: [("bench G=512 N=160", dense_batch), *rows] for family, rows in shapes.items()}
     n_checks = len(checks.rows)
-    check_tower_kernels(torch, gt, ds, checks, tower_shapes, w1, w2, dev)
+    check_tower_kernels(torch, gt, ds, fg, checks, tower_shapes, w1, w2, dev)
     emit(
         {
             "phase": "tower_kernels_vs_plain",
-            "tolerance": {"pooled, h1": TOL, "dw1, dw2, t1, t2": {"rtol": 1e-5, "atol": f"max(1e-5, {DW_TOL} * sum of |products|)"}, "sign": "exact where |h2| > 1e-6 max|h2|", "tower_pooled dw1, dw2": CROSS_TOL},
+            "tolerance": {
+                "pooled, h1": TOL,
+                "dw1, dw2, t1, t2": {"rtol": 1e-5, "atol": f"max(1e-5, {DW_TOL} * sum of |products|)"},
+                "sign": "exact where |h2| > 1e-6 max|h2|",
+                "K9f h1, sign vs the order loop; K9b t2 vs fl(g_pool x count)": EXACT,
+                "tower_pooled dw1, dw2": f"against float64: atol max({fg.ATOL}, {fg.C} * 2^-24 * sum of |products|), rtol {fg.RTOL}",
+            },
             "largest_supported_nodes": n_max,
             "checks": checks.rows[n_checks:],
         }
@@ -2829,7 +2982,7 @@ def main() -> int:
         set_dense_tower_backend("xla")
 
     # 19. the fused flat tower (tower_pooled) on the bench batch
-    fused = fused_tower_drive(torch, ds, counters, dense_batch, w1, w2, STEPS, dev)
+    fused = fused_tower_drive(torch, ds, fg, do, counters, dense_batch, w1, w2, STEPS, dev)
     emit({"phase": "dense_fused_tower", "card": card, "weights": "GINetDense(38, 2, 6) fused, torch seed 0", "batch": BENCH, **fused})
     record("dense_fused_tower", fused)
 
@@ -2858,7 +3011,7 @@ def main() -> int:
 
     # 33-36. the bf16 forms of the fused towers, the dense_tower_bf16 path and the dense_fused_tower_bf16 drive
     calls += bf16_tower_phases(torch, dev, card, counters, checks, peak, record, dense_batch, tower_shapes, loss_fn, real_edges)
-    del tower_shapes, largest, common, odd, ragged
+    del tower_shapes, shapes, ragged
 
     # 37-41. FoutNet and sGAT in bf16 on the Diag and BCSR paths, and SGATDiag in bf16 on an f32 adjacency
     calls += bf16_sgat_foutnet_phases(torch, dev, card, counters, peak, record, c_entries, c_batch, sd_batch, c_entry, cb_batch, sw_batch)

@@ -27,9 +27,10 @@
 //
 // Two bodies. ops/diag_spmm.py:diag_body picks one by form and passes it in
 // (never another at run time on failure): diag_mma for every form on an int8
-// or bf16 adjacency but K1's f32 form on int8, diag_aggregate for that form
-// and the f32 adjacency. diag_aggregate runs every form, diag_mma every form
-// on an int8 or bf16 adjacency, so both stay checkable on each.
+// or bf16 adjacency, diag_aggregate for the f32 adjacency. diag_aggregate
+// runs every form, diag_mma every form on an int8 or bf16 adjacency, so both
+// stay checkable on each (and timed: chip_smoke.py's fma_body_calls,
+// tools/diag_order.py).
 //
 // diag_mma: the per-graph product D [i, f] = A [i, j] x U [j, f] on the
 // tensor cores, with warp-level mma.sync (bf16 operands, f32 sums). A is the
@@ -88,16 +89,12 @@
 //
 // diag_aggregate: the dense product as f32 FMAs on CUDA cores, each output
 // summed in ascending j, one rounding a term: the fused tower's order
-// (csrc/diag_tower.cu). It runs the f32 adjacency (no path launches it: JAX
-// never sends an f32 adjacency to its kernel) and K1's f32 form on an int8
-// one, because GINetDense's flat route (K1, K2) is held to its fused tower
-// (K9) at chip_smoke.py's CROSS_TOL, whose fixed atol (1e-5) only this
-// order meets: on the tensor cores that form runs 2-3.8x faster, and its
-// weight gradients are as near float64 as the FMA body's, but entries that
-// cancel over the batch (sums of |products| near 1e6) moved off that atol
-// against the fused tower, which misses it against float64 too
-// (tools/diag_order.py, PERF.md; the gate is an open question, ROADMAP.md
-// section 3). One
+// (csrc/diag_tower.cu). It runs the f32 adjacency, which no path launches
+// (JAX never sends an f32 adjacency to its kernel). K1's f32 form on an int8
+// adjacency ran here until its weight gradients were held to float64 at a
+// per-entry bound (deeprank2_tpu_torch/tools/f64_gate.py) in place of a
+// fixed atol between two summation orders: on the tensor cores that form
+// runs about twice as fast, and is as near float64 as this body. One
 // block per (graph, 32 features), its slab node-major; it walks the output
 // nodes in tiles of 32 (lane = output node, warp = 8 features), streaming
 // the adjacency through shared memory in 32 x 32 tiles, transposed so that a

@@ -88,78 +88,6 @@ namespace {
 
 using namespace tower;
 
-// The shared-memory plan of both kernels (byte offsets; ops/ginet_tower.py:
-// smem_bytes, the forward's, and bwd_smem_bytes mirror it). Every dimension
-// a product runs over is padded to 16 (rows: nodes; kx: features; c1p, c2p:
-// channels) and the pads hold exact zeros, so the tensor cores take whole
-// tiles:
-//   bits [N][words] and the mask mbits [words] (uint32); the backward's
-//   signs of h2 sgn [c2p][words] (uint32) and dpooled dp [c2p] (f32), or the
-//   forward's warp sums pool [WARPS][c2p] (f32);
-//   w1 [kx][ldw1], w2 [c1p][ldw2];
-//   P [rows][ldp]: x, then fcx2, then (backward) dfcx2, then x again;
-//   H [rows][ldh]: h1, then dfcx1;  T [rows][ldt]: fcx, then (backward) dh1
-//   (the backward's own slab; the forward's fcx sits in P's columns kx ..
-//   kx + c1p, beside x, which the product that writes it reads)
-// (slabs and weights of esize bytes: 4 in the f32 form, 2 in the bf16 form).
-struct Plan {
-    int rows, kx, c1p, c2p, words, ldp, ldh, ldt, ldw1, ldw2;
-    size_t bits, mbits, sgn, dp, pool, w1, w2, p, h, t, bytes;
-};
-
-__host__ __device__ inline Plan plan(int n, int f, int c1, int c2, int esize, bool is_forward) {
-    Plan L;
-    L.rows = round16(n);
-    L.kx = round16(f);
-    L.c1p = round16(c1);
-    L.c2p = round16(c2);
-    L.words = (n + 31) / 32;
-    // the forward keeps fcx beside x in P (columns kx .. kx + c1p): no T
-    const int pcols = is_forward ? L.kx + L.c1p : L.kx;
-    L.ldp = row_elems(L.c2p > pcols ? L.c2p : pcols, esize);
-    L.ldh = row_elems(L.c1p, esize);
-    L.ldt = is_forward ? L.ldp : L.ldh;
-    L.ldw1 = row_elems(L.c1p, esize);
-    L.ldw2 = row_elems(L.c2p, esize);
-    size_t at = 0;
-    L.bits = take(at, (size_t)4 * n * L.words);
-    L.mbits = take(at, (size_t)4 * L.words);
-    L.sgn = take(at, is_forward ? 0 : (size_t)4 * L.c2p * L.words);
-    L.dp = take(at, is_forward ? 0 : (size_t)4 * L.c2p);
-    L.pool = take(at, is_forward ? (size_t)4 * WARPS * L.c2p : 0);
-    L.w1 = take(at, (size_t)esize * L.kx * L.ldw1);
-    L.w2 = take(at, (size_t)esize * L.c1p * L.ldw2);
-    L.p = take(at, (size_t)esize * L.rows * L.ldp);
-    L.h = take(at, (size_t)esize * L.rows * L.ldh);
-    L.t = is_forward ? L.p + (size_t)esize * L.kx : take(at, (size_t)esize * L.rows * L.ldh);
-    L.bytes = at;
-    return L;
-}
-
-// the parts of one block's plan that both kernels use
-template <typename E>
-struct Slabs {
-    uint32_t* bits;
-    uint32_t* mbits;
-    E* w1;
-    E* w2;
-    E* p;
-    E* h;
-    E* t;
-
-    __device__ __forceinline__ Slabs(char* sm, const Plan& L)
-        : bits(reinterpret_cast<uint32_t*>(sm + L.bits)),
-          mbits(reinterpret_cast<uint32_t*>(sm + L.mbits)),
-          w1(reinterpret_cast<E*>(sm + L.w1)),
-          w2(reinterpret_cast<E*>(sm + L.w2)),
-          p(reinterpret_cast<E*>(sm + L.p)),
-          h(reinterpret_cast<E*>(sm + L.h)),
-          t(reinterpret_cast<E*>(sm + L.t)) {}
-};
-
-// the quads an aggregate's lane holds: C1's 8 at the bench widths
-constexpr int QMAX = 8;
-
 // x [N][F] of one graph -> X [rows][ld], columns F .. kx and rows N .. rows
 // zero; float4 loads of the graph's flat block when it is 16-byte aligned
 // (thread t of nt)
@@ -210,97 +138,10 @@ __device__ __forceinline__ void stage(const Plan& L, const Slabs<E>& s, const in
     const int tid = threadIdx.x;
     adjacency_bits(adj, adj + (size_t)g * N * N, N, L.words, s.bits);
     stage_x<BF16>(s.p, L.ldp, x + (size_t)g * N * F, N, F, L.rows, L.kx, x_vectors(x, N, F), tid, THREADS);
-    const uint8_t* mask_g = mask + (size_t)g * N;
-    for (int i = tid; i < 32 * L.words; i += THREADS) {  // every lane of a warp reaches the ballot
-        const uint32_t m = __ballot_sync(FULL, i < N && mask_g[i] != 0);
-        if ((i & 31) == 0) s.mbits[i / 32] = m;
-    }
-#pragma unroll 4
-    for (int idx = tid; idx < L.kx * L.c1p; idx += THREADS) {
-        const int k = idx / L.c1p;
-        const int c = idx - k * L.c1p;
-        put(s.w1 + (size_t)k * L.ldw1 + c, k < F && c < C1 ? at_form<BF16>(w1[(size_t)k * C1 + c]) : 0.f);
-    }
-#pragma unroll 4
-    for (int idx = tid; idx < L.c1p * L.c2p; idx += THREADS) {
-        const int k = idx / L.c2p;
-        const int c = idx - k * L.c2p;
-        put(s.w2 + (size_t)k * L.ldw2 + c, k < C1 && c < C2 ? at_form<BF16>(w2[(size_t)k * C2 + c]) : 0.f);
-    }
-}
-
-// 1-3, after stage() and a barrier: fcx = x w1 -> T; h1 = relu(A fcx) -> H;
-// fcx2 = h1 w2 -> P, each step behind a barrier (the slab stores round in
-// the bf16 form). The forward and the backward's recompute run this one path.
-template <int TR, typename E>
-__device__ __forceinline__ void forward_fcx2(const Plan& L, const Slabs<E>& s, int N, int F, int C1) {
-    const auto to_t = [&](int m, int n, float v) { put(s.t + (size_t)m * L.ldt + n, v); };
-    tile_gemm<TR, false>(s.p, L.ldp, s.w1, L.ldw1, L.rows, L.c1p, round4(F), to_t);
-    __syncthreads();
-    aggregate<QMAX>(s.bits, L.words, s.t, L.ldt, N, L.rows, L.c1p / 4, [&](int i, int q, float4 a) {
-        E* h = s.h + (size_t)i * L.ldh + 4 * q;
-        put(h, fmaxf(a.x, 0.f));
-        put(h + 1, fmaxf(a.y, 0.f));
-        put(h + 2, fmaxf(a.z, 0.f));
-        put(h + 3, fmaxf(a.w, 0.f));
-    });
-    __syncthreads();
-    const auto to_p = [&](int m, int n, float v) { put(s.p + (size_t)m * L.ldp + n, v); };
-    tile_gemm<TR, false>(s.h, L.ldh, s.w2, L.ldw2, L.rows, L.c2p, round4(C1), to_p);
-    __syncthreads();
+    stage_mask_weights<BF16>(L, s, mask + (size_t)g * N, w1, w2, N, F, C1, C2);
 }
 
 namespace forward {
-
-// part[warp][4q .. 4q+3] = the sum over the warp's rows i < n (i = 32 warp
-// + lane, then again THREADS further) of relu((A v)[i][4q .. 4q+3]) *
-// mask[i], q < quads: a lane walks its row once for each QMAX quads, a
-// butterfly of shuffles sums the warp's 32 rows (every lane ends with the
-// same bits), and lane 0 adds that to the warp's sum, in row order. Only
-// the row sums of one walk are held in registers.
-template <int QMAX, typename E>
-__device__ __forceinline__ void pool_rows(const uint32_t* bits, const uint32_t* mbits, int words, const E* v, int ldv, int n,
-                                          int quads, float* part) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    float* mine = part + (size_t)warp * 4 * quads;
-    if (lane == 0) {
-        for (int c = 0; c < 4 * quads; ++c) mine[c] = 0.f;
-    }
-    for (int q0 = 0; q0 < quads; q0 += QMAX) {
-        for (int i0 = 32 * warp; i0 < n; i0 += THREADS) {  // the same rounds for every lane of the warp
-            const int i = i0 + lane;
-            float4 acc[QMAX];
-            row_sum<QMAX>(bits + (size_t)i * words, words, i < n, v, ldv, q0, quads, acc);
-            const float m = i < n && (mbits[i >> 5] >> (i & 31)) & 1u ? 1.f : 0.f;
-#pragma unroll
-            for (int q = 0; q < QMAX; ++q) {
-                acc[q] = make_float4(fmaxf(acc[q].x, 0.f) * m, fmaxf(acc[q].y, 0.f) * m, fmaxf(acc[q].z, 0.f) * m, fmaxf(acc[q].w, 0.f) * m);
-            }
-#pragma unroll
-            for (int d = 16; d > 0; d >>= 1) {
-#pragma unroll
-                for (int q = 0; q < QMAX; ++q) {
-                    acc[q].x += __shfl_xor_sync(FULL, acc[q].x, d);
-                    acc[q].y += __shfl_xor_sync(FULL, acc[q].y, d);
-                    acc[q].z += __shfl_xor_sync(FULL, acc[q].z, d);
-                    acc[q].w += __shfl_xor_sync(FULL, acc[q].w, d);
-                }
-            }
-            if (lane == 0) {
-#pragma unroll
-                for (int q = 0; q < QMAX; ++q) {
-                    if (q0 + q < quads) {
-                        float4* sum = reinterpret_cast<float4*>(mine + 4 * (q0 + q));
-                        float4 t = *sum;
-                        add4(t, acc[q]);
-                        *sum = t;
-                    }
-                }
-            }
-        }
-    }
-}
 
 // One graph's forward a block (see the header): pooled[g] [C2]
 template <bool BF16>
@@ -320,18 +161,13 @@ __global__ void __launch_bounds__(THREADS, BF16 ? 4 : 2) ginet_tower_fwd_graph(c
     __syncthreads();
     // tile rows: 2 in the bf16 form, within the 64 registers four blocks an
     // SM leave a thread
-    forward_fcx2<BF16 ? 2 : 8>(L, s, N, F, C1);
+    forward_fcx2<BF16 ? 2 : 8, false>(L, s, N, F, C1, [](int, int, const float4&) {});
 
     // 4. h2 = relu(A fcx2) * mask, summed over the nodes: the warps' sums,
     // then the warps added in order
-    pool_rows<QMAX>(s.bits, s.mbits, L.words, s.p, L.ldp, N, L.c2p / 4, part);
+    pool_rows<QMAX>(s.bits, s.mbits, L.words, s.p, L.ldp, N, L.c2p / 4, part, [](int, int, const float4&) {});
     __syncthreads();
-    for (int c = threadIdx.x; c < C2; c += THREADS) {
-        float t = 0.f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) t += part[w * L.c2p + c];
-        pooled[(size_t)g * C2 + c] = t;
-    }
+    for (int c = threadIdx.x; c < C2; c += THREADS) pooled[(size_t)g * C2 + c] = pool_total(part, L.c2p, c);
 }
 
 }  // namespace forward
@@ -503,7 +339,7 @@ __global__ void __launch_bounds__(THREADS, BF16 ? 3 : 2) ginet_tower_bwd_graph(
     __syncthreads();
 
     // 1-3. fcx -> T, h1 -> H, fcx2 -> P (the forward's path)
-    forward_fcx2<TR>(L, s, N, F, C1);
+    forward_fcx2<TR, false>(L, s, N, F, C1, [](int, int, const float4&) {});
 
     // 4. the sign of h2 = relu(A fcx2) * mask, as bits: sgn[c][w] bit b <=>
     // h2[32 w + b][c] > 0 (sgn is zero from step 0)

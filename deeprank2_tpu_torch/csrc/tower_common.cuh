@@ -1,8 +1,9 @@
-// Device code shared by the fused GINet tower kernels for Hopper (sm_90a)
-// that run one graph a thread block on a compact shared-memory plan: K8f and
-// K8b (csrc/ginet_tower.cu, the batched [G, N, F] layout) and K9b
-// (csrc/diag_tower.cu, the flat [C, G*N] layout). K9f keeps the older plan
-// of one 512-thread block a graph (csrc/diag_tower.cu, namespace flat_fwd).
+// Device code shared by the fused GINet tower kernels for Hopper (sm_90a),
+// which run one graph a thread block on a compact shared-memory plan: K8f and
+// K8b (csrc/ginet_tower.cu, the batched [G, N, F] layout), K9f and K9b
+// (csrc/diag_tower.cu, the flat [C, G*N] layout). K8f, K8b and K9f share one
+// plan (plan(): node-major slabs, the forward's cut down) and the forward's
+// steps (forward_fcx2, pool_rows); each stages its own layout's x.
 //
 // - The adjacency of a graph is 0/1 and sparse (about 8 neighbours of 160
 //   nodes at the dense bench shape). A block turns its int8 [N, N] block
@@ -16,9 +17,7 @@
 //   32 consecutive nodes of one channel, so its loads are coalesced). Then
 //   A (g ⊙ sign) at node i and channel c is g[c] times the count of row i's
 //   neighbours whose sign is set at c: popcounts of the adjacency's bit row
-//   against the sign's (count_signs). In the bf16 form, where g is a bf16
-//   value, that product is exact in f32 and equals every ordered sum of the
-//   count's copies of g.
+//   against the sign's (count_signs).
 // - Slabs hold f32, or bf16 (as its bits, E = uint16_t) in the bf16 form,
 //   where every value the form stores is rounded to bf16 anyway. A slab row
 //   is padded to an odd number of 16-byte units (row_elems), so that 8
@@ -386,6 +385,195 @@ __device__ __forceinline__ void tile_gemm(const E* a, int lda, const E* b, int l
                 if (m0 + RL * j < M && column(i) < Nn) epi(m0 + RL * j, column(i), acc[j][i]);
             }
     }
+}
+
+// ---------------------------------------------------------------------------
+// the forward plan and steps (K8f, K8b, K9f)
+
+// The shared-memory plan of K8f, K8b and K9f (byte offsets;
+// ops/tower_plan.py:plan_bytes mirrors it). Every dimension a product runs
+// over is padded to 16 (rows: nodes; kx: features; c1p, c2p: channels) and
+// the pads hold exact zeros, so the tensor cores take whole tiles:
+//   bits [N][words] and the mask mbits [words] (uint32); the backward's
+//   signs of h2 sgn [c2p][words] (uint32) and dpooled dp [c2p] (f32), or the
+//   forward's warp sums pool [WARPS][c2p] (f32);
+//   w1 [kx][ldw1], w2 [c1p][ldw2];
+//   P [rows][ldp]: x, then fcx2, then (backward) dfcx2, then x again;
+//   H [rows][ldh]: h1, then dfcx1;  T [rows][ldt]: fcx, then (backward) dh1
+//   (the backward's own slab; the forward's fcx sits in P's columns kx ..
+//   kx + c1p, beside x, which the product that writes it reads)
+// (slabs and weights of esize bytes: 4 in the f32 form, 2 in the bf16 form).
+struct Plan {
+    int rows, kx, c1p, c2p, words, ldp, ldh, ldt, ldw1, ldw2;
+    size_t bits, mbits, sgn, dp, pool, w1, w2, p, h, t, bytes;
+};
+
+__host__ __device__ inline Plan plan(int n, int f, int c1, int c2, int esize, bool is_forward) {
+    Plan L;
+    L.rows = round16(n);
+    L.kx = round16(f);
+    L.c1p = round16(c1);
+    L.c2p = round16(c2);
+    L.words = (n + 31) / 32;
+    // the forward keeps fcx beside x in P (columns kx .. kx + c1p): no T
+    const int pcols = is_forward ? L.kx + L.c1p : L.kx;
+    L.ldp = row_elems(L.c2p > pcols ? L.c2p : pcols, esize);
+    L.ldh = row_elems(L.c1p, esize);
+    L.ldt = is_forward ? L.ldp : L.ldh;
+    L.ldw1 = row_elems(L.c1p, esize);
+    L.ldw2 = row_elems(L.c2p, esize);
+    size_t at = 0;
+    L.bits = take(at, (size_t)4 * n * L.words);
+    L.mbits = take(at, (size_t)4 * L.words);
+    L.sgn = take(at, is_forward ? 0 : (size_t)4 * L.c2p * L.words);
+    L.dp = take(at, is_forward ? 0 : (size_t)4 * L.c2p);
+    L.pool = take(at, is_forward ? (size_t)4 * WARPS * L.c2p : 0);
+    L.w1 = take(at, (size_t)esize * L.kx * L.ldw1);
+    L.w2 = take(at, (size_t)esize * L.c1p * L.ldw2);
+    L.p = take(at, (size_t)esize * L.rows * L.ldp);
+    L.h = take(at, (size_t)esize * L.rows * L.ldh);
+    L.t = is_forward ? L.p + (size_t)esize * L.kx : take(at, (size_t)esize * L.rows * L.ldh);
+    L.bytes = at;
+    return L;
+}
+
+// the parts of one block's plan that every kernel on it uses
+template <typename E>
+struct Slabs {
+    uint32_t* bits;
+    uint32_t* mbits;
+    E* w1;
+    E* w2;
+    E* p;
+    E* h;
+    E* t;
+
+    __device__ __forceinline__ Slabs(char* sm, const Plan& L)
+        : bits(reinterpret_cast<uint32_t*>(sm + L.bits)),
+          mbits(reinterpret_cast<uint32_t*>(sm + L.mbits)),
+          w1(reinterpret_cast<E*>(sm + L.w1)),
+          w2(reinterpret_cast<E*>(sm + L.w2)),
+          p(reinterpret_cast<E*>(sm + L.p)),
+          h(reinterpret_cast<E*>(sm + L.h)),
+          t(reinterpret_cast<E*>(sm + L.t)) {}
+};
+
+// the quads an aggregate's lane holds: C1's 8 at the bench widths
+constexpr int QMAX = 8;
+
+__device__ __forceinline__ bool bit_at(const uint32_t* bits, int i) { return (bits[i >> 5] >> (i & 31)) & 1u; }
+
+// 0 (the layout-free part): the mask's bits of one graph (mask_g: its N
+// bytes) and the weights, zero-padded, rounded in the bf16 form (no barrier)
+template <bool BF16, typename E>
+__device__ __forceinline__ void stage_mask_weights(const Plan& L, const Slabs<E>& s, const uint8_t* __restrict__ mask_g,
+                                                   const float* __restrict__ w1, const float* __restrict__ w2, int N, int F, int C1,
+                                                   int C2) {
+    const int tid = threadIdx.x;
+    for (int i = tid; i < 32 * L.words; i += THREADS) {  // every lane of a warp reaches the ballot
+        const uint32_t m = __ballot_sync(FULL, i < N && mask_g[i] != 0);
+        if ((i & 31) == 0) s.mbits[i / 32] = m;
+    }
+#pragma unroll 4
+    for (int idx = tid; idx < L.kx * L.c1p; idx += THREADS) {
+        const int k = idx / L.c1p;
+        const int c = idx - k * L.c1p;
+        put(s.w1 + (size_t)k * L.ldw1 + c, k < F && c < C1 ? at_form<BF16>(w1[(size_t)k * C1 + c]) : 0.f);
+    }
+#pragma unroll 4
+    for (int idx = tid; idx < L.c1p * L.c2p; idx += THREADS) {
+        const int k = idx / L.c2p;
+        const int c = idx - k * L.c2p;
+        put(s.w2 + (size_t)k * L.ldw2 + c, k < C1 && c < C2 ? at_form<BF16>(w2[(size_t)k * C2 + c]) : 0.f);
+    }
+}
+
+// 1-3, after the staging and a barrier: fcx = x w1 -> T; h1 = relu(A fcx)
+// -> H, times the mask where MASK_H1 (K9f's h1; K8's h1 is not masked);
+// fcx2 = h1 w2 -> P, each step behind a barrier (the slab stores round in
+// the bf16 form). h1_out(i, q, h) takes each row i < N's quad q of h1 before
+// it is stored (unrounded). The forwards and K8b's recompute run this one
+// path.
+template <int TR, bool MASK_H1, typename E, class H1Out>
+__device__ __forceinline__ void forward_fcx2(const Plan& L, const Slabs<E>& s, int N, int F, int C1, H1Out h1_out) {
+    const auto to_t = [&](int m, int n, float v) { put(s.t + (size_t)m * L.ldt + n, v); };
+    tile_gemm<TR, false>(s.p, L.ldp, s.w1, L.ldw1, L.rows, L.c1p, round4(F), to_t);
+    __syncthreads();
+    aggregate<QMAX>(s.bits, L.words, s.t, L.ldt, N, L.rows, L.c1p / 4, [&](int i, int q, float4 a) {
+        const float m = !MASK_H1 || (i < N && bit_at(s.mbits, i)) ? 1.f : 0.f;
+        const float4 v = make_float4(fmaxf(a.x, 0.f) * m, fmaxf(a.y, 0.f) * m, fmaxf(a.z, 0.f) * m, fmaxf(a.w, 0.f) * m);
+        if (i < N) h1_out(i, q, v);
+        E* h = s.h + (size_t)i * L.ldh + 4 * q;
+        put(h, v.x);
+        put(h + 1, v.y);
+        put(h + 2, v.z);
+        put(h + 3, v.w);
+    });
+    __syncthreads();
+    const auto to_p = [&](int m, int n, float v) { put(s.p + (size_t)m * L.ldp + n, v); };
+    tile_gemm<TR, false>(s.h, L.ldh, s.w2, L.ldw2, L.rows, L.c2p, round4(C1), to_p);
+    __syncthreads();
+}
+
+// 4. part[warp][4q .. 4q+3] = the sum over the warp's rows i < n (i = 32
+// warp + lane, then again THREADS further) of h = relu((A v)[i][4q .. 4q+3])
+// * mask[i], q < quads: a lane walks its row once for each QMAX quads and
+// hands each row's h to row_out(i, q, h), a butterfly of shuffles sums the
+// warp's 32 rows (every lane ends with the same bits), and lane 0 adds that
+// to the warp's sum, in row order. Only the row sums of one walk are held in
+// registers. After a barrier, pool_total gives a channel's sum: the warps'
+// sums added in order.
+template <int QMAX_, typename E, class RowOut>
+__device__ __forceinline__ void pool_rows(const uint32_t* bits, const uint32_t* mbits, int words, const E* v, int ldv, int n,
+                                          int quads, float* part, RowOut row_out) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    float* mine = part + (size_t)warp * 4 * quads;
+    if (lane == 0) {
+        for (int c = 0; c < 4 * quads; ++c) mine[c] = 0.f;
+    }
+    for (int q0 = 0; q0 < quads; q0 += QMAX_) {
+        for (int i0 = 32 * warp; i0 < n; i0 += THREADS) {  // the same rounds for every lane of the warp
+            const int i = i0 + lane;
+            float4 acc[QMAX_];
+            row_sum<QMAX_>(bits + (size_t)i * words, words, i < n, v, ldv, q0, quads, acc);
+            const float m = i < n && bit_at(mbits, i) ? 1.f : 0.f;
+#pragma unroll
+            for (int q = 0; q < QMAX_; ++q) {
+                acc[q] = make_float4(fmaxf(acc[q].x, 0.f) * m, fmaxf(acc[q].y, 0.f) * m, fmaxf(acc[q].z, 0.f) * m, fmaxf(acc[q].w, 0.f) * m);
+                if (i < n && q0 + q < quads) row_out(i, q0 + q, acc[q]);
+            }
+#pragma unroll
+            for (int d = 16; d > 0; d >>= 1) {
+#pragma unroll
+                for (int q = 0; q < QMAX_; ++q) {
+                    acc[q].x += __shfl_xor_sync(FULL, acc[q].x, d);
+                    acc[q].y += __shfl_xor_sync(FULL, acc[q].y, d);
+                    acc[q].z += __shfl_xor_sync(FULL, acc[q].z, d);
+                    acc[q].w += __shfl_xor_sync(FULL, acc[q].w, d);
+                }
+            }
+            if (lane == 0) {
+#pragma unroll
+                for (int q = 0; q < QMAX_; ++q) {
+                    if (q0 + q < quads) {
+                        float4* sum = reinterpret_cast<float4*>(mine + 4 * (q0 + q));
+                        float4 t = *sum;
+                        add4(t, acc[q]);
+                        *sum = t;
+                    }
+                }
+            }
+        }
+    }
+}
+
+// channel c's pooled sum from pool_rows' warp sums (rows of ld floats)
+__device__ __forceinline__ float pool_total(const float* part, int ld, int c) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) t += part[w * ld + c];
+    return t;
 }
 
 // ---------------------------------------------------------------------------

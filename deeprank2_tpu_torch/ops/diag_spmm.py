@@ -20,13 +20,12 @@ the f32 form, exact up to summation order. It runs in the CUDA kernels of
 relu/mask plus per-graph sum pool) and ``pool_bwd_kernel`` (the pooled
 layer's backward). Two bodies run them there, and :func:`diag_body` picks
 one by form: ``"mma"`` (tensor cores, ``mma.sync``, bf16 operands, f32
-sums: the bf16 forms in one pass, ``diag_kernel``'s f32 form on bf16
-weights over the three exact bf16 pieces of each activation
-(:func:`split3`), and ``pool_bwd_kernel`` as a count product, ``g_pool``
-added ``(A @ sign)[f, i]`` times) and ``"fma"`` (f32 FMAs on CUDA cores in
-ascending node order: ``diag_kernel``'s f32 form on an int8 adjacency, the
-order of the fused tower :func:`tower_pooled`, and every form on an f32
-adjacency).
+sums: every form on an int8 or bf16 adjacency; the bf16 forms in one pass,
+``diag_kernel``'s f32 form over the three exact bf16 pieces of each
+activation (:func:`split3`), and ``pool_bwd_kernel`` as a count product,
+``g_pool`` added ``(A @ sign)[f, i]`` times) and ``"fma"`` (f32 FMAs on
+CUDA cores in ascending node order: every form on an f32 adjacency, which
+the tensor-core body does not take).
 Edges are mirrored, so ``A^T = A`` per graph and each VJP is the same
 aggregation applied to the cotangent.
 
@@ -36,13 +35,13 @@ pool into one forward and one backward kernel (``csrc/diag_tower.cu``:
 once per direction (int8 adjacency only), in an f32 and a bf16 form (the
 JAX ``split=False`` branch: ``x_t``, the weights, ``fcx1``, ``h1``,
 ``fcx2``, then ``u2``, ``t2`` and ``u1`` rounded to bf16 once, in the
-kernel; ``t2`` and ``t1`` returned as bf16). The backward takes ``t2 = A
-(sign ⊙ g_pool)`` from the count of each node's neighbours whose sign is
-set: ``g_pool`` times it in the bf16 form (exact: the plain version's
-value), that many copies of ``g_pool`` added in ascending order in f32 (the
-ascending sum over the neighbours, bit for bit). :func:`tower_supports` is the flat tower's
-shape rule (:func:`tower_fwd_smem_bytes` and :func:`tower_bwd_smem_bytes`
-mirror the kernels' shared-memory plans).
+kernel; ``t2`` and ``t1`` returned as bf16). The forward runs on the plan
+and steps of the batched tower's forward (``ops/ginet_tower.py``). The
+backward takes ``t2 = A (sign ⊙ g_pool)`` as ``g_pool`` times the count of
+each node's neighbours whose sign is set: the exact sum rounded once (in
+the bf16 form exact, the plain version's value). :func:`tower_supports` is
+the flat tower's shape rule (:func:`tower_fwd_smem_bytes` and
+:func:`tower_bwd_smem_bytes` mirror the kernels' shared-memory plans).
 
 Each kernel wrapper takes its plain PyTorch version (``*_ref``) for tensors
 on the CPU, launches its kernel for tensors on a CUDA device, and raises for
@@ -58,7 +57,7 @@ import ctypes
 import torch
 
 from deeprank2_tpu_torch.ops import _build
-from deeprank2_tpu_torch.ops.tower_plan import SMEM_LIMIT, round16, row_bytes
+from deeprank2_tpu_torch.ops.tower_plan import SMEM_LIMIT, plan_bytes, round16, row_bytes
 
 SOURCE = "diag_spmm"
 TOWER_SOURCE = "diag_tower"
@@ -106,7 +105,8 @@ FORMS = [(a, torch.float32) for a in ADJ_DTYPES] + [(a, torch.bfloat16) for a in
 TOWER_FORMS = [(torch.int8, a) for a in ACT_DTYPES]
 
 # the two bodies of K1 and K2 in csrc/diag_spmm.cu, by their code there:
-# tensor cores, and f32 FMAs on CUDA cores (every form on an f32 adjacency)
+# tensor cores (int8 and bf16 adjacencies), and f32 FMAs on CUDA cores (every
+# form; the only body of an f32 adjacency)
 BODIES = {"mma": 0, "fma": 1}
 
 
@@ -114,20 +114,16 @@ def diag_body(kernel: str, adj_dtype: torch.dtype, act_dtype: torch.dtype) -> st
     """The body of ``csrc/diag_spmm.cu`` that runs ``kernel``
     (``"diag_kernel"`` or ``"pool_bwd_kernel"``) in the form (``adj_dtype``,
     ``act_dtype``) on the card: ``"fma"`` for every form on an f32 adjacency
-    (the tensor-core body takes none) and for ``diag_kernel``'s f32 form on
-    an int8 one, whose sums GINetDense's flat route holds to the fused
-    tower's ascending node order (``chip_smoke.py``'s ``dense_fused_tower``
-    gate); ``"mma"`` for the rest. The wrappers hand it to the kernel, so
-    this is the one place the split is made."""
+    (the tensor-core body takes none), ``"mma"`` for every form on an int8
+    or bf16 one. The wrappers hand it to the kernel, so this is the one
+    place the split is made; no other choice is made at run time."""
     if kernel not in ("diag_kernel", "pool_bwd_kernel"):
         msg = f"kernel must be 'diag_kernel' or 'pool_bwd_kernel', got {kernel!r}"
         raise ValueError(msg)
     if (adj_dtype, act_dtype) not in FORMS:
         msg = f"(adj_dtype, act_dtype) must be one of {FORMS}, got {(adj_dtype, act_dtype)}"
         raise TypeError(msg)
-    if adj_dtype == torch.float32 or (kernel == "diag_kernel" and adj_dtype == torch.int8 and act_dtype == torch.float32):
-        return "fma"
-    return "mma"
+    return "fma" if adj_dtype == torch.float32 else "mma"
 
 # kernel launches since the last reset_launches(), by kernel and by form
 launches = {"diag_kernel": 0, "pool_bwd_kernel": 0, "tower_fwd_kernel": 0, "tower_bwd_kernel": 0}
@@ -228,8 +224,8 @@ def _route(device: torch.device) -> bool:
 
 
 def split3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The three bf16 pieces of f32 ``x`` that K1's f32 form on bf16 weights
-    multiplies on the tensor cores: ``hi`` is ``x`` cut to its top 8
+    """The three bf16 pieces of f32 ``x`` that K1's f32 form on an int8 or
+    bf16 adjacency multiplies on the tensor cores: ``hi`` is ``x`` cut to its top 8
     significant bits (bf16 toward zero), ``mid`` the same of ``x - hi``, and
     ``lo = x - hi - mid``. 8 + 8 + 8 significant bits hold f32's 24 and each
     remainder is exact in f32, so ``hi + mid + lo == x`` (summed in f32), and
@@ -274,9 +270,9 @@ def diag_kernel(adj: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor | None 
     ``compute_dtype=torch.bfloat16`` runs the bf16 form (``x_t`` f32 or
     bf16, rounded to bf16; int8 or bf16 adjacency); the result is f32. On
     the card the body :func:`diag_body` names runs it: the bf16 forms on the
-    tensor cores in one pass, the f32 form on bf16 weights in three over
-    :func:`split3`'s pieces, the f32 form on an int8 or f32 adjacency as f32
-    FMAs in ascending node order. Every form is its plain version up to the
+    tensor cores in one pass, the f32 form on an int8 or bf16 adjacency in
+    three over :func:`split3`'s pieces, the f32 adjacency as f32 FMAs in
+    ascending node order. Every form is its plain version up to the
     order of the f32 sums (the tensor cores truncate within each window of
     16 products: see ``csrc/diag_spmm.cu``).
 
@@ -505,26 +501,12 @@ def diag_layer_pool_t_ref(adj: torch.Tensor, node_mask: torch.Tensor, fcx_t: tor
 # The fused tower's shape rule
 
 
-def tower_fwd_smem_bytes(nodes: int, feat: int, c1: int, c2: int) -> int:
-    """Shared memory of one block of ``tower_fwd_kernel`` (the plan of
-    ``csrc/diag_tower.cu:flat_fwd::layout``): two ``[N, stride(max(F, c2p))]``
-    and two ``[N, stride(c1p)]`` f32 slabs (``c1p``, ``c2p``: C1, C2 rounded
-    up to 4; ``stride``: rounded up to an odd number of 4-float groups), the
-    padded weights ``[F, c1p]`` and ``[c1p, stride(c2p)]``, the mask, one
-    per-graph vector and one bit per adjacency entry (rows of 32-bit
-    words)."""
-
-    def r4(v: int) -> int:
-        return (v + 3) // 4 * 4
-
-    def stride(v: int) -> int:
-        return r4(v) if (r4(v) // 4) % 2 else r4(v) + 4
-
-    c1p, c2p = r4(c1), r4(c2)
-    s1, s2 = stride(max(feat, c2p)), stride(c1p)
-    words = (nodes + 31) // 32
-    floats = 2 * nodes * s1 + 2 * nodes * s2 + feat * c1p + c1p * stride(c2p) + r4(nodes) + c2p + nodes * words
-    return 4 * floats
+def tower_fwd_smem_bytes(nodes: int, feat: int, c1: int, c2: int, elem_bytes: int = 4) -> int:
+    """Shared memory of one block of ``tower_fwd_kernel``: the forward plan
+    of ``csrc/tower_common.cuh:plan``, which K8f runs too
+    (:func:`~deeprank2_tpu_torch.ops.tower_plan.plan_bytes`; ``elem_bytes``
+    4 in the f32 form, 2 in the bf16 form)."""
+    return plan_bytes(nodes, feat, c1, c2, elem_bytes, forward=True)
 
 
 def tower_bwd_smem_bytes(nodes: int, c1: int, c2: int, elem_bytes: int = 4) -> int:
@@ -532,16 +514,14 @@ def tower_bwd_smem_bytes(nodes: int, c1: int, c2: int, elem_bytes: int = 4) -> i
     ``csrc/diag_tower.cu:bwd_plan``; ``elem_bytes`` 4 in the f32 form, 2 in
     the bf16 form), channels padded to 4 (``c1p``, ``c2p``): the adjacency's
     bit rows ``[N, words]``, the sign of h2 ``[c2p, words]`` and ``h1 > 0``
-    ``[c1p, words]`` (uint32), the graph's ``g_pool`` ``[c2p]`` and, in the
-    f32 form, the ascending sums of its copies ``[c2p, 32]`` (f32); then,
-    of ``elem_bytes`` each, w2 ``[c1p, ld(c2p)]``, the t2 slab
+    ``[c1p, words]`` (uint32) and the graph's ``g_pool`` ``[c2p]`` (f32);
+    then, of ``elem_bytes`` each, w2 ``[c1p, ld(c2p)]``, the t2 slab
     ``[N, ld(c2p)]`` and the u1 slab ``[N, ld(c1p)]``, each row padded to an
     odd number of 16-byte units and each part to 16 bytes."""
 
     c1p, c2p, words = (c1 + 3) // 4 * 4, (c2 + 3) // 4 * 4, (nodes + 31) // 32
     ld1, ld2 = row_bytes(c1p, elem_bytes), row_bytes(c2p, elem_bytes)
-    sums = 4 * c2p * 32 if elem_bytes == 4 else 0
-    parts = (4 * nodes * words, 4 * c2p * words, 4 * c1p * words, 4 * c2p, sums, c1p * ld2, nodes * ld2, nodes * ld1)
+    parts = (4 * nodes * words, 4 * c2p * words, 4 * c1p * words, 4 * c2p, c1p * ld2, nodes * ld2, nodes * ld1)
     return sum(round16(b) for b in parts)
 
 
@@ -550,8 +530,9 @@ def tower_supports(num_graphs: int, nodes: int, feat: int = 38, c1: int = 32, c2
     graph's forward and backward each in the shared memory of one block
     (:func:`tower_fwd_smem_bytes` and the f32 form of
     :func:`tower_bwd_smem_bytes`, at most ``SMEM_LIMIT``). At GINetDense's
-    widths (F=38, C1=32, C2=64) that is N <= 251 nodes a graph, the
-    forward's limit (the backward's is N <= 444); beyond it a kernel raises."""
+    widths (F=38, C1=32, C2=64) that is N <= 400 nodes a graph, the
+    forward's limit (the batched forward's too; the backward's is N <= 457);
+    beyond it a kernel raises."""
     fits = tower_fwd_smem_bytes(nodes, feat, c1, c2) <= SMEM_LIMIT and tower_bwd_smem_bytes(nodes, c1, c2) <= SMEM_LIMIT
     return num_graphs >= 1 and nodes >= 1 and fits
 
@@ -569,6 +550,53 @@ def tower_fwd_kernel_ref(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Te
     h1 = diag_kernel_ref(adj_i8, round_to(w1, act).T @ round_to(x_t.float(), act), mask, "relu_mask", act)
     sign, pooled = diag_kernel_ref(adj_i8, round_to(w2, act).T @ round_to(h1, act), mask, "relu_mask_pool", act)
     return h1, sign, pooled
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors rounded once to float32 (nearest,
+    ties to even): CUDA's ``fmaf``. The product is exact in float64 and the
+    sum's float64 rounding error is recovered exactly (TwoSum); only where
+    the float64 sum sits on a float32 midpoint does that error pick the
+    side, which is where rounding twice could differ from rounding once."""
+    p, cd = a.double() * b.double(), c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    r = s.float()
+    toward = torch.nextafter(r, torch.where(s > r.double(), torch.full_like(r, float("inf")), torch.full_like(r, float("-inf"))))
+    tie = (s == (r.double() + toward.double()) / 2) & (err != 0)
+    past = (err > 0) == (toward > r)  # the exact sum lies beyond the midpoint, on toward's side
+    return torch.where(tie & past, toward, r)
+
+
+def tower_fwd_order_ref(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, compute_dtype=None):
+    """:func:`tower_fwd_kernel`'s ``(h1, sign)`` in the kernel's summation
+    order, a plain float32 loop: the weight products as fused multiply-adds
+    (:func:`fma_f32`) in ascending k from +0, each aggregate the neighbours'
+    rows added in ascending order from +0, the relu and the mask, and the
+    bf16 form's roundings (x and the weights as they are staged, fcx, h1 and
+    fcx2 before the products that take them; h1 returned unrounded). The
+    kernel's h1 and sign equal these bit for bit."""
+    act = activation_dtype(compute_dtype)
+    g, n, _ = adj_i8.shape
+    live = mask.reshape(1, g, n).float()
+    on = adj_i8 != 0
+
+    def product(w, v):  # [K, C] and [K, G*N] -> [C, G, N], ascending k
+        acc = torch.zeros(w.shape[1], v.shape[1], dtype=torch.float32, device=v.device)
+        for k in range(w.shape[0]):
+            acc = fma_f32(w[k][:, None], v[k][None, :], acc)
+        return acc.reshape(-1, g, n)
+
+    def relu_aggregate(v):  # [C, G, N] -> relu(A v) * mask, ascending neighbours
+        acc = torch.zeros_like(v)
+        for j in range(n):
+            acc = torch.where(on[None, :, :, j], acc + v[:, :, j : j + 1], acc)
+        return torch.relu(acc) * live
+
+    h1 = relu_aggregate(round_to(product(round_to(w1, act), round_to(x_t.float(), act)), act))
+    h2 = relu_aggregate(round_to(product(round_to(w2, act), round_to(h1, act).reshape(h1.shape[0], g * n)), act))
+    return h1.reshape(-1, g * n), (h2 > 0).to(torch.uint8).reshape(-1, g * n)
 
 
 def tower_fwd_kernel(adj_i8: torch.Tensor, x_t: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, compute_dtype=None):

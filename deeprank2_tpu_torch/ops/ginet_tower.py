@@ -39,7 +39,7 @@ import torch
 
 from deeprank2_tpu_torch.ops import _build
 from deeprank2_tpu_torch.ops.diag_spmm import ACT_DTYPES, _require, _route, activation_dtype, form_name, round_to
-from deeprank2_tpu_torch.ops.tower_plan import SMEM_LIMIT, round16, row_bytes
+from deeprank2_tpu_torch.ops.tower_plan import SMEM_LIMIT, plan_bytes
 
 SOURCE = "ginet_tower"
 
@@ -61,43 +61,24 @@ def _count(kernel: str, act: torch.dtype) -> None:
     launches_by_dtype[kernel][form_name(torch.int8, act)] += 1
 
 
-# the warps of one block of the tower kernels (csrc/tower_common.cuh:WARPS)
-WARPS = 8
-
-
-def _plan_bytes(nodes: int, feat: int, c1: int, c2: int, elem_bytes: int, forward: bool) -> int:
-    """Shared memory of one block on ``csrc/ginet_tower.cu:plan``, the
-    forward's or the backward's (:func:`smem_bytes`, :func:`bwd_smem_bytes`)."""
-
-    def row(cols: int) -> int:
-        return row_bytes(cols, elem_bytes)
-
-    rows, kx, c1p, c2p, words = round16(nodes), round16(feat), round16(c1), round16(c2), (nodes + 31) // 32
-    if forward:  # the warp sums; fcx beside x in the slab, no third slab
-        parts = (4 * nodes * words, 4 * words, 4 * WARPS * c2p, kx * row(c1p), c1p * row(c2p), rows * row(max(c2p, kx + c1p)), rows * row(c1p))
-    else:
-        parts = (4 * nodes * words, 4 * words, 4 * c2p * words, 4 * c2p, kx * row(c1p), c1p * row(c2p), rows * row(max(c2p, kx)), rows * row(c1p), rows * row(c1p))
-    return sum(round16(b) for b in parts)
-
-
 def smem_bytes(nodes: int, feat: int, c1: int, c2: int, elem_bytes: int = 4) -> int:
     """Shared memory of one block of the forward kernel: the backward's plan
     (:func:`bwd_smem_bytes`) with the signs and dpooled replaced by the warp
     sums of the pool, ``[8, c2p]`` f32, and fcx kept beside x in the wide
     slab (``[rows, ld(max(c2p, kx + c1p))]``) in place of the third slab."""
-    return _plan_bytes(nodes, feat, c1, c2, elem_bytes, forward=True)
+    return plan_bytes(nodes, feat, c1, c2, elem_bytes, forward=True)
 
 
 def bwd_smem_bytes(nodes: int, feat: int, c1: int, c2: int, elem_bytes: int = 4) -> int:
     """Shared memory of one block of the backward kernel (the plan of
-    ``csrc/ginet_tower.cu:plan``; ``elem_bytes`` 4 in the f32 form,
+    ``csrc/tower_common.cuh:plan``; ``elem_bytes`` 4 in the f32 form,
     2 in the bf16 form): nodes, features and channels padded to 16; the
     adjacency's bit rows ``[N, words]``, the mask's bits ``[words]``, the
     signs of h2 ``[c2p, words]`` (uint32) and dpooled ``[c2p]`` (f32); then,
     of ``elem_bytes`` each, w1 ``[kx, ldw1]``, w2 ``[c1p, ldw2]`` and the
     slabs ``[rows, ldp]`` and twice ``[rows, ldh]``, each row padded to an
     odd number of 16-byte units and each part to 16 bytes."""
-    return _plan_bytes(nodes, feat, c1, c2, elem_bytes, forward=False)
+    return plan_bytes(nodes, feat, c1, c2, elem_bytes, forward=False)
 
 
 def supports(num_graphs: int, nodes: int, feat: int = 38, c1: int = 32, c2: int = 64) -> bool:

@@ -476,8 +476,8 @@ def _tower_operands(g, n, f, c1, c2, dev, seed=0):
     return [t.to(dev) for t in out]
 
 
-# the dense bench widths at a ragged G, at the largest N the shape rule
-# admits (251), and widths that are not multiples of 4 (padded channels);
+# the dense bench widths at a ragged G, at N = 251 (the largest N the flat
+# tower's earlier plan admitted), and widths that are not multiples of 4 (padded channels);
 # pooled and h1 sum f32 products in another order; dw1/dw2 sum one product
 # per node and graph, and t1 cancels terms far larger than itself, so their
 # atol is 1e-6 of the products' absolute sum (t2 likewise)
@@ -505,9 +505,9 @@ def test_tower_kernels_match_plain_versions(cuda, g, n, f, c1, c2) -> None:
     assert ds.launches["tower_fwd_kernel"] == ds.launches["tower_bwd_kernel"] == 1
 
 
-# Each kernel's own plan at these widths: K8f's ends at N = 400, K8b's at
-# N = 352 (where supports(), both, ends), K9f's at N = 251 (where
-# tower_supports() ends) and K9b's at N = 444. Beyond its plan a kernel
+# Each kernel's own plan at these widths: K8f's and K9f's (the same plan) end
+# at N = 400 (where tower_supports() ends), K8b's at N = 352 (where
+# supports(), both, ends) and K9b's at N = 457. Beyond its plan a kernel
 # raises; within it, it agrees with its plain version.
 @pytest.mark.parametrize("n", [252, 353, 401, 445, 2048])
 def test_tower_kernels_raise_beyond_the_shape_rule(cuda, n) -> None:
@@ -527,13 +527,18 @@ def test_tower_kernels_raise_beyond_the_shape_rule(cuda, n) -> None:
     else:
         with pytest.raises(RuntimeError, match="CUDA error"):
             gt.ginet_tower_bwd_kernel(*args, dp)
-    assert not ds.tower_supports(1, n)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        ds.tower_fwd_kernel(adj, x_t, mask, w1, w2)
-    h1, sign, _ = ds.tower_fwd_kernel_ref(adj, x_t, mask, w1, w2)
+    assert ds.tower_supports(1, n) == fwd_fits == (ds.tower_fwd_smem_bytes(n, 38, 32, 64) <= ds.SMEM_LIMIT)
+    h1, sign, pooled = ds.tower_fwd_kernel_ref(adj, x_t, mask, w1, w2)
+    if fwd_fits:
+        got = ds.tower_fwd_kernel(adj, x_t, mask, w1, w2)
+        torch.testing.assert_close(got[0], h1, **TOL)
+        torch.testing.assert_close(got[2], pooled, **TOL)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            ds.tower_fwd_kernel(adj, x_t, mask, w1, w2)
     bwd = (adj, dp.T.contiguous(), sign, h1, w2)
     if ds.tower_bwd_smem_bytes(n, 32, 64) > ds.SMEM_LIMIT:
-        assert n > 444
+        assert n > 457
         with pytest.raises(RuntimeError, match="CUDA error"):
             ds.tower_bwd_kernel(*bwd)
     else:
@@ -856,6 +861,31 @@ def test_diag_kernels_on_both_bodies_match_plain_versions(cuda, body, adj_dtype,
                 ds.diag_kernel(adj, x, compute_dtype=compute_dtype)
             return
         _check_diag_forms(adj, mask, x, g_pool, compute_dtype)
+
+
+# K1's f32 form on an int8 adjacency runs on the tensor cores (diag_body
+# names no other body for it, and nothing chooses one at run time) at the
+# dense (N = 17, 96), clustered (296) and mixed (336) shapes: every mode
+# against its plain version, counted on its form, and as near float64 as
+# the FMA body that ran it before
+@pytest.mark.parametrize("n", [17, 96, 296, 336])
+def test_k1_int8_f32_form_runs_on_the_tensor_cores(cuda, n) -> None:
+    assert ds.diag_body("diag_kernel", torch.int8, torch.float32) == "mma"
+    g, f = 9, 38
+    adj, mask = _adjacency(torch.int8, g, n, cuda, seed=n)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(f, g * n, generator=gen, device=cuda)
+    g_pool = torch.randn(f, g, generator=gen, device=cuda)
+    ds.reset_launches()
+    _check_diag_forms(adj, mask, x, g_pool, None)
+    assert ds.launches_by_dtype["diag_kernel"]["int8/float32"] == ds.launches["diag_kernel"] == 3
+    # both bodies against float64, within 16 f32 roundings of the sum of |terms|
+    want = ds.diag_kernel_ref(adj, x.double())
+    with _on_body("fma"):
+        fma = ds.diag_kernel(adj, x).double()
+    mma = ds.diag_kernel(adj, x).double()
+    terms = ds.diag_kernel_ref(adj, x.abs().double())
+    assert bool(((mma - want).abs() <= 2.0**-20 * terms).all()) and bool(((fma - want).abs() <= 2.0**-20 * terms).all())
 
 
 def _signed_adjacency(g, n, dev, seed):
@@ -1207,12 +1237,13 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 # K8f and K9b in both forms at N = 1, 33 (off the 16-node tiles and the
 # 32-node bit words), 160 and each kernel's largest N (its own plan's end:
-# K8f 400, K9b 444), at G = 1 and at G = 300
+# K8f 400, K9b 457), at G = 1 and at G = 300
 # (more graphs than the blocks resident at once), ragged masks. Two calls
 # give the same bits, and a graph computed alone gives the same bits as
 # inside the batch. The f32 forms at the f32-order bounds, the bf16 forms at
-# _flip_close; K9b's bf16 t2 is its plain version's values exactly (a count
-# times a bf16 value is exact), and an all-zero sign or a zero g_pool gives zeros.
+# _flip_close; K9b's t2 is g_pool times the count rounded once (f32: bit for
+# bit; bf16: its plain version's values exactly, a count times a bf16 value
+# being exact), and an all-zero sign or a zero g_pool gives zeros.
 @pytest.mark.parametrize("compute_dtype", [None, BF16])
 @pytest.mark.parametrize("n", [1, 33, 160, "max"])
 @pytest.mark.parametrize("g", [1, 300])
@@ -1237,6 +1268,51 @@ def test_ginet_tower_fwd_kernel_in_both_forms_matches_plain_version(cuda, comput
         _flip_close(got, want, gt.ginet_tower_fwd_kernel_ref(w1.abs(), w2.abs(), x.abs(), adj, mask, compute_dtype), "K8f")
 
 
+# K9f in both forms on the towers' plan at N = 17, 96, 160 and its largest N
+# (the forward plan's end, 400), at G = 1 and 300, ragged masks: h1 and the
+# sign of h2 bit for bit against the kernel's order as a loop
+# (tower_fwd_order_ref); h1 and pooled against the plain version (f32 order,
+# or _flip_close in bf16), the sign wherever h2 is clear of zero; two calls
+# the same bits, a graph alone the same bits as in the batch.
+@pytest.mark.parametrize("compute_dtype", [None, BF16])
+@pytest.mark.parametrize("n", [17, 96, 160, "max"])
+@pytest.mark.parametrize("g", [1, 300])
+def test_tower_fwd_kernel_in_both_forms_on_the_towers_plan(cuda, compute_dtype, n, g) -> None:
+    f, c1, c2 = 38, 32, 64
+    if n == "max":
+        n = max(k for k in range(1, 1025) if ds.tower_supports(1, k, f, c1, c2))
+        assert n == 400 == max(k for k in range(1, 1025) if ds.tower_fwd_smem_bytes(k, f, c1, c2) <= ds.SMEM_LIMIT)
+    adj, mask, x, w1, w2, _ = _ragged_tower_operands(g, n, f, c1, c2, cuda, seed=n + 1)
+    x_t = x.reshape(g * n, f).T.contiguous()
+    fargs = (adj, x_t, mask, w1, w2)
+    ds.reset_launches()
+    got, again = ds.tower_fwd_kernel(*fargs, compute_dtype), ds.tower_fwd_kernel(*fargs, compute_dtype)
+    k = g // 2
+    cols = slice(k * n, (k + 1) * n)
+    alone = ds.tower_fwd_kernel(adj[k : k + 1].contiguous(), x_t[:, cols].contiguous(), mask[k : k + 1].contiguous(), w1, w2, compute_dtype)
+    assert ds.launches["tower_fwd_kernel"] == 3
+    form = ds.form_name(torch.int8, ds.activation_dtype(compute_dtype))
+    assert ds.launches_by_dtype["tower_fwd_kernel"][form] == 3
+    for a, b, c in zip(got, again, alone):
+        assert torch.equal(_bits(a) if a.is_floating_point() else a, _bits(b) if b.is_floating_point() else b)
+    assert torch.equal(_bits(alone[0]), _bits(got[0][:, cols])) and torch.equal(alone[1], got[1][:, cols])
+    assert torch.equal(_bits(alone[2]), _bits(got[2][:, k : k + 1]))
+    h1, sign, pooled = got
+    h1_o, sign_o = ds.tower_fwd_order_ref(*fargs, compute_dtype)
+    assert torch.equal(_bits(h1), _bits(h1_o)) and torch.equal(sign, sign_o)
+    h1_r, sign_r, pooled_r = ds.tower_fwd_kernel_ref(*fargs, compute_dtype)
+    act = ds.activation_dtype(compute_dtype)
+    h2 = torch.relu(ds.diag_kernel_ref(adj, ds.round_to(w2, act).T @ ds.round_to(h1_r, act))) * mask.reshape(1, -1)
+    if compute_dtype is None:
+        torch.testing.assert_close(h1, h1_r, **TOL)
+        torch.testing.assert_close(pooled, pooled_r, **TOL)
+        assert not ((sign != sign_r) & (h2.abs() > 1e-6 * h2.abs().max())).any()
+    else:
+        h1_s, _, pooled_s = ds.tower_fwd_kernel_ref(adj, x_t.abs(), mask, w1.abs(), w2.abs(), compute_dtype)
+        _flip_close(h1, h1_r, h1_s, "K9f h1")
+        _flip_close(pooled, pooled_r, pooled_s, "K9f pooled")
+
+
 @pytest.mark.parametrize("compute_dtype", [None, BF16])
 @pytest.mark.parametrize("n", [1, 33, 160, "max"])
 @pytest.mark.parametrize("g", [1, 300])
@@ -1244,7 +1320,7 @@ def test_tower_bwd_kernel_in_both_forms_on_its_plan_matches_plain_version(cuda, 
     f, c1, c2 = 38, 32, 64
     if n == "max":
         n = max(k for k in range(1, 1025) if ds.tower_bwd_smem_bytes(k, c1, c2) <= ds.SMEM_LIMIT)
-        assert n == 444
+        assert n == 457
     adj, mask, x, w1, w2, dp = _ragged_tower_operands(g, n, f, c1, c2, cuda, seed=n)
     x_t = x.reshape(g * n, f).T.contiguous()
     h1, sign, _ = ds.tower_fwd_kernel_ref(adj, x_t, mask, w1, w2, compute_dtype)
@@ -1266,6 +1342,8 @@ def test_tower_bwd_kernel_in_both_forms_on_its_plan_matches_plain_version(cuda, 
                 assert not a.any(), (case, what)
             elif compute_dtype is None:
                 torch.testing.assert_close(a, w, rtol=1e-5, atol=max(1e-5, 1e-6 * scale.max().item()), msg=f"K9b {what}")
+                if what == "t2":  # g_pool times the count, rounded once
+                    assert torch.equal(_bits(a), _bits(gp.repeat_interleave(n, dim=1) * ds.diag_kernel_ref(adj, s.float()) + 0.0))
             elif what == "t2":
                 assert torch.equal(a, w)  # the same values (a zero's sign aside)
             else:

@@ -6,7 +6,7 @@ package's oracle and near-f32 split (deeprank2_tpu/ops/diag_spmm.py).
 - :func:`split3` cuts an f32 value into three bf16 pieces whose f32 sum is
   the value, bit for bit.
 - K1's f32 form, computed piece by piece (``sum_p A @ piece_p`` in f32, as
-  the kernel's three passes do on bf16 weights), is its plain version and
+  the kernel's three passes do), is its plain version and
   JAX's XLA oracle up to summation order (``TOL``), on int8 0/1 and
   bf16-weight adjacencies.
 - K2's count form: on an int8 0/1 adjacency ``g_pool[f, g]`` added
@@ -190,9 +190,9 @@ def test_k2_count_form_on_a_signed_int8_adjacency(form, n) -> None:
 @pytest.mark.parametrize("kernel", ["diag_kernel", "pool_bwd_kernel"])
 @pytest.mark.parametrize(("adj_dtype", "act_dtype"), td.FORMS)
 def test_diag_body_by_form(kernel, adj_dtype, act_dtype) -> None:
-    """The f32 adjacency and K1's f32 form on int8 run the FMA body, every
-    other form the tensor cores; the body's code is the kernel's."""
-    fma = adj_dtype == torch.float32 or (kernel == "diag_kernel" and (adj_dtype, act_dtype) == (torch.int8, torch.float32))
+    """The f32 adjacency runs the FMA body, every other form the tensor
+    cores, K1's f32 form on int8 included; the body's code is the kernel's."""
+    fma = adj_dtype == torch.float32
     body = td.diag_body(kernel, adj_dtype, act_dtype)
     assert body == ("fma" if fma else "mma")
     assert td.BODIES[body] == (1 if fma else 0)

@@ -29,6 +29,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 from deeprank2_tpu.ops import diag_spmm as jd
 from deeprank2_tpu_torch.ops import diag_spmm as td
+from deeprank2_tpu_torch.ops import ginet_tower as gt
+from deeprank2_tpu_torch.ops.tower_plan import round16
 
 FWD_TOL = {"rtol": 1e-5, "atol": 1e-4}
 BF16_STEP = 4e-3  # one bf16 rounding (2^-8) of t1/t2's storage
@@ -183,50 +185,58 @@ def test_tower_wrappers_check_their_operands() -> None:
 
 # K9b's plan (csrc/diag_tower.cu:bwd_plan), channels padded to 4: the
 # adjacency's bit rows [N, words], the sign's [64, words] and h1's
-# [32, words], g_pool [64] and, in the f32 form, the sums of its copies
-# [64, 32] (f32), then w2 [32, ld], the t2 slab [N, ld] and the u1 slab
-# [N, ld'] (f32 rows of 68 and 36, bf16 rows of 72 and 40), each part
-# 16-byte aligned; at N = 444 it still fits one block's opt-in limit
+# [32, words] and g_pool [64] (f32), then w2 [32, ld], the t2 slab [N, ld]
+# and the u1 slab [N, ld'] (f32 rows of 68 and 36, bf16 rows of 72 and 40),
+# each part 16-byte aligned; at N = 457 it still fits one block's opt-in
+# limit
 @pytest.mark.parametrize(
     ("n", "elem", "want", "blocks_an_sm"),
     [
-        (1, 4, 16 + 4 * (64 + 32 + 64) + 4 * 64 * 32 + 4 * (32 * 68 + 1 * 68 + 1 * 36), None),
-        (33, 4, 272 + 4 * 2 * (64 + 32) + 4 * 64 + 4 * 64 * 32 + 4 * (32 * 68 + 33 * 68 + 33 * 36), None),
-        (160, 4, 4 * 5 * (160 + 64 + 32) + 4 * 64 + 4 * 64 * 32 + 4 * (32 * 68 + 160 * 68 + 160 * 36), 2),
+        (1, 4, 16 + 4 * (64 + 32 + 64) + 4 * (32 * 68 + 1 * 68 + 1 * 36), None),
+        (33, 4, 272 + 4 * 2 * (64 + 32) + 4 * 64 + 4 * (32 * 68 + 33 * 68 + 33 * 36), None),
+        (160, 4, 4 * 5 * (160 + 64 + 32) + 4 * 64 + 4 * (32 * 68 + 160 * 68 + 160 * 36), 2),
         (160, 2, 4 * 5 * (160 + 64 + 32) + 4 * 64 + 2 * (32 * 72 + 160 * 72 + 160 * 40), 4),
-        (444, 4, 4 * 14 * (444 + 64 + 32) + 4 * 64 + 4 * 64 * 32 + 4 * (32 * 68 + 444 * 68 + 444 * 36), 1),
+        (457, 4, round16(4 * 15 * 457) + 4 * 15 * (64 + 32) + 4 * 64 + 4 * (32 * 68 + 457 * 68 + 457 * 36), 1),
     ],
 )
 def test_tower_bwd_smem_bytes_mirrors_the_backward_plan(n, elem, want, blocks_an_sm) -> None:
     got = td.tower_bwd_smem_bytes(n, 32, 64, elem)
     assert got == want
-    assert got <= td.SMEM_LIMIT < td.tower_bwd_smem_bytes(445, 32, 64)
+    assert got <= td.SMEM_LIMIT < td.tower_bwd_smem_bytes(458, 32, 64)
     if blocks_an_sm is not None:  # an H100 SM: 233,472 bytes of shared memory, 1 KB reserved a block
         assert 233_472 // (got + 1024) == blocks_an_sm
 
 
-# tower_supports() holds K9f's plan (two [N, 68] and two [N, 36] f32 slabs,
-# the weights, the mask, one vector, the bit rows), which ends at N = 251 at
-# the bench widths, and K9b's, which goes on to N = 444
-@pytest.mark.parametrize(("g", "n", "ok"), [(512, 160, True), (1, 33, True), (1, 251, True), (1, 252, False), (0, 160, False)])
+# tower_supports() holds K9f's plan, which is the batched forward's (K8f,
+# csrc/tower_common.cuh:plan: the bit rows, the mask's bits, the warp sums,
+# w1 [48, 36], w2 [32, 68], the slab [rows, 84] of x with fcx beside it and
+# h1's [rows, 36], f32; bf16 rows of 40, 72 and 88) and ends at N = 400 at
+# the bench widths, and K9b's, which goes on to N = 457
+@pytest.mark.parametrize(("g", "n", "ok"), [(512, 160, True), (1, 33, True), (1, 400, True), (1, 401, False), (0, 160, False)])
 def test_tower_supports_is_both_plans(g, n, ok) -> None:
     assert td.tower_supports(g, n) == ok
-    assert (td.tower_fwd_smem_bytes(n, 38, 32, 64) <= td.SMEM_LIMIT) == (n <= 251)
+    assert (td.tower_fwd_smem_bytes(n, 38, 32, 64) <= td.SMEM_LIMIT) == (n <= 400)
     assert td.tower_bwd_smem_bytes(n, 32, 64) <= td.SMEM_LIMIT
-    assert td.tower_fwd_smem_bytes(160, 38, 32, 64) == 4 * (2 * 160 * 68 + 2 * 160 * 36 + 38 * 32 + 32 * 68 + 160 + 64 + 160 * 5)
-    assert max(k for k in range(1, 1000) if td.tower_supports(1, k)) == 251
+    assert td.tower_fwd_smem_bytes(160, 38, 32, 64) == 4 * (160 * 5 + 8 + 8 * 64) + 4 * (48 * 36 + 32 * 68 + 160 * 84 + 160 * 36)
+    assert td.tower_fwd_smem_bytes(160, 38, 32, 64, 2) == 4 * (160 * 5 + 8 + 8 * 64) + 2 * (48 * 40 + 32 * 72 + 160 * 88 + 160 * 40)
+    for k in (1, 33, 160, 400):
+        assert td.tower_fwd_smem_bytes(k, 38, 32, 64) == gt.smem_bytes(k, 38, 32, 64)
+    # an H100 SM (233,472 bytes, 1 KB reserved a block) holds two f32 and
+    # four bf16 forward blocks at the bench shape
+    assert 233_472 // (td.tower_fwd_smem_bytes(160, 38, 32, 64) + 1024) == 2
+    assert 233_472 // (td.tower_fwd_smem_bytes(160, 38, 32, 64, 2) + 1024) == 4
+    assert max(k for k in range(1, 1000) if td.tower_supports(1, k)) == 400
 
 
 @pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
 def test_t2_is_g_pool_times_the_sign_counts(act) -> None:
-    """K9b's t2 = A (sign ⊙ g_pool) from the count of row i's neighbours
-    whose sign is set at c. In the bf16 form g_pool is a bf16 value, so
-    g_pool times the count and every partial sum of the plain version (K2's,
-    pool_bwd_kernel_ref) are exact: bit for bit. In f32 the product is the
-    exact sum rounded once, and the plain version's sum, which rounds each
-    of its count partial sums, is within count roundings of it; the kernel's
-    f32 form adds the count's copies in ascending order instead, which is
-    the ascending sum over the neighbours bit for bit."""
+    """K9b's t2 = A (sign ⊙ g_pool) as g_pool times the count of row i's
+    neighbours whose sign is set at c, in both forms. In the bf16 form
+    g_pool is a bf16 value, so g_pool times the count and every partial sum
+    of the plain version (K2's, pool_bwd_kernel_ref) are exact: bit for
+    bit. In f32 the product is the exact sum rounded once, and the plain
+    version's sum, which rounds each of its count partial sums, is within
+    count roundings of it."""
     rng = np.random.default_rng(21)
     g, n, c = 16, 96, 64
     adj = rng.random((g, n, n)) < 0.3
@@ -246,14 +256,3 @@ def test_t2_is_g_pool_times_the_sign_counts(act) -> None:
         assert torch.equal(td.round_to(t2, act), td.tower_bwd_kernel_ref(adj, g_pool, sign, torch.zeros(32, g * n), torch.zeros(32, c), act)[0].float())
     else:
         assert ((want.double() - t2.double()).abs() <= 2.0**-24 * counts.double() * exact.abs()).all()
-        # the count's copies added in ascending order == the ascending sum over
-        # each row's neighbours (an unset sign adds +0), bit for bit
-        copies = torch.zeros(c, g * n)
-        for k in range(int(counts.max())):
-            copies = torch.where(counts > k, copies + g_r, copies)
-        u = (g_r * sign.float()).reshape(c, g, n)
-        ascending = torch.zeros(c, g, n)
-        a = adj.float()
-        for j in range(n):
-            ascending = ascending + a[None, :, :, j] * u[:, :, j : j + 1]
-        assert torch.equal(copies, ascending.reshape(c, g * n))

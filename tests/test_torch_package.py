@@ -46,6 +46,7 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn",
     "deeprank2_tpu_torch.tools",
     "deeprank2_tpu_torch.tools.diag_order",
+    "deeprank2_tpu_torch.tools.f64_gate",
     "deeprank2_tpu_torch.tools.timing",
     "deeprank2_tpu_torch.tools.tower_times",
 ]
