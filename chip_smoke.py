@@ -275,7 +275,25 @@ Phases, each printing one JSON line:
    int8/bfloat16 for FoutNet; K3 S + 1, K4 S), and a profile; then SGATDiag
    in bf16 on the f32 adjacency of weight_dtype=float32 (JAX's XLA
    fallback: K1's bf16 form on the adjacency rounded to bf16, its output
-   rounded) one step against the CPU.
+   rounded) one step against the CPU;
+42. trainer_dense: GINetDense(38, 2, 6) through ``Trainer.train`` on
+   synthetic_entries(1024, 160, 38, 6, seed=7), held in memory by a
+   GraphDataset subclass (this machine has no h5py), batches of 512 (the
+   Trainer's dense collate pads N to 192). First a dropout-free Trainer on
+   the card and one on the CPU from the same weights, one epoch of the first
+   512 entries each: the epoch-0 logits and the passes' losses at rtol 1e-4,
+   atol 1e-5, the last step's gradients at rtol 1e-4, atol 1e-6. Then
+   TRAINER["epochs"] epochs of two shuffled steps with the counters at 0
+   (diag_kernel 3 a step and 2 an epoch-0 eval batch, pool_bwd_kernel 1 a
+   step; each train pass's launches a step, by form, the dense phase's), no
+   host sync in any train pass (torch.cuda's sync debug mode over the pass's
+   loop), the first epoch profiled (profile_dir: device busy time from its
+   trace, the idle share), the train-pass time a step of the later epochs
+   beside the dense phase's bare loop and the loader's collate seconds a
+   batch; last the checkpoint it wrote, reloaded by
+   ``Trainer(GINetDense, dataset_test=..., pretrained_model=...)`` on the
+   card, whose ``test()`` outputs equal the trained model's at rtol 1e-6,
+   atol 1e-7.
 
 Then the ``kernels`` line (every kernel with forms also by form),
 the card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -287,6 +305,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -306,6 +325,11 @@ CLUSTERED_BCSR = {"nodes": 100_000, "feat": 38, "edge_dim": 1, "seed": 0, "slot8
 BENCH = {"num_graphs": 512, "nodes": 160, "feat": 38, "edge_dim": 6, "seed": 7}
 CLUSTERED = {"num_graphs": 512, "nodes": 160, "feat": 38, "seed": 0}
 MIXED_CELL = 6.0
+# the Trainer's phase: entries of synthetic_entries(..., seed=BENCH["seed"]),
+# batch size, epochs of the timed run (its first is profiled) and the
+# entries of the card-against-CPU epoch and of the checkpoint reload
+TRAINER = {"entries": 1024, "batch_size": 512, "epochs": 3, "check_entries": 512}
+CKPT_TOL = {"rtol": 1e-6, "atol": 1e-7}
 TOL = {"rtol": 1e-5, "atol": 1e-5}
 EXACT = {"rtol": 0.0, "atol": 0.0}
 STEP_TOL = {"rtol": 1e-4, "atol": 1e-6}
@@ -2460,6 +2484,233 @@ def bf16_sgat_foutnet_phases(torch, dev, card, counters, peak, record, c_entries
     return calls
 
 
+class Recorder:
+    """An output exporter of the Trainer that keeps every pass: its name,
+    epoch, outputs by entry and loss."""
+
+    def __init__(self):
+        self.passes = []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc_info) -> None:
+        pass
+
+    def is_compatible_with(self, output_data_shape, target_data_shape=None) -> bool:  # noqa: ARG002
+        return True
+
+    def process(self, pass_name, epoch_number, entry_names, output_values, target_values, loss) -> None:  # noqa: ARG002
+        self.passes.append({"pass": pass_name, "epoch": epoch_number, "outputs": dict(zip(entry_names, output_values)), "loss": loss})
+
+
+def in_memory_dataset(entries, train_source=None):
+    """A ``GraphDataset`` over ``entries`` held in memory: the card's machine
+    has no h5py, so no HDF5 file is written or read. Its constructor sets
+    what the file checks would (binary classification target, every
+    feature) and ``load_one_graph`` returns the entry itself."""
+    from deeprank2_tpu_torch.dataset import GraphDataset
+
+    class InMemoryGraphDataset(GraphDataset):
+        def __init__(self):  # noqa: PLW0231 — the file checks of the parent are what this replaces
+            self.hdf5_paths, self.subset, self.train_source = ["in-memory"], None, train_source
+            self.target, self.target_transform, self.target_filter = "binary", False, None
+            self.root, self.use_tqdm = "./", False
+            self._check_task_and_classes("classif", None)
+            self._entries = {e["entry_name"]: e for e in entries}
+            self.index_entries = [("in-memory", e["entry_name"]) for e in entries]
+            self.df = self.means = self.devs = self.train_means = self.train_devs = None
+            self._cache, self._cache_capacity = {}, 16384
+            self.node_features, self.edge_features = ["x"], ["edge_attr"]
+            self.clustering_method, self.features_transform, self.inherited_params = None, None, None
+
+        def load_one_graph(self, fname, entry_name):  # noqa: ARG002
+            return self._entries[entry_name]
+
+    return InMemoryGraphDataset()
+
+
+def trainer_dense_phase(torch, counters, dense_step_s, dense_forms) -> dict:
+    """The dense path through ``Trainer.train`` (phase 42): the card's
+    Trainer against the CPU's on one dropout-free epoch, the timed run with
+    its launches and host syncs per train pass, and the checkpoint reloaded
+    on the card."""
+    import tempfile
+    import warnings
+
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
+    from deeprank2_tpu_torch.ops.synthetic import synthetic_entries
+    from deeprank2_tpu_torch.trainer import Trainer
+    from deeprank2_tpu_torch.utils.exporters import OutputExporterCollection
+
+    entries = synthetic_entries(TRAINER["entries"], BENCH["nodes"], BENCH["feat"], BENCH["edge_dim"], seed=BENCH["seed"])
+    check = entries[: TRAINER["check_entries"]]
+    bs = TRAINER["batch_size"]
+    out = {"dataset": "in-memory (no h5py on this machine)", "entries": TRAINER["entries"], "batch_size": bs}
+
+    # 1. card against CPU: one dropout-free epoch from the same weights
+    class NoDropout(GINetDense):
+        dropout = 0.0
+
+    logits, recs, trainers = {}, {}, {}
+    for side, device in (("card", None), ("cpu", "cpu")):
+        recs[side], logits[side] = Recorder(), []
+        t = Trainer(NoDropout, dataset_train=in_memory_dataset(check), output_exporters=[recs[side]], seed=0, device=device)
+        build = t._build_step_functions
+
+        def build_and_record(t=t, build=build, store=logits[side]):
+            build()
+            step = t._eval_step
+
+            def recorded(batch):
+                loss, pred = step(batch)
+                store.append(pred.detach().cpu())
+                return loss, pred
+
+            t._eval_step = recorded
+
+        t._build_step_functions = build_and_record
+        trainers[side] = t
+    trainers["cpu"].model.load_state_dict({k: v.cpu() for k, v in trainers["card"].model.state_dict().items()})
+    trainers["cpu"].configure_optimizers()
+    for t in trainers.values():
+        t.train(nepoch=1, batch_size=bs, shuffle=False, filename=None)
+    errs = {}
+
+    def close(name, got, want, tol):
+        errs[name] = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, **tol, msg=lambda m: f"trainer card vs CPU {name}: {m}")
+
+    close("epoch-0 logits", logits["card"][0], logits["cpu"][0], CROSS_TOL)
+    losses = {side: [p["loss"] for p in recs[side].passes] for side in recs}
+    close("pass losses", torch.tensor(losses["card"]), torch.tensor(losses["cpu"]), CROSS_TOL)
+    grads = {side: {k: p.grad.detach().cpu() for k, p in t.model.named_parameters() if p.grad is not None} for side, t in trainers.items()}
+    if grads["card"].keys() != grads["cpu"].keys():
+        msg = f"the Trainers' gradients differ in which parameters have one: {sorted(grads['card'])} vs {sorted(grads['cpu'])}"
+        raise AssertionError(msg)
+    for k in grads["card"]:
+        close(f"last step grad {k}", grads["card"][k], grads["cpu"][k], STEP_TOL)
+    out["card_vs_cpu"] = {"tolerance": {"logits_and_losses": CROSS_TOL, "grads": STEP_TOL}, "pass_losses": losses, "max_abs_err": errs}
+    del trainers, logits, grads
+
+    # 2. the timed run: launches and host syncs of each train pass
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = str(Path(tmp.name) / "model.pth.tar")
+    rec = Recorder()
+    t = Trainer(GINetDense, dataset_train=in_memory_dataset(entries), output_exporters=[rec], seed=0)
+    epoch, iter_batches = t._epoch, t._iter_batches
+    train_passes, in_train = [], [False]
+
+    def counted_epoch(*args, **kwargs):
+        sync(torch, t.device)
+        before, before_forms = counters.read(), counters.read_forms()
+        in_train[0] = True
+        try:
+            loss = epoch(*args, **kwargs)
+        finally:
+            in_train[0] = False
+        sync(torch, t.device)
+        after, after_forms = counters.read(), counters.read_forms()
+        train_passes[-1]["launches"] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        train_passes[-1]["launches_by_form"] = {k: n - before_forms.get(k, 0) for k, n in after_forms.items() if n != before_forms.get(k, 0)}
+        return loss
+
+    def synced_iter_batches(*args, **kwargs):
+        if not in_train[0]:
+            yield from iter_batches(*args, **kwargs)
+            return
+        # every operation of the pass's loop that makes the host wait for
+        # the device (the drain after the loop reads the results, on purpose)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield from iter_batches(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        train_passes.append({"host_syncs": [f"{Path(w.filename).name}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]})
+
+    t._epoch, t._iter_batches = counted_epoch, synced_iter_batches
+    sync(torch, t.device)
+    counters.reset()
+    t.train(nepoch=TRAINER["epochs"], batch_size=bs, shuffle=True, filename=ckpt, profile_dir=tmp.name)
+    sync(torch, t.device)
+    launches, forms = counters.read(), counters.read_forms()
+    steps = TRAINER["epochs"] * (TRAINER["entries"] // bs)
+    eval_batches = TRAINER["entries"] // bs
+    want = want_launches(diag_kernel=3 * steps + 2 * eval_batches, pool_bwd_kernel=steps)
+    if launches != want:
+        msg = f"trainer_dense launches {launches}, expected {want}"
+        raise AssertionError(msg)
+    want_step_forms = {k: (3 if k.startswith("diag_kernel") else 1) for k in dense_forms}
+    for i, p in enumerate(train_passes, start=1):
+        per_step = {k: n / (TRAINER["entries"] // bs) for k, n in p["launches_by_form"].items()}
+        if p["launches"] != {"diag_kernel": 3 * (TRAINER["entries"] // bs), "pool_bwd_kernel": TRAINER["entries"] // bs} or per_step != want_step_forms:
+            msg = f"trainer_dense epoch {i}: launches {p['launches']} ({per_step} a step by form), expected {want_step_forms} a step as the dense phase"
+            raise AssertionError(msg)
+        if p["host_syncs"]:
+            msg = f"trainer_dense epoch {i}: {len(p['host_syncs'])} host syncs in the train pass: {p['host_syncs']}"
+            raise AssertionError(msg)
+    stats = {(p["pass"], p["epoch"]): p for p in t.pass_stats}
+    timed = [stats["training", e] for e in range(2, TRAINER["epochs"] + 1)]
+    step_s = sum(p["seconds"] for p in timed) / sum(p["batches"] for p in timed)
+    collate = [c for e in range(1, TRAINER["epochs"] + 1) for c in stats["training", e]["collate_s"]]
+    trace = json.loads((Path(tmp.name) / "epoch1.trace.json").read_text())
+    busy_by_cat = {c: sum(e.get("dur", 0) for e in trace["traceEvents"] if e.get("cat") == c) for c in ("kernel", "gpu_memcpy", "gpu_memset")}
+    busy_us = sum(busy_by_cat.values())
+    first = stats["training", 1]
+    losses = [p["loss"] for p in rec.passes]
+    if not all(math.isfinite(x) for x in losses):
+        msg = f"trainer_dense: non-finite pass losses {losses}"
+        raise AssertionError(msg)
+    out.update(
+        {
+            "epochs": TRAINER["epochs"],
+            "steps": steps,
+            "batch_shape": "[512, 192, 192] (the Trainer's dense collate buckets N=160 to 192, quantum 32)",
+            "train_pass_s_per_step": step_s,
+            "train_pass_ms_per_step": step_s * 1e3,
+            "train_loop_ms_per_step": 1e3 * sum(p["loop_s"] for p in timed) / sum(p["batches"] for p in timed),
+            "bare_loop_step_ms": dense_step_s * 1e3,
+            "trainer_over_bare_loop": step_s / dense_step_s,
+            "launches": launches,
+            "launches_expected": want,
+            "launches_by_form": forms,
+            "train_passes": train_passes,
+            "host_syncs_per_train_pass": [len(p["host_syncs"]) for p in train_passes],
+            "collate_s_per_batch": statistics.mean(collate),
+            "collate_s": collate,
+            "profiled_epoch": {
+                "traced_s": first["seconds"],
+                "device_busy_ms_per_step": busy_us / 1e3 / first["batches"],
+                "device_busy_ms_per_step_by_category": {c: us / 1e3 / first["batches"] for c, us in busy_by_cat.items()},
+                "idle_share_traced": max(0.0, 1 - busy_us / 1e6 / first["seconds"]),
+                "idle_share_vs_untraced_step": max(0.0, 1 - busy_us / 1e6 / first["batches"] / step_s),
+                "trace_events": len(trace["traceEvents"]),
+            },
+            "pass_losses": losses,
+        }
+    )
+
+    # 3. the checkpoint, reloaded on the card: the same outputs as the trained model
+    test_set = in_memory_dataset(check, train_source=ckpt)
+    trained = Recorder()
+    t._output_exporters = OutputExporterCollection(trained)
+    with t._output_exporters:
+        t._eval(test_set, t.epoch_saved_model, "testing", bs)
+    reloaded = Recorder()
+    t2 = Trainer(GINetDense, dataset_test=test_set, pretrained_model=ckpt, output_exporters=[reloaded])
+    t2.test(batch_size=bs)
+    got, want_out = reloaded.passes[0]["outputs"], trained.passes[0]["outputs"]
+    if got.keys() != want_out.keys():
+        msg = "the reloaded checkpoint's outputs name other entries"
+        raise AssertionError(msg)
+    close("checkpoint outputs", torch.tensor([got[k] for k in got]), torch.tensor([want_out[k] for k in got]), CKPT_TOL)
+    out["checkpoint"] = {"tolerance": CKPT_TOL, "entries": len(got), "max_abs_err": errs["checkpoint outputs"], "epoch_saved_model": t.epoch_saved_model, "device": str(t2.device)}
+    tmp.cleanup()
+    return {"launches": launches, "launches_by_form": forms, "summary": out}
+
+
 def main() -> int:
     if not (HERE / "deeprank2_tpu_torch").is_dir():
         print("chip_smoke.py: the deeprank2_tpu_torch package is not beside this script", file=sys.stderr)
@@ -2621,6 +2872,7 @@ def main() -> int:
         path_forms[path] = run.get("launches_by_form", {})
 
     record("dense", run)
+    dense_step_s = run["step_s"]
 
     # 4. profile of a few dense steps (after the counted run)
     emit({"phase": "profile", "card": card, **profile_steps(torch, train_step, run["step_s"])})
@@ -3016,6 +3268,11 @@ def main() -> int:
     # 37-41. FoutNet and sGAT in bf16 on the Diag and BCSR paths, and SGATDiag in bf16 on an f32 adjacency
     calls += bf16_sgat_foutnet_phases(torch, dev, card, counters, peak, record, c_entries, c_batch, sd_batch, c_entry, cb_batch, sw_batch)
     del dense_batch, c_batch, cb_batch, sd_batch, sw_batch
+
+    # 42. the dense path through the Trainer
+    trainer_run = trainer_dense_phase(torch, counters, dense_step_s, path_forms["dense"])
+    record("trainer_dense", trainer_run)
+    emit({"phase": "trainer_dense", "card": card, "model": "GINetDense(38, 2, 6) through Trainer.train", **trainer_run["summary"]})
 
     emit({"kernels": kernels_line(calls, path_launches, checks.errs, path_forms, checks.form_errs, fma_calls + f32_calls + bf16_form_calls)})
     print(card_line(), flush=True)

@@ -68,6 +68,12 @@ class GINetClusteredBlockSparse(GINetDense):
     """Clustered dual-tower GINet over :class:`ClusteredBlockSparseBatch`
     (the parameter set and ``state_dict`` keys of :class:`GINetDense`)."""
 
+    needs_clusters = True
+    dense_batches = False
+    diag_operands = False
+    clustered_blocksparse_batches = True  # Trainer dispatch (JAX clustered_blocksparse.py:76-78)
+    clustered_blocksparse_slot8 = True
+
     def forward(self, batch: ClusteredBlockSparseBatch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
         """Logits ``[G, output_shape]``. Dropout (rate 0.4) runs only when
         ``training`` and a ``generator`` on the batch's device are given.
@@ -90,6 +96,10 @@ class _ClusteredBlockSparse:
     conv1 on the full graph, the depth-0 max pool, conv2 on the pooled
     graph, the depth-1 pool and per-graph mean, the head. A subclass gives
     its transposed conv (``conv_t``, before the relu)."""
+
+    needs_clusters = True
+    clustered_blocksparse_batches = True  # Trainer dispatch (JAX clustered_blocksparse.py:76-78)
+    clustered_blocksparse_slot8 = True
 
     def __init__(
         self,
@@ -129,6 +139,8 @@ class FoutNetBlockSparse(_ClusteredBlockSparse, FoutNet):
 class SGATBlockSparse(_ClusteredBlockSparse, SGAT):
     """sGAT over a weighted :class:`ClusteredBlockSparseBatch`
     (``collate_graphs_blocksparse_clustered(with_edge_weights=True)``)."""
+
+    clustered_blocksparse_edge_weights = True
 
     def conv_t(self, conv: SGATLayer, x_t: torch.Tensor, structure: BlockSparseStructure, deg: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
         return sgat_layer_t(conv, x_t, partial(bcsr_spmm_t, structure, compute_dtype=self.compute_dtype), deg, wsum)

@@ -117,6 +117,7 @@ class FoutNet(ClusteredConvNet):
     fast twins)."""
 
     conv_layer = FoutLayer
+    needs_clusters = True  # Trainer dispatch (JAX foutnet.py:70)
 
     def conv(self, conv: FoutLayer, x: torch.Tensor, edge_index: torch.Tensor, edge_attr: torch.Tensor, edge_mask: torch.Tensor) -> torch.Tensor:
         return fout_layer(conv, x, edge_index, edge_mask)
@@ -131,6 +132,8 @@ class FoutNetDiag(FoutNet):
     torch.bfloat16`` runs K1 in its bf16 form; the weight products stay f32
     (the JAX ``diag_spmm_t(..., compute_dtype)``). The COO :class:`FoutNet`
     takes no ``compute_dtype``, as the JAX one has none."""
+
+    diag_clustered_batches = True  # Trainer dispatch (JAX foutnet.py:122-123)
 
     def __init__(
         self,

@@ -66,6 +66,7 @@ class GINet(nn.Module):
     ``neuralnets/param_interop.py``, into the JAX models. ``generator`` draws
     the initial weights (a fixed seed when None)."""
 
+    needs_clusters = True  # Trainer dispatch attributes (JAX ginet.py:75)
     dropout = 0.4
 
     def __init__(

@@ -30,6 +30,11 @@ from deeprank2_tpu_torch.ops.pooling import tiled_graph_mean_pool
 class GINetBlockSparse(GINetDense):
     """No-cluster GINet over :class:`BlockSparseBatch` inputs."""
 
+    needs_clusters = False
+    dense_batches = False
+    diag_operands = False
+    blocksparse_batches = True  # Trainer dispatch (JAX ginet_blocksparse.py:32-33)
+
     def forward(self, batch: BlockSparseBatch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
         """Logits ``[G, output_shape]``. Dropout (rate 0.4) runs only when
         ``training`` and a ``generator`` on the batch's device are given."""

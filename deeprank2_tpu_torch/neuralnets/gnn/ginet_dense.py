@@ -60,6 +60,11 @@ class GINetDense(GINet):
     ``neuralnets/param_interop.py``, into the JAX one. ``generator`` draws the
     initial weights (a fixed seed when None)."""
 
+    # Trainer dispatch attributes (JAX ginet_dense.py:272-274)
+    needs_clusters = False
+    dense_batches = True
+    diag_operands = True
+
     def __init__(
         self,
         input_shape: int,
@@ -117,6 +122,11 @@ class GINetClusteredDiag(GINetDense):
     fc1/fc2 head. The parameter set and ``state_dict`` keys are
     :class:`GINetDense`'s (the JAX model's ``init`` delegates to the COO
     GINet's, which has the same set)."""
+
+    needs_clusters = True
+    dense_batches = False
+    diag_operands = False
+    diag_clustered_batches = True  # Trainer dispatch (JAX ginet_dense.py:205-206)
 
     def forward(self, batch: DiagClusteredBatch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
         """Logits ``[G, output_shape]``. Dropout (rate 0.4) runs only when

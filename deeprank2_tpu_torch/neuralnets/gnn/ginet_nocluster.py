@@ -19,6 +19,8 @@ class GINet(ClusteredGINet):
     """No-cluster GINet over :class:`GraphBatch` (dual tower, mean pool), with
     the parameter set and ``state_dict`` keys of the clustered GINet."""
 
+    needs_clusters = False
+
     def _tower(self, conv1: nn.ModuleDict, conv2: nn.ModuleDict, batch: GraphBatch) -> torch.Tensor:
         x = dnn.relu(ginet_conv(conv1, batch.x, batch.edge_index, batch.edge_attr, batch.edge_mask))
         x = dnn.relu(ginet_conv(conv2, x, batch.edge_index, batch.edge_attr, batch.edge_mask))

@@ -74,6 +74,7 @@ class SGAT(ClusteredConvNet):
     attributes."""
 
     conv_layer = SGATLayer
+    needs_clusters = True  # Trainer dispatch (JAX sgat.py:62)
 
     def conv(self, conv: SGATLayer, x: torch.Tensor, edge_index: torch.Tensor, edge_attr: torch.Tensor, edge_mask: torch.Tensor) -> torch.Tensor:
         return sgat_layer(conv, x, edge_index, edge_attr, edge_mask)
@@ -91,6 +92,10 @@ class SGATDiag(SGAT):
     ``weight_dtype=torch.float32``; the weight products stay f32 (the JAX
     ``diag_spmm_t(adj_w, ..., compute_dtype)``). The COO :class:`SGAT` takes
     no ``compute_dtype``, as the JAX one has none."""
+
+    # Trainer dispatch (JAX sgat.py:116-118)
+    diag_clustered_batches = True
+    diag_clustered_edge_weights = True
 
     def __init__(
         self,

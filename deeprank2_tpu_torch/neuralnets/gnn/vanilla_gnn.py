@@ -44,6 +44,8 @@ class VanillaNetwork(nn.Module):
     ``family="vanilla"``. ``generator`` draws the initial weights (a fixed
     seed when None)."""
 
+    needs_clusters = False  # Trainer dispatch (JAX vanilla_gnn.py:25)
+
     def __init__(
         self,
         input_shape: int,
@@ -95,6 +97,8 @@ class VanillaNetworkBlocked(VanillaNetwork):
     K6b (backward). ``compute_dtype=torch.bfloat16`` runs their bf16 form
     (the node products and MLPs stay f32, as in JAX). No dropout, so
     ``training`` and ``generator`` change nothing."""
+
+    blocked_edge_batches = True  # Trainer dispatch (JAX vanilla_gnn.py:92)
 
     def __init__(
         self,

@@ -15,7 +15,14 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT_MODULES = [
     "deeprank2_tpu_torch",
+    "deeprank2_tpu_torch.dataset",
     "deeprank2_tpu_torch.device",
+    "deeprank2_tpu_torch.domain",
+    "deeprank2_tpu_torch.domain.edgestorage",
+    "deeprank2_tpu_torch.domain.gridstorage",
+    "deeprank2_tpu_torch.domain.losstypes",
+    "deeprank2_tpu_torch.domain.nodestorage",
+    "deeprank2_tpu_torch.domain.targetstorage",
     "deeprank2_tpu_torch.ops",
     "deeprank2_tpu_torch.ops._build",
     "deeprank2_tpu_torch.ops.batch",
@@ -49,6 +56,12 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.tools.f64_gate",
     "deeprank2_tpu_torch.tools.timing",
     "deeprank2_tpu_torch.tools.tower_times",
+    "deeprank2_tpu_torch.trainer",
+    "deeprank2_tpu_torch.utils",
+    "deeprank2_tpu_torch.utils.checkpoint",
+    "deeprank2_tpu_torch.utils.community_pooling",
+    "deeprank2_tpu_torch.utils.earlystopping",
+    "deeprank2_tpu_torch.utils.exporters",
 ]
 
 # Runs in a fresh interpreter (this test process has imported JAX already).
@@ -121,6 +134,23 @@ def test_entry_points_without_a_device_raise_without_cuda(no_cuda) -> None:
     with pytest.raises(RuntimeError, match="no CUDA device"):
         batch.to("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_trainer_without_a_device_raises_without_cuda(no_cuda, srv_hdf5) -> None:
+    """The Trainer resolves its device as every entry point does: CUDA
+    unless ``device="cpu"``; on a machine without CUDA it raises."""
+    from deeprank2_tpu_torch.dataset import GraphDataset
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
+    from deeprank2_tpu_torch.trainer import Trainer
+
+    ds = GraphDataset(hdf5_path=srv_hdf5, target="binary")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(GINetDense, dataset_train=ds, output_exporters=[])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(GINetDense, dataset_train=ds, output_exporters=[], cuda=True)
+    trainer = Trainer(GINetDense, dataset_train=ds, output_exporters=[], device="cpu")
+    assert trainer.device == torch.device("cpu") and (trainer.cuda, trainer.ngpu) == (False, 0)
+    assert next(trainer.model.parameters()).device == torch.device("cpu")
 
 
 def test_clustered_entry_points_raise_without_cuda(no_cuda) -> None:
