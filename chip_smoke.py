@@ -293,7 +293,46 @@ Phases, each printing one JSON line:
    batch; last the checkpoint it wrote, reloaded by
    ``Trainer(GINetDense, dataset_test=..., pretrained_model=...)`` on the
    card, whose ``test()`` outputs equal the trained model's at rtol 1e-6,
-   atol 1e-7.
+   atol 1e-7 (``trainer_phase``, which every Trainer phase below shares);
+43-45. trainer_bcsr, trainer_clustered_bcsr and trainer_blocked:
+   GINetBlockSparse(38, 2, 6) and VanillaNetworkBlocked(38, 2, 6) on
+   geometric_entry(n, 38, 6, seed=s), GINetClusteredBlockSparse(38, 2, 1)
+   (slot8) on clustered_entry(n, 38, 1, seed=s), for (n, s) in
+   TRAINER_ATOMIC["sizes"] (60k to 100k nodes), one graph a batch, so the
+   Trainer's grow-only buckets grow over the run. The clustered entries
+   carry their generator's cluster ids; the in-memory Trainer checks them in
+   place of ``_precluster``, which writes HDF5. The three parts of phase 42:
+   card against CPU over one dropout-free epoch of two 20k-node entries
+   (logits and losses at CROSS_TOL, the last step's gradients at the bare
+   phase's CLUSTERED_GRAD_TOL), then TRAINER_ATOMIC["epochs"] shuffled
+   epochs with the counters at 0 (a step: K5 int8/float32 4; K5 4, K3 1,
+   K4 1; K6f 2, K6b 2; an epoch-0 eval batch K5 2; K5 2, K3 1; K6f 2), no
+   host sync in a train pass, epoch 1 profiled, the train-pass time a step
+   beside the bare phase's step, the collate seconds and batch megabytes a
+   batch, and the buckets at the end equal to the grow-only rounding of the
+   entries' requirements (``blocksparse_requirements``,
+   ``clustered_blocksparse_requirements``, ``blocked_requirements``); last
+   the checkpoint reloaded on the card;
+46. trainer_sgat_bcsr, trainer_foutnet_bcsr: SGATBlockSparse (bf16 weighted
+   blocks) and FoutNetBlockSparse through the Trainer, card against CPU on
+   the two 20k-node clustered entries (gradients at SGAT_FOUTNET_GRAD_TOL),
+   launches by form (K5 bfloat16/float32 or int8/float32 4 a step), the
+   checkpoint reloaded; not timed;
+47. padded_kernels_vs_plain: K5 (int8 and bf16 blocks, both forms; the order
+   loop bit for bit on 0/1 blocks), K3, K4 (exact), K6f and K6b against
+   their plain versions on the 60k-node entries collated at the buckets
+   phases 43-45 ended with, padding tiles, blocks, slabs and member slots
+   present, at the tolerances of phases 8 and 11;
+48. trainer_dense_family: GINetClusteredDense(38, 2, 1), FoutNetDense and
+   SGATDense (edge-weighted) through the Trainer on
+   ppi_clustered_entries(512, 160, 38, seed=0) in batches of 256: card
+   against CPU over one dropout-free epoch, then two epochs timed as in
+   phase 43; batched products only, so every kernel counter stays 0;
+49. ginet_dense_batched: GINetDense(38, 2, 6) on DENSE_BATCHED["graphs"]
+   graphs of N = K1's max_nodes(int8) + 32 nodes, which takes the batched
+   branch: one step against the CPU's batched branch (its batch without
+   the flat route's operands) at the dense step's tolerances, with every
+   kernel counter at 0.
 
 Then the ``kernels`` line (every kernel with forms also by form),
 the card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -329,6 +368,11 @@ MIXED_CELL = 6.0
 # batch size, epochs of the timed run (its first is profiled) and the
 # entries of the card-against-CPU epoch and of the checkpoint reload
 TRAINER = {"entries": 1024, "batch_size": 512, "epochs": 3, "check_entries": 512}
+# the atomic-resolution Trainer phases: one graph a batch, (nodes, seed) of
+# the timed entries (the buckets grow over them) and of the CPU-checked ones
+TRAINER_ATOMIC = {"sizes": ((60_000, 1), (80_000, 2), (100_000, 0), (100_000, 3)), "check_sizes": ((20_000, 5), (20_000, 6)), "epochs": 2}
+DENSE_FAMILY = {"entries": 512, "batch_size": 256, "epochs": 2}
+DENSE_BATCHED = {"graphs": 32}  # GINetDense graphs of N = K1's max_nodes + 32
 CKPT_TOL = {"rtol": 1e-6, "atol": 1e-7}
 TOL = {"rtol": 1e-5, "atol": 1e-5}
 EXACT = {"rtol": 0.0, "atol": 0.0}
@@ -639,15 +683,16 @@ def check_slot_kernels(torch, sp, checks, shapes, dev) -> None:
     sync(torch, dev)
 
 
-def card_vs_cpu_step(torch, model, batch, loss_fn, cpu_model_factory, tol, grad_tol) -> tuple[dict, object, object]:
+def card_vs_cpu_step(torch, model, batch, loss_fn, cpu_model_factory, tol, grad_tol, cpu_batch=None) -> tuple[dict, object, object]:
     """One dropout-free step (logits, loss, every gradient) on the model's
-    device and on the CPU from the same parameters and batch. A tolerance
-    may give ``atol_share`` instead of ``atol``: that share of the CPU
-    value's largest magnitude. Returns the errors, the CPU model and the CPU
+    device and on the CPU from the same parameters and batch (``cpu_batch``
+    where given, else the batch moved to the CPU). A tolerance may give
+    ``atol_share`` instead of ``atol``: that share of the CPU value's
+    largest magnitude. Returns the errors, the CPU model and the CPU
     batch."""
     cpu_model = cpu_model_factory()
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    cpu_batch = batch.to("cpu")
+    cpu_batch = batch.to("cpu") if cpu_batch is None else cpu_batch
     results = []
     for m, b in ((model, batch), (cpu_model, cpu_batch)):
         m.zero_grad(set_to_none=True)
@@ -2504,11 +2549,12 @@ class Recorder:
         self.passes.append({"pass": pass_name, "epoch": epoch_number, "outputs": dict(zip(entry_names, output_values)), "loss": loss})
 
 
-def in_memory_dataset(entries, train_source=None):
+def in_memory_dataset(entries, train_source=None, clustering_method=None):
     """A ``GraphDataset`` over ``entries`` held in memory: the card's machine
     has no h5py, so no HDF5 file is written or read. Its constructor sets
     what the file checks would (binary classification target, every
-    feature) and ``load_one_graph`` returns the entry itself."""
+    feature, the clustering method named) and ``load_one_graph`` returns the
+    entry itself, its cluster ids included."""
     from deeprank2_tpu_torch.dataset import GraphDataset
 
     class InMemoryGraphDataset(GraphDataset):
@@ -2522,7 +2568,7 @@ def in_memory_dataset(entries, train_source=None):
             self.df = self.means = self.devs = self.train_means = self.train_devs = None
             self._cache, self._cache_capacity = {}, 16384
             self.node_features, self.edge_features = ["x"], ["edge_attr"]
-            self.clustering_method, self.features_transform, self.inherited_params = None, None, None
+            self.clustering_method, self.features_transform, self.inherited_params = clustering_method, None, None
 
         def load_one_graph(self, fname, entry_name):  # noqa: ARG002
             return self._entries[entry_name]
@@ -2530,32 +2576,100 @@ def in_memory_dataset(entries, train_source=None):
     return InMemoryGraphDataset()
 
 
-def trainer_dense_phase(torch, counters, dense_step_s, dense_forms) -> dict:
-    """The dense path through ``Trainer.train`` (phase 42): the card's
-    Trainer against the CPU's on one dropout-free epoch, the timed run with
-    its launches and host syncs per train pass, and the checkpoint reloaded
-    on the card."""
+def in_memory_trainer(model_cls, entries, clustered, **kwargs):
+    """A Trainer of ``model_cls`` on ``entries`` held in memory.
+
+    A clustered model's Trainer preclusters its datasets (``_precluster``:
+    community detection on each entry, its ids written into the entry's
+    HDF5 file). This machine has no h5py, and the synthetic entries already
+    carry the cluster ids of their generator (``clustered_entry``,
+    ``ppi_clustered_entries``), which the collates read; so here a subclass
+    replaces ``_precluster`` with a check that every entry has them. A
+    clustered Trainer also gets a validation set, so that it does not split
+    one off the training entries."""
+    from deeprank2_tpu_torch.trainer import Trainer
+
+    class PreclusteredTrainer(Trainer):
+        def _precluster(self, dataset) -> None:
+            missing = [name for (_, name), i in zip(dataset.index_entries, range(len(dataset))) if dataset.get(i).get("cluster0") is None]
+            if missing:
+                msg = f"entries without cluster ids: {missing}"
+                raise AssertionError(msg)
+
+    method = "mcl" if clustered else None
+    train = in_memory_dataset(entries, clustering_method=method)
+    val = in_memory_dataset(entries[:1], train_source=train, clustering_method=method) if clustered else None
+    return PreclusteredTrainer(model_cls, dataset_train=train, dataset_val=val, seed=0, **kwargs)
+
+
+def expected_buckets(requirements) -> dict:
+    """The Trainer's grow-only capacity buckets after batches of these
+    requirements (dicts keyed as the buckets), in order."""
+    import types
+
+    from deeprank2_tpu_torch.trainer import Trainer
+
+    holder = types.SimpleNamespace(_bs_caps={})
+    for req in requirements:
+        for key, required in req.items():
+            Trainer._blocksparse_bucket(holder, key)(required)
+    return holder._bs_caps
+
+
+def trainer_phase(torch, counters, spec: dict) -> dict:
+    """One model through ``Trainer.train`` on the card, in three parts:
+
+    1. a dropout-free Trainer on the card and one on the CPU from the same
+       weights, one epoch of ``spec["check"]`` in batches of
+       ``spec["check_batch_size"]`` each: the epoch-0 logits and the passes'
+       losses at CROSS_TOL, the last step's gradients at ``spec["grad_tol"]``,
+       the card Trainer's launches by form, a step, as ``spec["step_forms"]``
+       (every kernel's ``spec["step"]``, ``spec["eval"]`` an epoch-0 eval
+       batch);
+    2. unless ``spec["epochs"]`` is 0, that many epochs of ``spec["entries"]``
+       shuffled in batches of ``spec["batch_size"]``, with the counters at 0:
+       the same launches a step in each train pass, no host sync in one
+       (torch.cuda's sync debug mode over the pass's loop), the first epoch
+       profiled (``profile_dir``: device busy time from its trace, the idle
+       share), the train-pass time a step of the later epochs beside the
+       bare loop's step ``spec["bare_step_s"]``, the loader's collate seconds
+       and batch bytes (the pinned copy the card gets) a batch, and the
+       grow-only buckets against ``spec["buckets"]`` where given;
+    3. the checkpoint the last card Trainer wrote, reloaded by
+       ``Trainer(..., pretrained_model=...)`` on the card: its ``test()``
+       outputs on ``spec["check"]`` equal the trained model's at CKPT_TOL.
+    """
     import tempfile
     import warnings
 
-    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
-    from deeprank2_tpu_torch.ops.synthetic import synthetic_entries
     from deeprank2_tpu_torch.trainer import Trainer
     from deeprank2_tpu_torch.utils.exporters import OutputExporterCollection
 
-    entries = synthetic_entries(TRAINER["entries"], BENCH["nodes"], BENCH["feat"], BENCH["edge_dim"], seed=BENCH["seed"])
-    check = entries[: TRAINER["check_entries"]]
-    bs = TRAINER["batch_size"]
-    out = {"dataset": "in-memory (no h5py on this machine)", "entries": TRAINER["entries"], "batch_size": bs}
+    model_cls, clustered, name = spec["model"], spec["clustered"], spec["name"]
+    step_counts, eval_counts = spec["step"], spec["eval"]
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = str(Path(tmp.name) / "model.pth.tar")
+    out = {"dataset": "in-memory (no h5py on this machine)", "entries": len(spec["entries"]), "batch_size": spec["batch_size"]}
+    errs = {}
+
+    def close(what, got, want, tol):
+        errs[what] = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{name} card vs CPU {what}: {m}")
+
+    def check_pass(what, launches, forms, steps, batches):
+        want = {k: step_counts.get(k, 0) * steps + eval_counts.get(k, 0) * batches for k in KERNELS}
+        want_forms = {k: n * steps for k, n in spec["step_forms"].items()}
+        want_forms = {k: n + spec["eval_forms"].get(k, 0) * batches for k, n in want_forms.items()}
+        if {k: launches.get(k, 0) for k in KERNELS} != want or {k: n for k, n in forms.items() if n} != {k: n for k, n in want_forms.items() if n}:
+            msg = f"{name} {what}: launches {launches} by form {forms}, expected {want} by form {want_forms}"
+            raise AssertionError(msg)
 
     # 1. card against CPU: one dropout-free epoch from the same weights
-    class NoDropout(GINetDense):
-        dropout = 0.0
-
+    no_dropout = type(model_cls.__name__, (model_cls,), {"dropout": 0.0})
     logits, recs, trainers = {}, {}, {}
     for side, device in (("card", None), ("cpu", "cpu")):
         recs[side], logits[side] = Recorder(), []
-        t = Trainer(NoDropout, dataset_train=in_memory_dataset(check), output_exporters=[recs[side]], seed=0, device=device)
+        t = in_memory_trainer(no_dropout, spec["check"], clustered, output_exporters=[recs[side]], device=device)
         build = t._build_step_functions
 
         def build_and_record(t=t, build=build, store=logits[side]):
@@ -2573,142 +2687,449 @@ def trainer_dense_phase(torch, counters, dense_step_s, dense_forms) -> dict:
         trainers[side] = t
     trainers["cpu"].model.load_state_dict({k: v.cpu() for k, v in trainers["card"].model.state_dict().items()})
     trainers["cpu"].configure_optimizers()
-    for t in trainers.values():
-        t.train(nepoch=1, batch_size=bs, shuffle=False, filename=None)
-    errs = {}
-
-    def close(name, got, want, tol):
-        errs[name] = (got - want).abs().max().item()
-        torch.testing.assert_close(got, want, **tol, msg=lambda m: f"trainer card vs CPU {name}: {m}")
-
-    close("epoch-0 logits", logits["card"][0], logits["cpu"][0], CROSS_TOL)
+    cbs = spec["check_batch_size"]
+    for side, t in trainers.items():
+        sync(torch, torch.device("cuda"))
+        counters.reset()
+        t.train(nepoch=1, batch_size=cbs, shuffle=False, filename=ckpt if side == "card" and not spec["epochs"] else None)
+        sync(torch, torch.device("cuda"))
+        if side == "card":
+            check_launches, check_forms = counters.read(), counters.read_forms()
+    n_check = -(-len(spec["check"]) // cbs)
+    check_pass("card-vs-CPU epoch", check_launches, check_forms, n_check, n_check)
+    for i, (a, b) in enumerate(zip(logits["card"][:n_check], logits["cpu"][:n_check])):
+        close(f"epoch-0 logits, batch {i}", a, b, CROSS_TOL)
     losses = {side: [p["loss"] for p in recs[side].passes] for side in recs}
     close("pass losses", torch.tensor(losses["card"]), torch.tensor(losses["cpu"]), CROSS_TOL)
     grads = {side: {k: p.grad.detach().cpu() for k, p in t.model.named_parameters() if p.grad is not None} for side, t in trainers.items()}
     if grads["card"].keys() != grads["cpu"].keys():
-        msg = f"the Trainers' gradients differ in which parameters have one: {sorted(grads['card'])} vs {sorted(grads['cpu'])}"
+        msg = f"{name}: the Trainers' gradients differ in which parameters have one: {sorted(grads['card'])} vs {sorted(grads['cpu'])}"
         raise AssertionError(msg)
     for k in grads["card"]:
-        close(f"last step grad {k}", grads["card"][k], grads["cpu"][k], STEP_TOL)
-    out["card_vs_cpu"] = {"tolerance": {"logits_and_losses": CROSS_TOL, "grads": STEP_TOL}, "pass_losses": losses, "max_abs_err": errs}
+        close(f"last step grad {k}", grads["card"][k], grads["cpu"][k], spec["grad_tol"])
+    out["card_vs_cpu"] = {
+        "entries": len(spec["check"]),
+        "batch_size": cbs,
+        "tolerance": {"logits_and_losses": CROSS_TOL, "grads": spec["grad_tol"]},
+        "pass_losses": losses,
+        "launches": check_launches,
+        "launches_by_form": check_forms,
+    }
+    launches, forms, t = check_launches, check_forms, trainers["card"]
     del trainers, logits, grads
 
     # 2. the timed run: launches and host syncs of each train pass
-    tmp = tempfile.TemporaryDirectory()
-    ckpt = str(Path(tmp.name) / "model.pth.tar")
-    rec = Recorder()
-    t = Trainer(GINetDense, dataset_train=in_memory_dataset(entries), output_exporters=[rec], seed=0)
-    epoch, iter_batches = t._epoch, t._iter_batches
-    train_passes, in_train = [], [False]
+    if spec["epochs"]:
+        rec = Recorder()
+        t = in_memory_trainer(model_cls, spec["entries"], clustered, output_exporters=[rec])
+        epoch, iter_batches = t._epoch, t._iter_batches
+        train_passes, in_train = [], [False]
 
-    def counted_epoch(*args, **kwargs):
-        sync(torch, t.device)
-        before, before_forms = counters.read(), counters.read_forms()
-        in_train[0] = True
-        try:
-            loss = epoch(*args, **kwargs)
-        finally:
-            in_train[0] = False
-        sync(torch, t.device)
-        after, after_forms = counters.read(), counters.read_forms()
-        train_passes[-1]["launches"] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        train_passes[-1]["launches_by_form"] = {k: n - before_forms.get(k, 0) for k, n in after_forms.items() if n != before_forms.get(k, 0)}
-        return loss
-
-    def synced_iter_batches(*args, **kwargs):
-        if not in_train[0]:
-            yield from iter_batches(*args, **kwargs)
-            return
-        # every operation of the pass's loop that makes the host wait for
-        # the device (the drain after the loop reads the results, on purpose)
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
+        def counted_epoch(*args, **kwargs):
+            sync(torch, t.device)
+            before, before_forms = counters.read(), counters.read_forms()
+            in_train[0] = True
             try:
-                yield from iter_batches(*args, **kwargs)
+                loss = epoch(*args, **kwargs)
             finally:
-                torch.cuda.set_sync_debug_mode("default")
-        train_passes.append({"host_syncs": [f"{Path(w.filename).name}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]})
+                in_train[0] = False
+            sync(torch, t.device)
+            after, after_forms = counters.read(), counters.read_forms()
+            train_passes[-1]["launches"] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            train_passes[-1]["launches_by_form"] = {k: n - before_forms.get(k, 0) for k, n in after_forms.items() if n != before_forms.get(k, 0)}
+            return loss
 
-    t._epoch, t._iter_batches = counted_epoch, synced_iter_batches
-    sync(torch, t.device)
-    counters.reset()
-    t.train(nepoch=TRAINER["epochs"], batch_size=bs, shuffle=True, filename=ckpt, profile_dir=tmp.name)
-    sync(torch, t.device)
-    launches, forms = counters.read(), counters.read_forms()
-    steps = TRAINER["epochs"] * (TRAINER["entries"] // bs)
-    eval_batches = TRAINER["entries"] // bs
-    want = want_launches(diag_kernel=3 * steps + 2 * eval_batches, pool_bwd_kernel=steps)
-    if launches != want:
-        msg = f"trainer_dense launches {launches}, expected {want}"
-        raise AssertionError(msg)
-    want_step_forms = {k: (3 if k.startswith("diag_kernel") else 1) for k in dense_forms}
-    for i, p in enumerate(train_passes, start=1):
-        per_step = {k: n / (TRAINER["entries"] // bs) for k, n in p["launches_by_form"].items()}
-        if p["launches"] != {"diag_kernel": 3 * (TRAINER["entries"] // bs), "pool_bwd_kernel": TRAINER["entries"] // bs} or per_step != want_step_forms:
-            msg = f"trainer_dense epoch {i}: launches {p['launches']} ({per_step} a step by form), expected {want_step_forms} a step as the dense phase"
-            raise AssertionError(msg)
-        if p["host_syncs"]:
-            msg = f"trainer_dense epoch {i}: {len(p['host_syncs'])} host syncs in the train pass: {p['host_syncs']}"
-            raise AssertionError(msg)
-    stats = {(p["pass"], p["epoch"]): p for p in t.pass_stats}
-    timed = [stats["training", e] for e in range(2, TRAINER["epochs"] + 1)]
-    step_s = sum(p["seconds"] for p in timed) / sum(p["batches"] for p in timed)
-    collate = [c for e in range(1, TRAINER["epochs"] + 1) for c in stats["training", e]["collate_s"]]
-    trace = json.loads((Path(tmp.name) / "epoch1.trace.json").read_text())
-    busy_by_cat = {c: sum(e.get("dur", 0) for e in trace["traceEvents"] if e.get("cat") == c) for c in ("kernel", "gpu_memcpy", "gpu_memset")}
-    busy_us = sum(busy_by_cat.values())
-    first = stats["training", 1]
-    losses = [p["loss"] for p in rec.passes]
-    if not all(math.isfinite(x) for x in losses):
-        msg = f"trainer_dense: non-finite pass losses {losses}"
-        raise AssertionError(msg)
-    out.update(
-        {
-            "epochs": TRAINER["epochs"],
-            "steps": steps,
-            "batch_shape": "[512, 192, 192] (the Trainer's dense collate buckets N=160 to 192, quantum 32)",
-            "train_pass_s_per_step": step_s,
-            "train_pass_ms_per_step": step_s * 1e3,
-            "train_loop_ms_per_step": 1e3 * sum(p["loop_s"] for p in timed) / sum(p["batches"] for p in timed),
-            "bare_loop_step_ms": dense_step_s * 1e3,
-            "trainer_over_bare_loop": step_s / dense_step_s,
-            "launches": launches,
-            "launches_expected": want,
-            "launches_by_form": forms,
-            "train_passes": train_passes,
-            "host_syncs_per_train_pass": [len(p["host_syncs"]) for p in train_passes],
-            "collate_s_per_batch": statistics.mean(collate),
-            "collate_s": collate,
-            "profiled_epoch": {
-                "traced_s": first["seconds"],
-                "device_busy_ms_per_step": busy_us / 1e3 / first["batches"],
-                "device_busy_ms_per_step_by_category": {c: us / 1e3 / first["batches"] for c, us in busy_by_cat.items()},
-                "idle_share_traced": max(0.0, 1 - busy_us / 1e6 / first["seconds"]),
-                "idle_share_vs_untraced_step": max(0.0, 1 - busy_us / 1e6 / first["batches"] / step_s),
-                "trace_events": len(trace["traceEvents"]),
-            },
-            "pass_losses": losses,
-        }
-    )
+        def synced_iter_batches(*args, **kwargs):
+            if not in_train[0]:
+                yield from iter_batches(*args, **kwargs)
+                return
+            # every operation of the pass's loop that makes the host wait for
+            # the device (the drain after the loop reads the results, on purpose)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    yield from iter_batches(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            train_passes.append({"host_syncs": [f"{Path(w.filename).name}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]})
 
-    # 3. the checkpoint, reloaded on the card: the same outputs as the trained model
-    test_set = in_memory_dataset(check, train_source=ckpt)
-    trained = Recorder()
+        t._epoch, t._iter_batches = counted_epoch, synced_iter_batches
+        bs, epochs = spec["batch_size"], spec["epochs"]
+        sync(torch, t.device)
+        counters.reset()
+        t.train(nepoch=epochs, batch_size=bs, shuffle=True, filename=ckpt, profile_dir=tmp.name)
+        sync(torch, t.device)
+        launches, forms = counters.read(), counters.read_forms()
+        per_epoch = -(-len(spec["entries"]) // bs)
+        check_pass("timed run", launches, forms, epochs * per_epoch, per_epoch)
+        for i, p in enumerate(train_passes, start=1):
+            check_pass(f"epoch {i}", p["launches"], p["launches_by_form"], per_epoch, 0)
+            if p["host_syncs"]:
+                msg = f"{name} epoch {i}: {len(p['host_syncs'])} host syncs in the train pass: {p['host_syncs']}"
+                raise AssertionError(msg)
+        stats = {(p["pass"], p["epoch"]): p for p in t.pass_stats}
+        timed = [stats["training", e] for e in range(2, epochs + 1)]
+        step_s = sum(p["seconds"] for p in timed) / sum(p["batches"] for p in timed)
+        train_stats = [stats["training", e] for e in range(1, epochs + 1)]
+        collate = [c for p in train_stats for c in p["collate_s"]]
+        batch_bytes = [b for p in train_stats for b in p["batch_bytes"]]
+        trace = json.loads((Path(tmp.name) / "epoch1.trace.json").read_text())
+        busy_by_cat = {c: sum(e.get("dur", 0) for e in trace["traceEvents"] if e.get("cat") == c) for c in ("kernel", "gpu_memcpy", "gpu_memset")}
+        busy_us = sum(busy_by_cat.values())
+        first = stats["training", 1]
+        pass_losses = [p["loss"] for p in rec.passes]
+        if not all(math.isfinite(x) for x in pass_losses):
+            msg = f"{name}: non-finite pass losses {pass_losses}"
+            raise AssertionError(msg)
+        caps = getattr(t, "_bs_caps", None)
+        if spec.get("buckets") is not None and caps != spec["buckets"]:
+            msg = f"{name}: the Trainer's buckets {caps}, expected {spec['buckets']} from the entries' requirements"
+            raise AssertionError(msg)
+        out.update(
+            {
+                "epochs": epochs,
+                "steps": epochs * per_epoch,
+                "train_pass_s_per_step": step_s,
+                "train_pass_ms_per_step": step_s * 1e3,
+                "train_loop_ms_per_step": 1e3 * sum(p["loop_s"] for p in timed) / sum(p["batches"] for p in timed),
+                "bare_loop_step_ms": spec["bare_step_s"] * 1e3 if spec.get("bare_step_s") else None,
+                "trainer_over_bare_loop": step_s / spec["bare_step_s"] if spec.get("bare_step_s") else None,
+                "launches": launches,
+                "launches_by_form": forms,
+                "train_passes": train_passes,
+                "host_syncs_per_train_pass": [len(p["host_syncs"]) for p in train_passes],
+                "collate_s_per_batch": statistics.mean(collate),
+                "collate_s": collate,
+                "batch_mb_per_batch": statistics.mean(batch_bytes) / 1e6,
+                "batch_mb": [b / 1e6 for b in batch_bytes],
+                "buckets": caps,
+                "profiled_epoch": {
+                    "traced_s": first["seconds"],
+                    "device_busy_ms_per_step": busy_us / 1e3 / first["batches"],
+                    "device_busy_ms_per_step_by_category": {c: us / 1e3 / first["batches"] for c, us in busy_by_cat.items()},
+                    "idle_share_traced": max(0.0, 1 - busy_us / 1e6 / first["seconds"]),
+                    "idle_share_vs_untraced_step": max(0.0, 1 - busy_us / 1e6 / first["batches"] / step_s),
+                    "trace_events": len(trace["traceEvents"]),
+                },
+                "pass_losses": pass_losses,
+            }
+        )
+
+    # 3. the checkpoint, reloaded on the card: the same outputs as the trained
+    # model. Both see the same batches (the reloaded Trainer starts from the
+    # trained one's buckets: other padding gives the weight products other
+    # shapes), and the per-graph pools' scatters (index_add_) sum in a fixed
+    # order, so the outputs can differ only where the checkpoint does
+    test_set = in_memory_dataset(spec["check"], train_source=ckpt)
+    trained, reloaded = Recorder(), Recorder()
     t._output_exporters = OutputExporterCollection(trained)
-    with t._output_exporters:
-        t._eval(test_set, t.epoch_saved_model, "testing", bs)
-    reloaded = Recorder()
-    t2 = Trainer(GINetDense, dataset_test=test_set, pretrained_model=ckpt, output_exporters=[reloaded])
-    t2.test(batch_size=bs)
+    t2 = Trainer(model_cls, dataset_test=test_set, pretrained_model=ckpt, output_exporters=[reloaded])
+    if hasattr(t, "_bs_caps"):
+        t2._bs_caps = dict(t._bs_caps)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with t._output_exporters:
+            t._eval(test_set, t.epoch_saved_model, "testing", spec["check_batch_size"])
+        t2.test(batch_size=spec["check_batch_size"])
+    finally:
+        torch.use_deterministic_algorithms(False)
     got, want_out = reloaded.passes[0]["outputs"], trained.passes[0]["outputs"]
     if got.keys() != want_out.keys():
-        msg = "the reloaded checkpoint's outputs name other entries"
+        msg = f"{name}: the reloaded checkpoint's outputs name other entries"
         raise AssertionError(msg)
     close("checkpoint outputs", torch.tensor([got[k] for k in got]), torch.tensor([want_out[k] for k in got]), CKPT_TOL)
-    out["checkpoint"] = {"tolerance": CKPT_TOL, "entries": len(got), "max_abs_err": errs["checkpoint outputs"], "epoch_saved_model": t.epoch_saved_model, "device": str(t2.device)}
+    out["checkpoint"] = {"tolerance": CKPT_TOL, "entries": len(got), "epoch_saved_model": t.epoch_saved_model, "device": str(t2.device)}
+    out["max_abs_err"] = errs
     tmp.cleanup()
     return {"launches": launches, "launches_by_form": forms, "summary": out}
+
+
+def atomic_entries(make, edge_dim, sizes) -> list:
+    """The Trainer phases' atomic-resolution entries: one per (nodes, seed),
+    named apart and with alternating targets."""
+    entries = []
+    for i, (n, seed) in enumerate(sizes):
+        entry = make(n, 38, edge_dim, seed=seed)
+        entry["entry_name"], entry["y"] = f"n{n}_s{seed}", float(i % 2)
+        entries.append(entry)
+    return entries
+
+
+def trainer_atomic_phases(torch, counters, record, path_step_s) -> tuple:
+    """The atomic-resolution models through ``Trainer.train`` (phases 43-46):
+    trainer_bcsr, trainer_clustered_bcsr and trainer_blocked timed (one graph
+    a batch, the grow-only buckets growing over entries of 60k-100k nodes),
+    then SGATBlockSparse and FoutNetBlockSparse card against CPU. Returns the
+    Trainers' final buckets and the entries, for the padded-kernel checks."""
+    from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import FoutNetBlockSparse, GINetClusteredBlockSparse, SGATBlockSparse
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse import GINetBlockSparse
+    from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetworkBlocked
+    from deeprank2_tpu_torch.ops.batch import blocked_requirements, blocksparse_requirements, clustered_blocksparse_requirements
+    from deeprank2_tpu_torch.ops.synthetic import clustered_entry, geometric_entry
+
+    sizes, check_sizes = TRAINER_ATOMIC["sizes"], TRAINER_ATOMIC["check_sizes"]
+    geo = atomic_entries(geometric_entry, BCSR["edge_dim"], sizes)
+    geo_check = atomic_entries(geometric_entry, BCSR["edge_dim"], check_sizes)
+    clu = atomic_entries(clustered_entry, CLUSTERED_BCSR["edge_dim"], sizes)
+    clu_check = atomic_entries(clustered_entry, CLUSTERED_BCSR["edge_dim"], check_sizes)
+    k5, k5b = "bcsr_spmm_kernel[int8/float32]", "bcsr_spmm_kernel[bfloat16/float32]"
+    # the card-against-CPU epoch is one step, both check entries in one
+    # batch: every step after Adam's first moves a parameter by about lr times
+    # the sign of its gradient, so a gradient that rounding alone makes
+    # nonzero moves the two sides apart by lr, more than the bare phase's
+    # gradient tolerance allows
+    common = {"batch_size": 1, "check_batch_size": len(TRAINER_ATOMIC["check_sizes"]), "epochs": TRAINER_ATOMIC["epochs"], "eval_forms": {}}
+    specs = [
+        {
+            **common,
+            "name": "trainer_bcsr",
+            "model": GINetBlockSparse,
+            "clustered": False,
+            "entries": geo,
+            "check": geo_check,
+            "step": {"bcsr_spmm_kernel": 4},
+            "eval": {"bcsr_spmm_kernel": 2},
+            "step_forms": {k5: 4},
+            "eval_forms": {k5: 2},
+            "grad_tol": CLUSTERED_GRAD_TOL,
+            "bare_step_s": path_step_s["bcsr"],
+            "buckets": expected_buckets(dict(zip(("tiles", "blocks"), blocksparse_requirements([e]))) for e in geo),
+        },
+        {
+            **common,
+            "name": "trainer_clustered_bcsr",
+            "model": GINetClusteredBlockSparse,
+            "clustered": True,
+            "entries": clu,
+            "check": clu_check,
+            "step": {"bcsr_spmm_kernel": 4, "slot_fwd_kernel": 1, "slot_bwd_kernel": 1},
+            "eval": {"bcsr_spmm_kernel": 2, "slot_fwd_kernel": 1},
+            "step_forms": {k5: 4},
+            "eval_forms": {k5: 2},
+            "grad_tol": CLUSTERED_GRAD_TOL,
+            "bare_step_s": path_step_s["clustered_bcsr"],
+            "buckets": expected_buckets(clustered_blocksparse_requirements([e], slot8=True) for e in clu),
+        },
+        {
+            **common,
+            "name": "trainer_blocked",
+            "model": VanillaNetworkBlocked,
+            "clustered": False,
+            "entries": geo,
+            "check": geo_check,
+            "step": {"blocked_fwd_kernel": 2, "blocked_bwd_kernel": 2},
+            "eval": {"blocked_fwd_kernel": 2},
+            "step_forms": {"blocked_fwd_kernel[float32]": 2, "blocked_bwd_kernel[float32]": 2},
+            "eval_forms": {"blocked_fwd_kernel[float32]": 2},
+            "grad_tol": CLUSTERED_GRAD_TOL,
+            "bare_step_s": path_step_s["blocked"],
+            "buckets": expected_buckets(dict(zip(("be_tiles", "be_slabs"), blocked_requirements([e]))) for e in geo),
+        },
+        {
+            **common,
+            "name": "trainer_sgat_bcsr",
+            "model": SGATBlockSparse,
+            "clustered": True,
+            "entries": [],
+            "epochs": 0,
+            "check": clu_check,
+            "step": {"bcsr_spmm_kernel": 4, "slot_fwd_kernel": 1, "slot_bwd_kernel": 1},
+            "eval": {"bcsr_spmm_kernel": 2, "slot_fwd_kernel": 1},
+            "step_forms": {k5b: 4},
+            "eval_forms": {k5b: 2},
+            "grad_tol": SGAT_FOUTNET_GRAD_TOL,
+        },
+        {
+            **common,
+            "name": "trainer_foutnet_bcsr",
+            "model": FoutNetBlockSparse,
+            "clustered": True,
+            "entries": [],
+            "epochs": 0,
+            "check": clu_check,
+            "step": {"bcsr_spmm_kernel": 4, "slot_fwd_kernel": 1, "slot_bwd_kernel": 1},
+            "eval": {"bcsr_spmm_kernel": 2, "slot_fwd_kernel": 1},
+            "step_forms": {k5: 4},
+            "eval_forms": {k5: 2},
+            "grad_tol": SGAT_FOUTNET_GRAD_TOL,
+        },
+    ]
+    caps = {}
+    for spec in specs:
+        run = trainer_phase(torch, counters, spec)
+        record(spec["name"], run)
+        caps[spec["name"]] = run["summary"].get("buckets")
+        emit({"phase": spec["name"], "card": card_line(), "model": f"{spec['model'].__name__} through Trainer.train", **run["summary"]})
+        del run
+    return caps, geo, clu
+
+
+def trainer_dense_family_phase(torch, counters, record) -> None:
+    """GINetClusteredDense, FoutNetDense and SGATDense (weighted) through
+    ``Trainer.train`` on the clustered PPI entries, batches of 256 (phase
+    48): batched products only, so every kernel counter stays 0."""
+    from deeprank2_tpu_torch.neuralnets.gnn.foutnet import FoutNetDense
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDense
+    from deeprank2_tpu_torch.neuralnets.gnn.sgat import SGATDense
+    from deeprank2_tpu_torch.ops.synthetic import ppi_clustered_entries
+
+    entries = ppi_clustered_entries(DENSE_FAMILY["entries"], CLUSTERED["nodes"], CLUSTERED["feat"], seed=CLUSTERED["seed"])
+    for i, e in enumerate(entries):
+        e["y"] = float(i % 2)
+    for model, grad_tol in ((GINetClusteredDense, CLUSTERED_GRAD_TOL), (FoutNetDense, SGAT_FOUTNET_GRAD_TOL), (SGATDense, SGAT_FOUTNET_GRAD_TOL)):
+        spec = {
+            "name": f"trainer_{model.__name__}",
+            "model": model,
+            "clustered": True,
+            "entries": entries,
+            "check": entries[: DENSE_FAMILY["batch_size"]],  # one step, as in trainer_phase's other callers
+            "batch_size": DENSE_FAMILY["batch_size"],
+            "check_batch_size": DENSE_FAMILY["batch_size"],
+            "epochs": DENSE_FAMILY["epochs"],
+            "step": {},
+            "eval": {},
+            "step_forms": {},
+            "eval_forms": {},
+            "grad_tol": grad_tol,
+        }
+        run = trainer_phase(torch, counters, spec)
+        record(spec["name"], run)
+        emit({"phase": "trainer_dense_family", "card": card_line(), "model": f"{model.__name__}(38, 2, 1) through Trainer.train", **run["summary"]})
+
+
+def padded_kernels_phase(torch, checks, caps, geo, clu, dev) -> dict:
+    """K5 (int8 and bf16 blocks), K3, K4, K6f and K6b against their plain
+    versions at the padded shapes of the Trainer phases (phase 47): the
+    smallest entry of each phase (60k nodes) collated again at the buckets
+    its Trainer ended with, as the Trainer's shuffled epochs collated it, so
+    the padding tiles, blocks, slabs and member slots are there (sGAT's bf16
+    blocks at the clustered phase's buckets)."""
+    from deeprank2_tpu_torch.ops import block_sparse as bs
+    from deeprank2_tpu_torch.ops import blocked_edges as be
+    from deeprank2_tpu_torch.ops import slotpool as sp
+    from deeprank2_tpu_torch.ops import vanilla as vn
+    from deeprank2_tpu_torch.ops.batch import (
+        blocked_requirements,
+        blocksparse_requirements,
+        clustered_blocksparse_requirements,
+        collate_graphs_blocked,
+        collate_graphs_blocksparse,
+        collate_graphs_blocksparse_clustered,
+    )
+
+    n_checks = len(checks.rows)
+    c = caps["trainer_bcsr"]
+    b_batch, _ = collate_graphs_blocksparse(geo[:1], pad_tiles=c["tiles"], pad_blocks=c["blocks"], device=dev)
+    c = caps["trainer_clustered_bcsr"]
+    kw = {
+        "pad_tiles": c["tiles"],
+        "pad_blocks": c["blocks"],
+        "pad_pooled_tiles": c["pooled_tiles"],
+        "pad_pooled_blocks": c["pooled_blocks"],
+        "pad_c1": c["c1"],
+        "pad_members0": c["members0_s"],
+        "pad_members1": c["members1_s"],
+        "pad_members0s": c["members0s_s"],
+        "slot8": True,
+        "device": dev,
+    }
+    cb_batch, _ = collate_graphs_blocksparse_clustered(clu[:1], **kw)
+    sw_batch, _ = collate_graphs_blocksparse_clustered(clu[:1], with_edge_weights=True, **kw)
+    c = caps["trainer_blocked"]
+    bl_batch, _ = collate_graphs_blocked(geo[:1], pad_tiles=c["be_tiles"], pad_slabs=c["be_slabs"], device=dev)
+
+    shapes = {}
+    for what, st in (("bcsr", b_batch.structure), ("clustered_bcsr", cb_batch.structure), ("clustered_bcsr_pooled", cb_batch.structure_p), ("sgat_bcsr", sw_batch.structure)):
+        shapes[what] = {"tiles": st.num_tiles, "blocks_stored": st.num_blocks, "blocks_nonzero": st.tile_blocks.numel()}
+    shapes["bcsr"]["tiles_required"] = blocksparse_requirements(geo[:1])[0]
+    shapes["clustered_bcsr"]["tiles_required"] = clustered_blocksparse_requirements(clu[:1], slot8=True)["tiles"]
+    shapes["blocked"] = {"tiles": bl_batch.structure.num_node_tiles, "slabs": bl_batch.structure.num_slabs, "tiles_required": blocked_requirements(geo[:1])[0]}
+    shapes["blocked"]["slabs_required"] = blocked_requirements(geo[:1])[1]
+    # the full structures hold padding tiles, the BCSR ones padding blocks
+    for what, s in shapes.items():
+        if s["tiles"] <= s.get("tiles_required", 0) or s.get("blocks_stored", 1) <= s.get("blocks_nonzero", 0) or s.get("slabs", 1) <= s.get("slabs_required", 0):
+            msg = f"padded_kernels_vs_plain: the {what} structure holds no padding: {s}"
+            raise AssertionError(msg)
+    for cd in (None, torch.bfloat16):
+        check_bcsr_kernel(
+            torch,
+            bs,
+            checks,
+            [
+                ("trainer_bcsr padded", b_batch.structure, (32, 64)),
+                ("trainer_clustered_bcsr padded full", cb_batch.structure, (32,)),
+                ("trainer_clustered_bcsr padded pooled", cb_batch.structure_p, (64,)),
+                ("trainer_sgat_bcsr padded full (bf16 blocks)", sw_batch.structure, (16,)),
+                ("trainer_sgat_bcsr padded pooled (bf16 blocks)", sw_batch.structure_p, (32,)),
+            ],
+            dev,
+            compute_dtype=cd,
+        )
+    check_bcsr_order(torch, bs, checks, [("trainer_bcsr padded", b_batch.structure, (32,)), ("trainer_clustered_bcsr padded pooled", cb_batch.structure_p, (64,))], dev)
+    mask_row = cb_batch.node_mask.float().reshape(1, -1)
+    check_slot_kernels(torch, sp, checks, [(f"trainer_clustered_bcsr padded F=32 V={mask_row.shape[1]}", 32, mask_row.shape[1], mask_row, (8,))], dev)
+    check_blocked_kernels(torch, be, vn, checks, [("trainer_blocked padded", bl_batch.structure, (32, 12))], dev)
+    tolerance = {
+        "bcsr_spmm_kernel": TOL,
+        "bcsr_spmm_kernel bf16 blocks": {"rtol": 1e-5, "atol": f"max(1e-5, {DW_TOL} * max |A| |x|)"},
+        "bcsr_spmm_kernel order loop": EXACT,
+        "slot_fwd_kernel": EXACT,
+        "slot_bwd_kernel": EXACT,
+        "blocked out, dxr, dxc": TOL,
+        "blocked order loop": EXACT,
+        "dw_e": {"rtol": 1e-5, "atol": f"{DW_TOL} * max sum_e |e_attr| |g[row]|"},
+    }
+    return {"phase": "padded_kernels_vs_plain", "buckets": caps, "padded_shapes": shapes, "tolerance": tolerance, "checks": checks.rows[n_checks:]}
+
+
+def ginet_dense_batched_phase(torch, counters, dev) -> dict:
+    """GINetDense on a batch whose N exceeds K1's shared memory (phase 49):
+    its batched branch, one step on the card against the same step on the
+    CPU (the CPU batch without the flat route's operands, so that the CPU
+    takes the same branch) at the dense step's tolerances, with K1 and K2,
+    and every other kernel, at 0."""
+    import dataclasses
+
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
+    from deeprank2_tpu_torch.ops import diag_spmm as ds
+    from deeprank2_tpu_torch.ops.batch import collate_graphs_dense
+    from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss
+    from deeprank2_tpu_torch.ops.synthetic import synthetic_entries
+
+    n = ds.max_nodes(torch.int8, dev) + 32
+    entries = synthetic_entries(DENSE_BATCHED["graphs"], n, BENCH["feat"], BENCH["edge_dim"], seed=BENCH["seed"])
+    batch, _ = collate_graphs_dense(entries, pad_nodes=n, device=dev)
+    model = GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device=dev, generator=torch.Generator().manual_seed(0))
+
+    def cpu_factory():
+        return GINetDense(BENCH["feat"], 2, BENCH["edge_dim"], device="cpu")
+
+    # the CPU's flat route has no shared-memory bound: its batch holds the
+    # adjacency as adj, without the flat route's operands (the collate's
+    # with_diag_operands=False), so that it takes the batched branch
+    full_cpu = batch.to("cpu")
+    no_operands = dataclasses.replace(full_cpu, adj=full_cpu.adj_i8.to(torch.bfloat16), adj_i8=torch.zeros((0, 0, 0), dtype=torch.int8), x_t=torch.zeros((0, 0)))
+    sync(torch, dev)
+    counters.reset()
+    step, cpu_model, _ = card_vs_cpu_step(torch, model, batch, CrossEntropyLoss(), cpu_factory, STEP_TOL, STEP_TOL, cpu_batch=no_operands)
+    sync(torch, dev)
+    launches = counters.read()
+    if launches != want_launches():
+        msg = f"GINetDense beyond K1's max_nodes launched {launches}; its batched branch launches no kernel"
+        raise AssertionError(msg)
+    with torch.no_grad():
+        flat_cpu = cpu_model(full_cpu)
+        card = model(batch).cpu()
+    return {
+        "phase": "ginet_dense_batched",
+        "model": "GINetDense(38, 2, 6)",
+        "batch": {"graphs": DENSE_BATCHED["graphs"], "nodes": n, "k1_max_nodes_int8_f32": n - 32, "adj_i8": list(batch.adj_i8.shape)},
+        "tolerance": STEP_TOL,
+        "launches": launches,
+        **step,
+        "logits_vs_cpu_flat_route": (card - flat_cpu).abs().max().item(),
+    }
 
 
 def main() -> int:
@@ -2865,11 +3286,13 @@ def main() -> int:
             "real_edges": real_edges,
         }
     )
-    path_launches, path_forms = {}, {}
+    path_launches, path_forms, path_step_s = {}, {}, {}
 
     def record(path, run):
         path_launches[path] = run["launches"]
         path_forms[path] = run.get("launches_by_form", {})
+        if "step_s" in run:
+            path_step_s[path] = run["step_s"]
 
     record("dense", run)
     dense_step_s = run["step_s"]
@@ -3270,9 +3693,42 @@ def main() -> int:
     del dense_batch, c_batch, cb_batch, sd_batch, sw_batch
 
     # 42. the dense path through the Trainer
-    trainer_run = trainer_dense_phase(torch, counters, dense_step_s, path_forms["dense"])
+    dense_entries = synthetic_entries(TRAINER["entries"], BENCH["nodes"], BENCH["feat"], BENCH["edge_dim"], seed=BENCH["seed"])
+    trainer_run = trainer_phase(
+        torch,
+        counters,
+        {
+            "name": "trainer_dense",
+            "model": GINetDense,
+            "clustered": False,
+            "entries": dense_entries,
+            "check": dense_entries[: TRAINER["check_entries"]],
+            "batch_size": TRAINER["batch_size"],
+            "check_batch_size": TRAINER["batch_size"],
+            "epochs": TRAINER["epochs"],
+            "step": {"diag_kernel": 3, "pool_bwd_kernel": 1},
+            "eval": {"diag_kernel": 2},
+            "step_forms": {k: (3 if k.startswith("diag_kernel") else 1) for k in path_forms["dense"]},
+            "eval_forms": {k: 2 for k in path_forms["dense"] if k.startswith("diag_kernel")},
+            "grad_tol": STEP_TOL,
+            "bare_step_s": dense_step_s,
+        },
+    )
     record("trainer_dense", trainer_run)
-    emit({"phase": "trainer_dense", "card": card, "model": "GINetDense(38, 2, 6) through Trainer.train", **trainer_run["summary"]})
+    emit({"phase": "trainer_dense", "card": card, "model": "GINetDense(38, 2, 6) through Trainer.train", "batch_shape": "[512, 192, 192] (the dense collate buckets N=160 to 192)", **trainer_run["summary"]})
+    del dense_entries, trainer_run
+
+    # 43-46. the atomic-resolution models through the Trainer, and 47 the
+    # kernels at the padded shapes their buckets gave
+    caps, geo, clu = trainer_atomic_phases(torch, counters, record, path_step_s)
+    emit(padded_kernels_phase(torch, checks, caps, geo, clu, dev))
+    del geo, clu
+
+    # 48. the batched dense family through the Trainer
+    trainer_dense_family_phase(torch, counters, record)
+
+    # 49. GINetDense beyond K1's shared memory: its batched branch
+    emit({"card": card, **ginet_dense_batched_phase(torch, counters, dev)})
 
     emit({"kernels": kernels_line(calls, path_launches, checks.errs, path_forms, checks.form_errs, fma_calls + f32_calls + bf16_form_calls)})
     print(card_line(), flush=True)

@@ -1,12 +1,14 @@
 """FoutNet (port of ``deeprank2_tpu/neuralnets/gnn/foutnet.py``: ``fout_layer``,
-the COO ``FoutNet`` and the graph-diagonal ``FoutNetDiag``; Fout et al.,
-NIPS 2018).
+``fout_layer_dense``, the COO ``FoutNet``, the graph-diagonal
+``FoutNetDiag`` and the block-dense ``FoutNetDense``; Fout et al., NIPS
+2018).
 
 Layer math: ``z = x Wc + mean_neighbours(x Wn) + b``. In the COO layout the
 neighbour mean is one segment mean over the edge array (the unsorted sum,
 as in the JAX package: no kernel); on the graph-diagonal layout it is the
 row-normalised aggregation ``(A (x Wn)) / deg`` on kernel K1
-(ops/diag_spmm.py). Parameter names are the reference's torch ``state_dict``
+(ops/diag_spmm.py); on block-dense batches the same as a batched product
+(``torch.matmul``, no kernel, as in JAX). Parameter names are the reference's torch ``state_dict``
 keys (``conv1.wc [in, out]``, ``conv1.wn``, ``conv1.bias`` ... ``fc2.bias``),
 so one initialisation loads into every FoutNet of the port and, through
 ``neuralnets/param_interop.py`` (family ``"foutnet"``), into the JAX ones.
@@ -23,9 +25,17 @@ from torch import nn
 
 from deeprank2_tpu_torch.device import resolve_device
 from deeprank2_tpu_torch.neuralnets import nn as dnn
-from deeprank2_tpu_torch.ops.batch import DiagClusteredBatch, GraphBatch
+from deeprank2_tpu_torch.ops.batch import DenseGraphBatch, DiagClusteredBatch, GraphBatch
 from deeprank2_tpu_torch.ops.diag_spmm import diag_spmm_t
-from deeprank2_tpu_torch.ops.pooling import community_pool, depth1_graph_mean, diag_depth0_pool, graph_mean_pool, max_pool_x
+from deeprank2_tpu_torch.ops.pooling import (
+    community_pool,
+    dense_community_pool,
+    dense_segment_max,
+    depth1_graph_mean,
+    diag_depth0_pool,
+    graph_mean_pool,
+    max_pool_x,
+)
 from deeprank2_tpu_torch.ops.segment import gather_rows, segment_mean
 
 
@@ -55,6 +65,15 @@ def fout_layer(conv: FoutLayer, x: torch.Tensor, edge_index: torch.Tensor, edge_
     neigh = gather_rows(x @ conv.wn, col) * edge_mask[:, None]
     row_or_oob = torch.where(edge_mask, row, capacity)
     return x @ conv.wc + segment_mean(neigh, row_or_oob, capacity) + conv.bias
+
+
+def fout_layer_dense(conv: FoutLayer, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+    """The Fout layer on ``[G, N, F]`` blocks: the neighbour mean is the
+    row-normalised batched product ``(adj @ x Wn) / deg``, with ``deg`` the
+    adjacency's row sums in f32 (exact counts)."""
+    deg = adj.sum(dim=-1, dtype=torch.float32).clamp_min(1.0)  # [G, N]
+    gamma = (adj.to(x.dtype) @ (x @ conv.wn)) / deg[:, :, None]
+    return x @ conv.wc + gamma + conv.bias
 
 
 def fout_layer_t(conv: FoutLayer, x_t: torch.Tensor, aggregate: Callable, deg: torch.Tensor) -> torch.Tensor:
@@ -156,3 +175,45 @@ class FoutNetDiag(FoutNet):
         pooled_mask_row = batch.pooled_mask.to(torch.float32).reshape(1, -1)
         h2_t = torch.relu(fout_layer_t(self.conv2, hp_t, partial(diag_spmm_t, batch.adj_p_i8, compute_dtype=cd), batch.deg_p)) * pooled_mask_row
         return self.head(depth1_graph_mean(h2_t, batch))
+
+
+class DenseClusteredConvNet:
+    """The FoutNet and sGAT pipeline on a clustered :class:`DenseGraphBatch`
+    (the JAX ``FoutNetDense``/``SGATDense``): conv1 on the batch adjacency,
+    the dense community pool on ``cluster0``, conv2 on the pooled adjacency,
+    the depth-1 max over ``cluster1``, the per-graph mean over the depth-1
+    clusters and the head. A subclass gives its dense conv (``conv_dense``,
+    before the relu), which reads the pooled edge weights where it has
+    them. Batched products only, no kernel, as in JAX."""
+
+    needs_clusters = True
+    dense_batches = True
+    clustering = "mcl"
+
+    def conv_dense(self, conv, x: torch.Tensor, adj: torch.Tensor, adj_w: torch.Tensor | None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, batch: DenseGraphBatch, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits ``[G, output_shape]`` (no dropout)."""
+        from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import dense_masked_graph_mean
+
+        if not batch.cluster0.numel():
+            msg = f"{type(self).__name__} needs a clustered batch: collate with with_clusters=True"
+            raise ValueError(msg)
+        adj = batch.adjacency.to(batch.x.dtype)
+        adj_w = batch.adj_w if getattr(self, "dense_edge_weights", False) else None
+        x = torch.relu(self.conv_dense(self.conv1, batch.x, adj, adj_w)) * batch.node_mask[:, :, None]
+        x, _, adj1, adj_w1, mask1 = dense_community_pool(x, batch.pos, adj, batch.cluster0, adj_w=adj_w)
+        x = torch.relu(self.conv_dense(self.conv2, x, adj1, adj_w1)) * mask1[:, :, None]
+        x = dense_segment_max(x, batch.cluster1)
+        counts1 = dense_segment_max(mask1[:, :, None].to(x.dtype), batch.cluster1)[:, :, 0]
+        return self.head(dense_masked_graph_mean(x, counts1 > 0))
+
+
+class FoutNetDense(DenseClusteredConvNet, FoutNet):
+    """FoutNet over a clustered :class:`DenseGraphBatch` (port of the JAX
+    ``FoutNetDense``). The parameter set and ``state_dict`` keys are
+    :class:`FoutNet`'s."""
+
+    def conv_dense(self, conv: FoutLayer, x: torch.Tensor, adj: torch.Tensor, adj_w: torch.Tensor | None) -> torch.Tensor:
+        return fout_layer_dense(conv, x, adj)

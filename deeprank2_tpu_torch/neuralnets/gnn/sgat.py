@@ -1,6 +1,7 @@
 """Simplified graph attention network (port of
-``deeprank2_tpu/neuralnets/gnn/sgat.py``: ``sgat_layer``, the COO ``SGAT``
-and the graph-diagonal ``SGATDiag``).
+``deeprank2_tpu/neuralnets/gnn/sgat.py``: ``sgat_layer``,
+``sgat_layer_dense``, the COO ``SGAT``, the graph-diagonal ``SGATDiag`` and
+the block-dense ``SGATDense``).
 
 Layer math: ``z_i = mean_j(e_ij * ([x_i || x_j] W)) + b``, where the scalar
 edge attribute multiplies the transformed pair feature (only the row
@@ -9,7 +10,8 @@ the mean is ``(x_i W_top * sum_j e_ij + sum_j e_ij x_j W_bot) / deg_i``: in
 the COO layout one segment mean over the edge array (the unsorted sum, no
 kernel); on the graph-diagonal layout the aggregation ``A_w (x W_bot)`` of
 the weighted adjacency on kernel K1 (bf16 by default) with the collate's
-f32 row sums ``wsum``. Parameter names are the reference's torch
+f32 row sums ``wsum``; on block-dense batches ``adj_w @ (x W_bot)`` as a
+batched product with ``adj_w``'s row sums (no kernel, as in JAX). Parameter names are the reference's torch
 ``state_dict`` keys (``conv1.weight [2*in, out]``, ``conv1.bias`` ...
 ``fc2.bias``), so one initialisation loads into every sGAT of the port and,
 through ``neuralnets/param_interop.py`` (family ``"sgat"``), into the JAX
@@ -25,7 +27,7 @@ import torch
 from torch import nn
 
 from deeprank2_tpu_torch.neuralnets import nn as dnn
-from deeprank2_tpu_torch.neuralnets.gnn.foutnet import ClusteredConvNet, uniform_parameter
+from deeprank2_tpu_torch.neuralnets.gnn.foutnet import ClusteredConvNet, DenseClusteredConvNet, uniform_parameter
 from deeprank2_tpu_torch.ops.batch import DiagClusteredBatch
 from deeprank2_tpu_torch.ops.diag_spmm import diag_spmm_t
 from deeprank2_tpu_torch.ops.pooling import depth1_graph_mean, diag_depth0_pool
@@ -52,6 +54,16 @@ def sgat_layer(conv: SGATLayer, x: torch.Tensor, edge_index: torch.Tensor, edge_
     alpha = edge_attr * alpha
     row_or_oob = torch.where(edge_mask, row, capacity)
     return segment_mean(alpha * edge_mask[:, None], row_or_oob, capacity) + conv.bias
+
+
+def sgat_layer_dense(conv: SGATLayer, x: torch.Tensor, adj: torch.Tensor, adj_w: torch.Tensor) -> torch.Tensor:
+    """The sGAT layer on ``[G, N, F]`` blocks with the scalar-edge-weighted
+    adjacency ``adj_w``: ``(x W_top * sum_j a_ij + adj_w @ x W_bot) / deg``,
+    ``deg`` the neighbour counts (the row sums of ``adj``, in f32)."""
+    f = x.shape[-1]
+    deg = adj.sum(dim=-1, dtype=torch.float32).clamp_min(1.0)  # [G, N]
+    out = ((x @ conv.weight[:f]) * adj_w.sum(dim=-1)[:, :, None] + adj_w @ (x @ conv.weight[f:])) / deg[:, :, None]
+    return out + conv.bias
 
 
 def sgat_layer_t(conv: SGATLayer, x_t: torch.Tensor, aggregate: Callable, deg: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
@@ -118,3 +130,17 @@ class SGATDiag(SGAT):
         pooled_mask_row = batch.pooled_mask.to(torch.float32).reshape(1, -1)
         h2_t = torch.relu(sgat_layer_t(self.conv2, hp_t, partial(diag_spmm_t, batch.adj_wp, compute_dtype=cd), batch.deg_p, batch.wsum_p)) * pooled_mask_row
         return self.head(depth1_graph_mean(h2_t, batch))
+
+
+class SGATDense(DenseClusteredConvNet, SGAT):
+    """sGAT over a clustered, edge-weighted :class:`DenseGraphBatch` (port of
+    the JAX ``SGATDense``: the scalar edge feature, e.g. distance). The
+    parameter set and ``state_dict`` keys are :class:`SGAT`'s."""
+
+    dense_edge_weights = True
+
+    def conv_dense(self, conv: SGATLayer, x: torch.Tensor, adj: torch.Tensor, adj_w: torch.Tensor | None) -> torch.Tensor:
+        if adj_w is None or not adj_w.numel():
+            msg = "SGATDense needs a weighted batch: collate with with_edge_weights=True"
+            raise ValueError(msg)
+        return sgat_layer_dense(conv, x, adj, adj_w)

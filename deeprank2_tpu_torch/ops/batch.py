@@ -1,10 +1,12 @@
 """Graph batches (port of ``deeprank2_tpu/ops/batch.py``: ``bucket_size``,
-``DenseGraphBatch``, ``collate_graphs_dense``, the clustered
-``DiagClusteredBatch`` with ``collate_graphs_diag_clustered``, and the
-block-sparse ``BlockSparseBatch`` and ``ClusteredBlockSparseBatch`` with
-their collates, the blocked-edge ``BlockedEdgeBatch`` with
-``collate_graphs_blocked``, and the COO ``GraphBatch`` with
-``collate_graphs``).
+``DenseGraphBatch``, ``collate_graphs_dense`` (with clusters and edge
+weights), the clustered ``DiagClusteredBatch`` with
+``collate_graphs_diag_clustered``, the block-sparse ``BlockSparseBatch`` and
+``ClusteredBlockSparseBatch`` with their collates and the requirements
+passes behind the Trainer's capacity buckets, the blocked-edge
+``BlockedEdgeBatch`` with ``collate_graphs_blocked`` and
+``blocked_requirements``, and the COO ``GraphBatch`` with
+``collate_graphs``; the sharded collates are not ported).
 
 The batch adjacency of collated graphs is block-diagonal: with graphs padded
 to ``N`` nodes, graph ``g`` owns rows and columns ``[g*N, (g+1)*N)`` and no
@@ -29,8 +31,8 @@ import numpy as np
 import torch
 
 from deeprank2_tpu_torch.device import resolve_device
-from deeprank2_tpu_torch.ops.blocked_edges import EDGE_TILE, BlockedEdgeStructure, build_blocked_edges
-from deeprank2_tpu_torch.ops.block_sparse import DEFAULT_BLOCK, BlockSparseStructure, build_blocksparse, locality_order, weight_storage
+from deeprank2_tpu_torch.ops.blocked_edges import EDGE_TILE, BlockedEdgeStructure, build_blocked_edges, required_slabs
+from deeprank2_tpu_torch.ops.block_sparse import DEFAULT_BLOCK, BlockSparseStructure, build_blocksparse, locality_order, required_blocks, weight_storage
 
 
 def bucket_size(n: int, quantum: int = 128) -> int:
@@ -45,16 +47,33 @@ def bucket_size(n: int, quantum: int = 128) -> int:
     return size
 
 
+def _tensors(dev: torch.device, **arrays) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in arrays.items()}
+
+
 @dataclass
 class DenseGraphBatch:
-    """Block-dense batch of ``G`` graphs padded to ``N`` nodes, on one device."""
+    """Block-dense batch of ``G`` graphs padded to ``N`` nodes, on one device.
+
+    The batch holds its 0/1 adjacency once: as ``adj_i8`` beside the node
+    features flat and transposed (``x_t``) where the collate shipped the
+    flat route's operands (``GINetDense``), else as ``adj`` in bf16, which
+    holds 0/1 without loss (the JAX package's ``adj``); the other is empty
+    (``[0, 0, 0]``, and ``x_t`` ``[0, 0]``). :attr:`adjacency` is whichever
+    is there. ``adj_w`` (sGAT's edge weights), ``cluster0`` and ``cluster1``
+    are empty (``[G, 0, 0]``, ``[G, 0]``) unless collated."""
 
     x: torch.Tensor  # f32 [G, N, F] node features (padded rows 0)
-    adj_i8: torch.Tensor  # int8 [G, N, N]; adj[g, i, j] = 1 if edge j->i (symmetric)
-    x_t: torch.Tensor  # f32 [F, G*N] flat transposed node features
+    adj: torch.Tensor  # bf16 [G, N, N]; adj[g, i, j] = 1 if edge j->i (symmetric); [0, 0, 0] beside adj_i8
+    pos: torch.Tensor  # f32 [G, N, 3]
     node_mask: torch.Tensor  # bool [G, N]
     y: torch.Tensor  # f32 [G] targets (0 where missing)
     y_mask: torch.Tensor  # bool [G] real-graph mask
+    adj_w: torch.Tensor  # f32 [G, N, N] first edge-attr channel, duplicate pairs summed ([G, 0, 0] unweighted)
+    cluster0: torch.Tensor  # i32 [G, N] local depth-0 cluster ids; padded = N ([G, 0] without clusters)
+    cluster1: torch.Tensor  # i32 [G, N] depth-1 id by depth-0 cluster id; padded = N ([G, 0] without clusters)
+    adj_i8: torch.Tensor  # int8 [G, N, N], the same adjacency ([0, 0, 0] without the flat route's operands)
+    x_t: torch.Tensor  # f32 [F, G*N] flat transposed node features ([0, 0] without them)
 
     @property
     def num_graphs(self) -> int:
@@ -63,6 +82,12 @@ class DenseGraphBatch:
     @property
     def nodes_per_graph(self) -> int:
         return self.x.shape[1]
+
+    @property
+    def adjacency(self) -> torch.Tensor:
+        """The 0/1 adjacency ``[G, N, N]``: ``adj``, or ``adj_i8`` where the
+        batch carries the flat route's operands."""
+        return self.adj if self.adj.numel() else self.adj_i8
 
     def to(self, device: str | torch.device) -> DenseGraphBatch:
         """A copy of the batch on ``device``."""
@@ -76,19 +101,24 @@ def collate_graphs_dense(
     pad_nodes: int | None = None,
     with_clusters: bool = False,
     with_edge_weights: bool = False,
+    with_diag_operands: bool = True,
     device: str | torch.device | None = None,
 ) -> tuple[DenseGraphBatch, list[str]]:
-    """Collate entries (dicts with ``x``, ``edge_index``, ``y``, ``entry_name``)
-    into a :class:`DenseGraphBatch` on ``device`` (CUDA unless ``"cpu"`` is
-    asked for). Edges are mirrored into a symmetric adjacency.
+    """Collate entries (dicts with ``x``, ``pos``, ``edge_index``, ``y``,
+    ``entry_name``) into a :class:`DenseGraphBatch` on ``device`` (CUDA
+    unless ``"cpu"`` is asked for), array for array as the JAX package's.
+    Edges are mirrored into a symmetric adjacency.
 
     ``pad_graphs`` pads the batch with empty, masked graphs; ``pad_nodes``
     bounds nodes per graph (bucketed from the data, quantum 32, when None).
-    Cluster ids and edge-weighted adjacencies belong to later slices of the
-    port and raise ``NotImplementedError``."""
-    if with_clusters or with_edge_weights:
-        msg = "clustered and edge-weighted dense batches are not ported yet"
-        raise NotImplementedError(msg)
+    ``with_clusters`` fills ``cluster0``/``cluster1`` from the entries'
+    precluster ids; ``with_edge_weights`` fills ``adj_w`` from the first
+    edge-attr channel (a duplicate pair sums its weights, a self-loop's
+    weight lands twice, as in the JAX package); ``with_diag_operands`` ships
+    the flat route's ``adj_i8`` and ``x_t`` (the Trainer passes the model's
+    ``diag_operands`` marker) and then no bf16 ``adj``: the JAX package
+    ships both, but the flat route reads only ``adj_i8``, so the second copy
+    would cost the loader its conversion, pinning and copy for nothing."""
     dev = resolve_device(device)
     num_real = len(entries)
     num_graphs = pad_graphs or num_real
@@ -105,31 +135,41 @@ def collate_graphs_dense(
 
     x = np.zeros((num_graphs, cap_n, feat_dim), dtype=np.float32)
     adj = np.zeros((num_graphs, cap_n, cap_n), dtype=np.int8)
+    pos = np.zeros((num_graphs, cap_n, 3), dtype=np.float32)
     node_mask = np.zeros((num_graphs, cap_n), dtype=bool)
-    y = np.zeros(num_graphs, dtype=np.float32)
-    y_mask = np.zeros(num_graphs, dtype=bool)
+    n_w = cap_n if with_edge_weights else 0
+    adj_w = np.zeros((num_graphs, n_w, n_w), dtype=np.float32)
+    n_c = cap_n if with_clusters else 0
+    cluster0 = np.full((num_graphs, n_c), cap_n, dtype=np.int32)
+    cluster1 = np.full((num_graphs, n_c), cap_n, dtype=np.int32)
 
     for g, entry in enumerate(entries):
         v = entry["x"].shape[0]
         x[g, :v] = entry["x"]
+        pos[g, :v] = entry["pos"]
         node_mask[g, :v] = True
         und = np.asarray(entry["edge_index"], dtype=np.int64)
         if und.size:
             adj[g, und[:, 0], und[:, 1]] = 1
             adj[g, und[:, 1], und[:, 0]] = 1
-        if entry.get("y") is not None:
-            y[g] = entry["y"]
-            y_mask[g] = True
+            if with_edge_weights:
+                ea = np.asarray(entry["edge_attr"], dtype=np.float32).reshape(len(und), -1)[:, 0]
+                np.add.at(adj_w[g], (und[:, 0], und[:, 1]), ea)
+                np.add.at(adj_w[g], (und[:, 1], und[:, 0]), ea)
+        if with_clusters:
+            c1 = np.asarray(entry["cluster1"], dtype=np.int32)
+            cluster0[g, :v] = np.asarray(entry["cluster0"], dtype=np.int32)
+            cluster1[g, : len(c1)] = c1
+    y, y_mask = _targets(entries, num_graphs)
 
-    x_t = np.ascontiguousarray(x.reshape(num_graphs * cap_n, feat_dim).T)
-    batch = DenseGraphBatch(
-        x=torch.from_numpy(x).to(dev),
-        adj_i8=torch.from_numpy(adj).to(dev),
-        x_t=torch.from_numpy(x_t).to(dev),
-        node_mask=torch.from_numpy(node_mask).to(dev),
-        y=torch.from_numpy(y).to(dev),
-        y_mask=torch.from_numpy(y_mask).to(dev),
-    )
+    adj_t = torch.from_numpy(adj)
+    if with_diag_operands:
+        x_t = torch.from_numpy(np.ascontiguousarray(x.reshape(num_graphs * cap_n, feat_dim).T))
+        adj_i8, adj_bf16 = adj_t, torch.zeros((0, 0, 0), dtype=torch.bfloat16)
+    else:
+        x_t, adj_i8, adj_bf16 = torch.zeros((0, 0), dtype=torch.float32), torch.zeros((0, 0, 0), dtype=torch.int8), adj_t.to(torch.bfloat16)
+    arrays = _tensors(dev, x=x, pos=pos, node_mask=node_mask, y=y, y_mask=y_mask, adj_w=adj_w, cluster0=cluster0, cluster1=cluster1)
+    batch = DenseGraphBatch(**arrays, adj=adj_bf16.to(dev), adj_i8=adj_i8.to(dev), x_t=x_t.to(dev))
     return batch, names
 
 
@@ -712,10 +752,6 @@ def diag_clustered_requirements(entries: list[dict], min_slot_nodes: int = 1) ->
 # ``collate_graphs_blocksparse_clustered``)
 
 
-def _tensors(dev: torch.device, **arrays) -> dict:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in arrays.items()}
-
-
 @dataclass
 class BlockSparseBatch:
     """A batch of large graphs in the block-sparse layout (ops/block_sparse.py).
@@ -745,17 +781,22 @@ class BlockSparseBatch:
         return type(self)(**{k: getattr(self, k) if k in self._STATIC else getattr(self, k).to(dev) for k in self.__dataclass_fields__})
 
 
-def blocksparse_layout(entries: list[dict], block: int = 128, num_graphs: int | None = None, plans: list[dict] | None = None) -> dict:
+def blocksparse_layout(
+    entries: list[dict], block: int = 128, num_graphs: int | None = None, features: bool = True, plans: list[dict] | None = None
+) -> dict:
     """The locality pass of the block-sparse collates: per entry its locality
-    order, tile-padded copies of its features, positions, graph ids and mask,
-    and its undirected pairs remapped to batch rows.
+    order, tile-padded copies of its features, positions, graph ids and mask
+    (only when ``features``: the requirements passes skip them), and its
+    undirected pairs remapped to batch rows. One pass backs the collates and
+    their requirements, so a capacity never differs from what a collate
+    needs.
 
     ``plans`` (the slot8 layout, :func:`_slot8_plan`) override the row
     placement: ``posmap`` maps an original node to its row (holes are
     intra-cluster padding rows) and ``cap`` is the entry's row capacity."""
     num_graphs = len(entries) if num_graphs is None else num_graphs
     feat_dim = entries[0]["x"].shape[1] if entries else 0
-    xs, poss, graph_ids, masks, pairs, orders = [], [], [], [], [], []
+    xs, poss, graph_ids, masks, pairs, orders, offsets = [], [], [], [], [], [], []
     offset = 0
     for g, entry in enumerate(entries):
         v = entry["x"].shape[0]
@@ -770,18 +811,20 @@ def blocksparse_layout(entries: list[dict], block: int = 128, num_graphs: int | 
         und = np.asarray(entry["edge_index"], dtype=np.int64).reshape(-1, 2)
         pairs.append(posmap[und] + offset)
         orders.append(order)
-        x = np.zeros((cap, feat_dim), dtype=np.float32)
-        x[posmap] = entry["x"]
-        pos = np.zeros((cap, 3), dtype=np.float32)
-        pos[posmap] = entry["pos"]
-        gid = np.full(cap, num_graphs, dtype=np.int32)
-        gid[posmap] = g
-        m = np.zeros(cap, dtype=bool)
-        m[posmap] = True
-        xs.append(x)
-        poss.append(pos)
-        graph_ids.append(gid)
-        masks.append(m)
+        offsets.append(offset)
+        if features:
+            x = np.zeros((cap, feat_dim), dtype=np.float32)
+            x[posmap] = entry["x"]
+            pos = np.zeros((cap, 3), dtype=np.float32)
+            pos[posmap] = entry["pos"]
+            gid = np.full(cap, num_graphs, dtype=np.int32)
+            gid[posmap] = g
+            m = np.zeros(cap, dtype=bool)
+            m[posmap] = True
+            xs.append(x)
+            poss.append(pos)
+            graph_ids.append(gid)
+            masks.append(m)
         offset += cap
     return {
         "xs": xs,
@@ -791,21 +834,55 @@ def blocksparse_layout(entries: list[dict], block: int = 128, num_graphs: int | 
         "pairs": np.concatenate(pairs) if pairs else np.zeros((0, 2), np.int64),
         "num_tiles": max(offset // block, 1),
         "feat_dim": feat_dim,
-        "orders": orders,  # the clustered collate remaps cluster ids through these
+        # per-entry locality orders and batch row offsets: the clustered
+        # collate remaps cluster ids through these
+        "orders": orders,
+        "offsets": offsets,
     }
 
 
+def _capacity(pad, required: int, what: str) -> int:
+    """An int or ``required -> capacity`` callable capacity against its
+    requirement; None keeps the requirement."""
+    if callable(pad):
+        pad = pad(required)
+    if pad is None:
+        return required
+    if pad < required:
+        msg = f"{what}={pad} < required {required}"
+        raise ValueError(msg)
+    return pad
+
+
+def _pad_rows(layout: dict, extra: int, num_graphs: int) -> None:
+    """Append ``extra`` padding rows (no node, graph id ``num_graphs``) to a
+    layout's feature, position, graph-id and mask columns."""
+    if extra:
+        layout["xs"].append(np.zeros((extra, layout["feat_dim"]), np.float32))
+        layout["poss"].append(np.zeros((extra, 3), np.float32))
+        layout["graph_ids"].append(np.full(extra, num_graphs, np.int32))
+        layout["masks"].append(np.zeros(extra, bool))
+
+
 def collate_graphs_blocksparse(
-    entries: list[dict], pad_graphs: int | None = None, device: str | torch.device | None = None
+    entries: list[dict],
+    pad_graphs: int | None = None,
+    device: str | torch.device | None = None,
+    pad_tiles=None,
+    pad_blocks=None,
 ) -> tuple[BlockSparseBatch, list[str]]:
     """Collate entries (``x``, ``pos``, ``edge_index``, ``y``,
     ``entry_name``) into a :class:`BlockSparseBatch` on ``device`` (CUDA
-    unless ``"cpu"`` is asked for); ``pad_graphs`` adds empty graphs. Tile
-    and block capacity buckets (the Trainer's) are not ported yet."""
+    unless ``"cpu"`` is asked for); ``pad_graphs`` adds empty graphs.
+    ``pad_tiles`` and ``pad_blocks`` may be ints or ``required -> capacity``
+    callables (the Trainer's grow-only buckets): padding tiles are rows of no
+    node, padding blocks all-zero blocks (:func:`build_blocksparse`)."""
     dev = resolve_device(device)
     num_graphs, names = _num_graphs(entries, pad_graphs)
     layout = blocksparse_layout(entries, DEFAULT_BLOCK, num_graphs)
-    structure = build_blocksparse(layout["pairs"], num_nodes=layout["num_tiles"] * DEFAULT_BLOCK, device=dev)
+    num_tiles = _capacity(pad_tiles, layout["num_tiles"], "pad_tiles")
+    _pad_rows(layout, (num_tiles - layout["num_tiles"]) * DEFAULT_BLOCK, num_graphs)
+    structure = build_blocksparse(layout["pairs"], num_nodes=num_tiles * DEFAULT_BLOCK, pad_blocks_to=pad_blocks, device=dev)
     y, y_mask = _targets(entries, num_graphs)
     arrays = _tensors(
         dev,
@@ -817,6 +894,15 @@ def collate_graphs_blocksparse(
         y_mask=y_mask,
     )
     return BlockSparseBatch(**arrays, structure=structure, num_graphs=num_graphs), names
+
+
+def blocksparse_requirements(entries: list[dict]) -> tuple[int, int]:
+    """``(tiles, run-padded blocks)`` that :func:`collate_graphs_blocksparse`
+    needs for these entries: the layout pass without feature copies or
+    blocks (the JAX package's, for its sharded collates; here the source of
+    the Trainer's bucket keys ``tiles`` and ``blocks``)."""
+    layout = blocksparse_layout(entries, DEFAULT_BLOCK, features=False)
+    return layout["num_tiles"], required_blocks(layout["pairs"], layout["num_tiles"] * DEFAULT_BLOCK)
 
 
 @dataclass
@@ -854,6 +940,59 @@ class ClusteredBlockSparseBatch(BlockSparseBatch):
 _CLUSTERED_CHUNK_TILES = 640
 
 
+def _pooled_graph(entry: dict, block: int, plan: dict | None = None) -> dict:
+    """One entry's depth-0 pooled graph for the clustered block-sparse
+    layout: its clusters in their locality order (``p_order``/``p_inv``, the
+    slot8 ``plan``'s when given: the same permutation), the tile-padded
+    pooled row capacity ``p_cap``, and its distinct cluster pairs without
+    self-loop pairs (``pairs``, local rows; ``keep`` and ``inverse`` map each
+    member edge to its pair)."""
+    v = entry["x"].shape[0]
+    c0 = np.asarray(entry["cluster0"], dtype=np.int64)
+    c1 = np.asarray(entry["cluster1"], dtype=np.int64)
+    if c0.shape[0] != v:
+        msg = f"cluster0 has {c0.shape[0]} entries for {v} nodes"
+        raise ValueError(msg)
+    n_c0 = int(c0.max()) + 1 if c0.size else 0
+    if c1.shape[0] != n_c0:
+        msg = f"cluster1 has {c1.shape[0]} entries for {n_c0} depth-0 clusters"
+        raise ValueError(msg)
+    counts = np.bincount(c0, minlength=n_c0)
+    if plan is not None:
+        p_order, p_inv = plan["p_order"], plan["p_inv"]
+    else:
+        # pooled locality order from the cluster mean positions
+        psum = np.zeros((n_c0, 3))
+        np.add.at(psum, c0, np.asarray(entry["pos"], dtype=np.float64))
+        pmean = psum / np.maximum(counts.astype(np.float64), 1.0)[:, None]
+        p_order = locality_order(pmean) if n_c0 > block else np.arange(n_c0)
+        p_inv = np.empty(n_c0, dtype=np.int64)
+        p_inv[p_order] = np.arange(n_c0)
+    p_cap = max(-(-n_c0 // block) * block, block)
+    # pooled edges: member edges mapped to clusters, self-loops dropped,
+    # duplicates coalesced
+    und = np.asarray(entry["edge_index"], dtype=np.int64).reshape(-1, 2)
+    pi, pj = p_inv[c0[und[:, 0]]], p_inv[c0[und[:, 1]]]
+    keep = pi != pj
+    lo, hi = np.minimum(pi[keep], pj[keep]), np.maximum(pi[keep], pj[keep])
+    uniq_key, inverse = np.unique(lo * p_cap + hi, return_inverse=True)
+    return {
+        "c0": c0,
+        "c1": c1,
+        "n_c0": n_c0,
+        "n_c1": int(c1.max()) + 1 if c1.size else 0,
+        "max_members": int(counts.max()) if counts.size else 0,
+        "max_c1_members": int(np.bincount(c1).max()) if c1.size else 0,
+        "p_order": p_order,
+        "p_inv": p_inv,
+        "p_cap": p_cap,
+        "und": und,
+        "keep": keep,
+        "inverse": inverse,
+        "pairs": np.stack([uniq_key // p_cap, uniq_key % p_cap], axis=1),
+    }
+
+
 def collate_graphs_blocksparse_clustered(
     entries: list[dict],
     pad_graphs: int | None = None,
@@ -861,11 +1000,19 @@ def collate_graphs_blocksparse_clustered(
     weight_dtype: torch.dtype | None = None,
     slot8: bool = False,
     device: str | torch.device | None = None,
+    pad_tiles=None,
+    pad_blocks=None,
+    pad_pooled_tiles=None,
+    pad_pooled_blocks=None,
+    pad_c1=None,
+    pad_members0=None,
+    pad_members1=None,
+    pad_members0s=None,
 ) -> tuple[ClusteredBlockSparseBatch, list[str]]:
     """Collate entries (``x``, ``pos``, ``edge_index``, ``cluster0``,
     ``cluster1``, ``y``, ``entry_name``) into a
     :class:`ClusteredBlockSparseBatch` on ``device`` (CUDA unless ``"cpu"``
-    is asked for).
+    is asked for), array for array as the JAX package's.
 
     The pooled graph keeps distinct cluster pairs and drops self-loop pairs.
     ``slot8`` lays nodes out cluster-major in 8-lane slots
@@ -876,7 +1023,13 @@ def collate_graphs_blocksparse_clustered(
     edge-attr channel (``weight_dtype`` blocks: bf16 by default, or f32): a
     pooled pair carries the sum of its member edges' weights, and
     ``wsum``/``wsum_p`` are the f32 row sums, accumulated as the JAX package
-    does. Capacity buckets are not ported yet."""
+    does.
+
+    Every ``pad_*`` capacity may be an int or a ``required -> capacity``
+    callable (the Trainer's grow-only buckets): tiles and pooled tiles add
+    rows of no node, blocks and pooled blocks all-zero blocks, ``pad_c1``
+    depth-1 slots of no graph, and ``pad_members*`` padding columns of the
+    member matrices."""
     dev = resolve_device(device)
     weight_dtype = weight_storage(weight_dtype)
     block = DEFAULT_BLOCK
@@ -888,44 +1041,24 @@ def collate_graphs_blocksparse_clustered(
     weights_full, pooled_weights = [], []
     p_offset = c1_off = 0
     for g, entry in enumerate(entries):
-        v = entry["x"].shape[0]
-        c0 = np.asarray(entry["cluster0"], dtype=np.int64)
-        c1 = np.asarray(entry["cluster1"], dtype=np.int64)
-        if c0.shape[0] != v:
-            msg = f"cluster0 has {c0.shape[0]} entries for {v} nodes"
-            raise ValueError(msg)
-        n_c0 = int(c0.max()) + 1 if c0.size else 0
-        if c1.shape[0] != n_c0:
-            msg = f"cluster1 has {c1.shape[0]} entries for {n_c0} depth-0 clusters"
-            raise ValueError(msg)
-        n_c1 = int(c1.max()) + 1 if c1.size else 0
-
+        pg = _pooled_graph(entry, block, plans[g] if slot8 else None)
+        c0, c1, n_c0, n_c1, p_cap, p_inv = pg["c0"], pg["c1"], pg["n_c0"], pg["n_c1"], pg["p_cap"], pg["p_inv"]
         if slot8:
             plan = plans[g]
-            p_order, p_inv = plan["p_order"], plan["p_inv"]
             col = np.full(plan["cap"], -1, dtype=np.int64)
             col[plan["posmap"]] = p_inv[c0] + p_offset
             slot_cols.append(np.where(plan["slot_col"] >= 0, plan["slot_col"] + p_offset, -1))
         else:
-            # pooled locality order from the cluster mean positions
-            pos = np.asarray(entry["pos"], dtype=np.float64)
-            psum = np.zeros((n_c0, 3))
-            np.add.at(psum, c0, pos)
-            pmean = psum / np.maximum(np.bincount(c0, minlength=n_c0).astype(np.float64), 1.0)[:, None]
-            p_order = locality_order(pmean) if n_c0 > block else np.arange(n_c0)
-            p_inv = np.empty(n_c0, dtype=np.int64)
-            p_inv[p_order] = np.arange(n_c0)
-            col = np.full(-(-v // block) * block, -1, dtype=np.int64)
-            col[:v] = p_inv[c0[layout["orders"][g]]] + p_offset
+            col = np.full(-(-c0.shape[0] // block) * block, -1, dtype=np.int64)  # -1: padding, set below
+            col[: c0.shape[0]] = p_inv[c0[layout["orders"][g]]] + p_offset
         cluster0_cols.append(col)
 
-        p_cap = max(-(-n_c0 // block) * block, block)
-        pg = np.full(p_cap, num_graphs, dtype=np.int32)
-        pg[:n_c0] = g
-        pooled_graph_ids.append(pg)
+        graph_ids = np.full(p_cap, num_graphs, dtype=np.int32)
+        graph_ids[:n_c0] = g
+        pooled_graph_ids.append(graph_ids)
         pooled_masks.append(np.arange(p_cap) < n_c0)
         c1_col = np.full(p_cap, -1, dtype=np.int64)
-        c1_col[:n_c0] = c1[p_order] + c1_off
+        c1_col[:n_c0] = c1[pg["p_order"]] + c1_off
         cluster1_cols.append(c1_col)
         # only depth-1 ids hit by a pooled node count toward the graph mean
         cg = np.full(n_c1, -1, dtype=np.int64)
@@ -933,36 +1066,39 @@ def collate_graphs_blocksparse_clustered(
             cg[np.unique(c1)] = g
         c1_graphs.append(cg)
 
-        # pooled edges: member edges mapped to clusters, self-loops dropped,
-        # coalesced (weights summed over the members)
-        und = np.asarray(entry["edge_index"], dtype=np.int64).reshape(-1, 2)
-        pi, pj = p_inv[c0[und[:, 0]]], p_inv[c0[und[:, 1]]]
-        keep = pi != pj
-        lo, hi = np.minimum(pi[keep], pj[keep]), np.maximum(pi[keep], pj[keep])
-        uniq_key, inverse = np.unique(lo * p_cap + hi, return_inverse=True)
-        pooled_pairs.append(np.stack([uniq_key // p_cap, uniq_key % p_cap], axis=1) + p_offset)
+        pooled_pairs.append(pg["pairs"] + p_offset)
         if with_edge_weights:
+            und = pg["und"]
             w = np.asarray(entry["edge_attr"], dtype=np.float32).reshape(len(und), -1)[:, 0] if und.size else np.zeros(0, np.float32)
             weights_full.append(w)
-            pw = np.zeros(len(uniq_key), dtype=np.float32)
-            np.add.at(pw, inverse, w[keep])
+            pw = np.zeros(len(pg["pairs"]), dtype=np.float32)
+            np.add.at(pw, pg["inverse"], w[pg["keep"]])
             pooled_weights.append(pw)
         p_offset += p_cap
         c1_off += n_c1
 
-    pooled_cap = max(p_offset // block, 1) * block
+    num_pooled_tiles = _capacity(pad_pooled_tiles, max(p_offset // block, 1), "pad_pooled_tiles")
+    extra = num_pooled_tiles * block - p_offset
+    if extra > 0:
+        pooled_graph_ids.append(np.full(extra, num_graphs, np.int32))
+        pooled_masks.append(np.zeros(extra, bool))
+        cluster1_cols.append(np.full(extra, -1, np.int64))
+    pooled_cap = num_pooled_tiles * block
+
+    num_tiles = layout["num_tiles"]
+    pad_tiles = pad_tiles(num_tiles) if callable(pad_tiles) else pad_tiles
     if slot8:
         # whole groups of 8 tiles (1024 lanes), as the JAX slot kernel's grid wants
-        extra = (-(-layout["num_tiles"] // 8) * 8 - layout["num_tiles"]) * block
-        layout["xs"].append(np.zeros((extra, layout["feat_dim"]), np.float32))
-        layout["poss"].append(np.zeros((extra, 3), np.float32))
-        layout["graph_ids"].append(np.full(extra, num_graphs, np.int32))
-        layout["masks"].append(np.zeros(extra, bool))
-        layout["num_tiles"] += extra // block
+        pad_tiles = -(-(num_tiles if pad_tiles is None else pad_tiles) // 8) * 8
+    num_tiles = _capacity(pad_tiles, num_tiles, "pad_tiles")
+    extra = (num_tiles - layout["num_tiles"]) * block
+    _pad_rows(layout, extra, num_graphs)
+    if extra:
         cluster0_cols.append(np.full(extra, -1, np.int64))
-        slot_cols.append(np.full(extra // 8, -1, np.int64))
-    node_cap = layout["num_tiles"] * block
-    c1_cap = max(c1_off, 1)
+        if slot8:
+            slot_cols.append(np.full(extra // 8, -1, np.int64))
+    node_cap = num_tiles * block
+    c1_cap = _capacity(pad_c1 or None, max(c1_off, 1), "pad_c1")
 
     cluster0 = np.concatenate(cluster0_cols)
     cluster0 = np.where(cluster0 < 0, pooled_cap, cluster0).astype(np.int32)
@@ -978,9 +1114,15 @@ def collate_graphs_blocksparse_clustered(
     w_full = np.concatenate(weights_full) if weights_full else None
     p_w = np.concatenate(pooled_weights) if pooled_weights else None
     structure = build_blocksparse(
-        pairs, num_nodes=node_cap, chunk_tiles=_CLUSTERED_CHUNK_TILES, weights=w_full, weight_dtype=weight_dtype, device=dev
+        pairs,
+        num_nodes=node_cap,
+        pad_blocks_to=pad_blocks,
+        chunk_tiles=_CLUSTERED_CHUNK_TILES,
+        weights=w_full,
+        weight_dtype=weight_dtype,
+        device=dev,
     )
-    structure_p = build_blocksparse(p_pairs, num_nodes=pooled_cap, weights=p_w, weight_dtype=weight_dtype, device=dev)
+    structure_p = build_blocksparse(p_pairs, num_nodes=pooled_cap, pad_blocks_to=pad_pooled_blocks, weights=p_w, weight_dtype=weight_dtype, device=dev)
     deg = np.zeros(node_cap, dtype=np.float32)
     np.add.at(deg, pairs.reshape(-1), 1.0)
     deg_p = np.zeros(pooled_cap, dtype=np.float32)
@@ -996,7 +1138,7 @@ def collate_graphs_blocksparse_clustered(
     if slot8:
         slot_cluster = np.concatenate(slot_cols)
         slot_cluster = np.where(slot_cluster < 0, pooled_cap, slot_cluster).astype(np.int32)
-        members0s = _member_matrix(slot_cluster, pooled_cap, node_cap // 8)
+        members0s = _member_matrix(slot_cluster, pooled_cap, node_cap // 8, pad_s=pad_members0s)
     else:
         slot_cluster = np.zeros(0, np.int32)
         members0s = np.zeros((0, 0), np.int32)
@@ -1016,14 +1158,49 @@ def collate_graphs_blocksparse_clustered(
         pooled_node_mask=np.concatenate(pooled_masks),
         cluster1=cluster1,
         c1_graph=c1_graph,
-        members0=_member_matrix(cluster0, pooled_cap, node_cap),
-        members1=_member_matrix(cluster1, c1_cap, pooled_cap),
+        members0=_member_matrix(cluster0, pooled_cap, node_cap, pad_s=pad_members0),
+        members1=_member_matrix(cluster1, c1_cap, pooled_cap, pad_s=pad_members1),
         slot_cluster=slot_cluster,
         members0s=members0s,
         wsum=wsum,
         wsum_p=wsum_p,
     )
     return ClusteredBlockSparseBatch(**arrays, structure=structure, structure_p=structure_p, num_graphs=num_graphs), names
+
+
+def clustered_blocksparse_requirements(entries: list[dict], slot8: bool = False) -> dict:
+    """The capacities :func:`collate_graphs_blocksparse_clustered` needs for
+    these entries, by the Trainer's bucket keys: the light pass (no feature
+    copies, no blocks), with the collate's per-entry cluster math and, under
+    ``slot8``, its row plan (whose padding changes the tile and block
+    counts)."""
+    block = DEFAULT_BLOCK
+    plans = [_slot8_plan(e, block) for e in entries] if slot8 else None
+    layout = blocksparse_layout(entries, block, features=False, plans=plans)
+    p_offset = c1_total = 0
+    s0 = s1 = 1
+    pooled_pairs = []
+    for entry in entries:
+        pg = _pooled_graph(entry, block)
+        s0 = max(s0, pg["max_members"])
+        s1 = max(s1, pg["max_c1_members"])
+        pooled_pairs.append(pg["pairs"] + p_offset)
+        p_offset += pg["p_cap"]
+        c1_total += pg["n_c1"]
+    pooled_tiles = max(p_offset // block, 1)
+    p_pairs = np.concatenate(pooled_pairs) if pooled_pairs else np.zeros((0, 2), np.int64)
+    req = {
+        "tiles": layout["num_tiles"],
+        "blocks": required_blocks(layout["pairs"], layout["num_tiles"] * block, chunk_tiles=_CLUSTERED_CHUNK_TILES),
+        "pooled_tiles": pooled_tiles,
+        "pooled_blocks": required_blocks(p_pairs, pooled_tiles * block),
+        "c1": max(c1_total, 1),
+        "members0_s": s0,
+        "members1_s": s1,
+    }
+    if slot8:
+        req["members0s_s"] = max(p["max_slots"] for p in plans)
+    return req
 
 
 # ---------------------------------------------------------------------------
@@ -1056,20 +1233,8 @@ def collate_graphs_blocked(
     dev = resolve_device(device)
     num_graphs, names = _num_graphs(entries, pad_graphs)
     layout = blocksparse_layout(entries, EDGE_TILE, num_graphs)
-    num_tiles = layout["num_tiles"]
-    if callable(pad_tiles):
-        pad_tiles = pad_tiles(num_tiles)
-    if pad_tiles is not None:
-        if pad_tiles < num_tiles:
-            msg = f"pad_tiles={pad_tiles} < required {num_tiles}"
-            raise ValueError(msg)
-        extra = (pad_tiles - num_tiles) * EDGE_TILE
-        if extra:
-            layout["xs"].append(np.zeros((extra, layout["feat_dim"]), np.float32))
-            layout["poss"].append(np.zeros((extra, 3), np.float32))
-            layout["graph_ids"].append(np.full(extra, num_graphs, np.int32))
-            layout["masks"].append(np.zeros(extra, bool))
-        num_tiles = pad_tiles
+    num_tiles = _capacity(pad_tiles, layout["num_tiles"], "pad_tiles")
+    _pad_rows(layout, (num_tiles - layout["num_tiles"]) * EDGE_TILE, num_graphs)
 
     # edge features in the same per-entry order as the remapped pairs
     eattrs = [np.asarray(e["edge_attr"], dtype=np.float32) for e in entries]
@@ -1088,6 +1253,14 @@ def collate_graphs_blocked(
         y_mask=y_mask,
     )
     return BlockedEdgeBatch(**arrays, structure=structure, num_graphs=num_graphs), names
+
+
+def blocked_requirements(entries: list[dict]) -> tuple[int, int]:
+    """``(tiles, slabs)`` that :func:`collate_graphs_blocked` needs for these
+    entries: the source of the Trainer's bucket keys ``be_tiles`` and
+    ``be_slabs``."""
+    layout = blocksparse_layout(entries, EDGE_TILE, features=False)
+    return layout["num_tiles"], required_slabs(layout["pairs"], layout["num_tiles"] * EDGE_TILE)
 
 
 # ---------------------------------------------------------------------------

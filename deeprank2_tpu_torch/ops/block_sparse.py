@@ -144,10 +144,29 @@ class BlockSparseStructure:
         return BlockSparseStructure(**{f.name: getattr(self, f.name) if f.name in self._STATIC else getattr(self, f.name).to(dev) for f in fields(self)})
 
 
+def required_blocks(und_pairs: np.ndarray, num_nodes: int, block: int = DEFAULT_BLOCK, kbatch: int | None = None, chunk_tiles: int | None = None) -> int:
+    """The run-padded block count :func:`build_blocksparse` would store for
+    these (locality-ordered) pairs before its capacity rounding: the light
+    requirements pass behind the Trainer's block buckets. ``kbatch=1`` gives
+    the real (unique) block count; ``chunk_tiles`` must be the build's."""
+    kb = kbatch or KBATCH
+    ct = chunk_tiles or CHUNK_TILES
+    und = np.asarray(und_pairs, dtype=np.int64).reshape(-1, 2)
+    num_tiles = max(-(-num_nodes // block), 1)
+    bi = np.concatenate([und[:, 0], und[:, 1]]) // block
+    bj = np.concatenate([und[:, 1], und[:, 0]]) // block
+    uniq = np.unique(((bj // ct) * num_tiles + bi) * num_tiles + bj)
+    if not uniq.size:
+        return kb
+    _, counts = np.unique(uniq // num_tiles, return_counts=True)
+    return max(int((-(-counts // kb) * kb).sum()), kb)
+
+
 def build_blocksparse(
     und_pairs: np.ndarray,
     num_nodes: int,
     block: int = DEFAULT_BLOCK,
+    pad_blocks_to=None,
     kbatch: int | None = None,
     super_batches: int | None = None,
     chunk_tiles: int | None = None,
@@ -166,8 +185,12 @@ def build_blocksparse(
     order (a self-loop's weight is added twice). The blocks are stored as
     ``weight_dtype``: ``torch.bfloat16`` (the default, rounded to nearest
     even as the JAX package's ``ml_dtypes`` cast) or ``torch.float32``.
-    Row and column slices (the parallel paths) and capacity padding (the
-    Trainer's buckets) are not ported yet."""
+
+    ``pad_blocks_to`` (an int, or a ``required -> capacity`` callable such as
+    the Trainer's grow-only buckets, given the run-padded block count of
+    :func:`required_blocks`) stores that many blocks at least, rounded up to
+    the ``kbatch * super_batches`` quantum; the extra blocks are all zero.
+    Row and column slices (the parallel paths) are not ported yet."""
     dev = resolve_device(device)
     und = np.asarray(und_pairs, dtype=np.int64).reshape(-1, 2)
     num_tiles = max(-(-num_nodes // block), 1)
@@ -207,8 +230,13 @@ def build_blocksparse(
     pad_counts = -(-group_counts // kb) * kb
     group_start = np.concatenate([[0], np.cumsum(pad_counts)])[:-1]
     nb_pad = max(int(pad_counts.sum()), kb)
+    if callable(pad_blocks_to):
+        pad_blocks_to = pad_blocks_to(nb_pad)
+    if (pad_blocks_to or 0) and pad_blocks_to < nb_pad:
+        msg = f"pad_blocks={pad_blocks_to} < required {nb_pad}"
+        raise ValueError(msg)
     sb = super_batches or SUPER
-    cap = -(-nb_pad // (kb * sb)) * (kb * sb)
+    cap = -(-max(pad_blocks_to or 0, nb_pad) // (kb * sb)) * (kb * sb)
 
     blocks = np.zeros((cap, block, block), dtype=np.int8 if wvals is None else np.float32)
     block_row = np.zeros(cap, dtype=np.int32)
@@ -247,7 +275,11 @@ def build_blocksparse(
     if nb == 0:
         visited[0, 0] = True  # the JAX kernel's artificial zero batch writes slab (0, 0)
 
-    # the CUDA kernel's index: the real blocks of each row tile, by (row, chunk, column)
+    # the CUDA kernel's index: the real blocks of each row tile, by (row,
+    # chunk, column). The zero blocks, run padding and capacity padding
+    # alike, are left out: K5 walks only the blocks listed here, so padding
+    # costs it neither a read nor a launch, and a capacity bucket changes no
+    # bit of its result (each output's chain of terms is the same).
     by_row = np.lexsort((slot, uniq_row)) if nb else np.zeros(0, np.int64)
     tile_blocks = slot[by_row].astype(np.int32)
     tile_ptr = np.zeros(num_row_tiles + 1, dtype=np.int32)

@@ -1,8 +1,9 @@
 """Community and graph pooling (port of ``deeprank2_tpu/ops/pooling.py``:
 ``member_max_pool``, ``diag_depth0_pool``, the fast models' shared depth-1
 pool and mean ``depth1_graph_mean``, ``tiled_graph_mean_pool``,
-``tiled_graph_mean_pool_rows``, and the COO ``pool_edges_coalesce``,
-``community_pool``, ``max_pool_x`` and ``graph_mean_pool``).
+``tiled_graph_mean_pool_rows``, the COO ``pool_edges_coalesce``,
+``community_pool``, ``max_pool_x`` and ``graph_mean_pool``, and the
+block-dense ``dense_segment_max`` and ``dense_community_pool``).
 
 Conventions, as in the JAX package: cluster ids are batch-global and below
 the capacity; padded rows carry out-of-range ids. Pooled features are
@@ -228,3 +229,48 @@ def max_pool_x(cluster: torch.Tensor, x: torch.Tensor, node_graph: torch.Tensor,
 def graph_mean_pool(x: torch.Tensor, node_graph: torch.Tensor, num_graphs: int) -> torch.Tensor:
     """Mean of node features per graph (padded nodes carry out-of-range graph ids)."""
     return segment_mean(x, node_graph, num_graphs)
+
+
+# ---------------------------------------------------------------------------
+# Block-dense pooling (port of ``dense_segment_max`` and
+# ``dense_community_pool``; see ops/batch.py:DenseGraphBatch)
+
+
+def dense_segment_max(x: torch.Tensor, cluster: torch.Tensor) -> torch.Tensor:
+    """Per-cluster feature max on ``[G, N, F]`` blocks with per-graph local
+    cluster ids ``[G, N]`` (padding ``>= N``): ``[G, N, F]``, row ``k`` of
+    graph ``g`` cluster ``k`` (empty clusters 0). The segment max of the COO
+    pools, so a tied max shares its cotangent among the tied rows."""
+    num_graphs, cap_n, feat = x.shape
+    offsets = torch.arange(num_graphs, dtype=cluster.dtype, device=cluster.device)[:, None] * cap_n
+    flat_ids = torch.where(cluster < cap_n, cluster + offsets, num_graphs * cap_n)
+    return segment_max(x.reshape(num_graphs * cap_n, feat), flat_ids.reshape(-1), num_graphs * cap_n).reshape(num_graphs, cap_n, feat)
+
+
+def dense_community_pool(
+    x: torch.Tensor, pos: torch.Tensor, adj: torch.Tensor, cluster: torch.Tensor, adj_w: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None, torch.Tensor]:
+    """Community pooling on dense blocks: max features, mean positions, and
+    the pooled adjacency through the one-hot congruence ``C^T A C`` (two
+    batched products), the dense twin of :func:`community_pool`.
+
+    ``x [G, N, F]``, ``pos [G, N, 3]``, ``adj [G, N, N]`` (0/1, any float or
+    int type), ``cluster [G, N]`` local ids (padding ``>= N``) and optional
+    edge weights ``adj_w [G, N, N]``. The pooled 0/1 adjacency marks the
+    distinct cluster pairs and ``adj_w'`` sums the member edges' weights
+    (PyG ``coalesce``); self-loop pairs are dropped. Returns ``(x', pos',
+    adj', adj_w', node_mask')`` with rows = clusters."""
+    cap_n = x.shape[1]
+    # a padding id selects the extra class, which is cut off: an all-zero row
+    ids = torch.where(cluster < cap_n, cluster, cap_n).long()
+    onehot = torch.nn.functional.one_hot(ids, cap_n + 1)[..., :cap_n].to(x.dtype)  # [G, N, K]
+    onehot_t = onehot.transpose(1, 2)
+
+    x_pooled = dense_segment_max(x, cluster)
+    counts = onehot.sum(dim=1)  # [G, K]
+    pos_pooled = (onehot_t @ pos.to(x.dtype)) / counts.clamp_min(1.0)[:, :, None]
+    off_diagonal = 1.0 - torch.eye(cap_n, dtype=x.dtype, device=x.device)
+    member_edges = onehot_t @ adj.to(x.dtype) @ onehot  # member-edge counts per cluster pair
+    adj_pooled = (member_edges > 0).to(x.dtype) * off_diagonal
+    adj_w_pooled = None if adj_w is None else onehot_t @ adj_w.to(x.dtype) @ onehot * off_diagonal
+    return x_pooled, pos_pooled, adj_pooled, adj_w_pooled, counts > 0

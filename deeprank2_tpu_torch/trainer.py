@@ -22,11 +22,15 @@ mid-training resume, on the port's models, collates and kernels:
   (utils/checkpoint.py), which the JAX package reads as reference
   checkpoints; the port reads those, its own and the JAX package's.
 
-Dispatch on the model's class attributes, as in the JAX package: the dense
-(``dense_batches``), graph-diagonal clustered (``diag_clustered_batches``)
-and COO (the default) batches are ported. The block-sparse, clustered
-block-sparse and blocked-edge batches, the dense batch with clusters or
-edge weights, grids, ``data_parallel`` and ``graph_parallel`` raise
+Dispatch on the model's class attributes, as in the JAX package: every
+single-device graph layout is ported, the clustered block-sparse
+(``clustered_blocksparse_batches``), graph-diagonal clustered
+(``diag_clustered_batches``), block-sparse (``blocksparse_batches``),
+blocked-edge (``blocked_edge_batches``), dense (``dense_batches``, with
+clusters and edge weights where the model's markers ask for them) and COO
+(the default) batches. Their tensors, those of the nested structures
+included, are pinned, copied on the side stream and kept alive for the
+compute stream alike. Grids, ``data_parallel`` and ``graph_parallel`` raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
@@ -53,7 +57,15 @@ from deeprank2_tpu_torch.domain import targetstorage as targets
 from deeprank2_tpu_torch.neuralnets.param_interop import params_from_jax
 from deeprank2_tpu_torch.ops import losses as loss_nn
 from deeprank2_tpu_torch.ops import optim
-from deeprank2_tpu_torch.ops.batch import _auto_min_slot_nodes, collate_graphs, collate_graphs_dense, collate_graphs_diag_clustered
+from deeprank2_tpu_torch.ops.batch import (
+    _auto_min_slot_nodes,
+    collate_graphs,
+    collate_graphs_blocked,
+    collate_graphs_blocksparse,
+    collate_graphs_blocksparse_clustered,
+    collate_graphs_dense,
+    collate_graphs_diag_clustered,
+)
 from deeprank2_tpu_torch.utils.checkpoint import load_checkpoint, load_snapshot, save_checkpoint, save_snapshot, to_cpu
 from deeprank2_tpu_torch.utils.community_pooling import community_detection, community_pooling_host
 from deeprank2_tpu_torch.utils.earlystopping import EarlyStopping
@@ -64,11 +76,16 @@ _COLLATE_UID = iter(range(1 << 62))  # collate-cache dataset ids (never reused)
 
 # batch layouts that later items of ROADMAP.md §1 port, by model attribute
 _LATER_LAYOUTS = {
-    "clustered_blocksparse_batches": "the clustered block-sparse batches (ROADMAP §1 item 3)",
-    "blocksparse_batches": "the block-sparse batches (ROADMAP §1 item 3)",
-    "blocked_edge_batches": "the blocked-edge batches (ROADMAP §1 item 3)",
     "graph_parallel": "graph-parallel models (ROADMAP §1 item 8)",
 }
+# the model markers that pick a layout, in the JAX Trainer's order of dispatch
+_LAYOUTS = (
+    ("clustered_blocksparse_batches", "clustered_blocksparse"),
+    ("diag_clustered_batches", "diag_clustered"),
+    ("blocksparse_batches", "blocksparse"),
+    ("blocked_edge_batches", "blocked"),
+    ("dense_batches", "dense"),
+)
 
 
 def _trim_lambda_source(candidate: str) -> str | None:
@@ -100,13 +117,31 @@ def _param_family(neuralnet) -> str | None:
     return None
 
 
-def _tensor_fields(batch) -> dict[str, torch.Tensor]:
-    return {f.name: v for f in dataclasses.fields(batch) if isinstance(v := getattr(batch, f.name), torch.Tensor)}
+def _tensor_fields(batch) -> list[torch.Tensor]:
+    """Every tensor of a batch dataclass, those of its nested dataclasses
+    (the block-sparse and blocked-edge structures) included."""
+    found = []
+    for f in dataclasses.fields(batch):
+        value = getattr(batch, f.name)
+        if isinstance(value, torch.Tensor):
+            found.append(value)
+        elif dataclasses.is_dataclass(value):
+            found += _tensor_fields(value)
+    return found
 
 
 def _map_tensors(batch, fn):
-    """A copy of a batch dataclass with ``fn`` applied to every tensor field."""
-    return dataclasses.replace(batch, **{k: fn(v) for k, v in _tensor_fields(batch).items()})
+    """A copy of a batch dataclass with ``fn`` applied to every tensor, in
+    its nested dataclasses too (``dataclasses.replace`` builds the frozen
+    structures anew); the static ints stay as they are."""
+    changes = {}
+    for f in dataclasses.fields(batch):
+        value = getattr(batch, f.name)
+        if isinstance(value, torch.Tensor):
+            changes[f.name] = fn(value)
+        elif dataclasses.is_dataclass(value):
+            changes[f.name] = _map_tensors(value, fn)
+    return dataclasses.replace(batch, **changes)
 
 
 class Trainer:
@@ -357,9 +392,10 @@ class Trainer:
         dataset._cache.clear()
 
     def _layout(self) -> str:
-        """The batch layout of the model class: ``"dense"``,
-        ``"diag_clustered"`` or ``"coo"``; a layout still to port raises
-        ``NotImplementedError`` naming its ROADMAP item."""
+        """The batch layout of the model class (``"clustered_blocksparse"``,
+        ``"diag_clustered"``, ``"blocksparse"``, ``"blocked"``, ``"dense"``
+        or ``"coo"``); a layout still to port raises ``NotImplementedError``
+        naming its ROADMAP item."""
         net = self.neuralnet
         if not self._is_graph():
             msg = "grid datasets: the port's CNNs, GridDataset batches and the Trainer's grid branch are ROADMAP §1 item 7"
@@ -368,14 +404,7 @@ class Trainer:
             if getattr(net, attr, False):
                 msg = f"{net.__name__}: {what} are not ported to the Trainer yet"
                 raise NotImplementedError(msg)
-        if getattr(net, "diag_clustered_batches", False):
-            return "diag_clustered"
-        if getattr(net, "dense_batches", False):
-            if getattr(net, "needs_clusters", False) or getattr(net, "dense_edge_weights", False):
-                msg = f"{net.__name__}: dense batches with clusters or edge weights are ROADMAP §1 item 4"
-                raise NotImplementedError(msg)
-            return "dense"
-        return "coo"
+        return next((layout for attr, layout in _LAYOUTS if getattr(net, attr, False)), "coo")
 
     def _put_model_to_device(self, dataset) -> None:
         if self.task == targets.REGRESS:
@@ -490,12 +519,38 @@ class Trainer:
 
         return round_up
 
-    def _collate(self, entries: list[dict], pad_graphs: int):
-        """A host (CPU) batch of ``entries`` in the model's layout."""
+    def _collate(self, entries: list[dict], pad_graphs: int):  # noqa: C901
+        """A host (CPU) batch of ``entries`` in the model's layout. The
+        block-sparse, blocked and diag-clustered capacities come from the
+        grow-only buckets, under the JAX Trainer's keys, so a run takes the
+        same capacities as JAX's on the same batch sequence."""
         layout = self._layout()
-        if layout == "diag_clustered":
-            if not hasattr(self, "_bs_caps"):
-                self._bs_caps = {}
+        net = self.neuralnet
+        if layout not in ("dense", "coo") and not hasattr(self, "_bs_caps"):
+            self._bs_caps = {}
+        bucket = self._blocksparse_bucket
+        if layout == "clustered_blocksparse":
+            slot8 = getattr(net, "clustered_blocksparse_slot8", False)
+            batch, names = collate_graphs_blocksparse_clustered(
+                entries,
+                pad_tiles=bucket("tiles"),
+                pad_blocks=bucket("blocks"),
+                pad_pooled_tiles=bucket("pooled_tiles"),
+                pad_pooled_blocks=bucket("pooled_blocks"),
+                pad_c1=bucket("c1"),
+                pad_graphs=pad_graphs,
+                with_edge_weights=getattr(net, "clustered_blocksparse_edge_weights", False),
+                pad_members0=bucket("members0_s"),
+                pad_members1=bucket("members1_s"),
+                slot8=slot8,
+                pad_members0s=bucket("members0s_s") if slot8 else None,
+                device="cpu",
+            )
+        elif layout == "blocksparse":
+            batch, names = collate_graphs_blocksparse(entries, pad_tiles=bucket("tiles"), pad_blocks=bucket("blocks"), pad_graphs=pad_graphs, device="cpu")
+        elif layout == "blocked":
+            batch, names = collate_graphs_blocked(entries, pad_tiles=bucket("be_tiles"), pad_slabs=bucket("be_slabs"), pad_graphs=pad_graphs, device="cpu")
+        elif layout == "diag_clustered":
             # pin the pure-vs-mixed layout decision on the FIRST batch: a
             # dataset near the inflation crossover would otherwise flip
             # layouts batch to batch, with a second family of buckets
@@ -504,18 +559,26 @@ class Trainer:
             batch, names = collate_graphs_diag_clustered(
                 entries,
                 pad_graphs=pad_graphs,
-                pad_nodes=self._blocksparse_bucket("dc_nodes"),
-                pad_clusters=self._blocksparse_bucket("dc_clusters"),
-                pad_c1=self._blocksparse_bucket("dc_c1"),
-                pad_members0s=self._blocksparse_bucket("dc_members0s_s"),
-                pad_members1=self._blocksparse_bucket("dc_members1_s"),
-                pad_region_caps={k: self._blocksparse_bucket(f"dc_region_{k}") for k in ("big", "s4", "s2", "s1", "kbig")},
-                with_edge_weights=getattr(self.neuralnet, "diag_clustered_edge_weights", False),
+                pad_nodes=bucket("dc_nodes"),
+                pad_clusters=bucket("dc_clusters"),
+                pad_c1=bucket("dc_c1"),
+                pad_members0s=bucket("dc_members0s_s"),
+                pad_members1=bucket("dc_members1_s"),
+                pad_region_caps={k: bucket(f"dc_region_{k}") for k in ("big", "s4", "s2", "s1", "kbig")},
+                with_edge_weights=getattr(net, "diag_clustered_edge_weights", False),
                 min_slot_nodes=self._bs_caps["dc_layout_msn"],
                 device="cpu",
             )
         elif layout == "dense":
-            batch, names = collate_graphs_dense(entries, pad_graphs, device="cpu")
+            batch, names = collate_graphs_dense(
+                entries,
+                pad_graphs,
+                with_clusters=getattr(net, "needs_clusters", False),
+                with_edge_weights=getattr(net, "dense_edge_weights", False),
+                # the flat route's operands only for a model that reads them
+                with_diag_operands=getattr(net, "diag_operands", False),
+                device="cpu",
+            )
         else:
             batch, names = collate_graphs(entries, pad_graphs, device="cpu")
         # map classification targets to class indices (reference _format_output,
@@ -577,6 +640,7 @@ class Trainer:
             if on_card:
                 batch = _map_tensors(batch, torch.Tensor.pin_memory)
             stats["collate_s"] = time() - t0
+            stats["batch_bytes"] = sum(t.numel() * t.element_size() for t in _tensor_fields(batch))
             if cacheable:
                 if len(self._collate_cache) >= self._collate_cache_capacity:
                     self._collate_cache.pop(next(iter(self._collate_cache)))
@@ -629,7 +693,7 @@ class Trainer:
                     compute.wait_event(copied)
                     # the copies were made on the side stream: keep the
                     # allocator from reusing them while this stream reads them
-                    for t in _tensor_fields(batch).values():
+                    for t in _tensor_fields(batch):
                         t.record_stream(compute)
                 yield batch, names, stats
         finally:
@@ -869,8 +933,10 @@ class Trainer:
         Losses and predictions stay on the device during the batch loop, so
         the pass never waits for the device; the drain afterwards reads them
         all at once. Each pass appends its host timings to ``self.pass_stats``
-        (``seconds`` in all, ``loop_s`` before the drain, ``batches``, and
-        ``collate_s``: each batch's read, collate and pinning)."""
+        (``seconds`` in all, ``loop_s`` before the drain, ``batches``,
+        ``collate_s``: each batch's read, collate and pinning, and
+        ``batch_bytes``: the bytes of each batch's tensors, which the card
+        gets pinned and copied)."""
         sum_of_losses = 0.0
         count_predictions = 0
         total_edges = 0
@@ -898,7 +964,7 @@ class Trainer:
 
         dt = time() - t0
         self.pass_stats.append(
-            {"pass": pass_name, "epoch": epoch_number, "seconds": dt, "loop_s": loop_s, "batches": len(pending), "collate_s": [p[3]["collate_s"] for p in pending]}
+            {"pass": pass_name, "epoch": epoch_number, "seconds": dt, "loop_s": loop_s, "batches": len(pending), "collate_s": [p[3]["collate_s"] for p in pending], "batch_bytes": [p[3]["batch_bytes"] for p in pending]}
         )
         pass_loss = sum_of_losses / count_predictions if count_predictions > 0 else None
         if total_edges and dt > 0:

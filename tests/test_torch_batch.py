@@ -63,10 +63,13 @@ def test_bucket_size_matches_jax() -> None:
 
 def test_collate_rejects_what_is_not_ported_or_does_not_fit() -> None:
     entries = synthetic_entries(2, 40, 5, 2, seed=1)
-    with pytest.raises(NotImplementedError):
-        tbatch.collate_graphs_dense(entries, with_clusters=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tbatch.collate_graphs_dense(entries, with_edge_weights=True, device="cpu")
+    # clusters and edge weights are ported (tests/test_torch_dense_family.py
+    # holds the collate with both against JAX's); entries without cluster
+    # ids cannot give them
+    assert tbatch.collate_graphs_dense(entries, with_clusters=True, device="cpu")[0].cluster0.shape == (2, 64)
+    assert tbatch.collate_graphs_dense(entries, with_edge_weights=True, device="cpu")[0].adj_w.shape == (2, 64, 64)
+    with pytest.raises(KeyError, match="cluster0"):
+        tbatch.collate_graphs_dense([{k: v for k, v in e.items() if k != "cluster0"} for e in entries], with_clusters=True, device="cpu")
     with pytest.raises(ValueError, match="exceeds dense node capacity"):
         tbatch.collate_graphs_dense(entries, pad_nodes=32, device="cpu")
     with pytest.raises(ValueError, match="smaller than"):

@@ -1348,3 +1348,152 @@ def test_tower_bwd_kernel_in_both_forms_on_its_plan_matches_plain_version(cuda, 
                 assert torch.equal(a, w)  # the same values (a zero's sign aside)
             else:
                 _flip_close(a.float(), w.float(), scale, f"K9b {what}")
+
+
+# ---------------------------------------------------------------------------
+# The Trainer's block-sparse, clustered block-sparse and blocked-edge
+# branches, the batched dense family, their padded shapes, and GINetDense's
+# batched branch beyond K1's shared memory.
+
+
+def _chip_smoke():
+    """chip_smoke.py's in-memory Trainer (this machine may have no h5py)."""
+    import importlib
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+def _small_entries(kind):
+    if kind in ("bcsr", "blocked"):
+        entries = [geometric_entry(n, 38, 6, seed=i) for i, n in enumerate((900, 1500, 400))]
+    elif kind == "clustered_bcsr":
+        entries = [clustered_entry(n, 38, 1, seed=i) for i, n in enumerate((1500, 2500, 700))]
+    else:
+        entries = ppi_clustered_entries(12, 40, 38, seed=3)
+    for i, e in enumerate(entries):
+        e["entry_name"], e["y"] = f"e{i}", float(i % 2)
+    return entries
+
+
+# model -> (entries, {kernel[form]: launches a train step}, gradient atol)
+TRAINER_BRANCHES = {
+    GINetBlockSparse: ("bcsr", {"bcsr_spmm_kernel[int8/float32]": 4}, 1e-6),
+    GINetClusteredBlockSparse: ("clustered_bcsr", {"bcsr_spmm_kernel[int8/float32]": 4}, 1e-6),
+    SGATBlockSparse: ("clustered_bcsr", {"bcsr_spmm_kernel[bfloat16/float32]": 4}, 1e-5),
+    FoutNetBlockSparse: ("clustered_bcsr", {"bcsr_spmm_kernel[int8/float32]": 4}, 1e-5),
+    VanillaNetworkBlocked: ("blocked", {"blocked_fwd_kernel[float32]": 2, "blocked_bwd_kernel[float32]": 2}, 1e-6),
+}
+
+
+@pytest.mark.parametrize("model", [*TRAINER_BRANCHES, "GINetClusteredDense", "FoutNetDense", "SGATDense"], ids=lambda m: m if isinstance(m, str) else m.__name__)
+def test_trainer_branch_epoch_matches_cpu(cuda, model) -> None:
+    """One dropout-free epoch through ``Trainer.train`` (one graph a batch for
+    the atomic layouts, the grow-only buckets growing), card against CPU
+    from the same weights: every pass's loss at rtol 1e-4, atol 1e-5, the
+    last step's gradients at rtol 1e-4 and the bare step's atol, the
+    launches a step by form, and the same buckets. The optimizer is SGD:
+    Adam's steps move a parameter by about lr times the sign of its
+    gradient, so a gradient that rounding alone makes nonzero would move
+    the two sides apart by lr over the steps before the last."""
+    from deeprank2_tpu_torch.neuralnets.gnn import foutnet, ginet_dense, sgat
+    from deeprank2_tpu_torch.ops import optim
+
+    cs = _chip_smoke()
+    if isinstance(model, str):
+        model = {"GINetClusteredDense": ginet_dense.GINetClusteredDense, "FoutNetDense": foutnet.FoutNetDense, "SGATDense": sgat.SGATDense}[model]
+        kind, step_forms, grad_atol, batch_size = "dense", {}, 1e-5, 6
+    else:
+        (kind, step_forms, grad_atol), batch_size = TRAINER_BRANCHES[model], 1
+    entries = _small_entries(kind)
+    clustered = getattr(model, "needs_clusters", False)
+    no_dropout = type(model.__name__, (model,), {"dropout": 0.0})
+    recs = {side: cs.Recorder() for side in ("card", "cpu")}
+    trainers = {side: cs.in_memory_trainer(no_dropout, entries, clustered, output_exporters=[recs[side]], device=dev) for side, dev in (("card", cuda), ("cpu", "cpu"))}
+    trainers["cpu"].model.load_state_dict({k: v.cpu() for k, v in trainers["card"].model.state_dict().items()})
+    for t in trainers.values():
+        t.configure_optimizers(optim.SGD, lr=1e-3)
+    modules = (bs, ds, vn, sp)
+    for side, t in trainers.items():
+        for m in modules:
+            m.reset_launches()
+        t.train(nepoch=1, batch_size=batch_size, shuffle=False, filename=None)
+        if side == "card":
+            torch.cuda.synchronize()
+            forms = {f"{k}[{form}]": n for m in modules for k, by_form in getattr(m, "launches_by_dtype", {}).items() for form, n in by_form.items() if n}
+    steps = -(-len(entries) // batch_size)
+    # an eval forward: K5 twice (a step also runs the two VJPs), K6f twice (a step adds K6b twice)
+    eval_forms = {k: n // 2 if k.startswith("bcsr") else n if k.startswith("blocked_fwd") else 0 for k, n in step_forms.items()}
+    assert forms == {k: n * steps + eval_forms[k] * steps for k, n in step_forms.items()}
+    losses = {side: torch.tensor([p["loss"] for p in r.passes]) for side, r in recs.items()}
+    torch.testing.assert_close(losses["card"], losses["cpu"], rtol=1e-4, atol=1e-5)
+    for (name, p), q in zip(trainers["card"].model.named_parameters(), trainers["cpu"].model.parameters()):
+        assert (p.grad is None) == (q.grad is None), name
+        if q.grad is not None:
+            torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=grad_atol, msg=name)
+    assert getattr(trainers["card"], "_bs_caps", None) == getattr(trainers["cpu"], "_bs_caps", None)
+
+
+def test_kernels_match_plain_versions_at_bucketed_padded_shapes(cuda) -> None:
+    """K5 (int8 and bf16 blocks, both forms), K3/K4 and K6f/K6b at shapes
+    padded by capacity buckets: padding tiles, blocks, slabs and member
+    slots present."""
+    pads = {"pad_tiles": lambda r: r + 9, "pad_blocks": lambda r: r + 300}
+    b_batch, _ = collate_graphs_blocksparse(_small_entries("bcsr"), device=cuda, **pads)
+    cpads = {**pads, "pad_pooled_tiles": lambda r: r + 2, "pad_pooled_blocks": lambda r: r + 50, "pad_c1": lambda r: r + 5, "pad_members0s": lambda r: r + 2}
+    clustered = [collate_graphs_blocksparse_clustered(_small_entries("clustered_bcsr"), slot8=True, with_edge_weights=w, device=cuda, **cpads)[0] for w in (False, True)]
+    bl_batch, _ = collate_graphs_blocked(_small_entries("blocked"), pad_tiles=lambda r: r + 4, pad_slabs=lambda r: r + 7, device=cuda)
+    for cd in (None, BF16):
+        for st in (b_batch.structure, *(s for c in clustered for s in (c.structure, c.structure_p))):
+            assert st.num_blocks > st.tile_blocks.numel()
+            x = torch.randn(16, st.padded_nodes, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+            want = bs.bcsr_spmm_kernel_ref(st, x, cd)
+            atol = 1e-5 if st.blocks_t.dtype == torch.int8 else max(1e-5, 1e-6 * bs.bcsr_spmm_kernel_ref(st, x.abs(), cd).abs().max().item())
+            torch.testing.assert_close(bs.bcsr_spmm_kernel(st, x, cd), want, rtol=1e-5, atol=atol)
+            if st.blocks_t.dtype == torch.int8:
+                torch.testing.assert_close(bs.bcsr_spmm_kernel(st, x, cd), bs.bcsr_spmm_order_ref(st, x, cd), rtol=0, atol=0)
+    mask = clustered[0].node_mask.float().reshape(1, -1)
+    h = torch.rand(16, mask.shape[1], generator=torch.Generator(device=cuda).manual_seed(2), device=cuda) * mask
+    pooled = sp.slot_fwd_kernel(h, 8)
+    torch.testing.assert_close(pooled, sp.slot_fwd_kernel_ref(h, 8), rtol=0, atol=0)
+    g = torch.randn_like(pooled)
+    torch.testing.assert_close(sp.slot_bwd_kernel(h, mask, pooled, g, 8), sp.slot_bwd_kernel_ref(h, mask, pooled, g, 8), rtol=0, atol=0)
+    st = bl_batch.structure
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    xr, xc, g = (torch.randn(st.padded_nodes, 12, generator=gen, device=cuda) for _ in range(3))
+    w_e = torch.randn(st.edge_dim, 12, generator=gen, device=cuda)
+    torch.testing.assert_close(vn.blocked_fwd_kernel(st, xr, xc, w_e), vn.blocked_fwd_kernel_ref(st, xr, xc, w_e), **TOL)
+    for got, want in zip(vn.blocked_bwd_kernel(st, xr, xc, w_e, g)[:2], vn.blocked_bwd_kernel_ref(st, xr, xc, w_e, g)[:2]):
+        torch.testing.assert_close(got, want, **TOL)
+
+
+def test_ginet_dense_beyond_k1_max_nodes_takes_the_batched_branch(cuda) -> None:
+    """N one tile of 32 past K1's shared memory: no kernel launches, and one
+    step equals the CPU's batched branch at the dense step's tolerances."""
+    n = ds.max_nodes(torch.int8, cuda) + 32
+    batch, _ = collate_graphs_dense(synthetic_entries(2, n, 38, 6, seed=7), pad_nodes=n, device=cuda)
+    model = GINetDense(38, 2, 6, device=cuda, generator=torch.Generator().manual_seed(0))
+    cpu_model = GINetDense(38, 2, 6, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    # the CPU's flat route has no shared-memory bound: its batch holds the
+    # adjacency as adj, without the flat route's operands, as the collate
+    # with with_diag_operands=False gives it
+    full = batch.to("cpu")
+    cpu_batch = dataclasses.replace(full, adj=full.adj_i8.to(torch.bfloat16), adj_i8=torch.zeros((0, 0, 0), dtype=torch.int8), x_t=torch.zeros((0, 0)))
+    for m in (ds, gt):
+        m.reset_launches()
+    loss_fn = CrossEntropyLoss()
+    logits = model(batch)
+    loss_fn(logits, batch.y, batch.y_mask).backward()
+    torch.cuda.synchronize()
+    assert not any(ds.launches.values()) and not any(gt.launches.values())
+    cpu_logits = cpu_model(cpu_batch)
+    loss_fn(cpu_logits, cpu_batch.y, cpu_batch.y_mask).backward()
+    torch.testing.assert_close(logits.detach().cpu(), cpu_logits.detach(), rtol=1e-4, atol=1e-6)
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        if q.grad is not None:
+            torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)

@@ -5,7 +5,8 @@ sides, the JAX Trainer's initial parameters loaded into the port's model
 HDF5 file, seed, split and batch order (``shuffle=False``), two epochs with
 validation. Every pass's loss (the epoch-0 evaluations, each epoch's
 training and validation) agrees at rtol 1e-5, and the final parameters (the
-best model, which both Trainers restore after training) at atol 1e-5."""
+best model, which both Trainers restore after training) at atol 1e-5; the
+Trainers that bucket their capacities end with the same buckets."""
 
 from __future__ import annotations
 
@@ -17,13 +18,17 @@ import pytest
 
 from deeprank2_tpu import dataset as jax_dataset
 from deeprank2_tpu import trainer as jax_trainer
+from deeprank2_tpu.neuralnets.gnn import clustered_blocksparse as jax_clustered_blocksparse
+from deeprank2_tpu.neuralnets.gnn import foutnet as jax_foutnet
 from deeprank2_tpu.neuralnets.gnn import ginet as jax_ginet
+from deeprank2_tpu.neuralnets.gnn import ginet_blocksparse as jax_ginet_blocksparse
 from deeprank2_tpu.neuralnets.gnn import ginet_dense as jax_ginet_dense
 from deeprank2_tpu.neuralnets.gnn import ginet_nocluster as jax_ginet_nocluster
+from deeprank2_tpu.neuralnets.gnn import sgat as jax_sgat
 from deeprank2_tpu.neuralnets.gnn import vanilla_gnn as jax_vanilla
 from deeprank2_tpu_torch import dataset as port_dataset
 from deeprank2_tpu_torch import trainer as port_trainer
-from deeprank2_tpu_torch.neuralnets.gnn import ginet, ginet_dense, ginet_nocluster, vanilla_gnn
+from deeprank2_tpu_torch.neuralnets.gnn import clustered_blocksparse, foutnet, ginet, ginet_blocksparse, ginet_dense, ginet_nocluster, sgat, vanilla_gnn
 from deeprank2_tpu_torch.neuralnets.param_interop import params_from_jax
 
 LOSS_TOL = {"rtol": 1e-5, "atol": 0.0}
@@ -41,6 +46,16 @@ MODELS = {
     "GINet-mcl": (jax_ginet.GINet, ginet.GINet, "binary", "mcl", None),
     "VanillaNetwork-regression": (jax_vanilla.VanillaNetwork, vanilla_gnn.VanillaNetwork, "irmsd", None, "vanilla"),
     "GINetClusteredDiag-mcl": (jax_ginet_dense.GINetClusteredDiag, ginet_dense.GINetClusteredDiag, "binary", "mcl", None),
+    # the block-sparse, clustered block-sparse and blocked-edge branches, with
+    # their grow-only capacity buckets, and the batched dense family
+    "GINetBlockSparse": (jax_ginet_blocksparse.GINetBlockSparse, ginet_blocksparse.GINetBlockSparse, "binary", None, None),
+    "GINetClusteredBlockSparse-mcl": (jax_clustered_blocksparse.GINetClusteredBlockSparse, clustered_blocksparse.GINetClusteredBlockSparse, "binary", "mcl", None),
+    "SGATBlockSparse-mcl": (jax_clustered_blocksparse.SGATBlockSparse, clustered_blocksparse.SGATBlockSparse, "binary", "mcl", "sgat"),
+    "FoutNetBlockSparse-mcl": (jax_clustered_blocksparse.FoutNetBlockSparse, clustered_blocksparse.FoutNetBlockSparse, "binary", "mcl", "foutnet"),
+    "VanillaNetworkBlocked": (jax_vanilla.VanillaNetworkBlocked, vanilla_gnn.VanillaNetworkBlocked, "binary", None, "vanilla"),
+    "GINetClusteredDense-mcl": (jax_ginet_dense.GINetClusteredDense, ginet_dense.GINetClusteredDense, "binary", "mcl", None),
+    "FoutNetDense-mcl": (jax_foutnet.FoutNetDense, foutnet.FoutNetDense, "binary", "mcl", "foutnet"),
+    "SGATDense-mcl": (jax_sgat.SGATDense, sgat.SGATDense, "binary", "mcl", "sgat"),
 }
 
 
@@ -109,4 +124,6 @@ def test_trainer_matches_jax_in_the_synced_probe(hdf5_copy, model) -> None:
     assert got.keys() == want.keys()
     for key in want:
         np.testing.assert_allclose(got[key].numpy(), want[key].numpy(), **PARAM_TOL, err_msg=f"{model} {key}")
+    # the grow-only capacity buckets: the same keys and capacities
+    assert getattr(pt, "_bs_caps", None) == getattr(jt, "_bs_caps", None)
 
