@@ -333,8 +333,45 @@ Phases, each printing one JSON line:
    branch: one step against the CPU's batched branch (its batch without
    the flat route's operands) at the dense step's tolerances, with every
    kernel counter at 0.
+50. cnn: CnnClassification(33, (35, 30, 30)) on one batch of 128 grids
+   of the reference grid protocol (ops/synthetic.py:grid_arrays, seed 7),
+   resident on the card, with cuDNN's TF32 switch at PyTorch's default
+   (on; this script turns it off elsewhere): one step against the CPU
+   (logits and loss at CROSS_TOL; every gradient of the card against the
+   network in float64 at tools/f64_gate.py's per-entry gate, relu and
+   max-pool winner flips held to their band; the CPU's row reported beside
+   it), then CNN["steps"] steps (CNN["warm"] warm) with Adam lr 1e-3 wd 1e-5
+   and CrossEntropy, 3 of them profiled (the largest device items), each
+   conv's forward, data-gradient and weight-gradient calls timed apart
+   (cnn_conv_calls: events, device time, the kernels' names), the step
+   beside its bound (cnn_bound: the HBM floor of tests/perf/cnn_perf.py
+   against the f32 operations), 0 host syncs; every kernel counter 0;
+51. cnn_regression: CnnRegression on the same batch, one step against the
+   CPU as in phase 50, with MSE;
+52. cnn_ties: both CNNs on CNN_TIES["grids"] grids whose outer
+   CNN_TIES["shell"] voxels are 0 (mapped features vanish far from atoms),
+   conv biases made positive: whole pooling windows tie (counted in
+   float64), and the step against the CPU and float64 as in phase 50 holds
+   the gradients that depend on which element wins;
+53. trainer_cnn: CnnClassification through Trainer.train on an in-memory
+   GridDataset (in_memory_grid_dataset) of TRAINER_CNN["entries"] such
+   grids in batches of 128, as phase 42 (trainer_phase): one dropout-free
+   epoch of one batch card against CPU (its one step's gradients against
+   float64 at the per-entry gate), TRAINER_CNN["epochs"] shuffled epochs
+   with every counter 0 and 0 host syncs a train pass, epoch 1 profiled,
+   the train pass beside phase 50's bare step, the collate seconds and
+   batch megabytes, and the checkpoint reloaded on the card;
+54. alignment_gnn: AlignmentGNN (widths ALIGNMENT: hidden 64, message 32,
+   MLP 64, edge projection 16, output 2, 3 layers; no published
+   configuration) on the bench entries as one graph (81,920 nodes, the
+   pairs both ways: 637,016 edges), forward and backward for seeded
+   cotangents: outputs and attention card against CPU and float64 at
+   CROSS_TOL, the card's every gradient against float64 at the per-entry
+   gate with tools/f64_gate.py:alignment_sums' sums of |terms|, every
+   counter 0, and the pass timed.
 
-Then the ``kernels`` line (every kernel with forms also by form),
+Phases 50-54 launch no kernel of K1-K9 and add nothing to the ``kernels``
+line. Then the ``kernels`` line (every kernel with forms also by form),
 the card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without CUDA, or without the package beside this file, it exits non-zero
 before printing any result.
@@ -373,6 +410,16 @@ TRAINER = {"entries": 1024, "batch_size": 512, "epochs": 3, "check_entries": 512
 TRAINER_ATOMIC = {"sizes": ((60_000, 1), (80_000, 2), (100_000, 0), (100_000, 3)), "check_sizes": ((20_000, 5), (20_000, 6)), "epochs": 2}
 DENSE_FAMILY = {"entries": 512, "batch_size": 256, "epochs": 2}
 DENSE_BATCHED = {"graphs": 32}  # GINetDense graphs of N = K1's max_nodes + 32
+# the grid path: the reference grid protocol (tests/perf/cnn_perf.py:37-86:
+# 33 features, a 35x30x30 box, batches of 128; grid_arrays' recipe), 16
+# timed steps after 4 warm; the tied-window check on fewer zero-shell grids;
+# the Trainer's grid branch on 256 grids (two batches an epoch)
+CNN = {"batch": 128, "features": 33, "box": (35, 30, 30), "seed": 7, "steps": 20, "warm": 4}
+CNN_TIES = {"grids": 32, "shell": 6}
+TRAINER_CNN = {"entries": 256, "batch_size": 128, "epochs": 3}
+# AlignmentGNN on the bench entries' graph: widths chosen for the check (no
+# published configuration exists); timed forward/backward passes
+ALIGNMENT = {"hidden": 64, "message": 32, "mlp": 64, "edge_projection": 16, "output": 2, "layers": 3, "seed": 7, "timed": 5}
 CKPT_TOL = {"rtol": 1e-6, "atol": 1e-7}
 TOL = {"rtol": 1e-5, "atol": 1e-5}
 EXACT = {"rtol": 0.0, "atol": 0.0}
@@ -2576,8 +2623,35 @@ def in_memory_dataset(entries, train_source=None, clustering_method=None):
     return InMemoryGraphDataset()
 
 
-def in_memory_trainer(model_cls, entries, clustered, **kwargs):
-    """A Trainer of ``model_cls`` on ``entries`` held in memory.
+def in_memory_grid_dataset(entries, train_source=None, clustering_method=None):  # noqa: ARG001 — grids have no clusters
+    """A ``GridDataset`` over grid entries (``x [C, W, H, D]``) held in memory,
+    as :func:`in_memory_dataset` for graphs: binary classification, one
+    feature name a channel, ``load_one_grid`` returning the entry itself."""
+    from deeprank2_tpu_torch.dataset import GridDataset
+
+    class InMemoryGridDataset(GridDataset):
+        def __init__(self):  # noqa: PLW0231 — the file checks of the parent are what this replaces
+            self.hdf5_paths, self.subset, self.train_source = ["in-memory"], None, train_source
+            self.target, self.target_transform, self.target_filter = "binary", False, None
+            self.root, self.use_tqdm = "./", False
+            self._check_task_and_classes("classif", None)
+            self._entries = {e["entry_name"]: e for e in entries}
+            self.index_entries = [("in-memory", e["entry_name"]) for e in entries]
+            self.df = self.means = self.devs = self.train_means = self.train_devs = None
+            self._cache, self._cache_capacity = {}, 16384
+            self.features = [f"mapped_{i:03d}" for i in range(entries[0]["x"].shape[0])]
+            self.inherited_params = None
+
+        def load_one_grid(self, fname, entry_name):  # noqa: ARG002
+            return self._entries[entry_name]
+
+    return InMemoryGridDataset()
+
+
+def in_memory_trainer(model_cls, entries, clustered, dataset=in_memory_dataset, **kwargs):
+    """A Trainer of ``model_cls`` on ``entries`` held in memory (``dataset``
+    makes the dataset: :func:`in_memory_dataset` or
+    :func:`in_memory_grid_dataset`).
 
     A clustered model's Trainer preclusters its datasets (``_precluster``:
     community detection on each entry, its ids written into the entry's
@@ -2597,8 +2671,8 @@ def in_memory_trainer(model_cls, entries, clustered, **kwargs):
                 raise AssertionError(msg)
 
     method = "mcl" if clustered else None
-    train = in_memory_dataset(entries, clustering_method=method)
-    val = in_memory_dataset(entries[:1], train_source=train, clustering_method=method) if clustered else None
+    train = dataset(entries, clustering_method=method)
+    val = dataset(entries[:1], train_source=train, clustering_method=method) if clustered else None
     return PreclusteredTrainer(model_cls, dataset_train=train, dataset_val=val, seed=0, **kwargs)
 
 
@@ -2617,12 +2691,16 @@ def expected_buckets(requirements) -> dict:
 
 
 def trainer_phase(torch, counters, spec: dict) -> dict:
-    """One model through ``Trainer.train`` on the card, in three parts:
+    """One model through ``Trainer.train`` on the card, on datasets held in
+    memory (``spec["dataset"]``, :func:`in_memory_dataset` by default), in
+    three parts:
 
     1. a dropout-free Trainer on the card and one on the CPU from the same
        weights, one epoch of ``spec["check"]`` in batches of
        ``spec["check_batch_size"]`` each: the epoch-0 logits and the passes'
-       losses at CROSS_TOL, the last step's gradients at ``spec["grad_tol"]``,
+       losses at CROSS_TOL, the last step's gradients at ``spec["grad_tol"]``
+       (or, where the epoch is one step, by ``spec["grad_gate"](initial
+       state, card Trainer, gradients by side)``, against float64),
        the card Trainer's launches by form, a step, as ``spec["step_forms"]``
        (every kernel's ``spec["step"]``, ``spec["eval"]`` an epoch-0 eval
        batch);
@@ -2646,6 +2724,7 @@ def trainer_phase(torch, counters, spec: dict) -> dict:
     from deeprank2_tpu_torch.utils.exporters import OutputExporterCollection
 
     model_cls, clustered, name = spec["model"], spec["clustered"], spec["name"]
+    dataset = spec.get("dataset", in_memory_dataset)
     step_counts, eval_counts = spec["step"], spec["eval"]
     tmp = tempfile.TemporaryDirectory()
     ckpt = str(Path(tmp.name) / "model.pth.tar")
@@ -2669,7 +2748,7 @@ def trainer_phase(torch, counters, spec: dict) -> dict:
     logits, recs, trainers = {}, {}, {}
     for side, device in (("card", None), ("cpu", "cpu")):
         recs[side], logits[side] = Recorder(), []
-        t = in_memory_trainer(no_dropout, spec["check"], clustered, output_exporters=[recs[side]], device=device)
+        t = in_memory_trainer(no_dropout, spec["check"], clustered, dataset, output_exporters=[recs[side]], device=device)
         build = t._build_step_functions
 
         def build_and_record(t=t, build=build, store=logits[side]):
@@ -2687,6 +2766,7 @@ def trainer_phase(torch, counters, spec: dict) -> dict:
         trainers[side] = t
     trainers["cpu"].model.load_state_dict({k: v.cpu() for k, v in trainers["card"].model.state_dict().items()})
     trainers["cpu"].configure_optimizers()
+    initial = {k: v.detach().clone() for k, v in trainers["card"].model.state_dict().items()}
     cbs = spec["check_batch_size"]
     for side, t in trainers.items():
         sync(torch, torch.device("cuda"))
@@ -2705,12 +2785,19 @@ def trainer_phase(torch, counters, spec: dict) -> dict:
     if grads["card"].keys() != grads["cpu"].keys():
         msg = f"{name}: the Trainers' gradients differ in which parameters have one: {sorted(grads['card'])} vs {sorted(grads['cpu'])}"
         raise AssertionError(msg)
-    for k in grads["card"]:
-        close(f"last step grad {k}", grads["card"][k], grads["cpu"][k], spec["grad_tol"])
+    if "grad_gate" in spec:
+        # the gradients of the epoch's one step, against float64 at the initial weights
+        if n_check != 1:
+            msg = f"{name}: grad_gate holds the gradients of one step; the check epoch has {n_check}"
+            raise AssertionError(msg)
+        out["grad_gate"] = spec["grad_gate"](initial, trainers["card"], grads)
+    else:
+        for k in grads["card"]:
+            close(f"last step grad {k}", grads["card"][k], grads["cpu"][k], spec["grad_tol"])
     out["card_vs_cpu"] = {
         "entries": len(spec["check"]),
         "batch_size": cbs,
-        "tolerance": {"logits_and_losses": CROSS_TOL, "grads": spec["grad_tol"]},
+        "tolerance": {"logits_and_losses": CROSS_TOL, "grads": spec.get("grad_tol", "float64, tools/f64_gate.py's per-entry gate")},
         "pass_losses": losses,
         "launches": check_launches,
         "launches_by_form": check_forms,
@@ -2721,7 +2808,7 @@ def trainer_phase(torch, counters, spec: dict) -> dict:
     # 2. the timed run: launches and host syncs of each train pass
     if spec["epochs"]:
         rec = Recorder()
-        t = in_memory_trainer(model_cls, spec["entries"], clustered, output_exporters=[rec])
+        t = in_memory_trainer(model_cls, spec["entries"], clustered, dataset, output_exporters=[rec])
         epoch, iter_batches = t._epoch, t._iter_batches
         train_passes, in_train = [], [False]
 
@@ -2821,7 +2908,7 @@ def trainer_phase(torch, counters, spec: dict) -> dict:
     # trained one's buckets: other padding gives the weight products other
     # shapes), and the per-graph pools' scatters (index_add_) sum in a fixed
     # order, so the outputs can differ only where the checkpoint does
-    test_set = in_memory_dataset(spec["check"], train_source=ckpt)
+    test_set = dataset(spec["check"], train_source=ckpt)
     trained, reloaded = Recorder(), Recorder()
     t._output_exporters = OutputExporterCollection(trained)
     t2 = Trainer(model_cls, dataset_test=test_set, pretrained_model=ckpt, output_exporters=[reloaded])
@@ -3129,6 +3216,360 @@ def ginet_dense_batched_phase(torch, counters, dev) -> dict:
         "launches": launches,
         **step,
         "logits_vs_cpu_flat_route": (card - flat_cpu).abs().max().item(),
+    }
+
+
+@contextlib.contextmanager
+def tf32_default(torch):
+    """cuDNN's TF32 switch at PyTorch's default (on) inside the block, turned
+    off again after (this script turns it off for the kernels' checks): the
+    CNNs must sum their convolutions in float32 whatever it says."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def grid_batch(torch, n, seed, dev, shell=0):
+    """``n`` grids of the reference grid protocol (CNN: 33 features, a
+    35x30x30 box; ``grid_arrays``' recipe), the outer ``shell`` voxels
+    zeroed where given, collated on ``dev``."""
+    from deeprank2_tpu_torch.ops.batch import collate_grids
+    from deeprank2_tpu_torch.ops.synthetic import grid_arrays, grid_entries, zero_shell
+
+    x, y = grid_arrays(n, CNN["features"], CNN["box"], seed=seed)
+    if shell:
+        x = zero_shell(x, shell)
+    return collate_grids(grid_entries(x, y), device=dev)[0]
+
+
+def cnn_loss(model_cls):
+    """The CNN's loss of its outputs: CrossEntropy on the classifier's
+    logits, MSE on the regressor's single output."""
+    from deeprank2_tpu_torch.ops.losses import CrossEntropyLoss, MSELoss
+
+    if model_cls.__name__ == "CnnClassification":
+        ce = CrossEntropyLoss()
+        return lambda out, b: ce(out, b.y, b.y_mask)
+    mse = MSELoss()
+    return lambda out, b: mse(out.reshape(-1), b.y, b.y_mask)
+
+
+def gate_row(row: dict) -> dict:
+    """A float64 gate row for the JSON line (without its tensors)."""
+    return {k: v for k, v in row.items() if k != "f64"}
+
+
+def cnn_card_vs_cpu(torch, fg, counters, model_cls, batch, dev, positive_bias=False) -> tuple:
+    """One step of ``model_cls`` (weights from a seeded generator; with
+    ``positive_bias`` the conv biases made positive, so that a zero shell's
+    windows tie at a positive value) on the card and on the CPU from the
+    same weights and batch, with cuDNN's TF32 switch at its default: logits
+    and loss card against CPU at CROSS_TOL; every gradient, the card's and
+    the CPU's, against the network in float64 at the per-entry gate
+    (``tools/f64_gate.py:hold_cnn``, its float64 on the card), relu and
+    max-pool winner flips held to their band; the CPU's gradients against
+    float64 reported beside them (its own f32 route, not the one under
+    test); no kernel of K1-K9. Returns the card's model and the summary."""
+    f, box = CNN["features"], CNN["box"]
+    model = model_cls(f, box, device=dev, generator=torch.Generator().manual_seed(0))
+    if positive_bias:
+        with torch.no_grad():
+            for conv in (model.convlayer_000, model.convlayer_002):
+                conv.bias.copy_(conv.bias.abs() + 0.05)
+    cpu = model_cls(f, box, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loss_of = cnn_loss(model_cls)
+    sides = {}
+    with tf32_default(torch):
+        sync(torch, dev)
+        counters.reset()
+        for side, m, b in (("card", model, batch), ("cpu", cpu, batch.to("cpu"))):
+            t0 = time.perf_counter()
+            out = m(b)
+            loss = loss_of(out, b)
+            loss.backward()
+            sync(torch, dev)
+            sides[side] = {"logits": out.detach().cpu(), "loss": loss.detach().cpu(), "grads": {k: p.grad for k, p in m.named_parameters()}, "s": time.perf_counter() - t0}
+            sides[side]["decisions"] = fg.cnn_decisions(m, b.x)
+        sync(torch, dev)
+        launches = counters.read()
+        if launches != want_launches():
+            msg = f"{model_cls.__name__} launched {launches}; it runs no kernel of K1-K9"
+            raise AssertionError(msg)
+        errs = {}
+        for what in ("logits", "loss"):
+            got, want = sides["card"][what], sides["cpu"][what]
+            torch.testing.assert_close(got, want, **CROSS_TOL, msg=lambda m, what=what: f"{model_cls.__name__} card vs CPU {what}: {m}")
+            errs[what] = (got - want).abs().max().item()
+        for k, g in sides["card"]["grads"].items():
+            errs[f"grad {k}"] = (g.cpu() - sides["cpu"]["grads"][k]).abs().max().item()
+        rows = {}
+        t0 = time.perf_counter()
+        for side in ("card", "cpu"):
+            row = fg.hold_cnn(side, sides[side]["grads"], model.state_dict(), batch.x, lambda lg: loss_of(lg, batch), sides[side]["decisions"], raise_on_fail=side == "card")
+            for what in ("logits", "loss"):
+                torch.testing.assert_close(sides[side][what].double(), row["f64"][what].cpu(), **CROSS_TOL, msg=lambda m, side=side, what=what: f"{side} {what} vs float64: {m}")
+            rows[side] = gate_row(row)
+        oracle_s = time.perf_counter() - t0
+    model.zero_grad(set_to_none=True)
+    return model, {
+        "model": f"{model_cls.__name__}({f}, {box})",
+        "tf32_cudnn_during_check": True,
+        "tolerance": {"logits_and_loss_card_vs_cpu": CROSS_TOL, "grads": f"against float64, atol max({fg.ATOL}, {fg.C} 2^-24 S), rtol {fg.RTOL}"},
+        "loss": sides["card"]["loss"].item(),
+        "max_abs_err_card_vs_cpu": errs,
+        "f64_gate": rows,
+        "launches": launches,
+        "step_s": {"card": sides["card"]["s"], "cpu": sides["cpu"]["s"], "float64_oracles": oracle_s},
+    }
+
+
+def cnn_bound(batch_size, peak) -> dict:
+    """The CNN train step's least time on the card: its HBM floor (x read by
+    conv1's forward and weight gradient; h1, its pool and h2 written, read
+    by the next layer and once more by the backward: 2x + 3(h1 + h1p + h2),
+    tests/perf/cnn_perf.py:cnn_hbm_floor_bytes) against its f32 operations
+    (conv1 forward and weight gradient; conv2 forward, data and weight
+    gradients; the FC layers' three products each)."""
+    f, (w, h, d) = CNN["features"], CNN["box"]
+    c1 = (w - 1, h - 1, d - 1)
+    p1 = tuple(c // 2 for c in c1)
+    c2 = tuple(c - 1 for c in p1)
+    p2 = tuple(c // 2 for c in c2)
+    vol = math.prod
+    x_b, h1_b, h1p_b, h2_b = (batch_size * ch * vol(shape) * 4 for ch, shape in ((f, (w, h, d)), (4, c1), (4, p1), (5, c2)))
+    flat = 5 * vol(p2)
+    flop = 2 * 2 * batch_size * 4 * vol(c1) * f * 8 + 3 * 2 * batch_size * 5 * vol(c2) * 4 * 8 + 3 * 2 * batch_size * (flat * 84 + 84 * 2)
+    return {**bound(2 * x_b + 3 * (h1_b + h1p_b + h2_b), 0, flop, peak), "flop": flop, "tensor_mb": {"x": x_b / 1e6, "h1": h1_b / 1e6, "h1p": h1p_b / 1e6, "h2": h2_b / 1e6}}
+
+
+def cnn_conv_calls(torch, model, batch) -> list:
+    """Each convolution of the CNN's train step apart, at the step's shapes:
+    its forward, its weight gradient (with the bias's, one call as autograd
+    makes it) and, for conv2 only, its data gradient (conv1's input, the
+    grids, wants none), without TF32 as the model runs them: CUDA-event ms
+    with the L2 flushed, the profiler's device ms and the kernels' names."""
+    from deeprank2_tpu_torch.neuralnets.nn import ieee_fp32
+    from deeprank2_tpu_torch.tools.timing import Timer
+
+    f, timer = torch.nn.functional, Timer()
+    backward = torch.ops.aten.convolution_backward
+    with torch.no_grad(), ieee_fp32():
+        h1p = f.max_pool3d(torch.relu(f.conv3d(batch.x, model.convlayer_000.weight, model.convlayer_000.bias)), 2, 2)
+        rows = []
+        for name, x, data_gradient in (("convlayer_000", batch.x, False), ("convlayer_002", h1p, True)):
+            layer = getattr(model, name)
+            w, b = layer.weight, layer.bias
+            g = torch.randn_like(f.conv3d(x, w, b))
+            calls = {
+                "forward": lambda x=x, w=w, b=b: f.conv3d(x, w, b),
+                "weight_gradient": lambda x=x, w=w, g=g: backward(g, x, w, [w.shape[0]], [1] * 3, [0] * 3, [1] * 3, False, [0] * 3, 1, [False, True, True]),
+            }
+            if data_gradient:
+                calls["data_gradient"] = lambda x=x, w=w, g=g: backward(g, x, w, None, [1] * 3, [0] * 3, [1] * 3, False, [0] * 3, 1, [True, False, False])
+            for what, fn in calls.items():
+                device_ms = timer.launch_ms(fn, {"call": ""})["call"]
+                names = sorted({k for k, _ in timer.kernels(fn, reps=1)} - timer.flush_keys)
+                rows.append({"conv": name, "call": what, "ms": timer.ms(fn), "device_ms": device_ms, "kernels": [k[:90] for k in names]})
+    return rows
+
+
+def grid_phases(torch, counters, card, peak, dev) -> None:
+    """Phases 50-53: the grid path (see the module docstring)."""
+    from deeprank2_tpu_torch.neuralnets.cnn.model3d import CnnClassification, CnnRegression
+    from deeprank2_tpu_torch.ops.optim import Adam
+    from deeprank2_tpu_torch.ops.synthetic import grid_arrays, grid_entries
+    from deeprank2_tpu_torch.tools import f64_gate as fg
+
+    # 50. cnn: the step against the CPU, then the timed and profiled steps
+    t_phase = time.perf_counter()
+    batch = grid_batch(torch, CNN["batch"], CNN["seed"], dev)
+    model, step = cnn_card_vs_cpu(torch, fg, counters, CnnClassification, batch, dev)
+    loss_of = cnn_loss(CnnClassification)
+    with tf32_default(torch):
+        opt = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
+        run = run_main_path(torch, counters, model, batch, lambda out, y, m: loss_of(out, batch), opt, dev, want_launches(), CNN["steps"], warm=CNN["warm"])
+        train_step = run.pop("train_step")
+        prof = profile_steps(torch, train_step, run["step_s"])
+    if prof["host_syncs_per_step"]:
+        msg = f"cnn: {prof['host_syncs_per_step']} host syncs a step: {prof['host_sync_sites']}"
+        raise AssertionError(msg)
+    floor = cnn_bound(CNN["batch"], peak)
+    emit(
+        {
+            "phase": "cnn",
+            "card": card,
+            "batch": {"grids": CNN["batch"], "features": CNN["features"], "box": list(CNN["box"]), "seed": CNN["seed"], "x_mb": batch.x.numel() * 4 / 1e6},
+            "card_vs_cpu": step,
+            **run,
+            "step_ms": run["step_s"] * 1e3,
+            "grids_per_s": CNN["batch"] / run["step_s"],
+            "bound": floor,
+            "step_over_bound": run["step_s"] * 1e3 / floor["bound_ms"],
+            "profile": prof,
+            "conv_calls": cnn_conv_calls(torch, model, batch),
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+    bare_step_s = run["step_s"]
+    del model, opt, train_step
+
+    # 51. cnn_regression: one step against the CPU, with MSE
+    t_phase = time.perf_counter()
+    _, step = cnn_card_vs_cpu(torch, fg, counters, CnnRegression, batch, dev)
+    emit({"phase": "cnn_regression", "card": card, "batch": {"grids": CNN["batch"], "features": CNN["features"], "box": list(CNN["box"])}, **step, "seconds": time.perf_counter() - t_phase})
+    del batch
+
+    # 52. cnn_ties: both CNNs on zero-shell grids, whose pooling windows tie
+    t_phase = time.perf_counter()
+    shell = grid_batch(torch, CNN_TIES["grids"], CNN["seed"], dev, shell=CNN_TIES["shell"])
+    rows = {}
+    for cls in (CnnClassification, CnnRegression):
+        model, step = cnn_card_vs_cpu(torch, fg, counters, cls, shell, dev, positive_bias=True)
+        with torch.no_grad():
+            h1 = torch.relu(torch.nn.functional.conv3d(shell.x.double(), model.convlayer_000.weight.double(), model.convlayer_000.bias.double()))
+        n, c, *dims = h1.shape
+        cut = h1[:, :, : dims[0] // 2 * 2, : dims[1] // 2 * 2, : dims[2] // 2 * 2]
+        windows = cut.reshape(n, c, dims[0] // 2, 2, dims[1] // 2, 2, dims[2] // 2, 2).permute(0, 1, 2, 4, 6, 3, 5, 7).reshape(-1, 8)
+        tied = int(((windows == windows.max(dim=1, keepdim=True).values).sum(dim=1) > 1).sum())
+        if tied == 0:
+            msg = f"cnn_ties: no tied pooling window in {cls.__name__}'s first pool"
+            raise AssertionError(msg)
+        rows[cls.__name__] = {**step, "pool1_windows": windows.shape[0], "pool1_tied_windows_float64": tied}
+        del model, h1, cut, windows
+    emit({"phase": "cnn_ties", "card": card, "grids": CNN_TIES["grids"], "zero_shell_voxels": CNN_TIES["shell"], **rows, "seconds": time.perf_counter() - t_phase})
+    del shell
+
+    # 53. trainer_cnn: CnnClassification through Trainer.train on an
+    # in-memory GridDataset
+    t_phase = time.perf_counter()
+    x, y = grid_arrays(TRAINER_CNN["entries"], CNN["features"], CNN["box"], seed=CNN["seed"])
+    entries = grid_entries(x, y)
+
+    def grad_gate(initial, trainer, grads):
+        # the check epoch's one step: its batch (classes mapped as the
+        # Trainer maps them) and the weights it started from
+        cpu_batch, _ = trainer._collate(entries[: TRAINER_CNN["batch_size"]], pad_graphs=TRAINER_CNN["batch_size"])
+        b = cpu_batch.to(dev)
+        loss_of = cnn_loss(CnnClassification)
+        rows = {}
+        for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            m = CnnClassification(CNN["features"], CNN["box"], device=device)
+            m.load_state_dict(initial)
+            decisions = fg.cnn_decisions(m, b.x.to(device))
+            rows[side] = gate_row(fg.hold_cnn(side, grads[side], initial, b.x, lambda lg: loss_of(lg, b), decisions, raise_on_fail=side == "card"))
+        return rows
+
+    with tf32_default(torch):
+        run = trainer_phase(
+            torch,
+            counters,
+            {
+                "name": "trainer_cnn",
+                "model": CnnClassification,
+                "dataset": in_memory_grid_dataset,
+                "clustered": False,
+                "entries": entries,
+                "check": entries[: TRAINER_CNN["batch_size"]],
+                "batch_size": TRAINER_CNN["batch_size"],
+                "check_batch_size": TRAINER_CNN["batch_size"],
+                "epochs": TRAINER_CNN["epochs"],
+                "step": {},
+                "eval": {},
+                "step_forms": {},
+                "eval_forms": {},
+                "grad_gate": grad_gate,
+                "bare_step_s": bare_step_s,
+            },
+        )
+    emit({"phase": "trainer_cnn", "card": card, "model": f"CnnClassification({CNN['features']}, {CNN['box']}) through Trainer.train", **run["summary"], "seconds": time.perf_counter() - t_phase})
+
+
+def alignment_phase(torch, counters, card, dev) -> dict:
+    """Phase 54: AlignmentGNN's forward and backward on the graph of the
+    bench entries (see the module docstring)."""
+    import numpy as np
+
+    from deeprank2_tpu_torch.neuralnets.gnn.alignmentnet import AlignmentGNN
+    from deeprank2_tpu_torch.ops.synthetic import synthetic_entries
+    from deeprank2_tpu_torch.tools import f64_gate as fg
+
+    t_phase = time.perf_counter()
+    a = ALIGNMENT
+    entries = synthetic_entries(BENCH["num_graphs"], BENCH["nodes"], BENCH["feat"], BENCH["edge_dim"], seed=BENCH["seed"])
+    offsets = np.cumsum([0] + [e["x"].shape[0] for e in entries[:-1]])
+    # the undirected pairs in both directions (the bench's directed edges):
+    # each node sums the messages of its every neighbour
+    und = np.concatenate([e["edge_index"] + o for e, o in zip(entries, offsets)])
+    edges = torch.from_numpy(np.concatenate([und, und[:, ::-1]]).T.copy())
+    edge_attr = torch.from_numpy(np.tile(np.concatenate([e["edge_attr"] for e in entries]), (2, 1)))
+    node_attr = torch.from_numpy(np.concatenate([e["x"] for e in entries]))
+    v = node_attr.shape[0]
+    rng = np.random.default_rng(a["seed"])
+    g_out = torch.from_numpy(rng.normal(size=(v, a["output"])).astype(np.float32))
+    g_att = torch.from_numpy(rng.normal(size=(v, 1)).astype(np.float32))
+    widths = (BENCH["edge_dim"], BENCH["feat"], a["output"], a["hidden"], a["message"], a["mlp"], a["layers"], a["edge_projection"])
+    model = AlignmentGNN(*widths, device=dev, generator=torch.Generator().manual_seed(0))
+
+    def make(device, dtype):
+        m = AlignmentGNN(*widths, device=device).to(dtype)
+        m.load_state_dict({k: t.to(device, dtype) for k, t in model.state_dict().items()})
+        return m
+
+    def pass_on(m, device, dtype):
+        args = (edges.to(device), edge_attr.to(device, dtype), node_attr.to(device, dtype))
+        m.zero_grad(set_to_none=True)
+        out, att = m(*args)
+        ((out * g_out.to(device, dtype)).sum() + (att * g_att.to(device, dtype)).sum()).backward()
+        return out.detach(), att.detach(), {k: p.grad.detach() for k, p in m.named_parameters()}
+
+    sync(torch, dev)
+    counters.reset()
+    card_out, card_att, card_grads = pass_on(model, dev, torch.float32)
+    sync(torch, dev)
+    launches = counters.read()
+    if launches != want_launches():
+        msg = f"AlignmentGNN launched {launches}; it runs no kernel of K1-K9"
+        raise AssertionError(msg)
+    t0 = time.perf_counter()
+    cpu_out, cpu_att, cpu_grads = pass_on(make("cpu", torch.float32), "cpu", torch.float32)
+    cpu_s = time.perf_counter() - t0
+    f64 = make(dev, torch.float64)
+    result = dict(zip(("out", "att", "grads"), pass_on(f64, dev, torch.float64)))
+    scales = fg.alignment_sums(f64, edges.to(dev), edge_attr.to(dev), node_attr.to(dev), g_out.to(dev), g_att.to(dev))
+    errs = {}
+    for what, got, cpu_val, want in (("outputs", card_out, cpu_out, result["out"]), ("attention", card_att, cpu_att, result["att"])):
+        torch.testing.assert_close(got.cpu(), cpu_val, **CROSS_TOL, msg=lambda m, what=what: f"AlignmentGNN card vs CPU {what}: {m}")
+        torch.testing.assert_close(got.double(), want, **CROSS_TOL, msg=lambda m, what=what: f"AlignmentGNN card vs float64 {what}: {m}")
+        errs[what] = (got.cpu() - cpu_val).abs().max().item()
+    for k in card_grads:
+        errs[f"grad {k}"] = (card_grads[k].cpu() - cpu_grads[k]).abs().max().item()
+    rows = {side: fg.hold(side, {k: g.to(dev) for k, g in grads.items()}, result["grads"], scales) for side, grads in (("card", card_grads), ("cpu", cpu_grads))}
+    if not rows["card"]["passed"]:  # the CPU's row is reported beside it
+        msg = f"AlignmentGNN card gradients against float64: {rows['card']}"
+        raise AssertionError(msg)
+    # the card's forward and backward, timed
+    times = []
+    for _ in range(a["timed"] + 2):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        pass_on(model, dev, torch.float32)
+        sync(torch, dev)
+        times.append(time.perf_counter() - t0)
+    return {
+        "phase": "alignment_gnn",
+        "card": card,
+        "model": "AlignmentGNN(nmb_edge_attr=6, nmb_node_attr=38, nmb_output_features=2, nmb_hidden_attr=64, message_vector_length=32, nmb_mlp_neurons=64, nmb_gnn_layers=3, nmb_edge_projection=16)",
+        "graph": {"nodes": v, "edges": int(edges.shape[1]), "source": f"synthetic_entries({BENCH['num_graphs']}, {BENCH['nodes']}, {BENCH['feat']}, {BENCH['edge_dim']}, seed={BENCH['seed']}), one graph, pairs both ways"},
+        "tolerance": {"outputs_and_attention": CROSS_TOL, "grads": f"against float64, atol max({fg.ATOL}, {fg.C} 2^-24 S) (S: tools/f64_gate.py:alignment_sums), rtol {fg.RTOL}"},
+        "launches": launches,
+        "max_abs_err_card_vs_cpu": errs,
+        "f64_gate": rows,
+        "forward_backward_ms": [t * 1e3 for t in times[2:]],
+        "cpu_forward_backward_s": cpu_s,
+        "seconds": time.perf_counter() - t_phase,
     }
 
 
@@ -3729,6 +4170,12 @@ def main() -> int:
 
     # 49. GINetDense beyond K1's shared memory: its batched branch
     emit({"card": card, **ginet_dense_batched_phase(torch, counters, dev)})
+
+    # 50-53. the grid path (the CNNs, tied pooling windows, the Trainer's
+    # grid branch) and 54 AlignmentGNN: no kernel of K1-K9, so nothing of
+    # theirs enters the kernels line
+    grid_phases(torch, counters, card, peak, dev)
+    emit(alignment_phase(torch, counters, card, dev))
 
     emit({"kernels": kernels_line(calls, path_launches, checks.errs, path_forms, checks.form_errs, fma_calls + f32_calls + bf16_form_calls)})
     print(card_line(), flush=True)

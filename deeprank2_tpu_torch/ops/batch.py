@@ -5,8 +5,9 @@ weights), the clustered ``DiagClusteredBatch`` with
 ``ClusteredBlockSparseBatch`` with their collates and the requirements
 passes behind the Trainer's capacity buckets, the blocked-edge
 ``BlockedEdgeBatch`` with ``collate_graphs_blocked`` and
-``blocked_requirements``, and the COO ``GraphBatch`` with
-``collate_graphs``; the sharded collates are not ported).
+``blocked_requirements``, the COO ``GraphBatch`` with ``collate_graphs``,
+and the 3D grids' ``GridBatch`` with ``collate_grids``; the sharded
+collates are not ported).
 
 The batch adjacency of collated graphs is block-diagonal: with graphs padded
 to ``N`` nodes, graph ``g`` owns rows and columns ``[g*N, (g+1)*N)`` and no
@@ -1378,3 +1379,40 @@ def collate_graphs(entries: list[dict], pad_graphs: int | None = None, device: s
         cluster1=cluster1,
     )
     return GraphBatch(**arrays, num_graphs=num_graphs), names
+
+
+# ---------------------------------------------------------------------------
+# Grid batches (port of ``GridBatch`` and ``collate_grids``)
+
+
+@dataclass
+class GridBatch:
+    """One padded batch of 3D grids, on one device, as the JAX package's."""
+
+    x: torch.Tensor  # f32 [G, C, W, H, D] mapped features (padded grids 0)
+    y: torch.Tensor  # f32 [G] targets (0 where missing)
+    y_mask: torch.Tensor  # bool [G] real-grid mask
+
+    @property
+    def num_graphs(self) -> int:
+        return self.x.shape[0]
+
+    def to(self, device: str | torch.device) -> GridBatch:
+        """A copy of the batch on ``device``."""
+        dev = resolve_device(device)
+        return GridBatch(**{k: getattr(self, k).to(dev) for k in self.__dataclass_fields__})
+
+
+def collate_grids(entries: list[dict], pad_graphs: int | None = None, device: str | torch.device | None = None) -> tuple[GridBatch, list[str]]:
+    """Collate entries (``x [C, W, H, D]``, ``y`` or None, ``entry_name``)
+    into one :class:`GridBatch` on ``device`` (CUDA unless ``"cpu"`` is asked
+    for), padded to ``pad_graphs`` grids with zero grids whose ``y_mask`` is
+    False, array for array as the JAX package's ``collate_grids``. Returns
+    the batch and the entry names (padded grids get "")."""
+    dev = resolve_device(device)
+    num_graphs, names = _num_graphs(entries, pad_graphs)
+    x = np.zeros((num_graphs, *entries[0]["x"].shape), dtype=np.float32)
+    for g, entry in enumerate(entries):
+        x[g] = entry["x"]
+    y, y_mask = _targets(entries, num_graphs)
+    return GridBatch(**_tensors(dev, x=x, y=y, y_mask=y_mask)), names

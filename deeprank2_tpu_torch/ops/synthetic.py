@@ -3,8 +3,10 @@ runs). Numpy-only copies of ``deeprank2_tpu/ops/synthetic.py``, of the
 clustered PPI generator of ``tests/perf/diag_clustered_perf.py`` and of the
 atomic-scale generators of ``tests/perf/blocksparse_perf.py`` and
 ``tests/perf/clustered_bcsr_perf.py``: the same seed gives the same entries
-in both packages. ``signed_int8_blocks`` (the port's own) makes BCSR blocks
-with signed int8 weights for the kernel checks."""
+in both packages. ``grid_arrays`` is the grid batch recipe of
+``tests/perf/cnn_perf.py:grid_batch``. ``signed_int8_blocks`` and
+``zero_shell`` (the port's own) make BCSR blocks with signed int8 weights
+for the kernel checks and grids whose outer shell is empty."""
 
 from __future__ import annotations
 
@@ -130,4 +132,30 @@ def signed_int8_blocks(blocks: np.ndarray, tile_blocks: np.ndarray, seed: int = 
     mixed = np.asarray(tile_blocks)[::2]
     weights = np.array([-2, -1, 1, 3], np.int8)[rng.integers(0, 4, out[mixed].shape)]
     out[mixed] = np.where(out[mixed] != 0, weights, out[mixed])
+    return out
+
+
+def grid_arrays(batch_size: int, num_features: int, box: tuple[int, int, int], seed: int = 7) -> tuple[np.ndarray, np.ndarray]:
+    """Mapped-feature grids ``x [B, C, W, H, D]`` (standard normal) and binary
+    targets ``y [B]``, drawn as ``tests/perf/cnn_perf.py:grid_batch`` draws
+    them (the reference grid protocol: 33 features, a 35x30x30 box)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(batch_size, num_features, *box)).astype(np.float32)
+    y = (rng.uniform(size=batch_size) < 0.5).astype(np.float32)
+    return x, y
+
+
+def grid_entries(x: np.ndarray, y: np.ndarray) -> list[dict]:
+    """Grid entries (``x [C, W, H, D]``, ``y``, ``entry_name``) of
+    :func:`grid_arrays`' arrays, for ``collate_grids`` and the Trainer."""
+    return [{"x": x[i], "y": float(y[i]), "entry_name": f"grid_{i}"} for i in range(len(x))]
+
+
+def zero_shell(x: np.ndarray, width: int) -> np.ndarray:
+    """A copy of grids ``[..., W, H, D]`` whose outer ``width`` voxels on every
+    side are 0, as mapped features are far from any atom: the first
+    convolution gives its bias there, which ties whole pooling windows."""
+    out = np.zeros_like(x)
+    inner = (Ellipsis, *(slice(width, n - width) for n in x.shape[-3:]))
+    out[inner] = x[inner]
     return out

@@ -30,6 +30,24 @@ a weight gradient off the gate, the float64 function is evaluated again with
 the route's relu masks, and the route is held against that; the atol never
 widens. Logits, loss and pooled sums keep the fixed gate (``ATOL``,
 ``RTOL``).
+
+The CNNs (``neuralnets/cnn/model3d.py``) are held by the same rule: their
+parameters' gradients sum over every voxel of every grid (conv1's weight
+gradient 128 x 34·29·29 products an entry at the reference grid protocol).
+:func:`cnn_f64` evaluates the network and its gradients in float64 with
+relu masks and max-pool winners fixed (float64's or a route's), and the sums
+of |products| by the same network on absolute values with those decisions.
+A relu flip is held to the band above; a max-pool window whose winner
+differs is allowed where float64 puts the two candidates within
+``c · 2^-24`` of their sums of |terms|, as a relu flip is.
+
+AlignmentGNN's chain holds batch norms and smooth activations, so its
+``S`` (:func:`alignment_sums`) takes the backward's own terms: each linear
+layer passes ``|g| |W|`` back, an activation ``|f'(z)| |g|``, a batch norm
+``|γ|/σ (|g| + mean|g| + |x̂| mean(|g x̂|))`` (the three terms of its
+input cotangent, which cancel: the gradient of a bias feeding a batch norm
+is 0 in exact arithmetic, its f32 value rounding alone), and each
+parameter's gradient sums ``|g|ᵀ |x|`` over the rows, all in float64.
 """
 
 from __future__ import annotations
@@ -235,3 +253,236 @@ def hold_tower(name: str, got: dict, args, g_scale=None, route_masks=None, pick=
         msg = f"{name} against float64: {row}"
         raise AssertionError(msg)
     return row
+
+
+# ---------------------------------------------------------------------------
+# The CNNs (neuralnets/cnn/model3d.py)
+
+CNN_PARAMS = ("convlayer_000", "convlayer_002", "fclayer_000", "fclayer_001")
+
+
+@dataclasses.dataclass
+class CnnDecisions:
+    """The CNN's relu masks (``m1``, ``m2`` after the convolutions, ``m3``
+    after ``fclayer_000``) and max-pool winners (``i1``, ``i2``: flat
+    indices into each channel's volume, as ``max_pool3d`` returns them)."""
+
+    m1: torch.Tensor
+    i1: torch.Tensor
+    m2: torch.Tensor
+    i2: torch.Tensor
+    m3: torch.Tensor
+
+    def to(self, device) -> CnnDecisions:
+        return CnnDecisions(*(getattr(self, f.name).to(device) for f in dataclasses.fields(self)))
+
+
+def _take(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``h [N, C, ...]`` at the pool winners ``idx [N, C, ...]``."""
+    return h.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+
+def _cnn_fixed(p: dict, x: torch.Tensor, d: CnnDecisions) -> tuple[torch.Tensor, tuple]:
+    """The CNN with decisions ``d``: linear in each input and parameter.
+    Returns the outputs and the relu inputs ``(z1, z2, z3)``."""
+    f = torch.nn.functional
+    z1 = f.conv3d(x, p["convlayer_000.weight"], p["convlayer_000.bias"])
+    z2 = f.conv3d(_take(z1 * d.m1, d.i1), p["convlayer_002.weight"], p["convlayer_002.bias"])
+    p2 = _take(z2 * d.m2, d.i2)
+    z3 = f.linear(p2.reshape(p2.shape[0], -1), p["fclayer_000.weight"], p["fclayer_000.bias"])
+    return f.linear(z3 * d.m3, p["fclayer_001.weight"], p["fclayer_001.bias"]), (z1, z2, z3)
+
+
+def _decide(p: dict, x: torch.Tensor) -> CnnDecisions:
+    """The CNN's decisions on ``x`` with the parameters ``p`` (a state_dict),
+    in ``x``'s dtype and on its device, the convolutions without TF32 as
+    the model computes them."""
+    from deeprank2_tpu_torch.neuralnets.nn import ieee_fp32
+
+    f = torch.nn.functional
+    with torch.no_grad(), ieee_fp32():
+        z1 = f.conv3d(x, p["convlayer_000.weight"], p["convlayer_000.bias"])
+        p1, i1 = f.max_pool3d(torch.relu(z1), 2, 2, return_indices=True)
+        z2 = f.conv3d(p1, p["convlayer_002.weight"], p["convlayer_002.bias"])
+        p2, i2 = f.max_pool3d(torch.relu(z2), 2, 2, return_indices=True)
+        z3 = f.linear(p2.reshape(p2.shape[0], -1), p["fclayer_000.weight"], p["fclayer_000.bias"])
+    return CnnDecisions(z1 > 0, i1, z2 > 0, i2, z3 > 0)
+
+
+def cnn_decisions(model, x: torch.Tensor) -> CnnDecisions:
+    """A route's decisions: its model's parameters on its device and dtype
+    (``max_pool3d``'s kernel gives the winners its backward routes to)."""
+    return _decide(model.state_dict(), x)
+
+
+@dataclasses.dataclass
+class CnnF64:
+    """The CNN in float64 under ``decisions``: its outputs, the loss, the
+    parameters' gradients and their sums of |products| (by state_dict
+    name), and the relu inputs with theirs."""
+
+    logits: torch.Tensor
+    loss: torch.Tensor
+    grads: dict
+    s_grads: dict
+    z: tuple
+    s_z: tuple
+    decisions: CnnDecisions
+
+
+def cnn_f64(state: dict, x: torch.Tensor, loss, decisions: CnnDecisions | None = None) -> CnnF64:
+    """The CNN of ``state`` (a state_dict) on grids ``x`` and the gradients of
+    ``loss(logits)`` (a scalar), in float64 on ``x``'s device, with
+    float64's decisions or the route's (``decisions``). The sums of
+    |products| are the gradients of the network on ``|x|`` and the
+    parameters' absolute values, with the same decisions, for the cotangent
+    ``|dloss/dlogits|``."""
+    dev = x.device
+    p = {k: v.detach().to(dev, torch.float64).requires_grad_(True) for k, v in state.items()}
+    xd = x.detach().double()
+    if decisions is None:
+        decisions = _decide(p, xd)
+    d = decisions.to(dev)
+    logits, z = _cnn_fixed(p, xd, d)
+    value = loss(logits)
+    g_logits = torch.autograd.grad(value, logits, retain_graph=True)[0]
+    grads = dict(zip(p, torch.autograd.grad(logits, list(p.values()), g_logits)))
+    pa = {k: v.detach().abs().requires_grad_(True) for k, v in p.items()}
+    logits_a, z_a = _cnn_fixed(pa, xd.abs(), d)
+    s_grads = dict(zip(pa, torch.autograd.grad(logits_a, list(pa.values()), g_logits.abs())))
+    return CnnF64(logits.detach(), value.detach(), grads, s_grads, tuple(t.detach() for t in z), tuple(t.detach() for t in z_a), decisions)
+
+
+def cnn_flips(route: CnnDecisions, exact: CnnF64) -> dict:
+    """The route's relu decisions and pool winners that differ from
+    float64's: for each, how many lie inside the band and how many outside,
+    and the least ``c`` whose band holds them all. A pool winner's band is
+    float64's gap between the two candidates against the sum of their sums
+    of |terms|."""
+    z1, z2, z3 = exact.z
+    s1, s2, s3 = exact.s_z
+    d = exact.decisions
+    out = {}
+    for name, on, z, s_z in (("relu1", route.m1, z1, s1), ("relu2", route.m2, z2, s2), ("relu3", route.m3, z3, s3)):
+        out[name] = flips(on.to(z.device), z, s_z, torch.ones((), dtype=torch.bool, device=z.device))
+    for name, idx, h, s_h in (("pool1", "i1", z1 * d.m1.to(z1.device), s1), ("pool2", "i2", z2 * d.m2.to(z2.device), s2)):
+        got, want = getattr(route, idx).to(h.device), getattr(d, idx).to(h.device)
+        differ = got != want
+        gap = (_take(h, want) - _take(h, got))[differ]
+        scale = (_take(s_h, want) + _take(s_h, got))[differ]
+        need = (gap / (UNIT * scale)).max().item() if bool(differ.any()) else 0.0
+        band = gap <= C * UNIT * scale
+        out[name] = {"in_band": int(band.sum()), "out_of_band": int((~band).sum()), "needed_c": need}
+    return out
+
+
+def hold_cnn(name: str, got: dict, state: dict, x, loss, route: CnnDecisions, raise_on_fail: bool = True) -> dict:
+    """A route's parameter gradients ``got`` (by state_dict name) against
+    the CNN in float64 (:func:`cnn_f64`, ``loss`` of the logits) at the
+    per-entry gate, the route's
+    relu and pool decisions (``route``: :func:`cnn_decisions`) counted
+    against float64's and held to their band; where a flip in the band moved
+    a gradient off the gate, against float64 with the route's decisions.
+    Raises on a failure unless ``raise_on_fail`` is False; returns the row
+    (with float64's logits and loss under ``"f64"``)."""
+    exact = cnn_f64(state, x, loss)
+    row_flips = cnn_flips(route, exact)
+    got = {k: g.to(exact.grads[k].device) for k, g in got.items()}
+    row = hold(name, got, exact.grads, exact.s_grads)
+    in_band = sum(f["in_band"] for f in row_flips.values())
+    out_of_band = sum(f["out_of_band"] for f in row_flips.values())
+    row["oracle_decisions"] = "float64"
+    if not row["passed"] and in_band and not out_of_band:
+        again_exact = cnn_f64(state, x, loss, decisions=route)
+        again = hold(name, got, again_exact.grads, again_exact.s_grads)
+        again["oracle_decisions"] = "the route's"
+        again["with_float64_decisions"] = {k: row[k] for k in ("share_of_gate", "needed_c")}
+        row = again
+    row["flips"] = row_flips
+    row["needed_c"]["flips"] = max(f["needed_c"] for f in row_flips.values())
+    if out_of_band:
+        row["passed"] = False
+    row["f64"] = {"logits": exact.logits, "loss": exact.loss}
+    if raise_on_fail and not row["passed"]:
+        msg = f"{name} against float64: { {k: v for k, v in row.items() if k != 'f64'} }"
+        raise AssertionError(msg)
+    return row
+
+
+
+def alignment_sums(model, edges, edge_attr, node_attr, g_out, g_att) -> dict:
+    """Each parameter gradient's sum of |terms| (by state_dict name) of
+    AlignmentGNN (``neuralnets/gnn/alignmentnet.py``, a model in float64) for
+    the cotangents ``g_out``, ``g_att`` of its outputs and attention.
+
+    The network is walked twice in step: its float64 values, and a linear
+    stand-in whose backward, for the cotangents' absolute values, is the
+    sum of |terms| of every value the backward computes (see the module
+    docstring): a linear layer passes ``|W|``, an activation its
+    ``|f'(z)|``, a batch norm its three terms; each parameter collects
+    ``|g|ᵀ |x|`` (weights) and ``Σ |g|`` (biases). The walk's float64
+    outputs must be the model's own to float64 rounding (raises
+    otherwise)."""
+    from deeprank2_tpu_torch.ops.segment import segment_sum
+
+    f = torch.nn.functional
+    p = {k: v.detach().double() for k, v in model.state_dict().items()}
+    sink = {k: torch.zeros_like(v, requires_grad=True) for k, v in p.items()}
+
+    def lin(name, x, xs):
+        w, b = p[f"{name}.weight"], p[f"{name}.bias"]
+        return f.linear(x, w, b), f.linear(xs, w.abs()) + f.linear(x.abs(), sink[f"{name}.weight"], sink[f"{name}.bias"])
+
+    def norm(name, x, xs):
+        gamma, beta = p[f"{name}.weight"], p[f"{name}.bias"]
+        sigma = torch.sqrt(x.var(dim=0, keepdim=True, correction=0) + 1e-5)
+        xh = (x - x.mean(dim=0, keepdim=True)) / sigma
+        a = xh.abs()
+        stand_in = gamma.abs() / sigma * (xs + xs.mean(dim=0, keepdim=True) + a * (a * xs).mean(dim=0, keepdim=True))
+        return xh * gamma + beta, stand_in + a * sink[f"{name}.weight"] + sink[f"{name}.bias"]
+
+    def act(x, xs, fn=f.silu):
+        z = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            y = fn(z)
+            (slope,) = torch.autograd.grad(y.sum(), z)
+        return y.detach(), xs * slope.abs()
+
+    def mlp(prefix, x, xs, acts):
+        for i, last_act in enumerate(acts):
+            x, xs = lin(f"{prefix}.{i}", x, xs)
+            if last_act:
+                x, xs = act(x, xs)
+        return x, xs
+
+    ea, na = edge_attr.double(), node_attr.double()
+    e, es = norm("preproc_edge_bn0", ea, torch.zeros_like(ea))
+    e, es = lin("preproc_edge_mlp.0", e, es)
+    e, es = act(*norm("preproc_edge_bn1", e, es))
+    e, es = act(*lin("preproc_edge_mlp.1", e, es))
+    h, hs = norm("preproc_node_bn0", na, torch.zeros_like(na))
+    h, hs = lin("preproc_node_mlp.0", h, hs)
+    h, hs = act(*norm("preproc_node_bn1", h, hs))
+    h, hs = act(*lin("preproc_node_mlp.1", h, hs))
+    row, col = edges[0], edges[1]
+    v = h.shape[0]
+    for i in range(len(model.layers)):
+        name = f"layers.{i}"
+        src, dst = row.clamp(0, v - 1), col.clamp(0, v - 1)
+        m, ms = mlp(f"{name}.edge_mlp", torch.cat([e, h[src], h[dst]], dim=1), torch.cat([es, hs[src], hs[dst]], dim=1), (True, True))
+        summed, summed_s = segment_sum(m, row, v), segment_sum(ms, row, v)
+        u, us = norm(f"{name}.node_bn", torch.cat([summed, h], dim=1), torch.cat([summed_s, hs], dim=1))
+        u, us = mlp(f"{name}.node_mlp", u, us, (True, True, False))
+        h, hs = h + u, hs + us
+    last = f"layers.{len(model.layers) - 1}"
+    out, out_s = mlp(f"{last}.output_mlp", h, hs, (True, False))
+    att, att_s = mlp(f"{last}.attention_mlp", h, hs, (True, False))
+    att, att_s = act(att, att_s, torch.sigmoid)
+    with torch.no_grad():
+        want_out, want_att = model(edges, ea, na)
+    # equal up to float64 rounding (index_add on the card sums in no fixed order)
+    if not (torch.allclose(out, want_out, rtol=1e-10, atol=1e-12) and torch.allclose(att, want_att, rtol=1e-10, atol=1e-12)):
+        msg = "alignment_sums' walk does not compute the model's outputs"
+        raise AssertionError(msg)
+    total = (out_s * g_out.double().abs()).sum() + (att_s * g_att.double().abs()).sum()
+    return dict(zip(sink, torch.autograd.grad(total, list(sink.values()), allow_unused=True)))

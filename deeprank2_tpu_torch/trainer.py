@@ -22,16 +22,18 @@ mid-training resume, on the port's models, collates and kernels:
   (utils/checkpoint.py), which the JAX package reads as reference
   checkpoints; the port reads those, its own and the JAX package's.
 
-Dispatch on the model's class attributes, as in the JAX package: every
-single-device graph layout is ported, the clustered block-sparse
+Dispatch on the dataset and the model's class attributes, as in the JAX
+package: a ``GridDataset`` trains a CNN (``neuralnet(num_features,
+box_shape)``) on grid batches (``collate_grids``); on a ``GraphDataset``
+every single-device graph layout is ported, the clustered block-sparse
 (``clustered_blocksparse_batches``), graph-diagonal clustered
 (``diag_clustered_batches``), block-sparse (``blocksparse_batches``),
 blocked-edge (``blocked_edge_batches``), dense (``dense_batches``, with
 clusters and edge weights where the model's markers ask for them) and COO
 (the default) batches. Their tensors, those of the nested structures
 included, are pinned, copied on the side stream and kept alive for the
-compute stream alike. Grids, ``data_parallel`` and ``graph_parallel`` raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+compute stream alike. ``data_parallel``, ``ngpu > 1`` and
+``graph_parallel`` raise, naming ROADMAP §1 item 8, which ports them.
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ from deeprank2_tpu_torch.ops.batch import (
     collate_graphs_blocksparse_clustered,
     collate_graphs_dense,
     collate_graphs_diag_clustered,
+    collate_grids,
 )
 from deeprank2_tpu_torch.utils.checkpoint import load_checkpoint, load_snapshot, save_checkpoint, save_snapshot, to_cpu
 from deeprank2_tpu_torch.utils.community_pooling import community_detection, community_pooling_host
@@ -107,11 +110,12 @@ def _trim_lambda_source(candidate: str) -> str | None:
 
 def _param_family(neuralnet) -> str | None:
     """The ``neuralnets/param_interop.py`` family of a model class."""
+    from deeprank2_tpu_torch.neuralnets.cnn.model3d import CnnClassification, CnnRegression
     from deeprank2_tpu_torch.neuralnets.gnn.foutnet import FoutNet
     from deeprank2_tpu_torch.neuralnets.gnn.sgat import SGAT
     from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetwork
 
-    for cls, family in ((VanillaNetwork, "vanilla"), (FoutNet, "foutnet"), (SGAT, "sgat")):
+    for cls, family in ((VanillaNetwork, "vanilla"), (FoutNet, "foutnet"), (SGAT, "sgat"), (CnnClassification, "cnn"), (CnnRegression, "cnn")):
         if issubclass(neuralnet, cls):
             return family
     return None
@@ -392,14 +396,14 @@ class Trainer:
         dataset._cache.clear()
 
     def _layout(self) -> str:
-        """The batch layout of the model class (``"clustered_blocksparse"``,
-        ``"diag_clustered"``, ``"blocksparse"``, ``"blocked"``, ``"dense"``
-        or ``"coo"``); a layout still to port raises ``NotImplementedError``
-        naming its ROADMAP item."""
+        """The batch layout: ``"grid"`` for a grid dataset, else the model
+        class's (``"clustered_blocksparse"``, ``"diag_clustered"``,
+        ``"blocksparse"``, ``"blocked"``, ``"dense"`` or ``"coo"``); a layout
+        still to port raises ``NotImplementedError`` naming its ROADMAP
+        item."""
         net = self.neuralnet
         if not self._is_graph():
-            msg = "grid datasets: the port's CNNs, GridDataset batches and the Trainer's grid branch are ROADMAP §1 item 7"
-            raise NotImplementedError(msg)
+            return "grid"
         for attr, what in _LATER_LAYOUTS.items():
             if getattr(net, attr, False):
                 msg = f"{net.__name__}: {what} are not ported to the Trainer yet"
@@ -416,11 +420,15 @@ class Trainer:
         first = dataset.get(0)
         target_shape = 1 if first.get("y") is not None else None
 
-        num_node_features = first["x"].shape[1]
-        # the actual edge-attr matrix width (features can be multi-channel)
-        num_edge_features = first["edge_attr"].shape[1]
         generator = torch.Generator().manual_seed(self.seed)
-        self.model = self.neuralnet(num_node_features, self.output_shape, num_edge_features, device=self.device, generator=generator)
+        if isinstance(dataset, GridDataset):
+            # x [C, W, H, D]: the CNN takes the feature count and the box
+            self.model = self.neuralnet(first["x"].shape[0], tuple(first["x"].shape[1:]), device=self.device, generator=generator)
+        else:
+            num_node_features = first["x"].shape[1]
+            # the actual edge-attr matrix width (features can be multi-channel)
+            num_edge_features = first["edge_attr"].shape[1]
+            self.model = self.neuralnet(num_node_features, self.output_shape, num_edge_features, device=self.device, generator=generator)
 
         for output_exporter in self._output_exporters:
             if not output_exporter.is_compatible_with(self.output_shape, target_shape):
@@ -526,7 +534,7 @@ class Trainer:
         same capacities as JAX's on the same batch sequence."""
         layout = self._layout()
         net = self.neuralnet
-        if layout not in ("dense", "coo") and not hasattr(self, "_bs_caps"):
+        if layout not in ("dense", "coo", "grid") and not hasattr(self, "_bs_caps"):
             self._bs_caps = {}
         bucket = self._blocksparse_bucket
         if layout == "clustered_blocksparse":
@@ -579,6 +587,8 @@ class Trainer:
                 with_diag_operands=getattr(net, "diag_operands", False),
                 device="cpu",
             )
+        elif layout == "grid":
+            batch, names = collate_grids(entries, pad_graphs, device="cpu")
         else:
             batch, names = collate_graphs(entries, pad_graphs, device="cpu")
         # map classification targets to class indices (reference _format_output,

@@ -1497,3 +1497,60 @@ def test_ginet_dense_beyond_k1_max_nodes_takes_the_batched_branch(cuda) -> None:
     for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
         if q.grad is not None:
             torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)
+
+
+@pytest.fixture
+def cudnn_tf32_default(cuda):
+    """cuDNN's TF32 switch at PyTorch's default (on), restored after: the
+    CNNs must sum their convolutions in float32 whatever it says."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = before
+
+
+@pytest.mark.parametrize("shell", [0, 6], ids=["dense_grids", "zero_shell"])
+@pytest.mark.parametrize("model", ["CnnClassification", "CnnRegression"])
+def test_cnn_step_matches_cpu_with_tf32_at_its_default(cudnn_tf32_default, model, shell) -> None:
+    """One step of each CNN at the reference grid protocol's box (33
+    features, 35x30x30; 16 grids), card against CPU: logits and loss at
+    rtol 1e-4, atol 1e-5; the card's every gradient against the network in
+    float64 at tools/f64_gate.py's per-entry gate (relu and max-pool winner
+    flips held to their band). On zero-shell grids, with positive conv
+    biases, whole pooling windows tie."""
+    from deeprank2_tpu_torch.neuralnets.cnn import model3d
+    from deeprank2_tpu_torch.ops.batch import collate_grids
+    from deeprank2_tpu_torch.ops.losses import MSELoss
+    from deeprank2_tpu_torch.ops.synthetic import grid_arrays, grid_entries, zero_shell
+    from deeprank2_tpu_torch.tools import f64_gate as fg
+
+    dev = cudnn_tf32_default
+    x, y = grid_arrays(16, 33, (35, 30, 30), seed=7)
+    if shell:
+        x = zero_shell(x, shell)
+    batch, _ = collate_grids(grid_entries(x, y), device=dev)
+    cls = getattr(model3d, model)
+    card = cls(33, (35, 30, 30), device=dev, generator=torch.Generator().manual_seed(0))
+    if shell:
+        with torch.no_grad():
+            for conv in (card.convlayer_000, card.convlayer_002):
+                conv.bias.copy_(conv.bias.abs() + 0.05)
+    cpu = cls(33, (35, 30, 30), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    loss_fn = CrossEntropyLoss() if model == "CnnClassification" else MSELoss()
+
+    def loss_of(logits, b):
+        return loss_fn(logits if logits.shape[1] > 1 else logits.reshape(-1), b.y, b.y_mask)
+
+    logits, losses = {}, {}
+    for side, m, b in (("card", card, batch), ("cpu", cpu, batch.to("cpu"))):
+        out = m(b)
+        loss = loss_of(out, b)
+        loss.backward()
+        logits[side], losses[side] = out.detach().cpu(), loss.detach().cpu()
+    grads = {k: p.grad for k, p in card.named_parameters()}
+    row = fg.hold_cnn("card", grads, card.state_dict(), batch.x, lambda lg: loss_of(lg, batch), fg.cnn_decisions(card, batch.x))
+    assert torch.backends.cudnn.allow_tf32
+    torch.testing.assert_close(logits["card"], logits["cpu"], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(losses["card"], losses["cpu"], rtol=1e-4, atol=1e-5)
+    assert row["passed"]

@@ -42,7 +42,10 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.neuralnets",
     "deeprank2_tpu_torch.neuralnets.nn",
     "deeprank2_tpu_torch.neuralnets.param_interop",
+    "deeprank2_tpu_torch.neuralnets.cnn",
+    "deeprank2_tpu_torch.neuralnets.cnn.model3d",
     "deeprank2_tpu_torch.neuralnets.gnn",
+    "deeprank2_tpu_torch.neuralnets.gnn.alignmentnet",
     "deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse",
     "deeprank2_tpu_torch.neuralnets.gnn.foutnet",
     "deeprank2_tpu_torch.neuralnets.gnn.ginet",
@@ -57,6 +60,8 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.tools.timing",
     "deeprank2_tpu_torch.tools.tower_times",
     "deeprank2_tpu_torch.trainer",
+    "deeprank2_tpu_torch.tutorials",
+    "deeprank2_tpu_torch.tutorials.training",
     "deeprank2_tpu_torch.utils",
     "deeprank2_tpu_torch.utils.checkpoint",
     "deeprank2_tpu_torch.utils.community_pooling",
@@ -301,6 +306,29 @@ def test_foutnet_and_sgat_entry_points_raise_without_cuda(no_cuda) -> None:
             cls(4, 2, 1)
         batch = batches[name]
         assert cls(4, 2, 1, device="cpu")(batch).shape == (batch.num_graphs, 2)
+
+
+def test_cnn_and_alignment_entry_points_raise_without_cuda(no_cuda) -> None:
+    from deeprank2_tpu_torch.neuralnets.cnn.model3d import CnnClassification, CnnRegression
+    from deeprank2_tpu_torch.neuralnets.gnn.alignmentnet import AlignmentGNN
+    from deeprank2_tpu_torch.ops.batch import collate_grids
+    from deeprank2_tpu_torch.ops.synthetic import grid_arrays, grid_entries
+
+    entries = grid_entries(*grid_arrays(2, 3, (8, 8, 8), seed=0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        collate_grids(entries)
+    batch, _ = collate_grids(entries, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch.to("cuda")
+    for cls, width in ((CnnClassification, 2), (CnnRegression, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(3, (8, 8, 8))
+        assert cls(3, (8, 8, 8), device="cpu")(batch).shape == (2, width)
+    args = (3, 4, 2, 8, 4, 8, 2, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AlignmentGNN(*args)
+    out, attention = AlignmentGNN(*args, device="cpu")(torch.tensor([[0, 1, 2], [1, 2, 0]]), torch.ones(3, 3), torch.ones(3, 4))
+    assert out.shape == (3, 2) and attention.shape == (3, 1)
 
 
 def test_bf16_entry_points_raise_without_cuda(no_cuda) -> None:

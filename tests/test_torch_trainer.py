@@ -3,7 +3,8 @@ package's in the synced probe: dropout-free twins of one model on both
 sides, the JAX Trainer's initial parameters loaded into the port's model
 (neuralnets/param_interop.py) before ``configure_optimizers()``, the same
 HDF5 file, seed, split and batch order (``shuffle=False``), two epochs with
-validation. Every pass's loss (the epoch-0 evaluations, each epoch's
+validation; the graph models on the SRV graphs, the CNNs on the grid file
+through the Trainer's grid branch. Every pass's loss (the epoch-0 evaluations, each epoch's
 training and validation) agrees at rtol 1e-5, and the final parameters (the
 best model, which both Trainers restore after training) at atol 1e-5; the
 Trainers that bucket their capacities end with the same buckets."""
@@ -18,6 +19,7 @@ import pytest
 
 from deeprank2_tpu import dataset as jax_dataset
 from deeprank2_tpu import trainer as jax_trainer
+from deeprank2_tpu.neuralnets.cnn import model3d as jax_model3d
 from deeprank2_tpu.neuralnets.gnn import clustered_blocksparse as jax_clustered_blocksparse
 from deeprank2_tpu.neuralnets.gnn import foutnet as jax_foutnet
 from deeprank2_tpu.neuralnets.gnn import ginet as jax_ginet
@@ -28,6 +30,7 @@ from deeprank2_tpu.neuralnets.gnn import sgat as jax_sgat
 from deeprank2_tpu.neuralnets.gnn import vanilla_gnn as jax_vanilla
 from deeprank2_tpu_torch import dataset as port_dataset
 from deeprank2_tpu_torch import trainer as port_trainer
+from deeprank2_tpu_torch.neuralnets.cnn import model3d
 from deeprank2_tpu_torch.neuralnets.gnn import clustered_blocksparse, foutnet, ginet, ginet_blocksparse, ginet_dense, ginet_nocluster, sgat, vanilla_gnn
 from deeprank2_tpu_torch.neuralnets.param_interop import params_from_jax
 
@@ -56,6 +59,9 @@ MODELS = {
     "GINetClusteredDense-mcl": (jax_ginet_dense.GINetClusteredDense, ginet_dense.GINetClusteredDense, "binary", "mcl", None),
     "FoutNetDense-mcl": (jax_foutnet.FoutNetDense, foutnet.FoutNetDense, "binary", "mcl", "foutnet"),
     "SGATDense-mcl": (jax_sgat.SGATDense, sgat.SGATDense, "binary", "mcl", "sgat"),
+    # the grid branch (GridDataset, collate_grids)
+    "CnnClassification": (jax_model3d.CnnClassification, model3d.CnnClassification, "binary", None, "cnn"),
+    "CnnRegression": (jax_model3d.CnnRegression, model3d.CnnRegression, "irmsd", None, "cnn"),
 }
 
 
@@ -78,25 +84,22 @@ class PassLosses:
         self.losses.append((pass_name, epoch_number, loss))
 
 
-@pytest.fixture
-def hdf5_copy(srv_hdf5, tmp_path) -> str:
-    """The fixture file, copied: preclustering writes into its source."""
-    path = tmp_path / "srv.hdf5"
-    shutil.copy(srv_hdf5, path)
-    return str(path)
-
-
 @pytest.mark.parametrize("model", sorted(MODELS))
-def test_trainer_matches_jax_in_the_synced_probe(hdf5_copy, model) -> None:
+def test_trainer_matches_jax_in_the_synced_probe(request, tmp_path, model) -> None:
     jax_cls, port_cls, target, clustering, family = MODELS[model]
-    kwargs = {"target": target, "clustering_method": clustering}
+    grid = family == "cnn"
+    # the fixture file, copied: preclustering writes into its source
+    hdf5_copy = str(tmp_path / "data.hdf5")
+    shutil.copy(request.getfixturevalue("grid_hdf5" if grid else "srv_hdf5"), hdf5_copy)
+    kwargs = {"target": target} if grid else {"target": target, "clustering_method": clustering}
+    kind = "GridDataset" if grid else "GraphDataset"
     jax_losses, port_losses = PassLosses(), PassLosses()
     jt = jax_trainer.Trainer(
-        _dropout_free(jax_cls), dataset_train=jax_dataset.GraphDataset(hdf5_path=hdf5_copy, **kwargs), val_size=2, output_exporters=[jax_losses], seed=7
+        _dropout_free(jax_cls), dataset_train=getattr(jax_dataset, kind)(hdf5_path=hdf5_copy, **kwargs), val_size=2, output_exporters=[jax_losses], seed=7
     )
     pt = port_trainer.Trainer(
         _dropout_free(port_cls),
-        dataset_train=port_dataset.GraphDataset(hdf5_path=hdf5_copy, **kwargs),
+        dataset_train=getattr(port_dataset, kind)(hdf5_path=hdf5_copy, **kwargs),
         val_size=2,
         output_exporters=[port_losses],
         seed=7,

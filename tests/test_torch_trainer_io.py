@@ -1,7 +1,8 @@
 """The port's Trainer: checkpoints within the port and across the two
-packages, mid-training resume, the error cases of the JAX Trainer's tests
-(tests/test_trainer.py) that apply to the port, the batch layouts still to
-port, and the remaining layouts' models training through it."""
+packages (the CNNs' on grid datasets too), mid-training resume, the error
+cases of the JAX Trainer's tests (tests/test_trainer.py) that apply to the
+port, the batch layouts still to port, and the remaining layouts' models
+training through it."""
 
 from __future__ import annotations
 
@@ -16,10 +17,12 @@ import torch
 
 from deeprank2_tpu import dataset as jax_dataset
 from deeprank2_tpu import trainer as jax_trainer
+from deeprank2_tpu.neuralnets.cnn import model3d as jax_model3d
 from deeprank2_tpu.neuralnets.gnn import ginet_dense as jax_ginet_dense
 from deeprank2_tpu.neuralnets.gnn import vanilla_gnn as jax_vanilla
 from deeprank2_tpu_torch import trainer as port_trainer
 from deeprank2_tpu_torch.dataset import GraphDataset, GridDataset
+from deeprank2_tpu_torch.neuralnets.cnn.model3d import CnnClassification
 from deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse import FoutNetBlockSparse, GINetClusteredBlockSparse, SGATBlockSparse
 from deeprank2_tpu_torch.neuralnets.gnn.foutnet import FoutNet, FoutNetDiag
 from deeprank2_tpu_torch.neuralnets.gnn.ginet import GINet
@@ -323,13 +326,54 @@ def test_layouts_still_to_port_raise(hdf5_copy, case) -> None:
 
 
 def test_data_parallel_and_grids_raise(srv_hdf5, grid_hdf5) -> None:
+    """data_parallel raises on graphs and grids alike (ROADMAP §1 item 8);
+    a grid dataset, once refused, now builds its CNN and collates grids."""
     ds = GraphDataset(hdf5_path=srv_hdf5, target="binary")
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
         port_trainer.Trainer(VanillaNetwork, dataset_train=ds, data_parallel=True, device="cpu")
     grids = GridDataset(hdf5_path=grid_hdf5, target="binary")
     assert len(grids) == 4 and grids.get(0)["x"].ndim == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
-        port_trainer.Trainer(VanillaNetwork, dataset_train=grids, output_exporters=[], device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
+        port_trainer.Trainer(CnnClassification, dataset_train=grids, data_parallel=True, device="cpu")
+    trainer = port_trainer.Trainer(CnnClassification, dataset_train=grids, output_exporters=[], device="cpu")
+    assert trainer._layout() == "grid" and trainer.model.box_shape == (10, 10, 10)
+    assert trainer.model.num_features == grids.get(0)["x"].shape[0]
+    batch, names = trainer._collate([grids.get(i) for i in range(3)], pad_graphs=4)
+    assert names[-1] == "" and batch.x.shape == (4, *grids.get(0)["x"].shape) and batch.y_mask.tolist() == [True] * 3 + [False]
+
+
+def _grid_outputs(trainer) -> dict:
+    exporter = Outputs()
+    trainer._output_exporters = jax_trainer.OutputExporterCollection(exporter) if isinstance(trainer, jax_trainer.Trainer) else port_trainer.OutputExporterCollection(exporter)
+    trainer.test(batch_size=4)
+    ((name, outputs, _),) = exporter.passes
+    assert name == "testing" and len(outputs) == 4
+    return outputs
+
+
+@pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
+def test_cnn_checkpoint_crosses_both_ways(grid_hdf5, tmp_path, direction) -> None:
+    """A CNN checkpoint of one package tests in the other with the same
+    outputs: the port writes the reference's torch.save format (its
+    ``features`` those of the GridDataset), which the JAX package reads as a
+    reference checkpoint; the port reads the JAX package's pickle through
+    the ``"cnn"`` family of param_interop."""
+    path = str(tmp_path / "cnn.pth.tar")
+    if direction == "port_to_jax":
+        train = GridDataset(hdf5_path=grid_hdf5, target="binary")
+        port_trainer.Trainer(CnnClassification, dataset_train=train, output_exporters=[], device="cpu").train(nepoch=2, batch_size=4, filename=path)
+        raw = torch.load(path, weights_only=False)
+        assert zipfile.is_zipfile(path) and raw["data_type"] == "GridDataset" and raw["features"] == train.features
+        assert sorted(raw["model_state"]) == sorted(CnnClassification(len(train.features), (10, 10, 10), device="cpu").state_dict())
+    else:
+        jt = jax_trainer.Trainer(jax_model3d.CnnClassification, dataset_train=jax_dataset.GridDataset(hdf5_path=grid_hdf5, target="binary"), output_exporters=[])
+        jt.train(nepoch=2, batch_size=4, filename=path)
+    port = port_trainer.Trainer(CnnClassification, dataset_test=GridDataset(hdf5_path=grid_hdf5, train_source=path), pretrained_model=path, device="cpu")
+    jax_side = jax_trainer.Trainer(jax_model3d.CnnClassification, dataset_test=jax_dataset.GridDataset(hdf5_path=grid_hdf5, train_source=path), pretrained_model=path)
+    got, want = _grid_outputs(port), _grid_outputs(jax_side)
+    assert got.keys() == want.keys()
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], **CROSS_TOL, err_msg=key)
 
 
 TRAINS = {

@@ -187,7 +187,7 @@ def test_parameter_map_round_trips_and_uses_the_reference_keys() -> None:
     _assert_trees_close(reference_vanilla_keys({k: v.numpy() for k, v in model.state_dict().items()}), params, rtol=0, atol=0)
     assert "_external1._edge_mlp.0.weight" in state and "_graph_mlp.2.bias" in state
     with pytest.raises(ValueError, match="family"):
-        params_from_jax(params, family="alignment")
+        params_from_jax(params, family="no_such_family")
 
 
 def test_training_flag_and_unported_parts() -> None:
