@@ -370,8 +370,41 @@ Phases, each printing one JSON line:
    gate with tools/f64_gate.py:alignment_sums' sums of |terms|, every
    counter 0, and the pass timed.
 
-Phases 50-54 launch no kernel of K1-K9 and add nothing to the ``kernels``
-line. Then the ``kernels`` line (every kernel with forms also by form),
+55. native_host_kernels: the featurization's host kernels
+   (csrc/{pdb_parser,sasa,grid_kernels}.cpp, built with g++ at first use,
+   their build seconds) against their plain versions on every structure of
+   tests/data/pdb/, in spawned worker processes side by side: the parser
+   field for field (tests/utils/test_pdb_native.py:21-29), SASA of every
+   atom at atol 1e-10 (test_sasa_native.py:24), the Gaussian grid kernel on
+   at most NATIVE_GRID_POINTS atoms over the protocol's 1 A box at
+   np.allclose's defaults (tests/utils/test_grid.py) and over a 30 A box at
+   that gate widened by the plain version's own f32 distance error
+   (utils/grid.py:_kernel_gaussian_ref_tolerance), with each one's times;
+56-57. featurize_ppi and featurize_srv: the reference featurization
+   protocols, not cut (FEATURIZE_PPI: tests/perf/ppi_perf.py:16-17 on the
+   seven two-chain PPI structures of PPI_STRUCTURES; FEATURIZE_SRV:
+   tests/perf/srv_perf.py:37-60), each query as QueryCollection.process
+   would (featurize: the build, then the grid; no HDF5 write, as this
+   machine has no h5py), one at a time: nodes, edges, build ms, ms of each
+   feature module, grid ms, the median and queries a second, the graphs'
+   sizes against FEATURIZED_SIZES, every value finite, every channel of
+   the grid's shape;
+58. trainer_featurized: the PPI tutorial's data on the same structures
+   (TRAINER_FEATURIZED: residue graphs at 8 A with components and contact,
+   35x30x30 grids with 3 augmentations each, drawn from ``random`` seeded
+   0), turned into the entries the datasets would load from the file
+   (graph_entry, grid_entry; a CPU test holds them equal to the round
+   trip), then through Trainer.train as phase 42 (trainer_phase), 3
+   epochs each: VanillaNetwork on res_type and distance, batches of 8 (K7
+   2 a step and 2 an eval batch, asserted; gradients at
+   CLUSTERED_GRAD_TOL), and CnnClassification on the grids' 35 channels,
+   batches of 8 (its one checked step's gradients against float64 at the
+   per-entry gate; a max-pool winner may flip up to its chain's
+   first-order bound, f64_gate.cnn_chain_terms, since on these nearly
+   constant grids the f32 convolutions sit beyond the band C).
+
+Phases 50-58 launch no kernel of K1-K9 but K7 in phase 58 and add nothing
+to the ``kernels`` line. Then the ``kernels`` line (every kernel with forms also by form),
 the card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without CUDA, or without the package beside this file, it exits non-zero
 before printing any result.
@@ -388,6 +421,7 @@ import sys
 import time
 from pathlib import Path
 
+START = time.perf_counter()
 HERE = Path(__file__).resolve().parent
 STEPS = 20
 WARM_STEPS = 4
@@ -420,6 +454,53 @@ TRAINER_CNN = {"entries": 256, "batch_size": 128, "epochs": 3}
 # AlignmentGNN on the bench entries' graph: widths chosen for the check (no
 # published configuration exists); timed forward/backward passes
 ALIGNMENT = {"hidden": 64, "message": 32, "mlp": 64, "edge_projection": 16, "output": 2, "layers": 3, "seed": 7, "timed": 5}
+# the featurization phases 55-58 (the card's machine's host CPU; no kernel
+# of K1-K9): the vendored structures (tests/data/pdb/); the two-chain PPI
+# structures the JAX package's tests query, with their chains; the
+# reference featurization protocols, not cut (tests/perf/ppi_perf.py:16-17:
+# atom graphs at 5.5 A, six modules, a 35x30x30 Gaussian grid over a 1 A
+# box; tests/perf/srv_perf.py:37-60: residue graphs at the 10 A default
+# around eight residues of 101M chain A, no irc, the same grid); and the PPI
+# tutorial's settings for training (tutorials/data_generation_ppi.py:65,
+# 84-85: residue graphs at 8 A with components and contact, the grid with 3
+# augmentations a structure; tutorials/training.py: the res_type and
+# distance features, batches of 8, 3 epochs here)
+DATA = HERE / "tests" / "data"
+PPI_STRUCTURES = (
+    ("1ATN/1ATN_1w", ("A", "B")),
+    ("1ATN/1ATN_2w", ("A", "B")),
+    ("1ATN/1ATN_3w", ("A", "B")),
+    ("1ATN/1ATN_4w", ("A", "B")),
+    ("3C8P/3C8P", ("A", "B")),
+    ("3MRC/3MRC", ("M", "P")),
+    ("1ak4/1ak4", ("C", "D")),
+)
+GRID = {"points": (35, 30, 30), "sizes": (1.0, 1.0, 1.0)}
+FEATURIZE_PPI = {"resolution": "atom", "cutoff": 5.5, "modules": ("components", "contact", "exposure", "irc", "secondary_structure", "surfacearea")}
+FEATURIZE_SRV = {"pdb": "101M/101M", "chain": "A", "residues": (20, 25, 27, 64, 89, 101, 118, 136), "modules": ("components", "contact", "exposure", "secondary_structure", "surfacearea")}
+TRAINER_FEATURIZED = {"radius": 8.0, "modules": ("components", "contact"), "augmentations": 3, "node_features": ("res_type",), "edge_features": ("distance",), "batch_size": 8, "epochs": 3, "seed": 0}
+# (nodes, edges) of each featurized graph, from the same featurization on a
+# CPU without the card (deterministic: no draw, exact cutoffs)
+FEATURIZED_SIZES = {
+    "1ATN/1ATN_1w:A-B": (361, 3617),
+    "1ATN/1ATN_2w:A-B": (315, 3075),
+    "1ATN/1ATN_3w:A-B": (379, 4045),
+    "1ATN/1ATN_4w:A-B": (148, 973),
+    "3C8P/3C8P:A-B": (46, 429),
+    "3MRC/3MRC:M-P": (241, 2664),
+    "1ak4/1ak4:C-D": (152, 1531),
+    "101M/101M:A:20": (25, 228),
+    "101M/101M:A:25": (43, 524),
+    "101M/101M:A:27": (40, 454),
+    "101M/101M:A:64": (42, 465),
+    "101M/101M:A:89": (39, 388),
+    "101M/101M:A:101": (36, 371),
+    "101M/101M:A:118": (34, 341),
+    "101M/101M:A:136": (37, 386),
+}
+# the native host kernels' check on each structure: the parser on the
+# whole file, every atom's SASA, at most this many atoms mapped to the grids
+NATIVE_GRID_POINTS = 256
 CKPT_TOL = {"rtol": 1e-6, "atol": 1e-7}
 TOL = {"rtol": 1e-5, "atol": 1e-5}
 EXACT = {"rtol": 0.0, "atol": 0.0}
@@ -546,6 +627,8 @@ def want_launches(**counts) -> dict:
 
 
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1245,6 +1328,13 @@ def time_blocked_calls(torch, vn, timer, path, st, m, per_step, peak, compute_dt
     ]
 
 
+def sync_sites(caught) -> list:
+    """The Python line of each host sync that torch.cuda's sync debug mode
+    warned of. Its notice, once a process, that the mode is a prototype
+    ("does not yet detect all synchronizing operations") is no sync."""
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught if "synchroniz" in str(w.message) and "prototype feature" not in str(w.message)]
+
+
 def profile_steps(torch, train_step, step_s, steps=3) -> dict:
     """Device time by kernel over a few traced train steps. The idle share is
     taken against the untraced step time (tracing slows the host) and, for
@@ -1270,7 +1360,7 @@ def profile_steps(torch, train_step, step_s, steps=3) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]  # the Python line of each
+    syncs = sync_sites(caught)
     # device-side events only; user annotations (e.g. Optimizer.step) span gaps between kernels
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and not e.is_user_annotation and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -2596,11 +2686,11 @@ class Recorder:
         self.passes.append({"pass": pass_name, "epoch": epoch_number, "outputs": dict(zip(entry_names, output_values)), "loss": loss})
 
 
-def in_memory_dataset(entries, train_source=None, clustering_method=None):
+def in_memory_dataset(entries, train_source=None, clustering_method=None, node_features=("x",), edge_features=("edge_attr",)):
     """A ``GraphDataset`` over ``entries`` held in memory: the card's machine
     has no h5py, so no HDF5 file is written or read. Its constructor sets
-    what the file checks would (binary classification target, every
-    feature, the clustering method named) and ``load_one_graph`` returns the
+    what the file checks would (binary classification target, the features
+    named, the clustering method named) and ``load_one_graph`` returns the
     entry itself, its cluster ids included."""
     from deeprank2_tpu_torch.dataset import GraphDataset
 
@@ -2614,7 +2704,7 @@ def in_memory_dataset(entries, train_source=None, clustering_method=None):
             self.index_entries = [("in-memory", e["entry_name"]) for e in entries]
             self.df = self.means = self.devs = self.train_means = self.train_devs = None
             self._cache, self._cache_capacity = {}, 16384
-            self.node_features, self.edge_features = ["x"], ["edge_attr"]
+            self.node_features, self.edge_features = list(node_features), list(edge_features)
             self.clustering_method, self.features_transform, self.inherited_params = clustering_method, None, None
 
         def load_one_graph(self, fname, entry_name):  # noqa: ARG002
@@ -2623,10 +2713,11 @@ def in_memory_dataset(entries, train_source=None, clustering_method=None):
     return InMemoryGraphDataset()
 
 
-def in_memory_grid_dataset(entries, train_source=None, clustering_method=None):  # noqa: ARG001 — grids have no clusters
+def in_memory_grid_dataset(entries, train_source=None, clustering_method=None, features=None):  # noqa: ARG001 — grids have no clusters
     """A ``GridDataset`` over grid entries (``x [C, W, H, D]``) held in memory,
     as :func:`in_memory_dataset` for graphs: binary classification, one
-    feature name a channel, ``load_one_grid`` returning the entry itself."""
+    feature name a channel (``features``, else ``mapped_000``...),
+    ``load_one_grid`` returning the entry itself."""
     from deeprank2_tpu_torch.dataset import GridDataset
 
     class InMemoryGridDataset(GridDataset):
@@ -2639,7 +2730,7 @@ def in_memory_grid_dataset(entries, train_source=None, clustering_method=None): 
             self.index_entries = [("in-memory", e["entry_name"]) for e in entries]
             self.df = self.means = self.devs = self.train_means = self.train_devs = None
             self._cache, self._cache_capacity = {}, 16384
-            self.features = [f"mapped_{i:03d}" for i in range(entries[0]["x"].shape[0])]
+            self.features = list(features) if features is not None else [f"mapped_{i:03d}" for i in range(entries[0]["x"].shape[0])]
             self.inherited_params = None
 
         def load_one_grid(self, fname, entry_name):  # noqa: ARG002
@@ -2839,7 +2930,7 @@ def trainer_phase(torch, counters, spec: dict) -> dict:
                     yield from iter_batches(*args, **kwargs)
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
-            train_passes.append({"host_syncs": [f"{Path(w.filename).name}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]})
+            train_passes.append({"host_syncs": sync_sites(caught)})
 
         t._epoch, t._iter_batches = counted_epoch, synced_iter_batches
         bs, epochs = spec["batch_size"], spec["epochs"]
@@ -3573,6 +3664,411 @@ def alignment_phase(torch, counters, card, dev) -> dict:
     }
 
 
+def featurize(query, modules, settings, method, augmentations=0) -> tuple:
+    """What ``QueryCollection._process_one_query`` does for one query
+    (deeprank2_tpu_torch/query.py), short of the HDF5 writes, which need
+    h5py: the graph, then its grid and one more grid for each augmentation,
+    each rotation drawn from ``random`` as there; with the milliseconds of
+    the build, of each feature module in it and of each grid."""
+    import importlib
+    import random
+
+    from deeprank2_tpu_torch.utils.grid import Augmentation, Grid, random_rotation_axis_angle
+
+    module_ms, wrapped = {}, []
+    for name in modules:
+        module = importlib.import_module(f"deeprank2_tpu_torch.features.{name}")
+        add = module.add_features
+
+        def timed(*args, add=add, name=name, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return add(*args, **kwargs)
+            finally:
+                module_ms[name] = (time.perf_counter() - t0) * 1e3
+
+        module.add_features = timed
+        wrapped.append((module, add))
+    try:
+        t0 = time.perf_counter()
+        graph = query.build(list(modules))
+        build_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for module, add in wrapped:
+            module.add_features = add
+    grids, grid_ms = [], []
+    for k in range(augmentations + 1):
+        t0 = time.perf_counter()
+        augmentation = None if k == 0 else Augmentation(*random_rotation_axis_angle(random.randrange(100)))
+        grid = Grid(graph.id if k == 0 else f"{graph.id}_{k - 1:03d}", list(graph.center), settings)
+        graph.map_to_grid(grid, method, augmentation)
+        grid_ms.append((time.perf_counter() - t0) * 1e3)
+        grids.append(grid)
+    times = {"build_ms": build_ms, "module_ms": module_ms, "graph_ms": build_ms - sum(module_ms.values()), "grid_ms": grid_ms}
+    return graph, grids, times
+
+
+def graph_entry(graph, node_features=None, edge_features=None, target="binary") -> dict:
+    """The entry that ``GraphDataset(file, node_features=...,
+    edge_features=..., target=target).get`` gives for ``graph`` in the file
+    ``graph.write_to_hdf5`` writes: the features named (every one by
+    default, in the order h5py lists them, alphabetical), each column as the
+    file gives it back (it keeps every dtype), stacked as float32."""
+    import numpy as np
+
+    def columns(features, names):
+        return [np.asarray(features[n]).reshape(-1, 1) if np.asarray(features[n]).ndim == 1 else np.asarray(features[n]) for n in names]
+
+    nodes = sorted(n for n in graph.node_features if n[0] != "_") if node_features is None else list(node_features)
+    edges = sorted(n for n in graph.edge_features if n[0] != "_") if edge_features is None else list(edge_features)
+    edge_index = np.asarray(graph.edge_index).astype(np.int64)
+    node_cols, edge_cols = columns(graph.node_features, nodes), columns(graph.edge_features, edges)
+    return {
+        "x": np.hstack(node_cols).astype(np.float32) if node_cols else None,
+        "edge_index": edge_index,
+        "edge_attr": np.hstack(edge_cols).astype(np.float32) if edge_cols else np.zeros((edge_index.shape[0], 0), dtype=np.float32),
+        "pos": np.asarray(graph.node_features["_position"]).astype(np.float32),
+        "y": float(graph.targets[target]),
+        "cluster0": None,
+        "cluster1": None,
+        "entry_name": graph.id,
+    }
+
+
+def grid_entry(grid, graph, features=None, target="binary") -> dict:
+    """The entry that ``GridDataset(file, features=..., target=target).get``
+    gives for ``grid`` in the file ``graph.write_as_grid_to_hdf5`` writes:
+    the mapped features named (every one not starting with ``_`` by
+    default, alphabetical), as float32, and the graph's target."""
+    import numpy as np
+
+    names = sorted(n for n in grid.features if n[0] != "_") if features is None else list(features)
+    return {"x": np.array([grid.features[n] for n in names], dtype=np.float32), "y": float(graph.targets[target]), "entry_name": grid.id}
+
+
+def native_vs_plain(path: str) -> dict:
+    """Each native host kernel against its plain version on one structure
+    (phase 55): the parser on the file, SASA on every atom, the Gaussian
+    grid kernel on at most NATIVE_GRID_POINTS of its atoms over the
+    protocol's box and over a 30 A one; raises on a disagreement."""
+    import numpy as np
+
+    from deeprank2_tpu_torch.io.pdb import parse_pdb, parse_pdb_ref
+    from deeprank2_tpu_torch.utils import sasa
+    from deeprank2_tpu_torch.utils.grid import Grid, GridSettings
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    name = f"{Path(path).parent.name}/{Path(path).stem}"
+    native, parse_ms = timed(parse_pdb, path)
+    ref, parse_ref_ms = timed(parse_pdb_ref, path)
+    # field for field, as tests/utils/test_pdb_native.py:21-29
+    fields = ("atom_residue", "elements", "res_numbers", "res_aa_ids", "res_chain", "res_atom_start", "res_atom_count")
+    same = (native.num_atoms, native.num_residues, native.chain_ids, list(native.atom_names), list(native.res_icodes)) == (
+        ref.num_atoms,
+        ref.num_residues,
+        ref.chain_ids,
+        list(ref.atom_names),
+        list(ref.res_icodes),
+    )
+    same = same and np.allclose(native.positions, ref.positions) and np.allclose(native.occupancies, ref.occupancies)
+    if not (same and all(np.array_equal(getattr(native, f), getattr(ref, f)) for f in fields)):
+        msg = f"native_host_kernels: the native PDB parser differs from parse_pdb_ref on {name}"
+        raise AssertionError(msg)
+    radii = sasa.atom_radii(np.asarray(native.elements))
+    areas, sasa_ms = timed(sasa.shrake_rupley, native.positions, radii)
+    ref_areas, sasa_ref_ms = timed(sasa.shrake_rupley_ref, native.positions, radii)
+    sasa_err = float(np.abs(areas - ref_areas).max())
+    if not sasa_err <= 1e-10:  # tests/utils/test_sasa_native.py:24
+        msg = f"native_host_kernels: SASA differs from shrake_rupley_ref by {sasa_err:.3e} on {name} (atol 1e-10)"
+        raise AssertionError(msg)
+    points = native.positions[:: -(-native.num_atoms // NATIVE_GRID_POINTS)]
+    center = list(native.positions.mean(axis=0))
+    grid_rows = {}
+    for box, sizes in (("protocol", GRID["sizes"]), ("30A", (30.0, 28.0, 26.0))):
+        g = Grid("g", center, GridSettings(list(GRID["points"]), list(sizes)))
+        k, grid_ms = timed(g._kernel_gaussian, points)
+        k_ref, grid_ref_ms = timed(g._kernel_gaussian_ref, points)
+        err = np.abs(k.astype(np.float64) - k_ref)
+        # tests/utils/test_grid.py's np.allclose gate; on the 30 A box
+        # widened, entry by entry, by the plain version's f32 error
+        tol = 1e-5 * np.abs(k_ref) + 1e-8 if box == "protocol" else g._kernel_gaussian_ref_tolerance(points)
+        if not ((err <= tol).all() and np.isfinite(k).all()):
+            msg = f"native_host_kernels: the Gaussian grid kernel differs from _kernel_gaussian_ref on {name} ({box} box): largest error {err.max():.3e}"
+            raise AssertionError(msg)
+        grid_rows[box] = {"points": len(points), "grid_points": int(k.shape[1]), "ms": grid_ms, "plain_ms": grid_ref_ms, "max_abs_err": float(err.max()), "max_err_over_tol": float((err / tol).max())}
+    return {
+        "structure": name,
+        "atoms": native.num_atoms,
+        "parse_ms": parse_ms,
+        "parse_plain_ms": parse_ref_ms,
+        "parse_bit_equal": bool(np.array_equal(native.positions, ref.positions) and np.array_equal(native.occupancies, ref.occupancies)),
+        "sasa_ms": sasa_ms,
+        "sasa_plain_ms": sasa_ref_ms,
+        "sasa_max_abs_err": sasa_err,
+        "gaussian_grid": grid_rows,
+    }
+
+
+def load_host_libraries() -> None:
+    from deeprank2_tpu_torch.ops import _build
+
+    for name in _build.HOST_SOURCES:
+        _build.host_library(name)
+
+
+def native_host_phase(card) -> dict:
+    """Phase 55: the native host kernels (see the module docstring). The
+    libraries build here; the structures are checked side by side in
+    spawned worker processes (the plain SASA loop takes seconds a
+    structure), which the pool stops before it returns."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    from deeprank2_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    built_s = _build.build_host()
+    paths = [str(p) for p in sorted((DATA / "pdb").glob("*/*.pdb"))]
+    workers = min(len(paths), os.cpu_count() or 1)
+    # each worker loads the libraries before it times a kernel
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"), initializer=load_host_libraries) as pool:
+        rows = list(pool.map(native_vs_plain, paths))
+    return {
+        "phase": "native_host_kernels",
+        "card": card,
+        "where": f"the card's machine's host CPU, {workers} worker processes side by side, one structure each at a time",
+        "cpu": _build._host().decode(errors="replace").splitlines()[-1],
+        "libraries": {n: _build.host_target(n).name for n in _build.HOST_SOURCES},
+        "flags": {n: [*_build.GXX_FLAGS, *extra] for n, extra in _build.HOST_SOURCES.items()},
+        "build_s": built_s,
+        "tolerance": {"parser": "field for field, positions and occupancies np.allclose", "sasa": "atol 1e-10", "gaussian_grid": "np.allclose (rtol 1e-5, atol 1e-8); the 30 A box plus the plain version's f32 distance error"},
+        "structures": rows,
+        "seconds": time.perf_counter() - t_phase,
+    }
+
+
+def check_featurized(name, graph, grids) -> None:
+    """A featurized graph and its grids are what the featurization gives
+    on a CPU without the card (FEATURIZED_SIZES), finite, of the protocol's
+    shape."""
+    import numpy as np
+
+    size = (graph.num_nodes, graph.num_edges)
+    if name in FEATURIZED_SIZES and FEATURIZED_SIZES[name] != size:
+        msg = f"{name}: (nodes, edges) {size}, expected {FEATURIZED_SIZES[name]}"
+        raise AssertionError(msg)
+    if not (size[0] > 0 and size[1] > 0) or graph.has_nan():
+        msg = f"{name}: an empty or non-finite graph, (nodes, edges) {size}"
+        raise AssertionError(msg)
+    for grid in grids:
+        bad = [k for k, v in grid.features.items() if v.shape != GRID["points"] or not np.isfinite(v).all()]
+        if bad or not grid.features:
+            msg = f"{name}: grid {grid.id} has channels of another shape or non-finite values: {bad}"
+            raise AssertionError(msg)
+
+
+def featurize_phase(card, phase, protocol, jobs) -> dict:
+    """Phases 56-57: each query featurized as ``QueryCollection.process``
+    would (:func:`featurize`), one at a time, with its times."""
+    import statistics
+
+    from deeprank2_tpu_torch.utils.grid import GridSettings, MapMethod
+
+    t_phase = time.perf_counter()
+    settings = GridSettings(list(GRID["points"]), list(GRID["sizes"]))
+    rows = []
+    for name, query, modules in jobs:
+        graph, grids, times = featurize(query, modules, settings, MapMethod.GAUSSIAN)
+        check_featurized(name, graph, grids)
+        rows.append({"query": name, "nodes": graph.num_nodes, "edges": graph.num_edges, "channels": len(grids[0].features), **times, "ms": times["build_ms"] + sum(times["grid_ms"])})
+    per_query = [r["ms"] for r in rows]
+    return {
+        "phase": phase,
+        "card": card,
+        "where": "the card's machine's host CPU: one Python process, one query at a time (numpy's BLAS may use its own threads in the grid's matmul)",
+        "protocol": protocol,
+        "queries": rows,
+        "median_ms": statistics.median(per_query),
+        "mean_ms": statistics.mean(per_query),
+        "median_build_ms": statistics.median(r["build_ms"] for r in rows),
+        "median_grid_ms": statistics.median(r["grid_ms"][0] for r in rows),
+        "queries_per_s": len(rows) / (sum(per_query) / 1e3),
+        "seconds": time.perf_counter() - t_phase,
+    }
+
+
+def featurize_phases(card) -> None:
+    """Phases 56-57: the reference featurization protocols."""
+    from deeprank2_tpu_torch.molstruct.aminoacid import alanine, phenylalanine
+    from deeprank2_tpu_torch.query import ProteinProteinInterfaceQuery, SingleResidueVariantQuery
+
+    ppi, srv = FEATURIZE_PPI, FEATURIZE_SRV
+    jobs = [
+        (
+            f"{pdb}:{'-'.join(chains)}",
+            ProteinProteinInterfaceQuery(
+                pdb_path=str(DATA / "pdb" / f"{pdb}.pdb"),
+                resolution=ppi["resolution"],
+                chain_ids=list(chains),
+                influence_radius=ppi["cutoff"],
+                max_edge_length=ppi["cutoff"],
+                targets={"binary": 0},
+            ),
+            ppi["modules"],
+        )
+        for pdb, chains in PPI_STRUCTURES
+    ]
+    emit(featurize_phase(card, "featurize_ppi", {**ppi, "grid": GRID, "map": "GAUSSIAN", "source": "tests/perf/ppi_perf.py:16-17"}, jobs))
+    jobs = [
+        (
+            f"{srv['pdb']}:{srv['chain']}:{res}",
+            SingleResidueVariantQuery(
+                pdb_path=str(DATA / "pdb" / f"{srv['pdb']}.pdb"),
+                resolution="residue",
+                chain_ids=srv["chain"],
+                variant_residue_number=res,
+                insertion_code=None,
+                wildtype_amino_acid=alanine,
+                variant_amino_acid=phenylalanine,
+                targets={"binary": 0},
+            ),
+            srv["modules"],
+        )
+        for res in srv["residues"]
+    ]
+    emit(featurize_phase(card, "featurize_srv", {**srv, "resolution": "residue", "radius": 10.0, "grid": GRID, "map": "GAUSSIAN", "source": "tests/perf/srv_perf.py:1-3, 37-60"}, jobs))
+
+
+def trainer_featurized_phase(torch, counters, card, dev) -> None:
+    """Phase 58: VanillaNetwork and CnnClassification through
+    ``Trainer.train`` on the real structures, featurized in memory."""
+    import functools
+    import random
+
+    from deeprank2_tpu_torch.neuralnets.cnn.model3d import CnnClassification
+    from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetwork
+    from deeprank2_tpu_torch.query import ProteinProteinInterfaceQuery
+    from deeprank2_tpu_torch.tools import f64_gate as fg
+    from deeprank2_tpu_torch.utils.grid import GridSettings, MapMethod
+
+    t_phase = time.perf_counter()
+    tf = TRAINER_FEATURIZED
+    settings = GridSettings(list(GRID["points"]), list(GRID["sizes"]))
+    random.seed(tf["seed"])
+    graphs, grids, featurize_ms = [], [], []
+    for i, (pdb, chains) in enumerate(PPI_STRUCTURES):
+        # the PPI tutorial's demo targets: binding affinity 100 + 900 (i mod 3), binary below 500
+        query = ProteinProteinInterfaceQuery(
+            pdb_path=str(DATA / "pdb" / f"{pdb}.pdb"),
+            resolution="residue",
+            chain_ids=list(chains),
+            influence_radius=tf["radius"],
+            max_edge_length=tf["radius"],
+            targets={"binary": int(100.0 + 900.0 * (i % 3) <= 500), "BA": 100.0 + 900.0 * (i % 3)},
+        )
+        graph, graph_grids, times = featurize(query, tf["modules"], settings, MapMethod.GAUSSIAN, tf["augmentations"])
+        check_featurized(f"{pdb}:{'-'.join(chains)}:residue", graph, graph_grids)
+        graphs.append(graph)
+        grids += [(grid, graph) for grid in graph_grids]
+        featurize_ms.append(times["build_ms"] + sum(times["grid_ms"]))
+    graph_entries = [graph_entry(g, tf["node_features"], tf["edge_features"]) for g in graphs]
+    grid_entries = [grid_entry(grid, g) for grid, g in grids]
+    channels = sorted(n for n in grids[0][0].features if n[0] != "_")
+    emit(
+        {
+            "phase": "trainer_featurized_data",
+            "card": card,
+            "graphs": [{"entry": e["entry_name"], "nodes": int(e["x"].shape[0]), "edges": int(e["edge_index"].shape[0]), "y": e["y"]} for e in graph_entries],
+            "grids": len(grid_entries),
+            "grid_channels": len(channels),
+            "featurize_ms": featurize_ms,
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+
+    # VanillaNetwork on the COO branch: K7 twice a step (its two convs'
+    # forwards; the VJP is a gather) and twice an eval batch
+    t_phase = time.perf_counter()
+    bs = tf["batch_size"]
+    run = trainer_phase(
+        torch,
+        counters,
+        {
+            "name": "trainer_featurized_vanilla",
+            "model": VanillaNetwork,
+            "dataset": functools.partial(in_memory_dataset, node_features=tf["node_features"], edge_features=tf["edge_features"]),
+            "clustered": False,
+            "entries": graph_entries,
+            "check": graph_entries,
+            "batch_size": bs,
+            "check_batch_size": bs,
+            "epochs": tf["epochs"],
+            "step": {"segment_sum_sorted_kernel": 2},
+            "eval": {"segment_sum_sorted_kernel": 2},
+            "step_forms": {},
+            "eval_forms": {},
+            "grad_tol": CLUSTERED_GRAD_TOL,
+        },
+    )
+    per_step = run["summary"]["train_passes"][0]["launches"].get("segment_sum_sorted_kernel", 0) / -(-len(graph_entries) // bs)
+    if not per_step > 0:
+        msg = f"trainer_featurized_vanilla: K7 launched {per_step} times a step"
+        raise AssertionError(msg)
+    emit({"phase": "trainer_featurized_vanilla", "card": card, "model": f"VanillaNetwork({len(graph_entries[0]['x'][0])}, 2, {graph_entries[0]['edge_attr'].shape[1]}) through Trainer.train", "k7_launches_per_step": per_step, **run["summary"], "seconds": time.perf_counter() - t_phase})
+
+    # CnnClassification on the grids, its one checked step's gradients
+    # against float64 as trainer_cnn's, but for the max-pool winners: on
+    # these grids (a Gaussian over a 1 A box, nearly constant in a pool
+    # window) an f32 convolution's outputs sit up to 15 (H100) and 5 (CPU)
+    # units of 2^-24 S from float64, beyond the band C = 1/4 measured on
+    # synthetic grids, so a winner may flip up to its chain's first-order
+    # bound (f64_gate.cnn_chain_terms), the gradients then held at the
+    # unchanged gate against float64 with the route's decisions
+    t_phase = time.perf_counter()
+    box = tuple(grid_entries[0]["x"].shape[1:])
+
+    def grad_gate(initial, trainer, grads):
+        cpu_batch, _ = trainer._collate(grid_entries[:bs], pad_graphs=bs)
+        b = cpu_batch.to(dev)
+        loss_of = cnn_loss(CnnClassification)
+        limits = fg.cnn_chain_terms(initial)
+        rows = {}
+        for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            m = CnnClassification(len(channels), box, device=device)
+            m.load_state_dict(initial)
+            decisions = fg.cnn_decisions(m, b.x.to(device))
+            rows[side] = gate_row(fg.hold_cnn(side, grads[side], initial, b.x, lambda lg: loss_of(lg, b), decisions, raise_on_fail=side == "card", flip_limit=limits))
+        return rows
+
+    with tf32_default(torch):
+        run = trainer_phase(
+            torch,
+            counters,
+            {
+                "name": "trainer_featurized_cnn",
+                "model": CnnClassification,
+                "dataset": functools.partial(in_memory_grid_dataset, features=channels),
+                "clustered": False,
+                "entries": grid_entries,
+                "check": grid_entries[:bs],
+                "batch_size": bs,
+                "check_batch_size": bs,
+                "epochs": tf["epochs"],
+                "step": {},
+                "eval": {},
+                "step_forms": {},
+                "eval_forms": {},
+                "grad_gate": grad_gate,
+            },
+        )
+    emit({"phase": "trainer_featurized_cnn", "card": card, "model": f"CnnClassification({len(channels)}, {box}) through Trainer.train", **run["summary"], "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     if not (HERE / "deeprank2_tpu_torch").is_dir():
         print("chip_smoke.py: the deeprank2_tpu_torch package is not beside this script", file=sys.stderr)
@@ -4176,6 +4672,13 @@ def main() -> int:
     # theirs enters the kernels line
     grid_phases(torch, counters, card, peak, dev)
     emit(alignment_phase(torch, counters, card, dev))
+
+    # 55-58. the featurization on the host (its native kernels, the PPI and
+    # SRV protocols) and the Trainer on its output: K7 through VanillaNetwork,
+    # no other kernel of K1-K9
+    emit(native_host_phase(card))
+    featurize_phases(card)
+    trainer_featurized_phase(torch, counters, card, dev)
 
     emit({"kernels": kernels_line(calls, path_launches, checks.errs, path_forms, checks.form_errs, fma_calls + f32_calls + bf16_form_calls)})
     print(card_line(), flush=True)

@@ -1,1 +1,2 @@
-"""Host-side utilities of the training runtime (port of ``deeprank2_tpu/utils``)."""
+"""Host-side utilities of the featurization and the training runtime (port
+of ``deeprank2_tpu/utils``)."""

@@ -240,3 +240,57 @@ def test_cnn_f64_gate_holds_flips_to_their_band() -> None:
     off = {k: v + 4 * fg.gate_atol(exact.s_grads[k]) for k, v in exact.grads.items()}
     with pytest.raises(AssertionError, match="against float64"):
         fg.hold_cnn("off", off, pm.state_dict(), batch.x, loss_of, fg.cnn_decisions(pm, batch.x))
+
+
+def test_f64_gate_flip_limit_admits_only_flips_within_their_chains_bound() -> None:
+    """``cnn_chain_terms`` counts each decision's chain of products; with
+    ``hold_cnn(..., flip_limit=...)`` a pool winner outside the band C is
+    admitted up to its decision's limit (and the gradients held against
+    float64 with the route's decisions), and fails beyond it; without a
+    limit the gate is as before."""
+    features, box = 3, (12, 12, 12)
+    _, _, pm = _pair("CnnClassification", features, box, positive_bias=True)
+    batch, _ = _batch(features, box)
+    ce = losses.CrossEntropyLoss()
+
+    def loss_of(logits):
+        return ce(logits, batch.y, batch.y_mask)
+
+    state = pm.state_dict()
+    limits = fg.cnn_chain_terms(state)
+    w1, w2, w3 = state["convlayer_000.weight"], state["convlayer_002.weight"], state["fclayer_000.weight"]
+    # a conv output sums in-channels x the kernel's voxels, and its bias
+    n1 = features * w1[0, 0].numel() + 1
+    n2 = n1 + w2.shape[1] * w2[0, 0].numel() + 1
+    assert limits == {"relu1": n1, "pool1": n1, "relu2": n2, "pool2": n2, "relu3": n2 + w3.shape[1] + 1}
+    assert w1.shape[1] == features
+    exact = fg.cnn_f64(state, batch.x, loss_of)
+    d = exact.decisions
+    h, s = exact.z[0] * d.m1, exact.s_z[0]
+    flat_h, flat_s = h.flatten(2), s.flatten(2)
+    win = d.i1.flatten(2)
+    # each window's runner-up: the largest element other than the winner
+    n1, c1, *dims = h.shape
+    cut = tuple(x // 2 * 2 for x in dims)
+    idx = torch.arange(flat_h.shape[2]).view(dims)[: cut[0], : cut[1], : cut[2]]
+    windows = idx.reshape(cut[0] // 2, 2, cut[1] // 2, 2, cut[2] // 2, 2).permute(0, 2, 4, 1, 3, 5).reshape(-1, 8)
+    vals = flat_h[:, :, windows]  # [N, C, windows, 8]
+    order = vals.argsort(dim=-1, descending=True)
+    second = windows[torch.arange(windows.shape[0])[None, None, :], order[..., 1]]
+    gap = fg._take(h, d.i1).flatten(2) - flat_h.gather(2, second)
+    need = gap / (fg.UNIT * (fg._take(s, d.i1).flatten(2) + flat_s.gather(2, second)))
+    # the window whose runner-up float64 puts closest to the winner outside the band
+    need = torch.where(need > fg.C, need, torch.full_like(need, float("inf")))
+    g, c, w = (int(v) for v in torch.nonzero(need == need.min())[0])
+    least = float(need[g, c, w])
+    assert fg.C < least < float("inf")
+    route = fg.CnnDecisions(d.m1, d.i1.clone(), d.m2, d.i2, d.m3)
+    route.i1.view(n1, c1, -1)[g, c, w] = second[g, c, w]
+    got = fg.cnn_f64(state, batch.x, loss_of, decisions=route).grads
+    plain = fg.hold_cnn("flip", got, state, batch.x, loss_of, route, raise_on_fail=False)
+    assert not plain["passed"] and plain["flips"]["pool1"]["out_of_band"] == 1
+    for limit, admitted in ((least * 1.01, True), (least * 0.99, False)):
+        row = fg.hold_cnn("flip", got, state, batch.x, loss_of, route, raise_on_fail=False, flip_limit={**limits, "pool1": limit})
+        assert row["passed"] == admitted
+        assert row["flips"]["pool1"]["out_of_band"] == (0 if admitted else 1)
+        assert row["flips"]["pool1"]["limit_c"] == limit

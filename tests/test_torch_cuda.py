@@ -459,6 +459,46 @@ def test_coo_train_step_matches_cpu_and_counts_launches(cuda, kind) -> None:
             torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)
 
 
+def test_vanilla_step_on_featurized_graphs_matches_cpu(cuda) -> None:
+    """VanillaNetwork on residue graphs of the 1ATN decoys featurized by the
+    port (the PPI tutorial's settings: 8 A, components and contact),
+    turned into entries as ``chip_smoke.py`` does on this machine (no h5py):
+    one train step card against CPU, K7 launched by both convs."""
+    import runpy
+    from pathlib import Path
+
+    from deeprank2_tpu_torch.query import ProteinProteinInterfaceQuery
+
+    root = Path(__file__).resolve().parent.parent
+    smoke = runpy.run_path(str(root / "chip_smoke.py"), run_name="chip_smoke")
+    entries = []
+    for i, decoy in enumerate(("1ATN_1w", "1ATN_2w", "1ATN_3w")):
+        query = ProteinProteinInterfaceQuery(
+            pdb_path=str(root / "tests" / "data" / "pdb" / "1ATN" / f"{decoy}.pdb"),
+            resolution="residue",
+            chain_ids=["A", "B"],
+            influence_radius=8.0,
+            max_edge_length=8.0,
+            targets={"binary": i % 2},
+        )
+        entries.append(smoke["graph_entry"](query.build(["components", "contact"]), ["res_type", "polarity"], ["distance", "covalent"]))
+    batch, _ = collate_graphs(entries, pad_graphs=4, device=cuda)
+    f, fe = entries[0]["x"].shape[1], entries[0]["edge_attr"].shape[1]
+    model, cpu_model = VanillaNetwork(f, 2, fe, device=cuda), VanillaNetwork(f, 2, fe, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loss_fn = CrossEntropyLoss()
+    ss.reset_launches()
+    loss = loss_fn(model(batch), batch.y, batch.y_mask)
+    loss.backward()
+    assert ss.launches == {"segment_sum_sorted_kernel": 2}
+    cpu_batch = batch.to("cpu")
+    cpu_loss = loss_fn(cpu_model(cpu_batch), cpu_batch.y, cpu_batch.y_mask)
+    cpu_loss.backward()
+    torch.testing.assert_close(loss.detach().cpu(), cpu_loss.detach(), rtol=1e-4, atol=1e-5)
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-6, msg=name)
+
+
 def _tower_operands(g, n, f, c1, c2, dev, seed=0):
     """A symmetric 0/1 adjacency with a masked, edgeless tail in every graph,
     features in both layouts, the two weights and the pooled cotangents."""

@@ -18,11 +18,41 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.dataset",
     "deeprank2_tpu_torch.device",
     "deeprank2_tpu_torch.domain",
+    "deeprank2_tpu_torch.domain.aminoacidlist",
     "deeprank2_tpu_torch.domain.edgestorage",
     "deeprank2_tpu_torch.domain.gridstorage",
     "deeprank2_tpu_torch.domain.losstypes",
     "deeprank2_tpu_torch.domain.nodestorage",
     "deeprank2_tpu_torch.domain.targetstorage",
+    "deeprank2_tpu_torch.features",
+    "deeprank2_tpu_torch.features.components",
+    "deeprank2_tpu_torch.features.conservation",
+    "deeprank2_tpu_torch.features.contact",
+    "deeprank2_tpu_torch.features.exposure",
+    "deeprank2_tpu_torch.features.irc",
+    "deeprank2_tpu_torch.features.secondary_structure",
+    "deeprank2_tpu_torch.features.surfacearea",
+    "deeprank2_tpu_torch.io",
+    "deeprank2_tpu_torch.io.pdb",
+    "deeprank2_tpu_torch.molstruct",
+    "deeprank2_tpu_torch.molstruct.aminoacid",
+    "deeprank2_tpu_torch.molstruct.pair",
+    "deeprank2_tpu_torch.molstruct.structure",
+    "deeprank2_tpu_torch.neuralnets",
+    "deeprank2_tpu_torch.neuralnets.cnn",
+    "deeprank2_tpu_torch.neuralnets.cnn.model3d",
+    "deeprank2_tpu_torch.neuralnets.gnn",
+    "deeprank2_tpu_torch.neuralnets.gnn.alignmentnet",
+    "deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse",
+    "deeprank2_tpu_torch.neuralnets.gnn.foutnet",
+    "deeprank2_tpu_torch.neuralnets.gnn.ginet",
+    "deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse",
+    "deeprank2_tpu_torch.neuralnets.gnn.ginet_dense",
+    "deeprank2_tpu_torch.neuralnets.gnn.ginet_nocluster",
+    "deeprank2_tpu_torch.neuralnets.gnn.sgat",
+    "deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn",
+    "deeprank2_tpu_torch.neuralnets.nn",
+    "deeprank2_tpu_torch.neuralnets.param_interop",
     "deeprank2_tpu_torch.ops",
     "deeprank2_tpu_torch.ops._build",
     "deeprank2_tpu_torch.ops.batch",
@@ -39,47 +69,50 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.ops.synthetic",
     "deeprank2_tpu_torch.ops.tower_plan",
     "deeprank2_tpu_torch.ops.vanilla",
-    "deeprank2_tpu_torch.neuralnets",
-    "deeprank2_tpu_torch.neuralnets.nn",
-    "deeprank2_tpu_torch.neuralnets.param_interop",
-    "deeprank2_tpu_torch.neuralnets.cnn",
-    "deeprank2_tpu_torch.neuralnets.cnn.model3d",
-    "deeprank2_tpu_torch.neuralnets.gnn",
-    "deeprank2_tpu_torch.neuralnets.gnn.alignmentnet",
-    "deeprank2_tpu_torch.neuralnets.gnn.clustered_blocksparse",
-    "deeprank2_tpu_torch.neuralnets.gnn.foutnet",
-    "deeprank2_tpu_torch.neuralnets.gnn.ginet",
-    "deeprank2_tpu_torch.neuralnets.gnn.ginet_blocksparse",
-    "deeprank2_tpu_torch.neuralnets.gnn.ginet_dense",
-    "deeprank2_tpu_torch.neuralnets.gnn.ginet_nocluster",
-    "deeprank2_tpu_torch.neuralnets.gnn.sgat",
-    "deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn",
+    "deeprank2_tpu_torch.query",
     "deeprank2_tpu_torch.tools",
+    "deeprank2_tpu_torch.tools.decoys",
     "deeprank2_tpu_torch.tools.diag_order",
     "deeprank2_tpu_torch.tools.f64_gate",
+    "deeprank2_tpu_torch.tools.similarity",
+    "deeprank2_tpu_torch.tools.target",
     "deeprank2_tpu_torch.tools.timing",
     "deeprank2_tpu_torch.tools.tower_times",
     "deeprank2_tpu_torch.trainer",
     "deeprank2_tpu_torch.tutorials",
+    "deeprank2_tpu_torch.tutorials.data_generation_ppi",
+    "deeprank2_tpu_torch.tutorials.data_generation_srv",
     "deeprank2_tpu_torch.tutorials.training",
     "deeprank2_tpu_torch.utils",
+    "deeprank2_tpu_torch.utils.buildgraph",
     "deeprank2_tpu_torch.utils.checkpoint",
     "deeprank2_tpu_torch.utils.community_pooling",
     "deeprank2_tpu_torch.utils.earlystopping",
     "deeprank2_tpu_torch.utils.exporters",
+    "deeprank2_tpu_torch.utils.graph",
+    "deeprank2_tpu_torch.utils.grid",
+    "deeprank2_tpu_torch.utils.parsing",
+    "deeprank2_tpu_torch.utils.parsing.forcefield",
+    "deeprank2_tpu_torch.utils.parsing.pssm",
+    "deeprank2_tpu_torch.utils.pssmdata",
+    "deeprank2_tpu_torch.utils.sasa",
+    "deeprank2_tpu_torch.utils.secstructure",
+    "deeprank2_tpu_torch.utils.ses",
 ]
 
 # Runs in a fresh interpreter (this test process has imported JAX already).
-# Imports of jax and of the JAX package fail; building or loading a library
-# (nvcc through subprocess, ctypes.CDLL) fails too.
+# Imports of jax, of the JAX package and of h5py (the card's machine has
+# none) fail; building or loading a library (nvcc or g++ through
+# subprocess, ctypes.CDLL) fails too.
 _IMPORT_PROBE = """
 import ctypes, importlib, importlib.abc, runpy, subprocess, sys
 import torch  # loads its own libraries before the refusals below
+import scipy.ndimage, scipy.spatial  # numpy.testing, which they import, runs lscpu
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "deeprank2_tpu"):
+        if top in ("jax", "jaxlib", "deeprank2_tpu", "h5py"):
             raise ImportError(f"refused import of {name}")
         return None
 
@@ -106,6 +139,57 @@ def test_port_imports_without_jax_and_builds_nothing() -> None:
     )
     assert out.returncode == 0, out.stderr
     assert f"imported {len(PORT_MODULES)}" in out.stdout
+
+
+# Runs in a fresh interpreter: the featurization of a query (every feature
+# module, PSSMs, the forcefield's table, a graph mapped to grids with an
+# augmentation, chip_smoke.py's in-memory entries) with an audit hook that
+# refuses to open, list or load anything inside the JAX package, and with
+# imports of jax, the JAX package and h5py refused.
+_FEATURIZE_PROBE = """
+import importlib.abc, os, runpy, sys
+root, data = sys.argv[1], sys.argv[2]
+jax_dir = os.path.join(root, "deeprank2_tpu") + os.sep
+
+def hook(event, args):
+    if event in ("open", "os.listdir", "os.scandir", "ctypes.dlopen") and args and isinstance(args[0], (str, bytes, os.PathLike)):
+        path = os.path.abspath(os.fsdecode(args[0]))
+        if path.startswith(jax_dir):
+            raise RuntimeError(f"{event} of {path} inside the JAX package")
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "deeprank2_tpu", "h5py"):
+            raise ImportError(f"refused import of {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.addaudithook(hook)
+from deeprank2_tpu_torch.query import ProteinProteinInterfaceQuery, QueryCollection
+from deeprank2_tpu_torch.utils.grid import Augmentation, Grid, GridSettings, MapMethod
+modules = QueryCollection()._set_feature_modules("all")
+query = ProteinProteinInterfaceQuery(
+    pdb_path=f"{data}/pdb/1ATN/1ATN_1w.pdb", resolution="residue", chain_ids=["A", "B"],
+    pssm_paths={c: f"{data}/pssm/1ATN/1ATN.{c}.pdb.pssm" for c in "AB"}, targets={"binary": 1},
+)
+graph = query.build(modules)
+for aug in (None, Augmentation([0.0, 0.6, 0.8], 0.4)):
+    grid = Grid(graph.id, list(graph.center), GridSettings([10, 10, 10], [20.0, 20.0, 20.0]))
+    graph.map_to_grid(grid, MapMethod.GAUSSIAN, aug)
+smoke = runpy.run_path(os.path.join(root, "chip_smoke.py"), run_name="chip_smoke")
+entry = smoke["graph_entry"](graph)
+assert entry["x"].shape[0] == graph.num_nodes and smoke["grid_entry"](grid, graph)["x"].shape[0] > 0
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "deeprank2_tpu", "h5py") for m in sys.modules)
+print("featurized", len(modules), graph.num_nodes, len(grid.features))
+"""
+
+
+def test_featurization_runs_without_h5py_and_reads_nothing_of_the_jax_package(data_path) -> None:
+    out = subprocess.run(
+        [sys.executable, "-c", _FEATURIZE_PROBE, str(ROOT), str(data_path)], cwd=ROOT, capture_output=True, text=True, timeout=300, check=False
+    )
+    assert out.returncode == 0, out.stderr
+    assert "featurized 7 " in out.stdout
 
 
 def test_every_port_module_is_listed() -> None:
