@@ -403,8 +403,45 @@ Phases, each printing one JSON line:
    first-order bound, f64_gate.cnn_chain_terms, since on these nearly
    constant grids the f32 convolutions sit beyond the band C).
 
+59. gp_kernels_vs_plain: K5 at the graph-parallel shapes of
+   geometric_entry(100_000, 38, 6) over PARALLEL["ranks"] ranks: each
+   rank's row slice (collate_graphs_blocksparse_partitioned: its row tiles,
+   every source column) and each rank's ring buckets
+   (collate_graphs_blocksparse_ring: the diagonal one and the off-diagonal
+   ones, columns re-based to one rank's block), at F=32 and 64 (the two
+   layers' widths), against bcsr_spmm_kernel_ref at TOL and against
+   bcsr_spmm_order_ref bit for bit; then rank 0's calls timed, beside the
+   plain version, cuSPARSE and the bound (time_bcsr_calls), counted four
+   times a step (two layers, forward and backward);
+60-64. the parallel paths, PARALLEL["ranks"] ranks as processes of one
+   gloo group on this one card (parallel/launch.py, one spawn for all,
+   the kernels built above first; gloo's point-to-point exchange takes
+   host tensors, so the rings' hops pass through pinned host memory):
+   60, dryrun_multichip (tools/dryrun_multichip.py's paths: six
+   data-parallel layouts, the edge partition and its ring, the BCSR
+   partition and its ring, each rank's predictions against the same model
+   on one rank within 1e-4, and the comm lines); 61, dp_dense: GINetDense
+   data-parallel (parallel/dp.py's step) at the bench shape
+   (PARALLEL["dp_graphs"] graphs a rank), PARALLEL["warm"] warm and
+   PARALLEL["steps"] timed train steps, max_err of the eval step against
+   one rank; 62-64, through Trainer.train, dropout-free: trainer_gp and
+   trainer_ring, GINetBlockSparseGP and GINetBlockSparseRing on the
+   100k-node graph (one step an epoch, PARALLEL["warm"] +
+   PARALLEL["steps"] epochs; paths gp_bcsr and gp_ring), and trainer_dp,
+   Trainer(data_parallel=True) on in-memory entries (TRAINER's,
+   batch_size TRAINER["batch_size"]), PARALLEL["trainer_epochs"] epochs.
+   Each Trainer run's first step is held against the single-device model
+   (GINetBlockSparse, GINetDense) with the same initial parameters on
+   the whole batch on one rank: its logits within PARALLEL_TOL, its
+   gradients after the all-reduce within PARALLEL_TOL of the largest.
+   Every parallel run ends with the parameters equal on both ranks, bit
+   for bit. Each with its step times (the card synchronised around each
+   step), its launches by kernel and form a rank, and its collectives'
+   counts and bytes.
+
 Phases 50-58 launch no kernel of K1-K9 but K7 in phase 58 and add nothing
-to the ``kernels`` line. Then the ``kernels`` line (every kernel with forms also by form),
+to the ``kernels`` line; phases 59-64 add their launches (rank 0's) and
+K5's timed slices. Then the ``kernels`` line (every kernel with forms also by form),
 the card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without CUDA, or without the package beside this file, it exits non-zero
 before printing any result.
@@ -443,6 +480,10 @@ TRAINER = {"entries": 1024, "batch_size": 512, "epochs": 3, "check_entries": 512
 # the timed entries (the buckets grow over them) and of the CPU-checked ones
 TRAINER_ATOMIC = {"sizes": ((60_000, 1), (80_000, 2), (100_000, 0), (100_000, 3)), "check_sizes": ((20_000, 5), (20_000, 6)), "epochs": 2}
 DENSE_FAMILY = {"entries": 512, "batch_size": 256, "epochs": 2}
+# the parallel phases 59-64: ranks sharing the card; GINetDense's bench
+# batch split over them; train steps timed after warm ones; the Trainer's
+# epochs
+PARALLEL = {"ranks": 2, "dp_graphs": 256, "warm": 1, "steps": 2, "trainer_epochs": 2, "timeout_s": 300, "deadline_s": 600}
 DENSE_BATCHED = {"graphs": 32}  # GINetDense graphs of N = K1's max_nodes + 32
 # the grid path: the reference grid protocol (tests/perf/cnn_perf.py:37-86:
 # 33 features, a 35x30x30 box, batches of 128; grid_arrays' recipe), 16
@@ -506,6 +547,7 @@ TOL = {"rtol": 1e-5, "atol": 1e-5}
 EXACT = {"rtol": 0.0, "atol": 0.0}
 STEP_TOL = {"rtol": 1e-4, "atol": 1e-6}
 CROSS_TOL = {"rtol": 1e-4, "atol": 1e-5}
+PARALLEL_TOL = 1e-4  # a parallel path's outputs against one rank (the JAX dry run's gate)
 CLUSTERED_GATE = 1e-3  # tests/perf/clustered_parity.py:93
 SGAT_FOUTNET_GATE = 1e-4  # the FoutNet and sGAT fast paths' logits and head gradients against the f64 COO oracle
 # the FoutNet and sGAT steps against the CPU: their conv gradients sum
@@ -2688,29 +2730,12 @@ class Recorder:
 
 def in_memory_dataset(entries, train_source=None, clustering_method=None, node_features=("x",), edge_features=("edge_attr",)):
     """A ``GraphDataset`` over ``entries`` held in memory: the card's machine
-    has no h5py, so no HDF5 file is written or read. Its constructor sets
-    what the file checks would (binary classification target, the features
-    named, the clustering method named) and ``load_one_graph`` returns the
-    entry itself, its cluster ids included."""
-    from deeprank2_tpu_torch.dataset import GraphDataset
+    has no h5py, so no HDF5 file is written or read
+    (``parallel/probes.py:in_memory_dataset``, which the spawned ranks use
+    too)."""
+    from deeprank2_tpu_torch.parallel.probes import in_memory_dataset as dataset
 
-    class InMemoryGraphDataset(GraphDataset):
-        def __init__(self):  # noqa: PLW0231 — the file checks of the parent are what this replaces
-            self.hdf5_paths, self.subset, self.train_source = ["in-memory"], None, train_source
-            self.target, self.target_transform, self.target_filter = "binary", False, None
-            self.root, self.use_tqdm = "./", False
-            self._check_task_and_classes("classif", None)
-            self._entries = {e["entry_name"]: e for e in entries}
-            self.index_entries = [("in-memory", e["entry_name"]) for e in entries]
-            self.df = self.means = self.devs = self.train_means = self.train_devs = None
-            self._cache, self._cache_capacity = {}, 16384
-            self.node_features, self.edge_features = list(node_features), list(edge_features)
-            self.clustering_method, self.features_transform, self.inherited_params = clustering_method, None, None
-
-        def load_one_graph(self, fname, entry_name):  # noqa: ARG002
-            return self._entries[entry_name]
-
-    return InMemoryGraphDataset()
+    return dataset(entries, train_source, clustering_method, node_features, edge_features)
 
 
 def in_memory_grid_dataset(entries, train_source=None, clustering_method=None, features=None):  # noqa: ARG001 — grids have no clusters
@@ -4069,6 +4094,219 @@ def trainer_featurized_phase(torch, counters, card, dev) -> None:
     emit({"phase": "trainer_featurized_cnn", "card": card, "model": f"CnnClassification({len(channels)}, {box}) through Trainer.train", **run["summary"], "seconds": time.perf_counter() - t_phase})
 
 
+def gp_kernels_phase(torch, bs, checks, card, peak, dev) -> list:
+    """Phase 59: K5 at the graph-parallel row slices and ring buckets of the
+    100k-node graph against its plain version and its order loop; rank 0's
+    calls timed. Returns the timed calls (paths ``gp_bcsr``, ``gp_ring``)."""
+    import types
+
+    from deeprank2_tpu_torch.ops.synthetic import geometric_entry
+    from deeprank2_tpu_torch.parallel import blocksparse_partition as bp
+    from deeprank2_tpu_torch.tools.timing import Timer
+
+    ranks = PARALLEL["ranks"]
+    entry = geometric_entry(BCSR["nodes"], BCSR["feat"], BCSR["edge_dim"], seed=BCSR["seed"])
+    t0 = time.perf_counter()
+    parts, _ = bp.collate_graphs_blocksparse_partitioned([entry], ranks, device=dev)
+    rings, _ = bp.collate_graphs_blocksparse_ring([entry], ranks, device=dev)
+    collate_s = time.perf_counter() - t0
+    n0 = len(checks.rows)
+    shapes = []
+    for d in range(ranks):
+        shapes.append((f"row slice rank {d}", parts[d].structure))
+        shapes.append((f"ring diagonal rank {d}", rings[d].diag))
+        shapes += [(f"ring off-diagonal step {k} rank {d}", st) for k, st in enumerate(rings[d].off, start=1)]
+    for tag, st in shapes:
+        for f in (32, 64):
+            x = torch.randn(f, st.padded_nodes, generator=torch.Generator(device=dev).manual_seed(f), device=dev)
+            checks.close("bcsr_spmm_kernel", f"{tag} F={f}", bs.bcsr_spmm_kernel(st, x), bs.bcsr_spmm_kernel_ref(st, x), TOL, "int8/float32")
+            checks.close("bcsr_spmm_kernel", f"{tag} order loop F={f}", bs.bcsr_spmm_kernel(st, x), bs.bcsr_spmm_order_ref(st, x), EXACT, "int8/float32")
+    sync(torch, dev)
+    timer = Timer()
+    slices = types.SimpleNamespace(slice=parts[0].structure, diag=rings[0].diag, **{f"off{k}": st for k, st in enumerate(rings[0].off, start=1)})
+    calls = time_bcsr_calls(torch, bs, timer, "gp_bcsr", slices, [("slice", 32, 2), ("slice", 64, 2)], peak)
+    off = [(f"off{k}", f, 2) for k, has in enumerate(rings[0].off_has_blocks, start=1) if has for f in (32, 64)]
+    calls += time_bcsr_calls(torch, bs, timer, "gp_ring", slices, [("diag", 32, 2), ("diag", 64, 2), *off], peak)
+    del timer
+    emit(
+        {
+            "phase": "gp_kernels_vs_plain",
+            "card": card,
+            "graph": f"geometric_entry({BCSR['nodes']}, {BCSR['feat']}, {BCSR['edge_dim']}), {ranks} ranks",
+            "collate_s": collate_s,
+            "structures": {tag: {"row_tiles": st.num_row_tiles, "column_tiles": st.num_tiles, "blocks_nonzero": int(st.tile_blocks.numel()), "blocks_stored": st.num_blocks} for tag, st in shapes},
+            "tolerance": {"plain": TOL, "order loop": EXACT},
+            "checks": checks.rows[n0:],
+            "calls": calls,
+        }
+    )
+    return calls
+
+
+def sharded_collate_cost(cases, ranks: int) -> dict:
+    """A rank's host collate of one batch of each Trainer run in ``cases``,
+    every shard or part (``shard=None``) against its own alone
+    (``shard=0``, what the Trainer collates): the best of three, ms, on
+    this host's CPU before the ranks start."""
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
+    from deeprank2_tpu_torch.ops import batch as batches
+    from deeprank2_tpu_torch.parallel import blocksparse_partition as bp
+
+    def best_ms(fn) -> float:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return min(times) * 1e3
+
+    specs = {name: spec for name, fn, spec in cases if fn == "trainer_run"}
+    dp = specs["trainer_dp"]
+    dp_batch, per = dp["entries"][: dp["batch_size"]], -(-dp["batch_size"] // ranks)
+    collates = {
+        "trainer_dp": lambda shard: batches.collate_graphs_dense_sharded(dp_batch, ranks, per, with_diag_operands=GINetDense.diag_operands, device="cpu", shard=shard),
+        "trainer_gp": lambda shard: bp.collate_graphs_blocksparse_partitioned(specs["trainer_gp"]["entries"], ranks, device="cpu", shard=shard),
+        "trainer_ring": lambda shard: bp.collate_graphs_blocksparse_ring(specs["trainer_ring"]["entries"], ranks, device="cpu", shard=shard),
+    }
+    return {"ranks": ranks, "collate_ms": {name: {"every_shard": best_ms(lambda: fn(None)), "own_shard": best_ms(lambda: fn(0))} for name, fn in collates.items()}}
+
+
+def parallel_phases(torch, card, record) -> None:
+    """Phases 60-64: the parallel paths over PARALLEL["ranks"] ranks on this
+    card, one spawn (parallel/launch.py) for all; a rank's failure raises."""
+    import numpy as np
+
+    from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetDense
+    from deeprank2_tpu_torch.ops.synthetic import geometric_entry, synthetic_entries
+    from deeprank2_tpu_torch.parallel import launch, probes
+    from deeprank2_tpu_torch.tools import dryrun_multichip as dm
+
+    ranks = PARALLEL["ranks"]
+    bench = synthetic_entries(PARALLEL["dp_graphs"] * ranks, BENCH["nodes"], BENCH["feat"], BENCH["edge_dim"], seed=BENCH["seed"])
+    entry = geometric_entry(BCSR["nodes"], BCSR["feat"], BCSR["edge_dim"], seed=BCSR["seed"])
+    # the Trainer's runs: dropout-free, so the first step can be held against one rank
+    trainer = {"device": "cuda", "dropout_free": True}
+    gp = {
+        **trainer,
+        "entries": [entry],
+        "batch_size": 1,
+        "nepoch": PARALLEL["warm"] + PARALLEL["steps"],
+        "shuffle": False,
+        "one_rank": {"model": "neuralnets.gnn.ginet_blocksparse:GINetBlockSparse", "collate": "collate_graphs_blocksparse"},
+    }
+    cases = [
+        ("dryrun_multichip", "dryrun_paths", {"device": "cuda"}),
+        (
+            "dp_dense",
+            "dp_steps",
+            {
+                "warm": PARALLEL["warm"],
+                "steps": PARALLEL["steps"],
+                "device": "cuda",
+                "model": "neuralnets.gnn.ginet_dense:GINetDense",
+                "feat": BENCH["feat"],
+                "edge_dim": BENCH["edge_dim"],
+                "entries": bench,
+                "collate": "collate_graphs_dense_sharded",
+                "per_shard": PARALLEL["dp_graphs"],
+                "collate_kwargs": {"pad_nodes": BENCH["nodes"]},
+                "one_rank": "collate_graphs_dense",
+            },
+        ),
+        ("trainer_gp", "trainer_run", {**gp, "model": "parallel.blocksparse_partition:GINetBlockSparseGP"}),
+        ("trainer_ring", "trainer_run", {**gp, "model": "parallel.blocksparse_partition:GINetBlockSparseRing"}),
+        (
+            "trainer_dp",
+            "trainer_run",
+            {
+                **trainer,
+                "model": "neuralnets.gnn.ginet_dense:GINetDense",
+                "dp": True,
+                "entries": synthetic_entries(TRAINER["entries"], BENCH["nodes"], BENCH["feat"], BENCH["edge_dim"], seed=BENCH["seed"]),
+                "batch_size": TRAINER["batch_size"],
+                "nepoch": PARALLEL["trainer_epochs"],
+                "one_rank": {"model": "neuralnets.gnn.ginet_dense:GINetDense", "collate": "collate_graphs_dense", "kwargs": {"with_diag_operands": GINetDense.diag_operands}},
+            },
+        ),
+    ]
+    emit({"phase": "sharded_collate_host", "card": card, **sharded_collate_cost(cases, ranks)})
+    t0 = time.perf_counter()
+    results = launch.run(probes.run_cases, ranks, cases, backend="gloo", timeout=PARALLEL["timeout_s"], deadline=PARALLEL["deadline_s"])
+    shared = {"card": card, "ranks": ranks, "backend": "gloo", "ranks_share_one_card": True, "spawn_s": time.perf_counter() - t0}
+
+    def per_rank(name, keys):
+        return [{k: r[name][k] for k in keys if k in r[name]} for r in results]
+
+    def full(launches):
+        return {k: launches["by_kernel"].get(k, 0) for k in KERNELS}
+
+    def replicated(name):
+        """The largest difference of a parameter between rank 0 and another
+        rank after the run (0: the ranks' replicas stayed equal)."""
+        p0 = results[0][name]["params"]
+        diff = max(float(np.abs(r[name]["params"][k] - v).max()) for r in results[1:] for k, v in p0.items())
+        if diff != 0.0:
+            raise AssertionError(f"{name}: the ranks' parameters differ by {diff} after the run")
+        return diff
+
+    dry = {"ranks": ranks, "backend": "gloo", "device": "cuda", "paths": results[0]["dryrun_multichip"], "comm": results[0]["dryrun_multichip"]["comm"]}
+    dry["paths"] = {p: dry["paths"][p] for p in (*dm.DP_PATHS, *dm.FORWARD_PATHS)}
+    ok, lines = dm.summary(dry, 1e-4)
+    emit({"phase": "dryrun_multichip", **shared, "ok": ok, "lines": lines, "paths": dry["paths"], "comm": dry["comm"]})
+    if not ok:
+        raise AssertionError("dryrun_multichip: " + lines[0])
+    for path, res in dry["paths"].items():
+        record(f"dryrun:{path}", {"launches": full(res["launches"]), "launches_by_form": res["launches"]["by_form"]})
+
+    rows = per_rank("dp_dense", ("step_s", "losses", "max_err", "comm_train", "launches_train"))
+    for r in rows:
+        if not (r["max_err"] < PARALLEL_TOL and all(math.isfinite(v) for v in r["losses"])):
+            raise AssertionError(f"dp_dense: max_err {r['max_err']}, losses {r['losses']}")
+    emit(
+        {
+            "phase": "dp_dense",
+            **shared,
+            "model": "GINetDense(38, 2, 6) data-parallel (parallel/dp.py's step), the bench batch split",
+            "tolerance": PARALLEL_TOL,
+            "params_max_diff_between_ranks": replicated("dp_dense"),
+            "step_ms_by_rank": [r["step_s"] * 1e3 for r in rows],
+            "by_rank": rows,
+        }
+    )
+    record("dp_dense", {"launches": full(rows[0]["launches_train"]), "launches_by_form": rows[0]["launches_train"]["by_form"], "step_s": rows[0]["step_s"]})
+
+    warm = PARALLEL["warm"]
+    for name, path, what in (
+        ("trainer_gp", "gp_bcsr", f"GINetBlockSparseGP(38, 2, 6) through Trainer.train, geometric_entry({BCSR['nodes']}), {PARALLEL['warm'] + PARALLEL['steps']} epochs of one step"),
+        ("trainer_ring", "gp_ring", f"GINetBlockSparseRing(38, 2, 6) through Trainer.train, geometric_entry({BCSR['nodes']}), {PARALLEL['warm'] + PARALLEL['steps']} epochs of one step"),
+        ("trainer_dp", "trainer_dp", f"GINetDense(38, 2, 6) through Trainer(data_parallel=True).train, {TRAINER['entries']} in-memory entries, batch_size {TRAINER['batch_size']}"),
+    ):
+        rows = per_rank(name, ("one_rank", "step_s", "losses", "pass_stats", "first_step", "launches", "comm", "device", "epoch_saved_model"))
+        for rank, r in enumerate(rows):
+            check = r["one_rank"]
+            if not (check["max_err"] < PARALLEL_TOL and check["grad_err"] <= PARALLEL_TOL * max(1.0, check["grad_max"])):
+                raise AssertionError(f"{name} rank {rank}: the first step against one rank: {check}")
+            if rank == 0 and not (r["losses"] and all(math.isfinite(p[2]) for p in r["losses"])):
+                raise AssertionError(f"{name}: rank 0 losses {r['losses']}")
+            if rank > 0 and r["losses"]:
+                raise AssertionError(f"{name}: rank {rank} exported {r['losses']}")
+        timed = [statistics.median(r["step_s"][warm:] or r["step_s"]) for r in rows]
+        hop = {"hop": "the ring's hops staged through pinned host memory (gloo's send/recv take CPU tensors only)"} if name == "trainer_ring" else {}
+        emit(
+            {
+                "phase": name,
+                **shared,
+                **hop,
+                "model": what,
+                "tolerance": {"logits": PARALLEL_TOL, "gradients": f"{PARALLEL_TOL} x max(1, largest gradient)"},
+                "params_max_diff_between_ranks": replicated(name),
+                "step_ms_by_rank": [t * 1e3 for t in timed],
+                "by_rank": rows,
+            }
+        )
+        record(path, {"launches": full(rows[0]["launches"]), "launches_by_form": rows[0]["launches"]["by_form"], "step_s": timed[0]})
+
+
 def main() -> int:
     if not (HERE / "deeprank2_tpu_torch").is_dir():
         print("chip_smoke.py: the deeprank2_tpu_torch package is not beside this script", file=sys.stderr)
@@ -4679,6 +4917,11 @@ def main() -> int:
     emit(native_host_phase(card))
     featurize_phases(card)
     trainer_featurized_phase(torch, counters, card, dev)
+
+    # 59. K5 at the graph-parallel row slices and ring buckets; 60-64 the
+    # parallel paths over ranks sharing the card
+    calls += gp_kernels_phase(torch, bs, checks, card, peak, dev)
+    parallel_phases(torch, card, record)
 
     emit({"kernels": kernels_line(calls, path_launches, checks.errs, path_forms, checks.form_errs, fma_calls + f32_calls + bf16_form_calls)})
     print(card_line(), flush=True)

@@ -6,8 +6,8 @@ weights), the clustered ``DiagClusteredBatch`` with
 passes behind the Trainer's capacity buckets, the blocked-edge
 ``BlockedEdgeBatch`` with ``collate_graphs_blocked`` and
 ``blocked_requirements``, the COO ``GraphBatch`` with ``collate_graphs``,
-and the 3D grids' ``GridBatch`` with ``collate_grids``; the sharded
-collates are not ported).
+the 3D grids' ``GridBatch`` with ``collate_grids``, and the seven sharded
+collates of data parallelism, which return one batch a shard).
 
 The batch adjacency of collated graphs is block-diagonal: with graphs padded
 to ``N`` nodes, graph ``g`` owns rows and columns ``[g*N, (g+1)*N)`` and no
@@ -1416,3 +1416,312 @@ def collate_grids(entries: list[dict], pad_graphs: int | None = None, device: st
         x[g] = entry["x"]
     y, y_mask = _targets(entries, num_graphs)
     return GridBatch(**_tensors(dev, x=x, y=y, y_mask=y_mask)), names
+
+
+# ---------------------------------------------------------------------------
+# Sharded collates (port of ``collate_graphs_sharded``, ``_repad``,
+# ``collate_graphs_dense_sharded``, ``collate_grids_sharded``,
+# ``collate_graphs_blocksparse_sharded``,
+# ``collate_graphs_diag_clustered_sharded``,
+# ``collate_graphs_blocksparse_clustered_sharded`` and
+# ``collate_graphs_blocked_sharded``).
+#
+# The JAX collates stack the shards' equally shaped batches on a leading
+# device axis, which ``shard_map`` splits. The port runs one process a rank,
+# so each returns the shards themselves, a tuple of ``num_shards`` batches
+# whose JAX fields are the JAX stack's slices, field for field, and whose
+# names run shard by shard as the JAX stack's; rank ``d`` keeps shard
+# ``d``. Every shard shares the JAX stack's capacities, so the ranks' steps
+# see one shape. With ``shard=d`` only shard ``d`` is collated: the shared
+# capacities still come from every shard's requirements (a counting pass),
+# and each other shard is a :class:`ShardTargets`, its targets alone, which
+# the gathered predictions are read against.
+
+
+@dataclass
+class ShardTargets:
+    """A shard that another rank collates: its graphs' targets alone."""
+
+    y: torch.Tensor  # f32 [G]
+    y_mask: torch.Tensor  # bool [G]
+
+
+def _dummy_entry(template: dict) -> dict:
+    """A 1-node, 0-edge placeholder entry matching ``template``'s schema: an
+    empty shard's one graph."""
+    entry = {
+        "x": np.zeros((1, template["x"].shape[1]), dtype=np.float32),
+        "edge_index": np.zeros((0, 2), dtype=np.int64),
+        "pos": np.zeros((1, 3), dtype=np.float32),
+        "y": None,
+        "entry_name": "",
+    }
+    if "edge_attr" in template:
+        ea = template["edge_attr"]
+        entry["edge_attr"] = np.zeros((0, ea.shape[1] if ea.ndim == 2 else 1), dtype=np.float32)
+    if template.get("cluster0") is not None:
+        entry["cluster0"] = np.zeros(1, dtype=np.int32)
+        entry["cluster1"] = np.zeros(1, dtype=np.int32)
+    return entry
+
+
+def _check_shard_capacity(entries: list[dict], num_shards: int, pad_graphs_per_shard: int) -> None:
+    if len(entries) > num_shards * pad_graphs_per_shard:
+        msg = f"{len(entries)} entries exceed {num_shards} shards x {pad_graphs_per_shard} graphs"
+        raise ValueError(msg)
+
+
+def _round_robin(entries: list[dict], num_shards: int) -> list[list[dict]]:
+    return [entries[s::num_shards] for s in range(num_shards)]
+
+
+def _tile_balanced(entries: list[dict], num_shards: int, pad_graphs_per_shard: int, tile: int) -> list[list[dict]]:
+    """Entries by descending tile count, each to the least-loaded shard with
+    a free graph slot (large graphs vary widely, so round-robin would leave
+    ranks idle); an empty shard gets one placeholder graph."""
+    _check_shard_capacity(entries, num_shards, pad_graphs_per_shard)
+    tiles_of = [-(-e["x"].shape[0] // tile) for e in entries]
+    shards: list[list[dict]] = [[] for _ in range(num_shards)]
+    loads = [0] * num_shards
+    for i in sorted(range(len(entries)), key=lambda i: -tiles_of[i]):
+        open_shards = [s for s in range(num_shards) if len(shards[s]) < pad_graphs_per_shard]
+        s = min(open_shards, key=lambda s: loads[s])
+        shards[s].append(entries[i])
+        loads[s] += tiles_of[i]
+    return [shard or [_dummy_entry(entries[0])] for shard in shards]
+
+
+def _shared_cap(pad, required: int) -> int:
+    """A shared capacity: ``pad`` (int or ``required -> capacity``) against
+    the largest requirement over the shards."""
+    if callable(pad):
+        return pad(required)
+    return required if pad is None else max(required, pad)
+
+
+def _collate_shards(shards: list[list[dict]], collate, pad_graphs_per_shard: int, only: int | None) -> tuple[tuple, list[str]]:
+    """Every shard collated (``only=None``), or shard ``only`` and the
+    others' targets."""
+    batches, names = [], []
+    for s, shard in enumerate(shards):
+        if only is None or s == only:
+            batch, shard_names = collate(shard)
+        else:
+            num_graphs, shard_names = _num_graphs(shard, pad_graphs_per_shard)
+            batch = ShardTargets(*(torch.from_numpy(a) for a in _targets(shard, num_graphs)))
+        batches.append(batch)
+        names.extend(shard_names)
+    return tuple(batches), names
+
+
+def collate_graphs_sharded(entries: list[dict], num_shards: int, pad_graphs_per_shard: int, device: str | torch.device | None = None, shard: int | None = None) -> tuple[tuple[GraphBatch, ...], list[str]]:
+    """COO shards: entries dealt round-robin, every shard re-padded
+    (:func:`_repad`) to the shared node and edge capacities."""
+    shards = _round_robin(entries, num_shards)
+    cap_v = bucket_size(max(sum(e["x"].shape[0] for e in part) for part in shards if part) if entries else 1)
+    cap_e = bucket_size(max(sum(e["edge_index"].shape[0] * 2 for e in part) for part in shards if part) if entries else 1)
+    shards = [part or [{**_dummy_entry(entries[0]), "cluster0": None, "cluster1": None}] for part in shards]
+
+    def collate(part):
+        batch, names = collate_graphs(part, pad_graphs_per_shard, device)
+        return _repad(batch, cap_v, cap_e), names
+
+    return _collate_shards(shards, collate, pad_graphs_per_shard, shard)
+
+
+def _repad(batch: GraphBatch, cap_v: int, cap_e: int) -> GraphBatch:
+    """Grow a batch's node and edge capacities to shared ones (masked
+    padding; the out-of-range marker moves from the old ``V`` to ``cap_v``)."""
+    v0, e0 = batch.num_nodes, batch.num_edges
+    if v0 == cap_v and e0 == cap_e:
+        return batch
+    pad_v, pad_e = cap_v - v0, cap_e - e0
+
+    def pad_nodes(t, fill=0):
+        return torch.cat([t, t.new_full((pad_v, *t.shape[1:]), fill)])
+
+    def remark(t):
+        return torch.where(t >= v0, torch.full_like(t, cap_v), t)
+
+    edge_index = torch.cat([remark(batch.edge_index), batch.edge_index.new_full((2, pad_e), cap_v)], dim=1)
+    return GraphBatch(
+        x=pad_nodes(batch.x),
+        edge_index=edge_index,
+        edge_attr=torch.cat([batch.edge_attr, batch.edge_attr.new_zeros((pad_e, batch.edge_attr.shape[1]))]),
+        pos=pad_nodes(batch.pos),
+        node_graph=pad_nodes(batch.node_graph, batch.num_graphs),
+        edge_mask=torch.cat([batch.edge_mask, batch.edge_mask.new_zeros(pad_e)]),
+        node_mask=pad_nodes(batch.node_mask),
+        y=batch.y,
+        y_mask=batch.y_mask,
+        cluster0=pad_nodes(remark(batch.cluster0), cap_v),
+        cluster1=pad_nodes(remark(batch.cluster1), cap_v),
+        num_graphs=batch.num_graphs,
+    )
+
+
+def collate_graphs_dense_sharded(
+    entries: list[dict],
+    num_shards: int,
+    pad_graphs_per_shard: int,
+    pad_nodes: int | None = None,
+    with_clusters: bool = False,
+    with_edge_weights: bool = False,
+    with_diag_operands: bool = True,
+    device: str | torch.device | None = None,
+    shard: int | None = None,
+) -> tuple[tuple[DenseGraphBatch, ...], list[str]]:
+    """Dense shards: entries dealt round-robin, one node capacity (the
+    adjacency is per graph, so a shard needs nothing of another)."""
+    cap_n = pad_nodes or bucket_size(max(e["x"].shape[0] for e in entries), quantum=32)
+    shards = [part or [_dummy_entry({**entries[0], "cluster0": np.zeros(1, np.int32)})] for part in _round_robin(entries, num_shards)]
+    return _collate_shards(
+        shards,
+        lambda part: collate_graphs_dense(
+            part,
+            pad_graphs=pad_graphs_per_shard,
+            pad_nodes=cap_n,
+            with_clusters=with_clusters,
+            with_edge_weights=with_edge_weights,
+            with_diag_operands=with_diag_operands,
+            device=device,
+        ),
+        pad_graphs_per_shard,
+        shard,
+    )
+
+
+def collate_grids_sharded(entries: list[dict], num_shards: int, pad_graphs_per_shard: int, device: str | torch.device | None = None, shard: int | None = None) -> tuple[tuple[GridBatch, ...], list[str]]:
+    """Grid shards: entries dealt round-robin; an empty shard gets one zero grid."""
+    shape = entries[0]["x"].shape
+    shards = [part or [{"x": np.zeros(shape, np.float32), "y": None, "entry_name": ""}] for part in _round_robin(entries, num_shards)]
+    return _collate_shards(shards, lambda part: collate_grids(part, pad_graphs_per_shard, device), pad_graphs_per_shard, shard)
+
+
+def collate_graphs_blocksparse_sharded(
+    entries: list[dict],
+    num_shards: int,
+    pad_graphs_per_shard: int,
+    pad_tiles=None,
+    pad_blocks=None,
+    device: str | torch.device | None = None,
+    shard: int | None = None,
+) -> tuple[tuple[BlockSparseBatch, ...], list[str]]:
+    """Block-sparse shards: tile-balanced assignment, every shard padded to
+    the shared (tiles, blocks) capacities; ``pad_tiles``/``pad_blocks`` (ints
+    or ``required -> capacity`` callables) resolve against the largest
+    requirement over the shards."""
+    shards = _tile_balanced(entries, num_shards, pad_graphs_per_shard, DEFAULT_BLOCK)
+    reqs = [blocksparse_requirements(part) for part in shards]
+    cap_tiles = _shared_cap(pad_tiles, max(t for t, _ in reqs))
+    cap_blocks = _shared_cap(pad_blocks, max(b for _, b in reqs))
+    return _collate_shards(shards, lambda part: collate_graphs_blocksparse(part, pad_graphs_per_shard, device, pad_tiles=cap_tiles, pad_blocks=cap_blocks), pad_graphs_per_shard, shard)
+
+
+def collate_graphs_diag_clustered_sharded(
+    entries: list[dict],
+    num_shards: int,
+    pad_graphs_per_shard: int,
+    pad_caps: dict | None = None,
+    with_edge_weights: bool = False,
+    weight_dtype: torch.dtype | None = None,
+    min_slot_nodes: int | None = None,
+    device: str | torch.device | None = None,
+    shard: int | None = None,
+) -> tuple[tuple[DiagClusteredBatch, ...], list[str]]:
+    """Graph-diagonal clustered shards: entries dealt round-robin, one layout
+    decision for all shards (``min_slot_nodes``, else from all the
+    entries), every capacity shared; ``pad_caps`` maps the requirements
+    passes' keys to ints or callables."""
+    _check_shard_capacity(entries, num_shards, pad_graphs_per_shard)
+    shards = [part or [_dummy_entry(entries[0])] for part in _round_robin(entries, num_shards)]
+    msn = min_slot_nodes if min_slot_nodes is not None else _auto_min_slot_nodes(entries)
+    reqs = [diag_mixed_requirements(part, msn) if msn > 1 else diag_clustered_requirements(part, min_slot_nodes=1) for part in shards]
+    caps = {k: max(r[k] for r in reqs) for k in reqs[0]}
+    for k, pad in (pad_caps or {}).items():
+        if k in caps:
+            caps[k] = _shared_cap(pad, caps[k])
+    if msn > 1:
+        extra = {
+            "pad_c1": caps["c1"],
+            "pad_members1": caps["members1_s"],
+            "pad_members0s": caps["members0s_s"],
+            "pad_region_caps": {k: caps[k] for k in ("big", "s4", "s2", "s1", "kbig")},
+        }
+    else:
+        extra = {
+            "pad_nodes": caps["nodes"],
+            "pad_clusters": caps["clusters"],
+            "pad_c1": caps["c1"],
+            "pad_members0s": caps["members0s_s"],
+            "pad_members1": caps["members1_s"],
+        }
+    return _collate_shards(
+        shards,
+        lambda part: collate_graphs_diag_clustered(
+            part, pad_graphs=pad_graphs_per_shard, with_edge_weights=with_edge_weights, weight_dtype=weight_dtype, min_slot_nodes=msn, device=device, **extra
+        ),
+        pad_graphs_per_shard,
+        shard,
+    )
+
+
+def collate_graphs_blocksparse_clustered_sharded(
+    entries: list[dict],
+    num_shards: int,
+    pad_graphs_per_shard: int,
+    with_edge_weights: bool = False,
+    weight_dtype: torch.dtype | None = None,
+    pad_caps: dict | None = None,
+    slot8: bool = False,
+    device: str | torch.device | None = None,
+    shard: int | None = None,
+) -> tuple[tuple[ClusteredBlockSparseBatch, ...], list[str]]:
+    """Clustered block-sparse shards: the tile-balanced assignment of the
+    block-sparse shards, every capacity of
+    :func:`clustered_blocksparse_requirements` shared; ``pad_caps`` maps its
+    keys to ints or ``required -> capacity`` callables."""
+    shards = _tile_balanced(entries, num_shards, pad_graphs_per_shard, DEFAULT_BLOCK)
+    reqs = [clustered_blocksparse_requirements(part, slot8=slot8) for part in shards]
+    caps = {k: max(r[k] for r in reqs) for k in reqs[0]}
+    for k, pad in (pad_caps or {}).items():
+        caps[k] = _shared_cap(pad, caps[k])
+    return _collate_shards(
+        shards,
+        lambda part: collate_graphs_blocksparse_clustered(
+            part,
+            pad_graphs=pad_graphs_per_shard,
+            with_edge_weights=with_edge_weights,
+            weight_dtype=weight_dtype,
+            slot8=slot8,
+            device=device,
+            pad_tiles=caps["tiles"],
+            pad_blocks=caps["blocks"],
+            pad_pooled_tiles=caps["pooled_tiles"],
+            pad_pooled_blocks=caps["pooled_blocks"],
+            pad_c1=caps["c1"],
+            pad_members0=caps["members0_s"],
+            pad_members1=caps["members1_s"],
+            pad_members0s=caps.get("members0s_s"),
+        ),
+        pad_graphs_per_shard,
+        shard,
+    )
+
+
+def collate_graphs_blocked_sharded(
+    entries: list[dict],
+    num_shards: int,
+    pad_graphs_per_shard: int,
+    pad_tiles=None,
+    pad_slabs=None,
+    device: str | torch.device | None = None,
+    shard: int | None = None,
+) -> tuple[tuple[BlockedEdgeBatch, ...], list[str]]:
+    """Blocked-edge shards: the tile-balanced assignment on ``EDGE_TILE``
+    tiles, every shard padded to the shared (tiles, slabs) capacities."""
+    shards = _tile_balanced(entries, num_shards, pad_graphs_per_shard, EDGE_TILE)
+    reqs = [blocked_requirements(part) for part in shards]
+    cap_tiles = _shared_cap(pad_tiles, max(t for t, _ in reqs))
+    cap_slabs = _shared_cap(pad_slabs, max(s for _, s in reqs))
+    return _collate_shards(shards, lambda part: collate_graphs_blocked(part, pad_tiles=cap_tiles, pad_slabs=cap_slabs, pad_graphs=pad_graphs_per_shard, device=device), pad_graphs_per_shard, shard)

@@ -138,23 +138,45 @@ class BlockSparseStructure:
     def padded_rows(self) -> int:
         return self.num_row_tiles * self.block
 
+    @property
+    def is_square(self) -> bool:
+        return self.num_row_tiles == self.num_tiles
+
     def to(self, device: str | torch.device) -> BlockSparseStructure:
         """A copy of the structure on ``device``."""
         dev = resolve_device(device)
         return BlockSparseStructure(**{f.name: getattr(self, f.name) if f.name in self._STATIC else getattr(self, f.name).to(dev) for f in fields(self)})
 
 
-def required_blocks(und_pairs: np.ndarray, num_nodes: int, block: int = DEFAULT_BLOCK, kbatch: int | None = None, chunk_tiles: int | None = None) -> int:
+def required_blocks(
+    und_pairs: np.ndarray,
+    num_nodes: int,
+    block: int = DEFAULT_BLOCK,
+    kbatch: int | None = None,
+    chunk_tiles: int | None = None,
+    row_tile_range: tuple[int, int] | None = None,
+    col_tile_range: tuple[int, int] | None = None,
+) -> int:
     """The run-padded block count :func:`build_blocksparse` would store for
     these (locality-ordered) pairs before its capacity rounding: the light
-    requirements pass behind the Trainer's block buckets. ``kbatch=1`` gives
-    the real (unique) block count; ``chunk_tiles`` must be the build's."""
+    requirements pass behind the Trainer's block buckets and the sharded
+    collates' shared capacities. ``kbatch=1`` gives the real (unique) block
+    count; ``chunk_tiles`` and the tile ranges must be the build's."""
     kb = kbatch or KBATCH
     ct = chunk_tiles or CHUNK_TILES
     und = np.asarray(und_pairs, dtype=np.int64).reshape(-1, 2)
     num_tiles = max(-(-num_nodes // block), 1)
     bi = np.concatenate([und[:, 0], und[:, 1]]) // block
     bj = np.concatenate([und[:, 1], und[:, 0]]) // block
+    if row_tile_range is not None:
+        t0, t1 = row_tile_range
+        sel = (bi >= t0) & (bi < t1)
+        bi, bj = bi[sel], bj[sel]
+    if col_tile_range is not None:
+        c0, c1 = col_tile_range
+        sel = (bj >= c0) & (bj < c1)
+        bi, bj = bi[sel], bj[sel] - c0
+        num_tiles = max(c1 - c0, 1)
     uniq = np.unique(((bj // ct) * num_tiles + bi) * num_tiles + bj)
     if not uniq.size:
         return kb
@@ -173,6 +195,8 @@ def build_blocksparse(
     weights: np.ndarray | None = None,
     weight_dtype: torch.dtype | None = None,
     device: str | torch.device | None = None,
+    row_tile_range: tuple[int, int] | None = None,
+    col_tile_range: tuple[int, int] | None = None,
 ) -> BlockSparseStructure:
     """BCSR structure from *undirected* node-index pairs (mirrored here, so
     the adjacency is symmetric), on ``device`` (CUDA unless ``"cpu"`` is
@@ -190,7 +214,19 @@ def build_blocksparse(
     the Trainer's grow-only buckets, given the run-padded block count of
     :func:`required_blocks`) stores that many blocks at least, rounded up to
     the ``kbatch * super_batches`` quantum; the extra blocks are all zero.
-    Row and column slices (the parallel paths) are not ported yet."""
+
+    ``row_tile_range=(t0, t1)`` keeps only the blocks whose destination row
+    tile lies in ``[t0, t1)``: the row slice ``A[t0*B : t1*B, :]`` of the
+    graph-parallel paths (``num_row_tiles = t1 - t0``, rows local to the
+    slice). Such a slice is not symmetric on its own; its SpMM's VJP is
+    ``parallel.blocksparse_partition.bcsr_spmm_sharded``'s, which uses the
+    symmetry of the whole adjacency. ``col_tile_range=(c0, c1)`` keeps only
+    the blocks whose source column tile lies in ``[c0, c1)`` and re-bases
+    the columns to that range (``num_tiles = c1 - c0``): the bucket
+    ``A[t0*B : t1*B, c0*B : c1*B]`` that the ring multiplies with one
+    shard's node block. ``tile_ptr``/``tile_blocks`` index the slice's own
+    row tiles, so K5 walks only them and reads ``x`` only at the slice's
+    source columns."""
     dev = resolve_device(device)
     und = np.asarray(und_pairs, dtype=np.int64).reshape(-1, 2)
     num_tiles = max(-(-num_nodes // block), 1)
@@ -209,9 +245,21 @@ def build_blocksparse(
         raise ValueError(msg)
 
     bi, bj = rows // block, cols // block
-    num_row_tiles = num_tiles
+    t0, t1 = row_tile_range if row_tile_range is not None else (0, num_tiles)
+    num_row_tiles = max(t1 - t0, 1)
+    if row_tile_range is not None:
+        sel = (bi >= t0) & (bi < t1)
+        rows, cols, bi, bj = rows[sel], cols[sel], bi[sel], bj[sel]
+        wvals = wvals[sel] if wvals is not None else None
+    if col_tile_range is not None:
+        c0, c1 = col_tile_range
+        sel = (bj >= c0) & (bj < c1)
+        rows, cols, bi, bj = rows[sel], cols[sel] - c0 * block, bi[sel], bj[sel] - c0
+        wvals = wvals[sel] if wvals is not None else None
+        num_tiles = max(c1 - c0, 1)
     ct = chunk_tiles or CHUNK_TILES
     num_chunks = -(-num_tiles // ct)
+    bi = bi - t0
     chunk = bj // ct
     key = (chunk * num_row_tiles + bi) * num_tiles + bj
     order = np.argsort(key, kind="stable")
@@ -304,7 +352,7 @@ def build_blocksparse(
         num_chunks=num_chunks,
         block=block,
         num_row_tiles=num_row_tiles,
-        symmetric=True,
+        symmetric=(row_tile_range is None and col_tile_range is None) or (col_tile_range is not None and row_tile_range == col_tile_range),
         kbatch=kb,
         super_batches=sb,
         chunk_tiles=ct,
@@ -379,6 +427,13 @@ def bcsr_spmm_kernel(structure: BlockSparseStructure, x_t: torch.Tensor, compute
     its exact f32 value, so the result is exact up to summation order;
     ``compute_dtype=torch.bfloat16`` runs the bf16 form (``x_t`` f32 or
     bf16, rounded to bf16; f32 blocks rounded to bf16).
+
+    Every shape :func:`build_blocksparse` makes is taken: the square
+    adjacency, a row slice (``padded_rows`` = the slice's rows,
+    ``padded_nodes`` = every source column) and a ring bucket
+    (``padded_nodes`` = the source rank's columns, re-based). The kernel
+    walks the structure's ``num_row_tiles`` through its own ``tile_ptr``,
+    so it reads only the slice's blocks, and ``x_t`` at the source columns.
 
     The CUDA kernel first copies ``x_t`` node-major into a scratch tensor
     (``[padded_nodes, F rounded up to 4]``, allocated here each call), then

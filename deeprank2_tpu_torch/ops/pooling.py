@@ -121,16 +121,28 @@ def depth1_graph_mean(h2_t: torch.Tensor, batch) -> torch.Tensor:
     return segment_mean(hc, batch.c1_graph, batch.num_graphs)
 
 
-def _tile_means(tile_sums: torch.Tensor, node_graph: torch.Tensor, node_mask: torch.Tensor, num_graphs: int, block: int) -> torch.Tensor:
-    """Per-graph means ``[G, F]`` from per-tile sums ``[NT, F]``: a scatter of
-    the ``NT`` tile partials by each tile's graph (empty tiles drop)."""
+def _tile_sums(tile_sums: torch.Tensor, node_graph: torch.Tensor, node_mask: torch.Tensor, num_graphs: int, block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-graph sums ``[G, F]`` and node counts ``[G]`` from per-tile sums
+    ``[NT, F]``: a scatter of the ``NT`` tile partials by each tile's graph
+    (empty tiles drop)."""
     nt = tile_sums.shape[0]
     gid = torch.where(node_mask, node_graph, torch.full_like(node_graph, num_graphs)).reshape(nt, block)
     tile_graph = gid.amin(dim=1)  # empty tiles carry num_graphs and drop
     tile_counts = node_mask.reshape(nt, block).sum(dim=1, dtype=torch.float32)
-    sums = segment_sum(tile_sums, tile_graph, num_graphs)
-    counts = segment_sum(tile_counts, tile_graph, num_graphs)
+    return segment_sum(tile_sums, tile_graph, num_graphs), segment_sum(tile_counts, tile_graph, num_graphs)
+
+
+def _tile_means(tile_sums: torch.Tensor, node_graph: torch.Tensor, node_mask: torch.Tensor, num_graphs: int, block: int) -> torch.Tensor:
+    """Per-graph means ``[G, F]`` from per-tile sums ``[NT, F]``."""
+    sums, counts = _tile_sums(tile_sums, node_graph, node_mask, num_graphs, block)
     return sums / counts.clamp_min(1.0)[:, None]
+
+
+def tiled_graph_sums(h_t: torch.Tensor, node_graph: torch.Tensor, node_mask: torch.Tensor, num_graphs: int, block: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sums and node counts behind :func:`tiled_graph_mean_pool`, apart:
+    the graph-parallel models sum both over the ranks before they divide."""
+    f, vpad = h_t.shape
+    return _tile_sums(h_t.reshape(f, vpad // block, block).sum(dim=2).T, node_graph, node_mask, num_graphs, block)
 
 
 def tiled_graph_mean_pool(h_t: torch.Tensor, node_graph: torch.Tensor, node_mask: torch.Tensor, num_graphs: int, block: int = 128) -> torch.Tensor:

@@ -32,8 +32,28 @@ blocked-edge (``blocked_edge_batches``), dense (``dense_batches``, with
 clusters and edge weights where the model's markers ask for them) and COO
 (the default) batches. Their tensors, those of the nested structures
 included, are pinned, copied on the side stream and kept alive for the
-compute stream alike. ``data_parallel``, ``ngpu > 1`` and
-``graph_parallel`` raise, naming ROADMAP §1 item 8, which ports them.
+compute stream alike.
+
+Inside an initialized ``torch.distributed`` process group of more than one
+rank (one process a rank, each on its own card: ``parallel/cluster.py``,
+``parallel/launch.py``), two more modes run, as the JAX Trainer's on a mesh:
+
+- ``data_parallel=True``: every rank shuffles with the same generator and
+  collates its own shard of the sharded batch (per-shard capacity
+  ``ceil(batch_size / D)``, the other capacities from every shard's
+  requirements, ``ops/batch.py:collate_graphs_*_sharded``); the
+  step is ``parallel/dp.py``'s (gradients and loss pmean'ed in one
+  all-reduce, predictions gathered). Outside such a group the flag runs
+  one device, as JAX's with one device;
+- a ``graph_parallel`` model (``GINetBlockSparseGP``, ``GINetBlockSparseRing``)
+  splits each batch's row tiles across the ranks (each builds its own part
+  of the partitioned or ring collates, under the JAX Trainer's grow-only
+  bucket keys); its replicated
+  parameters' gradients are pmean'ed before the step. It cannot be combined
+  with ``data_parallel`` (``ValueError``).
+
+Rank 0 alone writes the exporters' files, the checkpoints and the
+training-state snapshots; the other ranks compute the same losses.
 """
 
 from __future__ import annotations
@@ -59,16 +79,9 @@ from deeprank2_tpu_torch.domain import targetstorage as targets
 from deeprank2_tpu_torch.neuralnets.param_interop import params_from_jax
 from deeprank2_tpu_torch.ops import losses as loss_nn
 from deeprank2_tpu_torch.ops import optim
-from deeprank2_tpu_torch.ops.batch import (
-    _auto_min_slot_nodes,
-    collate_graphs,
-    collate_graphs_blocked,
-    collate_graphs_blocksparse,
-    collate_graphs_blocksparse_clustered,
-    collate_graphs_dense,
-    collate_graphs_diag_clustered,
-    collate_grids,
-)
+from deeprank2_tpu_torch.ops import batch as batches
+from deeprank2_tpu_torch.ops.batch import _auto_min_slot_nodes
+from deeprank2_tpu_torch.parallel import cluster, comm, dp
 from deeprank2_tpu_torch.utils.checkpoint import load_checkpoint, load_snapshot, save_checkpoint, save_snapshot, to_cpu
 from deeprank2_tpu_torch.utils.community_pooling import community_detection, community_pooling_host
 from deeprank2_tpu_torch.utils.earlystopping import EarlyStopping
@@ -77,10 +90,6 @@ from deeprank2_tpu_torch.utils.exporters import HDF5OutputExporter, OutputExport
 _log = logging.getLogger(__name__)
 _COLLATE_UID = iter(range(1 << 62))  # collate-cache dataset ids (never reused)
 
-# batch layouts that later items of ROADMAP.md §1 port, by model attribute
-_LATER_LAYOUTS = {
-    "graph_parallel": "graph-parallel models (ROADMAP §1 item 8)",
-}
 # the model markers that pick a layout, in the JAX Trainer's order of dispatch
 _LAYOUTS = (
     ("clustered_blocksparse_batches", "clustered_blocksparse"),
@@ -121,9 +130,15 @@ def _param_family(neuralnet) -> str | None:
     return None
 
 
+def _is_structures(value) -> bool:
+    """A tuple of nested dataclasses (the ring's off-diagonal buckets)."""
+    return isinstance(value, tuple) and bool(value) and dataclasses.is_dataclass(value[0])
+
+
 def _tensor_fields(batch) -> list[torch.Tensor]:
     """Every tensor of a batch dataclass, those of its nested dataclasses
-    (the block-sparse and blocked-edge structures) included."""
+    (the block-sparse and blocked-edge structures, the ring's tuple of
+    buckets) included."""
     found = []
     for f in dataclasses.fields(batch):
         value = getattr(batch, f.name)
@@ -131,6 +146,9 @@ def _tensor_fields(batch) -> list[torch.Tensor]:
             found.append(value)
         elif dataclasses.is_dataclass(value):
             found += _tensor_fields(value)
+        elif _is_structures(value):
+            for v in value:
+                found += _tensor_fields(v)
     return found
 
 
@@ -145,6 +163,8 @@ def _map_tensors(batch, fn):
             changes[f.name] = fn(value)
         elif dataclasses.is_dataclass(value):
             changes[f.name] = _map_tensors(value, fn)
+        elif _is_structures(value):
+            changes[f.name] = tuple(_map_tensors(v, fn) for v in value)
     return dataclasses.replace(batch, **changes)
 
 
@@ -153,11 +173,15 @@ class Trainer:
 
     Args match the JAX package's (and the reference's, trainer.py:57-70),
     with ``device`` last: the Trainer runs there (CUDA when None; pass
-    ``device="cpu"`` on a machine without one). ``cuda``/``ngpu`` are kept
-    for signature parity: ``cuda=True`` or ``ngpu=1`` with a CPU device
-    raises ``ValueError``, and so does ``ngpu > 1``; the checkpoint records
-    them as the run had them. ``data_parallel=True`` raises
-    ``NotImplementedError`` (ROADMAP §1 item 8).
+    ``device="cpu"`` on a machine without one; inside a process group of
+    several ranks a CUDA device is the rank's own card,
+    ``parallel/cluster.py:rank_device``). ``cuda``/``ngpu`` are kept for
+    signature parity: ``cuda=True`` or ``ngpu=1`` with a CPU device raises
+    ``ValueError``, and so does ``ngpu > 1`` (one process drives one card;
+    several cards train with ``data_parallel=True`` under a process group);
+    the checkpoint records them as the run had them. ``data_parallel=True``
+    shards each batch across the ranks of the process group (see the module
+    docstring); a ``graph_parallel`` model with it raises ``ValueError``.
     """
 
     def __init__(  # noqa: C901, PLR0915
@@ -188,16 +212,22 @@ class Trainer:
         self._collate_cache_capacity = collate_cache_batches
         self._collate_cache: dict[tuple, tuple] = {}
 
-        if data_parallel:
-            msg = "data_parallel=True: the port's sharded collates and data-parallel step are ROADMAP §1 item 8"
-            raise NotImplementedError(msg)
+        if data_parallel and getattr(neuralnet, "graph_parallel", False):
+            msg = "graph_parallel models cannot also use data_parallel=True"
+            raise ValueError(msg)
+        # the ranks of the default process group (1, 0 without one): data
+        # parallelism shards batches over them, graph parallelism row tiles
+        self._world, self._rank = comm.world()
+        self._num_shards = self._world if data_parallel else 1
 
         self._init_datasets(dataset_train, dataset_val, dataset_test, val_size, test_size)
 
         if ngpu > 1:
-            msg = f"ngpu={ngpu}: the port's Trainer runs on one device (multi-device training is ROADMAP §1 item 8)"
+            msg = f"ngpu={ngpu}: one process drives one card; train on several with data_parallel=True inside a torch.distributed process group (parallel/launch.py)"
             raise ValueError(msg)
         self.device = resolve_device(device)
+        if self._world > 1 and self.device.type == "cuda" and self.device.index is None:
+            self.device = cluster.rank_device()
         if (cuda or ngpu > 0) and self.device.type != "cuda":
             msg = f"cuda={cuda}, ngpu={ngpu} contradict device={self.device}"
             raise ValueError(msg)
@@ -214,8 +244,10 @@ class Trainer:
         self.model_load_state_dict = None
         self._prefetch = 2
         self.pass_stats: list[dict] = []
-        # dropout's generator, on the device
-        self._rng = torch.Generator(device=self.device).manual_seed(seed)
+        # dropout's generator, on the device; under data parallelism a CPU
+        # generator of per-step seeds, from which each rank derives its own
+        # (parallel/dp.py:shard_generator)
+        self._rng = torch.Generator(device="cpu" if self._num_shards > 1 else self.device).manual_seed(seed)
 
         if self.pretrained_model is None:
             if self.dataset_train is None:
@@ -279,7 +311,9 @@ class Trainer:
     # Setup
     # ------------------------------------------------------------------
     def _init_output_exporters(self, output_exporters: list[OutputExporter] | None) -> None:
-        if output_exporters is not None:
+        if self._rank != 0:  # rank 0 alone writes
+            self._output_exporters = OutputExporterCollection()
+        elif output_exporters is not None:
             self._output_exporters = OutputExporterCollection(*output_exporters)
         else:
             self._output_exporters = OutputExporterCollection(HDF5OutputExporter("./output"))
@@ -375,7 +409,20 @@ class Trainer:
 
     def _precluster(self, dataset: GraphDataset) -> None:
         """Compute depth-0/depth-1 community clusters per entry and store them
-        in the source HDF5 (reference: trainer.py:319-348)."""
+        in the source HDF5 (reference: trainer.py:319-348). Under a process
+        group rank 0 writes them while the others wait, and only once every
+        rank has closed the file (HDF5 locks a file open for reading
+        against a writer)."""
+        if self._world > 1:
+            torch.distributed.barrier()
+            if self._rank == 0:
+                self._write_clusters(dataset)
+            torch.distributed.barrier()
+            dataset._cache.clear()
+        else:
+            self._write_clusters(dataset)
+
+    def _write_clusters(self, dataset: GraphDataset) -> None:
         import h5py
 
         for fname, mol in dataset.index_entries:
@@ -398,17 +445,10 @@ class Trainer:
     def _layout(self) -> str:
         """The batch layout: ``"grid"`` for a grid dataset, else the model
         class's (``"clustered_blocksparse"``, ``"diag_clustered"``,
-        ``"blocksparse"``, ``"blocked"``, ``"dense"`` or ``"coo"``); a layout
-        still to port raises ``NotImplementedError`` naming its ROADMAP
-        item."""
-        net = self.neuralnet
+        ``"blocksparse"``, ``"blocked"``, ``"dense"`` or ``"coo"``)."""
         if not self._is_graph():
             return "grid"
-        for attr, what in _LATER_LAYOUTS.items():
-            if getattr(net, attr, False):
-                msg = f"{net.__name__}: {what} are not ported to the Trainer yet"
-                raise NotImplementedError(msg)
-        return next((layout for attr, layout in _LAYOUTS if getattr(net, attr, False)), "coo")
+        return next((layout for attr, layout in _LAYOUTS if getattr(self.neuralnet, attr, False)), "coo")
 
     def _put_model_to_device(self, dataset) -> None:
         if self.task == targets.REGRESS:
@@ -416,7 +456,6 @@ class Trainer:
         elif self.task == targets.CLASSIF:
             self.output_shape = len(self.classes)
 
-        self._layout()  # a layout still to port raises before any work
         first = dataset.get(0)
         target_shape = 1 if first.get("y") is not None else None
 
@@ -527,81 +566,145 @@ class Trainer:
 
         return round_up
 
-    def _collate(self, entries: list[dict], pad_graphs: int):  # noqa: C901
-        """A host (CPU) batch of ``entries`` in the model's layout. The
-        block-sparse, blocked and diag-clustered capacities come from the
-        grow-only buckets, under the JAX Trainer's keys, so a run takes the
-        same capacities as JAX's on the same batch sequence."""
+    def _collate(self, entries: list[dict], pad_graphs: int):
+        """A host (CPU) batch of ``entries`` in the model's layout: this
+        rank's shard or part when the batch is split across the ranks, with
+        the names of every graph of the batch."""
+        shards, names = self._collate_shards(entries, pad_graphs)
+        return shards[self._rank if len(shards) > 1 else 0], names
+
+    def _collate_shards(self, entries: list[dict], pad_graphs: int) -> tuple[tuple, list[str]]:  # noqa: C901
+        """A batch of ``entries`` as its shards (one when not split): the
+        data-parallel shards (per-shard capacity ``ceil(pad_graphs / D)``)
+        or a graph-parallel model's parts, of which this rank collates its
+        own and takes the others' targets alone (``ops.batch.ShardTargets``).
+        The block-sparse, blocked and diag-clustered capacities come from
+        the grow-only buckets, under the JAX Trainer's keys, so a run takes
+        the same capacities as JAX's on the same batch sequence."""
         layout = self._layout()
         net = self.neuralnet
         if layout not in ("dense", "coo", "grid") and not hasattr(self, "_bs_caps"):
             self._bs_caps = {}
         bucket = self._blocksparse_bucket
+        d = self._num_shards
+        per_shard = max(1, -(-pad_graphs // d))  # ceil: floor would overfill shards when batch_size % D != 0
+        sharded = {"device": "cpu", "shard": self._rank if d > 1 else 0}
+        # The bucketed layouts keep the single-device collate outside a
+        # group, as the JAX Trainer does: their sharded collates deal graphs
+        # by tile count (another batch order) or bucket under other keys
+        # (dc_big, not dc_region_big), so their one shard is not JAX's
+        # single-device batch. One dense, grid or COO shard is.
         if layout == "clustered_blocksparse":
             slot8 = getattr(net, "clustered_blocksparse_slot8", False)
-            batch, names = collate_graphs_blocksparse_clustered(
-                entries,
-                pad_tiles=bucket("tiles"),
-                pad_blocks=bucket("blocks"),
-                pad_pooled_tiles=bucket("pooled_tiles"),
-                pad_pooled_blocks=bucket("pooled_blocks"),
-                pad_c1=bucket("c1"),
-                pad_graphs=pad_graphs,
-                with_edge_weights=getattr(net, "clustered_blocksparse_edge_weights", False),
-                pad_members0=bucket("members0_s"),
-                pad_members1=bucket("members1_s"),
-                slot8=slot8,
-                pad_members0s=bucket("members0s_s") if slot8 else None,
-                device="cpu",
-            )
+            weighted = getattr(net, "clustered_blocksparse_edge_weights", False)
+            if d > 1:
+                keys = ("tiles", "blocks", "pooled_tiles", "pooled_blocks", "c1", "members0_s", "members1_s") + (("members0s_s",) if slot8 else ())
+                shards, names = batches.collate_graphs_blocksparse_clustered_sharded(
+                    entries, d, per_shard, with_edge_weights=weighted, pad_caps={k: bucket(k) for k in keys}, slot8=slot8, **sharded
+                )
+            else:
+                batch, names = batches.collate_graphs_blocksparse_clustered(
+                    entries,
+                    pad_tiles=bucket("tiles"),
+                    pad_blocks=bucket("blocks"),
+                    pad_pooled_tiles=bucket("pooled_tiles"),
+                    pad_pooled_blocks=bucket("pooled_blocks"),
+                    pad_c1=bucket("c1"),
+                    pad_graphs=pad_graphs,
+                    with_edge_weights=weighted,
+                    pad_members0=bucket("members0_s"),
+                    pad_members1=bucket("members1_s"),
+                    slot8=slot8,
+                    pad_members0s=bucket("members0s_s") if slot8 else None,
+                    device="cpu",
+                )
+                shards = (batch,)
+        elif layout == "blocksparse" and getattr(net, "graph_parallel", False):
+            # row-tile partitioning across every rank: one structure a batch
+            # spans them all
+            from deeprank2_tpu_torch.parallel import blocksparse_partition as bp
+
+            own = {"device": "cpu", "shard": self._rank}
+            if getattr(net, "ring_halo", False):
+                shards, names = bp.collate_graphs_blocksparse_ring(
+                    entries,
+                    self._world,
+                    pad_tiles=bucket("tiles"),
+                    pad_blocks_diag=bucket("ring_diag_blocks"),
+                    # one grow-only capacity a ring step: the steps' shapes are independent
+                    pad_blocks_off=lambda req, k: bucket(f"ring_off_{k}")(req),
+                    pad_graphs=pad_graphs,
+                    **own,
+                )
+            else:
+                shards, names = bp.collate_graphs_blocksparse_partitioned(entries, self._world, pad_tiles=bucket("tiles"), pad_blocks=bucket("gp_blocks"), pad_graphs=pad_graphs, **own)
         elif layout == "blocksparse":
-            batch, names = collate_graphs_blocksparse(entries, pad_tiles=bucket("tiles"), pad_blocks=bucket("blocks"), pad_graphs=pad_graphs, device="cpu")
+            if d > 1:
+                shards, names = batches.collate_graphs_blocksparse_sharded(entries, d, per_shard, pad_tiles=bucket("tiles"), pad_blocks=bucket("blocks"), **sharded)
+            else:
+                batch, names = batches.collate_graphs_blocksparse(entries, pad_tiles=bucket("tiles"), pad_blocks=bucket("blocks"), pad_graphs=pad_graphs, device="cpu")
+                shards = (batch,)
         elif layout == "blocked":
-            batch, names = collate_graphs_blocked(entries, pad_tiles=bucket("be_tiles"), pad_slabs=bucket("be_slabs"), pad_graphs=pad_graphs, device="cpu")
+            if d > 1:
+                shards, names = batches.collate_graphs_blocked_sharded(entries, d, per_shard, pad_tiles=bucket("be_tiles"), pad_slabs=bucket("be_slabs"), **sharded)
+            else:
+                batch, names = batches.collate_graphs_blocked(entries, pad_tiles=bucket("be_tiles"), pad_slabs=bucket("be_slabs"), pad_graphs=pad_graphs, device="cpu")
+                shards = (batch,)
         elif layout == "diag_clustered":
             # pin the pure-vs-mixed layout decision on the FIRST batch: a
             # dataset near the inflation crossover would otherwise flip
             # layouts batch to batch, with a second family of buckets
             if "dc_layout_msn" not in self._bs_caps:
                 self._bs_caps["dc_layout_msn"] = _auto_min_slot_nodes(entries)
-            batch, names = collate_graphs_diag_clustered(
-                entries,
-                pad_graphs=pad_graphs,
-                pad_nodes=bucket("dc_nodes"),
-                pad_clusters=bucket("dc_clusters"),
-                pad_c1=bucket("dc_c1"),
-                pad_members0s=bucket("dc_members0s_s"),
-                pad_members1=bucket("dc_members1_s"),
-                pad_region_caps={k: bucket(f"dc_region_{k}") for k in ("big", "s4", "s2", "s1", "kbig")},
-                with_edge_weights=getattr(net, "diag_clustered_edge_weights", False),
-                min_slot_nodes=self._bs_caps["dc_layout_msn"],
-                device="cpu",
-            )
+            weighted = getattr(net, "diag_clustered_edge_weights", False)
+            msn = self._bs_caps["dc_layout_msn"]
+            if d > 1:
+                keys = ("nodes", "clusters", "c1", "members0s_s", "members1_s", "big", "s4", "s2", "s1", "kbig")
+                shards, names = batches.collate_graphs_diag_clustered_sharded(
+                    entries, d, per_shard, min_slot_nodes=msn, pad_caps={k: bucket(f"dc_{k}") for k in keys}, with_edge_weights=weighted, **sharded
+                )
+            else:
+                batch, names = batches.collate_graphs_diag_clustered(
+                    entries,
+                    pad_graphs=pad_graphs,
+                    pad_nodes=bucket("dc_nodes"),
+                    pad_clusters=bucket("dc_clusters"),
+                    pad_c1=bucket("dc_c1"),
+                    pad_members0s=bucket("dc_members0s_s"),
+                    pad_members1=bucket("dc_members1_s"),
+                    pad_region_caps={k: bucket(f"dc_region_{k}") for k in ("big", "s4", "s2", "s1", "kbig")},
+                    with_edge_weights=weighted,
+                    min_slot_nodes=msn,
+                    device="cpu",
+                )
+                shards = (batch,)
         elif layout == "dense":
-            batch, names = collate_graphs_dense(
+            shards, names = batches.collate_graphs_dense_sharded(
                 entries,
-                pad_graphs,
+                d,
+                per_shard,
                 with_clusters=getattr(net, "needs_clusters", False),
                 with_edge_weights=getattr(net, "dense_edge_weights", False),
                 # the flat route's operands only for a model that reads them
                 with_diag_operands=getattr(net, "diag_operands", False),
-                device="cpu",
+                **sharded,
             )
         elif layout == "grid":
-            batch, names = collate_grids(entries, pad_graphs, device="cpu")
+            shards, names = batches.collate_grids_sharded(entries, d, per_shard, **sharded)
         else:
-            batch, names = collate_graphs(entries, pad_graphs, device="cpu")
+            shards, names = batches.collate_graphs_sharded(entries, d, per_shard, **sharded)
         # map classification targets to class indices (reference _format_output,
         # trainer.py:807-835) on the host: the step sees only integer targets
         if self.task == targets.CLASSIF and self.classes_to_index is not None:
-            y = batch.y.numpy()
-            mask = batch.y_mask.numpy()
-            mapped = np.asarray(
-                [float(self.classes_to_index[int(v)]) if m else 0.0 for v, m in zip(y.reshape(-1), mask.reshape(-1))],
-                dtype=np.float32,
-            ).reshape(y.shape)
-            batch.y = torch.from_numpy(mapped)
-        return batch, names
+            for batch in shards:
+                y = batch.y.numpy()
+                mask = batch.y_mask.numpy()
+                mapped = np.asarray(
+                    [float(self.classes_to_index[int(v)]) if m else 0.0 for v, m in zip(y.reshape(-1), mask.reshape(-1))],
+                    dtype=np.float32,
+                ).reshape(y.shape)
+                batch.y = torch.from_numpy(mapped)
+        return shards, names
 
     def _iter_batches(self, dataset, batch_size: int, shuffle: bool, rng: np.random.Generator | None, prefetch: int = 2):
         """Batches built by a background producer thread with ``prefetch``-deep
@@ -639,13 +742,18 @@ class Trainer:
                 return self._collate_cache[key]
             t0 = time()
             entries = [dataset.get(int(i)) for i in chunk]
-            batch, names = self._collate(entries, pad_graphs=batch_size)
-            # host-side stats (avoids per-batch device->host syncs in the loop)
+            shards, names = self._collate_shards(entries, pad_graphs=batch_size)
+            batch = shards[self._rank if len(shards) > 1 else 0]
+            # host-side stats (avoids per-batch device->host syncs in the
+            # loop), of the whole batch: under data parallelism the targets
+            # of every shard, in the order of the gathered predictions (the
+            # edges, for the throughput log, of this rank's shard)
+            whole = shards if self._num_shards > 1 else (batch,)
             stats = {
-                "n_valid": int(batch.y_mask.sum()),
+                "n_valid": sum(int(b.y_mask.sum()) for b in whole),
                 "n_edges": int(batch.edge_mask.sum()) if hasattr(batch, "edge_mask") else 0,
-                "y_host": batch.y.numpy().copy(),
-                "y_mask_host": batch.y_mask.numpy().copy(),
+                "y_host": np.concatenate([b.y.numpy() for b in whole]),
+                "y_mask_host": np.concatenate([b.y_mask.numpy() for b in whole]),
             }
             if on_card:
                 batch = _map_tensors(batch, torch.Tensor.pin_memory)
@@ -734,26 +842,43 @@ class Trainer:
         if getattr(lossfunction, "weight", None) is not None:
             lossfunction.weight = torch.as_tensor(lossfunction.weight, dtype=torch.float32, device=self.device)
 
-        def compute_loss(batch, training: bool):
-            pred = model(batch, training=training, generator=self._rng if training else None)
+        def compute_loss(batch, generator: torch.Generator | None, training: bool):
+            pred = model(batch, training=training, generator=generator)
             if task == targets.CLASSIF:
                 loss = lossfunction(pred, batch.y.to(torch.int64), batch.y_mask)
             else:
                 loss = lossfunction(pred.reshape(-1), batch.y, batch.y_mask)
             return loss, pred
 
+        if self._num_shards > 1:
+            dp_train, dp_eval = dp.make_dp_train_step(compute_loss, self.optimizer), dp.make_dp_eval_step(compute_loss)
+
+            def flat(loss, pred):  # the gathered [D, G, ...] predictions, in the order of the names
+                return loss, pred.reshape(-1, *pred.shape[2:])
+
+            self._train_step = lambda batch: flat(*dp_train(batch, self._rng))
+            self._eval_step = lambda batch: flat(*dp_eval(batch))
+            return
+
+        # a graph-parallel model's parameters are replicated, each rank's
+        # gradient a share of theirs: pmean'ed before the step
+        graph_parallel = getattr(self.neuralnet, "graph_parallel", False) and self._world > 1
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+
         def train_step(batch):
             # gradients are cleared before the backward, so the last step's
             # stay readable after a pass
             self.optimizer.zero_grad(set_to_none=True)
-            loss, pred = compute_loss(batch, True)
+            loss, pred = compute_loss(batch, self._rng, True)
             loss.backward()
+            if graph_parallel:
+                dp.sync_gradients(params, loss)
             self.optimizer.step()
             return loss.detach(), pred.detach()
 
         @torch.no_grad()
         def eval_step(batch):
-            return compute_loss(batch, False)
+            return compute_loss(batch, None, False)
 
         self._train_step = train_step
         self._eval_step = eval_step
@@ -863,7 +988,7 @@ class Trainer:
             epoch = start_epoch - 1
             for epoch in range(start_epoch, nepoch + 1):
                 _log.info(f"Epoch {epoch}:")
-                if profile_dir and epoch == 1:
+                if profile_dir and epoch == 1 and self._rank == 0:
                     loss_ = self._profiled_epoch(profile_dir, batch_size, shuffle, loader_rng)
                 else:
                     loss_ = self._epoch(epoch, "training", batch_size, shuffle, loader_rng)
@@ -887,7 +1012,7 @@ class Trainer:
                     self.epoch_saved_model = epoch
                     _log.info(f"Best model saved at epoch # {self.epoch_saved_model}.")
 
-                if checkpoint_every and epoch % checkpoint_every == 0:
+                if checkpoint_every and epoch % checkpoint_every == 0 and self._rank == 0:
                     self._write_training_state(checkpoint_path, epoch, loader_rng, train_losses, valid_losses, checkpoint_model, early_stopping)
 
             if best_model is False or not saved_model:
@@ -903,7 +1028,7 @@ class Trainer:
                         "try to increase the cutoff distance during the data processing or the number of data points during the training.",
                     )
 
-        if filename:
+        if filename and self._rank == 0:
             save_checkpoint(checkpoint_model, filename)
         self.opt_loaded_state_dict = checkpoint_model["optimizer_state"]
         self.model_load_state_dict = checkpoint_model["model_state"]

@@ -1594,3 +1594,30 @@ def test_cnn_step_matches_cpu_with_tf32_at_its_default(cudnn_tf32_default, model
     torch.testing.assert_close(logits["card"], logits["cpu"], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(losses["card"], losses["cpu"], rtol=1e-4, atol=1e-5)
     assert row["passed"]
+
+
+# the graph-parallel shapes of K5: a rank's row slice (all source columns)
+# and the ring's buckets (columns re-based to one rank's block), at two and
+# three ranks, on a locality-ordered graph of several column chunks
+@pytest.mark.parametrize("ranks", [2, 3])
+@pytest.mark.parametrize("form", ["row-slice", "ring-diagonal", "ring-off-diagonal"])
+def test_bcsr_kernel_at_row_slices_and_ring_buckets(cuda, form, ranks) -> None:
+    from deeprank2_tpu_torch.parallel import blocksparse_partition as bp
+
+    pairs, nodes = _bcsr_pairs(2200)
+    tiles = -(-nodes // 128)
+    r_per = -(-tiles // ranks)
+    num_nodes = r_per * ranks * 128
+    if form == "row-slice":
+        structures = bp._row_slices(pairs, num_nodes, 128, ranks, r_per, None, cuda)
+    else:
+        rings = bp._build_ring_structures(pairs, num_nodes, 128, ranks, r_per, device=cuda)
+        structures = [dg for dg, _, _ in rings] if form == "ring-diagonal" else [s for _, off, _ in rings for s in off]
+    gen = torch.Generator(device=cuda).manual_seed(ranks)
+    bs.reset_launches()
+    for st in structures:
+        assert st.padded_rows == r_per * 128 and st.padded_nodes == (num_nodes if form == "row-slice" else r_per * 128)
+        x = torch.randn(32, st.padded_nodes, generator=gen, device=cuda)
+        torch.testing.assert_close(bs.bcsr_spmm_kernel(st, x), bs.bcsr_spmm_kernel_ref(st, x), **TOL)
+        torch.testing.assert_close(bs.bcsr_spmm_kernel(st, x), bs.bcsr_spmm_order_ref(st, x), rtol=0, atol=0)
+    assert bs.launches == {"bcsr_spmm_kernel": 2 * len(structures)}

@@ -69,10 +69,20 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.ops.synthetic",
     "deeprank2_tpu_torch.ops.tower_plan",
     "deeprank2_tpu_torch.ops.vanilla",
+    "deeprank2_tpu_torch.parallel",
+    "deeprank2_tpu_torch.parallel.blocksparse_partition",
+    "deeprank2_tpu_torch.parallel.cluster",
+    "deeprank2_tpu_torch.parallel.comm",
+    "deeprank2_tpu_torch.parallel.comm_shape",
+    "deeprank2_tpu_torch.parallel.dp",
+    "deeprank2_tpu_torch.parallel.edge_partition",
+    "deeprank2_tpu_torch.parallel.launch",
+    "deeprank2_tpu_torch.parallel.probes",
     "deeprank2_tpu_torch.query",
     "deeprank2_tpu_torch.tools",
     "deeprank2_tpu_torch.tools.decoys",
     "deeprank2_tpu_torch.tools.diag_order",
+    "deeprank2_tpu_torch.tools.dryrun_multichip",
     "deeprank2_tpu_torch.tools.f64_gate",
     "deeprank2_tpu_torch.tools.similarity",
     "deeprank2_tpu_torch.tools.target",

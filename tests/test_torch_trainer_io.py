@@ -31,6 +31,7 @@ from deeprank2_tpu_torch.neuralnets.gnn.ginet_dense import GINetClusteredDiag, G
 from deeprank2_tpu_torch.neuralnets.gnn.sgat import SGAT, SGATDiag
 from deeprank2_tpu_torch.neuralnets.gnn.vanilla_gnn import VanillaNetwork, VanillaNetworkBlocked
 from deeprank2_tpu_torch.ops import losses, optim
+from deeprank2_tpu_torch.parallel.blocksparse_partition import GINetBlockSparseGP
 from deeprank2_tpu_torch.utils.checkpoint import load_checkpoint
 
 CROSS_TOL = {"rtol": 1e-5, "atol": 1e-5}
@@ -295,15 +296,14 @@ def _later(attr: str, base=GINetDense):
     return type(f"{base.__name__}With_{attr}", (base,), {attr: True})
 
 
-# case -> (model, clustering, the layout the Trainer now collates it in, or
-# the text of the NotImplementedError a layout still to port raises)
+# case -> (model, clustering, the layout the Trainer now collates it in)
 LATER = {
     "GINetBlockSparse": (GINetBlockSparse, None, "blocksparse"),
     "GINetClusteredBlockSparse": (GINetClusteredBlockSparse, "mcl", "clustered_blocksparse"),
     "FoutNetBlockSparse": (FoutNetBlockSparse, "mcl", "clustered_blocksparse"),
     "SGATBlockSparse": (SGATBlockSparse, "mcl", "clustered_blocksparse"),
     "VanillaNetworkBlocked": (VanillaNetworkBlocked, None, "blocked"),
-    "graph_parallel": (_later("graph_parallel"), None, "graph-parallel.*ROADMAP §1 item 8"),
+    "graph_parallel": (GINetBlockSparseGP, None, "blocksparse"),
     "dense_with_clusters": (_later("needs_clusters"), "mcl", "dense"),
     "dense_edge_weights": (_later("dense_edge_weights"), None, "dense"),
 }
@@ -311,14 +311,10 @@ LATER = {
 
 @pytest.mark.parametrize("case", sorted(LATER))
 def test_layouts_still_to_port_raise(hdf5_copy, case) -> None:
-    """Only graph_parallel is still to port among these (ROADMAP §1 item 8);
-    the others, once refused, now collate in their layout on the host."""
+    """Every one of these layouts, once refused, now collates on the host
+    (a graph-parallel model, outside a process group, in its one part)."""
     model, clustering, want = LATER[case]
     ds = GraphDataset(hdf5_path=hdf5_copy, target="binary", clustering_method=clustering)
-    if case == "graph_parallel":
-        with pytest.raises(NotImplementedError, match=want):
-            port_trainer.Trainer(model, dataset_train=ds, output_exporters=[], device="cpu")
-        return
     trainer = port_trainer.Trainer(model, dataset_train=ds, output_exporters=[], device="cpu")
     assert trainer._layout() == want
     batch, names = trainer._collate([trainer.dataset_train.get(i) for i in range(2)], pad_graphs=3)
@@ -326,15 +322,15 @@ def test_layouts_still_to_port_raise(hdf5_copy, case) -> None:
 
 
 def test_data_parallel_and_grids_raise(srv_hdf5, grid_hdf5) -> None:
-    """data_parallel raises on graphs and grids alike (ROADMAP §1 item 8);
-    a grid dataset, once refused, now builds its CNN and collates grids."""
+    """data_parallel, once refused, runs one device outside a process group
+    (as JAX's with one device), on graphs and grids alike; a grid dataset,
+    once refused, builds its CNN and collates grids. (The modes across
+    ranks: tests/test_torch_parallel_trainer.py.)"""
     ds = GraphDataset(hdf5_path=srv_hdf5, target="binary")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        port_trainer.Trainer(VanillaNetwork, dataset_train=ds, data_parallel=True, device="cpu")
+    assert port_trainer.Trainer(VanillaNetwork, dataset_train=ds, data_parallel=True, device="cpu")._num_shards == 1
     grids = GridDataset(hdf5_path=grid_hdf5, target="binary")
     assert len(grids) == 4 and grids.get(0)["x"].ndim == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        port_trainer.Trainer(CnnClassification, dataset_train=grids, data_parallel=True, device="cpu")
+    assert port_trainer.Trainer(CnnClassification, dataset_train=grids, data_parallel=True, output_exporters=[], device="cpu")._num_shards == 1
     trainer = port_trainer.Trainer(CnnClassification, dataset_train=grids, output_exporters=[], device="cpu")
     assert trainer._layout() == "grid" and trainer.model.box_shape == (10, 10, 10)
     assert trainer.model.num_features == grids.get(0)["x"].shape[0]
