@@ -439,9 +439,22 @@ Phases, each printing one JSON line:
    step), its launches by kernel and form a rank, and its collectives'
    counts and bytes.
 
+65. accuracy_parity: the accuracy-parity twin
+   (deeprank2_tpu_torch/tools/accuracy_parity.py) over the whole vendored
+   corpus: the PPI (residue, atom, grid) and SRV flavors featurized in
+   memory (store="memory": no file, no h5py), then all twelve
+   configurations, PARITY["epochs"] epochs, no folds, each port Trainer on
+   the card against the torch mirror of the reference math on the CPU
+   (ginet_edgepart_ba over PARITY["ranks"] ranks sharing the card over
+   gloo). One line a configuration: entries, seconds, launches by kernel
+   (rank 0's for the edge partition), the loss trajectories and the
+   metrics of both sides, and the gates of PARITY_GATES, each enforced:
+   the synced one-epoch probe, the free-running losses (relative) and the
+   final metrics. Every kernel of PARITY_KERNELS must launch.
+
 Phases 50-58 launch no kernel of K1-K9 but K7 in phase 58 and add nothing
-to the ``kernels`` line; phases 59-64 add their launches (rank 0's) and
-K5's timed slices. Then the ``kernels`` line (every kernel with forms also by form),
+to the ``kernels`` line; phases 59-65 add their launches (rank 0's in the
+parallel runs) and K5's timed slices. Then the ``kernels`` line (every kernel with forms also by form),
 the card's name and power limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without CUDA, or without the package beside this file, it exits non-zero
 before printing any result.
@@ -483,6 +496,11 @@ DENSE_FAMILY = {"entries": 512, "batch_size": 256, "epochs": 2}
 # the parallel phases 59-64: ranks sharing the card; GINetDense's bench
 # batch split over them; train steps timed after warm ones; the Trainer's
 # epochs
+PARITY = {"epochs": 2, "folds": 0, "ranks": 2}
+# the twin's gates (tests/tools/test_accuracy_parity.py's metric gate; the
+# losses and the synced probe relative)
+PARITY_GATES = {"synced_epoch_rel_delta": 1e-4, "max_loss_delta_rel": 1e-3, "metrics": {"rtol": 1e-2, "atol": 1e-3}}
+PARITY_KERNELS = ("diag_kernel", "pool_bwd_kernel", "slot_fwd_kernel", "slot_bwd_kernel", "bcsr_spmm_kernel", "blocked_fwd_kernel", "blocked_bwd_kernel", "segment_sum_sorted_kernel")
 PARALLEL = {"ranks": 2, "dp_graphs": 256, "warm": 1, "steps": 2, "trainer_epochs": 2, "timeout_s": 300, "deadline_s": 600}
 DENSE_BATCHED = {"graphs": 32}  # GINetDense graphs of N = K1's max_nodes + 32
 # the grid path: the reference grid protocol (tests/perf/cnn_perf.py:37-86:
@@ -4307,6 +4325,66 @@ def parallel_phases(torch, card, record) -> None:
         record(path, {"launches": full(rows[0]["launches"]), "launches_by_form": rows[0]["launches"]["by_form"], "step_s": timed[0]})
 
 
+def parity_gates(report: dict) -> dict:
+    """The gates of PARITY_GATES on one configuration's report: each gate's
+    value and whether it holds (the metrics: the names that differ)."""
+    import numpy as np
+
+    g = PARITY_GATES
+    out = {"max_loss_delta_rel": {"value": report["max_loss_delta_rel"], "limit": g["max_loss_delta_rel"], "ok": report["max_loss_delta_rel"] <= g["max_loss_delta_rel"]}}
+    if "synced_epoch_rel_delta" in report:
+        v = report["synced_epoch_rel_delta"]
+        out["synced_epoch_rel_delta"] = {"value": v, "limit": g["synced_epoch_rel_delta"], "ok": v <= g["synced_epoch_rel_delta"]}
+    differ = [k for k, v in report["metrics_port"].items() if not np.isclose(v, report["metrics_mirror"][k], **g["metrics"])]
+    out["metrics"] = {"differ": differ, **g["metrics"], "ok": not differ}
+    return out
+
+
+def accuracy_parity_phase(torch, counters, card, record) -> None:
+    """Phase 65: the accuracy-parity twin on the whole vendored corpus,
+    featurized in memory; every gate enforced."""
+    import tempfile
+
+    from deeprank2_tpu_torch.tools import accuracy_parity as ap
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="parity-") as work:
+        corpus = ap.featurize_corpus(DATA, Path(work) / "corpus", "memory")
+        featurize_s = time.perf_counter() - t_phase
+        counters.reset()
+        reports = ap.run_all(DATA, Path(work), list(ap.CONFIG_NAMES), PARITY["epochs"], PARITY["folds"], store="memory", device="cuda", ranks=PARITY["ranks"], corpus=corpus)
+        launches, forms = counters.read(), counters.read_forms()
+    failed = []
+    for r in reports:
+        gates = parity_gates(r)
+        failed += [f"{r['config']}: {name}" for name, gate in gates.items() if not gate["ok"]]
+        keys = ("config", "task", "entries", "epochs", "seconds", "launches", "shards", "loss_port", "loss_mirror", "max_loss_delta", "max_loss_delta_rel", "synced_epoch_rel_delta", "synced_loss_port", "synced_loss_mirror", "metrics_port", "metrics_mirror")
+        emit({"phase": "accuracy_parity", "card": card, **{k: r[k] for k in keys if k in r}, "gates": gates})
+    edge = next(r for r in reports if r["config"] == "ginet_edgepart_ba")
+    record("accuracy_parity", {"launches": launches, "launches_by_form": forms})
+    record("accuracy_parity:ginet_edgepart_ba", {"launches": {k: edge["launches"].get(k, 0) for k in KERNELS}, "launches_by_form": {}})
+    unlaunched = [k for k in PARITY_KERNELS if not launches.get(k) and not edge["launches"].get(k)]
+    emit(
+        {
+            "phase": "accuracy_parity_summary",
+            "card": card,
+            "store": "memory",
+            "flavors": {name: len(source) for name, source in corpus.items()},
+            "featurize_s": featurize_s,
+            "seconds": time.perf_counter() - t_phase,
+            "launches": {k: n for k, n in launches.items() if n},
+            "launches_by_form": forms,
+            "edgepart_rank0_launches": edge["launches"],
+            "gates": PARITY_GATES,
+            "failed": failed,
+            "unlaunched": unlaunched,
+        }
+    )
+    if failed or unlaunched:
+        msg = f"accuracy_parity: gates missed {failed}, kernels never launched {unlaunched}"
+        raise AssertionError(msg)
+
+
 def main() -> int:
     if not (HERE / "deeprank2_tpu_torch").is_dir():
         print("chip_smoke.py: the deeprank2_tpu_torch package is not beside this script", file=sys.stderr)
@@ -4922,6 +5000,9 @@ def main() -> int:
     # parallel paths over ranks sharing the card
     calls += gp_kernels_phase(torch, bs, checks, card, peak, dev)
     parallel_phases(torch, card, record)
+
+    # 65. the accuracy-parity twin: all twelve configurations on the corpus
+    accuracy_parity_phase(torch, counters, card, record)
 
     emit({"kernels": kernels_line(calls, path_launches, checks.errs, path_forms, checks.form_errs, fma_calls + f32_calls + bf16_form_calls)})
     print(card_line(), flush=True)

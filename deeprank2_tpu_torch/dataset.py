@@ -15,8 +15,14 @@ Differences by design:
 
 The port's copy is numpy and h5py, as the JAX package's; ``h5py`` loads
 inside the functions that open files, so the package (and its Trainer)
-imports on a machine without it. A ``train_source`` checkpoint is read by the
-port's ``utils/checkpoint.py``, which reads both packages' formats.
+imports on a machine without it. Every read goes through
+``utils/store.py:open_store``, so ``hdf5_path`` may also be a
+``MemoryStore`` (``QueryCollection.process_in_memory``): the same loads,
+checks, statistics and transforms with no file and no h5py. The
+standardization statistics read numpy columns (no pandas);
+``hdf5_to_pandas`` lays the same columns out as a DataFrame. A
+``train_source`` checkpoint is read by the port's ``utils/checkpoint.py``,
+which reads both packages' formats.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from deeprank2_tpu_torch.domain import edgestorage as Efeat
 from deeprank2_tpu_torch.domain import gridstorage
 from deeprank2_tpu_torch.domain import nodestorage as Nfeat
 from deeprank2_tpu_torch.domain import targetstorage as targets
+from deeprank2_tpu_torch.utils.store import MemoryStore, open_store
 
 _log = logging.getLogger(__name__)
 
@@ -56,10 +63,10 @@ class DeeprankDataset:
         root: str,
         check_integrity: bool,
     ):
-        if not isinstance(hdf5_path, (str, list)):
-            msg = f"hdf5_path accepts a path or a list of paths, not {type(hdf5_path)}"
+        if not isinstance(hdf5_path, (str, list, MemoryStore)):
+            msg = f"hdf5_path accepts a path, a list of paths or a MemoryStore, not {type(hdf5_path)}"
             raise TypeError(msg)
-        self.hdf5_paths = [hdf5_path] if isinstance(hdf5_path, str) else hdf5_path
+        self.hdf5_paths = hdf5_path if isinstance(hdf5_path, list) else [hdf5_path]
 
         self.subset = subset
         self.train_source = train_source
@@ -88,13 +95,11 @@ class DeeprankDataset:
     # ------------------------------------------------------------------
     def _require_stored_target(self) -> None:
         """A training dataset must name a target that the files contain."""
-        import h5py
-
         if not self.index_entries:
             msg = "the dataset matched no entries; check hdf5_path/subset/target_filter"
             raise IndexError(msg)
         fname, first = self.index_entries[0]
-        with h5py.File(fname, "r") as f5:
+        with open_store(fname) as f5:
             stored = list(f5[first][targets.VALUES])
         if self.target is None:
             msg = f"a training dataset needs target=...; the file(s) store {stored}"
@@ -144,12 +149,10 @@ class DeeprankDataset:
 
     def _check_hdf5_files(self) -> None:
         """Drop empty or corrupted files."""
-        import h5py
-
         usable = []
         for path in self.hdf5_paths:
             try:
-                with h5py.File(path, "r") as f5:
+                with open_store(path) as f5:
                     if len(f5):
                         usable.append(path)
                     else:
@@ -195,12 +198,10 @@ class DeeprankDataset:
             setattr(self, param, data[param])
 
     def _create_index_entries(self) -> None:
-        import h5py
-
         self.index_entries = []
         for path in self.hdf5_paths:
             try:
-                with h5py.File(path, "r") as f5:
+                with open_store(path) as f5:
                     names = list(f5) if self.subset is None else [n for n in self.subset if n in f5]
                     if self.target_filter is not None:
                         names = [n for n in names if self._filter_targets(f5[n])]
@@ -208,7 +209,7 @@ class DeeprankDataset:
             except Exception:  # noqa: BLE001
                 _log.exception(f"while indexing {path}")
 
-    def _filter_targets(self, grp: h5py.Group) -> bool:
+    def _filter_targets(self, grp) -> bool:
         """Keep the entry if every (target, condition) filter passes.
 
         Conditions are comparison strings like ``"<0.1"`` evaluated against the
@@ -244,14 +245,14 @@ class DeeprankDataset:
         return len(self.index_entries)
 
     # ------------------------------------------------------------------
-    def hdf5_to_pandas(self):
-        """Load the selected features into a pandas DataFrame (one row per entry)."""
-        import h5py
-        import pandas as pd
-
-        frames = []
+    def _feature_columns(self) -> list[dict]:
+        """The selected features of every entry, one dict a file: ``"id"``
+        (the entry names), then a list a column, one cell an entry (a
+        matrix feature gives one column a channel, ``<feat>_<i>``), as
+        :meth:`hdf5_to_pandas` lays out its frame."""
+        files = []
         for fname in self.hdf5_paths:
-            with h5py.File(fname, "r") as f:
+            with open_store(fname) as f:
                 first_entry = next(iter(f))
                 entry_names = list(f) if self.subset is None else [e for e in f if e in self.subset]
 
@@ -278,8 +279,14 @@ class DeeprankDataset:
                             if transform:
                                 col = [transform(row) for row in col]
                             df_dict[feat] = col
+                files.append(df_dict)
+        return files
 
-                frames.append(pd.DataFrame(data=df_dict))
+    def hdf5_to_pandas(self):
+        """Load the selected features into a pandas DataFrame (one row per entry)."""
+        import pandas as pd
+
+        frames = [pd.DataFrame(data=df_dict) for df_dict in self._feature_columns()]
         self.df = pd.concat(frames).reset_index(drop=True) if frames else pd.DataFrame()
         return self.df
 
@@ -320,11 +327,16 @@ class DeeprankDataset:
             plt.close(fig)
 
     def _compute_mean_std(self) -> None:
-        def flat(col: str) -> np.ndarray:
-            cells = self.df[col].to_numpy()
-            return np.concatenate(cells) if isinstance(cells[0], np.ndarray) else cells
+        """Each column's mean and deviation over every entry, rounded to one
+        decimal, from the columns :meth:`_feature_columns` reads (pandas
+        is not needed: the numbers are those of :meth:`hdf5_to_pandas`'s
+        frame, bit for bit)."""
 
-        stats = {col: flat(col) for col in self.df.columns[1:]}
+        def flat(cells: list) -> np.ndarray:
+            return np.concatenate(cells) if isinstance(cells[0], np.ndarray) else np.asarray(cells)
+
+        files = self._feature_columns()
+        stats = {col: flat([cell for f in files for cell in f[col]]) for col in list(files[0])[1:]}
         self.means = {col: round(float(np.nanmean(v)), 1) for col, v in stats.items()}
         self.devs = {col: round(float(np.nanstd(v)), 1) for col, v in stats.items()}
 
@@ -378,8 +390,6 @@ class GridDataset(DeeprankDataset):
             self.features_dict[targets.VALUES] = [self.target] if isinstance(self.target, str) else self.target
 
     def _check_features(self) -> None:
-        import h5py
-
         hdf5_path = self.hdf5_paths[0]
         # normalize a single feature name up front — left as a bare str it
         # would match nothing below and silently select zero features
@@ -387,7 +397,7 @@ class GridDataset(DeeprankDataset):
             self.features = [self.features]
         elif self.features is None:
             self.features = []
-        with h5py.File(hdf5_path, "r") as f:
+        with open_store(hdf5_path) as f:
             mol_key = next(iter(f.keys()))
             if isinstance(self.features, list):
                 # strip the _NNN channel suffix and dedup
@@ -435,9 +445,7 @@ class GridDataset(DeeprankDataset):
 
     def load_one_grid(self, hdf5_path: str, entry_name: str) -> dict:
         """Load one grid entry from HDF5."""
-        import h5py
-
-        with h5py.File(hdf5_path, "r") as hdf5_file:
+        with open_store(hdf5_path) as hdf5_file:
             grp = hdf5_file[entry_name]
             mapped = grp[gridstorage.MAPPED_FEATURES]
             x = np.array([mapped[name][:] for name in self.features if name[0] != "_"], dtype=np.float32)
@@ -511,8 +519,6 @@ class GraphDataset(DeeprankDataset):
 
         if standardize and train_source is None:
             if self.means is None or self.devs is None:
-                if self.df is None:
-                    self.hdf5_to_pandas()
                 self._compute_mean_std()
         elif standardize and train_source is not None:
             self.means = self.train_means
@@ -566,9 +572,7 @@ class GraphDataset(DeeprankDataset):
 
     def load_one_graph(self, fname: str, entry_name: str) -> dict:
         """Load one graph entry from HDF5 into numpy arrays."""
-        import h5py
-
-        with h5py.File(fname, "r") as f5:
+        with open_store(fname) as f5:
             grp = f5[entry_name]
 
             node_data = []
@@ -625,9 +629,7 @@ class GraphDataset(DeeprankDataset):
 
     def _check_features(self) -> None:
         """Validate requested node/edge features against the file contents."""
-        import h5py
-
-        with h5py.File(self.hdf5_paths[0], "r") as f:
+        with open_store(self.hdf5_paths[0]) as f:
             mol_key = next(iter(f.keys()))
             self.available_node_features = [key for key in f[f"{mol_key}/{Nfeat.NODE}/"] if key[0] != "_"]
             self.available_edge_features = [key for key in f[f"{mol_key}/{Efeat.EDGE}/"] if key[0] != "_"]

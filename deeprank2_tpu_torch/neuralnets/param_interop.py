@@ -115,7 +115,10 @@ def params_to_jax(state: dict[str, torch.Tensor], family: str | None = None) -> 
         elif leaf == "weight" and array.ndim == 1:  # a batch norm's scale
             node["scale"] = array.copy()
         elif leaf == "weight":
-            node["w"] = np.ascontiguousarray(array.T if array.ndim == 2 else array)
+            # a C-order copy: canonical strides even on a dimension of size 1
+            # (np.ascontiguousarray keeps a transpose's), which a matmul's
+            # rounding can follow
+            node["w"] = (array.T if array.ndim == 2 else array).copy()
         elif leaf == "bias":  # a batch norm's (after its scale, as a state_dict orders them) keeps its name
             node["bias" if "scale" in node else "b"] = array.copy()
         else:

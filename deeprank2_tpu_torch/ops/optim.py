@@ -92,6 +92,34 @@ class Adam(Optimizer):
         self._adam(group, p, grad, state, group["weight_decay"])
 
 
+class ReferenceAdam(Adam):
+    """Adam in the arithmetic of ``torch.optim.Adam``, the reference's
+    optimizer (its single-tensor loop): the first moment by ``lerp``, the
+    bias corrections as float64 host scalars, the step as ``addcdiv``. It
+    differs from :class:`Adam` only in rounding; :class:`Adam` takes the
+    corrections in float32, as JAX does, where ``1 - float32(0.999)``
+    is 1.3e-5 from ``1 - 0.999``. As :class:`Adam`, it updates every
+    parameter."""
+
+    @staticmethod
+    def _adam(group: dict, p: torch.Tensor, grad: torch.Tensor, state: dict, wd: float) -> None:
+        b1, b2 = group["betas"]
+        lr, eps = group["lr"], group["eps"]
+        if not state:
+            state["step"] = 0
+            state["m"] = torch.zeros_like(p)
+            state["v"] = torch.zeros_like(p)
+        state["step"] += 1
+        count = state["step"]
+        if wd:
+            grad = grad.add(p, alpha=wd)
+        m, v = state["m"], state["v"]
+        m.lerp_(grad, 1 - b1)
+        v.mul_(b2).addcmul_(grad, grad, value=1 - b2)
+        denom = (v.sqrt() / (1 - b2**count) ** 0.5).add_(eps)
+        p.addcdiv_(m, denom, value=-lr / (1 - b1**count))
+
+
 class AdamW(Adam):
     """Adam with decoupled weight decay: ``lr * weight_decay * p``, taken from
     the parameter before the Adam update, is subtracted after it."""

@@ -9,7 +9,9 @@ host-side process pool with one HDF5 writer per worker process
 The port's copy of ``deeprank2_tpu/query.py``: the same queries write the
 same HDF5. The host count follows ``torch.distributed`` and the start method
 follows CUDA's state instead of JAX's; ``h5py`` loads inside ``process``, so
-``Query.build`` runs on a machine without it.
+``Query.build`` runs on a machine without it, and
+``QueryCollection.process_in_memory`` writes the same layout into a
+``utils/store.py:MemoryStore`` there.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from deeprank2_tpu_torch.utils.buildgraph import get_contact_atoms, get_structur
 from deeprank2_tpu_torch.utils.graph import Graph
 from deeprank2_tpu_torch.utils.grid import Augmentation, GridSettings, MapMethod, random_rotation_axis_angle
 from deeprank2_tpu_torch.utils.parsing.pssm import parse_pssm
+from deeprank2_tpu_torch.utils.store import MemoryStore
 
 _log = logging.getLogger(__name__)
 
@@ -349,10 +352,11 @@ class QueryCollection:
     def __len__(self) -> int:
         return len(self._queries)
 
-    def _process_one_query(self, query: Query, log_error_traceback: bool = False) -> None:
-        """Build one query and append to this process's own HDF5 shard."""
+    def _process_one_query(self, query: Query, log_error_traceback: bool = False, store: MemoryStore | None = None) -> None:
+        """Build one query and append to this process's own HDF5 shard (or
+        to ``store``)."""
         try:
-            shard = f"{self._prefix}-{os.getpid()}.hdf5"  # one writer per worker PID
+            shard = f"{self._prefix}-{os.getpid()}.hdf5" if store is None else store  # one writer per worker PID
             graph = query.build(self._feature_modules)
             graph.write_to_hdf5(shard)
 
@@ -430,14 +434,7 @@ class QueryCollection:
         if cpu_count and self._cpu_count < cpu_count:
             _log.warning(f"requested {cpu_count} workers but the machine has {available_cpus} CPUs; using {self._cpu_count}")
 
-        self._feature_modules = self._set_feature_modules(feature_modules or [components, contact])
-        self._grid_settings = grid_settings
-        self._grid_map_method = grid_map_method
-
-        if grid_augmentation_count < 0:
-            msg = f"grid_augmentation_count must be >= 0, got {grid_augmentation_count}"
-            raise ValueError(msg)
-        self._grid_augmentation_count = grid_augmentation_count
+        self._set_options(feature_modules, grid_settings, grid_map_method, grid_augmentation_count)
 
         if mp_context is None:
             mp_context = "spawn" if torch.cuda.is_initialized() else "fork"
@@ -496,6 +493,41 @@ class QueryCollection:
                 "(rerun with log_error_traceback=True for per-query tracebacks)",
             )
         return shard_paths
+
+    def _set_options(self, feature_modules, grid_settings, grid_map_method, grid_augmentation_count: int) -> None:
+        """The featurization options ``process`` and ``process_in_memory`` share."""
+        self._feature_modules = self._set_feature_modules(feature_modules or [components, contact])
+        self._grid_settings = grid_settings
+        self._grid_map_method = grid_map_method
+
+        if grid_augmentation_count < 0:
+            msg = f"grid_augmentation_count must be >= 0, got {grid_augmentation_count}"
+            raise ValueError(msg)
+        self._grid_augmentation_count = grid_augmentation_count
+
+    def process_in_memory(
+        self,
+        feature_modules: list[ModuleType | str] | ModuleType | str | None = None,
+        grid_settings: GridSettings | None = None,
+        grid_map_method: MapMethod | None = None,
+        grid_augmentation_count: int = 0,
+        log_error_traceback: bool = False,
+    ) -> MemoryStore:
+        """:meth:`process` without files, for machines without h5py: every
+        query built in this process (as ``process`` with ``cpu_count=1``)
+        and written, in the layout ``process`` writes, into one
+        ``utils/store.py:MemoryStore``, which ``GraphDataset`` and
+        ``GridDataset`` take in place of a path. A query that fails is left
+        out, with the same warning."""
+        self._set_options(feature_modules, grid_settings, grid_map_method, grid_augmentation_count)
+        _build.build_host()
+        store = MemoryStore()
+        for query in self.queries:
+            self._process_one_query(query, log_error_traceback=log_error_traceback, store=store)
+        if not len(store):
+            msg = "every query failed; nothing was written (rerun with log_error_traceback=True for details)"
+            raise ValueError(msg)
+        return store
 
     def _set_feature_modules(self, feature_modules: list[ModuleType | str] | ModuleType | str) -> list[str]:
         """Normalize ``feature_modules`` to a list of module-name strings."""

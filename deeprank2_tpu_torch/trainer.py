@@ -86,6 +86,7 @@ from deeprank2_tpu_torch.utils.checkpoint import load_checkpoint, load_snapshot,
 from deeprank2_tpu_torch.utils.community_pooling import community_detection, community_pooling_host
 from deeprank2_tpu_torch.utils.earlystopping import EarlyStopping
 from deeprank2_tpu_torch.utils.exporters import HDF5OutputExporter, OutputExporter, OutputExporterCollection
+from deeprank2_tpu_torch.utils.store import open_store
 
 _log = logging.getLogger(__name__)
 _COLLATE_UID = iter(range(1 << 62))  # collate-cache dataset ids (never reused)
@@ -423,11 +424,9 @@ class Trainer:
             self._write_clusters(dataset)
 
     def _write_clusters(self, dataset: GraphDataset) -> None:
-        import h5py
-
         for fname, mol in dataset.index_entries:
             data = dataset.load_one_graph(fname, mol)
-            with h5py.File(fname, "a") as f5:
+            with open_store(fname, "a") as f5:
                 grp = f5[mol]
                 clust_grp = grp.require_group("clustering")
                 if self.clustering_method.lower() in clust_grp:

@@ -16,7 +16,8 @@ Behavioral parity points (vs deeprank2/utils/graph.py:320-381):
   ``<id>/target_values/*`` with ``_name``/``_chain_id``/``_index`` metadata.
 
 ``h5py`` loads inside the functions that read or write files, so a graph is
-built and mapped to a grid on a machine without it.
+built and mapped to a grid on a machine without it; the writers take a
+``utils/store.py:MemoryStore`` in place of a path.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from deeprank2_tpu_torch.domain import edgestorage as Efeat
 from deeprank2_tpu_torch.domain import nodestorage as Nfeat
 from deeprank2_tpu_torch.domain import targetstorage as targets
 from deeprank2_tpu_torch.molstruct.structure import StructureArrays
+from deeprank2_tpu_torch.utils.store import MemoryStore, open_store
 
 _log = logging.getLogger(__name__)
 
@@ -344,10 +346,9 @@ class Graph:
     # HDF5 serialization (reference-compatible layout)
     # ------------------------------------------------------------------
     def write_to_hdf5(self, hdf5_path: str) -> None:
-        """Write the featured graph to HDF5 in the deeprank layout."""
-        import h5py
-
-        with h5py.File(hdf5_path, "a") as hdf5_file:
+        """Write the featured graph to HDF5 in the deeprank layout (or into
+        a ``utils/store.py:MemoryStore``)."""
+        with open_store(hdf5_path, "a") as hdf5_file:
             graph_group = hdf5_file.require_group(self.id)
             node_group = graph_group.create_group(Nfeat.NODE)
             edge_group = graph_group.create_group(Efeat.EDGE)
@@ -426,10 +427,8 @@ class Graph:
     def _find_unused_augmentation_name(unaugmented_id: str, hdf5_path: str) -> str:
         prefix = f"{unaugmented_id}_"
         taken: list[str] = []
-        if os.path.isfile(hdf5_path):
-            import h5py
-
-            with h5py.File(hdf5_path, "r") as hdf5_file:
+        if isinstance(hdf5_path, MemoryStore) or os.path.isfile(hdf5_path):
+            with open_store(hdf5_path) as hdf5_file:
                 taken = [name for name in hdf5_file if name.startswith(prefix)]
         count = 0
         while f"{prefix}{count:03}" in taken:
@@ -448,9 +447,7 @@ class Graph:
         self.map_to_grid(grid, method, augmentation)
         grid.to_hdf5(hdf5_path)
 
-        import h5py
-
-        with h5py.File(hdf5_path, "a") as hdf5_file:
+        with open_store(hdf5_path, "a") as hdf5_file:
             grp = hdf5_file[id_]
             targets_group = grp.require_group(targets.VALUES)
             for target_name, target_data in self.targets.items():

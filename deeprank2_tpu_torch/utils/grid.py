@@ -27,6 +27,7 @@ from enum import Enum
 import numpy as np
 
 from deeprank2_tpu_torch.domain import gridstorage
+from deeprank2_tpu_torch.utils.store import open_store
 
 _log = logging.getLogger(__name__)
 
@@ -384,10 +385,9 @@ class Grid:
             self.map_feature_batch(np.asarray(position)[None, :], feature_name, value.reshape(1), method)
 
     def to_hdf5(self, hdf5_path: str) -> None:
-        """Write grid data in the deeprank layout (``grid_points``, ``mapped_features``)."""
-        import h5py
-
-        with h5py.File(hdf5_path, "a") as hdf5_file:
+        """Write grid data in the deeprank layout (``grid_points``,
+        ``mapped_features``), to a file or a ``utils/store.py:MemoryStore``."""
+        with open_store(hdf5_path, "a") as hdf5_file:
             grid_group = hdf5_file.require_group(self.id)
 
             points_group = grid_group.require_group("grid_points")

@@ -80,6 +80,7 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.parallel.probes",
     "deeprank2_tpu_torch.query",
     "deeprank2_tpu_torch.tools",
+    "deeprank2_tpu_torch.tools.accuracy_parity",
     "deeprank2_tpu_torch.tools.decoys",
     "deeprank2_tpu_torch.tools.diag_order",
     "deeprank2_tpu_torch.tools.dryrun_multichip",
@@ -108,6 +109,7 @@ PORT_MODULES = [
     "deeprank2_tpu_torch.utils.sasa",
     "deeprank2_tpu_torch.utils.secstructure",
     "deeprank2_tpu_torch.utils.ses",
+    "deeprank2_tpu_torch.utils.store",
 ]
 
 # Runs in a fresh interpreter (this test process has imported JAX already).
