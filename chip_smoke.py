@@ -2993,7 +2993,8 @@ def trainer_phase(torch, counters, spec: dict) -> dict:
         timed = [stats["training", e] for e in range(2, epochs + 1)]
         step_s = sum(p["seconds"] for p in timed) / sum(p["batches"] for p in timed)
         train_stats = [stats["training", e] for e in range(1, epochs + 1)]
-        collate = [c for p in train_stats for c in p["collate_s"]]
+        collate = [c for p in train_stats for c in p["collate_s"]]  # shuffled: every batch collated afresh
+        pin = [c for p in train_stats for c in p["pin_s"]]
         batch_bytes = [b for p in train_stats for b in p["batch_bytes"]]
         trace = json.loads((Path(tmp.name) / "epoch1.trace.json").read_text())
         busy_by_cat = {c: sum(e.get("dur", 0) for e in trace["traceEvents"] if e.get("cat") == c) for c in ("kernel", "gpu_memcpy", "gpu_memset")}
@@ -3020,8 +3021,9 @@ def trainer_phase(torch, counters, spec: dict) -> dict:
                 "launches_by_form": forms,
                 "train_passes": train_passes,
                 "host_syncs_per_train_pass": [len(p["host_syncs"]) for p in train_passes],
-                "collate_s_per_batch": statistics.mean(collate),
+                "collate_s_per_batch": statistics.mean(collate) if collate else None,
                 "collate_s": collate,
+                "pin_s_per_batch": statistics.mean(pin) if pin else None,
                 "batch_mb_per_batch": statistics.mean(batch_bytes) / 1e6,
                 "batch_mb": [b / 1e6 for b in batch_bytes],
                 "buckets": caps,

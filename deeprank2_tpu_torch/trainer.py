@@ -18,6 +18,12 @@ mid-training resume, on the port's models, collates and kernels:
 - losses and predictions stay on the device during a pass and are read
   after it; the per-batch statistics come from the host arrays at collate
   time, so a train pass makes no host sync;
+- the host work of a pass is cut into named spans (``_span``: a profiler
+  range, on the clock of a ``torch.profiler`` trace, whose length is also
+  added to the pass's ``pass_stats`` entry): the loader's ``loader.collate``,
+  ``loader.pin`` and ``loader.stage`` on its thread, and on the caller's
+  ``trainer.wait_batch``, ``trainer.forward``, ``trainer.backward``,
+  ``trainer.readback`` and ``trainer.export``;
 - checkpoints are ``torch.save`` files with the reference's 28-key schema
   (utils/checkpoint.py), which the JAX package reads as reference
   checkpoints; the port reads those, its own and the JAX package's.
@@ -66,7 +72,7 @@ import logging
 import os
 import re
 import warnings
-from time import time
+from time import perf_counter
 from typing import Any
 
 import numpy as np
@@ -99,6 +105,25 @@ _LAYOUTS = (
     ("blocked_edge_batches", "blocked"),
     ("dense_batches", "dense"),
 )
+
+@contextlib.contextmanager
+def _span(name: str, counters: dict | None = None, key: str | None = None):
+    """A profiler range ``name`` (on the clock of a ``torch.profiler``
+    trace's device events) whose host seconds (``perf_counter``) are added
+    to ``counters[key]``, or appended where that is a list. It adds no
+    device work, event or synchronisation."""
+    # torch's RecordFunction through its C++ context: a fraction of the cost
+    # of torch.profiler.record_function, and no annotation on the device's
+    # timeline
+    with torch._C._profiler._RecordFunctionFast(name):
+        t0 = perf_counter()
+        yield
+        seconds = perf_counter() - t0
+    if counters is not None:
+        if isinstance(counters[key], list):
+            counters[key].append(seconds)
+        else:
+            counters[key] += seconds
 
 
 def _trim_lambda_source(candidate: str) -> str | None:
@@ -167,6 +192,18 @@ def _map_tensors(batch, fn):
         elif _is_structures(value):
             changes[f.name] = tuple(_map_tensors(v, fn) for v in value)
     return dataclasses.replace(batch, **changes)
+
+
+def _read_back(pending: list[tuple]) -> tuple[np.ndarray, list[np.ndarray]]:
+    """The pass's losses and each batch's predictions on the host, in
+    float32: one copy of the stacked losses, one of the predictions
+    concatenated (every batch of a pass has the model's output shape)."""
+    if not pending:
+        return np.zeros(0, np.float32), []
+    losses = torch.stack([p[0].float() for p in pending]).cpu().numpy()
+    preds = [p[1].float() for p in pending]
+    flat = torch.cat(preds).cpu().numpy()
+    return losses, np.split(flat, np.cumsum([len(p) for p in preds])[:-1])
 
 
 class Trainer:
@@ -245,6 +282,7 @@ class Trainer:
         self.model_load_state_dict = None
         self._prefetch = 2
         self.pass_stats: list[dict] = []
+        self._counters: dict | None = None  # the running pass's (``_run_pass``)
         # dropout's generator, on the device; under data parallelism a CPU
         # generator of per-step seeds, from which each rank derives its own
         # (parallel/dp.py:shard_generator)
@@ -713,7 +751,22 @@ class Trainer:
         reference's ``DataLoader(num_workers, pin_memory)``,
         trainer.py:541-547). Batch order (and so exporter output and RNG
         consumption) is the synchronous loader's. Yields ``(batch, names,
-        stats)``; ``stats`` are host values."""
+        stats)``; ``stats`` are host values of the batch (kept with it in
+        the collate cache: ``n_valid``, ``n_edges``, the targets, and
+        ``batch_bytes``, the bytes of its tensors, which the card gets
+        pinned and copied).
+
+        Spans, and what they add to the running pass's counters
+        (``self._counters``, which ``_run_pass`` reports in ``pass_stats``):
+        on the producer thread, for each batch collated afresh,
+        ``loader.collate`` (the reads, the collate, the class-index map and
+        the host stats; ``collate_s``, one value a batch) and, on a card,
+        ``loader.pin`` (``pin_s``, one value a batch); a batch from the
+        collate cache adds one to ``cache_hits`` and no time. On a card,
+        ``loader.stage``: issuing the side-stream copies (no counter: the
+        copies' own time is on the device). On the caller's thread,
+        ``trainer.wait_batch``: the wait for the queue, the compute stream's
+        wait on the copy and ``record_stream`` (``wait_s``), once a batch."""
         import queue
         import threading
 
@@ -728,6 +781,7 @@ class Trainer:
         failure: list[BaseException] = []
         on_card = self.device.type == "cuda"
         copy_stream = torch.cuda.Stream(device=self.device) if on_card else None
+        counters = self._counters
 
         # only worth caching when the whole pass fits: FIFO eviction under a
         # cyclic access pattern otherwise gives 0% hits at full memory cost
@@ -738,25 +792,27 @@ class Trainer:
         def _collated(chunk) -> tuple:
             key = (getattr(dataset, "_dr2_collate_uid", None), batch_size, tuple(int(i) for i in chunk))
             if cacheable and key in self._collate_cache:
+                if counters is not None:
+                    counters["cache_hits"] += 1
                 return self._collate_cache[key]
-            t0 = time()
-            entries = [dataset.get(int(i)) for i in chunk]
-            shards, names = self._collate_shards(entries, pad_graphs=batch_size)
-            batch = shards[self._rank if len(shards) > 1 else 0]
-            # host-side stats (avoids per-batch device->host syncs in the
-            # loop), of the whole batch: under data parallelism the targets
-            # of every shard, in the order of the gathered predictions (the
-            # edges, for the throughput log, of this rank's shard)
-            whole = shards if self._num_shards > 1 else (batch,)
-            stats = {
-                "n_valid": sum(int(b.y_mask.sum()) for b in whole),
-                "n_edges": int(batch.edge_mask.sum()) if hasattr(batch, "edge_mask") else 0,
-                "y_host": np.concatenate([b.y.numpy() for b in whole]),
-                "y_mask_host": np.concatenate([b.y_mask.numpy() for b in whole]),
-            }
+            with _span("loader.collate", counters, "collate_s"):
+                entries = [dataset.get(int(i)) for i in chunk]
+                shards, names = self._collate_shards(entries, pad_graphs=batch_size)
+                batch = shards[self._rank if len(shards) > 1 else 0]
+                # host-side stats (avoids per-batch device->host syncs in the
+                # loop), of the whole batch: under data parallelism the targets
+                # of every shard, in the order of the gathered predictions (the
+                # edges, for the throughput log, of this rank's shard)
+                whole = shards if self._num_shards > 1 else (batch,)
+                stats = {
+                    "n_valid": sum(int(b.y_mask.sum()) for b in whole),
+                    "n_edges": int(batch.edge_mask.sum()) if hasattr(batch, "edge_mask") else 0,
+                    "y_host": np.concatenate([b.y.numpy() for b in whole]),
+                    "y_mask_host": np.concatenate([b.y_mask.numpy() for b in whole]),
+                }
             if on_card:
-                batch = _map_tensors(batch, torch.Tensor.pin_memory)
-            stats["collate_s"] = time() - t0
+                with _span("loader.pin", counters, "pin_s"):
+                    batch = _map_tensors(batch, torch.Tensor.pin_memory)
             stats["batch_bytes"] = sum(t.numel() * t.element_size() for t in _tensor_fields(batch))
             if cacheable:
                 if len(self._collate_cache) >= self._collate_cache_capacity:
@@ -767,7 +823,7 @@ class Trainer:
         def _stage(batch) -> tuple:
             if not on_card:
                 return batch, None
-            with torch.cuda.stream(copy_stream):
+            with _span("loader.stage"), torch.cuda.stream(copy_stream):
                 staged = _map_tensors(batch, lambda t: t.to(self.device, non_blocking=True))
                 copied = torch.cuda.Event()
                 copied.record(copy_stream)
@@ -800,18 +856,19 @@ class Trainer:
         producer = threading.Thread(target=_produce, name="deeprank2-batch-loader", daemon=True)
         producer.start()
         try:
-            while True:
-                item = out_q.get()
-                if item is sentinel:
-                    break
-                batch, copied, names, stats = item
-                if copied is not None:
-                    compute = torch.cuda.current_stream(self.device)
-                    compute.wait_event(copied)
-                    # the copies were made on the side stream: keep the
-                    # allocator from reusing them while this stream reads them
-                    for t in _tensor_fields(batch):
-                        t.record_stream(compute)
+            for _ in chunks:
+                with _span("trainer.wait_batch", counters, "wait_s"):
+                    item = out_q.get()
+                    if item is sentinel:  # the producer failed
+                        break
+                    batch, copied, names, stats = item
+                    if copied is not None:
+                        compute = torch.cuda.current_stream(self.device)
+                        compute.wait_event(copied)
+                        # the copies were made on the side stream: keep the
+                        # allocator from reusing them while this stream reads them
+                        for t in _tensor_fields(batch):
+                            t.record_stream(compute)
                 yield batch, names, stats
         finally:
             stop.set()
@@ -842,11 +899,12 @@ class Trainer:
             lossfunction.weight = torch.as_tensor(lossfunction.weight, dtype=torch.float32, device=self.device)
 
         def compute_loss(batch, generator: torch.Generator | None, training: bool):
-            pred = model(batch, training=training, generator=generator)
-            if task == targets.CLASSIF:
-                loss = lossfunction(pred, batch.y.to(torch.int64), batch.y_mask)
-            else:
-                loss = lossfunction(pred.reshape(-1), batch.y, batch.y_mask)
+            with _span("trainer.forward", self._counters, "forward_s"):
+                pred = model(batch, training=training, generator=generator)
+                if task == targets.CLASSIF:
+                    loss = lossfunction(pred, batch.y.to(torch.int64), batch.y_mask)
+                else:
+                    loss = lossfunction(pred.reshape(-1), batch.y, batch.y_mask)
             return loss, pred
 
         if self._num_shards > 1:
@@ -869,10 +927,11 @@ class Trainer:
             # stay readable after a pass
             self.optimizer.zero_grad(set_to_none=True)
             loss, pred = compute_loss(batch, self._rng, True)
-            loss.backward()
-            if graph_parallel:
-                dp.sync_gradients(params, loss)
-            self.optimizer.step()
+            with _span("trainer.backward", self._counters, "backward_s"):
+                loss.backward()
+                if graph_parallel:
+                    dp.sync_gradients(params, loss)
+            self.optimizer.step()  # torch's own span: Optimizer.step#<class>.step
             return loss.detach(), pred.detach()
 
         @torch.no_grad()
@@ -1036,10 +1095,12 @@ class Trainer:
 
     def _profiled_epoch(self, profile_dir: str, batch_size: int, shuffle: bool, loader_rng) -> float | None:
         """Epoch 1 under ``torch.profiler``; its trace goes to ``profile_dir``."""
+        from torch._C._profiler import _ExperimentalConfig
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
-        with profile(activities=activities) as prof:
+        # every thread: the loader's spans too
+        with profile(activities=activities, experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
             loss_ = self._epoch(1, "training", batch_size, shuffle, loader_rng)
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, "epoch1.trace.json"))
@@ -1066,44 +1127,57 @@ class Trainer:
 
         Losses and predictions stay on the device during the batch loop, so
         the pass never waits for the device; the drain afterwards reads them
-        all at once. Each pass appends its host timings to ``self.pass_stats``
-        (``seconds`` in all, ``loop_s`` before the drain, ``batches``,
-        ``collate_s``: each batch's read, collate and pinning, and
-        ``batch_bytes``: the bytes of each batch's tensors, which the card
-        gets pinned and copied)."""
+        all back at once (``trainer.readback``: every wait on the card), then
+        exports them (``trainer.export``: host work alone, the exporters'
+        ``process`` included). Each pass appends to ``self.pass_stats`` its
+        host seconds, all on one clock (``perf_counter``): ``seconds`` in
+        all, ``loop_s`` before the drain, ``batches``; the sums of its spans,
+        ``wait_s`` (``trainer.wait_batch``), ``forward_s``
+        (``trainer.forward``: the model and the loss), ``backward_s``
+        (``trainer.backward``; the data-parallel step leaves its backward
+        unsplit), ``readback_s`` and ``export_s``; the loader's
+        ``collate_s`` and ``pin_s`` (one value a batch collated afresh, none
+        for a batch from the collate cache), ``cache_hits``, and
+        ``batch_bytes`` (one value a batch; ``_iter_batches``)."""
+        counters = self._counters = {"wait_s": 0.0, "forward_s": 0.0, "backward_s": 0.0, "readback_s": 0.0, "export_s": 0.0, "collate_s": [], "pin_s": [], "cache_hits": 0}
         sum_of_losses = 0.0
         count_predictions = 0
         total_edges = 0
         target_vals = []
         outputs = []
         entry_names = []
-        t0 = time()
+        t0 = perf_counter()
         pending = []
-        for batch, names, stats in self._iter_batches(dataset, batch_size, shuffle, loader_rng, prefetch=self._prefetch):
-            loss_, pred = step(batch)
-            pending.append((loss_, pred, names, stats))
-        loop_s = time() - t0
+        try:
+            for batch, names, stats in self._iter_batches(dataset, batch_size, shuffle, loader_rng, prefetch=self._prefetch):
+                loss_, pred = step(batch)
+                pending.append((loss_, pred, names, stats))
+            loop_s = perf_counter() - t0
 
-        host_losses = torch.stack([p[0].float() for p in pending]).cpu().numpy() if pending else []
-        for loss_, (_, pred, names, stats) in zip(host_losses, pending):
-            n_valid = stats["n_valid"]
-            total_edges += stats["n_edges"]
-            if n_valid > 0:  # guard: an all-padding batch's loss is NaN and 0 * NaN stays NaN
-                count_predictions += n_valid
-                sum_of_losses += float(loss_) * n_valid
-            out, tgt, nm = self._export_outputs(pred.float().cpu().numpy(), stats["y_host"], stats["y_mask_host"], names)
-            outputs += out
-            target_vals += tgt
-            entry_names += nm
+            with _span("trainer.readback", counters, "readback_s"):
+                host_losses, host_preds = _read_back(pending)
+            with _span("trainer.export", counters, "export_s"):
+                for loss_, pred, (_, _, names, stats) in zip(host_losses, host_preds, pending):
+                    n_valid = stats["n_valid"]
+                    total_edges += stats["n_edges"]
+                    if n_valid > 0:  # guard: an all-padding batch's loss is NaN and 0 * NaN stays NaN
+                        count_predictions += n_valid
+                        sum_of_losses += float(loss_) * n_valid
+                    out, tgt, nm = self._export_outputs(pred, stats["y_host"], stats["y_mask_host"], names)
+                    outputs += out
+                    target_vals += tgt
+                    entry_names += nm
+                pass_loss = sum_of_losses / count_predictions if count_predictions > 0 else None
+                self._output_exporters.process(pass_name, epoch_number, entry_names, outputs, target_vals, pass_loss)
+        finally:
+            self._counters = None
 
-        dt = time() - t0
+        dt = perf_counter() - t0
         self.pass_stats.append(
-            {"pass": pass_name, "epoch": epoch_number, "seconds": dt, "loop_s": loop_s, "batches": len(pending), "collate_s": [p[3]["collate_s"] for p in pending], "batch_bytes": [p[3]["batch_bytes"] for p in pending]}
+            {"pass": pass_name, "epoch": epoch_number, "seconds": dt, "loop_s": loop_s, "batches": len(pending), **counters, "batch_bytes": [p[3]["batch_bytes"] for p in pending]}
         )
-        pass_loss = sum_of_losses / count_predictions if count_predictions > 0 else None
         if total_edges and dt > 0:
             _log.info(f"{pass_name} throughput: {total_edges / dt:,.0f} edges/s")
-        self._output_exporters.process(pass_name, epoch_number, entry_names, outputs, target_vals, pass_loss)
         self._log_epoch_data(pass_name, pass_loss, dt)
         return pass_loss
 
